@@ -1,0 +1,39 @@
+"""Architecture registry: ``--arch <id>`` resolves through here.
+
+``ARCH_IDS`` lists only what the port can run today: the four dense decoders
+(block kind ``attn_ffn``).  The reference's six other families arrive with
+their layers in later slices.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig, torch_dtype
+
+_ARCH_MODULES = {
+    "qwen2.5-32b": "qwen2_5_32b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "gemma-7b": "gemma_7b",
+    "yi-34b": "yi_34b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    """Full (exact public-literature) config for ``--arch``."""
+    return _module(arch).CONFIG
+
+
+def get_tiny_config(arch: str) -> ModelConfig:
+    """Reduced same-family config for CPU tests."""
+    return _module(arch).tiny()
+
+
+__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "get_tiny_config", "torch_dtype"]

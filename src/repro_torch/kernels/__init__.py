@@ -1,0 +1,33 @@
+"""Hopper kernels of the port, their wrappers and plain versions.
+
+``launch_counts`` / ``reset_launch_counts`` read and zero the integer each
+wrapper adds one to where it launches its kernel (and nowhere else), so a run
+can show that its path went through the kernels.
+"""
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import (
+    combine_splits, combine_splits_plain, decode_attention, decode_attention_plain,
+)
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+_COUNTED = {
+    "rmsnorm": rmsnorm,
+    "flash_attention": flash_attention,
+    "decode_attention": decode_attention,
+    "decode_combine": combine_splits,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in _COUNTED.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _COUNTED.values():
+        fn.launches = 0
+
+
+__all__ = ["ops", "ref", "decode_attention", "flash_attention", "rmsnorm", "combine_splits",
+           "decode_attention_plain", "flash_attention_plain", "rmsnorm_plain",
+           "combine_splits_plain", "launch_counts", "reset_launch_counts"]

@@ -1,0 +1,48 @@
+// Shared helpers of the repro_torch CUDA kernels: element conversion, 4-wide
+// loads that widen to fp32, and warp reductions.  No PyTorch header is
+// included anywhere under csrc/, so each source builds in seconds.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Score of a masked position, as in the reference kernels (-0.7 * FLT_MAX).
+#define MASKED_SCORE (-0.7f * 3.402823466e+38f)
+// Floor of the running maximum: a fully masked row then gives exp(..) = 0.
+#define MAX_FLOOR (-1e30f)
+
+enum DType { DT_F32 = 0, DT_BF16 = 1 };
+
+template <typename T> __device__ __forceinline__ float to_float(T v);
+template <> __device__ __forceinline__ float to_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Four consecutive elements widened to fp32.  The address must be aligned to
+// four elements (16 B for float, 8 B for bf16); the wrappers check that.
+template <typename T> __device__ __forceinline__ float4 load4(const T* p);
+template <> __device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <> __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  const float2 a = __bfloat1622float2(lo);
+  const float2 b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}

@@ -1,0 +1,276 @@
+"""Model assembly for the dense decoders (counterpart of ``repro/models/model.py``).
+
+``Model`` exposes:
+  * ``init(generator)``                    — concrete params on the model's device
+  * ``forward(params, batch)``             — full-sequence logits
+  * ``prefill(params, batch, cache_len)``  — logits + populated KV cache
+  * ``decode_step(params, cache, batch)``  — one token against the cache
+
+The reference scans over depth-stacked parameters under ``jit``; here the
+stack is a Python loop over per-layer dicts and everything runs eagerly.
+Where the reference rebuilds an array (``cache.at[...].set``), the port
+writes in place and says so.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.models import layers as L
+from repro_torch.models.params import init_params, layer_kinds
+
+Tree = Any
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card: entry points run on CUDA unless the caller
+    asks for the CPU, and raise where there is no card."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device by default and none is available; "
+                "pass device='cpu' to run on the CPU on purpose")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} was asked for but CUDA is not available")
+    return device
+
+
+# ==========================================================================
+# Attention blocks
+# ==========================================================================
+
+def _qkv(cfg, p, x, positions, *, rope=True, rope_tables=None):
+    B, S, D = x.shape
+
+    def proj(name):
+        w = p[name]["w"].to(x.dtype)                      # (D, H, Dh)
+        y = (x @ w.reshape(D, -1)).reshape(B, S, w.shape[1], w.shape[2])
+        if "b" in p[name]:
+            y = y + p[name]["b"].to(x.dtype)
+        return y
+
+    q, k, v = proj("q"), proj("k"), proj("v")
+    if rope:
+        # one pass over q and k together; the two results are views of it
+        qk = L.apply_rope(cfg, torch.cat([q, k], dim=2), positions, tables=rope_tables)
+        q, k = qk[:, :, :q.shape[2]], qk[:, :, q.shape[2]:]
+    return q, k, v
+
+
+def _attn_out(p, o, x_dtype):
+    B, S, H, Dh = o.shape
+    w = p["o"]["w"].to(x_dtype)                           # (H, Dh, D)
+    return o.reshape(B, S, H * Dh) @ w.reshape(H * Dh, -1)
+
+
+def gqa_full(cfg, p, x, positions, *, causal=True, window=0, rope=True, rope_tables=None,
+             plain=False):
+    """Full-sequence GQA/MQA/MHA attention.  On the card this is the
+    flash-attention kernel, reading q, k and v where the projections left
+    them."""
+    B, S, _ = x.shape
+    Hkv, G, Dh = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
+    q, k, v = _qkv(cfg, p, x, positions, rope=rope, rope_tables=rope_tables)
+    q = q.reshape(B, S, Hkv, G, Dh)
+    o = L.attention(q, k, v, q_offset=0, causal=causal, window=window, plain=plain)
+    o = o.reshape(B, S, cfg.num_heads, Dh)
+    return _attn_out(p, o, x.dtype), (k, v)
+
+
+def decode_indices(pos: torch.Tensor, T: int):
+    """(batch index, ring slot, valid length) of one decode step; the same for
+    every layer, so a model call computes them once."""
+    b_idx = torch.arange(pos.shape[0], device=pos.device)
+    slot = (pos % T).long()
+    valid = torch.clamp(pos + 1, max=T).to(torch.int32)
+    return b_idx, slot, valid
+
+
+def gqa_decode(cfg, p, x, pos, cache, *, rope=True, positions=None, rope_tables=None,
+               indices=None, plain=False):
+    """Single-token attention against a per-slot ring cache {'k','v'}.
+
+    ``pos``: (B,) int32 — per-sequence absolute position (continuous batching
+    serves requests at different depths in one batch).  The new K/V row is
+    written into the cache **in place** (the reference builds new arrays with
+    ``.at[].set``); the returned dict holds the same tensors.  On the card
+    the attention is the split-KV decode kernel, reading the ``(B,T,Hkv,D)``
+    cache through strides."""
+    B = x.shape[0]
+    Hkv, G, Dh = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
+    T = cache["k"].shape[1]
+    if positions is None:
+        positions = pos[:, None]
+    q, k_new, v_new = _qkv(cfg, p, x, positions, rope=rope, rope_tables=rope_tables)
+    q = q.reshape(B, 1, Hkv, G, Dh)
+    b_idx, slot, valid = indices if indices is not None else decode_indices(pos, T)
+    k, v = cache["k"], cache["v"]
+    k[b_idx, slot] = k_new[:, 0]      # in place
+    v[b_idx, slot] = v_new[:, 0]
+    o = L.attention(q, k, v, q_offset=0, causal=False, kv_valid_len=valid, plain=plain)
+    o = o.reshape(B, 1, cfg.num_heads, Dh)
+    return _attn_out(p, o, x.dtype), {"k": k, "v": v}
+
+
+# ==========================================================================
+# Block dispatch
+# ==========================================================================
+
+def apply_block_full(cfg, kind, p, h, aux, collect_cache):
+    """Returns (h, cache_out_or_None)."""
+    positions = aux["positions"]
+    plain = aux.get("plain", False)
+    cache_len = aux.get("cache_len", 0)
+
+    def kv_cache(k, v):
+        if not collect_cache:
+            return None
+        S = k.shape[1]
+        if S > cache_len:
+            raise ValueError(f"prompt of {S} tokens does not fit a cache of {cache_len}")
+        kc = torch.zeros((k.shape[0], cache_len, *k.shape[2:]), dtype=k.dtype, device=k.device)
+        vc = torch.zeros_like(kc)
+        kc[:, :S] = k
+        vc[:, :S] = v
+        return {"k": kc, "v": vc}
+
+    if kind == "attn_ffn":
+        a, (k, v) = gqa_full(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], h, plain=plain),
+                             positions, rope_tables=aux.get("rope_tables"), plain=plain)
+        h = h + a
+        h = h + L.ffn(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h, plain=plain))
+        return h, kv_cache(k, v)
+
+    raise ValueError(kind)
+
+
+def apply_block_decode(cfg, kind, p, h, cache, aux):
+    """Returns (h, cache) — the cache is the one passed in, updated in place."""
+    pos = aux["pos"]
+    positions = aux.get("decode_positions")
+    plain = aux.get("plain", False)
+
+    if kind == "attn_ffn":
+        a, c = gqa_decode(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], h, plain=plain), pos,
+                          cache, positions=positions, rope_tables=aux.get("rope_tables"),
+                          indices=aux.get("indices"), plain=plain)
+        h = h + a
+        h = h + L.ffn(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h, plain=plain))
+        return h, c
+
+    raise ValueError(kind)
+
+
+# ==========================================================================
+# Model facade
+# ==========================================================================
+
+class Model:
+    """``device=None`` is the card (raises where there is none); tests pass
+    ``device="cpu"``.  ``plain_kernels=True`` is for tests and the on-card
+    parity check only: norms and attention then take the kernels' plain
+    versions whatever the device."""
+
+    def __init__(self, cfg: ModelConfig, device=None, *, plain_kernels: bool = False):
+        if cfg.family != "dense":
+            raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.plain_kernels = plain_kernels
+        self.kinds = layer_kinds(cfg)
+
+    # ---- params ----
+    def init(self, generator: torch.Generator) -> Tree:
+        return init_params(self.cfg, generator, self.device)
+
+    # ---- embedding / head ----
+    def _embed(self, params, tokens):
+        cfg = self.cfg
+        h = params["embed"]["w"][tokens].to(torch_dtype(cfg.dtype))
+        if cfg.scale_embedding:
+            # the factor is rounded to the activation type before the product,
+            # as the reference's weakly typed scalar is
+            h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype, device=h.device)
+        return h
+
+    def _logits(self, params, h):
+        cfg = self.cfg
+        w = params["embed"]["w"].t() if cfg.tie_embeddings else params["lm_head"]["w"]
+        return (h @ w.to(h.dtype)).float()
+
+    def _tokens(self, batch) -> torch.Tensor:
+        tokens = torch.as_tensor(batch["tokens"])
+        return tokens.to(self.device, torch.long)
+
+    def _positions(self, batch, default: torch.Tensor) -> torch.Tensor:
+        positions = batch.get("positions")
+        return default if positions is None else torch.as_tensor(positions).to(self.device)
+
+    def _aux(self, positions, **kw) -> dict:
+        """What every layer of one call shares: positions, the RoPE tables
+        computed once from them, and the plain-versions switch."""
+        return {"positions": positions, "plain": self.plain_kernels,
+                "rope_tables": L.rope_tables(self.cfg, positions, self.cfg.head_dim), **kw}
+
+    # ---- full-sequence stack ----
+    def _run_stack(self, params, h, aux, collect_cache):
+        caches = []
+        for kind, p in zip(self.kinds, params["blocks"]):
+            h, c_out = apply_block_full(self.cfg, kind, p, h, aux, collect_cache)
+            caches.append(c_out)
+        return h, caches
+
+    # ---- public entry points ----
+    @torch.no_grad()
+    def forward(self, params, batch):
+        """Full-sequence forward.  batch: tokens (B,S)[, positions].  Returns
+        (logits, aux_loss); the auxiliary loss is 0 for the dense families."""
+        tokens = self._tokens(batch)
+        B, S = tokens.shape
+        positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))
+        aux = self._aux(positions)
+        h = self._embed(params, tokens)
+        h, _ = self._run_stack(params, h, aux, collect_cache=False)
+        h = L.apply_norm(self.cfg, params["final_norm"], h, plain=self.plain_kernels)
+        return self._logits(params, h), torch.zeros((), dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def prefill(self, params, batch, cache_len: int):
+        """Full-sequence forward that also populates a decode cache."""
+        tokens = self._tokens(batch)
+        B, S = tokens.shape
+        positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))
+        aux = self._aux(positions, cache_len=cache_len)
+        h = self._embed(params, tokens)
+        h, caches = self._run_stack(params, h, aux, collect_cache=True)
+        h = L.apply_norm(self.cfg, params["final_norm"], h, plain=self.plain_kernels)
+        logits = self._logits(params, h[:, -1:])
+        cache = {"blocks": caches,
+                 "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
+        return logits, cache
+
+    @torch.no_grad()
+    def decode_step(self, params, cache, batch):
+        """One-token decode.  batch: tokens (B,1)[, positions (B,1)].  Returns
+        (logits, cache).  The K/V tensors of ``cache`` are updated **in
+        place** and returned in a new dict beside a new ``pos``; the
+        reference returns fresh arrays and leaves its argument as it was."""
+        tokens = self._tokens(batch)
+        pos = cache["pos"]                    # (B,) per-slot positions
+        positions = self._positions(batch, pos[:, None])
+        T = cache["blocks"][0]["k"].shape[1]
+        aux = self._aux(positions, pos=pos, decode_positions=positions,
+                        indices=decode_indices(pos, T))
+        h = self._embed(params, tokens)
+        new_blocks = []
+        for kind, p, c in zip(self.kinds, params["blocks"], cache["blocks"]):
+            h, cj = apply_block_decode(self.cfg, kind, p, h, c, aux)
+            new_blocks.append(cj)
+        h = L.apply_norm(self.cfg, params["final_norm"], h, plain=self.plain_kernels)
+        logits = self._logits(params, h)
+        return logits, {"blocks": new_blocks, "pos": pos + 1}

@@ -1,0 +1,133 @@
+"""Parameter-tree construction (counterpart of ``repro/models/params.py``), for the
+``attn_ffn`` block of the dense decoders.
+
+One function (``build_params``) drives its consumers through a creator
+callback: concrete init (``init_params``) and parameter counts
+(``count_params``).  The reference stacks block parameters over depth so that
+it can ``lax.scan`` over them; torch loops over layers, so here
+``tree["blocks"]`` is a plain list with one dict a layer, each leaf with the
+reference's per-layer shape.  ``repro_torch.convert`` unstacks a reference
+tree into this form.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, torch_dtype
+
+Creator = Callable[..., object]  # creator(path, shape, fan_in) -> leaf
+
+
+def block_cycle(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]]:
+    """Return (cycle_kinds, n_cycles, tail_kinds) for the decoder stack."""
+    if cfg.family == "dense":
+        cycle = ("attn_ffn",)
+    else:
+        raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
+    n = cfg.num_layers // len(cycle)
+    tail_len = cfg.num_layers - n * len(cycle)
+    return cycle, n, cycle[:tail_len]
+
+
+def _norm(cfg, c: Creator, path):
+    p = {"w": c(path + ("w",), (cfg.d_model,), 0)}
+    if cfg.norm == "layernorm":
+        p["b"] = c(path + ("b",), (cfg.d_model,), 0)
+    return p
+
+
+def _gqa_attn(cfg, c: Creator, path):
+    D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {
+        "q": {"w": c(path + ("q", "w"), (D, H, Dh), D)},
+        "k": {"w": c(path + ("k", "w"), (D, Hkv, Dh), D)},
+        "v": {"w": c(path + ("v", "w"), (D, Hkv, Dh), D)},
+        "o": {"w": c(path + ("o", "w"), (H, Dh, D), H * Dh)},
+    }
+    if cfg.qkv_bias:
+        p["q"]["b"] = c(path + ("q", "b"), (H, Dh), 0)
+        p["k"]["b"] = c(path + ("k", "b"), (Hkv, Dh), 0)
+        p["v"]["b"] = c(path + ("v", "b"), (Hkv, Dh), 0)
+    return p
+
+
+def _mlp(cfg, c: Creator, path):
+    D, F = cfg.d_model, cfg.d_ff
+    p = {}
+    if cfg.act in ("swiglu", "geglu"):
+        p["gate"] = {"w": c(path + ("gate", "w"), (D, F), D)}
+    p["up"] = {"w": c(path + ("up", "w"), (D, F), D)}
+    p["down"] = {"w": c(path + ("down", "w"), (F, D), F)}
+    return p
+
+
+def _attn_ffn(cfg, c: Creator, path):
+    return {
+        "ln1": _norm(cfg, c, path + ("ln1",)),
+        "attn": _gqa_attn(cfg, c, path + ("attn",)),
+        "ln2": _norm(cfg, c, path + ("ln2",)),
+        "mlp": _mlp(cfg, c, path + ("mlp",)),
+    }
+
+
+BLOCK_PARAMS = {"attn_ffn": _attn_ffn}
+
+
+def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
+    """Block kind of every layer, in order."""
+    cycle, n, tail = block_cycle(cfg)
+    return cycle * n + tail
+
+
+def build_params(cfg: ModelConfig, creator: Creator) -> dict:
+    tree: dict = {
+        "embed": {"w": creator(("embed", "w"), (cfg.vocab_size, cfg.d_model), cfg.d_model)},
+        "final_norm": _norm(cfg, creator, ("final_norm",)),
+    }
+    tree["blocks"] = [BLOCK_PARAMS[kind](cfg, creator, ("blocks", str(i), kind))
+                      for i, kind in enumerate(layer_kinds(cfg))]
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"w": creator(("lm_head", "w"), (cfg.d_model, cfg.vocab_size),
+                                        cfg.d_model)}
+    return tree
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device, dtype=None):
+    """Concrete init on ``device`` from ``generator`` (which must live on the
+    same device).  Same distributions as the reference: normal with std
+    ``1/sqrt(fan_in)`` for matrices, norm scales 1 (0 for the ``1 + w`` form),
+    biases 0.  The numbers differ from the reference's for the same seed (the
+    two frameworks' generators differ); tests carry weights across instead."""
+    dt = dtype or torch_dtype(cfg.param_dtype)
+    device = torch.device(device)
+
+    def c(path, shape, fan_in):
+        if fan_in <= 0:  # biases / norm scales
+            name, parent = path[-1], path[-2] if len(path) > 1 else ""
+            is_norm = parent.startswith("ln") or "norm" in parent
+            if name == "w" and is_norm and not cfg.rms_offset:
+                return torch.ones(shape, dtype=dt, device=device)
+            return torch.zeros(shape, dtype=dt, device=device)
+        std = 1.0 / math.sqrt(fan_in)
+        w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        return w.mul_(std).to(dt)
+
+    return build_params(cfg, c)
+
+
+@functools.lru_cache(maxsize=512)
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Total parameter count (``active_only`` matters for MoE only; the dense
+    families count the same either way)."""
+    total = [0]
+
+    def c(path, shape, fan_in):
+        total[0] += math.prod(shape)
+        return None
+
+    build_params(cfg, c)
+    return int(total[0])

@@ -1,0 +1,263 @@
+"""The port's kernel wrappers on the CPU (where they take their plain
+versions) against the reference's Pallas kernels in interpret mode and
+against both packages' oracles.  Inputs come from numpy and go to both sides.
+
+Tolerances: float32 at 1e-5 — two frameworks' ``exp`` and orders of summation
+(the reference's own 2e-6 holds inside one framework); bfloat16 at 2e-2, as in
+``tests/test_kernels.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops, ref as jref
+from repro.models import layers as JL
+from repro_torch import kernels as K
+from repro_torch.kernels import _build, ops, ref
+
+F32, BF16 = "float32", "bfloat16"
+TOL = {F32: 1e-5, BF16: 2e-2}
+JDT = {F32: jnp.float32, BF16: jnp.bfloat16}
+TDT = {F32: torch.float32, BF16: torch.bfloat16}
+
+
+def both(a: np.ndarray, dtype: str):
+    """One numpy array as (jax array, torch tensor) of ``dtype``."""
+    return jnp.asarray(a).astype(JDT[dtype]), torch.from_numpy(a).to(TDT[dtype])
+
+
+def j2n(x) -> np.ndarray:
+    return np.asarray(x.astype(jnp.float32))
+
+
+def t2n(x) -> np.ndarray:
+    return x.float().numpy()
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+FA_CASES = [
+    # (B, H, Hkv, Sq, Sk, D, causal, window, dtype) — the cases of tests/test_kernels.py
+    (1, 2, 2, 128, 128, 64, True, 0, F32),
+    (2, 4, 2, 192, 192, 64, True, 0, F32),   # GQA + ragged blocks
+    (1, 4, 1, 128, 256, 32, False, 0, F32),  # MQA cross
+    (2, 2, 2, 160, 160, 64, True, 64, F32),  # sliding window
+    (1, 2, 2, 128, 128, 128, True, 0, BF16),
+    (1, 8, 4, 96, 96, 64, True, 0, BF16),
+    (1, 6, 2, 80, 80, 128, True, 0, F32),    # G = 3, the group of phi4-mini
+]
+
+
+def _fa_inputs(case, seed=0):
+    B, H, Hkv, Sq, Sk, D, causal, window, dtype = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, Sq, D), dtype=np.float32)
+    k = rng.standard_normal((B, Hkv, Sk, D), dtype=np.float32)
+    v = rng.standard_normal((B, Hkv, Sk, D), dtype=np.float32)
+    return [both(a, dtype) for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention_vs_pallas(case):
+    *_, causal, window, dtype = case
+    (qj, qt), (kj, kt), (vj, vt) = _fa_inputs(case)
+    want = jops.flash_attention(qj, kj, vj, causal=causal, window=window)
+    before = K.flash_attention.launches
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert K.flash_attention.launches == before      # CPU tensor: plain version, no launch
+    assert got.dtype == TDT[dtype] and got.shape == qt.shape
+    close(t2n(got), j2n(want), TOL[dtype])
+
+
+@pytest.mark.parametrize("case", FA_CASES)
+def test_flash_attention_vs_oracles(case):
+    *_, causal, window, dtype = case
+    (qj, qt), (kj, kt), (vj, vt) = _fa_inputs(case, seed=1)
+    got = K.flash_attention_plain(qt, kt, vt, causal=causal, window=window)
+    mine = ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window)
+    theirs = jref.flash_attention_ref(qj, kj, vj, causal=causal, window=window)
+    close(t2n(got), t2n(mine), TOL[dtype])
+    close(t2n(mine), j2n(theirs), TOL[dtype])
+
+
+DEC_CASES = [
+    # (B, H, Hkv, T, D, dtype) — the cases of tests/test_kernels.py
+    (2, 4, 2, 256, 64, F32),
+    (1, 8, 1, 300, 64, F32),   # MQA, ragged splits
+    (2, 4, 4, 512, 128, BF16),
+    (2, 6, 2, 300, 128, F32),  # G = 3
+]
+
+
+def _dec_inputs(case, seed=1):
+    B, H, Hkv, T, D, dtype = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D), dtype=np.float32)
+    k = rng.standard_normal((B, Hkv, T, D), dtype=np.float32)
+    v = rng.standard_normal((B, Hkv, T, D), dtype=np.float32)
+    vl = np.asarray([T // 2, T][:B], np.int32)
+    return [both(a, dtype) for a in (q, k, v)], (jnp.asarray(vl), torch.from_numpy(vl))
+
+
+@pytest.mark.parametrize("case", DEC_CASES)
+def test_decode_attention_vs_pallas(case):
+    dtype = case[-1]
+    ((qj, qt), (kj, kt), (vj, vt)), (vlj, vlt) = _dec_inputs(case)
+    want = jops.decode_attention(qj, kj, vj, vlj)
+    before = K.decode_attention.launches, K.combine_splits.launches
+    got = ops.decode_attention(qt, kt, vt, vlt)
+    assert (K.decode_attention.launches, K.combine_splits.launches) == before
+    assert got.dtype == TDT[dtype] and got.shape == qt.shape
+    close(t2n(got), j2n(want), TOL[dtype])
+
+
+@pytest.mark.parametrize("case", DEC_CASES)
+def test_decode_attention_vs_oracles(case):
+    dtype = case[-1]
+    ((qj, qt), (kj, kt), (vj, vt)), (vlj, vlt) = _dec_inputs(case, seed=2)
+    mine = ref.decode_attention_ref(qt, kt, vt, kv_valid_len=vlt)
+    theirs = jref.decode_attention_ref(qj, kj, vj, kv_valid_len=vlj)
+    close(t2n(mine), j2n(theirs), TOL[dtype])
+    for n_splits in (None, 1, 3):       # the split-and-combine arithmetic at several cuts
+        got = K.decode_attention_plain(qt, kt, vt, kv_valid_len=vlt, n_splits=n_splits)
+        close(t2n(got), t2n(mine), TOL[dtype])
+
+
+@pytest.mark.parametrize("case", DEC_CASES[:2])
+def test_decode_attention_bthd_reads_the_model_layout(case):
+    B, H, Hkv, T, D, dtype = case
+    ((_, qt), (_, kt), (_, vt)), (_, vlt) = _dec_inputs(case, seed=3)
+    want = ops.decode_attention(qt, kt, vt, vlt)
+    got = ops.decode_attention_bthd(qt.reshape(B, 1, Hkv, H // Hkv, D),
+                                    kt.permute(0, 2, 1, 3).contiguous(),
+                                    vt.permute(0, 2, 1, 3).contiguous(), vlt)
+    close(t2n(got.reshape(B, H, D)), t2n(want), 1e-6)    # another layout, another order of summation
+
+
+def test_combine_splits_matches_reference_combine():
+    rng = np.random.default_rng(4)
+    o = rng.standard_normal((2, 3, 5, 4, 16), dtype=np.float32)
+    m = rng.standard_normal((2, 3, 5, 4), dtype=np.float32) * 3
+    l = np.abs(rng.standard_normal((2, 3, 5, 4), dtype=np.float32)) + 0.1
+    got = K.combine_splits(*(torch.from_numpy(a) for a in (o, m, l)), torch.float32)
+    # the reference's combine, repro/kernels/decode_attention.py, in numpy
+    w = l * np.exp(m - m.max(axis=2, keepdims=True))
+    want = (o * w[..., None]).sum(axis=2) / np.maximum(w.sum(axis=2), 1e-30)[..., None]
+    close(t2n(got), want.reshape(2, 12, 16), 1e-5)
+    assert K.combine_splits.launches == 0 or got.device.type == "cpu"
+
+
+RMS_GRID = [(rows, d, offset, F32) for rows in (1, 37, 300) for d in (128, 256, 512)
+            for offset in (False, True)]
+RMS_GRID += [(rows, 256, offset, BF16) for rows in (1, 37, 300) for offset in (False, True)]
+
+
+@pytest.mark.parametrize("rows,d,offset,dtype", RMS_GRID)
+def test_rmsnorm_vs_pallas_and_oracles(rows, d, offset, dtype):
+    rng = np.random.default_rng(rows * 1000 + d)
+    xj, xt = both(rng.standard_normal((rows, d), dtype=np.float32), dtype)
+    # w stays float32 beside a bfloat16 x, as in the reference's test
+    wj, wt = both(rng.standard_normal((d,), dtype=np.float32) * 0.1 + 1.0, F32)
+    before = K.rmsnorm.launches
+    got = ops.rmsnorm(xt, wt, offset=offset)
+    assert K.rmsnorm.launches == before
+    assert got.dtype == TDT[dtype]
+    tol = 3e-2 if dtype == BF16 else TOL[F32]        # bf16 as in tests/test_kernels.py
+    close(t2n(got), j2n(jops.rmsnorm(xj, wj, offset=offset)), tol)
+    close(t2n(got), t2n(ref.rmsnorm_ref(xt, wt, offset=offset)), tol)
+    close(t2n(ref.rmsnorm_ref(xt, wt, offset=offset)),
+          j2n(jref.rmsnorm_ref(xj, wj, offset=offset)), tol)
+
+
+@pytest.mark.parametrize("dtype,offset", [(F32, False), (F32, True), (BF16, False)])
+def test_rmsnorm_residual_vs_pallas(dtype, offset):
+    rng = np.random.default_rng(5)
+    xj, xt = both(rng.standard_normal((4, 10, 256), dtype=np.float32), dtype)
+    rj, rt = both(rng.standard_normal((4, 10, 256), dtype=np.float32), dtype)
+    wj, wt = both(rng.standard_normal((256,), dtype=np.float32) * 0.1 + 1.0, F32)
+    got = ops.rmsnorm_residual(xt, rt, wt, offset=offset)
+    tol = 3e-2 if dtype == BF16 else TOL[F32]
+    close(t2n(got), j2n(jops.rmsnorm_residual(xj, rj, wj, offset=offset)), tol)
+    close(t2n(got), t2n(ref.rmsnorm_ref(xt, wt, offset=offset, residual=rt)), tol)
+
+
+def test_flash_bshd_matches_reference_model_layout():
+    """The bshd wrapper agrees with the reference model's blockwise attention
+    (twin of test_flash_matches_model_layout)."""
+    B, S, Hkv, G, D = 2, 128, 2, 2, 64
+    rng = np.random.default_rng(6)
+    (qj, qt), (kj, kt), (vj, vt) = (both(rng.standard_normal(s, dtype=np.float32), F32)
+                                    for s in ((B, S, Hkv, G, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    got = ops.flash_attention_bshd(qt, kt, vt, causal=True)
+    want = JL.attend_blockwise(qj, kj, vj, q_offset=0, causal=True, q_block=64, kv_block=64)
+    assert got.shape == (B, S, Hkv, G, D)
+    close(t2n(got), j2n(want), 2e-5)
+    close(t2n(got), j2n(jops.flash_attention_bshd(qj, kj, vj, causal=True)), 1e-5)
+
+
+def test_fully_masked_row_follows_the_kernels_not_the_oracle():
+    """kv_valid_len = 0: the kernels give 0, ``ref.py`` (in both packages) the
+    mean of V.  The plain versions follow the kernels."""
+    rng = np.random.default_rng(7)
+    B, H, Hkv, T, D = 2, 4, 2, 128, 64
+    (qj, qt), (kj, kt), (vj, vt) = (both(rng.standard_normal(s, dtype=np.float32), F32)
+                                    for s in ((B, H, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    vl = np.asarray([0, T], np.int32)
+    got = ops.decode_attention(qt, kt, vt, torch.from_numpy(vl))
+    pallas = jops.decode_attention(qj, kj, vj, jnp.asarray(vl))
+    assert float(got[0].abs().max()) == 0.0
+    assert float(jnp.abs(pallas[0]).max()) == 0.0
+    close(t2n(got), j2n(pallas), 1e-5)
+    oracle = ref.decode_attention_ref(qt, kt, vt, kv_valid_len=torch.from_numpy(vl))
+    mean_v = vt.mean(dim=2).repeat_interleave(H // Hkv, dim=1)
+    close(t2n(oracle[0]), t2n(mean_v[0]), 1e-5)
+    close(t2n(oracle), j2n(jref.decode_attention_ref(qj, kj, vj, kv_valid_len=jnp.asarray(vl))), 1e-5)
+
+
+def test_flash_rows_without_a_visible_key_give_zero():
+    """A window with no causal mask leaves late q rows no key at all."""
+    rng = np.random.default_rng(8)
+    (qj, qt), (kj, kt), (vj, vt) = (both(rng.standard_normal(s, dtype=np.float32), F32)
+                                    for s in ((1, 2, 40, 64), (1, 2, 8, 64), (1, 2, 8, 64)))
+    got = ops.flash_attention(qt, kt, vt, causal=False, window=4)
+    want = jops.flash_attention(qj, kj, vj, causal=False, window=4)
+    close(t2n(got), j2n(want), 1e-5)
+    assert float(got[:, :, 12:].abs().max()) == 0.0     # q_pos >= Sk + window - 1
+
+
+@pytest.mark.parametrize("bad", [torch.float16, torch.float64, torch.int32])
+def test_wrappers_raise_on_unsupported_dtype(bad):
+    x = torch.ones((4, 64)).to(bad)
+    w = torch.ones((64,))
+    with pytest.raises(TypeError):
+        K.rmsnorm(x, w)
+    q = torch.ones((1, 2, 8, 64)).to(bad)
+    with pytest.raises(TypeError):
+        K.flash_attention(q, q, q)
+    with pytest.raises(TypeError):
+        K.decode_attention(q[:, :, 0], q, q)
+    with pytest.raises(TypeError):
+        _build.dtype_code(x, "x")
+
+
+def test_wrappers_raise_on_a_device_without_a_kernel():
+    x = torch.ones((4, 64), device="meta")
+    with pytest.raises(RuntimeError):
+        K.rmsnorm(x, torch.ones((64,), device="meta"))
+    q = torch.ones((1, 2, 8, 64), device="meta")
+    with pytest.raises(RuntimeError):
+        K.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError):
+        K.decode_attention(q[:, :, 0], q, q)
+
+
+def test_split_plan_covers_the_cache():
+    from repro_torch.kernels.decode_attention import split_plan
+    for B, Hkv, T in [(8, 8, 2048), (1, 1, 300), (1, 8, 64), (32, 8, 2048), (2, 2, 1)]:
+        ns, chunk = split_plan(B, Hkv, T)
+        assert ns >= 1 and (ns - 1) * chunk < T <= ns * chunk
+    assert split_plan(8, 8, 2048)[0] == 5              # 8*8*5 = 320 blocks >= 2 * 132
+    assert split_plan(1, 1, 300)[0] == 4               # no split under 64 rows

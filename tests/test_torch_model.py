@@ -1,0 +1,193 @@
+"""The port's dense model against ``repro.models.Model`` with weights carried
+across.  The reference initialises its parameters; they go to numpy, norm
+weights and biases get numpy noise (the reference sets them to exactly 1 or
+0, which would leave ``w``, ``1 + w`` and the bias adds untested), and both
+models run on the same tree.
+
+float32 logits agree to 1e-4: the two frameworks sum the matrix products and
+the softmax in another order, and the error grows through the layers.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as j_config, get_tiny_config as j_tiny
+from repro.models import Model as JModel, count_params as j_count
+from repro.models.kvcache import cache_bytes as j_cache_bytes
+from repro_torch.configs import ARCH_IDS, get_config as t_config, get_tiny_config as t_tiny
+from repro_torch.convert import from_reference_cache, from_reference_params
+from repro_torch.models import Model as TModel, cache_bytes as t_cache_bytes, count_params as t_count
+
+TOL = 1e-4
+FULL_COUNTS = {"phi4-mini-3.8b": 3_836_021_760, "gemma-7b": 8_537_680_896}
+
+
+def to_np(tree):
+    return jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), tree)
+
+
+def perturbed_reference_params(arch, dtype="float32", seed=0):
+    """(reference cfg, port cfg, reference params, the same tree as float32 numpy)."""
+    cj = j_tiny(arch).replace(dtype=dtype, param_dtype=dtype)
+    ct = t_tiny(arch).replace(dtype=dtype, param_dtype=dtype)
+    params = JModel(cj).init(jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, a):
+        names = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
+        is_norm = any(str(n).startswith("ln") or "norm" in str(n) for n in names)
+        if is_norm or names[-1] == "b":
+            noise = rng.standard_normal(a.shape).astype(np.float32) * 0.1
+            return (a.astype(jnp.float32) + noise).astype(a.dtype)
+        return a
+
+    params = jax.tree_util.tree_map_with_path(perturb, params)
+    return cj, ct, params, to_np(params)
+
+
+def tokens(cfg, B, S, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def close(got: torch.Tensor, want, tol=TOL):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, dtype=np.float32),
+                               atol=tol, rtol=tol)
+
+
+def cache_close(cfg, t_cache, j_cache, tol=TOL):
+    want = from_reference_cache(to_np(j_cache), cfg, "cpu", torch.float32)
+    assert torch.equal(t_cache["pos"], want["pos"])
+    for mine, theirs in zip(t_cache["blocks"], want["blocks"]):
+        close(mine["k"], theirs["k"].numpy(), tol)
+        close(mine["v"], theirs["v"].numpy(), tol)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_forward_matches_reference(arch):
+    cj, ct, pj, pn = perturbed_reference_params(arch)
+    pt = from_reference_params(pn, ct, "cpu")
+    toks = tokens(cj, 2, 24)
+    want, _ = JModel(cj).forward(pj, {"tokens": jnp.asarray(toks)})
+    got, aux = TModel(ct, "cpu").forward(pt, {"tokens": toks})
+    assert got.shape == (2, 24, ct.vocab_size) and got.dtype == torch.float32
+    assert float(aux) == 0.0
+    close(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_prefill_and_three_decode_steps_match_reference(arch):
+    cj, ct, pj, pn = perturbed_reference_params(arch)
+    pt = from_reference_params(pn, ct, "cpu")
+    B, S, T = 2, 12, 14      # T = 14: the third decode step wraps the ring (pos % T)
+    toks = tokens(cj, B, S + 3)
+    jm, tm = JModel(cj), TModel(ct, "cpu")
+    lj, cache_j = jm.prefill(pj, {"tokens": jnp.asarray(toks[:, :S])}, cache_len=T)
+    lt, cache_t = tm.prefill(pt, {"tokens": toks[:, :S]}, cache_len=T)
+    assert lt.shape == (B, 1, ct.vocab_size)
+    close(lt, lj)
+    cache_close(ct, cache_t, cache_j)
+    for i in range(3):
+        step = toks[:, S + i:S + i + 1]
+        lj, cache_j = jm.decode_step(pj, cache_j, {"tokens": jnp.asarray(step)})
+        lt, cache_t = tm.decode_step(pt, cache_t, {"tokens": step})
+        close(lt, lj)
+        cache_close(ct, cache_t, cache_j)
+    assert int(cache_t["pos"][0]) == S + 3
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_decode_from_a_carried_over_cache(arch):
+    """State carried across: the reference prefills, the port decodes."""
+    cj, ct, pj, pn = perturbed_reference_params(arch, seed=3)
+    pt = from_reference_params(pn, ct, "cpu")
+    toks = tokens(cj, 2, 9, seed=4)
+    jm, tm = JModel(cj), TModel(ct, "cpu")
+    _, cache_j = jm.prefill(pj, {"tokens": jnp.asarray(toks[:, :8])}, cache_len=16)
+    cache_t = from_reference_cache(to_np(cache_j), ct, "cpu")
+    lj, _ = jm.decode_step(pj, cache_j, {"tokens": jnp.asarray(toks[:, 8:])})
+    lt, _ = tm.decode_step(pt, cache_t, {"tokens": toks[:, 8:]})
+    close(lt, lj)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_prefill_decode_match_forward_inside_the_port(arch):
+    """Twin of test_archs.py::test_prefill_decode_match_forward, in the
+    config's own bfloat16 and with the port's own init."""
+    cfg = t_tiny(arch)
+    m = TModel(cfg, "cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    B, S = 2, 12
+    toks = tokens(cfg, B, S + 1)
+    lf, _ = m.forward(params, {"tokens": toks})
+    lp, cache = m.prefill(params, {"tokens": toks[:, :S]}, cache_len=S + 4)
+    ld, cache2 = m.decode_step(params, cache, {"tokens": toks[:, S:S + 1]})
+    tol = 0.08
+    assert bool(torch.isfinite(lf).all())
+    assert float((lp - lf[:, S - 1:S]).abs().max()) < tol
+    assert float((ld - lf[:, S:S + 1]).abs().max()) < tol
+    assert int(cache2["pos"][0]) == S + 1
+    # the cache is updated in place: the returned tensors are the ones passed in
+    assert cache2["blocks"][0]["k"] is cache["blocks"][0]["k"]
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma-7b"])
+def test_bfloat16_forward_matches_reference(arch):
+    """The working type: bf16 rounds at other places in the two frameworks,
+    hence 5e-2.  gemma also scales its embeddings by sqrt(d_model), rounded
+    to bf16 before the product on both sides."""
+    cj, ct, pj, pn = perturbed_reference_params(arch, dtype="bfloat16")
+    pt = from_reference_params(pn, ct, "cpu")
+    assert pt["embed"]["w"].dtype == torch.bfloat16
+    toks = tokens(cj, 2, 16)
+    want, _ = JModel(cj).forward(pj, {"tokens": jnp.asarray(toks)})
+    got, _ = TModel(ct, "cpu").forward(pt, {"tokens": toks})
+    close(got, want, 5e-2)
+
+
+def test_plain_kernels_switch_gives_the_same_numbers_on_cpu():
+    _, ct, _, pn = perturbed_reference_params("gemma-7b")
+    pt = from_reference_params(pn, ct, "cpu")
+    toks = tokens(ct, 2, 10)
+    a, _ = TModel(ct, "cpu").forward(pt, {"tokens": toks})
+    b, _ = TModel(ct, "cpu", plain_kernels=True).forward(pt, {"tokens": toks})
+    close(a, b.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_count_params_equal_on_full_configs(arch):
+    n = t_count(t_config(arch))
+    assert n == j_count(j_config(arch))
+    assert n == t_config(arch).param_count()
+    if arch in FULL_COUNTS:
+        assert n == FULL_COUNTS[arch]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_bytes_equal(arch):
+    for cfg_j, cfg_t in ((j_config(arch), t_config(arch)), (j_tiny(arch), t_tiny(arch))):
+        assert t_cache_bytes(cfg_t, 8, 2048) == j_cache_bytes(cfg_j, 8, 2048)
+
+
+def test_from_reference_params_rejects_a_tree_of_another_config():
+    _, _, _, pn = perturbed_reference_params("gemma-7b")
+    with pytest.raises(ValueError):
+        from_reference_params(pn, t_tiny("qwen2.5-32b"), "cpu")     # qwen has biases, other widths
+
+
+def test_init_params_shapes_dtypes_and_statistics():
+    cfg = t_tiny("qwen2.5-32b")
+    params = TModel(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    assert len(params["blocks"]) == cfg.num_layers
+    blk = params["blocks"][0]
+    assert blk["attn"]["q"]["w"].shape == (cfg.d_model, cfg.num_heads, cfg.head_dim)
+    assert blk["attn"]["q"]["b"].shape == (cfg.num_heads, cfg.head_dim)
+    assert blk["attn"]["q"]["w"].dtype == torch.bfloat16
+    assert float(blk["attn"]["q"]["b"].abs().max()) == 0.0
+    assert float(blk["ln1"]["w"].min()) == 1.0
+    std = float(params["embed"]["w"].float().std())
+    assert abs(std - cfg.d_model ** -0.5) < 0.1 * cfg.d_model ** -0.5
+    gem = TModel(t_tiny("gemma-7b"), "cpu").init(torch.Generator().manual_seed(0))
+    assert float(gem["final_norm"]["w"].abs().max()) == 0.0        # the 1 + w form starts at 0
+    assert "lm_head" not in gem and "lm_head" in params
