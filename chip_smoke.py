@@ -3,17 +3,23 @@
 
     python3 chip_smoke.py                 # every phase; what a check of the port runs
     python3 chip_smoke.py --phases env,build,kernels --ptxas   # a new kernel's first run
+    python3 chip_smoke.py --phases env,build,kernels --baseline-src OTHER   # + OTHER's kernels
 
 Phases, each printing one JSON object on a line of its own:
 
   env      versions, compiler, GPU name and power limit; exits non-zero if
            there is no CUDA device (there is no CPU carry-on)
   build    compiles src/repro_torch/kernels/csrc/*.cu with nvcc (one process
-           a source, started together); seconds taken
+           a source, started together); seconds taken; then a SASS check:
+           cuobjdump must find HGMMA (wgmma) and UTMALDG (TMA loads) in the
+           flash-attention library
   kernels  every kernel against its plain PyTorch version on the card, at the
            shapes the serving path gives it and at edge shapes, in float32
            (tolerance 2e-5: another order of summation) and bfloat16 (2e-2),
-           with times from CUDA events
+           with times: `ms` from CUDA events around a wrapper call (host work
+           included), `device_ms` the call's own device time from the
+           profiler, and the same two for the library call; the kernels'
+           host-side plans against what the compiled kernels report
   serve    phi4-mini-3.8b at full width and depth, random weights from a
            seed, ServingEngine(slots=8, cache_len=2048), 12 requests of 16 to
            1024 prompt tokens and 32 new tokens each; checks the tokens, the
@@ -21,9 +27,15 @@ Phases, each printing one JSON object on a line of its own:
   parity   the same model cut to 4 layers, the same requests, once through
            the kernels and once through their plain versions
 
+`--baseline-src DIR` times the serving-shape kernels of the tree at DIR
+(e.g. the parent commit, unpacked) beside this tree's, in turns (DIR, here,
+here, DIR), each in a process of its own, through the wrappers' common
+signature.
+
 Then one line {"kernels": [...]} with, for each kernel of the serving path,
-its launches in the serve phase, error, time, plain version's time, bound and
-the time of the one PyTorch call that computes the same function; then the
+its launches in the serve phase, error, time, device time, plain version's
+time, bound and the time and device time of the one PyTorch call that
+computes the same function; then the
 GPU's name and power limit as nvidia-smi prints them; then, last,
 {"ok": true, "device": {...}}.  Any failing phase ends the run with a
 non-zero exit code and no last line.
@@ -33,12 +45,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(HERE, "src"))
+# The package under test; another tree's for the --baseline-src processes.
+SRC = os.environ.get("CHIP_SMOKE_SRC", os.path.join(HERE, "src"))
+sys.path.insert(0, SRC)
 
 import numpy as np
 import torch
@@ -97,6 +112,44 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+_flush_names = None
+_flush_i64 = None
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """The call's own device time in ms: the profiler's self device time of
+    every kernel (and device copy) that ``fn`` launches, per call, over
+    ``iters`` calls with the L2 cache overwritten before each call.  The
+    overwrite reads 256 MB (an int64 sum, whose kernels are left out by
+    name), so L2 holds clean lines: a fill would leave up to 50 MB of dirty
+    lines that the measured call would pay to write back."""
+    global _flush_names, _flush_i64
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if _flush_i64 is None:
+        _flush_i64 = torch.ones(256 << 17, dtype=torch.int64, device="cuda")   # 256 MB
+    flush = _flush_i64
+    on_dev = torch.autograd.DeviceType.CUDA
+    if _flush_names is None:
+        with profile(activities=acts) as prof:
+            flush.sum()
+            torch.cuda.synchronize()
+        _flush_names = {e.key for e in prof.key_averages() if e.device_type == on_dev}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        for _ in range(iters):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    # A kernel's mean time times its launches a call: the count is rounded, so
+    # an event the tracer drops now and then does not pull the sum down.
+    total = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
+                for e in prof.key_averages()
+                if e.device_type == on_dev and e.key not in _flush_names and e.count)
+    return total / 1e3
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -132,15 +185,30 @@ def visible_pairs(Sq, Sk, causal, window) -> int:
     return int(m.sum())
 
 
+def flash_inputs(rng, *, B, H, Hkv, Sq, Sk, D, dtype, bshd):
+    if bshd:   # the model's layout: strided views, as the serving path passes them
+        return (randn(rng, (B, Sq, H, D), dtype).permute(0, 2, 1, 3),
+                randn(rng, (B, Sk, Hkv, D), dtype).permute(0, 2, 1, 3),
+                randn(rng, (B, Sk, Hkv, D), dtype).permute(0, 2, 1, 3))
+    return (randn(rng, (B, H, Sq, D), dtype), randn(rng, (B, Hkv, Sk, D), dtype),
+            randn(rng, (B, Hkv, Sk, D), dtype))
+
+
+def flash_work(q, k, causal, window) -> tuple[float, float]:
+    """(bytes, operations) the function needs: q, k, v read once, o written
+    once; 4 D operations a visible (q, k) pair."""
+    B, H, Sq, D = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4.0 * B * H * D * visible_pairs(Sq, k.shape[2], causal, window)
+
+
+def sdpa_flash(q, k, v, causal):
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+
 def check_flash(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, bshd=False):
     from repro_torch.kernels import flash_attention, flash_attention_plain
-    if bshd:   # the model's layout: strided views, as the serving path passes them
-        q = randn(rng, (B, Sq, H, D), dtype).permute(0, 2, 1, 3)
-        k = randn(rng, (B, Sk, Hkv, D), dtype).permute(0, 2, 1, 3)
-        v = randn(rng, (B, Sk, Hkv, D), dtype).permute(0, 2, 1, 3)
-    else:
-        q, k, v = (randn(rng, (B, H, Sq, D), dtype), randn(rng, (B, Hkv, Sk, D), dtype),
-                   randn(rng, (B, Hkv, Sk, D), dtype))
+    q, k, v = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, dtype=dtype, bshd=bshd)
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
@@ -149,23 +217,22 @@ def check_flash(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, bshd
                    + (" bshd" if bshd else ""),
            "max_abs_err": max_err(got, want), "tol": TOL[dtype]}
     if timed:
-        item = q.element_size()
-        nbytes = (2 * q.numel() + 2 * k.numel()) * item
-        flops = 4.0 * B * H * D * visible_pairs(Sq, Sk, causal, window)
+        nbytes, flops = flash_work(q, k, causal, window)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dtype)
-        rec["ms"] = time_ms(lambda: flash_attention(q, k, v, causal=causal, window=window))
+        call = lambda: flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+        rec["ms"] = time_ms(call)
+        rec["device_ms"] = device_ms(call)
         rec["plain_ms"] = time_ms(
             lambda: flash_attention_plain(q, k, v, causal=causal, window=window), iters=5)
         if window == 0 and (causal is False or Sq == Sk):
-            rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=True))
+            rec["library_ms"] = time_ms(sdpa_flash(q, k, v, causal))
+            rec["library_device_ms"] = device_ms(sdpa_flash(q, k, v, causal))
         else:
-            rec["library_ms"] = None
+            rec["library_ms"] = rec["library_device_ms"] = None
     return rec
 
 
-def check_decode(rng, *, B, H, Hkv, T, D, valid, dtype, timed, bthd=False):
-    from repro_torch.kernels import decode_attention, decode_attention_plain
+def decode_inputs(rng, *, B, H, Hkv, T, D, valid, dtype, bthd):
     q = randn(rng, (B, H, D), dtype)
     if bthd:   # the model's cache layout, read through strides
         k = randn(rng, (B, T, Hkv, D), dtype).permute(0, 2, 1, 3)
@@ -173,11 +240,42 @@ def check_decode(rng, *, B, H, Hkv, T, D, valid, dtype, timed, bthd=False):
     else:
         k, v = randn(rng, (B, Hkv, T, D), dtype), randn(rng, (B, Hkv, T, D), dtype)
     vl = None if valid is None else torch.tensor(valid, dtype=torch.int32, device="cuda")
+    return q, k, v, vl
+
+
+def decode_work(q, k, valid) -> tuple[float, float]:
+    """(bytes, operations) the function needs: the valid K and V rows read
+    once, q read and o written once; 4 D operations a q head and row."""
+    B, H, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    rows = sum(valid) if valid is not None else B * T     # cache rows this run reads
+    nbytes = (2 * rows * Hkv * D + 2 * q.numel()) * q.element_size() + 4 * B
+    return nbytes, 4.0 * H * D * rows
+
+
+def sdpa_decode(q, k, v, vl):
+    B, T = q.shape[0], k.shape[2]
+    valid_t = vl if vl is not None else torch.full((B,), T, device="cuda")
+    mask = (torch.arange(T, device="cuda")[None, :] < valid_t[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q[:, :, None, :], k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def check_decode(rng, *, B, H, Hkv, T, D, valid, dtype, timed, bthd=False):
+    import importlib
+    from repro_torch.kernels import decode_attention, decode_attention_plain
+    dec = importlib.import_module("repro_torch.kernels.decode_attention")
+    q, k, v, vl = decode_inputs(rng, B=B, H=H, Hkv=Hkv, T=T, D=D, valid=valid, dtype=dtype,
+                                bthd=bthd)
     got = decode_attention(q, k, v, kv_valid_len=vl)
     torch.cuda.synchronize()
     want = decode_attention_plain(q, k, v, kv_valid_len=vl)
+    sm_count, per_sm, rows = dec.kernel_plan(q.device, H // Hkv, D, dtype)
+    ns, chunk = dec.split_plan(B, Hkv, T, sm_count=sm_count, blocks_per_sm=per_sm,
+                               rows_per_iter=rows)
     rec = {"kernel": "decode_attention", "dtype": dt_name(dtype),
            "case": f"B{B} H{H} Hkv{Hkv} T{T} D{D} valid{valid}" + (" bthd" if bthd else ""),
+           "splits": ns, "chunk": chunk, "blocks_per_sm": per_sm,
            "max_abs_err": max_err(got, want), "tol": TOL[dtype]}
     if valid is not None and 0 in valid:   # the pinned semantics: a dead row gives 0
         rec["zero_rows_max_abs"] = float(got[[i for i, n in enumerate(valid) if n == 0]]
@@ -185,38 +283,14 @@ def check_decode(rng, *, B, H, Hkv, T, D, valid, dtype, timed, bthd=False):
         if rec["zero_rows_max_abs"] != 0.0:
             fail(f"decode_attention: kv_valid_len=0 must give 0, got {rec}")
     if timed:
-        item = q.element_size()
-        rows = sum(valid) if valid is not None else B * T     # cache rows this run reads
-        nbytes = (2 * rows * Hkv * D + 2 * q.numel()) * item + 4 * B
-        flops = 4.0 * H * D * rows
+        nbytes, flops = decode_work(q, k, valid)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dtype)
-        rec["ms"] = time_ms(lambda: decode_attention(q, k, v, kv_valid_len=vl))
+        call = lambda: decode_attention(q, k, v, kv_valid_len=vl)  # noqa: E731
+        rec["ms"] = time_ms(call)
+        rec["device_ms"] = device_ms(call)
         rec["plain_ms"] = time_ms(lambda: decode_attention_plain(q, k, v, kv_valid_len=vl), iters=5)
-        valid_t = vl if vl is not None else torch.full((B,), T, device="cuda")
-        mask = (torch.arange(T, device="cuda")[None, :] < valid_t[:, None])[:, None, None, :]
-        rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True))
-    return rec
-
-
-def check_combine(rng, *, B, Hkv, ns, G, D, dtype, timed):
-    from repro_torch.kernels import combine_splits, combine_splits_plain
-    o = randn(rng, (B, Hkv, ns, G, D), torch.float32)
-    m = randn(rng, (B, Hkv, ns, G), torch.float32) * 3.0
-    l = randn(rng, (B, Hkv, ns, G), torch.float32).abs() + 0.1
-    got = combine_splits(o, m, l, dtype)
-    torch.cuda.synchronize()
-    want = combine_splits_plain(o, m, l, dtype)
-    rec = {"kernel": "decode_combine", "dtype": dt_name(dtype),
-           "case": f"B{B} Hkv{Hkv} ns{ns} G{G} D{D}",
-           "max_abs_err": max_err(got, want), "tol": TOL[dtype]}
-    if timed:
-        nbytes = 4 * (o.numel() + m.numel() + l.numel()) + got.numel() * got.element_size()
-        flops = 2.0 * o.numel() + 4.0 * m.numel()
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, torch.float32)
-        rec["ms"] = time_ms(lambda: combine_splits(o, m, l, dtype))
-        rec["plain_ms"] = time_ms(lambda: combine_splits_plain(o, m, l, dtype))
-        rec["library_ms"] = None     # no single PyTorch call computes it
+        rec["library_ms"] = time_ms(sdpa_decode(q, k, v, vl))
+        rec["library_device_ms"] = device_ms(sdpa_decode(q, k, v, vl))
     return rec
 
 
@@ -235,25 +309,54 @@ def check_rmsnorm(rng, *, R, D, dtype, w_dtype, offset, residual, timed):
         nbytes = (2 + int(residual)) * x.numel() * x.element_size() + w.numel() * w.element_size()
         flops = (4.0 + int(residual)) * x.numel()
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, torch.float32)
-        rec["ms"] = time_ms(lambda: rmsnorm(x, w, eps=1e-6, offset=offset, residual=r))
+        call = lambda: rmsnorm(x, w, eps=1e-6, offset=offset, residual=r)  # noqa: E731
+        rec["ms"] = time_ms(call)
+        rec["device_ms"] = device_ms(call)
         rec["plain_ms"] = time_ms(lambda: rmsnorm_plain(x, w, eps=1e-6, offset=offset, residual=r))
         if not offset and not residual:
-            rec["library_ms"] = time_ms(lambda: F.rms_norm(x, (D,), w.to(dtype), 1e-6))
+            wd = w.to(dtype)
+            lib = lambda: F.rms_norm(x, (D,), wd, 1e-6)  # noqa: E731
+            rec["library_ms"] = time_ms(lib)
+            rec["library_device_ms"] = device_ms(lib)
         else:
-            rec["library_ms"] = None
+            rec["library_ms"] = rec["library_device_ms"] = None
     return rec
+
+
+def check_plans(recs_plans: dict) -> None:
+    """The wrappers' host-side plans against what the compiled kernels
+    report: K1's tiles and shared memory, K2's rows an iteration."""
+    import importlib
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    dec = importlib.import_module("repro_torch.kernels.decode_attention")
+    for D in fa.SUPPORTED_D:
+        mine, theirs = fa.tile_plan(D), fa.kernel_plan(D)
+        recs_plans[f"flash D{D}"] = theirs
+        if mine != theirs:
+            fail(f"flash_attention plan D={D}: wrapper {mine}, kernel {theirs}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in dec.SUPPORTED_D:
+            for G in dec.SUPPORTED_G:
+                sm_count, per_sm, rows = dec.kernel_plan(dev, G, D, dtype)
+                recs_plans[f"decode {dt_name(dtype)} D{D} G{G}"] = {
+                    "sm_count": sm_count, "blocks_per_sm": per_sm, "rows_per_iter": rows}
+                want = dec.rows_per_iter(D, torch.tensor([], dtype=dtype).element_size())
+                if rows != want or per_sm < 1:
+                    fail(f"decode_attention plan {dt_name(dtype)} D={D} G={G}: kernel "
+                         f"{(per_sm, rows)}, wrapper rows {want}")
 
 
 def phase_kernels():
     """Returns (all records, {kernel name: record at the serving path's shape})."""
     from repro_torch import kernels as K
-    from repro_torch.kernels.decode_attention import split_plan
     rng = np.random.default_rng(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
-    recs, main = [], {}
+    recs, main, plans = [], {}, {}
+    check_plans(plans)
 
     # --- K1 at the serving path's shapes (prefill: B=1, the model's layout) ...
-    for S in (64, 1000, 2048):
+    for S in (64, 512, 1000, 2048):
         for dtype in (bf16, f32):
             recs.append(check_flash(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, causal=True,
                                     window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
@@ -261,14 +364,16 @@ def phase_kernels():
                 main["flash_attention"] = recs[-1]
     # ... and at edge shapes
     for dtype in (bf16, f32):
-        edge = [dict(B=2, H=16, Hkv=16, Sq=200, Sk=200, D=256, causal=True, window=0),   # gemma: D=256, G=1
+        edge = [dict(B=2, H=24, Hkv=8, Sq=777, Sk=777, D=128, causal=True, window=0, bshd=True),  # batch, ragged
+                dict(B=1, H=16, Hkv=16, Sq=512, Sk=512, D=256, causal=True, window=0),   # gemma: D=256, G=1
+                dict(B=2, H=16, Hkv=16, Sq=200, Sk=200, D=256, causal=True, window=0),
                 dict(B=2, H=8, Hkv=1, Sq=192, Sk=192, D=64, causal=True, window=0),      # MQA, G=8, ragged
                 dict(B=2, H=4, Hkv=2, Sq=160, Sk=160, D=64, causal=True, window=64),     # sliding window
                 dict(B=1, H=4, Hkv=2, Sq=300, Sk=300, D=128, causal=False, window=64),   # window alone
                 dict(B=1, H=4, Hkv=1, Sq=128, Sk=256, D=64, causal=False, window=0),     # Sq != Sk
                 dict(B=1, H=6, Hkv=2, Sq=70, Sk=33, D=128, causal=True, window=0)]       # rows with no key in range
-        for e in edge:
-            recs.append(check_flash(rng, **e, dtype=dtype, timed=False))
+        for i, e in enumerate(edge):
+            recs.append(check_flash(rng, **e, dtype=dtype, timed=dtype is bf16 and i < 2))
 
     # --- K2 at the serving path's shape (8 slots, ring cache of 2048, the model's layout) ...
     mixed = [1, 2048, 17, 1024, 300, 2047, 64, 1500]
@@ -279,6 +384,12 @@ def phase_kernels():
             main["decode_attention"] = recs[-1]
     recs.append(check_decode(rng, B=8, H=24, Hkv=8, T=2048, D=128, valid=[2048] * 8, dtype=bf16,
                              timed=True, bthd=True))
+    # ... at qwen2.5-32b's group (G=5) and with a long cache (many splits) ...
+    for dtype in (bf16, f32):
+        recs.append(check_decode(rng, B=4, H=40, Hkv=8, T=1500, D=128, valid=None, dtype=dtype,
+                                 timed=dtype is bf16, bthd=True))
+        recs.append(check_decode(rng, B=2, H=24, Hkv=8, T=16384, D=128, valid=[16384, 9000],
+                                 dtype=dtype, timed=dtype is bf16, bthd=True))
     # ... and at edge shapes
     for dtype in (bf16, f32):
         recs.append(check_decode(rng, B=2, H=16, Hkv=16, T=300, D=256, valid=[300, 7], dtype=dtype,
@@ -287,14 +398,12 @@ def phase_kernels():
                                  timed=False))                                   # MQA, G=8
         recs.append(check_decode(rng, B=3, H=14, Hkv=2, T=512, D=128, valid=[0, 512, 100],
                                  dtype=dtype, timed=False, bthd=True))           # G=7, a dead row
-    ns, _ = split_plan(8, 8, 2048,
-                       sm_count=torch.cuda.get_device_properties(0).multi_processor_count)
-    for dtype in (bf16, f32):
-        recs.append(check_combine(rng, B=8, Hkv=8, ns=ns, G=3, D=128, dtype=dtype,
-                                  timed=dtype is bf16))
-        if dtype is bf16:
-            main["decode_combine"] = recs[-1]
-    recs.append(check_combine(rng, B=2, Hkv=3, ns=1, G=8, D=64, dtype=f32, timed=False))
+        recs.append(check_decode(rng, B=2, H=4, Hkv=2, T=256, D=64, valid=[256, 255],
+                                 dtype=dtype, timed=False))                      # G=2
+        recs.append(check_decode(rng, B=128, H=24, Hkv=8, T=256, D=128, valid=None, dtype=dtype,
+                                 timed=False, bthd=True))                        # one split
+    if not any(r["splits"] == 1 for r in recs if r["kernel"] == "decode_attention"):
+        fail("no decode case ran with a single split")
 
     # --- K3 at the serving path's shapes (R = slots or prompt length, D = 3072) ...
     for R in (8, 1000):
@@ -316,10 +425,70 @@ def phase_kernels():
 
     K.reset_launch_counts()
     bad = [r for r in recs if not (r["max_abs_err"] <= r["tol"])]   # a NaN is bad too
-    emit({"phase": "kernels", "checks": recs, "failed": len(bad)})
+    emit({"phase": "kernels", "plans": plans, "checks": recs, "failed": len(bad)})
     if bad:
         fail(f"{len(bad)} kernel check(s) over tolerance: {bad}")
     return recs, main
+
+
+def sass_check() -> dict:
+    """Counts of wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the
+    flash-attention library; fails if either is missing, so a K1 that quietly
+    stopped using the tensor cores or TMA does not pass."""
+    from repro_torch.kernels import _build
+    _build.load("flash_attention")                      # built if need be
+    lib = _build._target("flash_attention")[1]
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    rec = {"phase": "sass", "library": os.path.basename(lib), "counts": counts}
+    emit(rec)
+    missing = [op for op, n in counts.items() if n == 0]
+    if missing:
+        fail(f"no {missing} instructions in {lib}: K1 is not on the tensor cores / TMA")
+    return counts
+
+
+def phase_times():
+    """The serving shapes of K1 and K2 in bf16 through the wrappers' plain
+    signatures, which every tree of the port has: ms and device_ms."""
+    from repro_torch.kernels import decode_attention, flash_attention
+    rng = np.random.default_rng(SEED)
+    bf16 = torch.bfloat16
+    out = []
+    for S in (512, 1000, 2048):
+        q, k, v = flash_inputs(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)
+        call = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+        out.append({"kernel": "flash_attention", "case": f"B1 H24 Hkv8 S{S} D128 causal bshd",
+                    "ms": time_ms(call), "device_ms": device_ms(call)})
+    for valid in ([2048] * 8, [1, 2048, 17, 1024, 300, 2047, 64, 1500]):
+        q, k, v, vl = decode_inputs(rng, B=8, H=24, Hkv=8, T=2048, D=128, valid=valid,
+                                    dtype=bf16, bthd=True)
+        call = lambda: decode_attention(q, k, v, kv_valid_len=vl)  # noqa: E731
+        out.append({"kernel": "decode_attention", "case": f"B8 H24 Hkv8 T2048 D128 valid{valid}",
+                    "ms": time_ms(call), "device_ms": device_ms(call)})
+    emit({"phase": "times", "src": SRC, "records": out})
+
+
+def phase_baseline(other: str) -> None:
+    """phase_times for the tree at ``other`` and for this one, in turns
+    (other, this, this, other), each in a process of its own."""
+    other_src = os.path.join(os.path.abspath(other), "src")
+    if not os.path.isdir(os.path.join(other_src, "repro_torch")):
+        fail(f"--baseline-src: no src/repro_torch under {other}")
+    runs = []
+    for label, src in (("baseline", other_src), ("this", SRC), ("this", SRC),
+                       ("baseline", other_src)):
+        env = dict(os.environ, CHIP_SMOKE_SRC=src)
+        env.pop("REPRO_TORCH_BUILD_DIR", None)     # each tree builds into its own build/
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--phases", "times"],
+                             capture_output=True, text=True, timeout=900, env=env)
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith('{"phase": "times"')]
+        if res.returncode != 0 or not lines:
+            fail(f"baseline run of {src} failed (exit {res.returncode}):\n{res.stderr[-4000:]}")
+        runs.append({"tree": label, **json.loads(lines[0])})
+    emit({"phase": "baseline", "runs": runs})
 
 
 # --------------------------------------------------------------------------
@@ -391,7 +560,7 @@ def phase_serve():
     L = cfg.num_layers
     norms = 2 * L + 1
     want = {"flash_attention": L * len(reqs), "decode_attention": L * steps,
-            "decode_combine": L * steps, "rmsnorm": norms * (len(reqs) + steps)}
+            "rmsnorm": norms * (len(reqs) + steps)}
     toks = sum(len(r.tokens) for r in reqs)
     ttft = [r.ttft_s * 1e3 for r in reqs]
     rec = {"phase": "serve", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
@@ -517,8 +686,6 @@ KERNEL_INFO = {
                         "src/repro/kernels/flash_attention.py:104"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:67"),
-    "decode_combine": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                       "src/repro/kernels/decode_attention.py:89"),
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:45"),
 }
@@ -527,8 +694,12 @@ KERNEL_INFO = {
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="env,build,kernels,serve,parity",
-                    help="comma-separated subset of env,build,kernels,serve,parity; the "
-                         "closing lines are printed only when all five ran")
+                    help="comma-separated subset of env,build,kernels,serve,parity (and times, "
+                         "the serving-shape timings alone); the closing lines are printed only "
+                         "when the five of the default ran")
+    ap.add_argument("--baseline-src", metavar="DIR", default=None,
+                    help="also time the serving-shape kernels of the tree at DIR beside this "
+                         "tree's, in turns, on this card")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile 10 decode steps and a prefill of the full model with "
                          "torch.profiler; the tables by kernel are written to DIR")
@@ -539,8 +710,8 @@ def main(argv=None) -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script measures on a CUDA device only")
-    if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
-        fail("src/repro_torch is missing beside chip_smoke.py")
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        fail(f"src/repro_torch is missing ({SRC})")
     from repro_torch.kernels import _build
 
     smi = gpu_name_and_power()
@@ -566,6 +737,11 @@ def main(argv=None) -> int:
                 print(f"--- nvcc {name}.cu ---\n{log}", file=sys.stderr)
         emit({"phase": "build", "seconds": _build.build_seconds, "sources": list(_build.SOURCES),
               "build_dir": os.path.relpath(_build.build_dir(), HERE)})
+        sass_check()
+    if "times" in phases:
+        phase_times()
+    if args.baseline_src:
+        phase_baseline(args.baseline_src)
     main_recs = counts = None
     if "kernels" in phases:
         _, main_recs = phase_kernels()
@@ -586,8 +762,10 @@ def main(argv=None) -> int:
             fail(f"kernel {name} was not launched on the serving path")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[name], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"],
+                        "library_device_ms": r["library_device_ms"],
                         "shape": r["case"], "dtype": r["dtype"]})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -6,7 +6,7 @@ can show that its path went through the kernels.
 """
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
-    combine_splits, combine_splits_plain, decode_attention, decode_attention_plain,
+    combine_splits_plain, decode_attention, decode_attention_plain,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
@@ -15,7 +15,6 @@ _COUNTED = {
     "rmsnorm": rmsnorm,
     "flash_attention": flash_attention,
     "decode_attention": decode_attention,
-    "decode_combine": combine_splits,
 }
 
 
@@ -28,6 +27,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["ops", "ref", "decode_attention", "flash_attention", "rmsnorm", "combine_splits",
+__all__ = ["ops", "ref", "decode_attention", "flash_attention", "rmsnorm",
            "decode_attention_plain", "flash_attention_plain", "rmsnorm_plain",
            "combine_splits_plain", "launch_counts", "reset_launch_counts"]

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for ``sm_90a``
 into its own shared library with a plain C interface and loaded with
 ``ctypes``; the sources include no PyTorch header, so a build takes seconds.
 Libraries go to ``build/repro_torch_kernels/`` at the repository root (or to
-``$REPRO_TORCH_BUILD_DIR``), named by a hash of source and flags, so an edit
-rebuilds and an unchanged source is reused.
+``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source, of every header
+and source under ``csrc/`` and of the flags, so an edit anywhere there
+rebuilds and an unchanged tree is reused.
 
 Nothing here catches a failure and carries on: a missing compiler, a compile
 error or a missing symbol raises.
@@ -49,13 +50,21 @@ def find_nvcc() -> str:
                        "the CUDA kernels of repro_torch cannot be built")
 
 
+def source_hash(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, of every ``*.cuh`` and ``*.cu`` under
+    ``csrc/`` (whatever a source may include) and of the flags."""
+    h = hashlib.sha256()
+    h.update(name.encode())
+    for f in sorted([*CSRC.rglob("*.cuh"), *CSRC.rglob("*.cu")]):
+        h.update(f.relative_to(CSRC).as_posix().encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256()
-    h.update(src.read_bytes())
-    h.update((CSRC / "common.cuh").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return src, build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return src, build_dir() / f"lib{name}_{source_hash(name)}.so"
 
 
 def _start(name: str, extra_flags: tuple[str, ...] = ()):

@@ -5,6 +5,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 // Score of a masked position, as in the reference kernels (-0.7 * FLT_MAX).
@@ -39,6 +40,14 @@ template <> __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bf
   const float2 a = __bfloat1622float2(lo);
   const float2 b = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// 2^x by the special-function unit (flushes denormal results to 0, which
+// the sums cannot tell from the reference's exp).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

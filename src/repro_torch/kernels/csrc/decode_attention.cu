@@ -1,68 +1,110 @@
-// Split-KV single-token attention (flash-decode) and the combine of its splits.
+// Split-KV single-token attention (flash-decode) with the combine of its
+// splits fused in.
 //
 // Replaces the TPU kernel `_decode_kernel` of src/repro/kernels/decode_attention.py
 // and the array code that merges its partial results (`decode_attention`,
 // the lines after the pallas_call).
 //
 // On this card the function is bound by bytes: every valid K and V row is
-// read once for 4*G*D operations, far below the card's operations-per-byte
-// ridge.  So the design is about reading the cache once, in whole 32-byte
-// sectors, with enough blocks in flight: the cache is read where it lies
-// through strides (the model keeps it as (B,T,Hkv,D); no transposed copy is
-// made), the KV length is cut into splits so that B*Hkv*splits blocks cover
-// the card at small batch, rows at or past kv_valid_len[b] are never read,
-// and the G query heads of one KV head share each K/V row that is loaded.
-// G is 1 to 8 in the supported models, below any tensor-core tile, so both
-// products are multiply-and-reduce in fp32: a warp takes one cache row at a
-// time, lane L holding elements L, L+32, ... of it, and keeps an online
-// softmax (m, l, acc) per query head; the block's warps are merged in shared
-// memory at the end.
+// read once for 4*G*D operations (G <= 8 q heads a kv head), far below the
+// card's operations-per-byte ridge, and G is below any tensor-core tile.  So
+// the CUDA cores do the arithmetic (no tensor core is needed) and the design
+// is about keeping bytes in flight:
+//   * 16-byte loads: a row of D elements is read by D*size/16 lanes (16 lanes
+//     for bf16 at D = 128, so one load instruction of a warp covers 2 rows);
+//   * each lane issues the K and V loads of NI rows (4 for one vector a row)
+//     before it uses any of them, and the loads of the next NI rows before
+//     it uses these, then computes the NI x G scores (the dot of a row is
+//     summed over its lanes by xor shuffles) and makes ONE online-softmax
+//     update a head for those rows;
+//   * the wrapper cuts T into splits so that B*Hkv*splits blocks fill the
+//     card once at this kernel's measured occupancy, each split a whole
+//     number of the block's iterations;
+//   * the kernel is instantiated for each group size G, so registers hold
+//     exactly G heads.
+// The cache is read where it lies through strides (the model keeps it as
+// (B,T,Hkv,D); no transposed copy), and rows at or past kv_valid_len[b],
+// which stays on the device, are never read.
 //
-// Partial results use the reference's layout: o (B,Hkv,ns,G,D) normalised,
-// m and l (B,Hkv,ns,G), all fp32.  A split with no valid row writes
-// (o=0, m=-1e30, l=0) without touching K or V.
+// The combine is fused: every block writes its partial (acc, m, l) to
+// scratch, and the last block of a (b, kv head) to finish, found by an atomic
+// counter after a __threadfence, merges the splits, writes the output in q's
+// dtype and resets the counter to 0 for the next launch.  With one split the
+// block writes the output directly.  One launch a layer a decode step.
 #include "common.cuh"
 
-#define DEC_THREADS 256
-#define DEC_WARPS (DEC_THREADS / 32)
-#define DEC_MAXG 8
+#define DEC_WARPS 4
+#define DEC_THREADS (32 * DEC_WARPS)
 
-struct DecodeParams {
-  const void* q; const void* k; const void* v; const int* valid;
-  float* o_part; float* m_part; float* l_part;
-  int H, Hkv, G, T, ns, chunk;
-  long long k_sb, k_sh, k_st, v_sb, v_sh, v_st;
-  float scale;
+// Rows one lane keeps in flight, per (element size, D); mirrored by
+// kernels/decode_attention.py `rows_per_iter`.
+template <typename T, int D> struct DecPlan {
+  static constexpr int VEC = 16 / (int)sizeof(T);        // elements a 16-byte load
+  static constexpr int LPR = D / VEC < 32 ? D / VEC : 32;  // lanes a row
+  static constexpr int RPW = 32 / LPR;                   // rows a warp-wide load
+  static constexpr int NV = D / (VEC * LPR);             // loads a lane a row
+  static constexpr int NI = 4 / NV;                      // rows a lane an iteration
+  static constexpr int EPL = NV * VEC;                   // elements a lane a row
+  static constexpr int ROWS_WARP = NI * RPW;
+  static constexpr int ROWS_ITER = ROWS_WARP * DEC_WARPS;  // rows a block an iteration
+  static constexpr int STREAMS = DEC_WARPS * RPW;        // softmax states a block
 };
 
-// EPL elements a lane: D = 32 * EPL.
-template <typename T, int EPL>
-__global__ void __launch_bounds__(DEC_THREADS) decode_partial_kernel(const DecodeParams p) {
-  constexpr int D = 32 * EPL;
-  extern __shared__ __align__(16) float smem[];
-  const int G = p.G;
-  float* qs = smem;                        // G * D
-  float* wacc = qs + G * D;                // DEC_WARPS * G * D
-  float* wm = wacc + DEC_WARPS * G * D;    // DEC_WARPS * G
-  float* wl = wm + DEC_WARPS * G;          // DEC_WARPS * G
+struct DecodeParams {
+  const void* q; const void* k; const void* v; const int* valid; void* out;
+  float* part_acc; float* part_m; float* part_l; int* counter;
+  int H, Hkv, T, ns, chunk;
+  long long k_sb, k_sh, k_st, v_sb, v_sh, v_st;
+  float scale_log2;   // softmax scale * log2(e)
+};
+
+template <typename T> __device__ __forceinline__ void unpack16(const uint4& r, float* f);
+template <> __device__ __forceinline__ void unpack16<float>(const uint4& r, float* f) {
+  f[0] = __uint_as_float(r.x); f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z); f[3] = __uint_as_float(r.w);
+}
+template <> __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& r, float* f) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);              // element 2i: the low half
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+template <typename T, int G, int D>
+__global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams p) {
+  using P = DecPlan<T, D>;
+  constexpr int VEC = P::VEC, LPR = P::LPR, RPW = P::RPW, NV = P::NV, NI = P::NI, EPL = P::EPL;
+  constexpr int NS = P::STREAMS;
+  __shared__ float s_m[NS * G], s_l[NS * G];
+  __shared__ __align__(16) float s_acc[NS * G * D];
+  __shared__ int s_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = lane / LPR, lir = lane % LPR;   // row of the warp-wide load, lane in the row
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
 
-  const T* qp = (const T*)p.q + ((long long)b * p.H + (long long)hk * G) * D;   // (G, D) contiguous
-  for (int idx = tid; idx < G * D; idx += DEC_THREADS) qs[idx] = to_float<T>(qp[idx]);
-  __syncthreads();
-
-  float qr[DEC_MAXG][EPL], acc[DEC_MAXG][EPL], m[DEC_MAXG], l[DEC_MAXG];
+  // The G q heads of this kv head, pre-scaled so that a dot is a log2 score.
+  float qf[G][EPL];
+  const T* qp = (const T*)p.q + ((long long)b * p.H + (long long)hk * G) * D;
 #pragma unroll
-  for (int g = 0; g < DEC_MAXG; ++g) {
-    m[g] = MASKED_SCORE;
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      unpack16<T>(__ldg(reinterpret_cast<const uint4*>(qp + g * D + (v * LPR + lir) * VEC)),
+                  &qf[g][v * VEC]);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qf[g][v * VEC + e] *= p.scale_log2;
+    }
+
+  float acc[G][EPL], m[G], l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = MAX_FLOOR;
     l[g] = 0.f;
 #pragma unroll
-    for (int j = 0; j < EPL; ++j) {
-      acc[g][j] = 0.f;
-      qr[g][j] = g < G ? qs[g * D + lane + 32 * j] : 0.f;
-    }
+    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
   }
 
   const int t0 = split * p.chunk;
@@ -70,152 +112,241 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_partial_kernel(const Decod
   const T* kp = (const T*)p.k + b * p.k_sb + hk * p.k_sh;
   const T* vp = (const T*)p.v + b * p.v_sb + hk * p.v_sh;
 
-  for (int t = t0 + warp; t < t1; t += DEC_WARPS) {
-    const T* kr = kp + (long long)t * p.k_st;
-    const T* vr = vp + (long long)t * p.v_st;
-    float kf[EPL], vf[EPL];
+  // This warp's rows of an iteration, as raw 16-byte vectors (zeros past t1).
+  auto fetch = [&](int base, uint4 (&kd)[NI][NV], uint4 (&vd)[NI][NV]) {
 #pragma unroll
-    for (int j = 0; j < EPL; ++j) {
-      kf[j] = to_float<T>(kr[lane + 32 * j]);
-      vf[j] = to_float<T>(vr[lane + 32 * j]);
-    }
+    for (int i = 0; i < NI; ++i) {
+      const int t = base + i * RPW + sub;
 #pragma unroll
-    for (int g = 0; g < DEC_MAXG; ++g) {
-      if (g < G) {   // uniform over the block
-        float dot = 0.f;
-#pragma unroll
-        for (int j = 0; j < EPL; ++j) dot = fmaf(qr[g][j], kf[j], dot);
-        const float s = warp_sum(dot) * p.scale;
-        const float m_new = fmaxf(m[g], s);
-        const float corr = expf(m[g] - m_new);
-        const float pe = expf(s - m_new);
-        l[g] = l[g] * corr + pe;
-        m[g] = m_new;
-#pragma unroll
-        for (int j = 0; j < EPL; ++j) acc[g][j] = fmaf(pe, vf[j], acc[g][j] * corr);
+      for (int v = 0; v < NV; ++v) {
+        const int off = (v * LPR + lir) * VEC;
+        if (t < t1) {
+          kd[i][v] = __ldg(reinterpret_cast<const uint4*>(kp + (long long)t * p.k_st + off));
+          vd[i][v] = __ldg(reinterpret_cast<const uint4*>(vp + (long long)t * p.v_st + off));
+        } else {
+          kd[i][v] = make_uint4(0u, 0u, 0u, 0u);
+          vd[i][v] = kd[i][v];
+        }
       }
     }
+  };
+
+  uint4 kr[NI][NV], vr[NI][NV];
+  int base = t0 + warp * P::ROWS_WARP;
+  fetch(base, kr, vr);
+  for (; base < t1; base += P::ROWS_ITER) {
+    // The next iteration's loads go out before this one's rows are used, so
+    // a warp keeps two iterations of rows in flight.
+    uint4 kn[NI][NV], vn[NI][NV];
+    fetch(base + P::ROWS_ITER, kn, vn);
+    // ... then the NI x G scores, each summed over the LPR lanes of its row ...
+    float sc[NI][G];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      float kf[EPL];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) unpack16<T>(kr[i][v], &kf[v * VEC]);
+      const bool ok = base + i * RPW + sub < t1;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) dot = fmaf(qf[g][e], kf[e], dot);
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        sc[i][g] = ok ? dot : -INFINITY;
+      }
+    }
+    // ... and one online-softmax update a head for the NI rows.
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = sc[0][g];
+#pragma unroll
+      for (int i = 1; i < NI; ++i) mx = fmaxf(mx, sc[i][g]);
+      const float mn = fmaxf(m[g], mx);   // >= MAX_FLOOR: finite
+      const float corr = fast_exp2(m[g] - mn);
+      m[g] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < NI; ++i) {
+        sc[i][g] = fast_exp2(sc[i][g] - mn);   // a masked row gives exactly 0
+        sum += sc[i][g];
+      }
+      l[g] = l[g] * corr + sum;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] *= corr;
+    }
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      float vf[EPL];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) unpack16<T>(vr[i][v], &vf[v * VEC]);
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(sc[i][g], vf[e], acc[g][e]);
+    }
+#pragma unroll
+    for (int i = 0; i < NI; ++i)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        kr[i][v] = kn[i][v];
+        vr[i][v] = vn[i][v];
+      }
   }
 
-  // Merge the warps of the block.
+  // Merge the block's softmax states (one per warp and row of a warp-wide load).
+  const int st = warp * RPW + sub;
 #pragma unroll
-  for (int g = 0; g < DEC_MAXG; ++g) {
-    if (g < G) {
-      if (lane == 0) { wm[warp * G + g] = m[g]; wl[warp * G + g] = l[g]; }
+  for (int g = 0; g < G; ++g) {
+    if (lir == 0) { s_m[st * G + g] = m[g]; s_l[st * G + g] = l[g]; }
 #pragma unroll
-      for (int j = 0; j < EPL; ++j) wacc[(warp * G + g) * D + lane + 32 * j] = acc[g][j];
-    }
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        s_acc[(st * G + g) * D + (v * LPR + lir) * VEC + e] = acc[g][v * VEC + e];
   }
   __syncthreads();
 
-  const long long part = ((long long)b * p.Hkv + hk) * p.ns + split;   // index over (B,Hkv,ns)
+  const long long bh = (long long)b * p.Hkv + hk;
+  T* out = (T*)p.out + (bh * G) * D;            // (G, D) rows of this kv head
+  const long long part = bh * p.ns + split;     // index over (B, Hkv, ns)
   for (int idx = tid; idx < G * D; idx += DEC_THREADS) {
     const int g = idx / D, d = idx % D;
     float mm = MAX_FLOOR;
 #pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) mm = fmaxf(mm, wm[w * G + g]);
-    float ll = 0.f, oo = 0.f;
+    for (int s = 0; s < NS; ++s) mm = fmaxf(mm, s_m[s * G + g]);
+    float ll = 0.f, aa = 0.f;
 #pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) {
-      const float e = expf(wm[w * G + g] - mm);
-      ll += wl[w * G + g] * e;
-      oo += wacc[(w * G + g) * D + d] * e;
+    for (int s = 0; s < NS; ++s) {
+      const float w = fast_exp2(s_m[s * G + g] - mm);
+      ll += s_l[s * G + g] * w;
+      aa += s_acc[(s * G + g) * D + d] * w;
     }
-    p.o_part[(part * G + g) * D + d] = oo / fmaxf(ll, 1e-30f);
-    if (d == 0) { p.m_part[part * G + g] = mm; p.l_part[part * G + g] = ll; }
-  }
-}
-
-// out[b, hk*G+g, :] = sum_s o_s w_s / max(sum_s w_s, 1e-30), w_s = l_s exp(m_s - max_s m_s).
-// One block for each (b, hk, g).
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ o_part,
-                                      const float* __restrict__ m_part,
-                                      const float* __restrict__ l_part, T* __restrict__ out,
-                                      int G, int ns, int D) {
-  const long long bh = blockIdx.x;   // over (B, Hkv)
-  const int g = blockIdx.y;
-  float mm = m_part[(bh * ns) * G + g];
-  for (int s = 1; s < ns; ++s) mm = fmaxf(mm, m_part[(bh * ns + s) * G + g]);
-  float denom = 0.f;
-  for (int s = 0; s < ns; ++s) {
-    const long long i = (bh * ns + s) * G + g;
-    denom += l_part[i] * expf(m_part[i] - mm);
-  }
-  const float inv = 1.0f / fmaxf(denom, 1e-30f);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float num = 0.f;
-    for (int s = 0; s < ns; ++s) {
-      const long long i = (bh * ns + s) * G + g;
-      num += o_part[i * D + d] * (l_part[i] * expf(m_part[i] - mm));
+    if (p.ns == 1) {
+      out[idx] = from_float<T>(aa / fmaxf(ll, 1e-30f));
+    } else {
+      p.part_acc[(part * G + g) * D + d] = aa;
+      if (d == 0) { p.part_m[part * G + g] = mm; p.part_l[part * G + g] = ll; }
     }
-    out[(bh * G + g) * D + d] = from_float<T>(num * inv);
   }
+  if (p.ns == 1) return;
+
+  // The last block of this (b, kv head) to finish merges the splits.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&p.counter[bh], 1) == p.ns - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const long long part0 = bh * p.ns;
+  for (int idx = tid; idx < G * D; idx += DEC_THREADS) {
+    const int g = idx / D, d = idx % D;
+    float mm = MAX_FLOOR;
+    for (int s = 0; s < p.ns; ++s) mm = fmaxf(mm, __ldcg(&p.part_m[(part0 + s) * G + g]));
+    float ll = 0.f, aa = 0.f;
+    for (int s = 0; s < p.ns; ++s) {
+      const long long i = (part0 + s) * G + g;
+      const float w = fast_exp2(__ldcg(&p.part_m[i]) - mm);
+      ll += __ldcg(&p.part_l[i]) * w;
+      aa += __ldcg(&p.part_acc[i * D + d]) * w;
+    }
+    out[idx] = from_float<T>(aa / fmaxf(ll, 1e-30f));
+  }
+  if (tid == 0) p.counter[bh] = 0;   // ready for the next launch
 }
 
-template <typename T, int EPL>
-static cudaError_t launch_partial(const DecodeParams& p, int B, cudaStream_t stream) {
-  const int D = 32 * EPL;
-  const size_t bytes =
-      ((size_t)p.G * D * (1 + DEC_WARPS) + 2 * (size_t)DEC_WARPS * p.G) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(decode_partial_kernel<T, EPL>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(p.ns, p.Hkv, B);
-  decode_partial_kernel<T, EPL><<<grid, DEC_THREADS, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
+// ---- dispatch --------------------------------------------------------------
 
-template <typename T>
-static cudaError_t launch_partial_d(const DecodeParams& p, int B, int D, cudaStream_t stream) {
+template <typename T, int G>
+static const void* kernel_for_d(int D) {
   switch (D) {
-    case 64: return launch_partial<T, 2>(p, B, stream);
-    case 128: return launch_partial<T, 4>(p, B, stream);
-    case 256: return launch_partial<T, 8>(p, B, stream);
-    default: return cudaErrorInvalidValue;
+    case 64: return (const void*)decode_kernel<T, G, 64>;
+    case 128: return (const void*)decode_kernel<T, G, 128>;
+    case 256: return (const void*)decode_kernel<T, G, 256>;
+    default: return nullptr;
   }
+}
+
+// The group sizes of the supported models (gemma-7b 1, phi4-mini 3,
+// qwen2.5-32b 5, yi-34b 7) and 2 and 8 for the edge cases.
+template <typename T>
+static const void* kernel_for_g(int G, int D) {
+  switch (G) {
+    case 1: return kernel_for_d<T, 1>(D);
+    case 2: return kernel_for_d<T, 2>(D);
+    case 3: return kernel_for_d<T, 3>(D);
+    case 5: return kernel_for_d<T, 5>(D);
+    case 7: return kernel_for_d<T, 7>(D);
+    case 8: return kernel_for_d<T, 8>(D);
+    default: return nullptr;
+  }
+}
+
+static const void* find_kernel(int dtype, int G, int D) {
+  if (dtype == DT_F32) return kernel_for_g<float>(G, D);
+  if (dtype == DT_BF16) return kernel_for_g<__nv_bfloat16>(G, D);
+  return nullptr;
+}
+
+static int rows_per_iter(int dtype, int D) {
+  if (dtype == DT_F32) {
+    switch (D) {
+      case 64: return DecPlan<float, 64>::ROWS_ITER;
+      case 128: return DecPlan<float, 128>::ROWS_ITER;
+      case 256: return DecPlan<float, 256>::ROWS_ITER;
+    }
+  } else if (dtype == DT_BF16) {
+    switch (D) {
+      case 64: return DecPlan<__nv_bfloat16, 64>::ROWS_ITER;
+      case 128: return DecPlan<__nv_bfloat16, 128>::ROWS_ITER;
+      case 256: return DecPlan<__nv_bfloat16, 256>::ROWS_ITER;
+    }
+  }
+  return 0;
+}
+
+// For (G, D, dtype) on the current device: out[0] = resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] = rows a block
+// reads an iteration, out[2] = threads a block.  Returns a CUDA error code.
+extern "C" int decode_attention_plan(int G, int D, int dtype, int* out) {
+  const void* fn = find_kernel(dtype, G, D);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, DEC_THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks;
+  out[1] = rows_per_iter(dtype, D);
+  out[2] = DEC_THREADS;
+  return 0;
 }
 
 // q (B,H,D) contiguous; k/v (B,Hkv,T,D) with strides in elements over their
-// first three dims and stride 1 over D; valid (B,) int32; partials fp32 in the
-// layout above, split s covering rows [s*chunk, (s+1)*chunk).  D is 64, 128
-// or 256, G = H/Hkv at most 8.  Returns cudaGetLastError().
+// first three dims and stride 1 over D, every row 16-byte aligned; valid (B,)
+// int32; out (B,H,D) contiguous of `dtype`.  Scratch: part_acc
+// (B,Hkv,ns,G,D), part_m and part_l (B,Hkv,ns,G) fp32, counter (B*Hkv) int32
+// that must be 0 (the kernel leaves it 0).  Split s covers rows
+// [s*chunk, (s+1)*chunk).  Returns cudaGetLastError().
 extern "C" int decode_attention_launch(
-    const void* q, const void* k, const void* v, const void* valid, void* o_part,
-    void* m_part, void* l_part, int B, int H, int Hkv, int T, int D, int ns, int chunk,
-    long long k_sb, long long k_sh, long long k_st, long long v_sb, long long v_sh,
+    const void* q, const void* k, const void* v, const void* valid, void* out, void* part_acc,
+    void* part_m, void* part_l, void* counter, int B, int H, int Hkv, int T, int D, int ns,
+    int chunk, long long k_sb, long long k_sh, long long k_st, long long v_sb, long long v_sh,
     long long v_st, float scale, int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
+  if (Hkv <= 0 || H % Hkv) return (int)cudaErrorInvalidValue;
+  const void* fn = find_kernel(dtype, H / Hkv, D);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
   DecodeParams p;
-  p.q = q; p.k = k; p.v = v; p.valid = (const int*)valid;
-  p.o_part = (float*)o_part; p.m_part = (float*)m_part; p.l_part = (float*)l_part;
-  p.H = H; p.Hkv = Hkv; p.G = H / Hkv; p.T = T; p.ns = ns; p.chunk = chunk;
+  p.q = q; p.k = k; p.v = v; p.valid = (const int*)valid; p.out = out;
+  p.part_acc = (float*)part_acc; p.part_m = (float*)part_m; p.part_l = (float*)part_l;
+  p.counter = (int*)counter;
+  p.H = H; p.Hkv = Hkv; p.T = T; p.ns = ns; p.chunk = chunk;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;
-  p.scale = scale;
-  if (p.G < 1 || p.G > DEC_MAXG) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DT_F32) return (int)launch_partial_d<float>(p, B, D, s);
-  if (dtype == DT_BF16) return (int)launch_partial_d<__nv_bfloat16>(p, B, D, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// partials as above; out (B,H,D) contiguous of `dtype`.  Returns cudaGetLastError().
-extern "C" int decode_combine_launch(const void* o_part, const void* m_part,
-                                     const void* l_part, void* out, int B, int Hkv, int G,
-                                     int ns, int D, int dtype, void* stream) {
-  if (B <= 0 || Hkv <= 0 || G <= 0) return 0;
-  const dim3 grid(B * Hkv, G);
-  const int threads = D < 128 ? 64 : 128;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DT_F32)
-    decode_combine_kernel<float><<<grid, threads, 0, s>>>(
-        (const float*)o_part, (const float*)m_part, (const float*)l_part, (float*)out, G, ns, D);
-  else if (dtype == DT_BF16)
-    decode_combine_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        (const float*)o_part, (const float*)m_part, (const float*)l_part,
-        (__nv_bfloat16*)out, G, ns, D);
-  else
-    return (int)cudaErrorInvalidValue;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  void* args[] = {&p};
+  const cudaError_t e = cudaLaunchKernel(fn, dim3(ns, Hkv, B), dim3(DEC_THREADS), args, 0,
+                                         (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

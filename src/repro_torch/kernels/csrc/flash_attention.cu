@@ -4,23 +4,44 @@
 // (driven by `flash_attention`).  That kernel gets its KV loop from a
 // sequential innermost grid axis with (m, l, acc) kept in scratch between
 // grid steps.  Here blocks run in parallel and in no order, so one block
-// owns one (batch, q head, 64-row q tile) and walks the KV tiles itself,
-// with (m, l, acc) in registers.
+// owns one (batch, q head, q tile) and walks the KV tiles itself, with
+// (m, l, acc) in registers.
 //
 // On this card the function is bound by operations (4*Sq*Sk*D a head, half
-// of it under a causal mask, against Sq*D + 2*Sk*D elements moved).  This
-// first version does both products as fp32 FMAs, as the reference widens its
-// inputs to fp32 before both dots; it does not use the tensor cores, so its
-// ceiling is the card's fp32 rate.  What it does about the bound: KV tiles
-// that the causal or window mask kills entirely are skipped, the heaviest q
-// tiles (the last ones under a causal mask) are scheduled first, K and Q are
-// read from shared memory as 16-byte vectors on a padded, conflict-free
-// stride, and each thread keeps a 4 x (D/16) tile of the output in registers.
+// of it under a causal mask, against Sq*D + 2*Sk*D elements moved), so the
+// bf16 path is built around the tensor cores:
+//
+//   * bf16 (`flash_fwd_tc_kernel`): a warp-specialised block.  Warpgroup 0
+//     is the producer: one thread issues TMA loads (Q once; K and V tiles
+//     into a ring of STAGES stages, each with a full barrier for K, one for
+//     V and an empty barrier), and the warpgroup gives registers to the
+//     consumer (setmaxnreg).  The consumer warpgroup owns 64 q rows:
+//     S = Q K^T by wgmma with both operands in shared memory (128-byte
+//     swizzle, K-major), the online softmax on the accumulator fragment in
+//     registers (exp2 with scale * log2(e) folded in, a row's max and sum
+//     over the 4 threads of a quad, masks only on tiles that straddle the
+//     causal diagonal, the window edge or the end of K), then O += P V by a
+//     second wgmma with P rounded to bf16 in registers as its A operand and V
+//     read through a transposed (MN-major) descriptor.  O stays in fp32
+//     registers.  The one numeric difference from the fp32 reference is P's
+//     rounding to bf16 before P V.
+//   * float32 (`flash_fwd_kernel`): fp32 FMAs.  TF32 tensor cores would keep
+//     about three decimal digits and miss the float32 tolerance of 2e-5, so
+//     this path stays on the CUDA cores.
+//
+// Both paths skip KV tiles that the causal or window mask kills entirely and
+// schedule the heaviest q tiles (the last ones under a causal mask) first.
 //
 // Layout: q (B,H,Sq,D), k/v (B,Hkv,Sk,D), o (B,H,Sq,D), each with free
 // strides over its first three dims and stride 1 over D, so the model's
-// (B,S,H,D) tensors are read where they lie.
+// (B,S,H,D) tensors are read where they lie: the bf16 path's tensor maps
+// are 4-D over (D, S, H, B) with the view's own strides.
 #include "common.cuh"
+#include "hopper.cuh"
+
+// ===========================================================================
+// float32: FMA kernel
+// ===========================================================================
 
 #define FA_THREADS 256
 #define FA_BQ 64     // q rows a block
@@ -194,29 +215,396 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
   }
 }
 
-template <typename T, int D>
-static cudaError_t launch(const FlashParams& p, int B, cudaStream_t stream) {
-  constexpr size_t bytes = (size_t)FlashSmem<D>::FLOATS * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((p.Sq + FA_BQ - 1) / FA_BQ, p.H, B);
-  flash_fwd_kernel<T, D><<<grid, FA_THREADS, bytes, stream>>>(p);
+
+// ===========================================================================
+// bf16: TMA + wgmma kernel
+// ===========================================================================
+
+// Tile plan of the bf16 kernel; kernels/flash_attention.py `tile_plan`
+// mirrors it (and chip_smoke.py holds the two against each other).  One
+// consumer warpgroup of 64 q rows a block: two such blocks share an SM
+// (D <= 128), which beat one block of two consumer warpgroups (128 q rows)
+// by 8-12 % at the serving shapes on an H100, and at D = 256 the block of
+// two ran out of registers.
+template <int D> struct TcPlan {
+  static constexpr int BQ = 64;        // q rows a block
+  static constexpr int BK = 64;        // kv rows a tile
+  static constexpr int STAGES = 3;     // K/V ring depth
+  static constexpr int CH = D / 64;    // 128-byte column chunks
+  static constexpr int THREADS = 256;  // a producer warpgroup and a consumer warpgroup
+  // Two blocks an SM where they fit; D = 256 takes one, so that ptxas may
+  // give a thread up to 255 registers.
+  static constexpr int MIN_BLOCKS = D < 256 ? 2 : 1;
+  // Registers moved from the producer to the consumer with setmaxnreg, where
+  // the launch bounds cap a thread at 128: 40 + 216 = 2 * 128.
+  static constexpr bool REBALANCE = MIN_BLOCKS == 2;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 216;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;   // K (or V) of one stage
+  static constexpr int BAR_BYTES = 256;
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES;
+  // MIN_BLOCKS blocks, with 1 KB reserved for each, in an SM's 228 KB.
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an sm_90 SM");
+  static_assert((3 * STAGES + 1) * 8 <= BAR_BYTES, "barriers");
+};
+
+struct TcParams {
+  __nv_bfloat16* o;
+  long long o_sb, o_sh, o_ss;
+  int H, Hkv, Sq, Sk, causal, window;
+  float scale_log2;   // softmax scale * log2(e)
+};
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int acc) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db, acc);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, acc);
+  else wgmma_rs_n256(d, a, db, acc);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ bool visible(int q, int k, const TcParams& p) {
+  return k < p.Sk && (!p.causal || k <= q) && (p.window <= 0 || k > q - p.window);
+}
+
+// Running max (log2 units) and this thread's share of the running sum of
+// its two rows.
+struct Rows { float m0, m1, l0, l1; };
+
+template <int N, typename R> __device__ __forceinline__ void fence_all(R* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(r[i]);
+}
+
+// S = Q K^T of one tile: D/16 products m64 n(BK) k16, both operands K-major.
+template <int D, int BK>
+__device__ __forceinline__ void issue_qk(float* sc, uint32_t q_addr, uint32_t k_addr) {
+  static_assert(BK == 64, "S tiles are m64n64");
+  fence_all<BK / 2>(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    const uint32_t off = (kd % 4) * 32;   // 16 values further inside the swizzle atom
+    const uint64_t da = gmma_desc(q_addr + (kd / 4) * 64 * 128 + off, 16, 1024);
+    const uint64_t db = gmma_desc(k_addr + (kd / 4) * BK * 128 + off, 16, 1024);
+    wgmma_ss_n64(sc, da, db, kd > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V of one tile: BK/16 products m64 n(D) k16, P from registers, V
+// (BK x D) through a transposed (MN-major) descriptor.
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float* o, uint32_t* pa, uint32_t v_addr) {
+  fence_all<D / 2>(o);
+  fence_all<BK / 4>(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = gmma_desc(v_addr + kk * 16 * 128, BK * 128, 1024);
+    wgmma_rs<D>(o, &pa[4 * kk], db, 1);
+  }
+  wgmma_commit();
+}
+
+// Online softmax of one S tile held as the accumulator fragment: masks it
+// where `edge`, updates the rows' max and sum, writes P = exp2(S * scale_log2
+// - m) as bf16 pairs in the A-operand layout, and returns the factors by
+// which O must be rescaled (a row's max and sum over the 4 threads of a
+// quad: two shuffles each; the sum's quad total is taken at the end).
+template <int BK>
+__device__ __forceinline__ float2 softmax_tile(float* sc, uint32_t* pa, int k0, int r0, int cq,
+                                               bool edge, const TcParams& p, Rows& rw) {
+  if (edge) {
+#pragma unroll
+    for (int jb = 0; jb < BK / 8; ++jb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * jb + cq + e;
+        if (!visible(r0, col, p)) sc[4 * jb + e] = -INFINITY;
+        if (!visible(r0 + 8, col, p)) sc[4 * jb + 2 + e] = -INFINITY;
+      }
+  }
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int jb = 0; jb < BK / 8; ++jb) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * jb], sc[4 * jb + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * jb + 2], sc[4 * jb + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // New maxima in log2 units (the scale is positive); >= MAX_FLOOR, so finite.
+  const float mn0 = fmaxf(rw.m0, mx0 * p.scale_log2), mn1 = fmaxf(rw.m1, mx1 * p.scale_log2);
+  const float c0 = fast_exp2(rw.m0 - mn0), c1 = fast_exp2(rw.m1 - mn1);
+  rw.m0 = mn0;
+  rw.m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int jb = 0; jb < BK / 8; ++jb) {
+    const float p00 = fast_exp2(fmaf(sc[4 * jb], p.scale_log2, -mn0));
+    const float p01 = fast_exp2(fmaf(sc[4 * jb + 1], p.scale_log2, -mn0));
+    const float p10 = fast_exp2(fmaf(sc[4 * jb + 2], p.scale_log2, -mn1));
+    const float p11 = fast_exp2(fmaf(sc[4 * jb + 3], p.scale_log2, -mn1));
+    rs0 += p00 + p01;
+    rs1 += p10 + p11;
+    pa[2 * jb] = pack_bf16(p00, p01);
+    pa[2 * jb + 1] = pack_bf16(p10, p11);
+  }
+  rw.l0 = rw.l0 * c0 + rs0;
+  rw.l1 = rw.l1 * c1 + rs1;
+  return make_float2(c0, c1);
+}
+
+template <int D> __device__ __forceinline__ void scale_rows(float* o, float2 c) {
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    o[4 * i] *= c.x;
+    o[4 * i + 1] *= c.x;
+    o[4 * i + 2] *= c.y;
+    o[4 * i + 3] *= c.y;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(TcPlan<D>::THREADS, TcPlan<D>::MIN_BLOCKS)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, const TcParams p) {
+  using P = TcPlan<D>;
+  constexpr int BK = P::BK, ST = P::STAGES, CH = P::CH;
+  // 128-byte swizzled tiles want 1024-byte aligned regions.
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  if (smem_u32(smem_raw) & 1023) __trap();
+  uint8_t* q_s = smem_raw;                      // [CH][64 rows][128 B]
+  uint8_t* k_s = q_s + P::Q_BYTES;              // [ST][CH][BK rows][128 B]
+  uint8_t* v_s = k_s + ST * P::KV_BYTES;        // [ST][CH][BK rows][128 B]
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(v_s + ST * P::KV_BYTES);
+  uint64_t* full_v = full_k + ST;
+  uint64_t* empty = full_v + ST;
+  uint64_t* q_full = empty + ST;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // last (heaviest under causal) q tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qt * P::BQ;
+
+  // KV range that some row of this q tile can see.
+  const int q_last = min(q0 + P::BQ, p.Sq) - 1;
+  int kv_hi = p.Sk;
+  if (p.causal) kv_hi = min(kv_hi, q_last + 1);
+  int kv_lo = 0;
+  if (p.window > 0) {
+    const int first = q0 - p.window + 1;
+    if (first > 0) kv_lo = (first / BK) * BK;
+  }
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 4);   // lane 0 of every consumer warp
+    }
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Warp-uniform by construction (a broadcast), so that ptxas may treat the
+  // two roles as regions of their own for setmaxnreg.
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ---------------- producer ----------------
+    if constexpr (P::REBALANCE) reg_dealloc<P::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, P::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        tma_load_4d(q_s + c * 64 * 128, &tq, q_full, c * 64, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        if (j >= ST) mbar_wait(&empty[s], ((j / ST) - 1) & 1);
+        const int k0 = kv_lo + j * BK;
+        mbar_arrive_expect_tx(&full_k[s], P::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          tma_load_4d(k_s + s * P::KV_BYTES + c * BK * 128, &tk, &full_k[s], c * 64, k0, hk, b);
+        mbar_arrive_expect_tx(&full_v[s], P::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          tma_load_4d(v_s + s * P::KV_BYTES + c * BK * 128, &tv, &full_v[s], c * 64, k0, hk, b);
+      }
+    }
+  } else {
+    // ---------------- consumer: the 64 q rows ----------------
+    if constexpr (P::REBALANCE) reg_alloc<P::CONSUMER_REGS>();
+    const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+    const int r0 = q0 + warp * 16 + (lane >> 2);   // this thread's rows: r0 and r0 + 8
+    const int cq = 2 * (lane & 3);                 // and columns cq, cq + 1 of every 8
+    // Whether a tile needs the mask: it straddles the causal diagonal, the
+    // window edge or the end of K (uniform over the warpgroup).
+    auto edge = [&](int k0) {
+      return (k0 + BK > p.Sk) || (p.causal && k0 + BK - 1 > q0) ||
+             (p.window > 0 && k0 <= q0 + 63 - p.window);
+    };
+    auto k_addr = [&](int s) { return smem_u32(k_s + s * P::KV_BYTES); };
+    auto v_addr = [&](int s) { return smem_u32(v_s + s * P::KV_BYTES); };
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    Rows rows{MAX_FLOOR, MAX_FLOOR, 0.f, 0.f};
+
+    const uint32_t q_addr = smem_u32(q_s);
+    mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % ST;
+      const uint32_t par = (j / ST) & 1;
+      const int k0 = kv_lo + j * BK;
+      float sc[BK / 2];
+      uint32_t pa[BK / 4];
+      mbar_wait(&full_k[s], par);
+      issue_qk<D, BK>(sc, q_addr, k_addr(s));
+      wgmma_wait<0>();
+      fence_all<BK / 2>(sc);
+      scale_rows<D>(o, softmax_tile<BK>(sc, pa, k0, r0, cq, edge(k0), p, rows));
+      mbar_wait(&full_v[s], par);
+      issue_pv<D, BK>(o, pa, v_addr(s));
+      wgmma_wait<0>();
+      fence_all<D / 2>(o);
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    float l0 = rows.l0, l1 = rows.l1;
+
+    // Epilogue: O / max(l, 1e-30), rounded to bf16, into the strided output.
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* op = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      const int col = 8 * i + cq;
+      if (r0 < p.Sq)
+        *reinterpret_cast<uint32_t*>(op + (long long)r0 * p.o_ss + col) =
+            pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+      if (r0 + 8 < p.Sq)
+        *reinterpret_cast<uint32_t*>(op + (long long)(r0 + 8) * p.o_ss + col) =
+            pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+    }
+  }
+}
+
+// ---- host side ------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 (B, heads, S, D) view with element strides (sb, sh, ss) as a 4-D map
+// over (D, S, heads, B), read in boxes of 64 x `rows`, 128-byte swizzle.
+static bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S, int D,
+                     long long sb, long long sh, long long ss, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+static cudaError_t launch_tc(const FlashParams& f, int B, cudaStream_t stream) {
+  using P = TcPlan<D>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, f.q, B, f.H, f.Sq, D, f.q_sb, f.q_sh, f.q_ss, 64) ||
+      !make_map(&tk, f.k, B, f.Hkv, f.Sk, D, f.k_sb, f.k_sh, f.k_ss, P::BK) ||
+      !make_map(&tv, f.v, B, f.Hkv, f.Sk, D, f.v_sb, f.v_sh, f.v_ss, P::BK))
+    return cudaErrorInvalidValue;
+  TcParams p;
+  p.o = (__nv_bfloat16*)f.o;
+  p.o_sb = f.o_sb; p.o_sh = f.o_sh; p.o_ss = f.o_ss;
+  p.H = f.H; p.Hkv = f.Hkv; p.Sq = f.Sq; p.Sk = f.Sk;
+  p.causal = f.causal; p.window = f.window;
+  p.scale_log2 = f.scale * 1.4426950408889634f;
+  const dim3 grid((f.Sq + P::BQ - 1) / P::BQ, f.H, B);
+  flash_fwd_tc_kernel<D><<<grid, P::THREADS, P::SMEM, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t launch_d(const FlashParams& p, int B, int D, cudaStream_t stream) {
+static cudaError_t launch_tc_d(const FlashParams& f, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
-    case 256: return launch<T, 256>(p, B, stream);
+    case 64: return launch_tc<64>(f, B, stream);
+    case 128: return launch_tc<128>(f, B, stream);
+    case 256: return launch_tc<256>(f, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+static cudaError_t launch_fma(const FlashParams& p, int B, cudaStream_t stream) {
+  constexpr size_t bytes = (size_t)FlashSmem<D>::FLOATS * sizeof(float);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<float, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((p.Sq + FA_BQ - 1) / FA_BQ, p.H, B);
+  flash_fwd_kernel<float, D><<<grid, FA_THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+static cudaError_t launch_fma_d(const FlashParams& p, int B, int D, cudaStream_t stream) {
+  switch (D) {
+    case 64: return launch_fma<64>(p, B, stream);
+    case 128: return launch_fma<128>(p, B, stream);
+    case 256: return launch_fma<256>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Strides are in elements.  D must be 64, 128 or 256; every pointer and every
-// stride a multiple of four elements.  Returns cudaGetLastError().
+// stride 16-byte aligned (TMA's rule for the bf16 path).  Returns
+// cudaGetLastError().
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int Sq,
     int Sk, int D, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
@@ -233,7 +621,24 @@ extern "C" int flash_attention_launch(
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.causal = causal; p.window = window; p.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DT_F32) return (int)launch_d<float>(p, B, D, s);
-  if (dtype == DT_BF16) return (int)launch_d<__nv_bfloat16>(p, B, D, s);
+  if (dtype == DT_F32) return (int)launch_fma_d(p, B, D, s);
+  if (dtype == DT_BF16) return (int)launch_tc_d(p, B, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 kernel's plan for D: {q rows, kv rows, stages, threads, blocks an
+// SM, shared-memory bytes} into out[6].  Returns 0, or -1 for a D the kernel
+// does not take.
+template <int D> static void plan_of(int* out) {
+  using P = TcPlan<D>;
+  out[0] = P::BQ; out[1] = P::BK; out[2] = P::STAGES; out[3] = P::THREADS;
+  out[4] = P::MIN_BLOCKS; out[5] = P::SMEM;
+}
+extern "C" int flash_attention_plan(int D, int* out) {
+  switch (D) {
+    case 64: plan_of<64>(out); return 0;
+    case 128: plan_of<128>(out); return 0;
+    case 256: plan_of<256>(out); return 0;
+    default: return -1;
+  }
 }

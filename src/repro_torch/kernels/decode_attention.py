@@ -1,11 +1,12 @@
-"""Split-KV single-token attention: wrappers, plain versions, launch counts.
+"""Split-KV single-token attention: wrapper, plain versions, launch count.
 
-Counterpart of ``repro/kernels/decode_attention.py``.  Two CUDA C++ kernels
-(``csrc/decode_attention.cu``): one writes a partial ``(o, m, l)`` for each
-(batch, kv head, split), one combines the splits.  K and V are read through
+Counterpart of ``repro/kernels/decode_attention.py``.  One CUDA C++ kernel
+(``csrc/decode_attention.cu``) computes a partial ``(acc, m, l)`` for each
+(batch, kv head, split) and, in the last block of a (batch, kv head) to
+finish, combines the splits: one launch a call.  K and V are read through
 strides, so the model's ``(B,T,Hkv,D)`` cache is passed as a permuted view
-and never copied.  For a CUDA tensor the wrappers launch the kernels or
-raise; only a tensor on the CPU takes the plain versions.
+and never copied.  For a CUDA tensor the wrapper launches the kernel or
+raises; only a tensor on the CPU takes the plain versions.
 """
 from __future__ import annotations
 
@@ -18,22 +19,36 @@ from repro_torch.kernels import _build
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 SUPPORTED_D = (64, 128, 256)
-MAX_GROUP = 8
-MIN_SPLIT_ROWS = 64       # a split shorter than this is not worth a block
-DEFAULT_SM_COUNT = 132    # used where no CUDA device is asked (plain version on the CPU)
+SUPPORTED_G = (1, 2, 3, 5, 7, 8)   # group sizes the kernel is instantiated for
+WARPS = 4                          # warps a block (DEC_WARPS in the source)
+DEFAULT_SM_COUNT = 132             # used where no CUDA device is asked (plain version on the CPU)
+DEFAULT_BLOCKS_PER_SM = 4          # likewise; on the card the kernel's measured occupancy
+
+
+def rows_per_iter(D: int, itemsize: int) -> int:
+    """Rows a block reads an iteration (``DecPlan::ROWS_ITER`` in the
+    source): a row is read in 16-byte loads by ``min(32, D*itemsize/16)``
+    lanes, and each lane keeps 4 loads of K (and 4 of V) in flight."""
+    vec = 16 // itemsize
+    lanes_a_row = min(32, D // vec)
+    loads_a_row = D // (vec * lanes_a_row)
+    return (4 // loads_a_row) * (32 // lanes_a_row) * WARPS
 
 
 def split_plan(B: int, Hkv: int, T: int, *, sm_count: int = DEFAULT_SM_COUNT,
+               blocks_per_sm: int = DEFAULT_BLOCKS_PER_SM, rows_per_iter: int = 32,
                n_splits: int | None = None) -> tuple[int, int]:
-    """(number of splits, rows a split) for a (B, Hkv, T, D) cache: enough
-    splits that B*Hkv*ns blocks give every SM two, none shorter than
-    ``MIN_SPLIT_ROWS`` rows."""
+    """(number of splits, rows a split) for a (B, Hkv, T, D) cache.  The
+    splits are as many as let B*Hkv*ns blocks fill the card once (``sm_count
+    * blocks_per_sm`` resident blocks), at least one, and each split is a
+    whole number of the block's iterations of ``rows_per_iter`` rows."""
+    T = max(T, 1)
     if n_splits is None:
-        n_splits = -(-2 * sm_count // max(B * Hkv, 1))
-        n_splits = min(n_splits, max(T // MIN_SPLIT_ROWS, 1))
-    n_splits = max(1, min(n_splits, max(T, 1)))
-    chunk = -(-max(T, 1) // n_splits)
-    return -(-max(T, 1) // chunk), chunk
+        n_splits = (sm_count * blocks_per_sm) // max(B * Hkv, 1)
+    n_splits = max(1, min(n_splits, -(-T // rows_per_iter)))
+    chunk = -(-T // n_splits)
+    chunk = -(-chunk // rows_per_iter) * rows_per_iter
+    return -(-T // chunk), chunk
 
 
 def combine_splits_plain(o_part, m_part, l_part, dtype) -> torch.Tensor:
@@ -69,15 +84,16 @@ def decode_partials_plain(q, k, v, kv_valid_len, scale, ns: int, chunk: int):
 
 def decode_attention_plain(q, k, v, *, kv_valid_len=None, scale: float | None = None,
                            n_splits: int | None = None) -> torch.Tensor:
-    """The two kernels' function in plain torch, split and combine included.
+    """The kernel's function in plain torch, split and combine included.
     q: (B,H,D); k/v: (B,Hkv,T,D) -> (B,H,D).  A row with ``kv_valid_len == 0``
-    gives 0 (the kernels' behaviour; ``ref.py`` gives the mean of V)."""
+    gives 0 (the kernel's behaviour; ``ref.py`` gives the mean of V)."""
     B, H, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if kv_valid_len is None:
         kv_valid_len = torch.full((B,), T, dtype=torch.int32, device=q.device)
-    ns, chunk = split_plan(B, Hkv, T, n_splits=n_splits)
+    ns, chunk = split_plan(B, Hkv, T, rows_per_iter=rows_per_iter(D, q.element_size()),
+                           n_splits=n_splits)
     o, m, l = decode_partials_plain(q, k, v, kv_valid_len, scale, ns, chunk)
     return combine_splits_plain(o, m, l, q.dtype)
 
@@ -87,42 +103,50 @@ def _lib():
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if lib.decode_attention_launch.argtypes is None:
         lib.decode_attention_launch.argtypes = (
-            [vp] * 7 + [ci] * 7 + [ll] * 6 + [ctypes.c_float, ci, vp])
+            [vp] * 9 + [ci] * 7 + [ll] * 6 + [ctypes.c_float, ci, vp])
         lib.decode_attention_launch.restype = ci
-        lib.decode_combine_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp]
-        lib.decode_combine_launch.restype = ci
+        lib.decode_attention_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ctypes.c_int)]
+        lib.decode_attention_plan.restype = ci
     return lib
 
 
-def combine_splits(o_part, m_part, l_part, dtype) -> torch.Tensor:
-    """Combine kernel: partials as in :func:`combine_splits_plain` -> (B,H,D)."""
-    if o_part.device.type == "cpu":
-        return combine_splits_plain(o_part, m_part, l_part, dtype)
-    if o_part.device.type != "cuda":
-        raise RuntimeError(f"combine_splits: no kernel for device {o_part.device}")
-    B, Hkv, ns, G, D = o_part.shape
-    for name, t, shape in (("o_part", o_part, (B, Hkv, ns, G, D)),
-                           ("m_part", m_part, (B, Hkv, ns, G)),
-                           ("l_part", l_part, (B, Hkv, ns, G))):
-        if (t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous()
-                or t.device != o_part.device):
-            raise ValueError(f"combine_splits: {name} must be contiguous float32 {shape} "
-                             f"on {o_part.device}")
-    out = torch.empty((B, Hkv * G, D), dtype=dtype, device=o_part.device)
-    code = _build.dtype_code(out, "combine_splits out")
-    if out.numel() == 0:
-        return out
-    _build.launch(_lib().decode_combine_launch, o_part.device, "combine_splits",
-                  o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), out.data_ptr(),
-                  B, Hkv, G, ns, D, code)
-    combine_splits.launches += 1
-    return out
+_plans: dict[tuple, tuple[int, int, int]] = {}   # (device, G, D, dtype) -> plan
+_scratch: dict[tuple, torch.Tensor] = {}          # (device, B, Hkv, ns, G, D) -> buffer
+
+
+def kernel_plan(device: torch.device, G: int, D: int, dtype: torch.dtype) -> tuple[int, int, int]:
+    """(SM count, resident blocks an SM, rows a block an iteration) of the
+    kernel for (G, D, dtype) on ``device``, asked of the card once and kept."""
+    key = (device.index, G, D, dtype)
+    plan = _plans.get(key)
+    if plan is None:
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            _build.check(_lib().decode_attention_plan(G, D, _build.DTYPE_CODES[str(dtype)], out),
+                         "decode_attention_plan")
+        sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = _plans[key] = (sm_count, out[0], out[1])
+    return plan
+
+
+def _scratch_for(device: torch.device, B: int, Hkv: int, ns: int, G: int, D: int):
+    """Pointers to the fp32 partials (acc, m, l) and the B*Hkv counters of one
+    int32 buffer kept a (device, shape).  The counters start at 0 and the
+    kernel leaves them at 0.  Calls that share a shape share the buffer, so
+    they must run on one stream."""
+    n = B * Hkv * ns * G
+    key = (device.index, B, Hkv, ns, G, D)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.zeros(n * (D + 2) + B * Hkv, dtype=torch.int32, device=device)
+    base = buf.data_ptr()
+    return base, base + 4 * n * D, base + 4 * n * (D + 1), base + 4 * n * (D + 2)
 
 
 def decode_attention(q, k, v, *, kv_valid_len=None, scale: float | None = None) -> torch.Tensor:
     """q: (B,H,D) one token a sequence; k/v: (B,Hkv,T,D), any strides over the
-    first three dims; ``kv_valid_len``: (B,) int32, rows at or past it are
-    dead.  Returns (B,H,D)."""
+    first three dims that are multiples of 16 bytes; ``kv_valid_len``: (B,)
+    int32, rows at or past it are dead.  Returns (B,H,D)."""
     B, H, D = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     if H % Hkv or k.shape != (B, Hkv, T, D) or v.shape != k.shape:
@@ -139,13 +163,17 @@ def decode_attention(q, k, v, *, kv_valid_len=None, scale: float | None = None) 
         raise ValueError(f"decode_attention: head dim {D} not supported by the kernel "
                          f"(supported: {SUPPORTED_D})")
     G = H // Hkv
-    if G > MAX_GROUP:
-        raise ValueError(f"decode_attention: {G} q heads a kv head exceed the kernel's "
-                         f"limit of {MAX_GROUP}")
-    if not q.is_contiguous():
-        raise ValueError("decode_attention: q must be contiguous")
-    if k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("decode_attention: k and v must have stride 1 over D")
+    if G not in SUPPORTED_G:
+        raise ValueError(f"decode_attention: {G} q heads a kv head; the kernel is built for "
+                         f"{SUPPORTED_G}")
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("decode_attention: q must be contiguous and 16-byte aligned")
+    item = q.element_size()
+    for name, t in (("k", k), ("v", v)):
+        if (t.stride(-1) != 1 or t.data_ptr() % 16
+                or any(s * item % 16 for s in t.stride()[:3])):
+            raise ValueError(f"decode_attention: {name} must have stride 1 over D, a 16-byte "
+                             f"aligned base and strides of whole 16 bytes, got {t.stride()}")
     if kv_valid_len is None:
         kv_valid_len = torch.full((B,), T, dtype=torch.int32, device=q.device)
     elif (kv_valid_len.shape != (B,) or kv_valid_len.dtype != torch.int32
@@ -155,19 +183,18 @@ def decode_attention(q, k, v, *, kv_valid_len=None, scale: float | None = None) 
     if B == 0 or T == 0:
         return torch.zeros((B, H, D), dtype=q.dtype, device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
-    ns, chunk = split_plan(B, Hkv, T, sm_count=sm_count)
-    o_part = torch.empty((B, Hkv, ns, G, D), dtype=torch.float32, device=q.device)
-    m_part = torch.empty((B, Hkv, ns, G), dtype=torch.float32, device=q.device)
-    l_part = torch.empty((B, Hkv, ns, G), dtype=torch.float32, device=q.device)
+    sm_count, blocks_per_sm, rows = kernel_plan(q.device, G, D, q.dtype)
+    ns, chunk = split_plan(B, Hkv, T, sm_count=sm_count, blocks_per_sm=blocks_per_sm,
+                           rows_per_iter=rows)
+    acc, m, l, counter = _scratch_for(q.device, B, Hkv, ns, G, D)
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     _build.launch(_lib().decode_attention_launch, q.device, "decode_attention",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid_len.data_ptr(),
-                  o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+                  out.data_ptr(), acc, m, l, counter,
                   B, H, Hkv, T, D, ns, chunk, *k.stride()[:3], *v.stride()[:3],
                   float(scale), code)
     decode_attention.launches += 1
-    return combine_splits(o_part, m_part, l_part, q.dtype)
+    return out
 
 
-decode_attention.launches = 0   # launches of the partial kernel by this wrapper
-combine_splits.launches = 0     # launches of the combine kernel by this wrapper
+decode_attention.launches = 0   # kernel launches made by this wrapper

@@ -110,8 +110,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors_and_launch_nothing():
     assert torch.equal(K.flash_attention(q, k, k), K.flash_attention_plain(q, k, k))
     assert torch.equal(K.decode_attention(q[:, :, 0], k, k),
                        K.decode_attention_plain(q[:, :, 0], k, k))
-    assert K.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
-                                 "decode_combine": 0}
+    assert K.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
 
 
 def test_build_is_keyed_by_source_and_needs_a_compiler(tmp_path, monkeypatch):
@@ -129,3 +128,18 @@ def test_build_is_keyed_by_source_and_needs_a_compiler(tmp_path, monkeypatch):
         _build.load("rmsnorm")                      # no compiler here: raises, no carry-on
     with pytest.raises(RuntimeError, match="error code 7"):
         _build.check(7, "x")
+
+
+def test_build_key_follows_every_header_under_csrc(tmp_path, monkeypatch):
+    """An edit to any header (not only common.cuh) changes every library's
+    name, so the next load rebuilds."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.source_hash(n) for n in _build.SOURCES}
+    assert len(set(before.values())) == len(_build.SOURCES)
+    (csrc / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text() + "\n// edited\n")
+    after = {n: _build.source_hash(n) for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)

@@ -1,0 +1,87 @@
+"""What the kernel wrappers decide on the host, as plain functions: K2's
+split plan, K1's tiles and shared memory, and the 16-byte operand rule of
+K1's TMA path.  The compiled kernels report the same plans on the card
+(``chip_smoke.py`` holds the two against each other)."""
+import importlib
+
+import pytest
+import torch
+
+# the package's names of the two wrappers hide their modules: fetch the modules
+dec = importlib.import_module("repro_torch.kernels.decode_attention")
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+
+
+@pytest.mark.parametrize("B,Hkv,T,blocks_per_sm", [
+    (8, 8, 2048, 5),     # phi4-mini serving: 8 slots, ring cache of 2048
+    (8, 8, 2048, 2),
+    (1, 8, 1000, 4),
+    (4, 8, 1500, 3),     # qwen2.5-32b's 8 kv heads
+    (2, 8, 16384, 5),    # a long cache: many splits
+    (1, 16, 300, 4),     # gemma-7b, G = 1
+    (32, 8, 2048, 5),    # more (b, kv head) pairs than resident blocks: one split
+    (1, 1, 1, 4),
+    (2, 2, 33, 16),
+])
+@pytest.mark.parametrize("rows", [8, 32, 64])
+def test_split_plan_covers_the_cache_in_one_wave(B, Hkv, T, blocks_per_sm, rows):
+    ns, chunk = dec.split_plan(B, Hkv, T, sm_count=132, blocks_per_sm=blocks_per_sm,
+                               rows_per_iter=rows)
+    assert ns >= 1 and (ns - 1) * chunk < T <= ns * chunk          # covers, no empty split
+    assert chunk % rows == 0                                       # whole iterations
+    slots = 132 * blocks_per_sm
+    assert B * Hkv * ns <= max(slots, B * Hkv)                     # one wave at most,
+    want = max(1, min(slots // (B * Hkv), -(-T // rows)))          # and as many splits as fill it
+    assert chunk - rows < T / want <= chunk                        # up to the rounding of chunks
+
+
+def test_rows_per_iter_follows_the_16_byte_loads():
+    # bf16: 16 lanes a row at D = 128, so 2 rows a load, 4 loads a lane, 4 warps
+    assert dec.rows_per_iter(128, 2) == 32
+    assert dec.rows_per_iter(64, 2) == 64
+    assert dec.rows_per_iter(256, 2) == 16
+    assert dec.rows_per_iter(64, 4) == 32
+    assert dec.rows_per_iter(128, 4) == 16
+    assert dec.rows_per_iter(256, 4) == 8      # two loads a row: 2 rows a lane
+
+
+def test_decode_raises_for_a_group_size_without_a_kernel():
+    q = torch.ones((1, 4, 64), device="meta")
+    k = torch.ones((1, 1, 8, 64), device="meta")
+    assert 4 not in dec.SUPPORTED_G
+    with pytest.raises(RuntimeError):     # meta: no kernel for the device at all
+        dec.decode_attention(q, k, k)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_tile_plan_fits_shared_memory(D):
+    plan = fa.tile_plan(D)
+    assert plan["smem_bytes"] <= fa.SMEM_LIMIT
+    assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) <= fa.SM_SMEM
+    assert plan["blocks_per_sm"] == (2 if D < 256 else 1)         # two 64-row blocks an SM
+    assert plan["q_rows"] == 64 and plan["threads"] == 256 and plan["stages"] >= 2
+    tiles = plan["q_rows"] * D * 2 + 2 * plan["stages"] * plan["kv_rows"] * D * 2
+    assert tiles + 256 == plan["smem_bytes"]
+
+
+@pytest.mark.parametrize("D", [32, 96, 512])
+def test_flash_tile_plan_rejects_what_the_kernel_lacks(D):
+    with pytest.raises(ValueError):
+        fa.tile_plan(D)
+
+
+def test_operand_check_wants_16_byte_strides():
+    base = torch.zeros((2, 300, 8, 128), dtype=torch.bfloat16)
+    fa.check_operand("q", base.permute(0, 2, 1, 3))                 # the model's layout: fine
+    fa.check_operand("q", base[:, :, :, :64].permute(0, 2, 1, 3))   # 128-byte rows of a wider one
+    odd = torch.zeros((2, 300, 8, 132), dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="16 bytes"):                # 264-byte head stride
+        fa.check_operand("q", odd.permute(0, 2, 1, 3))
+    f32 = torch.zeros((1, 4, 50, 66), dtype=torch.float32)[..., :64]
+    with pytest.raises(ValueError, match="16 bytes"):                # 264-byte rows
+        fa.check_operand("k", f32)
+    with pytest.raises(ValueError, match="stride 1"):
+        fa.check_operand("k", torch.zeros((1, 2, 64, 8)).transpose(2, 3))
+    shifted = torch.zeros(8 * 64 * 64 + 4, dtype=torch.bfloat16)[4:].view(1, 8, 64, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):         # base 8 bytes off
+        fa.check_operand("v", shifted)
