@@ -12,14 +12,17 @@ Phases, each printing one JSON object on a line of its own:
   build    compiles src/repro_torch/kernels/csrc/*.cu with nvcc (one process
            a source, started together); seconds taken; then a SASS check:
            cuobjdump must find HGMMA (wgmma) and UTMALDG (TMA loads) in the
-           flash-attention library
+           flash-attention library, 16-byte loads and stores in the rmsnorm one
   kernels  every kernel against its plain PyTorch version on the card, at the
            shapes the serving path gives it and at edge shapes, in float32
            (tolerance 2e-5: another order of summation) and bfloat16 (2e-2),
            with times: `ms` from CUDA events around a wrapper call (host work
            included), `device_ms` the call's own device time from the
-           profiler, and the same two for the library call; the kernels'
-           host-side plans against what the compiled kernels report
+           profiler, and the same two for the library call; for K3 also
+           the launch floor (the device time of a one-element fill), the
+           device time with its inputs left in L2, and the device time of
+           other launch plans; the kernels' host-side plans against what
+           the compiled kernels report
   serve    phi4-mini-3.8b at full width and depth, random weights from a
            seed, ServingEngine(slots=8, cache_len=2048), 12 requests of 16 to
            1024 prompt tokens and 32 new tokens each; checks the tokens, the
@@ -27,10 +30,11 @@ Phases, each printing one JSON object on a line of its own:
   parity   the same model cut to 4 layers, the same requests, once through
            the kernels and once through their plain versions
 
-`--baseline-src DIR` times the serving-shape kernels of the tree at DIR
-(e.g. the parent commit, unpacked) beside this tree's, in turns (DIR, here,
-here, DIR), each in a process of its own, through the wrappers' common
-signature.
+`--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) of the
+tree at DIR (e.g. the parent commit, unpacked) beside this tree's, in turns
+(DIR, here, here, DIR), each in a process of its own, through the wrappers'
+common signatures (the `times` phase; for K3 also `host_us`, the host time
+of a wrapper call, taken before the process profiles anything).
 
 Then one line {"kernels": [...]} with, for each kernel of the serving path,
 its launches in the serve phase, error, time, device time, plain version's
@@ -116,10 +120,11 @@ _flush_names = None
 _flush_i64 = None
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10, cold: bool = True) -> float:
     """The call's own device time in ms: the profiler's self device time of
     every kernel (and device copy) that ``fn`` launches, per call, over
-    ``iters`` calls with the L2 cache overwritten before each call.  The
+    ``iters`` calls with the L2 cache overwritten before each call (unless
+    not ``cold``: then the inputs stay in L2 from the call before).  The
     overwrite reads 256 MB (an int64 sum, whose kernels are left out by
     name), so L2 holds clean lines: a fill would leave up to 50 MB of dirty
     lines that the measured call would pay to write back."""
@@ -139,7 +144,8 @@ def device_ms(fn, iters: int = 10) -> float:
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         for _ in range(iters):
-            flush.sum()
+            if cold:
+                flush.sum()
             fn()
         torch.cuda.synchronize()
     # A kernel's mean time times its launches a call: the count is rounded, so
@@ -294,25 +300,88 @@ def check_decode(rng, *, B, H, Hkv, T, D, valid, dtype, timed, bthd=False):
     return rec
 
 
-def check_rmsnorm(rng, *, R, D, dtype, w_dtype, offset, residual, timed):
-    from repro_torch.kernels import rmsnorm, rmsnorm_plain
+_floor_ms = None
+
+
+def launch_floor_ms() -> float:
+    """The card's launch floor: the profiler's device time of a one-element
+    ``torch.zeros(1, device="cuda")`` fill, the least a kernel launch shows."""
+    global _floor_ms
+    if _floor_ms is None:
+        _floor_ms = device_ms(lambda: torch.zeros(1, device="cuda"))
+    return _floor_ms
+
+
+def host_us(fn, n: int = 1000, rounds: int = 5) -> float:
+    """Host time of one call in µs: ``perf_counter`` over ``n`` calls with
+    no synchronise inside (what the enqueue costs the serving loop), the
+    median of ``rounds``.  A process that has run the profiler pays more
+    for every operator afterwards, so this is taken before any profiling."""
+    times = []
+    for _ in range(rounds):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def rms_inputs(rng, R, D, dtype, w_dtype, offset, residual, misaligned=False):
+    """x, w, residual (or None).  ``misaligned``: x is a contiguous view whose
+    base lies one element past a 16-byte boundary."""
     x = randn(rng, (R, D), dtype)
+    if misaligned:
+        buf = torch.empty(R * D + 1, dtype=dtype, device="cuda")
+        buf[1:].copy_(x.reshape(-1))
+        x = buf[1:1 + R * D].view(R, D)
     w = (randn(rng, (D,), torch.float32) * 0.1 + (0.0 if offset else 1.0)).to(w_dtype)
     r = randn(rng, (R, D), dtype) if residual else None
-    got = rmsnorm(x, w, eps=1e-6, offset=offset, residual=r)
+    return x, w, r
+
+
+def check_rmsnorm(rng, *, R, D, dtype, w_dtype, offset, residual, timed, fused=False,
+                  misaligned=False):
+    """K3 against its plain version: ``rmsnorm`` (norm of x, or of x +
+    residual), or with ``fused`` ``add_rmsnorm`` (the sum, which must equal
+    torch's add bit for bit, and its norm)."""
+    import importlib
+    from repro_torch.kernels import add_rmsnorm, add_rmsnorm_plain, rmsnorm, rmsnorm_plain
+    rms = importlib.import_module("repro_torch.kernels.rmsnorm")
+    residual = residual or fused
+    x, w, r = rms_inputs(rng, R, D, dtype, w_dtype, offset, residual, misaligned)
+    if fused:
+        call = lambda: add_rmsnorm(x, r, w, eps=1e-6, offset=offset)  # noqa: E731
+        plain = lambda: add_rmsnorm_plain(x, r, w, eps=1e-6, offset=offset)  # noqa: E731
+    else:
+        call = lambda: rmsnorm(x, w, eps=1e-6, offset=offset, residual=r)  # noqa: E731
+        plain = lambda: rmsnorm_plain(x, w, eps=1e-6, offset=offset, residual=r)  # noqa: E731
+    got = call()
     torch.cuda.synchronize()
-    want = rmsnorm_plain(x, w, eps=1e-6, offset=offset, residual=r)
-    rec = {"kernel": "rmsnorm", "dtype": dt_name(dtype),
-           "case": f"R{R} D{D} w:{dt_name(w_dtype)} offset{int(offset)} residual{int(residual)}",
-           "max_abs_err": max_err(got, want), "tol": TOL[dtype]}
+    want = plain()
+    rec = {"kernel": "add_rmsnorm" if fused else "rmsnorm", "dtype": dt_name(dtype),
+           "case": f"R{R} D{D} w:{dt_name(w_dtype)} offset{int(offset)} residual{int(residual)}"
+                   + (" misaligned" if misaligned else ""),
+           "plan": rms.launch_plan(D, dtype, aligned=x.data_ptr() % 16 == 0)}
+    if fused:
+        (got_s, got), (want_s, want) = got, want
+        rec["sum_equal"] = bool(torch.equal(got_s, want_s))
+        if not rec["sum_equal"]:
+            fail(f"add_rmsnorm {rec['case']}: the sum differs from torch's add "
+                 f"(max {max_err(got_s, want_s)})")
+    rec.update(max_abs_err=max_err(got, want), tol=TOL[dtype])
     if timed:
-        nbytes = (2 + int(residual)) * x.numel() * x.element_size() + w.numel() * w.element_size()
+        nbytes = ((2 + int(residual) + int(fused)) * x.numel() * x.element_size()
+                  + w.numel() * w.element_size())
         flops = (4.0 + int(residual)) * x.numel()
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, torch.float32)
-        call = lambda: rmsnorm(x, w, eps=1e-6, offset=offset, residual=r)  # noqa: E731
+        rec["floor_device_ms"] = launch_floor_ms()
         rec["ms"] = time_ms(call)
         rec["device_ms"] = device_ms(call)
-        rec["plain_ms"] = time_ms(lambda: rmsnorm_plain(x, w, eps=1e-6, offset=offset, residual=r))
+        rec["device_ms_warm_l2"] = device_ms(call, cold=False)
+        rec["plain_ms"] = time_ms(plain)
         if not offset and not residual:
             wd = w.to(dtype)
             lib = lambda: F.rms_norm(x, (D,), wd, 1e-6)  # noqa: E731
@@ -323,12 +392,52 @@ def check_rmsnorm(rng, *, R, D, dtype, w_dtype, offset, residual, timed):
     return rec
 
 
+# K3 plans timed beside the one launch_plan picks, at the serving shapes
+RMS_PLANS = [(384, 1, 8), (192, 2, 8), (128, 3, 8), (96, 4, 8)]
+
+
+def rms_plan_times(rng) -> list:
+    """Device time of each plan of ``RMS_PLANS`` for rows of 3072 bf16, at
+    the decode (8) and prefill (1000) row counts, norm alone and with the sum,
+    each checked against the plain version."""
+    import importlib
+    from repro_torch.kernels import add_rmsnorm_plain
+    rms = importlib.import_module("repro_torch.kernels.rmsnorm")
+    bf16 = torch.bfloat16
+    chosen = rms.launch_plan(3072, bf16)
+    out = []
+    for R, with_sum in ((8, False), (1000, False), (8, True), (1000, True)):
+        x, w, r = rms_inputs(rng, R, 3072, bf16, bf16, False, with_sum)
+        want = add_rmsnorm_plain(x, r, w)[1] if with_sum else rms.rmsnorm_plain(x, w)
+        for plan in RMS_PLANS:
+            call = lambda: rms._launch(x, w, r, eps=1e-6, offset=0, with_sum=with_sum,  # noqa: E731
+                                       plan=plan)[1]
+            err = max_err(call(), want)
+            out.append({"case": f"R{R} D3072 bf16" + (" with sum" if with_sum else ""),
+                        "plan": list(plan), "chosen": plan == chosen, "max_abs_err": err,
+                        "device_ms": device_ms(call)})
+            if not err <= TOL[bf16]:
+                fail(f"rmsnorm plan {plan} at R{R}: error {err}")
+    return out
+
+
 def check_plans(recs_plans: dict) -> None:
     """The wrappers' host-side plans against what the compiled kernels
-    report: K1's tiles and shared memory, K2's rows an iteration."""
+    report: K1's tiles and shared memory, K2's rows an iteration, K3's
+    threads, chunks and vector."""
     import importlib
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     dec = importlib.import_module("repro_torch.kernels.decode_attention")
+    rms = importlib.import_module("repro_torch.kernels.rmsnorm")
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 100, 256, 3072, 5120, 7168, 12288, 12290, rms.MAX_D):
+            for aligned in (True, False):
+                mine = rms.launch_plan(D, dtype, aligned=aligned)
+                theirs = rms.kernel_plan(D, dtype, aligned=aligned)
+                recs_plans[f"rmsnorm {dt_name(dtype)} D{D} aligned{int(aligned)}"] = list(theirs)
+                if mine != theirs:
+                    fail(f"rmsnorm plan {dt_name(dtype)} D={D} aligned={aligned}: "
+                         f"wrapper {mine}, kernel {theirs}")
     for D in fa.SUPPORTED_D:
         mine, theirs = fa.tile_plan(D), fa.kernel_plan(D)
         recs_plans[f"flash D{D}"] = theirs
@@ -412,7 +521,14 @@ def phase_kernels():
                                       residual=False, timed=dtype is bf16))
             if R == 1000 and dtype is bf16:
                 main["rmsnorm"] = recs[-1]
-    # ... with the residual inside the kernel, the 1 + w form, fp32 w beside bf16 x, odd rows
+    # ... the residual added and its sum written (the block's add and the next norm) ...
+    for R in (8, 512, 1000):
+        for dtype in (bf16, f32):
+            recs.append(check_rmsnorm(rng, R=R, D=3072, dtype=dtype, w_dtype=dtype, offset=False,
+                                      residual=True, fused=True, timed=dtype is bf16))
+    # ... with the residual inside the kernel, the 1 + w form, fp32 w beside bf16 x, odd rows,
+    # D not a multiple of the 16-byte vector, a base off 16 bytes, and D above the 12288 that a
+    # shared-memory row allowed
     for dtype in (bf16, f32):
         recs.append(check_rmsnorm(rng, R=1000, D=3072, dtype=dtype, w_dtype=dtype, offset=False,
                                   residual=True, timed=dtype is bf16))
@@ -422,41 +538,80 @@ def phase_kernels():
                                   residual=True, timed=False))
         recs.append(check_rmsnorm(rng, R=300, D=7168, dtype=dtype, w_dtype=dtype, offset=False,
                                   residual=False, timed=False))
+        for fused in (False, True):
+            recs.append(check_rmsnorm(rng, R=37, D=100, dtype=dtype, w_dtype=f32, offset=True,
+                                      residual=fused, fused=fused, timed=False))
+            recs.append(check_rmsnorm(rng, R=8, D=3072, dtype=dtype, w_dtype=dtype, offset=False,
+                                      residual=fused, fused=fused, timed=False, misaligned=True))
+        recs.append(check_rmsnorm(rng, R=64, D=16384, dtype=dtype, w_dtype=dtype, offset=False,
+                                  residual=True, fused=True, timed=False))
+        recs.append(check_rmsnorm(rng, R=16, D=12290, dtype=dtype, w_dtype=f32, offset=False,
+                                  residual=False, timed=False))
+    if not any(r["plan"][2] == 1 for r in recs if "plan" in r):
+        fail("no rmsnorm case ran the scalar variant")
+    rms_plans = rms_plan_times(rng)
 
     K.reset_launch_counts()
     bad = [r for r in recs if not (r["max_abs_err"] <= r["tol"])]   # a NaN is bad too
-    emit({"phase": "kernels", "plans": plans, "checks": recs, "failed": len(bad)})
+    emit({"phase": "kernels", "plans": plans, "floor_device_ms": launch_floor_ms(),
+          "rmsnorm_plans": rms_plans, "checks": recs, "failed": len(bad)})
     if bad:
         fail(f"{len(bad)} kernel check(s) over tolerance: {bad}")
     return recs, main
 
 
+# instructions each library must hold: K1's wgmma (HGMMA) and TMA loads
+# (UTMALDG), K3's 16-byte loads and stores
+SASS_WANTED = {"flash_attention": (r"HGMMA", r"UTMALDG"),
+               "rmsnorm": (r"LDG\.E\.128", r"STG\.E\.128")}
+
+
 def sass_check() -> dict:
-    """Counts of wgmma (HGMMA) and TMA-load (UTMALDG) instructions in the
-    flash-attention library; fails if either is missing, so a K1 that quietly
-    stopped using the tensor cores or TMA does not pass."""
+    """Counts of the ``SASS_WANTED`` instructions in each library; fails if
+    one is missing, so a K1 that quietly stopped using the tensor cores or
+    TMA, or a K3 that stopped moving 16 bytes a load, does not pass."""
     from repro_torch.kernels import _build
-    _build.load("flash_attention")                      # built if need be
-    lib = _build._target("flash_attention")[1]
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
-    rec = {"phase": "sass", "library": os.path.basename(lib), "counts": counts}
-    emit(rec)
-    missing = [op for op, n in counts.items() if n == 0]
+    counts = {}
+    for name, ops in SASS_WANTED.items():
+        _build.load(name)                               # built if need be
+        lib = _build._target(name)[1]
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+    emit({"phase": "sass", "counts": counts})
+    missing = [(name, op) for name, c in counts.items() for op, n in c.items() if n == 0]
     if missing:
-        fail(f"no {missing} instructions in {lib}: K1 is not on the tensor cores / TMA")
+        fail(f"instructions missing from the kernel libraries: {missing}")
     return counts
 
 
 def phase_times():
-    """The serving shapes of K1 and K2 in bf16 through the wrappers' plain
-    signatures, which every tree of the port has: ms and device_ms."""
-    from repro_torch.kernels import decode_attention, flash_attention
+    """The serving shapes of K1, K2 and K3 in bf16 through the wrappers' plain
+    signatures, which every tree of the port has (K3's
+    ``rmsnorm(x, w, eps=, offset=, residual=)``): ms and device_ms, and for
+    K3 the host time of a call."""
+    from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
     rng = np.random.default_rng(SEED)
     bf16 = torch.bfloat16
     out = []
+    # K3's host time first, before this process runs the profiler
+    k3 = []
+    for R, residual in ((8, False), (1000, False), (1000, True)):
+        x, w, r = rms_inputs(rng, R, 3072, bf16, bf16, False, residual)
+        call = lambda x=x, w=w, r=r: rmsnorm(x, w, eps=1e-6, offset=False, residual=r)  # noqa: E731
+        k3.append(({"kernel": "rmsnorm", "case": f"R{R} D3072 residual{int(residual)}",
+                    "host_us": host_us(call)}, call))
+    # what the trimmed pieces of the wrapper cost alone (the same in every tree)
+    x = rms_inputs(rng, 8, 3072, bf16, bf16, False, False)[0]
+    dev = x.device.index
+    pieces = {"current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+              "_cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(dev),
+              "dict[str(dtype)]": lambda: {"torch.bfloat16": 1}.get(str(x.dtype)),
+              "dict[dtype]": lambda: {torch.bfloat16: 1}.get(x.dtype),
+              "current_device()": torch.cuda.current_device,
+              "empty_like(R8)": lambda: torch.empty_like(x)}
+    host_pieces_us = {name: host_us(fn, n=10000, rounds=3) for name, fn in pieces.items()}
     for S in (512, 1000, 2048):
         q, k, v = flash_inputs(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)
         call = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
@@ -468,7 +623,9 @@ def phase_times():
         call = lambda: decode_attention(q, k, v, kv_valid_len=vl)  # noqa: E731
         out.append({"kernel": "decode_attention", "case": f"B8 H24 Hkv8 T2048 D128 valid{valid}",
                     "ms": time_ms(call), "device_ms": device_ms(call)})
-    emit({"phase": "times", "src": SRC, "records": out})
+    for rec, call in k3:
+        out.append({**rec, "ms": time_ms(call), "device_ms": device_ms(call)})
+    emit({"phase": "times", "src": SRC, "records": out, "host_pieces_us": host_pieces_us})
 
 
 def phase_baseline(other: str) -> None:

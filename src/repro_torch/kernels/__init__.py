@@ -2,14 +2,17 @@
 
 ``launch_counts`` / ``reset_launch_counts`` read and zero the integer each
 wrapper adds one to where it launches its kernel (and nowhere else), so a run
-can show that its path went through the kernels.
+can show that its path went through the kernels.  ``add_rmsnorm`` launches
+the rmsnorm kernel and counts on ``rmsnorm``.
 """
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.decode_attention import (
     combine_splits_plain, decode_attention, decode_attention_plain,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (
+    add_rmsnorm, add_rmsnorm_plain, rmsnorm, rmsnorm_plain,
+)
 
 _COUNTED = {
     "rmsnorm": rmsnorm,
@@ -28,5 +31,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["ops", "ref", "decode_attention", "flash_attention", "rmsnorm",
-           "decode_attention_plain", "flash_attention_plain", "rmsnorm_plain",
+           "add_rmsnorm", "decode_attention_plain", "flash_attention_plain", "rmsnorm_plain",
+           "add_rmsnorm_plain",
            "combine_splits_plain", "launch_counts", "reset_launch_counts"]

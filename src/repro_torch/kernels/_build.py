@@ -127,20 +127,23 @@ def check(err: int, what: str) -> None:
 def launch(fn, device: torch.device, what: str, *args) -> None:
     """Call the C launch function ``fn(*args, stream)`` on PyTorch's current
     stream of ``device`` and raise if it reports an error.  Nothing
-    synchronises."""
-    if device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    synchronises.  The stream is read as a raw handle (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    building a ``Stream`` object each call)."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
         with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     check(err, what)
 
 
-DTYPE_CODES = {"torch.float32": 0, "torch.bfloat16": 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def dtype_code(t, what: str) -> int:
-    code = DTYPE_CODES.get(str(t.dtype))
+    code = DTYPE_CODES.get(t.dtype)
     if code is None:
         raise TypeError(f"{what}: dtype {t.dtype} is not supported by the kernel "
                         "(float32 and bfloat16 are)")

@@ -1,77 +1,242 @@
-// RMSNorm with an optional residual add inside the kernel.
+// RMSNorm of rows, optionally of x + residual with the rounded sum written too.
 //
 // Replaces the TPU kernel `_rmsnorm_kernel` of src/repro/kernels/rmsnorm.py
-// (driven by `rmsnorm`), which tiles 128 rows a grid step and adds the
-// residual in array code before the call.
+// (driven by `rmsnorm`, which adds the residual in array code before the call
+// and keeps a 128-row tile in VMEM).
 //
-// On this card the function is bound by bytes: each x (and residual) element
-// is read once and each output element written once, with about four
-// operations an element.  So: one block a row, the row widened to fp32 and
-// kept in shared memory between the sum of squares and the scaling pass (one
-// read of device memory, one write), and the residual summed in the same
-// pass instead of in a pass of its own.  The sum is rounded to x's type
-// before it is squared, as the array add of the reference rounds it.
+// On this card the function is bound by bytes: each element of x (and of the
+// residual) is read once and each output (and sum) element written once, with
+// about five operations an element.  At the decode shape (8 rows of 3072) the
+// bytes take a few nanoseconds, so the time there is latency: one round trip
+// to device memory, one reduction, one store.  The design:
+//
+//   * One block a row; each thread holds its part of the row in registers:
+//     C chunks of one 16-byte vector (8 bf16 or 4 fp32 values), thread t
+//     taking vectors t, t + threads, ...  Every load of x, of the residual
+//     and of w is issued before any value is used, so the whole row is in
+//     flight at once (384 threads of one vector carry a 6 KB bf16 row).  No
+//     shared-memory copy of the row: the length is limited by registers only.
+//   * w is read in 16-byte vectors as well (an fp32 w beside a bf16 x: two
+//     vectors per 8 elements).
+//   * The sum of squares: one warp-shuffle tree, one exchange of the warps'
+//     partials through a small shared array, one __syncthreads.
+//   * 16-byte stores of the sum and of the output.
+//   * The plan (threads, chunks, vector) is `rms_plan` below, mirrored on the
+//     host by kernels/rmsnorm.py `launch_plan`; `rmsnorm_plan` reports it.
+//   * A scalar variant (vector 1) of the same arithmetic takes a D that is
+//     not a multiple of the vector, or a base that is not 16-byte aligned.
+//
+// Arithmetic as the reference: fp32 statistics, x * (1/sqrt(mean + eps)) *
+// scale with scale = w or 1 + w, output rounded to x's type.  With a residual
+// the sum is rounded to x's type before it is squared (and written), as the
+// reference's array add rounds it.
 #include "common.cuh"
 
-#define RMS_THREADS 256
+#define RMS_MAX_THREADS 512
 
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(RMS_THREADS)
+template <int BYTES> struct WordOf;
+template <> struct WordOf<16> { using type = uint4; };
+template <> struct WordOf<8> { using type = uint2; };
+template <> struct WordOf<4> { using type = uint32_t; };
+template <> struct WordOf<2> { using type = uint16_t; };
+
+// N consecutive elements of T as raw bits in registers, moved by the widest
+// loads and stores their size allows (16 bytes at most).
+template <typename T, int N>
+struct Bits {
+  static constexpr int BYTES = (int)sizeof(T) * N;
+  static constexpr int WB = BYTES >= 16 ? 16 : BYTES;
+  using Word = typename WordOf<WB>::type;
+  Word w[BYTES / WB];
+
+  __device__ __forceinline__ void load(const T* p) {
+    const Word* q = reinterpret_cast<const Word*>(p);
+#pragma unroll
+    for (int i = 0; i < BYTES / WB; ++i) w[i] = q[i];
+  }
+  __device__ __forceinline__ void store(T* p) const {
+    Word* q = reinterpret_cast<Word*>(p);
+#pragma unroll
+    for (int i = 0; i < BYTES / WB; ++i) q[i] = w[i];
+  }
+  __device__ __forceinline__ float get(int i) const {
+    return to_float<T>(reinterpret_cast<const T*>(w)[i]);
+  }
+  __device__ __forceinline__ void set(int i, float v) {
+    reinterpret_cast<T*>(w)[i] = from_float<T>(v);
+  }
+};
+
+template <typename TX, typename TW, int VEC, int C>
+__global__ void __launch_bounds__(RMS_MAX_THREADS)
 rmsnorm_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
-               const TW* __restrict__ w, TX* __restrict__ out, int D, float eps,
-               int offset) {
-  extern __shared__ __align__(16) float row[];   // D floats
-  __shared__ float red[RMS_THREADS / 32];
+               const TW* __restrict__ w, TX* __restrict__ out, TX* __restrict__ sum_out,
+               int D, float eps, int offset) {
+  __shared__ float red[RMS_MAX_THREADS / 32];
+  const int n = D / VEC;                                  // vectors a row
   const size_t base = (size_t)blockIdx.x * (size_t)D;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Bits<TX, VEC> v[C], r[C];
+  Bits<TW, VEC> wv[C];
+
+  // every load first: x, the residual, w
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int i = threadIdx.x + c * blockDim.x;
+    if (i < n) v[c].load(x + base + (size_t)i * VEC);
+  }
+  if (res != nullptr) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = threadIdx.x + c * blockDim.x;
+      if (i < n) r[c].load(res + base + (size_t)i * VEC);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int i = threadIdx.x + c * blockDim.x;
+    if (i < n) wv[c].load(w + (size_t)i * VEC);
+  }
 
   float ss = 0.f;
-  for (int d = threadIdx.x; d < D; d += RMS_THREADS) {
-    float v = to_float<TX>(x[base + d]);
-    if (res != nullptr) v = to_float<TX>(from_float<TX>(v + to_float<TX>(res[base + d])));
-    row[d] = v;
-    ss += v * v;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int i = threadIdx.x + c * blockDim.x;
+    if (i < n) {
+      if (res != nullptr) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) v[c].set(e, v[c].get(e) + r[c].get(e));   // rounded to TX
+        if (sum_out != nullptr) v[c].store(sum_out + base + (size_t)i * VEC);
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float f = v[c].get(e);
+        ss += f * f;
+      }
+    }
   }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   ss = warp_sum(ss);
   if (lane == 0) red[warp] = ss;
   __syncthreads();
-  if (warp == 0) {
-    float t = lane < RMS_THREADS / 32 ? red[lane] : 0.f;
-    t = warp_sum(t);
-    if (lane == 0) red[0] = t;
-  }
-  __syncthreads();
-  const float rs = 1.0f / sqrtf(red[0] / (float)D + eps);
-  for (int d = threadIdx.x; d < D; d += RMS_THREADS) {
-    float scale = to_float<TW>(w[d]);
-    if (offset) scale = 1.0f + scale;
-    out[base + d] = from_float<TX>(row[d] * rs * scale);   // row[d] is this thread's own
+  ss = warp_sum(lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f);
+  const float rs = 1.0f / sqrtf(ss / (float)D + eps);
+
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int i = threadIdx.x + c * blockDim.x;
+    if (i < n) {
+      Bits<TX, VEC> o;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float scale = wv[c].get(e);
+        if (offset) scale = 1.0f + scale;
+        o.set(e, v[c].get(e) * rs * scale);
+      }
+      o.store(out + base + (size_t)i * VEC);
+    }
   }
 }
 
-template <typename TX, typename TW>
-static cudaError_t launch(const void* x, const void* res, const void* w, void* out,
-                          int rows, int D, float eps, int offset, cudaStream_t stream) {
-  rmsnorm_kernel<TX, TW><<<rows, RMS_THREADS, (size_t)D * sizeof(float), stream>>>(
-      (const TX*)x, (const TX*)res, (const TW*)w, (TX*)out, D, eps, offset);
+// ---------------------------------------------------------------------------
+// The plan: threads a block, chunks a thread, elements a load.
+
+static const int kVecChunks[] = {1, 2, 3, 4, 6, 8};         // vector variant
+static const int kScalarChunks[] = {1, 2, 4, 8, 16, 32};     // scalar variant
+
+struct RmsPlan {
+  int threads, chunks, vector;
+};
+
+// The fewest chunks a thread whose block, rounded up to whole warps, stays
+// within RMS_MAX_THREADS.  threads == 0: D is past what the registers hold.
+static RmsPlan rms_plan(int D, int itemsize, int aligned) {
+  const int vec = 16 / itemsize;
+  RmsPlan p{0, 0, (aligned && D % vec == 0) ? vec : 1};
+  const int n = D / p.vector;
+  const int* chunks = p.vector > 1 ? kVecChunks : kScalarChunks;
+  for (int k = 0; k < 6; ++k) {
+    const int c = chunks[k];
+    const int t = ((n + c - 1) / c + 31) / 32 * 32;
+    if (t <= RMS_MAX_THREADS) {
+      p.threads = t;
+      p.chunks = c;
+      return p;
+    }
+  }
+  return p;
+}
+
+struct RmsArgs {
+  const void *x, *res, *w;
+  void *out, *sum_out;
+  int rows, D;
+  float eps;
+  int offset, threads;
+};
+
+template <typename TX, typename TW, int VEC, int C>
+static cudaError_t run(const RmsArgs& a, cudaStream_t s) {
+  rmsnorm_kernel<TX, TW, VEC, C><<<a.rows, a.threads, 0, s>>>(
+      (const TX*)a.x, (const TX*)a.res, (const TW*)a.w, (TX*)a.out, (TX*)a.sum_out, a.D, a.eps,
+      a.offset);
   return cudaGetLastError();
 }
 
-// x, res (may be null), out: (rows, D) contiguous, of x_dtype; w: (D,) of
-// w_dtype.  D * 4 bytes must fit the 48 KB of shared memory a block gets
-// without opting in.  Returns cudaGetLastError().
+#define RMS_CASE(C) \
+  case C:           \
+    return run<TX, TW, VEC, C>(a, s);
+
+template <typename TX, typename TW, int VEC>
+static cudaError_t dispatch(const RmsArgs& a, int chunks, cudaStream_t s) {
+  if constexpr (VEC > 1) {
+    switch (chunks) { RMS_CASE(1) RMS_CASE(2) RMS_CASE(3) RMS_CASE(4) RMS_CASE(6) RMS_CASE(8) }
+  } else {
+    switch (chunks) { RMS_CASE(1) RMS_CASE(2) RMS_CASE(4) RMS_CASE(8) RMS_CASE(16) RMS_CASE(32) }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename TX, typename TW>
+static cudaError_t dispatch_vector(const RmsArgs& a, int chunks, int vector, cudaStream_t s) {
+  constexpr int VEC = 16 / (int)sizeof(TX);
+  if (vector == VEC) return dispatch<TX, TW, VEC>(a, chunks, s);
+  if (vector == 1) return dispatch<TX, TW, 1>(a, chunks, s);
+  return cudaErrorInvalidValue;
+}
+
+// out[0..2] = the plan for rows of D of x_dtype (aligned: x, residual and w
+// start on 16 bytes).  Returns 0, or cudaErrorInvalidValue past the limit.
+extern "C" int rmsnorm_plan(int D, int x_dtype, int aligned, int* out) {
+  if (D <= 0 || (x_dtype != DT_F32 && x_dtype != DT_BF16)) return (int)cudaErrorInvalidValue;
+  const RmsPlan p = rms_plan(D, x_dtype == DT_F32 ? 4 : 2, aligned);
+  out[0] = p.threads;
+  out[1] = p.chunks;
+  out[2] = p.vector;
+  return p.threads > 0 ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// x, res (may be null), out, sum_out (may be null; needs res): (rows, D)
+// contiguous, of x_dtype; w: (D,) of w_dtype.  (threads, chunks, vector) is a
+// plan the kernel is built for that covers D; vector > 1 needs every base
+// 16-byte aligned.  Returns cudaGetLastError().
 extern "C" int rmsnorm_launch(const void* x, const void* res, const void* w, void* out,
-                              int rows, int D, float eps, int offset, int x_dtype,
-                              int w_dtype, void* stream) {
+                              void* sum_out, int rows, int D, float eps, int offset,
+                              int x_dtype, int w_dtype, int threads, int chunks, int vector,
+                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (rows <= 0) return 0;
+  if (threads < 32 || threads > RMS_MAX_THREADS || threads % 32 || vector < 1 || D % vector ||
+      (long long)threads * chunks * vector < D || (sum_out != nullptr && res == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const RmsArgs a{x, res, w, out, sum_out, rows, D, eps, offset, threads};
   if (x_dtype == DT_F32 && w_dtype == DT_F32)
-    return (int)launch<float, float>(x, res, w, out, rows, D, eps, offset, s);
+    return (int)dispatch_vector<float, float>(a, chunks, vector, s);
   if (x_dtype == DT_F32 && w_dtype == DT_BF16)
-    return (int)launch<float, __nv_bfloat16>(x, res, w, out, rows, D, eps, offset, s);
+    return (int)dispatch_vector<float, __nv_bfloat16>(a, chunks, vector, s);
   if (x_dtype == DT_BF16 && w_dtype == DT_F32)
-    return (int)launch<__nv_bfloat16, float>(x, res, w, out, rows, D, eps, offset, s);
+    return (int)dispatch_vector<__nv_bfloat16, float>(a, chunks, vector, s);
   if (x_dtype == DT_BF16 && w_dtype == DT_BF16)
-    return (int)launch<__nv_bfloat16, __nv_bfloat16>(x, res, w, out, rows, D, eps, offset, s);
+    return (int)dispatch_vector<__nv_bfloat16, __nv_bfloat16>(a, chunks, vector, s);
   return (int)cudaErrorInvalidValue;
 }

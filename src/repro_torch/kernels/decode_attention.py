@@ -122,7 +122,7 @@ def kernel_plan(device: torch.device, G: int, D: int, dtype: torch.dtype) -> tup
     if plan is None:
         out = (ctypes.c_int * 3)()
         with torch.cuda.device(device):
-            _build.check(_lib().decode_attention_plan(G, D, _build.DTYPE_CODES[str(dtype)], out),
+            _build.check(_lib().decode_attention_plan(G, D, _build.DTYPE_CODES[dtype], out),
                          "decode_attention_plan")
         sm_count = torch.cuda.get_device_properties(device).multi_processor_count
         plan = _plans[key] = (sm_count, out[0], out[1])

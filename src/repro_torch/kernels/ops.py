@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.kernels.decode_attention import decode_attention as _decode_attention
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm
+from repro_torch.kernels.rmsnorm import add_rmsnorm as _add_rmsnorm, rmsnorm as _rmsnorm
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -54,3 +54,9 @@ def rmsnorm(x, w, *, eps: float = 1e-6, offset: bool = False):
 def rmsnorm_residual(x, residual, w, *, eps: float = 1e-6, offset: bool = False):
     """Norm of ``x + residual``; the sum itself is not returned."""
     return _rmsnorm(x, w, eps=eps, offset=offset, residual=residual)
+
+
+def add_rmsnorm(x, residual, w, *, eps: float = 1e-6, offset: bool = False):
+    """``(x + residual, norm(x + residual))`` in one launch: the model's
+    residual add carried into the norm that reads its result."""
+    return _add_rmsnorm(x, residual, w, eps=eps, offset=offset)

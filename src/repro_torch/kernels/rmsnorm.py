@@ -1,7 +1,9 @@
-"""RMSNorm (+ residual add inside the kernel): wrapper, plain version, launch count.
+"""RMSNorm, optionally of ``x + residual`` with the sum returned too:
+wrappers, plain versions, launch plan and launch count.
 
 Counterpart of ``repro/kernels/rmsnorm.py``.  The kernel is CUDA C++
-(``csrc/rmsnorm.cu``), one block a row.  For a CUDA tensor the wrapper
+(``csrc/rmsnorm.cu``): one block a row, the row held in registers as 16-byte
+vectors, sized by :func:`launch_plan`.  For a CUDA tensor each wrapper
 launches it or raises; only a tensor on the CPU takes the plain version.
 """
 from __future__ import annotations
@@ -12,7 +14,37 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_D = 12288   # the fp32 row must fit 48 KB of shared memory
+MAX_D = 16384          # every dtype and variant holds a row this long in registers
+MAX_THREADS = 512      # RMS_MAX_THREADS in the source
+VECTOR_CHUNKS = (1, 2, 3, 4, 6, 8)        # chunks a thread the source is built for (kVecChunks)
+SCALAR_CHUNKS = (1, 2, 4, 8, 16, 32)      # and for its scalar variant (kScalarChunks)
+
+
+def launch_plan(D: int, dtype: torch.dtype, *, aligned: bool = True) -> tuple[int, int, int]:
+    """(threads a block, chunks a thread, elements a load) of the kernel for
+    rows of ``D`` elements of ``dtype``, as ``rms_plan`` in the source computes
+    it.  A load is one 16-byte vector (8 bf16, 4 fp32) where D is a multiple
+    of it and every base is 16-byte ``aligned``, else one element.  The plan
+    takes the fewest chunks whose block, in whole warps, stays within
+    ``MAX_THREADS``."""
+    key = (D, dtype, aligned)
+    plan = _plans.get(key)
+    if plan is None:
+        vec = 16 // dtype.itemsize
+        if not aligned or D % vec:
+            vec = 1
+        n = D // vec
+        for c in VECTOR_CHUNKS if vec > 1 else SCALAR_CHUNKS:
+            warps = -(-(-(-n // c)) // 32)        # ceil(ceil(n / c) / 32)
+            if warps * 32 <= MAX_THREADS:
+                plan = _plans[key] = (warps * 32, c, vec)
+                break
+        else:
+            raise ValueError(f"rmsnorm: D={D} is past what the kernel holds in registers")
+    return plan
+
+
+_plans: dict[tuple, tuple[int, int, int]] = {}   # (D, dtype, aligned) -> launch_plan
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
@@ -29,25 +61,42 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
     return (y * scale).to(x.dtype)
 
 
-def _lib():
-    lib = _build.load("rmsnorm")
-    fn = lib.rmsnorm_launch
-    if fn.argtypes is None:
+def add_rmsnorm_plain(x: torch.Tensor, residual: torch.Tensor, w: torch.Tensor, *,
+                      eps: float = 1e-6, offset: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(s, norm(s))`` with ``s = x + residual`` rounded to ``x.dtype``."""
+    s = x + residual
+    return s, rmsnorm_plain(s, w, eps=eps, offset=offset)
+
+
+_fns: dict[str, object] = {}   # the library's C functions, argtypes set
+
+
+def _fn(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        lib = _build.load("rmsnorm")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, ctypes.c_float, ci, ci, ci, vp]
-        fn.restype = ci
+        lib.rmsnorm_launch.argtypes = [vp] * 5 + [ci, ci, ctypes.c_float] + [ci] * 6 + [vp]
+        lib.rmsnorm_launch.restype = ci
+        lib.rmsnorm_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.rmsnorm_plan.restype = ci
+        _fns.update(rmsnorm_launch=lib.rmsnorm_launch, rmsnorm_plan=lib.rmsnorm_plan)
+        fn = _fns[name]
     return fn
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6, offset: bool = False,
-            residual: torch.Tensor | None = None) -> torch.Tensor:
-    """x: (..., D); w: (D,).  With ``residual`` normalises ``x + residual``."""
-    x_code = _build.dtype_code(x, "rmsnorm x")
-    w_code = _build.dtype_code(w, "rmsnorm w")
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, w, eps=eps, offset=offset, residual=residual)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"rmsnorm: no kernel for device {x.device}")
+def kernel_plan(D: int, dtype: torch.dtype, *, aligned: bool = True) -> tuple[int, int, int]:
+    """:func:`launch_plan` as the compiled kernel reports it (needs the library)."""
+    out = (ctypes.c_int * 3)()
+    _build.check(_fn("rmsnorm_plan")(D, _build.DTYPE_CODES[dtype], int(aligned), out),
+                 "rmsnorm_plan")
+    return out[0], out[1], out[2]
+
+
+def _launch(x, w, residual, *, eps, offset, with_sum, plan=None):
+    """Checks the CUDA operands and launches the kernel once; returns
+    ``(sum or None, norm)``.  ``plan`` other than :func:`launch_plan`'s is for
+    timing alternatives on the card."""
     D = x.shape[-1]
     if w.shape != (D,) or w.device != x.device:
         raise ValueError(f"rmsnorm: w must be ({D},) on {x.device}, got {tuple(w.shape)} on {w.device}")
@@ -55,6 +104,7 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6, offset: bool
         raise ValueError(f"rmsnorm: D={D} exceeds the kernel's limit of {MAX_D}")
     if not x.is_contiguous() or not w.is_contiguous():
         raise ValueError("rmsnorm: x and w must be contiguous")
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     res_ptr = None
     if residual is not None:
         if (residual.shape != x.shape or residual.dtype != x.dtype
@@ -62,14 +112,47 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6, offset: bool
             raise ValueError("rmsnorm: residual must match x in shape, dtype, device "
                              "and be contiguous")
         res_ptr = residual.data_ptr()
+        aligned = aligned and res_ptr % 16 == 0
+    x_code = _build.DTYPE_CODES[x.dtype]
+    w_code = _build.dtype_code(w, "rmsnorm w")
     out = torch.empty_like(x)
+    s = torch.empty_like(x) if with_sum else None
     rows = x.numel() // D if D else 0
     if rows == 0:
-        return out
-    _build.launch(_lib(), x.device, "rmsnorm", x.data_ptr(), res_ptr, w.data_ptr(),
-                  out.data_ptr(), rows, D, float(eps), int(bool(offset)), x_code, w_code)
+        return s, out
+    threads, chunks, vector = plan or launch_plan(D, x.dtype, aligned=aligned)
+    _build.launch(_fn("rmsnorm_launch"), x.device, "rmsnorm", x.data_ptr(), res_ptr,
+                  w.data_ptr(), out.data_ptr(), None if s is None else s.data_ptr(), rows, D,
+                  eps, offset, x_code, w_code, threads, chunks, vector)
     rmsnorm.launches += 1
-    return out
+    return s, out
 
 
-rmsnorm.launches = 0   # kernel launches made by this wrapper
+def _device(x: torch.Tensor, what: str) -> str:
+    _build.dtype_code(x, f"{what} x")
+    if x.device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{what}: no kernel for device {x.device}")
+    return x.device.type
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6, offset: bool = False,
+            residual: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (..., D); w: (D,).  With ``residual`` normalises ``x + residual``."""
+    if _device(x, "rmsnorm") == "cpu":
+        _build.dtype_code(w, "rmsnorm w")
+        return rmsnorm_plain(x, w, eps=eps, offset=offset, residual=residual)
+    return _launch(x, w, residual, eps=float(eps), offset=int(bool(offset)), with_sum=False)[1]
+
+
+def add_rmsnorm(x: torch.Tensor, residual: torch.Tensor, w: torch.Tensor, *,
+                eps: float = 1e-6, offset: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(s, norm(s))`` with ``s = x + residual`` rounded to ``x.dtype``: the
+    block's residual add and the next norm in one launch.  x, residual:
+    (..., D); w: (D,)."""
+    if _device(x, "add_rmsnorm") == "cpu":
+        _build.dtype_code(w, "add_rmsnorm w")
+        return add_rmsnorm_plain(x, residual, w, eps=eps, offset=offset)
+    return _launch(x, w, residual, eps=float(eps), offset=int(bool(offset)), with_sum=True)
+
+
+rmsnorm.launches = 0   # kernel launches made by this module's wrappers

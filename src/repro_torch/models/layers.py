@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.kernels.rmsnorm import add_rmsnorm_plain, rmsnorm_plain
 
 # --------------------------------------------------------------------------
 # Norms
@@ -35,10 +35,12 @@ from repro_torch.kernels.rmsnorm import rmsnorm_plain
 
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-6, offset: bool = False,
-            plain: bool = False) -> torch.Tensor:
+            residual: torch.Tensor | None = None, plain: bool = False) -> torch.Tensor:
     if plain:
-        return rmsnorm_plain(x, w, eps=eps, offset=offset)
-    return ops.rmsnorm(x, w, eps=eps, offset=offset)
+        return rmsnorm_plain(x, w, eps=eps, offset=offset, residual=residual)
+    if residual is None:
+        return ops.rmsnorm(x, w, eps=eps, offset=offset)
+    return ops.rmsnorm_residual(x, residual, w, eps=eps, offset=offset)
 
 
 def layernorm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -50,10 +52,29 @@ def layernorm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *, eps: float =
     return (y * w.float() + b.float()).to(dt)
 
 
-def apply_norm(cfg, p: dict, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
+def apply_norm(cfg, p: dict, x: torch.Tensor, *, residual: torch.Tensor | None = None,
+               plain: bool = False) -> torch.Tensor:
+    """Norm of ``x``, or of ``x + residual`` (the sum is not returned)."""
     if cfg.norm == "layernorm":
+        if residual is not None:
+            x = x + residual
         return layernorm(p["w"], p["b"], x, eps=cfg.norm_eps)
-    return rmsnorm(p["w"], x, eps=cfg.norm_eps, offset=cfg.rms_offset, plain=plain)
+    return rmsnorm(p["w"], x, eps=cfg.norm_eps, offset=cfg.rms_offset, residual=residual,
+                   plain=plain)
+
+
+def add_norm(cfg, p: dict, h: torch.Tensor, pending: torch.Tensor | None, *,
+             plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(s, norm(s))`` with ``s = h + pending``: a residual add left pending
+    by the block before, carried into the norm that reads its sum (one kernel
+    launch for both on the card).  ``pending`` None: ``(h, norm(h))``."""
+    if pending is None:
+        return h, apply_norm(cfg, p, h, plain=plain)
+    if cfg.norm == "layernorm":
+        s = h + pending
+        return s, layernorm(p["w"], p["b"], s, eps=cfg.norm_eps)
+    add = add_rmsnorm_plain if plain else ops.add_rmsnorm
+    return add(h, pending, p["w"], eps=cfg.norm_eps, offset=cfg.rms_offset)
 
 
 # --------------------------------------------------------------------------

@@ -121,8 +121,16 @@ def gqa_decode(cfg, p, x, pos, cache, *, rope=True, positions=None, rope_tables=
 # Block dispatch
 # ==========================================================================
 
-def apply_block_full(cfg, kind, p, h, aux, collect_cache):
-    """Returns (h, cache_out_or_None)."""
+# Each block takes the residual stream as ``h`` and the add its predecessor
+# left pending (``pending``; None for the first block), so the input is
+# ``h + pending``, and returns ``(h, f)`` with ``h + f`` its output.  The
+# add is done by the norm that reads the sum (``L.add_norm``: one K3 launch
+# that writes both), never as a pass of its own; the final norm takes the last
+# block's ``f`` as its residual.
+
+
+def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
+    """Returns (h, f, cache_out_or_None)."""
     positions = aux["positions"]
     plain = aux.get("plain", False)
     cache_len = aux.get("cache_len", 0)
@@ -140,28 +148,28 @@ def apply_block_full(cfg, kind, p, h, aux, collect_cache):
         return {"k": kc, "v": vc}
 
     if kind == "attn_ffn":
-        a, (k, v) = gqa_full(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], h, plain=plain),
-                             positions, rope_tables=aux.get("rope_tables"), plain=plain)
-        h = h + a
-        h = h + L.ffn(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h, plain=plain))
-        return h, kv_cache(k, v)
+        h, x = L.add_norm(cfg, p["ln1"], h, pending, plain=plain)
+        a, (k, v) = gqa_full(cfg, p["attn"], x, positions, rope_tables=aux.get("rope_tables"),
+                             plain=plain)
+        h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
+        return h, L.ffn(cfg, p["mlp"], x), kv_cache(k, v)
 
     raise ValueError(kind)
 
 
-def apply_block_decode(cfg, kind, p, h, cache, aux):
-    """Returns (h, cache) — the cache is the one passed in, updated in place."""
+def apply_block_decode(cfg, kind, p, h, pending, cache, aux):
+    """Returns (h, f, cache) — the cache is the one passed in, updated in place."""
     pos = aux["pos"]
     positions = aux.get("decode_positions")
     plain = aux.get("plain", False)
 
     if kind == "attn_ffn":
-        a, c = gqa_decode(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], h, plain=plain), pos,
-                          cache, positions=positions, rope_tables=aux.get("rope_tables"),
-                          indices=aux.get("indices"), plain=plain)
-        h = h + a
-        h = h + L.ffn(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], h, plain=plain))
-        return h, c
+        h, x = L.add_norm(cfg, p["ln1"], h, pending, plain=plain)
+        a, c = gqa_decode(cfg, p["attn"], x, pos, cache, positions=positions,
+                          rope_tables=aux.get("rope_tables"), indices=aux.get("indices"),
+                          plain=plain)
+        h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
+        return h, L.ffn(cfg, p["mlp"], x), c
 
     raise ValueError(kind)
 
@@ -219,11 +227,16 @@ class Model:
 
     # ---- full-sequence stack ----
     def _run_stack(self, params, h, aux, collect_cache):
-        caches = []
+        """Returns (h, f, caches): the stack's output is ``h + f``."""
+        caches, f = [], None
         for kind, p in zip(self.kinds, params["blocks"]):
-            h, c_out = apply_block_full(self.cfg, kind, p, h, aux, collect_cache)
+            h, f, c_out = apply_block_full(self.cfg, kind, p, h, f, aux, collect_cache)
             caches.append(c_out)
-        return h, caches
+        return h, f, caches
+
+    def _final_norm(self, params, h, f):
+        return L.apply_norm(self.cfg, params["final_norm"], h, residual=f,
+                            plain=self.plain_kernels)
 
     # ---- public entry points ----
     @torch.no_grad()
@@ -235,8 +248,8 @@ class Model:
         positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))
         aux = self._aux(positions)
         h = self._embed(params, tokens)
-        h, _ = self._run_stack(params, h, aux, collect_cache=False)
-        h = L.apply_norm(self.cfg, params["final_norm"], h, plain=self.plain_kernels)
+        h, f, _ = self._run_stack(params, h, aux, collect_cache=False)
+        h = self._final_norm(params, h, f)
         return self._logits(params, h), torch.zeros((), dtype=torch.float32, device=self.device)
 
     @torch.no_grad()
@@ -247,8 +260,8 @@ class Model:
         positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))
         aux = self._aux(positions, cache_len=cache_len)
         h = self._embed(params, tokens)
-        h, caches = self._run_stack(params, h, aux, collect_cache=True)
-        h = L.apply_norm(self.cfg, params["final_norm"], h, plain=self.plain_kernels)
+        h, f, caches = self._run_stack(params, h, aux, collect_cache=True)
+        h = self._final_norm(params, h, f)
         logits = self._logits(params, h[:, -1:])
         cache = {"blocks": caches,
                  "pos": torch.full((B,), S, dtype=torch.int32, device=self.device)}
@@ -267,10 +280,10 @@ class Model:
         aux = self._aux(positions, pos=pos, decode_positions=positions,
                         indices=decode_indices(pos, T))
         h = self._embed(params, tokens)
-        new_blocks = []
+        new_blocks, f = [], None
         for kind, p, c in zip(self.kinds, params["blocks"], cache["blocks"]):
-            h, cj = apply_block_decode(self.cfg, kind, p, h, c, aux)
+            h, f, cj = apply_block_decode(self.cfg, kind, p, h, f, c, aux)
             new_blocks.append(cj)
-        h = L.apply_norm(self.cfg, params["final_norm"], h, plain=self.plain_kernels)
+        h = self._final_norm(params, h, f)
         logits = self._logits(params, h)
         return logits, {"blocks": new_blocks, "pos": pos + 1}

@@ -185,6 +185,44 @@ def test_rmsnorm_residual_vs_pallas(dtype, offset):
     close(t2n(got), t2n(ref.rmsnorm_ref(xt, wt, offset=offset, residual=rt)), tol)
 
 
+ADD_RMS_GRID = [(rows, d, x_dt, w_dt, offset)
+                for rows in (1, 37, 300) for d in (100, 256)
+                for x_dt, w_dt in ((F32, F32), (BF16, F32), (BF16, BF16))
+                for offset in (False, True)]
+
+
+@pytest.mark.parametrize("rows,d,x_dt,w_dt,offset", ADD_RMS_GRID)
+def test_add_rmsnorm_vs_jax_sum_and_pallas(rows, d, x_dt, w_dt, offset):
+    """The sum is the reference's ``x + r`` bit for bit (one rounding to x's
+    type); the norm agrees with the Pallas kernel's residual form.  D = 100
+    is no multiple of the kernel's 16-byte vector; w may be fp32 beside a
+    bf16 x."""
+    rng = np.random.default_rng(rows * 7 + d)
+    xj, xt = both(rng.standard_normal((rows, d), dtype=np.float32), x_dt)
+    rj, rt = both(rng.standard_normal((rows, d), dtype=np.float32), x_dt)
+    wj, wt = both(rng.standard_normal((d,), dtype=np.float32) * 0.1 + (0.0 if offset else 1.0),
+                  w_dt)
+    before = K.rmsnorm.launches
+    s, y = ops.add_rmsnorm(xt, rt, wt, offset=offset)
+    assert K.rmsnorm.launches == before               # CPU tensor: plain version, no launch
+    assert s.dtype == y.dtype == TDT[x_dt] and s.shape == y.shape == xt.shape
+    np.testing.assert_array_equal(t2n(s), j2n(xj + rj))
+    tol = 3e-2 if x_dt == BF16 else TOL[F32]         # as test_rmsnorm_residual_vs_pallas
+    close(t2n(y), j2n(jops.rmsnorm_residual(xj, rj, wj, offset=offset)), tol)
+    assert torch.equal(y, ops.rmsnorm_residual(xt, rt, wt, offset=offset))
+    s2, y2 = K.add_rmsnorm_plain(xt, rt, wt, offset=offset)
+    assert torch.equal(s, s2) and torch.equal(y, y2)
+
+
+def test_add_rmsnorm_raises_where_it_has_no_kernel():
+    x, w = torch.ones((4, 64), dtype=torch.float16), torch.ones((64,))
+    with pytest.raises(TypeError):
+        K.add_rmsnorm(x, x, w)
+    m = torch.ones((4, 64), device="meta")
+    with pytest.raises(RuntimeError):
+        K.add_rmsnorm(m, m, torch.ones((64,), device="meta"))
+
+
 def test_flash_bshd_matches_reference_model_layout():
     """The bshd wrapper agrees with the reference model's blockwise attention
     (twin of test_flash_matches_model_layout)."""

@@ -12,13 +12,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from repro.configs import get_config as j_config, get_tiny_config as j_tiny
 from repro.models import Model as JModel, count_params as j_count
 from repro.models.kvcache import cache_bytes as j_cache_bytes
 from repro_torch.configs import ARCH_IDS, get_config as t_config, get_tiny_config as t_tiny
 from repro_torch.convert import from_reference_cache, from_reference_params
+from repro_torch import kernels as K
 from repro_torch.models import Model as TModel, cache_bytes as t_cache_bytes, count_params as t_count
+from repro_torch.models import layers as TL, model as TM
 
 TOL = 1e-4
 FULL_COUNTS = {"phi4-mini-3.8b": 3_836_021_760, "gemma-7b": 8_537_680_896}
@@ -191,3 +194,134 @@ def test_init_params_shapes_dtypes_and_statistics():
     gem = TModel(t_tiny("gemma-7b"), "cpu").init(torch.Generator().manual_seed(0))
     assert float(gem["final_norm"]["w"].abs().max()) == 0.0        # the 1 + w form starts at 0
     assert "lm_head" not in gem and "lm_head" in params
+
+
+# --------------------------------------------------------------------------
+# The residual adds carried into the norms
+# --------------------------------------------------------------------------
+
+def _unfused(m, params, tokens, attend):
+    """The block as it reads in the reference: ``h = h + a``, then ``h = h +
+    ffn(norm(h))``, each add a pass of its own, and the norm of ``h``."""
+    cfg = m.cfg
+    h = m._embed(params, tokens)
+    for i, p in enumerate(params["blocks"]):
+        h = h + attend(i, p["attn"], TL.apply_norm(cfg, p["ln1"], h))
+        h = h + TL.ffn(cfg, p["mlp"], TL.apply_norm(cfg, p["ln2"], h))
+    return TL.apply_norm(cfg, params["final_norm"], h)
+
+
+def unfused_forward(m, params, toks, cache_len=None):
+    """Logits (and, with ``cache_len``, the prefill cache) of the unfused composition."""
+    tokens = torch.as_tensor(toks).long()
+    B, S = tokens.shape
+    positions = torch.arange(S).expand(B, S)
+    tables = TL.rope_tables(m.cfg, positions, m.cfg.head_dim)
+    caches = []
+
+    def attend(i, p, x):
+        a, (k, v) = TM.gqa_full(m.cfg, p, x, positions, rope_tables=tables)
+        if cache_len:
+            kc = torch.zeros((B, cache_len, *k.shape[2:]), dtype=k.dtype)
+            vc = torch.zeros_like(kc)
+            kc[:, :S], vc[:, :S] = k, v
+            caches.append({"k": kc, "v": vc})
+        return a
+
+    h = _unfused(m, params, tokens, attend)
+    return m._logits(params, h), {"blocks": caches, "pos": torch.full((B,), S, dtype=torch.int32)}
+
+
+def unfused_decode_step(m, params, cache, toks):
+    tokens = torch.as_tensor(toks).long()
+    pos = cache["pos"]
+    positions = pos[:, None]
+    tables = TL.rope_tables(m.cfg, positions, m.cfg.head_dim)
+    indices = TM.decode_indices(pos, cache["blocks"][0]["k"].shape[1])
+
+    def attend(i, p, x):
+        return TM.gqa_decode(m.cfg, p, x, pos, cache["blocks"][i], positions=positions,
+                             rope_tables=tables, indices=indices)[0]
+
+    h = _unfused(m, params, tokens, attend)
+    return m._logits(params, h[:, -1:]), {"blocks": cache["blocks"], "pos": pos + 1}
+
+
+def caches_equal(a, b):
+    assert torch.equal(a["pos"], b["pos"])
+    for x, y in zip(a["blocks"], b["blocks"], strict=True):
+        assert torch.equal(x["k"], y["k"]) and torch.equal(x["v"], y["v"])
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_fused_residual_adds_are_bit_identical_to_the_unfused_block(arch):
+    """bf16: ``h + a`` rounds the same whether a pass of its own or inside the
+    norm's call, so logits and caches are equal bit for bit."""
+    _, ct, _, pn = perturbed_reference_params(arch, dtype="bfloat16")
+    pt = from_reference_params(pn, ct, "cpu")
+    m = TModel(ct, "cpu")
+    B, S, T = 2, 10, 12     # the second decode step wraps the ring
+    toks = tokens(ct, B, S + 3)
+    got, _ = m.forward(pt, {"tokens": toks[:, :S]})
+    want, _ = unfused_forward(m, pt, toks[:, :S])
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    lf, cf = m.prefill(pt, {"tokens": toks[:, :S]}, cache_len=T)
+    lu, cu = unfused_forward(m, pt, toks[:, :S], cache_len=T)
+    assert torch.equal(lf, lu[:, -1:])
+    caches_equal(cf, cu)
+    for i in range(3):
+        step = toks[:, S + i:S + i + 1]
+        lf, cf = m.decode_step(pt, cf, {"tokens": step})
+        lu, cu = unfused_decode_step(m, pt, cu, step)
+        assert torch.equal(lf, lu)
+        caches_equal(cf, cu)
+
+
+class ResidualAdds(TorchFunctionMode):
+    """Counts adds of two tensors of one shape ``(B, S, d_model)``: the
+    block's residual adds.  Adds inside the norm wrappers are not counted
+    (``inside`` > 0 there)."""
+
+    ADDS = {torch.add, torch.Tensor.add, torch.Tensor.__add__, torch.Tensor.__radd__,
+            torch.Tensor.add_, torch.Tensor.__iadd__}
+
+    def __init__(self, d_model):
+        super().__init__()
+        self.d_model, self.adds, self.inside = d_model, 0, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        a = args[:2]
+        if (not self.inside and func in self.ADDS and len(a) == 2
+                and all(torch.is_tensor(t) and t.ndim == 3 and t.shape[-1] == self.d_model for t in a)
+                and a[0].shape == a[1].shape):
+            self.adds += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_decode_step_carries_the_residual_adds_into_the_norms(monkeypatch):
+    cfg = t_tiny("phi4-mini-3.8b")
+    m = TModel(cfg, "cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    toks = tokens(cfg, 2, 9)
+    _, cache = m.prefill(params, {"tokens": toks[:, :8]}, cache_len=16)
+    _, cache_u = m.prefill(params, {"tokens": toks[:, :8]}, cache_len=16)
+    counter = ResidualAdds(cfg.d_model)
+    calls = {}
+    for name in ("rmsnorm", "rmsnorm_residual", "add_rmsnorm"):
+        def counted(*a, _real=getattr(K.ops, name), _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            counter.inside += 1
+            try:
+                return _real(*a, **kw)
+            finally:
+                counter.inside -= 1
+        monkeypatch.setattr(K.ops, name, counted)
+    with counter:
+        m.decode_step(params, cache, {"tokens": toks[:, 8:]})
+    L = cfg.num_layers
+    assert calls == {"rmsnorm": 1, "add_rmsnorm": 2 * L - 1, "rmsnorm_residual": 1}   # 2L + 1
+    assert counter.adds == 0                          # no residual add of its own
+    unfused = ResidualAdds(cfg.d_model)
+    with unfused:                                     # the counter does see them where they are
+        unfused_decode_step(m, params, cache_u, toks[:, 8:])
+    assert unfused.adds == 2 * L

@@ -1,7 +1,7 @@
 """What the kernel wrappers decide on the host, as plain functions: K2's
-split plan, K1's tiles and shared memory, and the 16-byte operand rule of
-K1's TMA path.  The compiled kernels report the same plans on the card
-(``chip_smoke.py`` holds the two against each other)."""
+split plan, K1's tiles and shared memory, the 16-byte operand rule of K1's
+TMA path, and K3's launch plan.  The compiled kernels report the same plans
+on the card (``chip_smoke.py`` holds the two against each other)."""
 import importlib
 
 import pytest
@@ -10,6 +10,7 @@ import torch
 # the package's names of the two wrappers hide their modules: fetch the modules
 dec = importlib.import_module("repro_torch.kernels.decode_attention")
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
+rms = importlib.import_module("repro_torch.kernels.rmsnorm")
 
 
 @pytest.mark.parametrize("B,Hkv,T,blocks_per_sm", [
@@ -68,6 +69,37 @@ def test_flash_tile_plan_fits_shared_memory(D):
 def test_flash_tile_plan_rejects_what_the_kernel_lacks(D):
     with pytest.raises(ValueError):
         fa.tile_plan(D)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [3072, 5120, 7168, 64, 100, 256, 16384])   # the four configs' widths, edges
+def test_rmsnorm_launch_plan_covers_the_row_in_whole_vectors(D, dtype, aligned):
+    threads, chunks, vector = rms.launch_plan(D, dtype, aligned=aligned)
+    itemsize = dtype.itemsize
+    whole = 16 // itemsize
+    assert vector == (whole if aligned and D % whole == 0 else 1)    # 16-byte loads where they fit
+    assert D % vector == 0
+    assert threads % 32 == 0 and 32 <= threads <= rms.MAX_THREADS <= 1024
+    assert chunks in (rms.VECTOR_CHUNKS if vector > 1 else rms.SCALAR_CHUNKS)
+    n = D // vector
+    assert (threads - 32) * chunks < n <= threads * chunks           # covers the row, no idle warp
+    fewer = [c for c in (rms.VECTOR_CHUNKS if vector > 1 else rms.SCALAR_CHUNKS) if c < chunks]
+    assert all(-(-n // c) > rms.MAX_THREADS for c in fewer)          # the fewest chunks that fit
+
+
+def test_rmsnorm_plan_at_the_serving_shapes_and_its_limit():
+    assert rms.launch_plan(3072, torch.bfloat16) == (384, 1, 8)     # a 6 KB row in flight at once
+    assert rms.launch_plan(3072, torch.float32) == (384, 2, 4)
+    assert rms.launch_plan(3072, torch.bfloat16, aligned=False) == (384, 8, 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        for aligned in (True, False):
+            rms.launch_plan(rms.MAX_D, dtype, aligned=aligned)       # every variant holds MAX_D
+    with pytest.raises(ValueError, match="registers"):
+        rms.launch_plan(16385, torch.bfloat16)                      # scalar: 32 chunks x 512 threads
+    x, w = torch.ones((2, rms.MAX_D + 8), dtype=torch.bfloat16), torch.ones(rms.MAX_D + 8)
+    with pytest.raises(ValueError, match="limit"):                  # checked before any launch
+        rms._launch(x, w, None, eps=1e-6, offset=0, with_sum=False)
 
 
 def test_operand_check_wants_16_byte_strides():
