@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's serving path and its simulator on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase; what a check of the port runs
     python3 chip_smoke.py --phases env,build,kernels --ptxas   # a new kernel's first run
@@ -29,6 +29,15 @@ Phases, each printing one JSON object on a line of its own:
            logits and that the launch counts are exactly what the path implies
   parity   the same model cut to 4 layers, the same requests, once through
            the kernels and once through their plain versions
+  simulate the simulator's path: repro_torch's Simulator.run for phi4-mini-3.8b
+           at full width and depth on h100_sxm, prefill (B1 S512) and decode
+           (B8, cache 2048), with the analytical engine and with the
+           profiling engine measuring every operator on the card into a fresh
+           profile DB (K1 for the prefill's attention, K2 for the decode's,
+           counted), K3 and cuBLAS timed on hand-built norm and matmul nodes;
+           then the port's own Model.prefill / decode_step at those shapes
+           (wall time from CUDA events, device-busy time by kernel group from
+           the profiler) and the signed error of each prediction
 
 `--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) of the
 tree at DIR (e.g. the parent commit, unpacked) beside this tree's, in turns
@@ -37,7 +46,8 @@ common signatures (the `times` phase; for K3 also `host_us`, the host time
 of a wrapper call, taken before the process profiles anything).
 
 Then one line {"kernels": [...]} with, for each kernel of the serving path,
-its launches in the serve phase, error, time, device time, plain version's
+its launches in the serve phase and in the simulate phase, error, time,
+device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
 computes the same function; then the
 GPU's name and power limit as nvidia-smi prints them; then, last,
@@ -48,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -837,6 +848,167 @@ def phase_parity():
 
 
 # --------------------------------------------------------------------------
+# the simulator against the port's own step
+# --------------------------------------------------------------------------
+
+def device_groups(avgs) -> dict:
+    """Self device time (µs, whole window) of the profiler's kernels by who
+    wrote them: K1, K2, K3, cuBLAS, other."""
+    out = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "cublas": 0.0, "other": 0.0}
+    for e in avgs:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        if "flash_fwd" in name:
+            g = "K1"
+        elif "decode_kernel" in name:
+            g = "K2"
+        elif "rmsnorm_kernel" in name:
+            g = "K3"
+        elif any(t in name for t in ("nvjet", "gemm", "cublas", "cutlass", "xmma")):
+            g = "cublas"
+        else:
+            g = "other"
+        out[g] += e.self_device_time_total
+    return out
+
+
+def measure_step(fn, n: int) -> dict:
+    """The port's step: wall µs a call from CUDA events around ``n`` calls,
+    then device-busy µs a call and its groups from the profiler over ``n``
+    more."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    wall_us = start.elapsed_time(end) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    groups = {k: v / n for k, v in device_groups(avgs).items()}
+    launches = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"wall_us": wall_us, "device_busy_us": sum(groups.values()), "device_us": groups,
+            "device_launches": launches // n}
+
+
+def phase_simulate():
+    """Simulator.run for phi4-mini-3.8b at full width and depth on h100_sxm,
+    prefill (B1 S512) and decode (B8, cache 2048): the analytical engine, then
+    the profiling engine measuring every operator on this card (a fresh
+    profile DB), then the port's own Model.prefill / decode_step at the same
+    shapes; prints a line for each mode (predicted against measured, by op
+    kind too) and one for the phase."""
+    from repro_torch import kernels as K
+    from repro_torch.api import Cluster, DecodeWorkload, PrefillWorkload, SimSpec
+    from repro_torch.configs import get_config
+    from repro_torch.core import Simulator
+    from repro_torch.core.backend import profiling as P
+    from repro_torch.core.model_ingest import ingest_graphs
+    from repro_torch.core.ir import OpNode
+    from repro_torch.models import Model, zero_cache
+    cfg = get_config(ARCH)
+    db_path = os.path.join(HERE, "build", "simulate", "profile_db_torch.json")
+    if os.path.exists(db_path):
+        os.remove(db_path)
+    db = P.ProfileDB(db_path)
+    cluster = Cluster("h100_sxm", chips=1)
+    specs = {"prefill": SimSpec(cfg, cluster=cluster,
+                                workload=PrefillWorkload(global_batch=1, seq_len=512)),
+             "decode": SimSpec(cfg, cluster=cluster,
+                               workload=DecodeWorkload(global_batch=8, seq_len=2048))}
+    analytical = Simulator("h100_sxm")
+    profiling = Simulator("h100_sxm", engine="profiling", db=db, measure_on_miss=True)
+    rec = {"phase": "simulate", "arch": cfg.name, "layers": cfg.num_layers,
+           "launch_floor_us": P.dispatch_overhead_us()}
+    reports = {}
+    for mode, spec in specs.items():
+        t0 = time.perf_counter()
+        ana = analytical.run(spec)
+        t1 = time.perf_counter()
+        K.reset_launch_counts()
+        prof = profiling.run(spec)
+        counts = K.launch_counts()
+        t2 = time.perf_counter()
+        reports[mode] = (ana, prof)
+        w = spec.workload
+        mg = ingest_graphs(cfg, w.global_batch, 1 if mode == "decode" else w.seq_len, mode,
+                           cache_len=w.cache_len or w.seq_len)
+        priced = sum(n.repeat * b.repeat for b in mg.all_blocks() for n in b.fwd)
+        rec[mode] = {"phase": "simulate", "mode": mode, "priced_ops": priced,
+                     "analytical_us": ana.step_time_us, "profiling_us": prof.step_time_us,
+                     "analytical_kind_us": ana.kind_us, "profiling_kind_us": prof.kind_us,
+                     "analytical_t_fwd_us": ana.detail["t_fwd"],
+                     "profiling_t_fwd_us": prof.detail["t_fwd"],
+                     "analytical_s": t1 - t0, "profiling_s": t2 - t1,
+                     "profiling_launches": counts}
+    rec["profile_db_entries"] = len(db.data)
+    if rec["prefill"]["profiling_launches"]["flash_attention"] <= 0:
+        fail("the profiling engine did not launch K1 for the prefill's attention")
+    if rec["decode"]["profiling_launches"]["decode_attention"] <= 0:
+        fail("the profiling engine did not launch K2 for the decode's attention")
+    # the tracer emits no norm node (as the reference's does not): K3 and
+    # cuBLAS are timed on hand-built nodes at the model's shapes
+    nodes = {"norm_prefill": OpNode("n", "norm", out_shape=(512, cfg.d_model), dtype="bf16"),
+             "norm_decode": OpNode("n", "norm", out_shape=(8, cfg.d_model), dtype="bf16"),
+             "matmul_prefill_up": OpNode("m", "matmul", dtype="bf16",
+                                         attrs={"mm_dims": (512, cfg.d_ff, cfg.d_model)}),
+             "matmul_decode_up": OpNode("m", "matmul", dtype="bf16",
+                                        attrs={"mm_dims": (8, cfg.d_ff, cfg.d_model)})}
+    K.reset_launch_counts()
+    rec["synthesized_us"] = {k: P.synthesize_and_measure(n) for k, n in nodes.items()}
+    rec["synthesized_launches"] = K.launch_counts()
+    if rec["synthesized_launches"]["rmsnorm"] <= 0:
+        fail("synthesize_and_measure did not launch K3 for a norm node")
+    # what the DB now holds must give the same reports without measuring
+    replay = Simulator("h100_sxm", engine="profiling", db=db)
+    for mode, spec in specs.items():
+        if replay.run(spec).step_time_us != reports[mode][1].step_time_us:
+            fail(f"{mode}: the filled profile DB does not reproduce the profiling report")
+    db.save()
+
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    prompt = {"tokens": rng.integers(0, cfg.vocab_size, (1, 512)).tolist()}
+    cache = zero_cache(cfg, 8, 2048, model.device)
+    cache["pos"].fill_(2047)            # every slot holds 2048 valid rows
+    step = {"tokens": rng.integers(0, cfg.vocab_size, (8, 1)).tolist()}
+    runs = {"prefill": (lambda: model.prefill(params, prompt, cache_len=512), 5),
+            "decode": (lambda: model.decode_step(params, cache, step), 10)}
+    for mode, (fn, n) in runs.items():
+        meas = measure_step(fn, n)
+        ana, prof = reports[mode]
+        err = {f"{p}_vs_{m}": pred / meas[key] - 1.0
+               for p, pred in (("analytical", ana.step_time_us), ("profiling", prof.step_time_us))
+               for m, key in (("wall", "wall_us"), ("device_busy", "device_busy_us"))}
+        # the profiling prediction by op kind beside what ran: the port's step
+        # performs no transpose (cuBLAS reads the embedding transposed) and
+        # prices its norms as K3 where the graph has elementwise/reduce chains
+        kinds, dev = prof.kind_us, meas["device_us"]
+        rest = sum(v for k, v in kinds.items() if k not in ("matmul", "attention", "transpose"))
+        by_kind = {"matmul/cublas": [kinds.get("matmul", 0.0), dev["cublas"]],
+                   "attention/K1+K2": [kinds.get("attention", 0.0), dev["K1"] + dev["K2"]],
+                   "transpose/none": [kinds.get("transpose", 0.0), 0.0],
+                   "rest/K3+other": [rest, dev["K3"] + dev["other"]]}
+        rec[mode].update(measured=meas, signed_error=err, kind_vs_measured_us=by_kind)
+        for v in (ana.step_time_us, prof.step_time_us, meas["wall_us"], meas["device_busy_us"]):
+            if not (math.isfinite(v) and v > 0):
+                fail(f"{mode}: a non-positive or non-finite step time in {rec[mode]}")
+        emit(rec[mode])
+    emit({k: v for k, v in rec.items() if k not in runs})
+    del params, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+# --------------------------------------------------------------------------
 
 KERNEL_INFO = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -850,10 +1022,10 @@ KERNEL_INFO = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,serve,parity",
-                    help="comma-separated subset of env,build,kernels,serve,parity (and times, "
-                         "the serving-shape timings alone); the closing lines are printed only "
-                         "when the five of the default ran")
+    ap.add_argument("--phases", default="env,build,kernels,serve,parity,simulate",
+                    help="comma-separated subset of env,build,kernels,serve,parity,simulate "
+                         "(and times, the serving-shape timings alone); the closing lines are "
+                         "printed only when the six of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -908,17 +1080,24 @@ def main(argv=None) -> int:
         phase_profile(args.profile)
     if "parity" in phases:
         phase_parity()
-    if main_recs is None or counts is None or "parity" not in phases:
+    sim = phase_simulate() if "simulate" in phases else None
+    if main_recs is None or counts is None or "parity" not in phases or sim is None:
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
+    # launches by the simulator's profiling engine: K1 in the prefill's run,
+    # K2 in the decode's, K3 on the hand-built norm nodes
+    sim_launches = {"flash_attention": sim["prefill"]["profiling_launches"]["flash_attention"],
+                    "decode_attention": sim["decode"]["profiling_launches"]["decode_attention"],
+                    "rmsnorm": sim["synthesized_launches"]["rmsnorm"]}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = main_recs[name]
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the serving path")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": counts[name], "max_abs_err": r["max_abs_err"],
+                        "launches": counts[name], "simulate_launches": sim_launches[name],
+                        "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],

@@ -1,7 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch`` nor ``chip_smoke.py``
 imports jax or the JAX package; its entry points default to the CUDA device
-and raise where there is none; a kernel wrapper given a CPU tensor takes the
-plain version and launches nothing."""
+and raise where there is none (the simulator's measurements on the card
+included); a kernel wrapper given a CPU tensor takes the plain version and
+launches nothing."""
 import ast
 import subprocess
 import sys
@@ -39,7 +40,18 @@ def test_the_slice_has_its_modules():
                  "configs/base.py", "configs/phi4_mini_3_8b.py", "configs/gemma_7b.py",
                  "configs/qwen2_5_32b.py", "configs/yi_34b.py", "models/params.py",
                  "models/layers.py", "models/kvcache.py", "models/model.py",
-                 "serving/engine.py", "launch/serve.py", "convert.py"):
+                 "serving/engine.py", "launch/serve.py", "convert.py",
+                 "api/__init__.py", "api/spec.py", "core/__init__.py", "core/ir.py",
+                 "core/tracer.py", "core/stubs.py", "core/model_ingest.py", "core/simulator.py",
+                 "core/scheduler.py", "core/overlap.py", "core/memory.py", "core/simcache.py",
+                 "core/backend/__init__.py", "core/backend/hardware.py",
+                 "core/backend/analytical.py", "core/backend/collectives.py",
+                 "core/backend/engine.py", "core/backend/prediction.py",
+                 "core/backend/profiling.py", "core/passes/__init__.py", "core/passes/base.py",
+                 "core/passes/analysis.py", "core/passes/parallelism.py",
+                 "core/passes/data_parallel.py", "core/passes/fusion.py",
+                 "core/passes/quantize.py", "core/passes/recompute.py",
+                 "core/passes/pipeline.py"):
         assert want in have, want
     for cu in ("rmsnorm.cu", "flash_attention.cu", "decode_attention.cu", "common.cuh"):
         assert (PKG / "kernels" / "csrc" / cu).exists(), cu
@@ -91,6 +103,21 @@ def test_launch_serve_without_a_device_argument_raises_without_a_card(monkeypatc
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--requests", "1"])
+
+
+def test_simulator_measures_on_the_card_only_and_raises_without_one(monkeypatch):
+    from repro_torch.core import Simulator
+    from repro_torch.core.backend import profiling
+    from repro_torch.core.ir import OpNode
+    _no_cuda(monkeypatch)
+    node = OpNode("m", "matmul", dtype="bf16", attrs={"mm_dims": (8, 8, 8)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Simulator("h100_sxm", engine="profiling", measure_on_miss=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiling.synthesize_and_measure(node)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiling.dispatch_overhead_us()
+    assert profiling.synthesize_and_measure(node, device="cpu") > 0     # asked for: fine
 
 
 def test_chip_smoke_fails_without_a_card():
