@@ -38,6 +38,15 @@ Phases, each printing one JSON object on a line of its own:
            then the port's own Model.prefill / decode_step at those shapes
            (wall time from CUDA events, device-busy time by kernel group from
            the profiler) and the signed error of each prediction
+  serve_sim the serving simulator predicting serve's own trace: the 12
+           requests as a trace, ContinuousBatching(max_batch=8, admit_cap=1)
+           for the engine's schedule, priced by the analytical engine and by
+           the profiling engine timing every bucketed step's operators on the
+           card (a fresh profile DB; K1 and K2 counted); measured: a fresh
+           drained engine run of the trace in a process of its own (host clock,
+           then a profiled run for device-busy time); predicted against
+           measured makespan, TTFT p50/p95, output tokens/s, steps, also with
+           the reference head's transpose of the embedding taken out
 
 `--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) of the
 tree at DIR (e.g. the parent commit, unpacked) beside this tree's, in turns
@@ -46,7 +55,8 @@ common signatures (the `times` phase; for K3 also `host_us`, the host time
 of a wrapper call, taken before the process profiles anything).
 
 Then one line {"kernels": [...]} with, for each kernel of the serving path,
-its launches in the serve phase and in the simulate phase, error, time,
+its launches in the serve phase and by the profiling engine in the simulate
+and serve_sim phases, error, time,
 device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
 computes the same function; then the
@@ -1009,6 +1019,225 @@ def phase_simulate():
 
 
 # --------------------------------------------------------------------------
+# the serving simulator against the port's own serve run
+# --------------------------------------------------------------------------
+
+# The serve trace's deepest context is 874-983 tokens while the first eight
+# requests decode and 518-642 while the last four do, so the default floor of
+# 256 prices every decode step at the 1024 bucket: K2 reads each row up to its
+# valid length, not the ring cache's 2048 rows, so a floor of 2048 would price
+# twice the attention bytes the card reads.
+SERVE_SIM_CTX_FLOOR = 256
+
+
+def phase_serve_measure():
+    """The measured side of ``serve_sim``, in a process that has not profiled
+    anything: a warm-up, one drained engine run of the serve trace on the host
+    clock (as ``serve`` times it), then another run under the profiler for the
+    device-busy time.  Prints one JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServingEngine
+    t_start = time.perf_counter()
+    cfg = get_config(ARCH)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    warm = ServingEngine(cfg, params, slots=8, cache_len=2048)
+    for rid, plen in enumerate((1000, 200)):       # cuBLAS handles, kernel modules, allocator
+        warm.submit(Request(rid=rid, prompt=list(range(plen)), max_new_tokens=3))
+    warm.run_until_drained()
+    del warm
+    K.reset_launch_counts()
+    reqs, steps, seconds, finite = run_engine(cfg, params, plain=False)
+    counts = K.launch_counts()
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p_reqs, p_steps, p_seconds, p_finite = run_engine(cfg, params, plain=False)
+    avgs = prof.key_averages()
+    t_prof = time.perf_counter() - t_prof
+    groups = device_groups(avgs)
+    busy_s = sum(groups.values()) / 1e6
+    ttft = [r.ttft_s * 1e3 for r in reqs]
+    toks = sum(len(r.tokens) for r in reqs)
+    makespan = max(r.finished_s for r in reqs) - min(r.arrival_s for r in reqs)
+    emit({"phase": "serve_measure", "requests": len(reqs), "engine_steps": steps,
+          "new_tokens": toks, "seconds": seconds, "makespan_s": makespan,
+          "tokens_per_s": toks / seconds, "ttft_ms_p50": float(np.percentile(ttft, 50)),
+          "ttft_ms_p95": float(np.percentile(ttft, 95)), "launches": counts,
+          "logits_finite": finite and p_finite,
+          "tokens_32": all(len(r.tokens) == 32 for r in reqs + p_reqs),
+          "process_seconds": time.perf_counter() - t_start, "profile_seconds": t_prof,
+          "profiled": {"engine_steps": p_steps, "seconds": p_seconds,
+                       "device_busy_s": busy_s,
+                       "device_idle_share": max(0.0, 1.0 - busy_s / p_seconds),
+                       "device_ms": {k: v / 1e3 for k, v in groups.items()},
+                       "device_launches": sum(e.count for e in avgs
+                                              if e.device_type == torch.autograd.DeviceType.CUDA)}})
+
+
+def logged_oracle(sim, cfg, ctx_floor, *, transpose_free: bool = False):
+    """A StepOracle that counts the steps each bucketed spec prices, so the
+    trace's predicted time can be split by op kind.  With ``transpose_free``
+    every step costs its price less the time its graph spends in
+    ``transpose`` nodes: the one there is the reference head's ``emb_w.T``,
+    which the port's own step never runs (cuBLAS reads the embedding
+    transposed)."""
+    from repro_torch.serving.sim import StepOracle, pow2_bucket
+
+    class Logged(StepOracle):
+        def __post_init__(self):
+            super().__post_init__()
+            self.used = {}
+
+        def _report(self, mode, B, S, cache_len):
+            spec = self._spec_for(mode, B, S, cache_len)
+            return self.sim.cache.get("serving", (spec, self.sim.engine._state_version()),
+                                      lambda: self.sim.run(spec))
+
+        def _priced_s(self, mode, B, S, cache_len):
+            price = super()._priced_s(mode, B, S, cache_len)
+            if transpose_free:
+                price -= self._report(mode, B, S, cache_len).kind_us.get("transpose", 0.0) / 1e6
+            return price
+
+        def _log(self, key):
+            self.used[key] = self.used.get(key, 0) + 1
+
+        def decode_step_s(self, batch, ctx):
+            C = pow2_bucket(ctx, self.ctx_floor)
+            self._log(("decode", pow2_bucket(batch), C, C))
+            return super().decode_step_s(batch, ctx)
+
+        def prefill_s(self, batch, seq):
+            self._log(("prefill", pow2_bucket(batch), pow2_bucket(seq, self.seq_floor), 0))
+            return super().prefill_s(batch, seq)
+
+        def kind_ms(self) -> dict:
+            out = {}
+            for key, n in self.used.items():
+                for k, v in self._report(*key).kind_us.items():
+                    out[k] = out.get(k, 0.0) + n * v / 1e3
+            return out
+
+    return Logged(sim, cfg, ctx_floor=ctx_floor)
+
+
+def serving_prediction(rep) -> dict:
+    ttft = [r.ttft_s * 1e3 for r in rep.requests]
+    return {"makespan_s": rep.makespan_s, "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p95": float(np.percentile(ttft, 95)),
+            "output_tokens_per_s": rep.output_tokens_per_s, "steps_by_kind": rep.steps_by_kind}
+
+
+def phase_serve_sim():
+    """The serving simulator predicting the serve phase's own trace: the 12
+    requests of ``make_requests`` (all arriving at 0) as a trace workload,
+    the engine's schedule as ``ContinuousBatching(max_batch=8, admit_cap=1)``
+    (one batch-1 prefill a step into free slots, then a decode of the active
+    slots), priced by the analytical engine and by the profiling engine
+    measuring every bucketed step's operators on this card (a fresh profile
+    DB; K1 for prefill attention, K2 for decode attention, cuBLAS for the
+    products).  Measured: a fresh drained engine run of the same trace, in a
+    process of its own (``serve_measure``).  Prints the measured line, a line
+    of predictions and one of predicted against measured."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import Simulator
+    from repro_torch.core.backend import profiling as P
+    from repro_torch.serving.sim import ContinuousBatching, ServingSimulator, Workload
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    L = cfg.num_layers
+
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--phases", "serve_measure"],
+                         capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith('{"phase": "serve_measure"')]
+    if res.returncode != 0 or not lines:
+        fail(f"serve_measure failed (exit {res.returncode}):\n{res.stderr[-4000:]}")
+    meas = json.loads(lines[0])
+    emit(meas)
+    n_req, steps = meas["requests"], meas["engine_steps"]
+    want = {"flash_attention": L * n_req, "decode_attention": L * steps,
+            "rmsnorm": (2 * L + 1) * (n_req + steps)}
+    if not (meas["logits_finite"] and meas["tokens_32"]):
+        fail("serve_measure: non-finite logits or a request without 32 tokens")
+    if meas["launches"] != want:
+        fail(f"serve_measure: launch counts {meas['launches']} differ from {want}")
+
+    rows = [(0.0, len(r.prompt), r.max_new_tokens) for r in make_requests(cfg.vocab_size)]
+    wl = Workload.from_trace(rows)
+    db_path = os.path.join(HERE, "build", "serve_sim", "profile_db_torch.json")
+    if os.path.exists(db_path):
+        os.remove(db_path)
+    db = P.ProfileDB(db_path)
+    sims = {"analytical": Simulator("h100_sxm"),
+            "profiling": Simulator("h100_sxm", engine="profiling", db=db, measure_on_miss=True)}
+    pred = {"phase": "serve_sim", "arch": cfg.name, "layers": L, "requests": len(rows),
+            "policy": "continuous(max_batch=8, admit_cap=1)", "ctx_floor": SERVE_SIM_CTX_FLOOR}
+    for name, sim in sims.items():
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        oracle = logged_oracle(sim, cfg, SERVE_SIM_CTX_FLOOR)
+        rep = ServingSimulator(sim, cfg, policy=ContinuousBatching(8, admit_cap=1),
+                               oracle=oracle).run(wl)
+        seconds = time.perf_counter() - t0
+        launches = K.launch_counts()
+        free = ServingSimulator(sim, cfg, policy=ContinuousBatching(8, admit_cap=1),
+                                oracle=logged_oracle(sim, cfg, SERVE_SIM_CTX_FLOOR,
+                                                     transpose_free=True)).run(wl)
+        if K.launch_counts() != launches:
+            fail(f"{name}: the transpose-free replay measured again")
+        pred[name] = {**serving_prediction(rep), "without_transpose": serving_prediction(free),
+                      "kind_ms": oracle.kind_ms(), "steps_by_bucket": {
+                          "|".join(map(str, k)): n for k, n in oracle.used.items()},
+                      "n_distinct_steps": oracle.n_distinct_steps,
+                      "oracle_stats": rep.oracle_stats, "seconds": seconds, "launches": launches}
+        if rep.n_requests != len(rows) or rep.steps_by_kind != {"prefill": n_req,
+                                                                "decode": steps}:
+            fail(f"{name}: predicted {rep.steps_by_kind} for {rep.n_requests} requests, "
+                 f"the engine made {n_req} prefills and {steps} decode steps")
+        for v in (rep.makespan_s, free.makespan_s, rep.ttft_s.p50):
+            if not (math.isfinite(v) and v > 0):
+                fail(f"{name}: a non-positive or non-finite prediction in {pred[name]}")
+    pred["profile_db_entries"] = len(db.data)
+    db.save()
+    prof_launches = pred["profiling"]["launches"]
+    if prof_launches["flash_attention"] <= 0:
+        fail("serve_sim: the profiling engine did not launch K1 for prefill attention")
+    if prof_launches["decode_attention"] <= 0:
+        fail("serve_sim: the profiling engine did not launch K2 for decode attention")
+    emit(pred)
+
+    busy = meas["profiled"]["device_busy_s"]
+    measured = {"makespan_s": meas["makespan_s"], "device_busy_s": busy,
+                "ttft_ms_p50": meas["ttft_ms_p50"], "ttft_ms_p95": meas["ttft_ms_p95"],
+                "output_tokens_per_s": meas["new_tokens"] / meas["makespan_s"],
+                "tokens_per_s_as_serve": meas["tokens_per_s"], "engine_steps": steps,
+                "prefills": n_req, "device_idle_share": meas["profiled"]["device_idle_share"]}
+    cmp = {"phase": "serve_sim", "gpu": gpu_name_and_power(), "measured": measured}
+    for name in sims:
+        for label, p in ((name, pred[name]), (f"{name}_without_transpose",
+                                               pred[name]["without_transpose"])):
+            cmp[label] = {"makespan_s": p["makespan_s"],
+                          "vs_wall": p["makespan_s"] / measured["makespan_s"] - 1.0,
+                          "vs_device_busy": p["makespan_s"] / busy - 1.0,
+                          "ttft_ms_p50": p["ttft_ms_p50"], "ttft_ms_p95": p["ttft_ms_p95"],
+                          "output_tokens_per_s": p["output_tokens_per_s"]}
+    # the profiling prediction by op kind beside the drained run's kernel groups
+    kinds, dev = pred["profiling"]["kind_ms"], meas["profiled"]["device_ms"]
+    rest = sum(v for k, v in kinds.items() if k not in ("matmul", "attention", "transpose"))
+    cmp["profiling_kind_vs_measured_ms"] = {
+        "matmul/cublas": [kinds.get("matmul", 0.0), dev["cublas"]],
+        "attention/K1+K2": [kinds.get("attention", 0.0), dev["K1"] + dev["K2"]],
+        "transpose/none": [kinds.get("transpose", 0.0), 0.0],
+        "rest/K3+other": [rest, dev["K3"] + dev["other"]]}
+    cmp["n_distinct_steps"] = pred["profiling"]["n_distinct_steps"]
+    cmp["seconds"] = time.perf_counter() - t_phase
+    emit(cmp)
+    return pred
+
 
 KERNEL_INFO = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1022,10 +1251,11 @@ KERNEL_INFO = {
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,serve,parity,simulate",
-                    help="comma-separated subset of env,build,kernels,serve,parity,simulate "
-                         "(and times, the serving-shape timings alone); the closing lines are "
-                         "printed only when the six of the default ran")
+    ap.add_argument("--phases", default="env,build,kernels,serve,parity,simulate,serve_sim",
+                    help="comma-separated subset of env,build,kernels,serve,parity,simulate,"
+                         "serve_sim (and times, the serving-shape timings alone; serve_measure, "
+                         "the measured side of serve_sim alone); the closing lines are printed "
+                         "only when the seven of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -1069,6 +1299,8 @@ def main(argv=None) -> int:
         sass_check()
     if "times" in phases:
         phase_times()
+    if "serve_measure" in phases:
+        phase_serve_measure()
     if args.baseline_src:
         phase_baseline(args.baseline_src)
     main_recs = counts = None
@@ -1081,7 +1313,9 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity()
     sim = phase_simulate() if "simulate" in phases else None
-    if main_recs is None or counts is None or "parity" not in phases or sim is None:
+    serve_sim = phase_serve_sim() if "serve_sim" in phases else None
+    if (main_recs is None or counts is None or "parity" not in phases or sim is None
+            or serve_sim is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
@@ -1097,6 +1331,7 @@ def main(argv=None) -> int:
             fail(f"kernel {name} was not launched on the serving path")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": counts[name], "simulate_launches": sim_launches[name],
+                        "serve_sim_launches": serve_sim["profiling"]["launches"][name],
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,8 +1,8 @@
 """Declarative simulation specs — the single typed entry surface.
 
 Charon's headline claim is a *unified* simulator; this module is the unified
-*API*: one frozen, hashable :class:`SimSpec` describes a simulation —
-training, prefill or decode — as
+*API*: one frozen, hashable :class:`SimSpec` describes any simulation —
+training, prefill, decode, or request-level serving — as
 
     SimSpec(model, cluster, parallel, workload)
 
@@ -12,15 +12,17 @@ training, prefill or decode — as
   is sharded,
 * a workload variant — what one step (or one request trace) looks like:
   :class:`TrainWorkload` / :class:`PrefillWorkload` / :class:`DecodeWorkload`
-  for steady-state step simulation.  The request-level ``ServingWorkload``
-  and the fleet specs come with the serving simulator (ROADMAP queue A
-  item 7); until then a serving spec's ``from_dict`` raises.
+  for steady-state step simulation, :class:`ServingWorkload` for the
+  discrete-event request-level simulator.
 
 Every spec component is frozen and hashable, so a ``SimSpec`` *is* a cache
-key and any field can be a sweep axis.
+key (the simulator's serving bucket and the sweep reuse-grouping key both use
+it directly) and any field can be a sweep axis (sweeps, ``api/sweep.py``, are
+ROADMAP queue A item 8).
 
-Entry point: ``Simulator.run(spec) -> Report``.  The legacy kwargs surface
-``Simulator.simulate(...)`` survives as a thin shim that constructs a spec
+Entry points: ``Simulator.run(spec) -> Report`` and
+``ServingSimulator.run(spec) -> ServingReport``.  The legacy kwargs surfaces
+(``Simulator.simulate(...)``) survives as a thin shim that constructs a spec
 and emits :class:`CharonDeprecationWarning`.
 
 Specs hash as the reference's do: equal specs give the same ``json_hash`` in
@@ -34,6 +36,7 @@ import hashlib
 import json
 import math
 from dataclasses import dataclass, field
+from typing import ClassVar
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend.hardware import HARDWARE, HardwareSpec, LinkDomain
@@ -254,6 +257,221 @@ class DecodeWorkload(_StepWorkload):
     mode: str = field(default="decode", init=False)
 
 
+# ---------------------------------------------------------------------------
+# Fleet spec types: replica pools, routing, autoscaling — frozen and hashable
+# like every other spec component, so ``workload.fleet.replicas`` is a sweep
+# axis and a fleet spec participates in cache keys / manifests for free.
+
+@dataclass(frozen=True)
+class RouterSpec:
+    """Which replica an arriving request lands on.
+
+    ``kind``: ``round_robin`` (arrival order — with a fixed fleet this is
+    exactly ``Workload.shard``), ``least_loaded`` (fewest in-flight
+    requests), or ``session_affinity`` (rendezvous-hash requests of one
+    session onto one replica, keeping its prompt prefix warm in that
+    replica's cache; sessionless requests use ``fallback``).
+    """
+    kind: str = "round_robin"
+    fallback: str = "least_loaded"  # session_affinity's sessionless policy
+
+    def __post_init__(self):
+        kinds = ("round_robin", "least_loaded", "session_affinity")
+        if self.kind not in kinds:
+            raise ValueError(f"router kind {self.kind!r} not in {kinds}")
+        if self.fallback not in kinds or self.fallback == "session_affinity":
+            raise ValueError(
+                f"router fallback {self.fallback!r} must be one of "
+                "('round_robin', 'least_loaded')")
+
+
+@dataclass(frozen=True)
+class AutoscalerSpec:
+    """Queue-depth autoscaling with hysteresis.
+
+    Every ``interval_s`` of simulated time the mean in-flight depth over
+    active replicas is sampled; above ``scale_up_queue`` a standby replica
+    activates (taking traffic ``provision_s`` later), below
+    ``scale_down_queue`` the least-loaded active replica deactivates (it
+    drains what it holds, so no request is ever dropped).  The up/down gap
+    plus ``cooldown_s`` between actions is the hysteresis.
+    """
+    min_replicas: int = 1
+    max_replicas: int = 8
+    scale_up_queue: float = 8.0
+    scale_down_queue: float = 1.0
+    interval_s: float = 2.0
+    cooldown_s: float = 4.0
+    provision_s: float = 5.0
+
+    def __post_init__(self):
+        if not 1 <= self.min_replicas <= self.max_replicas:
+            raise ValueError(
+                f"need 1 <= min_replicas={self.min_replicas} <= "
+                f"max_replicas={self.max_replicas}")
+        if self.scale_down_queue >= self.scale_up_queue:
+            raise ValueError(
+                f"scale_down_queue={self.scale_down_queue} must be below "
+                f"scale_up_queue={self.scale_up_queue} (the hysteresis gap)")
+        if self.interval_s <= 0:
+            raise ValueError("interval_s must be positive")
+
+
+@dataclass(frozen=True)
+class ReplicaFaultSpec:
+    """Seeded whole-replica failure injection for the fleet simulator.
+
+    Each replica fails as an independent renewal process with mean
+    ``mtbf_s`` (``0``/``inf`` disables) and recovers ``restart_s`` later.
+    On failure the replica's in-flight and queued requests are rerouted
+    through the fleet router (progress on the failed replica is lost — the
+    requests re-prefill elsewhere); the autoscaler never activates a
+    replica that is currently down.  The trace is a pure function of
+    ``seed`` + replica index, so reports are bit-deterministic.
+    """
+    mtbf_s: float = 0.0
+    restart_s: float = 30.0
+    dist: str = "exponential"       # exponential | weibull
+    weibull_shape: float = 0.7
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.mtbf_s < 0:
+            raise ValueError("mtbf_s must be >= 0 (0 disables)")
+        if self.restart_s < 0:
+            raise ValueError("restart_s must be >= 0")
+        if self.dist not in ("exponential", "weibull"):
+            raise ValueError(
+                f"fault dist {self.dist!r} not in ('exponential', 'weibull')")
+        if self.dist == "weibull" and self.weibull_shape <= 0:
+            raise ValueError("weibull_shape must be positive")
+
+    @property
+    def active(self) -> bool:
+        return 0 < self.mtbf_s < math.inf
+
+
+@dataclass(frozen=True)
+class FleetSpec:
+    """A replica fleet: how many engine instances, routed and scaled how.
+
+    ``replicas`` engine instances run the workload's policy behind
+    ``router``; a non-None ``autoscaler`` turns ``replicas`` into the
+    *initial* active count (clamped to its [min, max]) with standbys up to
+    ``max_replicas``.  ``prefill_replicas > 0`` disaggregates at the fleet
+    level: arrivals prefill on that many dedicated prefill replicas
+    (admission ``prefill_batch``), then migrate — paying ``transfer_s`` of
+    KV-transfer latency — to the least-loaded decode replica.
+
+    The default is :meth:`trivial`: exactly the single-replica simulator,
+    so every existing serving spec is already a fleet spec.
+    """
+    replicas: int = 1
+    router: RouterSpec = RouterSpec()
+    autoscaler: AutoscalerSpec | None = None
+    prefill_replicas: int = 0
+    prefill_batch: int = 4
+    transfer_s: float = 0.002
+    faults: ReplicaFaultSpec | None = None
+
+    def __post_init__(self):
+        if self.replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {self.replicas}")
+        if self.prefill_replicas < 0:
+            raise ValueError("prefill_replicas must be >= 0")
+        if self.prefill_replicas > 0 and self.prefill_batch < 1:
+            raise ValueError("prefill_batch must be >= 1")
+
+    @property
+    def trivial(self) -> bool:
+        """True when this fleet is exactly one plain replica — the single-
+        replica event loop handles it without the fleet layer."""
+        return (self.replicas == 1 and self.prefill_replicas == 0
+                and self.autoscaler is None and self.faults is None)
+
+
+def _default_prompt():
+    from repro_torch.serving.sim.workload import LengthDist
+    return LengthDist("lognormal", median=512.0, sigma=0.7, cap=4096)
+
+
+def _default_output():
+    from repro_torch.serving.sim.workload import LengthDist
+    return LengthDist("lognormal", median=128.0, sigma=0.7, cap=1024)
+
+
+def _default_slo():
+    from repro_torch.serving.sim.report import SLO
+    return SLO()
+
+
+@dataclass(frozen=True)
+class ServingWorkload:
+    """A request-level trace spec for the discrete-event serving simulator.
+
+    Carries the arrival process, length distributions, SLO and batching
+    policy in frozen hashable form — the trace itself is synthesized
+    deterministically from ``seed`` by :meth:`build` (or replayed from
+    ``trace`` rows when given).  ``max_batch`` is the policy's admission
+    cap; in goodput sweeps the candidate's per-replica batch overrides it.
+    """
+    mode: str = field(default="serving", init=False)
+    n_requests: int = 200
+    arrival: str = "poisson"        # poisson | uniform | bursty
+                                    # | diurnal | flash_crowd
+    rate_rps: float = 8.0
+    burst_factor: float = 4.0
+    switch_prob: float = 0.1
+    period_s: float = 600.0         # diurnal: one day, compressed
+    diurnal_amp: float = 0.8        # diurnal: rate swings rate*(1 +/- amp)
+    flash_start_s: float = 60.0     # flash_crowd: spike onset
+    flash_dur_s: float = 30.0       # flash_crowd: spike duration
+    flash_mult: float = 8.0         # flash_crowd: rate multiplier in spike
+    sessions: int = 0               # >0: tag requests with session ids
+    prompt: object = field(default_factory=_default_prompt)    # LengthDist
+    output: object = field(default_factory=_default_output)    # LengthDist
+    seed: int = 0
+    trace: tuple = ()               # ((arrival_s, prompt, output), ...) rows
+    slo: object = field(default_factory=_default_slo)          # SLO
+    policy: str = "continuous"      # continuous | chunked | static
+    max_batch: int = 32
+    token_budget: int = 256         # chunked-prefill budget
+    ctx_floor: int = 256            # oracle context-bucket floor
+    fleet: FleetSpec = FleetSpec()  # replica pool / router / autoscaler
+
+    def build(self):
+        """Materialize the deterministic request trace (a ``Workload``)."""
+        from repro_torch.serving.sim.workload import Workload, synthesize
+        if self.trace:
+            return Workload.from_trace(self.trace)
+        return synthesize(self.n_requests, arrival=self.arrival,
+                          rate_rps=self.rate_rps,
+                          burst_factor=self.burst_factor,
+                          switch_prob=self.switch_prob,
+                          period_s=self.period_s,
+                          diurnal_amp=self.diurnal_amp,
+                          flash_start_s=self.flash_start_s,
+                          flash_dur_s=self.flash_dur_s,
+                          flash_mult=self.flash_mult,
+                          sessions=self.sessions, prompt=self.prompt,
+                          output=self.output, seed=self.seed)
+
+    def make_policy(self, max_batch: int | None = None):
+        from repro_torch.serving.sim.policies import make_policy
+        return make_policy(self.policy, max_batch or self.max_batch,
+                           token_budget=self.token_budget)
+
+    def scenario(self):
+        """The explorer-facing view: a :class:`ServingScenario` whose
+        per-candidate admission cap is the candidate's replica batch."""
+        from repro_torch.serving.sim.sim import ServingScenario
+        return ServingScenario(self.build(), slo=self.slo, policy=self.policy,
+                               token_budget=self.token_budget,
+                               ctx_floor=self.ctx_floor,
+                               fleet=None if self.fleet.trivial
+                               else self.fleet)
+
+
 STEP_WORKLOADS = {"train": TrainWorkload, "prefill": PrefillWorkload,
                   "decode": DecodeWorkload}
 
@@ -279,8 +497,9 @@ class SimSpec:
                 f"parallel.pods={self.parallel.pods}")
 
     def __hash__(self):
-        # memoized: specs are cache keys on hot paths and every component
-        # is immutable by contract, so the nested hash is computed once
+        # memoized: specs are cache keys on hot paths (the serving oracle
+        # probes the SimCache once per engine step) and every component is
+        # immutable by contract, so the nested hash is computed once
         h = getattr(self, "_hash", None)
         if h is None:
             h = hash((self.model, self.cluster, self.parallel, self.workload))
@@ -300,15 +519,24 @@ class SimSpec:
         return self.workload.mode
 
     def B_local(self) -> int:
-        """Per-replica batch after the data-parallel split."""
+        """Per-replica batch after the data-parallel split.  Serving specs
+        have no global batch; the policy's admission cap plays that role."""
+        if self.mode == "serving":
+            return self.workload.max_batch
         dp = max(self.parallel.dp * self.parallel.pods, 1)
         return max(self.workload.global_batch // dp, 1)
 
     def trace_shapes(self) -> tuple:
         """``(B_local, seq, cache)`` as the simulator's ingest stage sees
-        them — the shape part of the traced-graph identity (used by
-        :meth:`reuse_key`)."""
+        them — the shape part of the traced-graph identity.  Single source
+        of truth for :meth:`reuse_key` and the sweep's worker sharding
+        (``api/sweep.py``'s ``_shard_items`` in the reference): the two must agree or workers
+        duplicate ingest traces.  A serving spec prices many bucketed shapes
+        through its oracle; the admission cap and context floor bound that
+        bucket family, so they stand in as its shape identity."""
         w = self.workload
+        if w.mode == "serving":
+            return (w.max_batch, w.ctx_floor, -1)
         seq = w.seq_len if w.mode != "decode" else 1
         cache = w.cache_len or (w.seq_len if w.mode == "decode" else 0)
         return (self.B_local(), seq, cache)
@@ -317,7 +545,7 @@ class SimSpec:
         """Specs with equal reuse keys share traced/transformed/priced block
         graphs inside one simulator — the sweep sorts candidates by this key
         so each group pays the expensive stages once (``shard_key`` leads so
-        tp/pp/batch sweeps keep their historical evaluation order)."""
+        legacy tp/pp/batch sweeps keep their historical evaluation order)."""
         w = self.workload
         remat = getattr(w, "remat", "none") if w.mode == "train" else "none"
         return (self.cluster.hardware, self.model.name, w.mode,
@@ -343,16 +571,30 @@ class SimSpec:
         w = dict(d["workload"])
         mode = w.pop("mode")
         if mode == "serving":
-            raise NotImplementedError(
-                "serving specs come with the serving simulator (ROADMAP queue A "
-                "item 7), which repro_torch has not ported yet")
-        res = w.get("resilience")
-        if res is not None:
-            res = dict(res)
-            res["faults"] = FaultModel(**res["faults"])
-            res["ckpt"] = CheckpointSpec(**res["ckpt"])
-            w["resilience"] = ResilienceSpec(**res)
-        workload = STEP_WORKLOADS[mode](**w)
+            from repro_torch.serving.sim.report import SLO
+            from repro_torch.serving.sim.workload import LengthDist
+            w["prompt"] = LengthDist(**w["prompt"])
+            w["output"] = LengthDist(**w["output"])
+            w["slo"] = SLO(**w["slo"])
+            fl = dict(w.get("fleet") or {})
+            if fl:
+                fl["router"] = RouterSpec(**fl.get("router", {}))
+                scaler = fl.get("autoscaler")
+                fl["autoscaler"] = (AutoscalerSpec(**scaler)
+                                    if scaler is not None else None)
+                faults = fl.get("faults")
+                fl["faults"] = (ReplicaFaultSpec(**faults)
+                                if faults is not None else None)
+                w["fleet"] = FleetSpec(**fl)
+            workload = ServingWorkload(**w)
+        else:
+            res = w.get("resilience")
+            if res is not None:
+                res = dict(res)
+                res["faults"] = FaultModel(**res["faults"])
+                res["ckpt"] = CheckpointSpec(**res["ckpt"])
+                w["resilience"] = ResilienceSpec(**res)
+            workload = STEP_WORKLOADS[mode](**w)
         return cls(model=ModelConfig(**d["model"]), cluster=Cluster(**cl),
                    parallel=ParallelConfig(**d["parallel"]),
                    workload=workload)

@@ -45,9 +45,6 @@ from repro_torch.core.scheduler import Timeline, schedule, schedule_times
 from repro_torch.models.kvcache import cache_bytes
 from repro_torch.models.params import block_cycle, build_params, count_params
 
-_NOT_PORTED = ("is not ported to repro_torch yet: it comes with observability and "
-               "static analysis (ROADMAP queue A items 10 and 11)")
-
 
 @dataclass
 class Report:
@@ -75,12 +72,18 @@ class Report:
     def ttft_ms(self) -> float:
         return self.step_time_us / 1e3 if self.mode == "prefill" else float("nan")
 
-    # ---- attribution (repro_torch.obs.explain in the reference) ----
+    # ---- attribution (repro_torch.obs.explain) ----
     def explain(self, top_k: int = 8) -> str:
-        raise NotImplementedError(f"Report.explain {_NOT_PORTED}")
+        """Plain-text attribution: phase breakdown, top-k op kinds,
+        compute-vs-comm split; with ``keep_timelines=True`` reports also
+        the critical path, per-op comm bytes and exposed-comm overlap."""
+        from repro_torch.obs.explain import render_report
+        return render_report(self, top_k=top_k)
 
     def explain_dict(self, top_k: int = 8) -> dict:
-        raise NotImplementedError(f"Report.explain_dict {_NOT_PORTED}")
+        """Structured form of :meth:`explain` (what sweep manifests embed)."""
+        from repro_torch.obs.explain import explain_report
+        return explain_report(self, top_k=top_k)
 
 
 def shard_memory_floor(cfg: ModelConfig, par: ParallelConfig, B_local: int,
@@ -125,12 +128,15 @@ class Simulator:
         self.db = db or ProfileDB()
         self.overlap = overlap
         # sanitize=None defers to the CHARON_SANITIZE env knob; the
-        # fingerprinting cache of the reference is not ported yet
+        # fingerprinting cache (analysis/sanitize.py) is ROADMAP queue A
+        # item 11, so until then asking for it raises
         if sanitize is None:
             sanitize = os.environ.get("CHARON_SANITIZE", "") not in ("", "0")
         self.sanitize = bool(sanitize)
         if self.sanitize:
-            raise NotImplementedError(f"the sanitizing cache {_NOT_PORTED}")
+            raise NotImplementedError(
+                "the sanitizing cache is not ported to repro_torch yet: it comes "
+                "with static analysis (ROADMAP queue A item 11)")
         self.cache = SimCache(enabled=cache)
         engines = []
         if engine in ("fused", "profiling"):
@@ -208,7 +214,16 @@ class Simulator:
         return out
 
     def metrics_registry(self, registry=None):
-        raise NotImplementedError(f"Simulator.metrics_registry {_NOT_PORTED}")
+        """Fill a :class:`~repro_torch.obs.MetricsRegistry` (created when None)
+        with every stats surface this simulator exposes — the one-call form
+        of the scattered ``cache_stats()`` / extrapolation dicts.  Snapshot
+        before and after a run and ``MetricsRegistry.diff`` the two to cost
+        just that run."""
+        from repro_torch.obs import MetricsRegistry
+        if registry is None:
+            registry = MetricsRegistry()
+        registry.update_from_simulator(self)
+        return registry
 
     def cache_clear(self) -> None:
         self.cache.clear()
@@ -324,24 +339,30 @@ class Simulator:
             recorder=None, metrics=None) -> Report:
         """Simulate one :class:`repro_torch.api.spec.SimSpec` — the primary entry
         point.  The spec's cluster must name this simulator's hardware;
-        serving workloads are request-level and not simulated here.
+        serving workloads belong to ``ServingSimulator.run``.
 
-        ``recorder`` (trace lanes of the priced timelines) waits for the
-        port of observability and raises.  ``metrics``, an object with the
-        reference's ``MetricsRegistry`` methods ``inc`` and
-        ``update_from_simulator``, adopts this simulator's counters after
-        the run."""
+        ``recorder`` (a :class:`~repro_torch.obs.TraceRecorder`) captures the
+        priced block timelines and pipeline schedule as trace lanes; it
+        forces ``keep_timelines=True`` internally (there is nothing to
+        record without them) but the returned report is numerically
+        identical to the fast path either way.  ``metrics`` (a
+        :class:`~repro_torch.obs.MetricsRegistry`) adopts this simulator's cache
+        and extrapolation counters after the run; both default to off and
+        cost one ``is None`` check on the fast path."""
         if spec.cluster.hardware != self.hw.name:
             raise ValueError(
                 f"simulator built for {self.hw.name!r} cannot run a spec for "
                 f"cluster hardware {spec.cluster.hardware!r}")
         w = spec.workload
         if getattr(w, "mode", None) == "serving":
-            raise TypeError("serving workloads are request-level and the serving "
-                            "simulator is not ported yet")
-        if recorder is not None:
-            raise NotImplementedError(f"run(recorder=...) {_NOT_PORTED}")
-        if keep_timelines or not self.cache.persistent:
+            raise TypeError("serving workloads are request-level: use "
+                            "ServingSimulator(sim).run(spec)")
+        if recorder is not None and recorder.enabled:
+            from repro_torch.core.timeline import record_report
+            rep = self._simulate(spec.model, par=spec.parallel,
+                                 keep_timelines=True, **w.sim_kwargs())
+            record_report(recorder, rep)
+        elif keep_timelines or not self.cache.persistent:
             rep = self._simulate(spec.model, par=spec.parallel,
                                  keep_timelines=keep_timelines,
                                  **w.sim_kwargs())

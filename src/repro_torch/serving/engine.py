@@ -24,21 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import Model, zero_cache
-
-
-class VirtualClock:
-    """Monotone simulated-seconds clock, callable like ``time.perf_counter``."""
-
-    def __init__(self, start: float = 0.0):
-        self._now = float(start)
-
-    def __call__(self) -> float:
-        return self._now
-
-    def advance_to(self, t: float) -> None:
-        if t < self._now:
-            raise ValueError(f"clock moving backwards: {t} < {self._now}")
-        self._now = float(t)
+from repro_torch.serving.sim.workload import VirtualClock  # noqa: F401  (re-exported)
 
 
 @dataclass

@@ -51,7 +51,13 @@ def test_the_slice_has_its_modules():
                  "core/passes/analysis.py", "core/passes/parallelism.py",
                  "core/passes/data_parallel.py", "core/passes/fusion.py",
                  "core/passes/quantize.py", "core/passes/recompute.py",
-                 "core/passes/pipeline.py"):
+                 "core/passes/pipeline.py", "core/timeline.py",
+                 "obs/__init__.py", "obs/clock.py", "obs/recorder.py", "obs/metrics.py",
+                 "obs/explain.py", "serving/__init__.py", "serving/sp_planner.py",
+                 "serving/sim/__init__.py", "serving/sim/events.py", "serving/sim/workload.py",
+                 "serving/sim/policies.py", "serving/sim/report.py", "serving/sim/oracle.py",
+                 "serving/sim/router.py", "serving/sim/sim.py", "resilience/__init__.py",
+                 "resilience/faults.py"):
         assert want in have, want
     for cu in ("rmsnorm.cu", "flash_attention.cu", "decode_attention.cu", "common.cuh"):
         assert (PKG / "kernels" / "csrc" / cu).exists(), cu

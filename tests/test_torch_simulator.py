@@ -162,14 +162,18 @@ def test_persistent_tier_stamps_torch_and_reloads(tmp_path):
 
 
 def test_surfaces_of_later_slices_raise():
+    """Observability (queue A item 10) is ported: explain, the metrics
+    registry and the recorder work; the sanitizing cache (item 11) raises."""
     sim = Simulator("h100_sxm")
     _, spec = spec_pair("phi4-mini-3.8b", "prefill", seq_len=64)
     rep = sim.run(spec)
-    for call in (lambda: rep.explain(), lambda: rep.explain_dict(), lambda: sim.metrics_registry(),
-                 lambda: sim.run(spec, recorder=object()),
-                 lambda: Simulator("h100_sxm", sanitize=True)):
-        with pytest.raises(NotImplementedError, match="queue A items 10 and 11"):
-            call()
+    assert "step report" in rep.explain() and rep.explain_dict()["mode"] == "prefill"
+    assert sim.metrics_registry().snapshot()["counters"]
+    from repro_torch.obs import TraceRecorder
+    rec = TraceRecorder()
+    assert sim.run(spec, recorder=rec).step_time_us == rep.step_time_us and len(rec) > 0
+    with pytest.raises(NotImplementedError, match="queue A item 11"):
+        Simulator("h100_sxm", sanitize=True)
     with pytest.raises(ValueError):
         Simulator("tpu_v5e").run(spec)
 
@@ -215,10 +219,17 @@ def test_from_json_round_trips_across_packages():
 
 
 def test_serving_spec_raises_naming_its_item():
+    """A serving spec now loads (queue A item 7 is ported); ``Simulator.run``
+    refuses it with the reference's TypeError, which names the simulator
+    that runs it."""
     rs = RSpec(r_config("phi4-mini-3.8b"), cluster=RCluster("h100_sxm"),
                workload=RServing(n_requests=4))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SimSpec.from_json(rs.to_json())
+    ts = SimSpec.from_json(rs.to_json())
+    assert ts.json_hash() == rs.json_hash()
+    with pytest.raises(TypeError, match=r"ServingSimulator\(sim\)\.run\(spec\)"):
+        Simulator("h100_sxm").run(ts)
+    with pytest.raises(TypeError, match=r"ServingSimulator\(sim\)\.run\(spec\)"):
+        RSim("h100_sxm").run(rs)
 
 
 def test_cluster_defaults_to_h100():
