@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving path and its simulator on one NVIDIA GPU.
+"""Drives the PyTorch/CUDA port's serving and training paths and its simulator on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase; what a check of the port runs
     python3 chip_smoke.py --phases env,build,kernels --ptxas   # a new kernel's first run
@@ -15,7 +15,16 @@ Phases, each printing one JSON object on a line of its own:
            flash-attention library, 16-byte loads and stores in the rmsnorm one
   kernels  every kernel against its plain PyTorch version on the card, at the
            shapes the serving path gives it and at edge shapes, in float32
-           (tolerance 2e-5: another order of summation) and bfloat16 (2e-2),
+           (tolerance 2e-5: another order of summation) and bfloat16 (2e-2);
+           the backward kernels of K1 and K3 at the train path's shapes and
+           at edge shapes, on the same tolerances, against autograd in
+           float32 of the plain forwards (each gradient's largest error over
+           the larger of 1 and its largest magnitude) and against the plain
+           backward in float32 from the same inputs, bfloat16 ones too (the
+           largest error of a gradient row in L2 over that row's norm; 2e-2
+           bf16, 1e-4 fp32, whose rows that cancel read up to 3.1e-5), and
+           at the train shape what the row measure reads for gradients that
+           left out one 64 x 64 tile (it must exceed that limit),
            with times: `ms` from CUDA events around a wrapper call (host work
            included), `device_ms` the call's own device time from the
            profiler, and the same two for the library call; for K3 also
@@ -29,15 +38,31 @@ Phases, each printing one JSON object on a line of its own:
            logits and that the launch counts are exactly what the path implies
   parity   the same model cut to 4 layers, the same requests, once through
            the kernels and once through their plain versions
+  train    phi4-mini-3.8b at full width and depth through the training
+           launcher's pieces (repro_torch.launch.train.Trainer): AdamW, remat
+           "block", B1 S2048 (cut only if the port's simulator says the step
+           does not fit the card), a warm-up step, 3 steps timed with CUDA
+           events, one under the profiler (device-busy time by kernel group),
+           peak memory, launches of K1 and K3 forward and backward; loss and
+           grad norm finite at every step, the step counter advancing
+  train_parity the train step cut to 4 layers, kernels against plain versions
+           (the model's and AdamW's): loss, every gradient leaf, and each
+           parameter's change in one AdamW step at lr 1e-3; then the update
+           of that tree timed three ways (the AdamW kernel a leaf, the plain
+           version a leaf, the plain version in multi-tensor ops)
   simulate the simulator's path: repro_torch's Simulator.run for phi4-mini-3.8b
            at full width and depth on h100_sxm, prefill (B1 S512) and decode
            (B8, cache 2048), with the analytical engine and with the
            profiling engine measuring every operator on the card into a fresh
            profile DB (K1 for the prefill's attention, K2 for the decode's,
-           counted), K3 and cuBLAS timed on hand-built norm and matmul nodes;
+           counted), K3 and cuBLAS timed on hand-built norm and matmul nodes
+           (the tracer emits no norm node);
            then the port's own Model.prefill / decode_step at those shapes
            (wall time from CUDA events, device-busy time by kernel group from
-           the profiler) and the signed error of each prediction
+           the profiler) and the signed error of each prediction; and the
+           train cell: Simulator.run for train at the train phase's shape
+           (K1 forward and backward counted) against the train phase's step
+           and its peak memory
   serve_sim the serving simulator predicting serve's own trace: the 12
            requests as a trace, ContinuousBatching(max_batch=8, admit_cap=1)
            for the engine's schedule, priced by the analytical engine and by
@@ -54,9 +79,10 @@ tree at DIR (e.g. the parent commit, unpacked) beside this tree's, in turns
 common signatures (the `times` phase; for K3 also `host_us`, the host time
 of a wrapper call, taken before the process profiles anything).
 
-Then one line {"kernels": [...]} with, for each kernel of the serving path,
-its launches in the serve phase and by the profiling engine in the simulate
-and serve_sim phases, error, time,
+Then one line {"kernels": [...]} with, for each kernel of the serving path
+and the backward kernels of the train path, its launches in the serve phase
+(the train phase for a backward kernel), in the train phase and by the
+profiling engine in the simulate and serve_sim phases, error, time,
 device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
 computes the same function; then the
@@ -67,6 +93,7 @@ non-zero exit code and no last line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -90,6 +117,11 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLOOR = 0.1     # row_err: a row is measured against at least this share of the RMS row norm
+# row_err's limits: bf16 as TOL; fp32 above TOL because a row whose softmax is nearly one-hot
+# cancels (dQ = P (dP - delta) K), and there another order of summation reads up to 3.1e-5 (fp32
+# FMA kernel against the plain backward, S2048); one skipped 64 x 64 tile reads 0.4 and more
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ARCH = "phi4-mini-3.8b"
 SEED = 0
 
@@ -188,7 +220,7 @@ def randn(rng, shape, dtype):
 
 
 def max_err(a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def dt_name(dtype) -> str:
@@ -199,9 +231,8 @@ def dt_name(dtype) -> str:
 # kernel checks
 # --------------------------------------------------------------------------
 
-def visible_pairs(Sq, Sk, causal, window) -> int:
-    """Number of (q, k) positions the masks leave, which is what the work of
-    this call is proportional to."""
+def visible_per_row(Sq, Sk, causal, window) -> np.ndarray:
+    """Number of keys each query row sees under the masks."""
     q = np.arange(Sq)[:, None]
     k = np.arange(Sk)[None, :]
     m = np.ones((Sq, Sk), bool)
@@ -209,7 +240,13 @@ def visible_pairs(Sq, Sk, causal, window) -> int:
         m &= k <= q
     if window > 0:
         m &= k > q - window
-    return int(m.sum())
+    return m.sum(axis=1)
+
+
+def visible_pairs(Sq, Sk, causal, window) -> int:
+    """Number of (q, k) positions the masks leave, which is what the work of
+    this call is proportional to."""
+    return int(visible_per_row(Sq, Sk, causal, window).sum())
 
 
 def flash_inputs(rng, *, B, H, Hkv, Sq, Sk, D, dtype, bshd):
@@ -254,6 +291,157 @@ def check_flash(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, bshd
         if window == 0 and (causal is False or Sq == Sk):
             rec["library_ms"] = time_ms(sdpa_flash(q, k, v, causal))
             rec["library_device_ms"] = device_ms(sdpa_flash(q, k, v, causal))
+        else:
+            rec["library_ms"] = rec["library_device_ms"] = None
+    return rec
+
+
+def row_err(got, want, zero_rows=()) -> float:
+    """The largest error of a gradient row (its last dimension), in L2, over
+    that row's reference norm, over the gradients given.  Row by row, so a row
+    of small gradients (a late query's dQ, a late key's dK) is held to the
+    same relative limit as the early rows' large ones.  A row that is zero by
+    the arithmetic (``zero_rows``: for each gradient a bool per row, or None;
+    dQ of a query that sees one key, whose softmax has no derivative) holds
+    only rounding noise, and is measured against the gradient's RMS row norm;
+    any row against at least 1 % of it.  NaN if any value is."""
+    worst = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.float().reshape(-1, w.shape[-1])
+        rn = torch.linalg.vector_norm(w, dim=-1)
+        rms = max(float(rn.square().mean().sqrt()), 1e-30)
+        den = rn.clamp_min(FLOOR * rms)
+        if i < len(zero_rows) and zero_rows[i] is not None:
+            den = torch.where(zero_rows[i].to(den.device), torch.full_like(den, rms), den)
+        d = torch.linalg.vector_norm(g.float().reshape(w.shape) - w, dim=-1)
+        worst.append((d / den).max())
+    return float(torch.stack(worst).max())
+
+
+def scaled_err(got, want) -> float:
+    """The largest error over the gradients, each relative to the larger of 1
+    and its reference's largest magnitude (NaN if any value is)."""
+    return float(torch.stack([(g.float() - w.float()).abs().max()
+                              / max(1.0, float(w.float().abs().max()))
+                              for g, w in zip(got, want)]).max())
+
+
+def bwd_errs_ok(r) -> bool:
+    """A backward record's two errors within their limits (a NaN is not), and
+    what one skipped tile reads above the row limit."""
+    return (r["scaled_err"] <= r["tol"] and r["row_err"] <= r["row_tol"]
+            and all(e > r["row_tol"] for e in r.get("dropped_tile_row_err", {}).values()))
+
+
+def grads_f32(fn, inputs, grad_out):
+    """Autograd of ``fn`` in float32 on float32 copies of ``inputs`` (what a
+    bfloat16 kernel is held to: its inputs' values, none of its roundings)."""
+    leaves = [t.detach().float().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    if isinstance(outs, torch.Tensor):
+        outs, grad_out = (outs,), (grad_out,)
+    return outs, torch.autograd.grad(outs, leaves, [g.float() for g in grad_out])
+
+
+def attention_dropping_tile(q, k, v, *, causal, q0, k0, tile=64):
+    """Attention in float32 as ``flash_attention_plain`` computes it, but with
+    the query rows q0..q0+tile not seeing the keys k0..k0+tile: what a
+    backward kernel that skipped one tile of one of its loops would compute
+    the gradients of.  No window, no fully masked row."""
+    B, H, Sq, D = q.shape
+    G = H // k.shape[1]
+    s = q @ k.repeat_interleave(G, 1).transpose(-1, -2) / math.sqrt(D)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(k.shape[2], device=q.device)[None, :]
+    seen = (kp <= qp) if causal else torch.ones_like(s[0, 0], dtype=torch.bool)
+    seen = seen & ~((qp >= q0) & (qp < q0 + tile) & (kp >= k0) & (kp < k0 + tile))
+    return torch.softmax(s.masked_fill(~seen, float("-inf")), -1) @ v.repeat_interleave(G, 1)
+
+
+def flash_bwd_work(q, k, causal, window) -> tuple[float, float]:
+    """(bytes, operations) of the backward: q, k, v, o, dO and lse read once,
+    dq, dk, dv written once; 2.5 times the forward's operations (the
+    tracer's factor for a backward attention node)."""
+    B, H, Sq, D = q.shape
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * H * Sq
+    return nbytes, 2.5 * 4.0 * B * H * D * visible_pairs(Sq, k.shape[2], causal, window)
+
+
+def off_by_4(t):
+    """A copy of ``t`` whose base lies 4 elements past a 16-byte boundary (8
+    bytes for bf16): the tensor-core backward needs 16, so this takes the
+    FMA kernels."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[4:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_flash_bwd(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, bshd=False,
+                    misaligned=False):
+    """K1's backward (after its LSE forward) against autograd of the plain
+    forward on the same inputs and dO."""
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     flash_attention_bwd_plain, flash_attention_plain)
+    q, k, v = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, dtype=dtype, bshd=bshd)
+    do = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, dtype=dtype, bshd=bshd)[0]
+    o = torch.empty_like(do)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+    flash_attention(q, k, v, causal=causal, window=window, out=o, lse=lse)
+    if misaligned:
+        q, k, v, o, do = (off_by_4(t) for t in (q, k, v, o, do))
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    plain = lambda *t: flash_attention_plain(*t, causal=causal, window=window)  # noqa: E731
+    (want_o,), want = grads_f32(plain, (q, k, v), do)
+    # the backward's own arithmetic in fp32 from the same inputs (bf16 ones
+    # too: the forward's rounded o enters delta there as in the kernel)
+    exact = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o)), lse, do.float(),
+                                      causal=causal, window=window)
+    one_key = torch.from_numpy(visible_per_row(Sq, Sk, causal, window) <= 1)
+    zero = [one_key.expand(B, H, Sq).reshape(-1), None, None]
+    rec = {"kernel": "flash_attention_bwd", "dtype": dt_name(dtype),
+           "case": f"B{B} H{H} Hkv{Hkv} Sq{Sq} Sk{Sk} D{D} causal{int(causal)} window{window}"
+                   + (" bshd" if bshd else "") + (" misaligned" if misaligned else ""),
+           "max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
+           "scaled_err": scaled_err(got, want), "row_err": row_err(got, exact, zero),
+           "err_of": "max_abs_err, scaled_err: dq, dk, dv against autograd of the plain forward "
+                     "in fp32, scaled_err over max(1, max |autograd|); row_err: against "
+                     "flash_attention_bwd_plain in fp32, the largest row error over its row's "
+                     "norm; tol holds scaled_err, row_tol row_err",
+           "tol": TOL[dtype], "row_tol": ROW_TOL[dtype], "o_err": max_err(o, want_o)}
+    del exact
+    if timed:
+        # one 64 x 64 tile left out where the gradients are smallest (the last
+        # q rows, the middle keys): row_err must read it above row_tol
+        drop = lambda *t: attention_dropping_tile(*t, causal=causal, q0=Sq - 64,  # noqa: E731
+                                                  k0=Sk // 2)
+        _, dropped = grads_f32(drop, (q, k, v), do)
+        rec["dropped_tile_row_err"] = {n: row_err([a], [b], [z])
+                                       for n, a, b, z in zip(("dq", "dk", "dv"), dropped, want,
+                                                             zero)}
+        del dropped
+    del want_o, want
+    if timed:
+        nbytes, flops = flash_bwd_work(q, k, causal, window)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dtype)
+        call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,  # noqa: E731
+                                           window=window)
+        rec["ms"] = time_ms(call)
+        rec["device_ms"] = device_ms(call)
+
+        def plain():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(flash_attention_plain(*leaves, causal=causal,
+                                                             window=window), leaves, do)
+        rec["plain_ms"] = time_ms(plain, iters=3)   # the plain forward and autograd's backward
+        if window == 0 and (causal is False or Sq == Sk):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lo = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+            lib = lambda: torch.autograd.grad(lo, leaves, do, retain_graph=True)  # noqa: E731
+            rec["library_ms"] = time_ms(lib)
+            rec["library_device_ms"] = device_ms(lib)
+            del lo, leaves
         else:
             rec["library_ms"] = rec["library_device_ms"] = None
     return rec
@@ -410,6 +598,120 @@ def check_rmsnorm(rng, *, R, D, dtype, w_dtype, offset, residual, timed, fused=F
             rec["library_device_ms"] = device_ms(lib)
         else:
             rec["library_ms"] = rec["library_device_ms"] = None
+    return rec
+
+
+def check_rmsnorm_bwd(rng, *, R, D, dtype, w_dtype, offset, residual, timed, fused=False):
+    """K3's backward against autograd of the plain forward: ``rmsnorm`` of x,
+    or of x + residual, or with ``fused`` ``add_rmsnorm`` (whose sum has a
+    gradient of its own, which joins dx).  x and the residual get the same
+    gradient, so dx stands for both."""
+    from repro_torch.kernels import (add_rmsnorm_plain, rmsnorm_bwd, rmsnorm_bwd_plain,
+                                     rmsnorm_plain)
+    residual = residual or fused
+    x, w, r = rms_inputs(rng, R, D, dtype, w_dtype, offset, residual)
+    dy = randn(rng, (R, D), dtype)
+    ds = randn(rng, (R, D), dtype) if fused else None
+    s = x + r if residual else x                     # what the forward normalised
+    got = rmsnorm_bwd(s, w, dy, eps=1e-6, offset=offset, ds=ds)
+    torch.cuda.synchronize()
+    if fused:
+        _, want = grads_f32(lambda x, r, w: add_rmsnorm_plain(x, r, w, eps=1e-6, offset=offset),
+                            (x, r, w), (ds, dy))
+    else:
+        _, want = grads_f32(lambda x, w, *r: rmsnorm_plain(x, w, eps=1e-6, offset=offset,
+                                                          residual=r[0] if r else None),
+                            (x, w, r) if residual else (x, w), dy)
+    want = (want[0], want[-1]) if fused else want[:2]     # dx (= d residual), dw
+    exact = rmsnorm_bwd_plain(s.float(), w.float(), dy.float(), eps=1e-6, offset=offset,
+                              ds=None if ds is None else ds.float())
+    rec = {"kernel": "rmsnorm_bwd", "dtype": dt_name(dtype),
+           "case": f"R{R} D{D} w:{dt_name(w_dtype)} offset{int(offset)} residual{int(residual)}"
+                   + (" with sum" if fused else ""),
+           "max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
+           "scaled_err": scaled_err(got, want), "row_err": row_err(got, exact),
+           "err_of": "max_abs_err, scaled_err: dx, dw against autograd of the plain forward in "
+                     "fp32, scaled_err over max(1, max |autograd|); row_err: against "
+                     "rmsnorm_bwd_plain in fp32, the largest error of a row of dx, and of dw, "
+                     "over its norm; tol holds scaled_err, row_tol row_err",
+           "tol": TOL[dtype], "row_tol": ROW_TOL[dtype]}
+    if timed:
+        nbytes = ((3 + int(fused)) * x.numel() * x.element_size()
+                  + 2 * w.numel() * w.element_size())
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 10.0 * x.numel(), torch.float32)
+        call = lambda: rmsnorm_bwd(s, w, dy, eps=1e-6, offset=offset, ds=ds)  # noqa: E731
+        rec["ms"] = time_ms(call)
+        rec["device_ms"] = device_ms(call)
+
+        def plain():
+            xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+            rl = r.detach().requires_grad_() if residual else None
+            if fused:
+                return torch.autograd.grad(add_rmsnorm_plain(xl, rl, wl, offset=offset),
+                                           (xl, wl), (ds, dy))
+            return torch.autograd.grad(rmsnorm_plain(xl, wl, offset=offset, residual=rl),
+                                       (xl, wl), dy)
+        rec["plain_ms"] = time_ms(plain)
+        if not offset and not residual:
+            xl = x.detach().clone().requires_grad_()
+            wl = w.detach().to(dtype).requires_grad_()
+            ly = F.rms_norm(xl, (D,), wl, 1e-6)
+            lib = lambda: torch.autograd.grad(ly, (xl, wl), dy, retain_graph=True)  # noqa: E731
+            rec["library_ms"] = time_ms(lib)
+            rec["library_device_ms"] = device_ms(lib)
+        else:
+            rec["library_ms"] = rec["library_device_ms"] = None
+    return rec
+
+
+def check_adamw(rng, *, n, p_dtype, g_dtype, timed, misaligned=False):
+    """The fused AdamW update against its plain (unfused) version on copies
+    of the same p, g, m, v at step 3 of the launcher's schedule: p, m and v
+    after one update (bit-equal expected: the same roundings in the same
+    order)."""
+    from repro_torch.kernels import adamw_update, adamw_update_plain
+    from repro_torch.training.optimizer import cosine_schedule
+    off = 1 if misaligned else 0
+    p = randn(rng, (n + off,), torch.float32).mul_(0.02).to(p_dtype)[off:]
+    g = randn(rng, (n + off,), torch.float32).mul_(0.01).to(g_dtype)[off:]
+    m = randn(rng, (n + off,), torch.float32).mul_(0.01)[off:]
+    v = randn(rng, (n + off,), torch.float32).square_().mul_(1e-4)[off:]
+    step = torch.tensor(3, dtype=torch.int32, device="cuda")
+    hp = dict(lr=cosine_schedule(3e-4)(step), b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    hp["c1"] = 1.0 - torch.pow(torch.tensor(0.9, device="cuda"), step.float())
+    hp["c2"] = 1.0 - torch.pow(torch.tensor(0.95, device="cuda"), step.float())
+    mine = [t.clone() for t in (p, m, v)]
+    plain = [t.clone() for t in (p, m, v)]
+    adamw_update(mine[0], g, mine[1], mine[2], **hp)
+    torch.cuda.synchronize()
+    adamw_update_plain(plain[0], g, plain[1], plain[2], **hp)
+    rec = {"kernel": "adamw", "dtype": dt_name(p_dtype),
+           "case": f"n{n} p:{dt_name(p_dtype)} g:{dt_name(g_dtype)}"
+                   + (" misaligned" if misaligned else ""),
+           "max_abs_err": max(max_err(a, b) for a, b in zip(mine, plain)), "tol": TOL[p_dtype],
+           "bit_equal": all(torch.equal(a, b) for a, b in zip(mine, plain))}
+    if timed:
+        pe, ge = p.element_size(), g.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound(n * (2 * pe + ge + 16), 15.0 * n, torch.float32)
+        call = lambda: adamw_update(mine[0], g, mine[1], mine[2], **hp)  # noqa: E731
+        rec["ms"] = time_ms(call)
+        rec["device_ms"] = device_ms(call)
+        rec["plain_ms"] = time_ms(lambda: adamw_update_plain(plain[0], g, plain[1], plain[2], **hp))
+        if p_dtype == g_dtype == torch.float32:
+            # PyTorch's fused AdamW: the same update (weight decay as p (1 - lr wd)), fp32
+            # moments for fp32 parameters; for bf16 parameters it keeps bf16 moments, which
+            # is another function
+            w = mine[0].clone().requires_grad_()
+            w.grad = g.clone()
+            opt = torch.optim.AdamW([w], lr=float(hp["lr"]), betas=(0.9, 0.95), eps=1e-8,
+                                    weight_decay=0.1, fused=True)
+            rec["library_ms"] = time_ms(opt.step)
+            rec["library_device_ms"] = device_ms(opt.step)
+            del opt, w
+        else:
+            rec["library_ms"] = rec["library_device_ms"] = None
+    del mine, plain, p, g, m, v
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -572,8 +874,64 @@ def phase_kernels():
         fail("no rmsnorm case ran the scalar variant")
     rms_plans = rms_plan_times(rng)
 
+    # --- K1 backward at the train path's shape (phi4-mini: B1 S2048, G=3, the model's
+    # layout) and the serving path's prefill, then at edge shapes: D 64/256, G 1/2/5/7/8,
+    # windows, ragged lengths, rows that see no key at all
+    for S in (1000, 2048):
+        for dtype in (bf16, f32):
+            recs.append(check_flash_bwd(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, causal=True,
+                                        window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+            if S == 2048 and dtype is bf16:
+                main["flash_attention_bwd"] = recs[-1]
+    for dtype in (bf16, f32):
+        edge = [dict(B=2, H=40, Hkv=8, Sq=333, Sk=333, D=128, causal=True, window=0, bshd=True),  # G=5
+                dict(B=1, H=16, Hkv=16, Sq=300, Sk=300, D=256, causal=True, window=0),   # D=256, G=1
+                dict(B=2, H=8, Hkv=1, Sq=192, Sk=192, D=64, causal=True, window=0),      # G=8
+                dict(B=1, H=14, Hkv=2, Sq=130, Sk=130, D=128, causal=True, window=0),    # G=7
+                dict(B=2, H=4, Hkv=2, Sq=160, Sk=160, D=64, causal=True, window=64),     # window
+                dict(B=1, H=4, Hkv=2, Sq=300, Sk=300, D=128, causal=False, window=64),   # window alone
+                dict(B=1, H=4, Hkv=1, Sq=128, Sk=256, D=64, causal=False, window=0),     # Sq != Sk
+                dict(B=1, H=4, Hkv=2, Sq=300, Sk=100, D=64, causal=False, window=64),    # masked rows
+                dict(B=1, H=6, Hkv=2, Sq=100, Sk=100, D=128, causal=True, window=0,
+                     misaligned=True)]                                            # FMA kernels
+        for e in edge:
+            recs.append(check_flash_bwd(rng, **e, dtype=dtype, timed=False))
+
+    # --- K3 backward at the train path's rows (B1 S2048, D 3072: add_rmsnorm in 63 of a
+    # step's 65 norms) and the serving path's, with and without the residual, the sum's
+    # gradient and the 1 + w form
+    for R in (8, 1000, 2048):
+        for dtype in (bf16, f32):
+            for fused in (False, True):
+                recs.append(check_rmsnorm_bwd(rng, R=R, D=3072, dtype=dtype, w_dtype=dtype,
+                                              offset=False, residual=fused, fused=fused,
+                                              timed=dtype is bf16))
+                if R == 2048 and dtype is bf16 and fused:
+                    main["rmsnorm_bwd"] = recs[-1]
+            recs.append(check_rmsnorm_bwd(rng, R=R, D=3072, dtype=dtype, w_dtype=f32, offset=True,
+                                          residual=True, timed=False))
+    # --- the fused AdamW update: phi4-mini's leaves (a layer's up projection, the
+    # embedding), bf16 parameters and gradients, fp32 moments; fp32 beside PyTorch's
+    # fused AdamW; a length that is no multiple of 4 and a base off 16 bytes
+    recs.append(check_adamw(rng, n=3072 * 8192, p_dtype=bf16, g_dtype=bf16, timed=True))
+    main["adamw"] = recs[-1]
+    recs.append(check_adamw(rng, n=200064 * 3072, p_dtype=bf16, g_dtype=bf16, timed=True))
+    recs.append(check_adamw(rng, n=3072 * 8192, p_dtype=f32, g_dtype=f32, timed=True))
+    recs.append(check_adamw(rng, n=3072 * 8192, p_dtype=bf16, g_dtype=f32, timed=False))
+    recs.append(check_adamw(rng, n=12345, p_dtype=bf16, g_dtype=bf16, timed=False))
+    recs.append(check_adamw(rng, n=3073, p_dtype=f32, g_dtype=f32, timed=False, misaligned=True))
+
+    for dtype in (bf16, f32):
+        recs.append(check_rmsnorm_bwd(rng, R=37, D=100, dtype=dtype, w_dtype=f32, offset=True,
+                                      residual=False, timed=False))              # scalar variant
+        recs.append(check_rmsnorm_bwd(rng, R=600, D=256, dtype=dtype, w_dtype=dtype,
+                                      offset=False, residual=True, fused=True, timed=False))
+        recs.append(check_rmsnorm_bwd(rng, R=64, D=16384, dtype=dtype, w_dtype=dtype,
+                                      offset=False, residual=False, timed=False))
+
     K.reset_launch_counts()
-    bad = [r for r in recs if not (r["max_abs_err"] <= r["tol"])]   # a NaN is bad too
+    bad = [r for r in recs if not (bwd_errs_ok(r) if "row_err" in r               # a NaN is
+                                   else r["max_abs_err"] <= r["tol"])]            # bad too
     emit({"phase": "kernels", "plans": plans, "floor_device_ms": launch_floor_ms(),
           "rmsnorm_plans": rms_plans, "checks": recs, "failed": len(bad)})
     if bad:
@@ -738,7 +1096,8 @@ def phase_serve():
     L = cfg.num_layers
     norms = 2 * L + 1
     want = {"flash_attention": L * len(reqs), "decode_attention": L * steps,
-            "rmsnorm": norms * (len(reqs) + steps)}
+            "rmsnorm": norms * (len(reqs) + steps), "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+            "adamw": 0}
     toks = sum(len(r.tokens) for r in reqs)
     ttft = [r.ttft_s * 1e3 for r in reqs]
     rec = {"phase": "serve", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
@@ -858,29 +1217,327 @@ def phase_parity():
 
 
 # --------------------------------------------------------------------------
+# training: the launcher's step at full size, and kernels against plain
+# --------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 1, 2048
+TRAIN_STEPS = 3          # timed steps, after one warm-up step and before one profiled step
+
+
+def train_spec(cfg, *, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH):
+    from repro_torch.api import Cluster, SimSpec, TrainWorkload
+    return SimSpec(cfg, cluster=Cluster("h100_sxm", chips=1),
+                   workload=TrainWorkload(global_batch=batch, seq_len=seq, remat="block",
+                                          optimizer="adamw"))
+
+
+def train_shape(cfg) -> tuple[int, int, float]:
+    """(batch, sequence, predicted bytes): B1 S2048 if the port's simulator
+    says its step fits the card's memory, else the sequence halved until it
+    does (depth and width are never cut)."""
+    from repro_torch.core import Simulator
+    total = torch.cuda.get_device_properties(0).total_memory
+    seq = TRAIN_SEQ
+    while True:
+        need = Simulator("h100_sxm").run(train_spec(cfg, seq=seq)).memory.total
+        if need <= total or seq <= 128:
+            return TRAIN_BATCH, seq, need
+        seq //= 2
+
+
+def phase_train():
+    """phi4-mini-3.8b at full width and depth through repro_torch.launch.train's
+    pieces (its Trainer: config, synthetic data, AdamW, remat "block", the
+    train step): one warm-up step, TRAIN_STEPS steps timed with CUDA events
+    and counted by the kernel wrappers, one step under the profiler; loss and
+    grad norm finite at every step, the step counter advancing by one."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as T
+    cfg = get_config(ARCH)
+    B, S, predicted_bytes = train_shape(cfg)
+    trainer = T.Trainer(T.parse_args(["--arch", ARCH, "--batch", str(B), "--seq", str(S),
+                                      "--remat", "block", "--optimizer", "adamw",
+                                      "--steps", str(TRAIN_STEPS + 2), "--ckpt-every", "0",
+                                      "--seed", str(SEED)]))
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state()
+    from repro_torch.training.optimizer import tree_leaves
+    n_leaves = len(tree_leaves(state["params"]))
+    pipe = trainer.pipeline(0)
+    steps = []
+
+    def one(state):
+        before = int(state["step"])
+        state, metrics = trainer.step_fn(state, next(pipe))
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        steps.append({"step": before, "loss": loss, "grad_norm": gn})
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            fail(f"train step {before}: loss {loss}, grad_norm {gn}")
+        if int(state["step"]) != before + 1:
+            fail(f"train step {before}: the step counter went to {int(state['step'])}")
+        return state
+
+    try:
+        t0 = time.perf_counter()
+        state = one(state)                                   # warm-up
+        warm_s = time.perf_counter() - t0
+        K.reset_launch_counts()
+        wall_ms = []
+        for _ in range(TRAIN_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state = one(state)
+            end.record()
+            end.synchronize()
+            wall_ms.append(start.elapsed_time(end))
+        counts = K.launch_counts()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state = one(state)
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        groups = device_groups(avgs)
+        launches = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA)
+        top_other = top_kernels(avgs, "other")
+        k1_bwd = top_kernels(avgs, "K1_bwd")
+        peak = torch.cuda.max_memory_allocated()
+        # the optimizer's share of the step: one more AdamW update, alone, on
+        # gradients of the parameters' shapes (its arithmetic does not depend
+        # on their values); after the peak is read
+        from repro_torch.training.optimizer import tree_map
+        grads = tree_map(lambda p: torch.zeros_like(p, requires_grad=False), state["params"])
+        update = lambda: trainer.optimizer.update(grads, state["opt"], state["params"])  # noqa: E731
+        optimizer_ms = time_ms(update, iters=2, warmup=1)
+        optimizer_device_ms = device_ms(update, iters=2, cold=False)
+        del grads
+    finally:
+        pipe.close()
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    L = cfg.num_layers
+    # what one step of the path launches: K1 forward twice a layer (the
+    # forward and its recomputation under remat "block"), its backward once;
+    # K3 forward 2L + 1 (the final norm outside the checkpoints) plus 2L
+    # recomputed, its backward 2L + 1; the AdamW update once a parameter tensor
+    want = {"flash_attention": 2 * L, "flash_attention_bwd": L,
+            "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1, "decode_attention": 0,
+            "adamw": n_leaves}
+    rec = {"phase": "train", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+           "params": cfg.param_count(), "batch": B, "seq": S, "remat": "block",
+           "optimizer": "adamw", "predicted_bytes": predicted_bytes,
+           "steps": steps, "warmup_s": warm_s, "wall_ms": wall_ms,
+           "wall_ms_median": float(np.median(wall_ms)),
+           "device_busy_ms": sum(groups.values()) / 1e3,
+           "device_ms_by_group": {k: v / 1e3 for k, v in groups.items()},
+           "device_launches": launches, "peak_bytes": peak, "top_other_ms": top_other,
+           "k1_bwd_kernels_ms": k1_bwd,
+           "optimizer_ms": optimizer_ms, "optimizer_device_ms": optimizer_device_ms,
+           "launches": counts, "launches_per_step": per_step, "launches_per_step_want": want,
+           "gpu": gpu_name_and_power()}
+    emit(rec)
+    if any(per_step[k] != v for k, v in want.items()):
+        fail(f"train: kernel launches a step {per_step}, the path implies {want}")
+    del state, trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| in fp32 (0 where both are 0)."""
+    d = float(torch.linalg.vector_norm((got.float() - want.float()).reshape(-1)))
+    n = float(torch.linalg.vector_norm(want.float().reshape(-1)))
+    return d / n if n else d
+
+
+PARITY_LR = 1e-3    # the peak lr of the reference's training tests, reached at step 1
+UPDATE_TOL = 0.5    # relative L2 of a parameter's change in one step, kernels against plain
+
+
+def adamw_foreach(ps, gs, ms, vs, *, lr, c1, c2, b1, b2, eps, weight_decay) -> None:
+    """``adamw_update_plain`` over lists of leaves in PyTorch's multi-tensor
+    (``_foreach``) ops, op for op, in place: the way to update a whole tree in
+    a few launches without a kernel of one's own.  Each op makes a whole-tree
+    temporary, and gradients and parameters are widened leaf by leaf (there is
+    no multi-tensor cast).  Timed beside the kernel; used nowhere in the port."""
+    g = [t.to(torch.float32) for t in gs]
+    torch._foreach_mul_(ms, b1)
+    torch._foreach_add_(ms, torch._foreach_mul(g, 1 - b1))
+    torch._foreach_mul_(vs, b2)
+    sq = torch._foreach_mul(g, g)
+    del g
+    torch._foreach_mul_(sq, 1 - b2)
+    torch._foreach_add_(vs, sq)
+    del sq
+    u = torch._foreach_div(ms, c1)
+    d = torch._foreach_div(vs, c2)
+    torch._foreach_sqrt_(d)
+    torch._foreach_add_(d, eps)
+    torch._foreach_div_(u, d)
+    del d
+    pf = [p.to(torch.float32) for p in ps]
+    torch._foreach_add_(u, torch._foreach_mul(pf, weight_decay))
+    torch._foreach_mul_(u, lr)
+    torch._foreach_copy_(ps, torch._foreach_sub(pf, u))
+
+
+def adamw_tree_times(params, grads, opt_state) -> dict:
+    """One AdamW update of a whole parameter tree, three ways, at step 1 of
+    the parity run's schedule: the kernel a leaf (what the port runs), the
+    plain version a leaf, and ``adamw_foreach``; each from the same p, g, m, v
+    (the last two checked bit-equal to the first), then each timed (CUDA
+    events and profiler device time; the tree is updated in place again and
+    again, which does not change the arithmetic) with the device memory it
+    takes beyond its inputs."""
+    from repro_torch.kernels import adamw_update, adamw_update_plain
+    from repro_torch.training.optimizer import cosine_schedule, tree_leaves
+    step = torch.ones((), dtype=torch.int32, device="cuda")
+    hp = dict(lr=cosine_schedule(PARITY_LR, warmup=1)(step), b1=0.9, b2=0.95, eps=1e-8,
+              weight_decay=0.1)
+    hp["c1"] = 1.0 - torch.pow(torch.tensor(0.9, device="cuda"), step.float())
+    hp["c2"] = 1.0 - torch.pow(torch.tensor(0.95, device="cuda"), step.float())
+    base = [tree_leaves(params), list(grads), tree_leaves(opt_state["m"]),
+            tree_leaves(opt_state["v"])]
+
+    def per_leaf(fn):
+        return lambda ps, gs, ms, vs: [fn(*a, **hp) for a in zip(ps, gs, ms, vs)]
+    ways = {"kernel_per_leaf": per_leaf(adamw_update),
+            "plain_per_leaf": per_leaf(adamw_update_plain),
+            "plain_foreach": lambda ps, gs, ms, vs: adamw_foreach(ps, gs, ms, vs, **hp)}
+    out = {"leaves": len(base[0]), "params": sum(p.numel() for p in base[0])}
+    first = None
+    for name, fn in ways.items():       # the kernel first: the others are held to it
+        ps, ms, vs = ([t.detach().clone() for t in ts] for ts in (base[0], base[2], base[3]))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(ps, base[1], ms, vs)
+        torch.cuda.synchronize()
+        out[name] = {"extra_bytes": torch.cuda.max_memory_allocated() - before}
+        if first is None:
+            first = (ps, ms, vs)
+            continue
+        out[name]["bit_equal"] = all(torch.equal(a, b) for x, y in zip(first, (ps, ms, vs))
+                                     for a, b in zip(x, y))
+        time_way(out[name], fn, ps, base[1], ms, vs)
+        del ps, ms, vs
+        torch.cuda.empty_cache()
+    time_way(out["kernel_per_leaf"], ways["kernel_per_leaf"], first[0], base[1], *first[1:])
+    del first
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_way(rec, fn, *args) -> None:
+    """``ms`` and ``device_ms`` of ``fn(*args)``, into ``rec``."""
+    call = lambda: fn(*args)  # noqa: E731
+    rec["ms"] = time_ms(call, iters=3, warmup=1)
+    rec["device_ms"] = device_ms(call, iters=2, cold=False)
+
+
+def phase_train_parity():
+    """The train step of phi4-mini cut to 4 layers, once through the kernels
+    (the model's and AdamW's) and once through their plain versions, from the
+    same parameters and batch, at lr PARITY_LR from the first step (warm-up
+    1), so that the step moves bf16 parameters by several of their last
+    places: loss, every gradient leaf, and each parameter leaf's change.
+    Then ``adamw_tree_times`` on that tree."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.models import Model
+    from repro_torch.training import SyntheticTokenPipeline, init_state, make_loss_fn
+    from repro_torch.training import make_train_step
+    from repro_torch.training.optimizer import adamw, cosine_schedule, tree_leaves, tree_map
+    cfg = get_config(ARCH).replace(num_layers=4)
+    run = RunConfig(model=cfg, shape=ShapeConfig("parity", 512, 2, "train"), remat_policy="block")
+    pipe = SyntheticTokenPipeline(cfg, global_batch=2, seq_len=512, seed=SEED)
+    batch = next(pipe)
+    pipe.close()
+    base = Model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED))
+    out = {}
+    for plain in (False, True):
+        tree = tree_map(lambda t: t.detach().clone().requires_grad_(), base)
+        model = Model(cfg, remat_policy="block", plain_kernels=plain)
+        loss, _ = make_loss_fn(model)(tree, batch)
+        grads = [g.detach() for g in torch.autograd.grad(loss, tree_leaves(tree))]
+        opt = adamw(cosine_schedule(PARITY_LR, warmup=1), plain_kernels=plain)
+        state = init_state(tree, opt)
+        state, metrics = make_train_step(cfg, run, opt, plain_kernels=plain)(state, batch)
+        delta = [p.detach().float() - b.float()
+                 for p, b in zip(tree_leaves(state["params"]), tree_leaves(base))]
+        out[plain] = (float(loss.detach()), float(metrics["loss"]), grads, delta, state)
+        del loss, metrics, tree
+    (lk, mk, gk, dk, state), (lp, mp, gp, dp, _) = out.pop(False), out.pop(True)
+    grad_err = max(rel_l2(a, b) for a, b in zip(gk, gp))
+    update_err = max(rel_l2(a, b) for a, b in zip(dk, dp))
+    moved = sum(int((d != 0).sum()) for d in dk) / sum(d.numel() for d in dk)
+    del gp, dp
+    # bf16 activations through 4 layers forward and back: the kernels and the
+    # plain versions round at other places (P before P V, the sums of squares),
+    # as parity's logits do; AdamW's first step is lr (sign(g) + wd p), so an
+    # element whose gradient is near 0 may take the other sign on the other
+    # side; no update at all reads 1, an update of unrelated gradients about 1.4
+    tol = {"loss": 1e-2, "grad_rel_l2": 5e-2, "update_rel_l2": UPDATE_TOL}
+    rec = {"phase": "train_parity", "layers": cfg.num_layers, "batch": 2, "seq": 512,
+           "lr": PARITY_LR, "loss_kernels": lk, "loss_plain": lp, "loss_abs_diff": abs(lk - lp),
+           "step_loss_abs_diff": abs(mk - mp), "grad_leaves": len(gk),
+           "grad_rel_l2_max": grad_err, "update_rel_l2_max": update_err,
+           "share_of_elements_moved": moved, "tol": tol}
+    del dk
+    rec["adamw_tree"] = adamw_tree_times(state["params"], gk, state["opt"])
+    emit(rec)
+    if not (abs(lk - lp) <= tol["loss"] and abs(mk - mp) <= tol["loss"]):
+        fail(f"train_parity: loss {lk} (kernels) against {lp} (plain)")
+    if not grad_err <= tol["grad_rel_l2"]:
+        fail(f"train_parity: a gradient differs by {grad_err} (relative L2)")
+    if not update_err <= tol["update_rel_l2"]:
+        fail(f"train_parity: a parameter's change differs by {update_err} (relative L2)")
+    if not all(rec["adamw_tree"][w]["bit_equal"] for w in ("plain_per_leaf", "plain_foreach")):
+        fail(f"train_parity: the AdamW updates of the tree differ: {rec['adamw_tree']}")
+    del base, state, gk
+    torch.cuda.empty_cache()
+    return rec
+
+
+# --------------------------------------------------------------------------
 # the simulator against the port's own step
 # --------------------------------------------------------------------------
 
+def kernel_group(name: str) -> str:
+    """Who wrote a kernel, by its name: K1 (forward or backward), K2, K3
+    (forward or backward), cuBLAS, other."""
+    name = name.lower()
+    if "flash_fwd" in name:
+        return "K1"
+    if "flash_bwd" in name:
+        return "K1_bwd"
+    if "decode_kernel" in name:
+        return "K2"
+    if "rmsnorm_kernel" in name:
+        return "K3"
+    if "rmsnorm_bwd" in name or "rmsnorm_dw" in name:
+        return "K3_bwd"
+    if any(t in name for t in ("nvjet", "gemm", "cublas", "cutlass", "xmma")):
+        return "cublas"
+    return "other"
+
+
 def device_groups(avgs) -> dict:
     """Self device time (µs, whole window) of the profiler's kernels by who
-    wrote them: K1, K2, K3, cuBLAS, other."""
-    out = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "cublas": 0.0, "other": 0.0}
+    wrote them (``kernel_group``)."""
+    out = {"K1": 0.0, "K1_bwd": 0.0, "K2": 0.0, "K3": 0.0, "K3_bwd": 0.0, "cublas": 0.0,
+           "other": 0.0}
     for e in avgs:
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.key.lower()
-        if "flash_fwd" in name:
-            g = "K1"
-        elif "decode_kernel" in name:
-            g = "K2"
-        elif "rmsnorm_kernel" in name:
-            g = "K3"
-        elif any(t in name for t in ("nvjet", "gemm", "cublas", "cutlass", "xmma")):
-            g = "cublas"
-        else:
-            g = "other"
-        out[g] += e.self_device_time_total
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[kernel_group(e.key)] += e.self_device_time_total
     return out
+
+
+def top_kernels(avgs, group: str, n: int = 10) -> list:
+    """The ``n`` kernels of ``group`` (``device_groups``' names) with the most
+    device time in the window: [name, ms, launches]."""
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in avgs
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel_group(e.key) == group]
+    return [list(r) for r in sorted(rows, key=lambda r: -r[1])[:n]]
 
 
 def measure_step(fn, n: int) -> dict:
@@ -908,13 +1565,16 @@ def measure_step(fn, n: int) -> dict:
             "device_launches": launches // n}
 
 
-def phase_simulate():
+def phase_simulate(train=None):
     """Simulator.run for phi4-mini-3.8b at full width and depth on h100_sxm,
-    prefill (B1 S512) and decode (B8, cache 2048): the analytical engine, then
-    the profiling engine measuring every operator on this card (a fresh
-    profile DB), then the port's own Model.prefill / decode_step at the same
-    shapes; prints a line for each mode (predicted against measured, by op
-    kind too) and one for the phase."""
+    prefill (B1 S512) and decode (B8, cache 2048), and, given the train
+    phase's record, train at its shape: the analytical engine, then the
+    profiling engine measuring every operator on this card (a fresh profile
+    DB; a backward attention node through K1's backward), then the port's own
+    Model.prefill / decode_step at the same shapes (train: the train phase's
+    step); prints a line for each mode (predicted against measured, by op kind
+    too; train also its memory against the measured peak) and one for the
+    phase."""
     from repro_torch import kernels as K
     from repro_torch.api import Cluster, DecodeWorkload, PrefillWorkload, SimSpec
     from repro_torch.configs import get_config
@@ -933,6 +1593,8 @@ def phase_simulate():
                                 workload=PrefillWorkload(global_batch=1, seq_len=512)),
              "decode": SimSpec(cfg, cluster=cluster,
                                workload=DecodeWorkload(global_batch=8, seq_len=2048))}
+    if train is not None:
+        specs["train"] = train_spec(cfg, seq=train["seq"], batch=train["batch"])
     analytical = Simulator("h100_sxm")
     profiling = Simulator("h100_sxm", engine="profiling", db=db, measure_on_miss=True)
     rec = {"phase": "simulate", "arch": cfg.name, "layers": cfg.num_layers,
@@ -950,7 +1612,8 @@ def phase_simulate():
         w = spec.workload
         mg = ingest_graphs(cfg, w.global_batch, 1 if mode == "decode" else w.seq_len, mode,
                            cache_len=w.cache_len or w.seq_len)
-        priced = sum(n.repeat * b.repeat for b in mg.all_blocks() for n in b.fwd)
+        priced = sum(n.repeat * b.repeat for b in mg.all_blocks()
+                     for n in (b.joint if mode == "train" and b.joint is not None else b.fwd))
         rec[mode] = {"phase": "simulate", "mode": mode, "priced_ops": priced,
                      "analytical_us": ana.step_time_us, "profiling_us": prof.step_time_us,
                      "analytical_kind_us": ana.kind_us, "profiling_kind_us": prof.kind_us,
@@ -963,6 +1626,9 @@ def phase_simulate():
         fail("the profiling engine did not launch K1 for the prefill's attention")
     if rec["decode"]["profiling_launches"]["decode_attention"] <= 0:
         fail("the profiling engine did not launch K2 for the decode's attention")
+    if train is not None and min(rec["train"]["profiling_launches"]["flash_attention"],
+                                 rec["train"]["profiling_launches"]["flash_attention_bwd"]) <= 0:
+        fail("the profiling engine did not launch K1 forward and backward for train attention")
     # the tracer emits no norm node (as the reference's does not): K3 and
     # cuBLAS are timed on hand-built nodes at the model's shapes
     nodes = {"norm_prefill": OpNode("n", "norm", out_shape=(512, cfg.d_model), dtype="bf16"),
@@ -975,13 +1641,14 @@ def phase_simulate():
     rec["synthesized_us"] = {k: P.synthesize_and_measure(n) for k, n in nodes.items()}
     rec["synthesized_launches"] = K.launch_counts()
     if rec["synthesized_launches"]["rmsnorm"] <= 0:
-        fail("synthesize_and_measure did not launch K3 for a norm node")
+        fail("synthesize_and_measure did not launch K3 for norm nodes")
     # what the DB now holds must give the same reports without measuring
     replay = Simulator("h100_sxm", engine="profiling", db=db)
     for mode, spec in specs.items():
         if replay.run(spec).step_time_us != reports[mode][1].step_time_us:
             fail(f"{mode}: the filled profile DB does not reproduce the profiling report")
     db.save()
+    rec["attention_entries_us"] = {k: v["us"] for k, v in db.data.items() if "|attention|" in k}
 
     model = Model(cfg)
     params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
@@ -1012,9 +1679,40 @@ def phase_simulate():
             if not (math.isfinite(v) and v > 0):
                 fail(f"{mode}: a non-positive or non-finite step time in {rec[mode]}")
         emit(rec[mode])
-    emit({k: v for k, v in rec.items() if k not in runs})
     del params, cache
     torch.cuda.empty_cache()
+    if train is not None:
+        ana, prof = reports["train"]
+        meas = {"wall_us": train["wall_ms_median"] * 1e3,
+                "device_busy_us": train["device_busy_ms"] * 1e3,
+                "device_us": {k: v * 1e3 for k, v in train["device_ms_by_group"].items()},
+                "peak_bytes": train["peak_bytes"]}
+        err = {f"{p}_vs_{m}": pred / meas[key] - 1.0
+               for p, pred in (("analytical", ana.step_time_us), ("profiling", prof.step_time_us))
+               for m, key in (("wall", "wall_us"), ("device_busy", "device_busy_us"))}
+        kinds, dev = prof.kind_us, meas["device_us"]
+        rest = sum(v for k, v in kinds.items() if k not in ("matmul", "attention", "transpose"))
+        rec["train"].update(
+            measured=meas, signed_error=err,
+            # the step's parts as each engine priced them, beside the measured
+            # optimizer update (kind_us below covers the forward graphs only)
+            analytical_breakdown_us=ana.breakdown_us, profiling_breakdown_us=prof.breakdown_us,
+            measured_optimizer_device_us=train["optimizer_device_ms"] * 1e3,
+            kind_vs_measured_us={
+                "matmul/cublas": [kinds.get("matmul", 0.0), dev["cublas"]],
+                "attention/K1+K1_bwd": [kinds.get("attention", 0.0), dev["K1"] + dev["K1_bwd"]],
+                "transpose/none": [kinds.get("transpose", 0.0), 0.0],
+                "rest/K3+K3_bwd+other": [rest, dev["K3"] + dev["K3_bwd"] + dev["other"]]},
+            memory={"analytical_bytes": ana.memory.total, "profiling_bytes": prof.memory.total,
+                    "measured_peak_bytes": train["peak_bytes"],
+                    "signed_error": ana.memory.total / train["peak_bytes"] - 1.0,
+                    "predicted_by_part": {k: v for k, v in dataclasses.asdict(ana.memory).items()
+                                          if isinstance(v, (int, float))}})
+        for v in (ana.step_time_us, prof.step_time_us):
+            if not (math.isfinite(v) and v > 0):
+                fail(f"train: a non-positive or non-finite predicted step time in {rec['train']}")
+        emit(rec["train"])
+    emit({k: v for k, v in rec.items() if k not in specs})
     return rec
 
 
@@ -1160,7 +1858,8 @@ def phase_serve_sim():
     emit(meas)
     n_req, steps = meas["requests"], meas["engine_steps"]
     want = {"flash_attention": L * n_req, "decode_attention": L * steps,
-            "rmsnorm": (2 * L + 1) * (n_req + steps)}
+            "rmsnorm": (2 * L + 1) * (n_req + steps), "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+            "adamw": 0}
     if not (meas["logits_finite"] and meas["tokens_32"]):
         fail("serve_measure: non-finite logits or a request without 32 tokens")
     if meas["launches"] != want:
@@ -1246,16 +1945,34 @@ KERNEL_INFO = {
                          "src/repro/kernels/decode_attention.py:67"),
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:45"),
+    # the backward of K1 and K3: the TPU kernels are forward only, and the
+    # reference differentiates its plain attention and norm instead
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention.py:104"),
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm.py:45"),
+    # no TPU kernel: the reference's AdamW update is array code XLA fuses
+    "adamw": ("src/repro_torch/kernels/csrc/adamw.cu", "src/repro/training/optimizer.py:79"),
+}
+# kernels whose main path is training, with what they stand for
+TRAIN_ONLY = {
+    "flash_attention_bwd": "backward of K1; the TPU kernel has none (the reference trains "
+                           "through src/repro/models/layers.py:241-250)",
+    "rmsnorm_bwd": "backward of K3; the TPU kernel has none (the reference trains through "
+                   "src/repro/models/layers.py:31)",
+    "adamw": "the training step's fused AdamW update; it replaces no TPU kernel (the "
+             "reference's update is array code at the line named, which XLA fuses)",
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,serve,parity,simulate,serve_sim",
-                    help="comma-separated subset of env,build,kernels,serve,parity,simulate,"
-                         "serve_sim (and times, the serving-shape timings alone; serve_measure, "
-                         "the measured side of serve_sim alone); the closing lines are printed "
-                         "only when the seven of the default ran")
+    ap.add_argument("--phases",
+                    default="env,build,kernels,serve,parity,train,train_parity,simulate,serve_sim",
+                    help="comma-separated subset of env,build,kernels,serve,parity,train,"
+                         "train_parity,simulate,serve_sim (and times, the serving-shape timings "
+                         "alone; serve_measure, the measured side of serve_sim alone); the "
+                         "closing lines are printed only when the nine of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -1312,32 +2029,51 @@ def main(argv=None) -> int:
         phase_profile(args.profile)
     if "parity" in phases:
         phase_parity()
-    sim = phase_simulate() if "simulate" in phases else None
+    train = phase_train() if "train" in phases else None
+    train_parity = phase_train_parity() if "train_parity" in phases else None
+    sim = phase_simulate(train) if "simulate" in phases else None
     serve_sim = phase_serve_sim() if "serve_sim" in phases else None
-    if (main_recs is None or counts is None or "parity" not in phases or sim is None
-            or serve_sim is None):
+    if (main_recs is None or counts is None or "parity" not in phases or train is None
+            or train_parity is None or sim is None or serve_sim is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
     # launches by the simulator's profiling engine: K1 in the prefill's run,
-    # K2 in the decode's, K3 on the hand-built norm nodes
+    # K2 in the decode's, K1's backward in the train's, K3 on the hand-built
+    # norm nodes; K3's backward none (the tracer emits no norm node, as the
+    # reference's does not)
     sim_launches = {"flash_attention": sim["prefill"]["profiling_launches"]["flash_attention"],
                     "decode_attention": sim["decode"]["profiling_launches"]["decode_attention"],
-                    "rmsnorm": sim["synthesized_launches"]["rmsnorm"]}
+                    "rmsnorm": sim["synthesized_launches"]["rmsnorm"],
+                    "flash_attention_bwd":
+                        sim["train"]["profiling_launches"]["flash_attention_bwd"],
+                    "rmsnorm_bwd": sim["train"]["profiling_launches"]["rmsnorm_bwd"],
+                    # the simulator prices the optimizer from its bytes; it times no update
+                    "adamw": sim["train"]["profiling_launches"]["adamw"]}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = main_recs[name]
-        if counts[name] <= 0:
-            fail(f"kernel {name} was not launched on the serving path")
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": counts[name], "simulate_launches": sim_launches[name],
-                        "serve_sim_launches": serve_sim["profiling"]["launches"][name],
-                        "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"],
-                        "library_device_ms": r["library_device_ms"],
-                        "shape": r["case"], "dtype": r["dtype"]})
+        # a forward kernel's main path is serving; a backward kernel's, and the
+        # optimizer's, training
+        launches = train["launches"][name] if name in TRAIN_ONLY else counts[name]
+        if launches <= 0:
+            fail(f"kernel {name} was not launched on its main path")
+        rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches, "train_launches": train["launches"][name],
+               "simulate_launches": sim_launches[name],
+               "serve_sim_launches": serve_sim["profiling"]["launches"].get(name, 0),
+               "max_abs_err": r["max_abs_err"],
+               "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+               "library_ms": r["library_ms"],
+               "library_device_ms": r["library_device_ms"],
+               "shape": r["case"], "dtype": r["dtype"]}
+        for key in ("scaled_err", "row_err", "row_tol", "dropped_tile_row_err"):
+            if key in r:
+                rec[key] = r[key]
+        if name in TRAIN_ONLY:
+            rec["note"] = TRAIN_ONLY[name]
+        kernels.append(rec)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

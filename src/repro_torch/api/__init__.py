@@ -9,7 +9,7 @@
 
 A ``ServingWorkload`` spec runs through
 ``repro_torch.serving.sim.ServingSimulator(sim).run(spec)``.  Sweeps
-(``SweepSpace``, ``sweep``) are not ported yet (ROADMAP queue A item 8).
+(``SweepSpace``, ``sweep``) are not ported yet (ROADMAP queue A item 4).
 """
 from repro_torch.api.spec import (
     STEP_WORKLOADS, AutoscalerSpec, CharonDeprecationWarning, CheckpointSpec,

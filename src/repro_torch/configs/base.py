@@ -1,14 +1,16 @@
 """Model configuration (counterpart of ``repro/configs/base.py``).
 
 ``ModelConfig`` is carried over field for field, so a config of the reference
-and one of the port compare equal attribute by attribute; the run/shape
-configs of the reference belong to the launcher and training slices and are
-not here yet.  ``torch_dtype`` maps the config's dtype strings to torch.
+and one of the port compare equal attribute by attribute; so are the run and
+shape configs the trainer reads (``ShapeConfig``, ``SHAPES``, ``RunConfig``,
+``supports_shape``).  ``torch_dtype`` maps the config's dtype strings to
+torch.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Any
 
 import torch
 
@@ -109,6 +111,62 @@ class ModelConfig:
         """Total parameter count, embedding included."""
         from repro_torch.models.params import count_params
         return count_params(self, active_only=active_only)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+    sub_quadratic_only: bool = False
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode", sub_quadratic_only=True),
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Parallelism / training-run knobs consumed by the launcher.
+
+    ``pod``, ``data``, ``model_axis`` and ``zero_stage`` are the reference's
+    mesh and ZeRO settings, carried as fields so that a run of either package
+    reads the same config; the port trains on one device, where they change
+    nothing (the sharding they select is ROADMAP queue A item 6).
+    """
+
+    model: ModelConfig
+    shape: ShapeConfig
+    # mesh logical sizes (products must equal device count); unused on one device
+    pod: int = 1
+    data: int = 16
+    model_axis: int = 16
+    # distribution features
+    zero_stage: int = 1              # 0 off, 1 opt-state, 2 +grads, 3 +params (FSDP); unused on one device
+    remat_policy: str = "block"      # none | block | dots
+    optimizer: str = "adamw"         # adamw | adafactor
+    microbatches: int = 1            # grad-accumulation microbatches
+    grad_compression: str = "none"   # none | int8
+    extra: dict[str, Any] = field(default_factory=dict)
+
+
+def supports_shape(model: ModelConfig, shape: ShapeConfig) -> bool:
+    """Shape applicability per the assignment.
+
+    ``long_500k`` needs sub-quadratic attention: only hybrid (windowed attn +
+    recurrent state) and ssm families qualify; pure full-attention archs skip
+    it.
+    """
+    if shape.sub_quadratic_only:
+        return model.family in ("hybrid", "ssm")
+    return True
 
 
 _TORCH_DTYPES = {

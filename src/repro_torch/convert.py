@@ -1,10 +1,15 @@
-"""Carries weights and decode state from the JAX reference into the port.
+"""Carries weights and decode state between the JAX reference and the port.
 
 The reference stacks block parameters and caches over depth (leading layer
-dim, for ``lax.scan``); the port keeps one dict a layer.  These functions
-take the reference's trees **as numpy arrays** (this package never imports
-jax; bf16 has no numpy dtype, so callers hand float32 over and name the torch
-dtype they want) and return the port's trees on a device.
+dim, for ``lax.scan``); the port keeps one dict a layer.
+:func:`from_reference_params` and :func:`from_reference_cache` take the
+reference's trees **as numpy arrays** (this package never imports jax; bf16
+has no numpy dtype, so callers hand float32 over and name the torch dtype
+they want) and return the port's trees on a device;
+:func:`to_reference_params` is the inverse.  :func:`reference_layout` and
+:func:`port_layout` restack a tree of tensors (parameters, gradients, moments)
+between the two layouts; the optimizer and the checkpoints use them where the
+reference's numbers or files depend on its layout.
 """
 from __future__ import annotations
 
@@ -66,6 +71,85 @@ def from_reference_params(np_tree: dict, cfg: ModelConfig, device, dtype=None) -
     want = build_params(cfg, lambda path, shape, fan_in: tuple(shape))
     _check_same(want, _map(tree, lambda t: tuple(t.shape)), "params")
     return tree
+
+
+def _stack_blocks(cfg: ModelConfig | None, layers: list, stack) -> dict:
+    """One tree a layer -> ``{"cycle": [stacked tree a kind], "tail": [tree a
+    kind]}``, the inverse of :func:`_unstack_blocks`.  Without ``cfg`` every
+    layer is one cycle position (the dense decoders' cycle is one kind)."""
+    if cfg is None:
+        cycle, n, tail = ["block"], len(layers), []
+    else:
+        cycle, n, tail = block_cycle(cfg)
+    if len(layers) != n * len(cycle) + len(tail):
+        raise ValueError(f"{len(layers)} layers do not match the block cycle "
+                         f"({n} x {len(cycle)} + {len(tail)})")
+    stacked = [_zip(layers[j::len(cycle)][:n], stack) for j in range(len(cycle))]
+    return {"cycle": stacked, "tail": list(layers[n * len(cycle):])}
+
+
+def _zip(trees: list, fn):
+    """Trees of one structure -> one tree whose leaves are ``fn`` of the
+    list of the trees' leaves at the same place."""
+    first = trees[0]
+    if isinstance(first, dict):
+        if any(not isinstance(t, dict) or set(t) != set(first) for t in trees):
+            raise ValueError("layers differ in structure: they cannot be stacked")
+        return {k: _zip([t[k] for t in trees], fn) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_zip([t[i] for t in trees], fn) for i in range(len(first))]
+    return fn(trees)
+
+
+def reference_layout(tree: dict, cfg: ModelConfig | None = None, stack=torch.stack) -> dict:
+    """The port's parameter-shaped tree (parameters, gradients, moments) in
+    the reference's layout: ``blocks`` stacked over depth by ``stack``, the
+    other entries as they are (the same objects)."""
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = _stack_blocks(cfg, tree["blocks"], stack)
+    return out
+
+
+def port_layout(tree: dict, cfg: ModelConfig | None = None) -> dict:
+    """The inverse of :func:`reference_layout`: the stacked blocks split into
+    one tree a layer (views of the stacked tensors or arrays)."""
+    blocks = tree["blocks"]
+    if cfg is None:
+        cycle, n = ["block"], next(_leaves(blocks["cycle"][0])).shape[0]
+    else:
+        cycle, n, _ = block_cycle(cfg)
+    layers = [_map(blocks["cycle"][j], lambda a, i=i: a[i])
+              for i in range(n) for j in range(len(cycle))]
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = layers + list(blocks["tail"])
+    return out
+
+
+def _leaves(tree, is_leaf=None):
+    """Leaves in the reference's order (``jax.tree.leaves``: dict keys
+    sorted, lists in order); ``is_leaf(x)`` stops the walk at ``x``."""
+    if is_leaf is not None and is_leaf(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], is_leaf)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v, is_leaf)
+    else:
+        yield tree
+
+
+def to_reference_params(tree: dict, cfg: ModelConfig) -> dict:
+    """The port's parameter-shaped tree -> the reference's (``build_params``
+    names, blocks stacked over depth) as numpy arrays on the host, bf16
+    widened to float32 (numpy has none).  The inverse of
+    :func:`from_reference_params`."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return reference_layout(_map(tree, host), cfg, stack=np.stack)
 
 
 def from_reference_cache(np_cache: dict, cfg: ModelConfig, device, dtype=None) -> dict:

@@ -11,7 +11,13 @@ split-KV decode kernel (K2, every cache row valid), ``norm`` the rmsnorm
 kernel (K3), ``matmul`` cuBLAS through ``torch.matmul``, and an elementwise,
 reduce, copy or transpose node one PyTorch launch.  Attention is synthesised
 grouped: the tracer records the group size ``G`` on the node, and
-:func:`node_key` appends it to an attention key.
+:func:`node_key` appends it to an attention key.  A backward operator's
+node (``attrs["backward"]``: the tracer sets it on attention's backward;
+``phase`` cannot tell, since every node of a joint graph, the recomputed
+forward too, has phase "bwd") is timed through K1's backward kernels
+(delta, dK/dV and dQ) and keyed with ``|bwd``, apart from the forward at
+the same dims; the reference's key has neither, so there a backward
+attention node takes the forward's price.
 
 Timing on the card (:func:`_time_fn`): one CUDA graph holds launches of
 the operator on several copies of its inputs in turn, so that they exceed
@@ -37,7 +43,9 @@ from repro_torch.core.backend.hardware import HardwareSpec
 from repro_torch.core.ir import OpNode
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import SUPPORTED_D as K2_D, SUPPORTED_G
-from repro_torch.kernels.flash_attention import SUPPORTED_D as K1_D
+from repro_torch.kernels.flash_attention import (
+    SUPPORTED_D as K1_D, flash_attention, flash_attention_bwd,
+)
 from repro_torch.kernels.rmsnorm import MAX_D
 
 DB_PATH = Path(__file__).resolve().parents[4] / "results" / "profile_db_torch.json"
@@ -61,6 +69,8 @@ def node_key(node: OpNode, hw_name: str) -> str:
         # grouped-query attention: the same dims at another group size are
         # another kernel launch (the reference synthesises multi-head only)
         key += f"|G{int(node.attrs.get('G', 1))}"
+    if node.kind == "attention" and node.attrs.get("backward"):
+        key += "|bwd"    # timed through the backward kernels, not the forward's
     return key
 
 
@@ -175,6 +185,20 @@ def _nbytes(*tensors) -> float:
     return float(sum(t.numel() * t.element_size() for t in tensors))
 
 
+def _flash_bwd_inputs(randn, bsz, sq, skv, hkv, g, d, causal, window):
+    """What K1's backward reads, in the (B, heads, S, D) views of the model's
+    layout: q, k, v, the forward's output and log-sum-exp (one forward
+    launch, outside the timing), and dO."""
+    q = randn((bsz, sq, hkv * g, d)).permute(0, 2, 1, 3)
+    k = randn((bsz, skv, hkv, d)).permute(0, 2, 1, 3)
+    v = randn((bsz, skv, hkv, d)).permute(0, 2, 1, 3)
+    o = torch.empty((bsz, sq, hkv * g, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    lse = torch.empty((bsz, hkv * g, sq), dtype=torch.float32, device=q.device)
+    flash_attention(q, k, v, causal=causal, window=window, out=o, lse=lse)
+    do = randn((bsz, sq, hkv * g, d)).permute(0, 2, 1, 3)
+    return q, k, v, o, lse, do
+
+
 def synthesize_and_measure(node: OpNode, device="cuda") -> float | None:
     """Build the operator from its IR description and time it on ``device``
     (the card unless the caller asks for the CPU, where the kernel wrappers
@@ -216,11 +240,16 @@ def synthesize_and_measure(node: OpNode, device="cuda") -> float | None:
                 return None
             causal = bool(node.attrs.get("causal", True))
             window = int(node.attrs.get("window", 0))
+            if node.attrs.get("backward"):
+                return _time_fn(lambda *a: flash_attention_bwd(*a, causal=causal,
+                                                               window=window),
+                                sets(lambda: _flash_bwd_inputs(randn, bsz, sq, skv, hkv, g, d,
+                                                               causal, window)), dev)
             args = sets(lambda: (randn((bsz, sq, hkv, g, d)), randn((bsz, skv, hkv, d)),
                                  randn((bsz, skv, hkv, d))))
             return _time_fn(lambda q, kk_, v: ops.flash_attention_bshd(
                 q, kk_, v, causal=causal, window=window), args, dev)
-        if d not in K2_D or g not in SUPPORTED_G:
+        if node.attrs.get("backward") or d not in K2_D or g not in SUPPORTED_G:
             return None
         valid = torch.full((bsz,), skv, dtype=torch.int32, device=dev)
         args = sets(lambda: (randn((bsz, 1, hkv, g, d)), randn((bsz, skv, hkv, d)),

@@ -127,17 +127,19 @@ class Simulator:
         self.hw = HARDWARE[hw] if isinstance(hw, str) else hw
         self.db = db or ProfileDB()
         self.overlap = overlap
-        # sanitize=None defers to the CHARON_SANITIZE env knob; the
-        # fingerprinting cache (analysis/sanitize.py) is ROADMAP queue A
-        # item 11, so until then asking for it raises
+        # sanitize=None defers to the CHARON_SANITIZE env knob; when on,
+        # the cache fingerprints values at insert and re-verifies at hit
+        # (cache-poisoning detector — see repro_torch.analysis.sanitize).  The
+        # default path constructs a plain SimCache with no fingerprinting
+        # code anywhere near the hot get().
         if sanitize is None:
             sanitize = os.environ.get("CHARON_SANITIZE", "") not in ("", "0")
         self.sanitize = bool(sanitize)
         if self.sanitize:
-            raise NotImplementedError(
-                "the sanitizing cache is not ported to repro_torch yet: it comes "
-                "with static analysis (ROADMAP queue A item 11)")
-        self.cache = SimCache(enabled=cache)
+            from repro_torch.analysis.sanitize import SanitizingSimCache
+            self.cache = SanitizingSimCache(enabled=cache)
+        else:
+            self.cache = SimCache(enabled=cache)
         engines = []
         if engine in ("fused", "profiling"):
             engines.append(ProfilingEngine(self.hw, self.db,

@@ -201,6 +201,11 @@ def _trace_fx(ctx: _TraceCtx, gm: torch.fx.GraphModule, phase: str):
             node.attrs["causal"], node.attrs["window"] = causal, window
             # GQA group: the profiling engine synthesises grouped attention
             node.attrs["G"] = int(g_)
+            if base.endswith("bwd"):
+                # every node of a joint graph has phase "bwd", the forward's
+                # too: this marks the backward operator, which the profiling
+                # engine times through K1's backward kernels
+                node.attrs["backward"] = True
         elif base in MATMUL:
             node = _mm_node(ctx, ins, out, common)
         elif base in REDUCTION:

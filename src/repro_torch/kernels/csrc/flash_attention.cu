@@ -32,6 +32,12 @@
 // Both paths skip KV tiles that the causal or window mask kills entirely and
 // schedule the heaviest q tiles (the last ones under a causal mask) first.
 //
+// Each kernel has a compile-time variant (LSE = true) that also writes the
+// row log-sum-exp of the scaled scores, (B, H, Sq) in fp32, for the backward
+// kernels of flash_attention_bwd.cu.  It differs only in the epilogue; the
+// serving path launches the LSE = false instantiation, which is the kernel
+// as it was.
+//
 // Layout: q (B,H,Sq,D), k/v (B,Hkv,Sk,D), o (B,H,Sq,D), each with free
 // strides over its first three dims and stride 1 over D, so the model's
 // (B,S,H,D) tensors are read where they lie: the bf16 path's tensor maps
@@ -49,6 +55,7 @@
 
 struct FlashParams {
   const void* q; const void* k; const void* v; void* o;
+  float* lse;   // (B, H, Sq) contiguous, written by the LSE variant only
   int H, Hkv, Sq, Sk;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
   int causal, window;
@@ -62,7 +69,7 @@ template <int D> struct FlashSmem {
   static constexpr int FLOATS = FA_BQ * QS + FA_BK * QS + FA_BK * D + FA_BQ * PS;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams p) {
   constexpr int QS = FlashSmem<D>::QS, PS = FlashSmem<D>::PS;
   constexpr int DC = D / 16;   // output columns a thread
@@ -211,6 +218,10 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
 #pragma unroll
       for (int j = 0; j < DC; ++j)
         op[(long long)q_pos * p.o_ss + tx + 16 * j] = from_float<T>(acc[i][j] * inv);
+      if constexpr (LSE) {
+        // m is in natural units of the scaled score; l its row's sum
+        if (tx == 0) p.lse[((long long)b * p.H + h) * p.Sq + q_pos] = m[i] + logf(fmaxf(l[i], 1e-30f));
+      }
     }
   }
 }
@@ -251,6 +262,7 @@ template <int D> struct TcPlan {
 
 struct TcParams {
   __nv_bfloat16* o;
+  float* lse;   // (B, H, Sq) contiguous, written by the LSE variant only
   long long o_sb, o_sh, o_ss;
   int H, Hkv, Sq, Sk, causal, window;
   float scale_log2;   // softmax scale * log2(e)
@@ -372,7 +384,7 @@ template <int D> __device__ __forceinline__ void scale_rows(float* o, float2 c) 
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(TcPlan<D>::THREADS, TcPlan<D>::MIN_BLOCKS)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -502,6 +514,14 @@ __global__ void __launch_bounds__(TcPlan<D>::THREADS, TcPlan<D>::MIN_BLOCKS)
         *reinterpret_cast<uint32_t*>(op + (long long)(r0 + 8) * p.o_ss + col) =
             pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
     }
+    if constexpr (LSE) {
+      // the rows' max is in log2 units of the scaled score: lse = (m + log2 l) ln 2
+      if ((lane & 3) == 0) {
+        float* lp = p.lse + ((long long)b * p.H + h) * p.Sq;
+        if (r0 < p.Sq) lp[r0] = (rows.m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
+        if (r0 + 8 < p.Sq) lp[r0 + 8] = (rows.m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
+      }
+    }
   }
 }
 
@@ -543,12 +563,12 @@ static bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool LSE>
 static cudaError_t launch_tc(const FlashParams& f, int B, cudaStream_t stream) {
   using P = TcPlan<D>;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D, LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
     if (e != cudaSuccess) return e;
     attr_set = true;
@@ -560,60 +580,64 @@ static cudaError_t launch_tc(const FlashParams& f, int B, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   TcParams p;
   p.o = (__nv_bfloat16*)f.o;
+  p.lse = f.lse;
   p.o_sb = f.o_sb; p.o_sh = f.o_sh; p.o_ss = f.o_ss;
   p.H = f.H; p.Hkv = f.Hkv; p.Sq = f.Sq; p.Sk = f.Sk;
   p.causal = f.causal; p.window = f.window;
   p.scale_log2 = f.scale * 1.4426950408889634f;
   const dim3 grid((f.Sq + P::BQ - 1) / P::BQ, f.H, B);
-  flash_fwd_tc_kernel<D><<<grid, P::THREADS, P::SMEM, stream>>>(tq, tk, tv, p);
+  flash_fwd_tc_kernel<D, LSE><<<grid, P::THREADS, P::SMEM, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
+template <bool LSE>
 static cudaError_t launch_tc_d(const FlashParams& f, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch_tc<64>(f, B, stream);
-    case 128: return launch_tc<128>(f, B, stream);
-    case 256: return launch_tc<256>(f, B, stream);
+    case 64: return launch_tc<64, LSE>(f, B, stream);
+    case 128: return launch_tc<128, LSE>(f, B, stream);
+    case 256: return launch_tc<256, LSE>(f, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 static cudaError_t launch_fma(const FlashParams& p, int B, cudaStream_t stream) {
   constexpr size_t bytes = (size_t)FlashSmem<D>::FLOATS * sizeof(float);
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<float, D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<float, D, LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const dim3 grid((p.Sq + FA_BQ - 1) / FA_BQ, p.H, B);
-  flash_fwd_kernel<float, D><<<grid, FA_THREADS, bytes, stream>>>(p);
+  flash_fwd_kernel<float, D, LSE><<<grid, FA_THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <bool LSE>
 static cudaError_t launch_fma_d(const FlashParams& p, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch_fma<64>(p, B, stream);
-    case 128: return launch_fma<128>(p, B, stream);
-    case 256: return launch_fma<256>(p, B, stream);
+    case 64: return launch_fma<64, LSE>(p, B, stream);
+    case 128: return launch_fma<128, LSE>(p, B, stream);
+    case 256: return launch_fma<256, LSE>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Strides are in elements.  D must be 64, 128 or 256; every pointer and every
-// stride 16-byte aligned (TMA's rule for the bf16 path).  Returns
+// stride 16-byte aligned (TMA's rule for the bf16 path).  lse: null, or a
+// contiguous (B, H, Sq) fp32 tensor that the LSE variant fills.  Returns
 // cudaGetLastError().
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int Sq,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Hkv, int Sq,
     int Sk, int D, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, int causal, int window, float scale,
     int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   FlashParams p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse;
   p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
@@ -621,8 +645,10 @@ extern "C" int flash_attention_launch(
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
   p.causal = causal; p.window = window; p.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DT_F32) return (int)launch_fma_d(p, B, D, s);
-  if (dtype == DT_BF16) return (int)launch_tc_d(p, B, D, s);
+  if (dtype == DT_F32)
+    return (int)(lse ? launch_fma_d<true>(p, B, D, s) : launch_fma_d<false>(p, B, D, s));
+  if (dtype == DT_BF16)
+    return (int)(lse ? launch_tc_d<true>(p, B, D, s) : launch_tc_d<false>(p, B, D, s));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,6 +30,22 @@
 // scale with scale = w or 1 + w, output rounded to x's type.  With a residual
 // the sum is rounded to x's type before it is squared (and written), as the
 // reference's array add rounds it.
+//
+// The backward (`rmsnorm_bwd_kernel`; the TPU kernel has none, the reference
+// differentiates its plain rmsnorm) is bound by bytes as well: it reads x (the
+// rounded sum where there was a residual), dy, w and, for add_rmsnorm, the
+// gradient ds of the written sum, and writes dx.  With x^ = x * rstd and
+// w' = w or 1 + w:
+//
+//   dx = rstd * (w' dy - x^ * mean(w' dy x^)) (+ ds),   dw = sum over rows of dy x^
+//
+// The same plan as the forward (the row in registers as 16-byte vectors),
+// one block a row at a time: a block walks rows blockIdx.x, blockIdx.x +
+// gridDim.x, ..., recomputes rstd and mean(w' dy x^) with one two-value
+// reduction, writes dx, and keeps its share of dw in fp32 registers.  It
+// writes that partial sum as one fp32 row; `rmsnorm_dw_kernel` then sums the
+// gridDim.x rows column by column, in a fixed order, into dw.  No atomics:
+// the result is the same on every run.
 #include "common.cuh"
 
 #define RMS_MAX_THREADS 512
@@ -139,6 +155,103 @@ rmsnorm_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
 }
 
 // ---------------------------------------------------------------------------
+// Backward.
+
+template <typename TX, typename TW, int VEC, int C>
+__global__ void __launch_bounds__(RMS_MAX_THREADS)
+rmsnorm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                   const TX* __restrict__ dy, const TX* __restrict__ ds, TX* __restrict__ dx,
+                   float* __restrict__ dw_part, int rows, int D, float eps, int offset) {
+  __shared__ float red[2][RMS_MAX_THREADS / 32];
+  const int n = D / VEC;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  Bits<TW, VEC> wv[C];
+  float dw[C][VEC];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int i = threadIdx.x + c * blockDim.x;
+    if (i < n) wv[c].load(w + (size_t)i * VEC);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dw[c][e] = 0.f;
+  }
+
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const size_t base = (size_t)row * (size_t)D;
+    Bits<TX, VEC> xv[C], gv[C], sv[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = threadIdx.x + c * blockDim.x;
+      if (i < n) {
+        xv[c].load(x + base + (size_t)i * VEC);
+        gv[c].load(dy + base + (size_t)i * VEC);
+        if (ds != nullptr) sv[c].load(ds + base + (size_t)i * VEC);
+      }
+    }
+    float ss = 0.f, gx = 0.f;   // sum of x^2, sum of w' dy x
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = threadIdx.x + c * blockDim.x;
+      if (i < n) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float f = xv[c].get(e);
+          const float sc = offset ? 1.0f + wv[c].get(e) : wv[c].get(e);
+          ss += f * f;
+          gx += sc * gv[c].get(e) * f;
+        }
+      }
+    }
+    ss = warp_sum(ss);
+    gx = warp_sum(gx);
+    if (lane == 0) { red[0][warp] = ss; red[1][warp] = gx; }
+    __syncthreads();
+    ss = warp_sum(lane < warps ? red[0][lane] : 0.f);
+    gx = warp_sum(lane < warps ? red[1][lane] : 0.f);
+    __syncthreads();   // red is free for the next row
+    const float rs = 1.0f / sqrtf(ss / (float)D + eps);
+    const float k = rs * rs * gx / (float)D;   // x^ * mean(w' dy x^) = x * k * rs
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = threadIdx.x + c * blockDim.x;
+      if (i < n) {
+        Bits<TX, VEC> o;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float f = xv[c].get(e), g = gv[c].get(e);
+          const float sc = offset ? 1.0f + wv[c].get(e) : wv[c].get(e);
+          float v = rs * (sc * g - f * k);
+          if (ds != nullptr) v += sv[c].get(e);
+          o.set(e, v);
+          dw[c][e] += g * f * rs;
+        }
+        o.store(dx + base + (size_t)i * VEC);
+      }
+    }
+  }
+
+  float* part = dw_part + (size_t)blockIdx.x * (size_t)D;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int i = threadIdx.x + c * blockDim.x;
+    if (i < n) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) part[(size_t)i * VEC + e] = dw[c][e];
+    }
+  }
+}
+
+// dw[d] = sum over the `parts` rows of dw_part[., d], in row order.
+template <typename TW>
+__global__ void __launch_bounds__(256)
+rmsnorm_dw_kernel(const float* __restrict__ dw_part, TW* __restrict__ dw, int parts, int D) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= D) return;
+  float acc = 0.f;
+  for (int r = 0; r < parts; ++r) acc += dw_part[(size_t)r * D + d];
+  dw[d] = from_float<TW>(acc);
+}
+
+// ---------------------------------------------------------------------------
 // The plan: threads a block, chunks a thread, elements a load.
 
 static const int kVecChunks[] = {1, 2, 3, 4, 6, 8};         // vector variant
@@ -183,12 +296,32 @@ static cudaError_t run(const RmsArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+struct RmsBwdArgs {
+  const void *x, *w, *dy, *ds;
+  void *dx, *dw;
+  float* dw_part;
+  int rows, D;
+  float eps;
+  int offset, threads, parts;
+};
+
+template <typename TX, typename TW, int VEC, int C>
+static cudaError_t run(const RmsBwdArgs& a, cudaStream_t s) {
+  rmsnorm_bwd_kernel<TX, TW, VEC, C><<<a.parts, a.threads, 0, s>>>(
+      (const TX*)a.x, (const TW*)a.w, (const TX*)a.dy, (const TX*)a.ds, (TX*)a.dx, a.dw_part,
+      a.rows, a.D, a.eps, a.offset);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  rmsnorm_dw_kernel<TW><<<(a.D + 255) / 256, 256, 0, s>>>(a.dw_part, (TW*)a.dw, a.parts, a.D);
+  return cudaGetLastError();
+}
+
 #define RMS_CASE(C) \
   case C:           \
     return run<TX, TW, VEC, C>(a, s);
 
-template <typename TX, typename TW, int VEC>
-static cudaError_t dispatch(const RmsArgs& a, int chunks, cudaStream_t s) {
+template <typename TX, typename TW, int VEC, typename A>
+static cudaError_t dispatch(const A& a, int chunks, cudaStream_t s) {
   if constexpr (VEC > 1) {
     switch (chunks) { RMS_CASE(1) RMS_CASE(2) RMS_CASE(3) RMS_CASE(4) RMS_CASE(6) RMS_CASE(8) }
   } else {
@@ -197,11 +330,25 @@ static cudaError_t dispatch(const RmsArgs& a, int chunks, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
-template <typename TX, typename TW>
-static cudaError_t dispatch_vector(const RmsArgs& a, int chunks, int vector, cudaStream_t s) {
+template <typename TX, typename TW, typename A>
+static cudaError_t dispatch_vector(const A& a, int chunks, int vector, cudaStream_t s) {
   constexpr int VEC = 16 / (int)sizeof(TX);
   if (vector == VEC) return dispatch<TX, TW, VEC>(a, chunks, s);
   if (vector == 1) return dispatch<TX, TW, 1>(a, chunks, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename A>
+static cudaError_t dispatch_types(const A& a, int x_dtype, int w_dtype, int chunks, int vector,
+                                  cudaStream_t s) {
+  if (x_dtype == DT_F32 && w_dtype == DT_F32)
+    return dispatch_vector<float, float>(a, chunks, vector, s);
+  if (x_dtype == DT_F32 && w_dtype == DT_BF16)
+    return dispatch_vector<float, __nv_bfloat16>(a, chunks, vector, s);
+  if (x_dtype == DT_BF16 && w_dtype == DT_F32)
+    return dispatch_vector<__nv_bfloat16, float>(a, chunks, vector, s);
+  if (x_dtype == DT_BF16 && w_dtype == DT_BF16)
+    return dispatch_vector<__nv_bfloat16, __nv_bfloat16>(a, chunks, vector, s);
   return cudaErrorInvalidValue;
 }
 
@@ -230,13 +377,24 @@ extern "C" int rmsnorm_launch(const void* x, const void* res, const void* w, voi
       (long long)threads * chunks * vector < D || (sum_out != nullptr && res == nullptr))
     return (int)cudaErrorInvalidValue;
   const RmsArgs a{x, res, w, out, sum_out, rows, D, eps, offset, threads};
-  if (x_dtype == DT_F32 && w_dtype == DT_F32)
-    return (int)dispatch_vector<float, float>(a, chunks, vector, s);
-  if (x_dtype == DT_F32 && w_dtype == DT_BF16)
-    return (int)dispatch_vector<float, __nv_bfloat16>(a, chunks, vector, s);
-  if (x_dtype == DT_BF16 && w_dtype == DT_F32)
-    return (int)dispatch_vector<__nv_bfloat16, float>(a, chunks, vector, s);
-  if (x_dtype == DT_BF16 && w_dtype == DT_BF16)
-    return (int)dispatch_vector<__nv_bfloat16, __nv_bfloat16>(a, chunks, vector, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_types(a, x_dtype, w_dtype, chunks, vector, s);
+}
+
+// Backward.  x (the normalised input: the rounded sum where the forward had a
+// residual), dy, ds (may be null: add_rmsnorm's gradient of the written sum),
+// dx: (rows, D) contiguous, of x_dtype; w, dw: (D,) of w_dtype; dw_part:
+// (parts, D) fp32 scratch.  The plan is the forward's for the same D and
+// alignment; `parts` blocks walk the rows, 1 <= parts <= rows.  Launches the
+// row kernel and the dw reduction.  Returns cudaGetLastError().
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* w, const void* dy, const void* ds,
+                                  void* dx, void* dw, float* dw_part, int rows, int D, float eps,
+                                  int offset, int x_dtype, int w_dtype, int threads, int chunks,
+                                  int vector, int parts, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (rows <= 0) return 0;
+  if (threads < 32 || threads > RMS_MAX_THREADS || threads % 32 || vector < 1 || D % vector ||
+      (long long)threads * chunks * vector < D || parts < 1 || parts > rows)
+    return (int)cudaErrorInvalidValue;
+  const RmsBwdArgs a{x, w, dy, ds, dx, dw, dw_part, rows, D, eps, offset, threads, parts};
+  return (int)dispatch_types(a, x_dtype, w_dtype, chunks, vector, s);
 }

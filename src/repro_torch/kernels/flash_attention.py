@@ -1,12 +1,18 @@
-"""Flash-attention forward: wrapper, plain version, launch count.
+"""Flash attention, forward and backward: wrappers, plain versions, launch
+counts.
 
 Counterpart of ``repro/kernels/flash_attention.py``.  The kernels are CUDA
-C++ (``csrc/flash_attention.cu``): one block for each (batch, q head, q tile)
-with the KV loop inside; for bf16 a warp-specialised block of TMA loads and
-``wgmma`` products (:func:`tile_plan`), for float32 fp32 FMAs.  They take
+C++.  The forward (``csrc/flash_attention.cu``): one block for each (batch,
+q head, q tile) with the KV loop inside; for bf16 a warp-specialised block of
+TMA loads and ``wgmma`` products (:func:`tile_plan`), for float32 fp32 FMAs;
+given ``lse`` it launches the variant that also writes the row log-sum-exp.
+The backward (``csrc/flash_attention_bwd.cu``, which the reference does not
+have): a delta kernel, a dK/dV kernel that walks the q tiles of a kv head's
+whole group and a dQ kernel that walks the kv tiles, fp32 FMAs.  They take
 strides, so the model's ``(B,S,H,D)`` tensors are passed as permuted views
-and never copied.  For a CUDA tensor the wrapper launches a kernel or raises;
-only a tensor on the CPU takes the plain version.
+and never copied.  For a CUDA tensor a wrapper launches its kernels or
+raises; only a tensor on the CPU takes the plain version.  The autograd glue
+is ``ops.flash_attention_bshd``.
 """
 from __future__ import annotations
 
@@ -38,30 +44,73 @@ def tile_plan(D: int) -> dict[str, int]:
             "smem_bytes": bq * D * 2 + 2 * stages * bk * D * 2 + 256}
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          scale: float | None = None) -> torch.Tensor:
-    """The kernel's function in plain torch.  q: (B,H,Sq,D); k/v:
-    (B,Hkv,Sk,D) -> (B,H,Sq,D).  Follows the kernel, not ``ref.py``: the
-    running maximum is floored at -1e30, so a fully masked row gives 0."""
+def _mask(Sq: int, Sk: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(Sq, Sk) bool: which key each query sees, by absolute position."""
+    qp = torch.arange(Sq, device=device)[:, None]
+    tp = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= tp <= qp
+    if window > 0:
+        mask &= tp > qp - window
+    return mask
+
+
+def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                              scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's function in plain torch, with the row log-sum-exp
+    of the scaled scores that its LSE variant writes.  q: (B,H,Sq,D); k/v:
+    (B,Hkv,Sk,D) -> ((B,H,Sq,D) in q's dtype, (B,H,Sq) fp32).  Follows the
+    kernel, not ``ref.py``: the running maximum is floored at -1e30, so a
+    fully masked row gives 0 (and a log-sum-exp near -1e30)."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     G = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qg = q.float().reshape(B, Hkv, G, Sq, D)
     s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) * scale
-    qp = torch.arange(Sq, device=q.device)[:, None]
-    tp = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= tp <= qp
-    if window > 0:
-        mask &= tp > qp - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    s = torch.where(_mask(Sq, Sk, causal, window, q.device), s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True).clamp_min(-1e30)
     p = torch.exp(s - m)                       # a masked score gives exactly 0
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float()) / l.clamp_min(1e-30)
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    lse = (m + torch.log(l.clamp_min(1e-30))).reshape(B, H, Sq)
+    return o.reshape(B, H, Sq, D).to(q.dtype), lse
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale: float | None = None) -> torch.Tensor:
+    """The kernel's function in plain torch.  q: (B,H,Sq,D); k/v:
+    (B,Hkv,Sk,D) -> (B,H,Sq,D).  Follows the kernel, not ``ref.py``: the
+    running maximum is floored at -1e30, so a fully masked row gives 0."""
+    return flash_attention_lse_plain(q, k, v, causal=causal, window=window, scale=scale)[0]
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
+                              scale: float | None = None):
+    """The backward kernels' arithmetic in plain torch, step by step: ``(dq,
+    dk, dv)`` of the forward given its output ``o``, its log-sum-exp ``lse``
+    (B,H,Sq) and the gradient ``do`` of ``o``.  Shapes as the forward's;
+    fp32 throughout, each gradient in its input's dtype.  A masked score has
+    P = 0, so a fully masked row sends no gradient."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, Hkv, G, Sq, D)
+    og = o.float().reshape(B, Hkv, G, Sq, D)
+    dog = do.float().reshape(B, Hkv, G, Sq, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
+    p = torch.exp(s - lse.float().reshape(B, Hkv, G, Sq, 1))
+    p = torch.where(_mask(Sq, Sk, causal, window, q.device), p, torch.zeros_like(p))
+    delta = (dog * og).sum(dim=-1, keepdim=True)                 # rowsum(dO * O)
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)               # sum_g P^T dO
+    dp = torch.einsum("bkgsd,bktd->bkgst", dog, vf)              # dO V^T
+    ds = p * (dp - delta)
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) * scale       # sum_g dS^T Q
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) * scale       # dS K
+    return dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _lib():
@@ -69,7 +118,7 @@ def _lib():
     if lib.flash_attention_launch.argtypes is None:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_launch.argtypes = (
-            [vp, vp, vp, vp] + [ci] * 6 + [ll] * 12 + [ci, ci, ctypes.c_float, ci, vp])
+            [vp, vp, vp, vp, vp] + [ci] * 6 + [ll] * 12 + [ci, ci, ctypes.c_float, ci, vp])
         lib.flash_attention_launch.restype = ci
         lib.flash_attention_plan.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
         lib.flash_attention_plan.restype = ci
@@ -98,19 +147,28 @@ def check_operand(name: str, t: torch.Tensor) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: float | None = None, out: torch.Tensor | None = None) -> torch.Tensor:
+                    scale: float | None = None, out: torch.Tensor | None = None,
+                    lse: torch.Tensor | None = None) -> torch.Tensor:
     """q: (B,H,Sq,D); k/v: (B,Hkv,Sk,D) with H % Hkv == 0 -> (B,H,Sq,D).
     Any strides over the first three dims that are multiples of 16 bytes.
     ``out``, if given, is a ``(B,H,Sq,D)`` tensor (view) of ``q.dtype`` that
-    receives the result."""
+    receives the result.  ``lse``, if given, is a contiguous ``(B,H,Sq)``
+    fp32 tensor that receives the row log-sum-exp (the kernel's LSE
+    variant, for the backward)."""
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if H % Hkv or k.shape != (B, Hkv, Sk, D) or v.shape != k.shape:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
     code = _build.dtype_code(q, "flash_attention q")
+    if lse is not None and (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+                            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention: lse must be a contiguous ({B}, {H}, {Sq}) float32 "
+                         f"tensor on {q.device}")
     if q.device.type == "cpu":
-        o = flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
+        o, row_lse = flash_attention_lse_plain(q, k, v, causal=causal, window=window, scale=scale)
+        if lse is not None:
+            lse.copy_(row_lse)
         if out is None:
             return o
         out.copy_(o)
@@ -133,7 +191,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     _build.launch(_lib().flash_attention_launch, q.device, "flash_attention",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, H, Hkv, Sq, Sk, D,
+                  None if lse is None else lse.data_ptr(), B, H, Hkv, Sq, Sk, D,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                   int(bool(causal)), int(window), float(scale), code)
     flash_attention.launches += 1
@@ -141,3 +199,81 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0   # kernel launches made by this wrapper
+
+
+def _bwd_lib():
+    lib = _build.load("flash_attention_bwd")
+    if lib.flash_attention_bwd_launch.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.flash_attention_bwd_launch.argtypes = (
+            [vp, vp, vp, vp] + [ci] * 8 + [ctypes.c_float, ci, vp])
+        lib.flash_attention_bwd_launch.restype = ci
+    return lib
+
+
+def _check_bwd_operand(name: str, t: torch.Tensor) -> None:
+    """The backward kernels read and write four elements at a time: stride 1
+    over D, every other stride and the base a multiple of four elements."""
+    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % (4 * t.element_size()):
+        raise ValueError(f"flash_attention_bwd: {name} needs stride 1 over D and strides and a "
+                         f"base that are multiples of 4 elements, got strides {t.stride()}")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None, dq=None, dk=None, dv=None):
+    """``(dq, dk, dv)`` of :func:`flash_attention` (see
+    :func:`flash_attention_bwd_plain`).  q, o, do, dq: (B,H,Sq,D); k, v, dk,
+    dv: (B,Hkv,Sk,D), all of one dtype, with strides as the forward's; lse:
+    the forward's contiguous (B,H,Sq) fp32 log-sum-exp.  ``dq``/``dk``/``dv``,
+    if given, are tensors (views) that receive the gradients."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if (H % Hkv or k.shape != (B, Hkv, Sk, D) or v.shape != k.shape or o.shape != q.shape
+            or do.shape != q.shape or lse.shape != (B, H, Sq)):
+        raise ValueError(f"flash_attention_bwd: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)} o {tuple(o.shape)} do {tuple(do.shape)} "
+                         f"lse {tuple(lse.shape)}")
+    code = _build.dtype_code(q, "flash_attention_bwd q")
+    outs = {"dq": (dq, q), "dk": (dk, k), "dv": (dv, v)}
+    for name, (t, like) in outs.items():
+        if t is not None and (t.shape != like.shape or t.dtype != like.dtype
+                              or t.device != like.device):
+            raise ValueError(f"flash_attention_bwd: {name} must match its input in shape, "
+                             "dtype and device")
+    if q.device.type == "cpu":
+        grads = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window,
+                                          scale=scale)
+        return tuple(g if t is None else t.copy_(g)
+                     for g, (t, _) in zip(grads, outs.values()))
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bwd: no kernel for device {q.device}")
+    ins = (q, k, v, o, do)
+    if any(t.dtype != q.dtype or t.device != q.device for t in ins):
+        raise ValueError("flash_attention_bwd: q, k, v, o and do must share dtype and device")
+    if lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd: lse must be contiguous float32 on q's device")
+    if D not in SUPPORTED_D:
+        raise ValueError(f"flash_attention_bwd: head dim {D} not supported by the kernels "
+                         f"(supported: {SUPPORTED_D})")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format) if dq is None else dq
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format) if dk is None else dk
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format) if dv is None else dv
+    tensors = (*ins, dq, dk, dv)
+    for name, t in zip(("q", "k", "v", "o", "do", "dq", "dk", "dv"), tensors):
+        _check_bwd_operand(name, t)
+    if B == 0 or Sq == 0 or Sk == 0:
+        dk.zero_()
+        dv.zero_()
+        return dq.zero_(), dk, dv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in tensors))
+    strides = (ctypes.c_longlong * 24)(*(s for t in tensors for s in t.stride()[:3]))
+    _build.launch(_bwd_lib().flash_attention_bwd_launch, q.device, "flash_attention_bwd",
+                  ptrs, strides, lse.data_ptr(), delta.data_ptr(), B, H, Hkv, Sq, Sk, D,
+                  int(bool(causal)), int(window), float(scale), code)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0   # backward launches (delta, dK/dV and dQ kernels each)

@@ -1,10 +1,13 @@
-"""RMSNorm, optionally of ``x + residual`` with the sum returned too:
-wrappers, plain versions, launch plan and launch count.
+"""RMSNorm, optionally of ``x + residual`` with the sum returned too, and its
+backward: wrappers, plain versions, launch plan and launch counts.
 
-Counterpart of ``repro/kernels/rmsnorm.py``.  The kernel is CUDA C++
+Counterpart of ``repro/kernels/rmsnorm.py``.  The kernels are CUDA C++
 (``csrc/rmsnorm.cu``): one block a row, the row held in registers as 16-byte
-vectors, sized by :func:`launch_plan`.  For a CUDA tensor each wrapper
-launches it or raises; only a tensor on the CPU takes the plain version.
+vectors, sized by :func:`launch_plan`; the backward walks the rows with
+:data:`BWD_PARTS` blocks of the same plan and sums their fp32 partial ``dw``
+rows in a second kernel.  For a CUDA tensor each wrapper launches its kernel
+or raises; only a tensor on the CPU takes the plain version.  The autograd
+glue that pairs forward and backward is ``ops.rmsnorm`` / ``ops.add_rmsnorm``.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_D = 16384          # every dtype and variant holds a row this long in registers
+BWD_PARTS = 264        # blocks of the backward (two a SM of an H100), so partial dw rows
 MAX_THREADS = 512      # RMS_MAX_THREADS in the source
 VECTOR_CHUNKS = (1, 2, 3, 4, 6, 8)        # chunks a thread the source is built for (kVecChunks)
 SCALAR_CHUNKS = (1, 2, 4, 8, 16, 32)      # and for its scalar variant (kScalarChunks)
@@ -68,6 +72,26 @@ def add_rmsnorm_plain(x: torch.Tensor, residual: torch.Tensor, w: torch.Tensor, 
     return s, rmsnorm_plain(s, w, eps=eps, offset=offset)
 
 
+def rmsnorm_bwd_plain(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                      eps: float = 1e-6, offset: bool = False,
+                      ds: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's arithmetic in plain torch, step by step: ``(dx,
+    dw)`` for ``y = rmsnorm(x, w)`` and the gradient ``dy`` of y.  ``x`` is
+    what was normalised (the rounded sum where there was a residual); ``ds``,
+    the gradient of add_rmsnorm's written sum, is added to ``dx``.  fp32
+    throughout; dx in ``x.dtype``, dw in ``w.dtype``."""
+    xf, g = x.float(), dy.float()
+    rs = 1.0 / torch.sqrt(xf.square().mean(dim=-1, keepdim=True) + eps)   # rstd
+    xh = xf * rs                                                          # x^
+    scale = (1.0 + w.float()) if offset else w.float()                    # w'
+    gw = g * scale
+    dx = rs * (gw - xh * (gw * xh).mean(dim=-1, keepdim=True))
+    if ds is not None:
+        dx = dx + ds.float()
+    dw = (g * xh).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
 _fns: dict[str, object] = {}   # the library's C functions, argtypes set
 
 
@@ -80,7 +104,10 @@ def _fn(name: str):
         lib.rmsnorm_launch.restype = ci
         lib.rmsnorm_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
         lib.rmsnorm_plan.restype = ci
-        _fns.update(rmsnorm_launch=lib.rmsnorm_launch, rmsnorm_plan=lib.rmsnorm_plan)
+        lib.rmsnorm_bwd_launch.argtypes = [vp] * 7 + [ci, ci, ctypes.c_float] + [ci] * 7 + [vp]
+        lib.rmsnorm_bwd_launch.restype = ci
+        _fns.update(rmsnorm_launch=lib.rmsnorm_launch, rmsnorm_plan=lib.rmsnorm_plan,
+                    rmsnorm_bwd_launch=lib.rmsnorm_bwd_launch)
         fn = _fns[name]
     return fn
 
@@ -156,3 +183,43 @@ def add_rmsnorm(x: torch.Tensor, residual: torch.Tensor, w: torch.Tensor, *,
 
 
 rmsnorm.launches = 0   # kernel launches made by this module's wrappers
+
+
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-6,
+                offset: bool = False,
+                ds: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of the norm (see :func:`rmsnorm_bwd_plain`).  x, dy, ds:
+    (..., D) contiguous of one dtype; w: (D,)."""
+    if _device(x, "rmsnorm_bwd") == "cpu":
+        _build.dtype_code(w, "rmsnorm_bwd w")
+        return rmsnorm_bwd_plain(x, w, dy, eps=eps, offset=offset, ds=ds)
+    D = x.shape[-1]
+    if w.shape != (D,) or w.device != x.device:
+        raise ValueError(f"rmsnorm_bwd: w must be ({D},) on {x.device}, got {tuple(w.shape)}")
+    if D > MAX_D:
+        raise ValueError(f"rmsnorm_bwd: D={D} exceeds the kernel's limit of {MAX_D}")
+    for name, t in (("dy", dy), ("ds", ds)):
+        if t is not None and (t.shape != x.shape or t.dtype != x.dtype or t.device != x.device):
+            raise ValueError(f"rmsnorm_bwd: {name} must match x in shape, dtype and device")
+    tensors = [t for t in (x, w, dy, ds) if t is not None]
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("rmsnorm_bwd: x, w, dy and ds must be contiguous")
+    aligned = all(t.data_ptr() % 16 == 0 for t in tensors)
+    x_code = _build.DTYPE_CODES[x.dtype]
+    w_code = _build.dtype_code(w, "rmsnorm_bwd w")
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    rows = x.numel() // D if D else 0
+    if rows == 0:
+        return dx, dw.zero_()
+    parts = min(rows, BWD_PARTS)
+    part = torch.empty((parts, D), dtype=torch.float32, device=x.device)
+    threads, chunks, vector = launch_plan(D, x.dtype, aligned=aligned)
+    _build.launch(_fn("rmsnorm_bwd_launch"), x.device, "rmsnorm_bwd", x.data_ptr(), w.data_ptr(),
+                  dy.data_ptr(), None if ds is None else ds.data_ptr(), dx.data_ptr(),
+                  dw.data_ptr(), part.data_ptr(), rows, D, float(eps), int(bool(offset)), x_code,
+                  w_code, threads, chunks, vector, parts)
+    rmsnorm_bwd.launches += 1
+    return dx, dw
+
+
+rmsnorm_bwd.launches = 0   # backward launches (a row kernel and its dw sum each)

@@ -2,21 +2,28 @@
 
 ``Model`` exposes:
   * ``init(generator)``                    — concrete params on the model's device
-  * ``forward(params, batch)``             — full-sequence logits
+  * ``forward(params, batch)``             — full-sequence logits, differentiable
   * ``prefill(params, batch, cache_len)``  — logits + populated KV cache
   * ``decode_step(params, cache, batch)``  — one token against the cache
 
 The reference scans over depth-stacked parameters under ``jit``; here the
 stack is a Python loop over per-layer dicts and everything runs eagerly.
 Where the reference rebuilds an array (``cache.at[...].set``), the port
-writes in place and says so.
+writes in place and says so.  ``forward`` records for autograd (the loss of
+``training.train_step`` differentiates it, as the reference's ``forward`` is
+what ``make_loss_fn`` differentiates); ``prefill`` and ``decode_step`` never
+do.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
@@ -178,17 +185,51 @@ def apply_block_decode(cfg, kind, p, h, pending, cache, aux):
 # Model facade
 # ==========================================================================
 
+# Matrix products whose outputs the ``dots`` policy keeps: what torch.matmul,
+# einsum and linear lower to.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = ("none", "block", "dots")
+
+
 class Model:
     """``device=None`` is the card (raises where there is none); tests pass
     ``device="cpu"``.  ``plain_kernels=True`` is for tests and the on-card
     parity check only: norms and attention then take the kernels' plain
-    versions whatever the device."""
+    versions whatever the device.
 
-    def __init__(self, cfg: ModelConfig, device=None, *, plain_kernels: bool = False):
+    ``remat_policy`` (what the reference's ``_maybe_remat`` wraps around its
+    scan body) applies to ``forward`` under autograd:
+
+    * ``none``: every activation is kept for the backward;
+    * ``block``: ``torch.utils.checkpoint(use_reentrant=False)`` around each
+      block, which keeps the block's inputs and recomputes the rest in the
+      backward (``jax.checkpoint`` of the body);
+    * ``dots``: the same checkpoint with a selective policy that keeps the
+      outputs of the matrix products (aten ``mm``, ``bmm``, ``addmm``,
+      ``baddbmm``) and recomputes everything else.  This is
+      ``jax.checkpoint_policies.checkpoint_dots``, which keeps the outputs of
+      every ``dot_general``, with one difference: on the card attention is
+      K1, an autograd function rather than a product, so its forward is
+      recomputed (the reference's attention is einsums, which it keeps);
+      on the CPU the attention einsums are ``bmm`` and are kept as there.
+    """
+
+    def __init__(self, cfg: ModelConfig, device=None, *, remat_policy: str = "none",
+                 plain_kernels: bool = False):
         if cfg.family != "dense":
             raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: one of {REMAT_POLICIES}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.remat_policy = remat_policy
         self.plain_kernels = plain_kernels
         self.kinds = layer_kinds(cfg)
 
@@ -226,10 +267,23 @@ class Model:
                 "rope_tables": L.rope_tables(self.cfg, positions, self.cfg.head_dim), **kw}
 
     # ---- full-sequence stack ----
+    def _block(self, kind, p, aux, h, pending):
+        return apply_block_full(self.cfg, kind, p, h, pending, aux, False)[:2]
+
     def _run_stack(self, params, h, aux, collect_cache):
         """Returns (h, f, caches): the stack's output is ``h + f``."""
         caches, f = [], None
+        remat = (self.remat_policy != "none" and not collect_cache and torch.is_grad_enabled())
         for kind, p in zip(self.kinds, params["blocks"]):
+            if remat:
+                kw = {}
+                if self.remat_policy == "dots":
+                    kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                         _save_dots)
+                h, f = checkpoint(functools.partial(self._block, kind, p, aux), h, f,
+                                  use_reentrant=False, **kw)
+                caches.append(None)
+                continue
             h, f, c_out = apply_block_full(self.cfg, kind, p, h, f, aux, collect_cache)
             caches.append(c_out)
         return h, f, caches
@@ -239,10 +293,11 @@ class Model:
                             plain=self.plain_kernels)
 
     # ---- public entry points ----
-    @torch.no_grad()
     def forward(self, params, batch):
         """Full-sequence forward.  batch: tokens (B,S)[, positions].  Returns
-        (logits, aux_loss); the auxiliary loss is 0 for the dense families."""
+        (logits, aux_loss); the auxiliary loss is 0 for the dense families.
+        Recorded by autograd where grad mode is on and a parameter requires
+        grad (call it under ``torch.no_grad()`` for inference)."""
         tokens = self._tokens(batch)
         B, S = tokens.shape
         positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))

@@ -3,7 +3,7 @@
 ``faults.py`` is carried from the reference because the fleet simulator's
 replica fault injection (``FleetSpec.faults``) draws from it.  The
 resilience simulator itself (``report.py``, ``sim.py``, ``timeline.py``) is
-ROADMAP queue A item 9.
+ROADMAP queue A item 3.
 """
 from repro_torch.resilience.faults import KINDS, FailureEvent, FailureGen
 

@@ -162,8 +162,8 @@ class StepOracle:
                                      lambda: self.sim.run(spec))
             fresh = rep.step_time_us / 1e6
         if fresh != price:
-            # analysis/ is ROADMAP queue A item 11: until it is ported,
-            # Simulator(sanitize=True) raises, so no oracle reaches this line
+            # reached only under Simulator(sanitize=True): a memoised price
+            # that no longer equals a fresh one is a poisoned memo
             from repro_torch.analysis.sanitize import CacheSanitizerError
             raise CacheSanitizerError(f"oracle.{memo}", key,
                                       repr(price), repr(fresh))

@@ -57,9 +57,16 @@ def test_the_slice_has_its_modules():
                  "serving/sim/__init__.py", "serving/sim/events.py", "serving/sim/workload.py",
                  "serving/sim/policies.py", "serving/sim/report.py", "serving/sim/oracle.py",
                  "serving/sim/router.py", "serving/sim/sim.py", "resilience/__init__.py",
-                 "resilience/faults.py"):
+                 "resilience/faults.py",
+                 "analysis/__init__.py", "analysis/chaos.py", "analysis/sanitize.py",
+                 "analysis/lint/__init__.py", "analysis/lint/__main__.py",
+                 "analysis/lint/engine.py", "analysis/lint/report.py", "analysis/lint/rules.py",
+                 "training/__init__.py", "training/optimizer.py", "training/train_step.py",
+                 "training/data.py", "training/checkpoint.py", "training/fault_tolerance.py",
+                 "launch/train.py"):
         assert want in have, want
-    for cu in ("rmsnorm.cu", "flash_attention.cu", "decode_attention.cu", "common.cuh"):
+    for cu in ("rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+               "decode_attention.cu", "common.cuh"):
         assert (PKG / "kernels" / "csrc" / cu).exists(), cu
 
 
@@ -111,6 +118,15 @@ def test_launch_serve_without_a_device_argument_raises_without_a_card(monkeypatc
         serve.main(["--requests", "1"])
 
 
+def test_launch_train_without_a_device_argument_raises_without_a_card(monkeypatch, tmp_path):
+    from repro_torch.launch import train
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--tiny", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--tiny", "--steps", "1", "--device", "cuda", "--ckpt-dir", str(tmp_path)])
+
+
 def test_simulator_measures_on_the_card_only_and_raises_without_one(monkeypatch):
     from repro_torch.core import Simulator
     from repro_torch.core.backend import profiling
@@ -143,7 +159,8 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors_and_launch_nothing():
     assert torch.equal(K.flash_attention(q, k, k), K.flash_attention_plain(q, k, k))
     assert torch.equal(K.decode_attention(q[:, :, 0], k, k),
                        K.decode_attention_plain(q[:, :, 0], k, k))
-    assert K.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+    assert K.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+                                "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "adamw": 0}
 
 
 def test_build_is_keyed_by_source_and_needs_a_compiler(tmp_path, monkeypatch):

@@ -300,3 +300,252 @@ def test_split_plan_covers_the_cache():
         assert ns >= 1 and (ns - 1) * chunk < T <= ns * chunk
     assert split_plan(8, 8, 2048)[0] == 8              # 8*8*8 = 512 blocks <= 4 * 132
     assert split_plan(1, 1, 300)[0] == 10              # no split under one iteration of 32 rows
+
+
+# ---------------- backward: K1 and K3 (the reference's kernels are forward only) ----------------
+#
+# The backward plain versions are held against autograd of the plain forwards
+# (inside torch) and against ``jax.vjp`` of the reference's oracles in
+# ``repro/kernels/ref.py`` (across frameworks), on the same numpy inputs and
+# cotangents.  Each gradient's largest error is taken relative to the larger
+# of 1 and its reference's largest magnitude, as ``chip_smoke.py`` does on the
+# card: dK, dV and dw sum over many rows.  float32 at 2e-5 inside torch (another
+# order of summation) and 1e-5 across frameworks as above; bfloat16 at 2e-2.
+
+import jax  # noqa: E402
+
+from repro_torch.models import layers as TL  # noqa: E402
+
+BWD_TOL = {F32: 2e-5, BF16: 2e-2}
+
+
+def grad_err(got, want) -> float:
+    return max(float(np.abs(np.asarray(g, np.float64) - np.asarray(w, np.float64)).max())
+               / max(1.0, float(np.abs(np.asarray(w, np.float64)).max()))
+               for g, w in zip(got, want))
+
+
+BWD_CASES = [
+    # (B, H, Hkv, Sq, Sk, D, causal, window, dtype)
+    (1, 2, 2, 40, 40, 64, True, 0, F32),      # G = 1
+    (2, 6, 2, 33, 33, 64, True, 0, F32),      # G = 3 (phi4-mini), ragged
+    (1, 10, 2, 24, 24, 32, True, 0, F32),     # G = 5 (qwen2.5-32b)
+    (1, 8, 1, 20, 20, 32, True, 0, F32),      # G = 8 (MQA)
+    (1, 4, 2, 48, 48, 32, True, 16, F32),     # causal window
+    (1, 4, 2, 30, 30, 32, False, 8, F32),     # window alone
+    (1, 4, 1, 16, 32, 32, False, 0, F32),     # Sq != Sk
+    (1, 6, 2, 32, 32, 64, True, 0, BF16),
+]
+
+
+def _bwd_inputs(case, seed=7):
+    B, H, Hkv, Sq, Sk, D, causal, window, dtype = case
+    rng = np.random.default_rng(seed)
+    shapes = ((B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D), (B, H, Sq, D))
+    return [rng.standard_normal(s, dtype=np.float32) for s in shapes]   # q, k, v, dO
+
+
+def _plain_autograd(fn, ins, cot, **kw):
+    leaves = [t.detach().clone().requires_grad_() for t in ins]
+    out = fn(*leaves, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    cots = cot if isinstance(cot, tuple) else (cot,)
+    return torch.autograd.grad(outs, leaves, cots)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_flash_attention_bwd_plain_vs_autograd_of_the_plain_forward(case):
+    *_, causal, window, dtype = case
+    q, k, v, do = (torch.from_numpy(a).to(TDT[dtype]) for a in _bwd_inputs(case))
+    o, lse = K.flash_attention_lse_plain(q, k, v, causal=causal, window=window)
+    got = K.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window)
+    want = _plain_autograd(K.flash_attention_plain, (q, k, v), do, causal=causal, window=window)
+    assert [g.dtype for g in got] == [TDT[dtype]] * 3
+    assert grad_err([t2n(g) for g in got], [t2n(w) for w in want]) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[-1] == F32], ids=str)
+def test_flash_attention_bwd_plain_vs_jax_vjp_of_the_reference_oracle(case):
+    """Every row sees a key in these cases, where the oracle and the kernels
+    agree (they differ on a fully masked row)."""
+    *_, causal, window, dtype = case
+    arrays = _bwd_inputs(case)
+    qj, kj, vj, doj = (jnp.asarray(a) for a in arrays)
+    _, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(q, k, v, causal=causal,
+                                                              window=window), qj, kj, vj)
+    want = [j2n(g) for g in vjp(doj)]
+    q, k, v, do = (torch.from_numpy(a) for a in arrays)
+    o, lse = K.flash_attention_lse_plain(q, k, v, causal=causal, window=window)
+    got = K.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, window=window)
+    assert grad_err([t2n(g) for g in got], want) <= TOL[F32]
+
+
+def test_flash_attention_lse_is_the_log_sum_exp_of_the_scaled_scores():
+    case = (1, 6, 2, 24, 24, 32, True, 8, F32)
+    q, k, v, _ = (torch.from_numpy(a) for a in _bwd_inputs(case))
+    o, lse = K.flash_attention_lse_plain(q, k, v, causal=True, window=8)
+    s = torch.einsum("bhsd,bhtd->bhst", q, k.repeat_interleave(3, dim=1)) / 32 ** 0.5
+    qp, tp = torch.arange(24)[:, None], torch.arange(24)[None, :]
+    s = s.masked_fill(~((tp <= qp) & (tp > qp - 8)), float("-inf"))
+    close(lse.numpy(), torch.logsumexp(s, dim=-1).numpy(), 1e-5)
+    assert torch.equal(o, K.flash_attention_plain(q, k, v, causal=True, window=8))
+    out = torch.empty_like(q)
+    got = torch.empty_like(lse)
+    K.flash_attention(q, k, v, causal=True, window=8, out=out, lse=got)   # the wrapper, CPU
+    assert torch.equal(got, lse) and torch.equal(out, o)
+    with pytest.raises(ValueError, match="lse"):
+        K.flash_attention(q, k, v, lse=torch.empty(1, 6, 23))
+
+
+def test_flash_attention_bwd_of_a_fully_masked_row_is_zero():
+    """The forward gives such a row 0 (the kernels' convention); it sends no
+    gradient: dQ is 0 there, and dK, dV get nothing from it."""
+    case = (1, 4, 2, 40, 12, 32, False, 8, F32)     # rows 20.. see no key
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(case))
+    o, lse = K.flash_attention_lse_plain(q, k, v, causal=False, window=8)
+    dq, dk, dv = K.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, window=8)
+    assert torch.isfinite(lse).all() and (o[:, :, 20:] == 0).all()
+    assert (dq[:, :, 20:] == 0).all()
+    _, dk2, dv2 = K.flash_attention_bwd_plain(q[:, :, :20], k, v, o[:, :, :20], lse[:, :, :20],
+                                              do[:, :, :20], causal=False, window=8)
+    close(dk.numpy(), dk2.numpy(), 1e-6)
+    close(dv.numpy(), dv2.numpy(), 1e-6)
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[4], BWD_CASES[-1]], ids=str)
+def test_flash_bshd_is_differentiable_through_the_plain_backward_on_the_cpu(case):
+    """``ops.flash_attention_bshd`` under autograd on CPU tensors: its
+    autograd function takes the plain forward with lse and the plain
+    backward, and equals autograd of the model's dense attention."""
+    B, H, Hkv, Sq, Sk, D, causal, window, dtype = case
+    assert Sq == Sk and causal        # the model's self-attention
+    G = H // Hkv
+    arrays = _bwd_inputs(case)
+    q = torch.from_numpy(arrays[0]).to(TDT[dtype]).permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, D)
+    k, v = (torch.from_numpy(a).to(TDT[dtype]).permute(0, 2, 1, 3) for a in arrays[1:3])
+    do = torch.from_numpy(arrays[3]).to(TDT[dtype]).permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, D)
+    got = _plain_autograd(lambda q, k, v: ops.flash_attention_bshd(q, k, v, window=window),
+                          (q, k, v), do)
+    want = _plain_autograd(lambda q, k, v: TL.attend_dense(q, k, v, q_offset=0, causal=True,
+                                                           window=window), (q, k, v), do)
+    assert grad_err([t2n(g) for g in got], [t2n(w) for w in want]) <= BWD_TOL[dtype]
+    assert K.launch_counts()["flash_attention_bwd"] == 0
+
+
+RMS_BWD_CASES = [
+    # (rows, d, offset, residual, with_sum, x dtype, w dtype)
+    (8, 64, False, False, False, F32, F32),
+    (5, 48, True, False, False, F32, F32),
+    (7, 64, False, True, False, F32, F32),
+    (6, 32, True, True, True, F32, F32),
+    (9, 64, False, True, True, BF16, BF16),
+    (4, 96, True, False, False, BF16, F32),
+]
+
+
+def _rms_bwd_inputs(rows, d, seed=3):
+    rng = np.random.default_rng(seed)
+    x, r, dy, ds = (rng.standard_normal((rows, d), dtype=np.float32) for _ in range(4))
+    w = rng.standard_normal(d, dtype=np.float32) * 0.3 + 1.0
+    return x, r, w, dy, ds
+
+
+@pytest.mark.parametrize("case", RMS_BWD_CASES, ids=str)
+def test_rmsnorm_bwd_plain_vs_autograd_and_the_functions_on_the_cpu(case):
+    rows, d, offset, residual, with_sum, xdt, wdt = case
+    x, r, w, dy, ds = _rms_bwd_inputs(rows, d)
+    xt, rt, dyt, dst = (torch.from_numpy(a).to(TDT[xdt]) for a in (x, r, dy, ds))
+    wt = torch.from_numpy(w).to(TDT[wdt])
+    if with_sum:
+        want = _plain_autograd(lambda a, b, c: K.add_rmsnorm_plain(a, b, c, offset=offset),
+                               (xt, rt, wt), (dst, dyt))
+        fn = lambda a, b, c: ops.add_rmsnorm(a, b, c, offset=offset)  # noqa: E731
+        got_fn = _plain_autograd(fn, (xt, rt, wt), (dst, dyt))
+        s = xt + rt
+        got = K.rmsnorm_bwd_plain(s, wt, dyt, offset=offset, ds=dst)
+    elif residual:
+        want = _plain_autograd(lambda a, b, c: K.rmsnorm_plain(a, c, offset=offset, residual=b),
+                               (xt, rt, wt), dyt)
+        fn = lambda a, b, c: ops.rmsnorm_residual(a, b, c, offset=offset)  # noqa: E731
+        got_fn = _plain_autograd(fn, (xt, rt, wt), dyt)
+        got = K.rmsnorm_bwd_plain(xt + rt, wt, dyt, offset=offset)
+    else:
+        want = _plain_autograd(lambda a, c: K.rmsnorm_plain(a, c, offset=offset), (xt, wt), dyt)
+        got_fn = _plain_autograd(lambda a, c: ops.rmsnorm(a, c, offset=offset), (xt, wt), dyt)
+        got = K.rmsnorm_bwd_plain(xt, wt, dyt, offset=offset)
+    want_x, want_w = want[0], want[-1]
+    tol = BWD_TOL[xdt]
+    assert got[0].dtype == TDT[xdt] and got[1].dtype == TDT[wdt]
+    assert grad_err([t2n(got[0]), t2n(got[1])], [t2n(want_x), t2n(want_w)]) <= tol
+    # the autograd function (plain forward and backward on the CPU): x and the
+    # residual get the same gradient
+    assert grad_err([t2n(g) for g in got_fn], [t2n(w_) for w_ in want]) <= tol
+    if residual or with_sum:
+        assert torch.equal(got_fn[0], got_fn[1])
+    assert K.launch_counts()["rmsnorm_bwd"] == 0
+
+
+@pytest.mark.parametrize("case", [c for c in RMS_BWD_CASES if c[-2] == F32 and not c[4]],
+                         ids=str)
+def test_rmsnorm_bwd_plain_vs_jax_vjp_of_the_reference_oracle(case):
+    rows, d, offset, residual, _, _, _ = case
+    x, r, w, dy, _ = _rms_bwd_inputs(rows, d)
+    if residual:
+        f = lambda x, r, w: jref.rmsnorm_ref(x, w, offset=offset, residual=r)  # noqa: E731
+        _, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(r), jnp.asarray(w))
+        want = [j2n(g) for g in vjp(jnp.asarray(dy))]
+        want = [want[0], want[2]]
+        s = torch.from_numpy(x) + torch.from_numpy(r)
+    else:
+        f = lambda x, w: jref.rmsnorm_ref(x, w, offset=offset)  # noqa: E731
+        _, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(w))
+        want = [j2n(g) for g in vjp(jnp.asarray(dy))]
+        s = torch.from_numpy(x)
+    got = K.rmsnorm_bwd_plain(s, torch.from_numpy(w), torch.from_numpy(dy), offset=offset)
+    assert grad_err([t2n(g) for g in got], want) <= TOL[F32]
+
+
+def test_backward_wrappers_raise_where_they_have_no_kernel():
+    x = torch.randn(4, 64, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        K.rmsnorm_bwd(x, torch.ones(64, device="meta"), x)
+    q = torch.randn(1, 2, 8, 64, device="meta")
+    lse = torch.empty(1, 2, 8, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        K.flash_attention_bwd(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="bad shapes"):
+        K.flash_attention_bwd(q, q, q, q, lse[:, :, :4], q)
+
+
+# ---------------- the fused AdamW update (a kernel of the port, no TPU kernel) ----------------
+
+@pytest.mark.parametrize("p_dt,g_dt", [(F32, F32), (BF16, BF16), (BF16, F32)])
+def test_adamw_update_takes_its_plain_version_on_the_cpu(p_dt, g_dt):
+    """On the CPU the wrapper is the plain version: the reference's update,
+    in place, in its order (held against the reference's numbers by
+    ``test_torch_training.py``)."""
+    from repro_torch.training.optimizer import adamw, cosine_schedule
+    rng = np.random.default_rng(11)
+    p0 = rng.standard_normal(1001).astype(np.float32)
+    g0 = rng.standard_normal(1001).astype(np.float32) * 0.1
+    p, g = torch.from_numpy(p0.copy()).to(TDT[p_dt]), torch.from_numpy(g0).to(TDT[g_dt])
+    m, v = torch.zeros(1001), torch.zeros(1001)
+    hp = dict(lr=torch.tensor(1e-3), c1=torch.tensor(0.1), c2=torch.tensor(0.05), b1=0.9, b2=0.95,
+              eps=1e-8, weight_decay=0.1)
+    K.adamw_update(p, g, m, v, **hp)
+    want = [t.clone() for t in (torch.from_numpy(p0).to(TDT[p_dt]), torch.zeros(1001),
+                                torch.zeros(1001))]
+    K.adamw_update_plain(want[0], g, want[1], want[2], **hp)
+    for a, b in zip((p, m, v), want):
+        assert torch.equal(a, b)
+    opt = adamw(cosine_schedule(1e-3, warmup=1))
+    st = opt.init({"w": p})
+    opt.update({"w": g}, st, {"w": p})
+    assert K.launch_counts()["adamw"] == 0
+
+
+def test_adamw_update_raises_where_it_has_no_kernel():
+    t = torch.zeros(8, device="meta")
+    s = torch.zeros((), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        K.adamw_update(t, t, t, t, lr=s, c1=s, c2=s, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0)

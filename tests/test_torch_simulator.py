@@ -162,8 +162,9 @@ def test_persistent_tier_stamps_torch_and_reloads(tmp_path):
 
 
 def test_surfaces_of_later_slices_raise():
-    """Observability (queue A item 10) is ported: explain, the metrics
-    registry and the recorder work; the sanitizing cache (item 11) raises."""
+    """Observability and the sanitizing cache are ported: explain, the
+    metrics registry and the recorder work, and a sanitized run equals the
+    plain one; a spec for other hardware than the simulator's still raises."""
     sim = Simulator("h100_sxm")
     _, spec = spec_pair("phi4-mini-3.8b", "prefill", seq_len=64)
     rep = sim.run(spec)
@@ -172,8 +173,7 @@ def test_surfaces_of_later_slices_raise():
     from repro_torch.obs import TraceRecorder
     rec = TraceRecorder()
     assert sim.run(spec, recorder=rec).step_time_us == rep.step_time_us and len(rec) > 0
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        Simulator("h100_sxm", sanitize=True)
+    assert _report_tuple(Simulator("h100_sxm", sanitize=True).run(spec)) == _report_tuple(rep)
     with pytest.raises(ValueError):
         Simulator("tpu_v5e").run(spec)
 
@@ -315,7 +315,8 @@ def test_synthesize_and_measure_runs_each_kind_on_the_cpu(node):
     K.reset_launch_counts()
     us = t_prof.synthesize_and_measure(node, device="cpu")
     assert us is not None and us > 0
-    assert K.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+    assert K.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+                                "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "adamw": 0}
 
 
 def test_synthesize_gives_none_only_for_what_it_cannot_build():
