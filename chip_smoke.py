@@ -12,7 +12,8 @@ Phases, each printing one JSON object on a line of its own:
   build    compiles src/repro_torch/kernels/csrc/*.cu with nvcc (one process
            a source, started together); seconds taken; then a SASS check:
            cuobjdump must find HGMMA (wgmma) and UTMALDG (TMA loads) in the
-           flash-attention library, 16-byte loads and stores in the rmsnorm one
+           flash-attention libraries, forward and backward, 16-byte loads and
+           stores in the rmsnorm one
   kernels  every kernel against its plain PyTorch version on the card, at the
            shapes the serving path gives it and at edge shapes, in float32
            (tolerance 2e-5: another order of summation) and bfloat16 (2e-2);
@@ -30,8 +31,11 @@ Phases, each printing one JSON object on a line of its own:
            profiler, and the same two for the library call; for K3 also
            the launch floor (the device time of a one-element fill), the
            device time with its inputs left in L2, and the device time of
-           other launch plans; the kernels' host-side plans against what
-           the compiled kernels report
+           other launch plans (for its backward, of other numbers of
+           blocks); each backward run twice from the same inputs at its
+           train shape must give the same bits; the kernels' host-side
+           plans (K1 backward's tiles and workspace too) against what the
+           compiled kernels report
   serve    phi4-mini-3.8b at full width and depth, random weights from a
            seed, ServingEngine(slots=8, cache_len=2048), 12 requests of 16 to
            1024 prompt tokens and 32 new tokens each; checks the tokens, the
@@ -73,11 +77,12 @@ Phases, each printing one JSON object on a line of its own:
            measured makespan, TTFT p50/p95, output tokens/s, steps, also with
            the reference head's transpose of the embedding taken out
 
-`--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) of the
-tree at DIR (e.g. the parent commit, unpacked) beside this tree's, in turns
-(DIR, here, here, DIR), each in a process of its own, through the wrappers'
-common signatures (the `times` phase; for K3 also `host_us`, the host time
-of a wrapper call, taken before the process profiles anything).
+`--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) and the
+train-shape backward of K1 and K3 of the tree at DIR (e.g. the parent
+commit, unpacked) beside this tree's, in turns (DIR, here, here, DIR), each
+in a process of its own, through the wrappers' common signatures (the
+`times` phase; for K3 also `host_us`, the host time of a wrapper call, taken
+before the process profiles anything).
 
 Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
@@ -181,6 +186,11 @@ def device_ms(fn, iters: int = 10, cold: bool = True) -> float:
     overwrite reads 256 MB (an int64 sum, whose kernels are left out by
     name), so L2 holds clean lines: a fill would leave up to 50 MB of dirty
     lines that the measured call would pay to write back."""
+    return sum(device_ms_by_kernel(fn, iters, cold).values())
+
+
+def device_ms_by_kernel(fn, iters: int = 10, cold: bool = True) -> dict:
+    """:func:`device_ms` split by kernel name: {name: ms a call}."""
     global _flush_names, _flush_i64
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -203,10 +213,9 @@ def device_ms(fn, iters: int = 10, cold: bool = True) -> float:
         torch.cuda.synchronize()
     # A kernel's mean time times its launches a call: the count is rounded, so
     # an event the tracer drops now and then does not pull the sum down.
-    total = sum(e.self_device_time_total / e.count * max(1, round(e.count / iters))
-                for e in prof.key_averages()
-                if e.device_type == on_dev and e.key not in _flush_names and e.count)
-    return total / 1e3
+    return {e.key: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3
+            for e in prof.key_averages()
+            if e.device_type == on_dev and e.key not in _flush_names and e.count}
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -428,7 +437,8 @@ def check_flash_bwd(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, 
         call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,  # noqa: E731
                                            window=window)
         rec["ms"] = time_ms(call)
-        rec["device_ms"] = device_ms(call)
+        rec["device_ms_by_kernel"] = device_ms_by_kernel(call)
+        rec["device_ms"] = sum(rec["device_ms_by_kernel"].values())
 
         def plain():
             leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -641,7 +651,8 @@ def check_rmsnorm_bwd(rng, *, R, D, dtype, w_dtype, offset, residual, timed, fus
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 10.0 * x.numel(), torch.float32)
         call = lambda: rmsnorm_bwd(s, w, dy, eps=1e-6, offset=offset, ds=ds)  # noqa: E731
         rec["ms"] = time_ms(call)
-        rec["device_ms"] = device_ms(call)
+        rec["device_ms_by_kernel"] = device_ms_by_kernel(call)
+        rec["device_ms"] = sum(rec["device_ms_by_kernel"].values())
 
         def plain():
             xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
@@ -744,10 +755,65 @@ def rms_plan_times(rng) -> list:
     return out
 
 
+# blocks of K3's backward timed beside the plan's, at the train path's rows
+RMS_BWD_PARTS = (132, 264, 396, 528, 660)
+
+
+def rms_bwd_parts_times(rng) -> list:
+    """Device time of K3's backward at R2048 D3072 bf16, norm only and with
+    the sum's gradient, for each number of blocks of ``RMS_BWD_PARTS``, each
+    checked against the plain backward."""
+    import importlib
+    rms = importlib.import_module("repro_torch.kernels.rmsnorm")
+    bf16 = torch.bfloat16
+    chosen = rms.bwd_launch_plan(3072, bf16, 2048)[3]
+    out = []
+    for with_sum in (False, True):
+        x, w, _ = rms_inputs(rng, 2048, 3072, bf16, bf16, False, False)
+        dy = randn(rng, (2048, 3072), bf16)
+        ds = randn(rng, (2048, 3072), bf16) if with_sum else None
+        want = rms.rmsnorm_bwd_plain(x.float(), w.float(), dy.float(),
+                                     ds=None if ds is None else ds.float())
+        for parts in RMS_BWD_PARTS:
+            call = lambda: rms.rmsnorm_bwd(x, w, dy, ds=ds, parts=parts)  # noqa: E731
+            err = row_err(call(), want)
+            out.append({"case": "R2048 D3072 bf16" + (" with sum" if with_sum else ""),
+                        "parts": parts, "chosen": parts == chosen, "row_err": err,
+                        "device_ms": device_ms(call)})
+            if not err <= ROW_TOL[bf16]:
+                fail(f"rmsnorm_bwd with {parts} blocks: row error {err}")
+    return out
+
+
+def determinism_checks(rng) -> list:
+    """Each backward twice from the same inputs at its train shape (K1 also
+    at a group of 5 and of 1, whose partial sums differ): every output must
+    be the same bits."""
+    from repro_torch.kernels import flash_attention, flash_attention_bwd, rmsnorm_bwd
+    bf16 = torch.bfloat16
+    out = []
+    for B, H, Hkv, S in ((1, 24, 8, 2048), (2, 40, 8, 333), (1, 8, 8, 200)):
+        q, k, v = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)
+        do = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)[0]
+        o = torch.empty_like(do)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+        flash_attention(q, k, v, causal=True, out=o, lse=lse)
+        runs = [flash_attention_bwd(q, k, v, o, lse, do, causal=True) for _ in range(2)]
+        out.append({"kernel": "flash_attention_bwd", "case": f"B{B} H{H} Hkv{Hkv} S{S} D128 "
+                    "causal bshd", "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))})
+    x, w, r = rms_inputs(rng, 2048, 3072, bf16, bf16, False, True)
+    dy, ds = randn(rng, (2048, 3072), bf16), randn(rng, (2048, 3072), bf16)
+    runs = [rmsnorm_bwd(x + r, w, dy, ds=ds) for _ in range(2)]
+    out.append({"kernel": "rmsnorm_bwd", "case": "R2048 D3072 with sum",
+                "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))})
+    return out
+
+
 def check_plans(recs_plans: dict) -> None:
     """The wrappers' host-side plans against what the compiled kernels
-    report: K1's tiles and shared memory, K2's rows an iteration, K3's
-    threads, chunks and vector."""
+    report: K1's tiles and shared memory, its backward's tiles, shared memory
+    and workspace bytes, K2's rows an iteration, K3's threads, chunks and
+    vector, and its backward's blocks."""
     import importlib
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     dec = importlib.import_module("repro_torch.kernels.decode_attention")
@@ -766,6 +832,32 @@ def check_plans(recs_plans: dict) -> None:
         recs_plans[f"flash D{D}"] = theirs
         if mine != theirs:
             fail(f"flash_attention plan D={D}: wrapper {mine}, kernel {theirs}")
+    for D in fa.BWD_TC_D:
+        mine, theirs = fa.bwd_tile_plan(D), fa.kernel_bwd_plan(D)
+        recs_plans[f"flash_bwd D{D}"] = theirs
+        if mine != theirs:
+            fail(f"flash_attention_bwd plan D={D}: wrapper {mine}, kernel {theirs}")
+    for shape in ((1, 24, 8, 2048, 2048, 128), (2, 40, 8, 333, 333, 128), (1, 8, 8, 200, 200, 128),
+                  (1, 16, 16, 300, 300, 256), (2, 8, 1, 192, 192, 64), (1, 4, 2, 300, 100, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for aligned in (True, False):
+                mine = fa.bwd_workspace_bytes(*shape, dtype, aligned)
+                theirs = fa.kernel_bwd_workspace_bytes(*shape, dtype, aligned)
+                if mine != theirs:
+                    fail(f"flash_attention_bwd workspace {shape} {dt_name(dtype)} aligned={aligned}: "
+                         f"wrapper {mine}, kernel {theirs}")
+        recs_plans[f"flash_bwd workspace B{shape[0]} H{shape[1]} Hkv{shape[2]} S{shape[3]} "
+                   f"D{shape[5]} bf16"] = fa.kernel_bwd_workspace_bytes(*shape, torch.bfloat16, True)
+    for dtype in (torch.bfloat16, torch.float32):
+        for D in (64, 100, 256, 3072, 5120, 16384):
+            for aligned in (True, False):
+                for rows in (1, 8, 255, 256, 528, 2048):
+                    mine = rms.bwd_launch_plan(D, dtype, rows, aligned=aligned)
+                    theirs = rms.kernel_bwd_plan(D, dtype, rows, aligned=aligned)
+                    if mine != theirs:
+                        fail(f"rmsnorm_bwd plan {dt_name(dtype)} D={D} rows={rows} aligned={aligned}:"
+                             f" wrapper {mine}, kernel {theirs}")
+    recs_plans["rmsnorm_bwd bf16 D3072 R2048"] = list(rms.kernel_bwd_plan(3072, torch.bfloat16, 2048))
     dev = torch.device("cuda", torch.cuda.current_device())
     for dtype in (torch.bfloat16, torch.float32):
         for D in dec.SUPPORTED_D:
@@ -892,6 +984,9 @@ def phase_kernels():
                 dict(B=1, H=4, Hkv=2, Sq=300, Sk=300, D=128, causal=False, window=64),   # window alone
                 dict(B=1, H=4, Hkv=1, Sq=128, Sk=256, D=64, causal=False, window=0),     # Sq != Sk
                 dict(B=1, H=4, Hkv=2, Sq=300, Sk=100, D=64, causal=False, window=64),    # masked rows
+                dict(B=1, H=8, Hkv=8, Sq=200, Sk=200, D=128, causal=True, window=0,
+                     bshd=True),                                                  # G=1, ragged
+                dict(B=1, H=6, Hkv=2, Sq=70, Sk=33, D=128, causal=True, window=0),       # Sq != Sk
                 dict(B=1, H=6, Hkv=2, Sq=100, Sk=100, D=128, causal=True, window=0,
                      misaligned=True)]                                            # FMA kernels
         for e in edge:
@@ -928,20 +1023,26 @@ def phase_kernels():
                                       offset=False, residual=True, fused=True, timed=False))
         recs.append(check_rmsnorm_bwd(rng, R=64, D=16384, dtype=dtype, w_dtype=dtype,
                                       offset=False, residual=False, timed=False))
+    rms_bwd_parts = rms_bwd_parts_times(rng)
+    determinism = determinism_checks(rng)
 
     K.reset_launch_counts()
     bad = [r for r in recs if not (bwd_errs_ok(r) if "row_err" in r               # a NaN is
                                    else r["max_abs_err"] <= r["tol"])]            # bad too
     emit({"phase": "kernels", "plans": plans, "floor_device_ms": launch_floor_ms(),
-          "rmsnorm_plans": rms_plans, "checks": recs, "failed": len(bad)})
+          "rmsnorm_plans": rms_plans, "rmsnorm_bwd_parts": rms_bwd_parts,
+          "determinism": determinism, "checks": recs, "failed": len(bad)})
     if bad:
         fail(f"{len(bad)} kernel check(s) over tolerance: {bad}")
+    if not all(d["bit_equal"] for d in determinism):
+        fail(f"a backward kernel gave other bits on a second run: {determinism}")
     return recs, main
 
 
-# instructions each library must hold: K1's wgmma (HGMMA) and TMA loads
-# (UTMALDG), K3's 16-byte loads and stores
+# instructions each library must hold: K1's and its backward's wgmma (HGMMA)
+# and TMA loads (UTMALDG), K3's 16-byte loads and stores
 SASS_WANTED = {"flash_attention": (r"HGMMA", r"UTMALDG"),
+               "flash_attention_bwd": (r"HGMMA", r"UTMALDG"),
                "rmsnorm": (r"LDG\.E\.128", r"STG\.E\.128")}
 
 
@@ -966,11 +1067,15 @@ def sass_check() -> dict:
 
 
 def phase_times():
-    """The serving shapes of K1, K2 and K3 in bf16 through the wrappers' plain
-    signatures, which every tree of the port has (K3's
-    ``rmsnorm(x, w, eps=, offset=, residual=)``): ms and device_ms, and for
-    K3 the host time of a call."""
-    from repro_torch.kernels import decode_attention, flash_attention, rmsnorm
+    """The serving shapes of K1, K2 and K3 in bf16 and the train path's
+    shapes of their backward, through the wrappers' plain signatures, which
+    every tree of the port since its training slice has (K3's
+    ``rmsnorm(x, w, eps=, offset=, residual=)``, K1's ``flash_attention(...,
+    lse=)`` then ``flash_attention_bwd(q, k, v, o, lse, do, causal=,
+    window=)``, K3's ``rmsnorm_bwd(x, w, dy, eps=, offset=, ds=)``): ms and
+    device_ms, and for K3 the host time of a call."""
+    from repro_torch.kernels import (decode_attention, flash_attention, flash_attention_bwd,
+                                     rmsnorm, rmsnorm_bwd)
     rng = np.random.default_rng(SEED)
     bf16 = torch.bfloat16
     out = []
@@ -1004,6 +1109,22 @@ def phase_times():
                     "ms": time_ms(call), "device_ms": device_ms(call)})
     for rec, call in k3:
         out.append({**rec, "ms": time_ms(call), "device_ms": device_ms(call)})
+    for S in (1000, 2048):
+        q, k, v = flash_inputs(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)
+        do = flash_inputs(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)[0]
+        o = torch.empty_like(do)
+        lse = torch.empty((1, 24, S), dtype=torch.float32, device="cuda")
+        flash_attention(q, k, v, causal=True, out=o, lse=lse)
+        call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=0)  # noqa: E731
+        out.append({"kernel": "flash_attention_bwd", "case": f"B1 H24 Hkv8 S{S} D128 causal bshd",
+                    "ms": time_ms(call), "device_ms": device_ms(call)})
+    for with_sum in (False, True):
+        x, w, _ = rms_inputs(rng, 2048, 3072, bf16, bf16, False, False)
+        dy = randn(rng, (2048, 3072), bf16)
+        ds = randn(rng, (2048, 3072), bf16) if with_sum else None
+        call = lambda: rmsnorm_bwd(x, w, dy, eps=1e-6, offset=False, ds=ds)  # noqa: E731
+        out.append({"kernel": "rmsnorm_bwd", "case": "R2048 D3072" + (" with sum" if with_sum else ""),
+                    "ms": time_ms(call), "device_ms": device_ms(call)})
     emit({"phase": "times", "src": SRC, "records": out, "host_pieces_us": host_pieces_us})
 
 
@@ -1692,6 +1813,12 @@ def phase_simulate(train=None):
                for m, key in (("wall", "wall_us"), ("device_busy", "device_busy_us"))}
         kinds, dev = prof.kind_us, meas["device_us"]
         rest = sum(v for k, v in kinds.items() if k not in ("matmul", "attention", "transpose"))
+        # kind_us covers the forward graphs only; the backward attention
+        # node's price is its `|bwd` profile entry, one a layer
+        bwd_entries = [v for k, v in rec["attention_entries_us"].items() if k.endswith("|bwd")]
+        if len(bwd_entries) != 1:
+            fail(f"train: expected one backward attention entry, got {rec['attention_entries_us']}")
+        rec["train"]["bwd_attention_us_a_layer"] = bwd_entries[0]
         rec["train"].update(
             measured=meas, signed_error=err,
             # the step's parts as each engine priced them, beside the measured
@@ -1700,7 +1827,8 @@ def phase_simulate(train=None):
             measured_optimizer_device_us=train["optimizer_device_ms"] * 1e3,
             kind_vs_measured_us={
                 "matmul/cublas": [kinds.get("matmul", 0.0), dev["cublas"]],
-                "attention/K1+K1_bwd": [kinds.get("attention", 0.0), dev["K1"] + dev["K1_bwd"]],
+                "attention/K1": [kinds.get("attention", 0.0), dev["K1"]],
+                "attention_bwd/K1_bwd": [bwd_entries[0] * cfg.num_layers, dev["K1_bwd"]],
                 "transpose/none": [kinds.get("transpose", 0.0), 0.0],
                 "rest/K3+K3_bwd+other": [rest, dev["K3"] + dev["K3_bwd"] + dev["other"]]},
             memory={"analytical_bytes": ana.memory.total, "profiling_bytes": prof.memory.total,
@@ -2071,6 +2199,13 @@ def main(argv=None) -> int:
         for key in ("scaled_err", "row_err", "row_tol", "dropped_tile_row_err"):
             if key in r:
                 rec[key] = r[key]
+        if name == "flash_attention_bwd":
+            # the profiling engine's price of a backward attention node (one
+            # layer at the train shape, timed in a CUDA graph) beside this
+            # kernel's device time at that shape
+            price = sim["train"]["bwd_attention_us_a_layer"]
+            rec["simulate_price_us_a_layer"] = price
+            rec["simulate_price_vs_device_ms"] = price / 1e3 / r["device_ms"] - 1.0
         if name in TRAIN_ONLY:
             rec["note"] = TRAIN_ONLY[name]
         kernels.append(rec)

@@ -268,18 +268,6 @@ struct TcParams {
   float scale_log2;   // softmax scale * log2(e)
 };
 
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int acc) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db, acc);
-  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, acc);
-  else wgmma_rs_n256(d, a, db, acc);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __device__ __forceinline__ bool visible(int q, int k, const TcParams& p) {
   return k < p.Sk && (!p.causal || k <= q) && (p.window <= 0 || k > q - p.window);
 }
@@ -287,42 +275,6 @@ __device__ __forceinline__ bool visible(int q, int k, const TcParams& p) {
 // Running max (log2 units) and this thread's share of the running sum of
 // its two rows.
 struct Rows { float m0, m1, l0, l1; };
-
-template <int N, typename R> __device__ __forceinline__ void fence_all(R* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_operand(r[i]);
-}
-
-// S = Q K^T of one tile: D/16 products m64 n(BK) k16, both operands K-major.
-template <int D, int BK>
-__device__ __forceinline__ void issue_qk(float* sc, uint32_t q_addr, uint32_t k_addr) {
-  static_assert(BK == 64, "S tiles are m64n64");
-  fence_all<BK / 2>(sc);
-  wgmma_fence();
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-    const uint32_t off = (kd % 4) * 32;   // 16 values further inside the swizzle atom
-    const uint64_t da = gmma_desc(q_addr + (kd / 4) * 64 * 128 + off, 16, 1024);
-    const uint64_t db = gmma_desc(k_addr + (kd / 4) * BK * 128 + off, 16, 1024);
-    wgmma_ss_n64(sc, da, db, kd > 0);
-  }
-  wgmma_commit();
-}
-
-// O += P V of one tile: BK/16 products m64 n(D) k16, P from registers, V
-// (BK x D) through a transposed (MN-major) descriptor.
-template <int D, int BK>
-__device__ __forceinline__ void issue_pv(float* o, uint32_t* pa, uint32_t v_addr) {
-  fence_all<D / 2>(o);
-  fence_all<BK / 4>(pa);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t db = gmma_desc(v_addr + kk * 16 * 128, BK * 128, 1024);
-    wgmma_rs<D>(o, &pa[4 * kk], db, 1);
-  }
-  wgmma_commit();
-}
 
 // Online softmax of one S tile held as the accumulator fragment: masks it
 // where `edge`, updates the rows' max and sum, writes P = exp2(S * scale_log2
@@ -526,42 +478,6 @@ __global__ void __launch_bounds__(TcPlan<D>::THREADS, TcPlan<D>::MIN_BLOCKS)
 }
 
 // ---- host side ------------------------------------------------------------
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no link against libcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// A bf16 (B, heads, S, D) view with element strides (sb, sh, ss) as a 4-D map
-// over (D, S, heads, B), read in boxes of 64 x `rows`, 128-byte swizzle.
-static bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S, int D,
-                     long long sb, long long sh, long long ss, int rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int D, bool LSE>
 static cudaError_t launch_tc(const FlashParams& f, int B, cudaStream_t stream) {

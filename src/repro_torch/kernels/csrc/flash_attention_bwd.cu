@@ -13,46 +13,64 @@
 //   dK = scale * sum_g dS^T Q                                (dK/dV kernel)
 //   dQ = scale * dS K                                        (dQ kernel)
 //
-// recomputing P from the scores rather than storing it.  The split follows
-// the usual one, so that nothing needs atomics and every sum is taken in the
-// same order on every run:
+// recomputing P from the scores rather than storing it.  dK/dV and dQ are
+// separate kernels, so that nothing needs atomics and every sum is taken in
+// the same order on every run; the price is that the dQ kernel computes S and
+// dP again (seven products of a tile pair where a fused backward has five).
 //
-//   * the dK/dV kernel: one block a (batch, kv head, kv tile), looping over
-//     the q tiles of all G heads of its group that can see the tile, with dK
-//     and dV of the tile in registers;
-//   * the dQ kernel: one block a (batch, q head, q tile), looping over the kv
-//     tiles the tile can see, with dQ in registers.
-//
-// On this card the backward is bound by operations (about 2.5 times the
-// forward's: five products of a tile pair against the forward's two).  Two
-// versions of the dK/dV and dQ kernels:
+// On this card the backward is bound by operations (the seven products are
+// 14 D operations a visible (q, key) pair: about 1,300 operations a byte of
+// its inputs and outputs at phi4-mini's train shape, against the 295 at which
+// the tensor cores and device memory balance), so the train path's case is
+// built around the tensor cores:
 //
 //   * bf16 with D = 64 or 128 and 16-byte aligned operands (the train
-//     path's): tensor cores through `mma.sync` m16n8k16 (bf16 in, fp32
-//     accumulate), four warps a block, each warp owning 16 rows of the
-//     output tile.  The tiles are staged in shared memory as bf16, row-major
-//     for the products' A operands and for B operands read along D, and
-//     transposed (D-major) for the B operands read along the sequence (dO
-//     and Q in dV += P^T dO and dK += dS^T Q, K in dQ += dS K), with rows
-//     padded by 8 elements so that a warp's fragment loads hit 32 banks.
-//     S and dP stay in the accumulator fragments; P and dS are rounded to
-//     bf16 and reused in registers as the next product's A operand (the
-//     forward rounds P before P V in the same way).  The loads are plain
-//     16-byte loads with no pipelining: a TMA/wgmma design is later work.
+//     path's): TMA loads and wgmma products, every tile in shared memory as
+//     rows of 128 bytes with the 128-byte swizzle (hopper.cuh).  A block is
+//     one warpgroup (128 threads, two blocks an SM, so that a thread may hold
+//     255 registers: dK and dV of 64 rows x 128 in fp32, S^T and dP^T, and
+//     their bf16 halves take about 230); its first thread issues the TMA
+//     loads one ring stage ahead.  A producer warp of its own would put the
+//     block at 160 threads and cap a thread at 200 registers.
+//       - dK/dV kernel, one block a (batch, q head, kv tile of 64): K and V
+//         loaded once; Q, dO and their rows of lse and delta through a ring
+//         of STAGES stages of 64 q rows.  S^T = K Q^T and dP^T = V dO^T with
+//         both operands in shared memory; P^T and dS^T rounded to bf16 in
+//         registers as the A operand of dV += P^T dO and dK += dS^T Q, where
+//         dO and Q are read through MN-major (transposed) descriptors, as the
+//         forward reads V: no transposed copy of any tile.  The G q heads of
+//         a group are split over G blocks: each writes its partial dK, dV in
+//         fp32 to a workspace, and `flash_bwd_sum_kernel` sums the G in head
+//         order (G = 1 writes dK and dV directly).  The group's last block
+//         summing them itself was measured no faster on an H100 (the fence and
+//         the wait on the others' partials took what the launch saved).
+//       - dQ kernel, one block a (batch, q head, q tile of 64): Q and dO
+//         loaded once; K and V through a ring.  S = Q K^T, dP = dO V^T, then
+//         dQ += dS K with dS from registers and K MN-major.
+//       - delta kernel: rowsum(dO * O) and the lse in log2 units, over q rows
+//         padded to whole tiles, D/8 threads a row with 16-byte loads.
+//       Both grids are one-dimensional and put the heaviest tiles under a
+//       causal mask first (the first kv tiles, the last q tiles), over every
+//       head, so the last wave holds the lightest blocks.  A tile pair that
+//       no mask and no end of Q or K cuts takes no mask arithmetic.
 //   * otherwise (fp32, D = 256, unaligned views): fp32 FMAs over tiles
 //     widened to fp32 in shared memory, the forward's FMA kernel's thread
 //     layout (16 x 16 threads, 4 rows x D/16 columns a thread).  TF32 tensor
 //     cores would keep about three decimal digits and miss the fp32
-//     tolerance; at D = 256 a warp's dK and dV of 16 rows would need 256
+//     tolerance; at D = 256 a warpgroup's dK and dV of 64 rows would need 256
 //     registers a thread.
 //
-// A fully masked row keeps the forward's convention: its output is 0, and
-// so is every gradient it sends.
+// P and dS are rounded to bf16 before their products (the forward rounds P
+// before P V in the same way); dS is formed from P in fp32.  A fully masked
+// row keeps the forward's convention: its output is 0, and so is every
+// gradient it sends.
 //
 // Layout: every tensor (B, heads, S, D) with free strides over its first
-// three dims (multiples of 4 elements) and stride 1 over D; lse and delta
-// (B, H, Sq) contiguous fp32.
+// three dims (multiples of 4 elements; of 8 for the tensor-core path) and
+// stride 1 over D; lse (B, H, Sq) contiguous fp32.  The wrapper allocates the
+// workspace (`flash_attention_bwd_workspace`); the kernels allocate nothing.
 #include "common.cuh"
+#include "hopper.cuh"
 
 #define FB_THREADS 256
 
@@ -376,313 +394,421 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dq_kernel(const BwdParam
 }
 
 // ===========================================================================
-// bf16, D = 64 or 128: tensor cores through mma.sync
+// bf16, D = 64 or 128: TMA + wgmma
 // ===========================================================================
 
-#define TB_THREADS 128   // four warps
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The A fragment (16 x 16, row-major) at rows r0.., cols c0.. of a bf16 tile
-// of row stride `st`: rows r0 + g and r0 + g + 8, cols c0 + 2t and c0 + 2t + 8.
-__device__ __forceinline__ void frag_a(uint32_t* a, const __nv_bfloat16* tile, int st, int r0,
-                                       int c0, int g, int t) {
-  a[0] = ld32(tile + (r0 + g) * st + c0 + 2 * t);
-  a[1] = ld32(tile + (r0 + g + 8) * st + c0 + 2 * t);
-  a[2] = ld32(tile + (r0 + g) * st + c0 + 2 * t + 8);
-  a[3] = ld32(tile + (r0 + g + 8) * st + c0 + 2 * t + 8);
-}
-
-// The B fragment (16 x 8, k x n) whose column n is row n0 + g of a tile
-// stored n-major (k contiguous), k from k0: elements k0 + 2t.. and k0 + 2t + 8..
-__device__ __forceinline__ void frag_b(uint32_t* b, const __nv_bfloat16* tile, int st, int n0,
-                                       int k0, int g, int t) {
-  b[0] = ld32(tile + (n0 + g) * st + k0 + 2 * t);
-  b[1] = ld32(tile + (n0 + g) * st + k0 + 2 * t + 8);
-}
-
-// Accumulator fragments c[j] (16 x 8 each, j = 2kk and 2kk + 1) as the A
-// fragment of a product over their 16 columns, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* c0, const float* c1) {
-  a[0] = pack2(c0[0], c0[1]);
-  a[1] = pack2(c0[2], c0[3]);
-  a[2] = pack2(c1[0], c1[1]);
-  a[3] = pack2(c1[2], c1[3]);
-}
-
-// rows [r0, r0 + R) of one (batch, head) of bf16 tensor `which` -> shared
-// memory, row-major with row stride RS and, if `tr`, also transposed (D rows
-// of stride TS); rows past `n` as zeros.  16-byte loads (the operand is
-// 16-byte aligned with strides that are multiples of 8 elements).  Adjacent
-// threads take adjacent rows of one 8-column chunk, so that the transposed
-// 2-byte stores of a warp fall in adjacent words and the row-major 16-byte
-// stores (each padded row four banks on from the one before) in distinct banks.
-template <int D, int R, int RS, int TS>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, __nv_bfloat16* tr, const BwdParams& p,
-                                      int which, int b, int h, int r0, int n) {
-  for (int c = threadIdx.x; c < R * (D / 8); c += TB_THREADS) {
-    const int r = c % R, d8 = (c / R) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(row_ptr<__nv_bfloat16>(p, which, b, h, r0 + r) + d8);
-    *reinterpret_cast<uint4*>(dst + r * RS + d8) = val;
-    if (tr != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) tr[(d8 + i) * TS + r] = e[i];
-    }
-  }
-}
-
-template <int D> struct TcDkdv {
-  static constexpr int BKV = 64, BQ = 32;
-  static constexpr int RS = D + 8;    // row stride of K, V, Q, dO (elements)
-  static constexpr int TS = BQ + 8;   // row stride of Q^T and dO^T
-  static constexpr int ELEMS = 2 * BKV * RS + 2 * BQ * RS + 2 * D * TS;
-  static constexpr int BYTES = ELEMS * 2 + 2 * BQ * 4;
+// Tile plan of the tensor-core kernels; kernels/flash_attention.py
+// `bwd_tile_plan` mirrors it (and chip_smoke.py holds the two against each
+// other).
+template <int D> struct BwdPlan {
+  static constexpr int BQ = 64;          // q rows a tile (a dQ block's rows)
+  static constexpr int BKV = 64;         // kv rows a tile (a dK/dV block's rows)
+  static constexpr int STAGES = 2;       // depth of each kernel's ring
+  static constexpr int CH = D / 64;      // 128-byte column chunks of a row
+  static constexpr int THREADS = 128;    // one warpgroup
+  static constexpr int MIN_BLOCKS = 2;   // 2 x 128 threads: up to 255 registers a thread
+  static constexpr int TILE = 64 * D * 2;     // one 64-row bf16 tile
+  static constexpr int ROWS = 64 * 4;         // lse or delta of a q tile, fp32
+  static constexpr int BAR_BYTES = 64;
+  // dK/dV: K and V of the block, a ring of (Q, dO, lse, delta)
+  static constexpr int SMEM_DKDV = (2 + 2 * STAGES) * TILE + 2 * STAGES * ROWS + BAR_BYTES;
+  // dQ: Q and dO of the block, a ring of (K, V)
+  static constexpr int SMEM_DQ = (2 + 2 * STAGES) * TILE + BAR_BYTES;
+  static_assert(BQ == 64 && BKV == 64, "tiles are m64n64 products");
+  static_assert(MIN_BLOCKS * (SMEM_DKDV + 1024) <= 233472, "shared memory of an sm_90 SM");
+  static_assert(MIN_BLOCKS * (SMEM_DQ + 1024) <= 233472, "shared memory of an sm_90 SM");
+  static_assert((STAGES + 1) * 8 <= BAR_BYTES, "barriers");
 };
 
-template <int D>
-__global__ void __launch_bounds__(TB_THREADS) flash_bwd_dkdv_tc_kernel(const BwdParams p) {
-  using T = TcDkdv<D>;
-  constexpr int BKV = T::BKV, BQ = T::BQ, RS = T::RS, TS = T::TS;
-  extern __shared__ __align__(16) uint8_t smem_tc[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_tc);
-  __nv_bfloat16* Vs = Ks + BKV * RS;
-  __nv_bfloat16* Qs = Vs + BKV * RS;
-  __nv_bfloat16* Gs = Qs + BQ * RS;      // dO
-  __nv_bfloat16* Qt = Gs + BQ * RS;      // Q^T
-  __nv_bfloat16* Gt = Qt + D * TS;       // dO^T
-  float* Ls = reinterpret_cast<float*>(Gt + D * TS);
-  float* Dl = Ls + BQ;
+struct WgParams {
+  __nv_bfloat16 *dq, *dk, *dv;
+  long long dq_st[3], dk_st[3], dv_st[3];   // element strides over (batch, head, seq)
+  float *part_dk, *part_dv;   // (B, H, Sk, D) fp32: each q head's dK, dV (G > 1 only)
+  const float* lse2;          // (B, H, Sq_pad): the forward's lse * log2(e), 0 past Sq
+  const float* delta;         // (B, H, Sq_pad): rowsum(dO * O), 0 past Sq
+  int B, H, Hkv, Sq, Sk, Sq_pad, causal, window;
+  float scale, scale_log2;
+};
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * BKV;   // the first kv tiles see the most q rows under a causal mask
-  const int G = p.H / p.Hkv;
-  const int wr = warp * 16;          // this warp's kv rows in the tile
+__device__ __forceinline__ bool seen_wg(int q, int k, const WgParams& p) {
+  return q < p.Sq && k < p.Sk && (!p.causal || k <= q) && (p.window <= 0 || k > q - p.window);
+}
 
-  stage<D, BKV, RS, 1>(Ks, nullptr, p, T_K, b, hk, k0, p.Sk);
-  stage<D, BKV, RS, 1>(Vs, nullptr, p, T_V, b, hk, k0, p.Sk);
+// Whether the 64 x 64 tile pair of q rows from q0 and kv rows from k0 holds a
+// pair that a mask or the end of Q or K takes out (uniform over the block).
+__device__ __forceinline__ bool tile_edge(int q0, int k0, const WgParams& p) {
+  return q0 + 64 > p.Sq || k0 + 64 > p.Sk || (p.causal && k0 + 63 > q0) ||
+         (p.window > 0 && k0 <= q0 + 63 - p.window);
+}
 
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) { dk[n][e] = 0.f; dv[n][e] = 0.f; }
+// The q tiles (first, count) whose rows can see some row of kv tile kt, and
+// the kv tiles (first, count) that some row of q tile qt can see.
+// kernels/flash_attention.py `bwd_q_tiles` / `bwd_kv_tiles` mirror them.
+__device__ __forceinline__ int2 dkdv_q_tiles(int kt, const WgParams& p) {
+  const int k_last = min(kt * 64 + 64, p.Sk) - 1;
+  const int lo = p.causal ? kt : 0;
+  const int hi = p.window > 0 ? min(p.Sq, k_last + p.window) : p.Sq;
+  return make_int2(lo, hi > lo * 64 ? (hi - lo * 64 + 63) / 64 : 0);
+}
+__device__ __forceinline__ int2 dq_kv_tiles(int qt, const WgParams& p) {
+  const int q0 = qt * 64, q_last = min(q0 + 64, p.Sq) - 1;
+  const int lo = p.window > 0 ? max(0, q0 - p.window + 1) / 64 : 0;
+  const int hi = p.causal ? min(p.Sk, q_last + 1) : p.Sk;
+  return make_int2(lo, hi > lo * 64 ? (hi - lo * 64 + 63) / 64 : 0);
+}
 
-  const int q_lo = p.causal ? (k0 / BQ) * BQ : 0;
-  int q_hi = p.Sq;
-  if (p.window > 0) q_hi = min(q_hi, k0 + BKV - 1 + p.window);
-
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    const float* lse = p.lse + ((long long)b * p.H + h) * p.Sq;
-    const float* delta = p.delta + ((long long)b * p.H + h) * p.Sq;
-    for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
-      __syncthreads();   // the tile before is read to its end (and K, V staged)
-      stage<D, BQ, RS, TS>(Qs, Qt, p, T_Q, b, h, q0, p.Sq);
-      stage<D, BQ, RS, TS>(Gs, Gt, p, T_DO, b, h, q0, p.Sq);
-      if (threadIdx.x < BQ) {
-        const int q = q0 + threadIdx.x;
-        Ls[threadIdx.x] = q < p.Sq ? lse[q] : 0.f;
-        Dl[threadIdx.x] = q < p.Sq ? delta[q] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x BQ q columns a warp
-      float s[BQ / 8][4], dp[BQ / 8][4];
+// The accumulator fragment of an m64n64 product as the A operand of k16
+// products over its 64 columns, rounded to bf16 (hopper.cuh: the register A
+// operand of k16 has the shape of two n8 blocks of the accumulator).
+__device__ __forceinline__ void frag_to_a(uint32_t* a, const float* f) {
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) { s[j][e] = 0.f; dp[j][e] = 0.f; }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        frag_a(ak, Ks, RS, wr, 16 * kk, g, t);
-        frag_a(av, Vs, RS, wr, 16 * kk, g, t);
-#pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          uint32_t bq[2], bg[2];
-          frag_b(bq, Qs, RS, 8 * j, 16 * kk, g, t);
-          frag_b(bg, Gs, RS, 8 * j, 16 * kk, g, t);
-          mma_bf16(s[j], ak, bq);
-          mma_bf16(dp[j], av, bg);
-        }
-      }
-      // P^T = exp(scale S^T - lse) where seen, dS^T = P^T (dP^T - delta)
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kv = k0 + wr + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
-          const float pt = seen(q0 + c, kv, p) ? expf(s[j][e] * p.scale - Ls[c]) : 0.f;
-          s[j][e] = pt;
-          dp[j][e] = pt * (dp[j][e] - Dl[c]);
-        }
-      // dV += P^T dO and dK += dS^T Q, P^T and dS^T as A fragments
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-        acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          uint32_t bg[2], bq[2];
-          frag_b(bg, Gt, TS, 8 * n, 16 * kk, g, t);
-          frag_b(bq, Qt, TS, 8 * n, 16 * kk, g, t);
-          mma_bf16(dv[n], pa, bg);
-          mma_bf16(dk[n], sa, bq);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int kv = k0 + wr + g + 8 * half;
-    if (kv < p.Sk) {
-      __nv_bfloat16* dkp = (__nv_bfloat16*)row_ptr<__nv_bfloat16>(p, T_DK, b, hk, kv);
-      __nv_bfloat16* dvp = (__nv_bfloat16*)row_ptr<__nv_bfloat16>(p, T_DV, b, hk, kv);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const int col = 8 * n + 2 * t;
-        *reinterpret_cast<uint32_t*>(dkp + col) =
-            pack2(dk[n][2 * half] * p.scale, dk[n][2 * half + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvp + col) = pack2(dv[n][2 * half], dv[n][2 * half + 1]);
-      }
-    }
+  for (int jb = 0; jb < 8; ++jb) {
+    a[2 * jb] = pack_bf16(f[4 * jb], f[4 * jb + 1]);
+    a[2 * jb + 1] = pack_bf16(f[4 * jb + 2], f[4 * jb + 3]);
   }
 }
 
-template <int D> struct TcDq {
-  static constexpr int BQ = 64, BKV = 32;
-  static constexpr int RS = D + 8;     // row stride of Q, dO, K, V
-  static constexpr int TS = BKV + 8;   // row stride of K^T
-  static constexpr int BYTES = (2 * BQ * RS + 2 * BKV * RS + D * TS) * 2;
-};
-
+// delta and the lse in log2 units of the (B, H, Sq_pad) rows: D/8 threads a
+// row, 16-byte loads of O and dO; rows past Sq get 0 in both, so that a q
+// tile's 64 values of either are one aligned bulk copy.
 template <int D>
-__global__ void __launch_bounds__(TB_THREADS) flash_bwd_dq_tc_kernel(const BwdParams p) {
-  using T = TcDq<D>;
-  constexpr int BQ = T::BQ, BKV = T::BKV, RS = T::RS, TS = T::TS;
-  extern __shared__ __align__(16) uint8_t smem_tc[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_tc);
-  __nv_bfloat16* Gs = Qs + BQ * RS;      // dO
-  __nv_bfloat16* Ks = Gs + BQ * RS;
-  __nv_bfloat16* Vs = Ks + BKV * RS;
-  __nv_bfloat16* Kt = Vs + BKV * RS;     // K^T
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta_wg_kernel(const BwdParams f, const WgParams p, float* delta, float* lse2) {
+  constexpr int LANES = D / 8;   // threads a row: 16 or 8, within one warp
+  const long long gt = (long long)blockIdx.x * 256 + threadIdx.x;
+  const long long row = gt / LANES;
+  const int part = (int)(gt % LANES);
+  const bool live = row < (long long)p.B * p.H * p.Sq_pad;
+  const int s = (int)(row % p.Sq_pad);
+  const int h = (int)((row / p.Sq_pad) % p.H);
+  const int b = (int)(row / ((long long)p.Sq_pad * p.H));
+  float acc = 0.f;
+  if (live && s < p.Sq) {
+    const uint4 o = *reinterpret_cast<const uint4*>(row_ptr<__nv_bfloat16>(f, T_O, b, h, s) + 8 * part);
+    const uint4 g = *reinterpret_cast<const uint4*>(row_ptr<__nv_bfloat16>(f, T_DO, b, h, s) + 8 * part);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 a = __bfloat1622float2(o2[e]), c = __bfloat1622float2(g2[e]);
+      acc += a.x * c.x + a.y * c.y;
+    }
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (live && part == 0) {
+    const bool in = s < p.Sq;
+    delta[row] = in ? acc : 0.f;
+    lse2[row] = in ? f.lse[((long long)b * p.H + h) * p.Sq + s] * 1.4426950408889634f : 0.f;
+  }
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;   // last (heaviest under causal) q tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+// One block a (batch, q head, kv tile): dK and dV of the tile from this q
+// head alone.  Thread (warp w, lane l) holds kv rows 16w + l/4 (+ 8) of the
+// tile and q columns 8j + 2(l%4) (+ 1) of S^T and dP^T, and the same rows of
+// dK and dV in columns 8i + 2(l%4) (+ 1).
+template <int D>
+__global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
+    flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo, const WgParams p) {
+  using P = BwdPlan<D>;
+  constexpr int ST = P::STAGES, CH = P::CH, TILE = P::TILE;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  if (smem_u32(smem_raw) & 1023) __trap();
+  uint8_t* k_s = smem_raw;                 // [CH][64 rows][128 B]
+  uint8_t* v_s = k_s + TILE;
+  uint8_t* q_s = v_s + TILE;               // [ST] tiles
+  uint8_t* g_s = q_s + ST * TILE;          // dO, [ST] tiles
+  float* lse_s = reinterpret_cast<float*>(g_s + ST * TILE);   // [ST][64]
+  float* dl_s = lse_s + ST * 64;                               // [ST][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(dl_s + ST * 64);
+  uint64_t* kv_full = full + ST;
+
+  // every head's kv tile 0 first: under a causal mask the first kv tiles see the most q rows
+  const int hb = p.H * p.B;
+  const int kt = blockIdx.x / hb, h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = qt * BQ, wr = warp * 16;
+  const int k0 = kt * 64;
+  const int2 qr = dkdv_q_tiles(kt, p);
+  const int q_first = qr.x * 64, n = qr.y;
+  const long long row0 = ((long long)b * p.H + h) * p.Sq_pad;
+  const int t = threadIdx.x;
 
-  stage<D, BQ, RS, 1>(Qs, nullptr, p, T_Q, b, h, q0, p.Sq);
-  stage<D, BQ, RS, 1>(Gs, nullptr, p, T_DO, b, h, q0, p.Sq);
-  float lse[2], delta[2];
+  // thread 0: q tile j of the walk into stage j % ST
+  auto load_q = [&](int j) {
+    const int s = j % ST, q0 = q_first + j * 64;
+    mbar_arrive_expect_tx(&full[s], 2 * TILE + 2 * P::ROWS);
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int q = q0 + wr + g + 8 * half;
-    const long long at = ((long long)b * p.H + h) * p.Sq + q;
-    lse[half] = q < p.Sq ? p.lse[at] : 0.f;
-    delta[half] = q < p.Sq ? p.delta[at] : 0.f;
+    for (int c = 0; c < CH; ++c) {
+      tma_load_4d(q_s + s * TILE + c * 64 * 128, &tq, &full[s], c * 64, q0, h, b);
+      tma_load_4d(g_s + s * TILE + c * 64 * 128, &tdo, &full[s], c * 64, q0, h, b);
+    }
+    bulk_load(lse_s + s * 64, p.lse2 + row0 + q0, P::ROWS, &full[s]);
+    bulk_load(dl_s + s * 64, p.delta + row0 + q0, P::ROWS, &full[s]);
+  };
+  if (t == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) mbar_init(&full[s], 1);
+    mbar_init(kv_full, 1);
+    fence_barrier_init();
   }
   __syncthreads();
-  // this warp's 16 rows of Q and dO as A fragments, kept for the whole loop
-  uint32_t qa[D / 16][4], ga[D / 16][4];
+  if (t == 0 && n > 0) {
+    mbar_arrive_expect_tx(kv_full, 2 * TILE);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    frag_a(qa[kk], Qs, RS, wr, 16 * kk, g, t);
-    frag_a(ga[kk], Gs, RS, wr, 16 * kk, g, t);
-  }
-  float dq[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  const int q_last = min(q0 + BQ, p.Sq) - 1;
-  int kv_hi = p.Sk;
-  if (p.causal) kv_hi = min(kv_hi, q_last + 1);
-  int kv_lo = 0;
-  if (p.window > 0) {
-    const int first = q0 - p.window + 1;
-    if (first > 0) kv_lo = (first / BKV) * BKV;
+    for (int c = 0; c < CH; ++c) {
+      tma_load_4d(k_s + c * 64 * 128, &tk, kv_full, c * 64, k0, hk, b);
+      tma_load_4d(v_s + c * 64 * 128, &tv, kv_full, c * 64, k0, hk, b);
+    }
+    for (int j = 0; j < n && j < ST; ++j) load_q(j);
   }
 
-  for (int k0 = kv_lo; k0 < kv_hi; k0 += BKV) {
-    __syncthreads();   // the tile before is read to its end
-    stage<D, BKV, RS, TS>(Ks, Kt, p, T_K, b, hk, k0, p.Sk);
-    stage<D, BKV, RS, 1>(Vs, nullptr, p, T_V, b, hk, k0, p.Sk);
-    __syncthreads();
+  const int warp = t >> 5, lane = t & 31;
+  const int rl = warp * 16 + (lane >> 2);   // this thread's kv rows in the tile: rl, rl + 8
+  const int cq = 2 * (lane & 3);            // and columns cq, cq + 1 of every 8
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dk[i] = 0.f;
+    dv[i] = 0.f;
+  }
+  const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
+  if (n > 0) mbar_wait(kv_full, 0);
 
-    // S = Q K^T and dP = dO V^T: 16 q rows x BKV kv columns a warp
-    float s[BKV / 8][4], dp[BKV / 8][4];
+  for (int j = 0; j < n; ++j) {
+    const int s = j % ST, q0 = q_first + j * 64;
+    const uint32_t q_addr = smem_u32(q_s + s * TILE), g_addr = smem_u32(g_s + s * TILE);
+    const float* ls = lse_s + s * 64;
+    const float* dls = dl_s + s * 64;
+    float sc[32], dp[32];
+    uint32_t pa[16], sa[16];
+    mbar_wait(&full[s], (j / ST) & 1);
+    issue_qk<D, 64>(sc, k_addr, q_addr);    // S^T = K Q^T
+    issue_qk<D, 64>(dp, v_addr, g_addr);    // dP^T = V dO^T
+    wgmma_wait<0>();
+    fence_all<32>(sc);
+    fence_all<32>(dp);
+    const bool edge = tile_edge(q0, k0, p);
+    // P^T = exp2(S^T * scale log2(e) - lse log2(e)), 0 where masked
 #pragma unroll
-    for (int j = 0; j < BKV / 8; ++j)
+    for (int jb = 0; jb < 8; ++jb)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) { s[j][e] = 0.f; dp[j][e] = 0.f; }
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * jb + cq + e;
+        const float l2 = ls[c];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < BKV / 8; ++j) {
-        uint32_t bk[2], bv[2];
-        frag_b(bk, Ks, RS, 8 * j, 16 * kk, g, t);
-        frag_b(bv, Vs, RS, 8 * j, 16 * kk, g, t);
-        mma_bf16(s[j], qa[kk], bk);
-        mma_bf16(dp[j], ga[kk], bv);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * jb + 2 * hh + e;
+          float pt = fast_exp2(fmaf(sc[i], p.scale_log2, -l2));
+          if (edge && !seen_wg(q0 + c, k0 + rl + 8 * hh, p)) pt = 0.f;
+          sc[i] = pt;
+        }
       }
-    // dS = P (dP - delta) with P = exp(scale S - lse) where seen
+    frag_to_a(pa, sc);
+    issue_pv<D, 64>(dv, pa, g_addr);        // dV += P^T dO, dO read MN-major
+    // dS^T = P^T (dP^T - delta), while that product runs
 #pragma unroll
-    for (int j = 0; j < BKV / 8; ++j)
+    for (int jb = 0; jb < 8; ++jb)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int half = e >> 1;
-        const int q = q0 + wr + g + 8 * half, kv = k0 + 8 * j + 2 * t + (e & 1);
-        const float pv = seen(q, kv, p) ? expf(s[j][e] * p.scale - lse[half]) : 0.f;
-        dp[j][e] = pv * (dp[j][e] - delta[half]);
+      for (int e = 0; e < 2; ++e) {
+        const float dl = dls[8 * jb + cq + e];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int i = 4 * jb + 2 * hh + e;
+          dp[i] = sc[i] * (dp[i] - dl);
+        }
       }
-    // dQ += dS K, dS as A fragments, K through its transposed copy
+    frag_to_a(sa, dp);
+    issue_pv<D, 64>(dk, sa, q_addr);        // dK += dS^T Q, Q read MN-major
+    wgmma_wait<0>();
+    fence_all<D / 2>(dv);
+    fence_all<D / 2>(dk);
+    __syncthreads();                        // every warp is done with stage s
+    if (t == 0 && j + ST < n) load_q(j + ST);
+  }
+
+  const bool whole = p.H == p.Hkv;          // G = 1: this block's sums are dK and dV
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+  for (int hh = 0; hh < 2; ++hh) {
+    const int k = k0 + rl + 8 * hh;
+    if (k >= p.Sk) continue;
+    if (whole) {
+      __nv_bfloat16* dkp = p.dk + b * p.dk_st[0] + hk * p.dk_st[1] + k * p.dk_st[2];
+      __nv_bfloat16* dvp = p.dv + b * p.dv_st[0] + hk * p.dv_st[1] + k * p.dv_st[2];
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t bk[2];
-        frag_b(bk, Kt, TS, 8 * n, 16 * kk, g, t);
-        mma_bf16(dq[n], sa, bk);
+      for (int i = 0; i < D / 8; ++i) {
+        const int col = 8 * i + cq;
+        *reinterpret_cast<uint32_t*>(dkp + col) =
+            pack_bf16(dk[4 * i + 2 * hh] * p.scale, dk[4 * i + 2 * hh + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvp + col) = pack_bf16(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
+      }
+    } else {
+      const long long at = (((long long)b * p.H + h) * p.Sk + k) * D;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        const int col = 8 * i + cq;
+        *reinterpret_cast<float2*>(p.part_dk + at + col) =
+            make_float2(dk[4 * i + 2 * hh] * p.scale, dk[4 * i + 2 * hh + 1] * p.scale);
+        *reinterpret_cast<float2*>(p.part_dv + at + col) =
+            make_float2(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
       }
     }
   }
+}
+
+// dK, dV of each kv head: the G q heads' fp32 partials summed in head order
+// (the same order on every run) and rounded to bf16; 8 columns a thread.
+template <int D>
+__global__ void __launch_bounds__(256) flash_bwd_sum_kernel(const WgParams p) {
+  constexpr int C8 = D / 8;
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= (long long)p.B * p.Hkv * p.Sk * C8) return;
+  const int d8 = (int)(idx % C8) * 8;
+  const int k = (int)((idx / C8) % p.Sk);
+  const int hk = (int)((idx / ((long long)C8 * p.Sk)) % p.Hkv);
+  const int b = (int)(idx / ((long long)C8 * p.Sk * p.Hkv));
+  const int G = p.H / p.Hkv;
+  float sk[8], sv[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    sk[e] = 0.f;
+    sv[e] = 0.f;
+  }
+  for (int g = 0; g < G; ++g) {
+    const long long at = (((long long)b * p.H + hk * G + g) * p.Sk + k) * D + d8;
+    const float4 k0 = *reinterpret_cast<const float4*>(p.part_dk + at);
+    const float4 k1 = *reinterpret_cast<const float4*>(p.part_dk + at + 4);
+    const float4 v0 = *reinterpret_cast<const float4*>(p.part_dv + at);
+    const float4 v1 = *reinterpret_cast<const float4*>(p.part_dv + at + 4);
+    sk[0] += k0.x; sk[1] += k0.y; sk[2] += k0.z; sk[3] += k0.w;
+    sk[4] += k1.x; sk[5] += k1.y; sk[6] += k1.z; sk[7] += k1.w;
+    sv[0] += v0.x; sv[1] += v0.y; sv[2] += v0.z; sv[3] += v0.w;
+    sv[4] += v1.x; sv[5] += v1.y; sv[6] += v1.z; sv[7] += v1.w;
+  }
+  const uint4 ok = make_uint4(pack_bf16(sk[0], sk[1]), pack_bf16(sk[2], sk[3]),
+                              pack_bf16(sk[4], sk[5]), pack_bf16(sk[6], sk[7]));
+  const uint4 ov = make_uint4(pack_bf16(sv[0], sv[1]), pack_bf16(sv[2], sv[3]),
+                              pack_bf16(sv[4], sv[5]), pack_bf16(sv[6], sv[7]));
+  *reinterpret_cast<uint4*>(p.dk + b * p.dk_st[0] + hk * p.dk_st[1] + k * p.dk_st[2] + d8) = ok;
+  *reinterpret_cast<uint4*>(p.dv + b * p.dv_st[0] + hk * p.dv_st[1] + k * p.dv_st[2] + d8) = ov;
+}
+
+// One block a (batch, q head, q tile): dQ of the tile.  Thread (warp w, lane
+// l) holds q rows 16w + l/4 (+ 8) of the tile, kv columns 8j + 2(l%4) (+ 1)
+// of S and dP, and the same rows of dQ.
+template <int D>
+__global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
+    flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo, const WgParams p) {
+  using P = BwdPlan<D>;
+  constexpr int ST = P::STAGES, CH = P::CH, TILE = P::TILE;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  if (smem_u32(smem_raw) & 1023) __trap();
+  uint8_t* q_s = smem_raw;                 // [CH][64 rows][128 B]
+  uint8_t* g_s = q_s + TILE;               // dO
+  uint8_t* k_s = g_s + TILE;               // [ST] tiles
+  uint8_t* v_s = k_s + ST * TILE;          // [ST] tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + ST * TILE);
+  uint64_t* qg_full = full + ST;
+
+  // every head's last q tile first: under a causal mask the last q tiles see the most keys
+  const int hb = p.H * p.B, nq = (p.Sq + 63) / 64;
+  const int qt = nq - 1 - (int)(blockIdx.x / hb);
+  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qt * 64;
+  const int2 kr = dq_kv_tiles(qt, p);
+  const int k_first = kr.x * 64, n = kr.y;
+  const int t = threadIdx.x;
+
+  // thread 0: kv tile j of the walk into stage j % ST
+  auto load_kv = [&](int j) {
+    const int s = j % ST, k0 = k_first + j * 64;
+    mbar_arrive_expect_tx(&full[s], 2 * TILE);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      tma_load_4d(k_s + s * TILE + c * 64 * 128, &tk, &full[s], c * 64, k0, hk, b);
+      tma_load_4d(v_s + s * TILE + c * 64 * 128, &tv, &full[s], c * 64, k0, hk, b);
+    }
+  };
+  if (t == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) mbar_init(&full[s], 1);
+    mbar_init(qg_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (t == 0 && n > 0) {
+    mbar_arrive_expect_tx(qg_full, 2 * TILE);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      tma_load_4d(q_s + c * 64 * 128, &tq, qg_full, c * 64, q0, h, b);
+      tma_load_4d(g_s + c * 64 * 128, &tdo, qg_full, c * 64, q0, h, b);
+    }
+    for (int j = 0; j < n && j < ST; ++j) load_kv(j);
+  }
+
+  const int warp = t >> 5, lane = t & 31;
+  const int r0 = q0 + warp * 16 + (lane >> 2);   // this thread's q rows: r0 and r0 + 8
+  const int cq = 2 * (lane & 3);                 // and columns cq, cq + 1 of every 8
+  const long long row0 = ((long long)b * p.H + h) * p.Sq_pad;
+  float l2[2], dl[2];   // rows past Sq read the padding's 0: their P is masked anyway
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l2[hh] = p.lse2[row0 + r0 + 8 * hh];
+    dl[hh] = p.delta[row0 + r0 + 8 * hh];
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  const uint32_t q_addr = smem_u32(q_s), g_addr = smem_u32(g_s);
+  if (n > 0) mbar_wait(qg_full, 0);
+
+  for (int j = 0; j < n; ++j) {
+    const int s = j % ST, k0 = k_first + j * 64;
+    const uint32_t k_addr = smem_u32(k_s + s * TILE), v_addr = smem_u32(v_s + s * TILE);
+    float sc[32], dp[32];
+    uint32_t sa[16];
+    mbar_wait(&full[s], (j / ST) & 1);
+    issue_qk<D, 64>(sc, q_addr, k_addr);    // S = Q K^T
+    issue_qk<D, 64>(dp, g_addr, v_addr);    // dP = dO V^T
+    wgmma_wait<0>();
+    fence_all<32>(sc);
+    fence_all<32>(dp);
+    const bool edge = tile_edge(q0, k0, p);
+    // dS = P (dP - delta) with P = exp2(S * scale log2(e) - lse log2(e)), 0 where masked
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * jb + 2 * hh + e;
+          float pt = fast_exp2(fmaf(sc[i], p.scale_log2, -l2[hh]));
+          if (edge && !seen_wg(r0 + 8 * hh, k0 + 8 * jb + cq + e, p)) pt = 0.f;
+          dp[i] = pt * (dp[i] - dl[hh]);
+        }
+    frag_to_a(sa, dp);
+    issue_pv<D, 64>(dq, sa, k_addr);        // dQ += dS K, K read MN-major
+    wgmma_wait<0>();
+    fence_all<D / 2>(dq);
+    __syncthreads();                        // every warp is done with stage s
+    if (t == 0 && j + ST < n) load_kv(j + ST);
+  }
 
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int q = q0 + wr + g + 8 * half;
-    if (q < p.Sq) {
-      __nv_bfloat16* dqp = (__nv_bfloat16*)row_ptr<__nv_bfloat16>(p, T_DQ, b, h, q);
+  for (int hh = 0; hh < 2; ++hh) {
+    const int q = r0 + 8 * hh;
+    if (q >= p.Sq) continue;
+    __nv_bfloat16* dqp = p.dq + b * p.dq_st[0] + h * p.dq_st[1] + q * p.dq_st[2];
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(dqp + 8 * n + 2 * t) =
-            pack2(dq[n][2 * half] * p.scale, dq[n][2 * half + 1] * p.scale);
-    }
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(dqp + 8 * i + cq) =
+          pack_bf16(dq[4 * i + 2 * hh] * p.scale, dq[4 * i + 2 * hh + 1] * p.scale);
   }
 }
 
@@ -691,6 +817,21 @@ __global__ void __launch_bounds__(TB_THREADS) flash_bwd_dq_tc_kernel(const BwdPa
 template <typename K>
 static cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The workspace of a launch, carved in this order: the FMA path's delta of
+// (B, H, Sq) rows; or the tensor-core path's delta and lse (log2 units) of
+// (B, H, Sq_pad) rows, then for G > 1 each q head's partial dK and dV, (B, H,
+// Sk, D) fp32 each.  Every part starts on 256 bytes.
+// kernels/flash_attention.py `bwd_workspace_bytes` mirrors the total.
+struct BwdWs {
+  long long lse2, part, total;
+};
+static BwdWs bwd_workspace(int B, int H, int Hkv, int Sq, int Sk, int D, bool wg) {
+  if (!wg) return BwdWs{0, 0, (long long)B * H * Sq * 4};
+  const long long rows = (long long)B * H * ((Sq + 63) / 64 * 64) * 4;
+  const long long part = H > Hkv ? 2LL * B * H * Sk * D * 4 : 0;
+  return BwdWs{rows, 2 * rows, 2 * rows + part};
 }
 
 // kv rows a dK/dV block: 64, or 32 at D = 256 so that dK and dV stay at 64
@@ -732,28 +873,64 @@ static cudaError_t run_bwd_d(const BwdParams& p, int B, int D, cudaStream_t s) {
 }
 
 template <int D>
-static cudaError_t run_bwd_tc(const BwdParams& p, int B, cudaStream_t s) {
+static cudaError_t run_bwd_wg(const BwdParams& f, int B, uint8_t* ws, cudaStream_t s) {
+  using P = BwdPlan<D>;
   static bool attr_set = false;
   cudaError_t e;
   if (!attr_set) {
-    if ((e = allow_smem(flash_bwd_dkdv_tc_kernel<D>, TcDkdv<D>::BYTES)) != cudaSuccess) return e;
-    if ((e = allow_smem(flash_bwd_dq_tc_kernel<D>, TcDq<D>::BYTES)) != cudaSuccess) return e;
+    if ((e = allow_smem(flash_bwd_dkdv_wg_kernel<D>, P::SMEM_DKDV)) != cudaSuccess) return e;
+    if ((e = allow_smem(flash_bwd_dq_wg_kernel<D>, P::SMEM_DQ)) != cudaSuccess) return e;
     attr_set = true;
   }
-  const long long rows = (long long)B * p.H * p.Sq;
-  const int per_block = FB_THREADS / 32;
-  flash_bwd_delta_kernel<__nv_bfloat16, D>
-      <<<(unsigned)((rows + per_block - 1) / per_block), FB_THREADS, 0, s>>>(p, B);
+  const BwdWs w = bwd_workspace(B, f.H, f.Hkv, f.Sq, f.Sk, D, true);
+  WgParams p;
+  p.dq = (__nv_bfloat16*)f.t[T_DQ];
+  p.dk = (__nv_bfloat16*)f.t[T_DK];
+  p.dv = (__nv_bfloat16*)f.t[T_DV];
+  for (int j = 0; j < 3; ++j) {
+    p.dq_st[j] = f.st[T_DQ][j];
+    p.dk_st[j] = f.st[T_DK][j];
+    p.dv_st[j] = f.st[T_DV][j];
+  }
+  p.B = B; p.H = f.H; p.Hkv = f.Hkv; p.Sq = f.Sq; p.Sk = f.Sk;
+  p.Sq_pad = (f.Sq + 63) / 64 * 64;
+  p.causal = f.causal; p.window = f.window;
+  p.scale = f.scale;
+  p.scale_log2 = f.scale * 1.4426950408889634f;
+  float* delta = reinterpret_cast<float*>(ws);
+  float* lse2 = reinterpret_cast<float*>(ws + w.lse2);
+  p.delta = delta;
+  p.lse2 = lse2;
+  const bool grouped = f.H > f.Hkv;
+  p.part_dk = grouped ? reinterpret_cast<float*>(ws + w.part) : nullptr;
+  p.part_dv = grouped ? p.part_dk + (long long)B * f.H * f.Sk * D : nullptr;
+  CUtensorMap tq, tk, tv, tdo;
+  const long long* st = &f.st[0][0];
+  if (!make_map(&tq, f.t[T_Q], B, f.H, f.Sq, D, st[3 * T_Q], st[3 * T_Q + 1], st[3 * T_Q + 2], 64) ||
+      !make_map(&tk, f.t[T_K], B, f.Hkv, f.Sk, D, st[3 * T_K], st[3 * T_K + 1], st[3 * T_K + 2], 64) ||
+      !make_map(&tv, f.t[T_V], B, f.Hkv, f.Sk, D, st[3 * T_V], st[3 * T_V + 1], st[3 * T_V + 2], 64) ||
+      !make_map(&tdo, f.t[T_DO], B, f.H, f.Sq, D, st[3 * T_DO], st[3 * T_DO + 1], st[3 * T_DO + 2], 64))
+    return cudaErrorInvalidValue;
+
+  const long long lanes = (long long)B * f.H * p.Sq_pad * (D / 8);
+  flash_bwd_delta_wg_kernel<D><<<(unsigned)((lanes + 255) / 256), 256, 0, s>>>(f, p, delta, lse2);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const dim3 g_kv((p.Sk + TcDkdv<D>::BKV - 1) / TcDkdv<D>::BKV, p.Hkv, B);
-  flash_bwd_dkdv_tc_kernel<D><<<g_kv, TB_THREADS, TcDkdv<D>::BYTES, s>>>(p);
+  const int hb = f.H * B;
+  flash_bwd_dkdv_wg_kernel<D>
+      <<<((f.Sk + 63) / 64) * hb, P::THREADS, P::SMEM_DKDV, s>>>(tq, tk, tv, tdo, p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const dim3 g_q((p.Sq + TcDq<D>::BQ - 1) / TcDq<D>::BQ, p.H, B);
-  flash_bwd_dq_tc_kernel<D><<<g_q, TB_THREADS, TcDq<D>::BYTES, s>>>(p);
+  if (grouped) {
+    const long long threads = (long long)B * f.Hkv * f.Sk * (D / 8);
+    flash_bwd_sum_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(p);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  flash_bwd_dq_wg_kernel<D>
+      <<<((f.Sq + 63) / 64) * hb, P::THREADS, P::SMEM_DQ, s>>>(tq, tk, tv, tdo, p);
   return cudaGetLastError();
 }
 
-// The tensor-core kernels read and write 16 bytes at a time (8 bf16).
+// The tensor-core path reads through TMA and writes 8 bf16 at a time: every
+// base on 16 bytes, every stride a multiple of 8 elements.
 static bool tc_aligned(const BwdParams& p) {
   for (int i = 0; i < T_N; ++i) {
     if (reinterpret_cast<uintptr_t>(p.t[i]) % 16) return false;
@@ -763,15 +940,29 @@ static bool tc_aligned(const BwdParams& p) {
   return true;
 }
 
+static bool takes_wg(int D, int dtype, bool aligned) {
+  return dtype == DT_BF16 && (D == 64 || D == 128) && aligned;
+}
+
+// Bytes of workspace a launch of these shapes needs (`aligned`: what
+// tc_aligned finds for its operands).  The wrapper allocates it.
+extern "C" long long flash_attention_bwd_workspace(int B, int H, int Hkv, int Sq, int Sk, int D,
+                                                   int dtype, int aligned) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0) return 0;
+  return bwd_workspace(B, H, Hkv, Sq, Sk, D, takes_wg(D, dtype, aligned != 0)).total;
+}
+
 // ptrs[8]: q, k, v, o, dO, dq, dk, dv, each (B, heads, S, D) of dtype;
 // strides[24]: their element strides over (batch, head, seq), each a
 // multiple of 4, stride 1 over D; lse: (B, H, Sq) fp32 from the forward's LSE
-// variant; delta: (B, H, Sq) fp32 scratch.  Launches the delta, dK/dV and dQ
-// kernels in that order on `stream`.  Returns cudaGetLastError().
+// variant; ws: `ws_bytes` of scratch, at least what
+// flash_attention_bwd_workspace gives.  Launches the delta, dK/dV, (for the
+// tensor-core path with G > 1) sum and dQ kernels in that order on `stream`.
+// Returns cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(void* const* ptrs, const long long* strides,
-                                          const float* lse, float* delta, int B, int H, int Hkv,
-                                          int Sq, int Sk, int D, int causal, int window,
-                                          float scale, int dtype, void* stream) {
+                                          const float* lse, void* ws, long long ws_bytes, int B,
+                                          int H, int Hkv, int Sq, int Sk, int D, int causal,
+                                          int window, float scale, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
   if (Hkv <= 0 || H % Hkv) return (int)cudaErrorInvalidValue;
   BwdParams p;
@@ -780,15 +971,34 @@ extern "C" int flash_attention_bwd_launch(void* const* ptrs, const long long* st
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
   }
   p.lse = lse;
-  p.delta = delta;
+  p.delta = reinterpret_cast<float*>(ws);
   p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
   p.causal = causal; p.window = window; p.scale = scale;
+  const bool wg = takes_wg(D, dtype, tc_aligned(p));
+  if (ws == nullptr || ws_bytes < bwd_workspace(B, H, Hkv, Sq, Sk, D, wg).total)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DT_F32) return (int)run_bwd_d<float>(p, B, D, s);
-  if (dtype == DT_BF16 && tc_aligned(p)) {
-    if (D == 64) return (int)run_bwd_tc<64>(p, B, s);
-    if (D == 128) return (int)run_bwd_tc<128>(p, B, s);
+  if (wg) {
+    if (D == 64) return (int)run_bwd_wg<64>(p, B, reinterpret_cast<uint8_t*>(ws), s);
+    return (int)run_bwd_wg<128>(p, B, reinterpret_cast<uint8_t*>(ws), s);
   }
+  if (dtype == DT_F32) return (int)run_bwd_d<float>(p, B, D, s);
   if (dtype == DT_BF16) return (int)run_bwd_d<__nv_bfloat16>(p, B, D, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core kernels' plan for D: {q rows, kv rows, stages, threads,
+// blocks an SM, dK/dV shared-memory bytes, dQ shared-memory bytes} into
+// out[7].  Returns 0, or -1 for a D the tensor-core path does not take.
+template <int D> static void bwd_plan_of(int* out) {
+  using P = BwdPlan<D>;
+  out[0] = P::BQ; out[1] = P::BKV; out[2] = P::STAGES; out[3] = P::THREADS;
+  out[4] = P::MIN_BLOCKS; out[5] = P::SMEM_DKDV; out[6] = P::SMEM_DQ;
+}
+extern "C" int flash_attention_bwd_plan(int D, int* out) {
+  switch (D) {
+    case 64: bwd_plan_of<64>(out); return 0;
+    case 128: bwd_plan_of<128>(out); return 0;
+    default: return -1;
+  }
 }

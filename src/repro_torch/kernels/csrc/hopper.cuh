@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks, written as inline PTX: shared-memory
 // barriers (mbarrier), TMA tile loads, wgmma descriptors and products, and
-// register rebalancing between warpgroups.  Used by flash_attention.cu.
+// register rebalancing between warpgroups; the tile products built from them
+// and the host's tensor maps.  Used by flash_attention.cu (the forward) and
+// flash_attention_bwd.cu (the backward).
 //
 // Conventions.  Every tile that wgmma reads lies in shared memory as rows of
 // 128 bytes (64 bf16), written by TMA with CU_TENSOR_MAP_SWIZZLE_128B, in
@@ -10,6 +12,8 @@
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (the type only: nothing links against libcuda)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -68,6 +72,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) of global memory from 16-byte aligned `src` into
+// shared memory, completion reported to `bar` as transaction bytes: a bulk
+// copy without a tensor map.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -202,3 +218,94 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint6
 #undef WG_F32
 #undef WG_F64
 #undef WG_F128
+
+// ---- tile products ----------------------------------------------------------
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int acc) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db, acc);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, acc);
+  else wgmma_rs_n256(d, a, db, acc);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int N, typename R> __device__ __forceinline__ void fence_all(R* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(r[i]);
+}
+
+// S = Q K^T of one tile: D/16 products m64 n(BK) k16, both operands K-major
+// (64 rows of D each).  Any A B^T of two such tiles: the backward's
+// S^T = K Q^T, dP^T = V dO^T, dP = dO V^T.
+template <int D, int BK>
+__device__ __forceinline__ void issue_qk(float* sc, uint32_t q_addr, uint32_t k_addr) {
+  static_assert(BK == 64, "S tiles are m64n64");
+  fence_all<BK / 2>(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    const uint32_t off = (kd % 4) * 32;   // 16 values further inside the swizzle atom
+    const uint64_t da = gmma_desc(q_addr + (kd / 4) * 64 * 128 + off, 16, 1024);
+    const uint64_t db = gmma_desc(k_addr + (kd / 4) * BK * 128 + off, 16, 1024);
+    wgmma_ss_n64(sc, da, db, kd > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V of one tile: BK/16 products m64 n(D) k16, P from registers, V
+// (BK x D) through a transposed (MN-major) descriptor.  Also the backward's
+// dV += P^T dO, dK += dS^T Q and dQ += dS K.
+template <int D, int BK>
+__device__ __forceinline__ void issue_pv(float* o, uint32_t* pa, uint32_t v_addr) {
+  fence_all<D / 2>(o);
+  fence_all<BK / 4>(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = gmma_desc(v_addr + kk * 16 * 128, BK * 128, 1024);
+    wgmma_rs<D>(o, &pa[4 * kk], db, 1);
+  }
+  wgmma_commit();
+}
+
+// ---- host side: tensor maps -------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 (B, heads, S, D) view with element strides (sb, sh, ss) as a 4-D map
+// over (D, S, heads, B), read in boxes of 64 x `rows`, 128-byte swizzle.
+static bool make_map(CUtensorMap* map, const void* ptr, int B, int heads, int S, int D,
+                     long long sb, long long sh, long long ss, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}

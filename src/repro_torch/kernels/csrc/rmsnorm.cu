@@ -39,13 +39,19 @@
 //
 //   dx = rstd * (w' dy - x^ * mean(w' dy x^)) (+ ds),   dw = sum over rows of dy x^
 //
-// The same plan as the forward (the row in registers as 16-byte vectors),
-// one block a row at a time: a block walks rows blockIdx.x, blockIdx.x +
-// gridDim.x, ..., recomputes rstd and mean(w' dy x^) with one two-value
-// reduction, writes dx, and keeps its share of dw in fp32 registers.  It
-// writes that partial sum as one fp32 row; `rmsnorm_dw_kernel` then sums the
-// gridDim.x rows column by column, in a fixed order, into dw.  No atomics:
-// the result is the same on every run.
+// The row in registers as 16-byte vectors, as in the forward, but in blocks
+// of 128 threads where a row fits in three chunks of them (`rms_bwd_plan`);
+// `parts` blocks walk the rows blockIdx.x, blockIdx.x + parts, ...  A row's x, dy and ds are loaded as read once (evict first), the
+// two sums are exchanged through one of two shared arrays in turn, so a row
+// takes one __syncthreads, and each block keeps its share of dw in fp32
+// registers and writes it as one fp32 row with 16-byte stores;
+// `rmsnorm_dw_kernel` then sums the `parts` rows with the whole card: one
+// block a strip of DW_COLS columns, DW_LANES threads down each column taking
+// every DW_LANES-th row in order, then a fixed tree over the lanes.  No
+// atomics: the result is the same on every run.  Measured on an H100 at
+// R2048 D3072 bf16: the sum over 192 blocks in place of 12 took most of the
+// gain, then four smaller blocks an SM in place of two of 384 threads; the
+// next row's loads issued before this row's reduction were no faster.
 #include "common.cuh"
 
 #define RMS_MAX_THREADS 512
@@ -69,6 +75,12 @@ struct Bits {
     const Word* q = reinterpret_cast<const Word*>(p);
 #pragma unroll
     for (int i = 0; i < BYTES / WB; ++i) w[i] = q[i];
+  }
+  // The same, marked as read once (evict first): the backward's rows.
+  __device__ __forceinline__ void load_once(const T* p) {
+    const Word* q = reinterpret_cast<const Word*>(p);
+#pragma unroll
+    for (int i = 0; i < BYTES / WB; ++i) w[i] = __ldcs(q + i);
   }
   __device__ __forceinline__ void store(T* p) const {
     Word* q = reinterpret_cast<Word*>(p);
@@ -157,12 +169,15 @@ rmsnorm_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
 // ---------------------------------------------------------------------------
 // Backward.
 
+#define DW_COLS 16    // columns of dw a block of the sum
+#define DW_LANES 32   // threads down each column
+
 template <typename TX, typename TW, int VEC, int C>
 __global__ void __launch_bounds__(RMS_MAX_THREADS)
 rmsnorm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                    const TX* __restrict__ dy, const TX* __restrict__ ds, TX* __restrict__ dx,
                    float* __restrict__ dw_part, int rows, int D, float eps, int offset) {
-  __shared__ float red[2][RMS_MAX_THREADS / 32];
+  __shared__ float red[2][2][RMS_MAX_THREADS / 32];   // [row parity][sum x^2, sum w' dy x][warp]
   const int n = D / VEC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   Bits<TW, VEC> wv[C];
@@ -175,16 +190,16 @@ rmsnorm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
     for (int e = 0; e < VEC; ++e) dw[c][e] = 0.f;
   }
 
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+  for (int row = blockIdx.x, it = 0; row < rows; row += gridDim.x, ++it) {
     const size_t base = (size_t)row * (size_t)D;
     Bits<TX, VEC> xv[C], gv[C], sv[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int i = threadIdx.x + c * blockDim.x;
       if (i < n) {
-        xv[c].load(x + base + (size_t)i * VEC);
-        gv[c].load(dy + base + (size_t)i * VEC);
-        if (ds != nullptr) sv[c].load(ds + base + (size_t)i * VEC);
+        xv[c].load_once(x + base + (size_t)i * VEC);
+        gv[c].load_once(dy + base + (size_t)i * VEC);
+        if (ds != nullptr) sv[c].load_once(ds + base + (size_t)i * VEC);
       }
     }
     float ss = 0.f, gx = 0.f;   // sum of x^2, sum of w' dy x
@@ -203,11 +218,13 @@ rmsnorm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
     }
     ss = warp_sum(ss);
     gx = warp_sum(gx);
-    if (lane == 0) { red[0][warp] = ss; red[1][warp] = gx; }
+    float (*rd)[RMS_MAX_THREADS / 32] = red[it & 1];
+    if (lane == 0) { rd[0][warp] = ss; rd[1][warp] = gx; }
+    // one barrier a row: a warp writes the other array next row, and this one
+    // again only once every warp has passed next row's barrier
     __syncthreads();
-    ss = warp_sum(lane < warps ? red[0][lane] : 0.f);
-    gx = warp_sum(lane < warps ? red[1][lane] : 0.f);
-    __syncthreads();   // red is free for the next row
+    ss = warp_sum(lane < warps ? rd[0][lane] : 0.f);
+    gx = warp_sum(lane < warps ? rd[1][lane] : 0.f);
     const float rs = 1.0f / sqrtf(ss / (float)D + eps);
     const float k = rs * rs * gx / (float)D;   // x^ * mean(w' dy x^) = x * k * rs
 #pragma unroll
@@ -234,21 +251,41 @@ rmsnorm_bwd_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   for (int c = 0; c < C; ++c) {
     const int i = threadIdx.x + c * blockDim.x;
     if (i < n) {
+      if constexpr (VEC % 4 == 0) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) part[(size_t)i * VEC + e] = dw[c][e];
+        for (int q = 0; q < VEC / 4; ++q)
+          *reinterpret_cast<float4*>(part + (size_t)i * VEC + 4 * q) =
+              make_float4(dw[c][4 * q], dw[c][4 * q + 1], dw[c][4 * q + 2], dw[c][4 * q + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) part[(size_t)i * VEC + e] = dw[c][e];
+      }
     }
   }
 }
 
-// dw[d] = sum over the `parts` rows of dw_part[., d], in row order.
+// dw[d] = the sum over the `parts` rows of dw_part[., d]: lane ty of a column
+// sums rows ty, ty + DW_LANES, ... in order, then the lanes' sums are added
+// in a fixed tree.
 template <typename TW>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(DW_COLS * DW_LANES)
 rmsnorm_dw_kernel(const float* __restrict__ dw_part, TW* __restrict__ dw, int parts, int D) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= D) return;
+  __shared__ float sums[DW_LANES][DW_COLS + 1];
+  const int tx = threadIdx.x % DW_COLS, ty = threadIdx.x / DW_COLS;
+  const int d = blockIdx.x * DW_COLS + tx;
   float acc = 0.f;
-  for (int r = 0; r < parts; ++r) acc += dw_part[(size_t)r * D + d];
-  dw[d] = from_float<TW>(acc);
+  if (d < D) {
+#pragma unroll 4
+    for (int r = ty; r < parts; r += DW_LANES) acc += dw_part[(size_t)r * D + d];
+  }
+  sums[ty][tx] = acc;
+  __syncthreads();
+#pragma unroll
+  for (int half = DW_LANES / 2; half > 0; half >>= 1) {
+    if (ty < half) sums[ty][tx] += sums[ty + half][tx];
+    __syncthreads();
+  }
+  if (ty == 0 && d < D) dw[d] = from_float<TW>(sums[0][tx]);
 }
 
 // ---------------------------------------------------------------------------
@@ -312,7 +349,8 @@ static cudaError_t run(const RmsBwdArgs& a, cudaStream_t s) {
       a.rows, a.D, a.eps, a.offset);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  rmsnorm_dw_kernel<TW><<<(a.D + 255) / 256, 256, 0, s>>>(a.dw_part, (TW*)a.dw, a.parts, a.D);
+  rmsnorm_dw_kernel<TW>
+      <<<(a.D + DW_COLS - 1) / DW_COLS, DW_COLS * DW_LANES, 0, s>>>(a.dw_part, (TW*)a.dw, a.parts, a.D);
   return cudaGetLastError();
 }
 
@@ -380,11 +418,50 @@ extern "C" int rmsnorm_launch(const void* x, const void* res, const void* w, voi
   return (int)dispatch_types(a, x_dtype, w_dtype, chunks, vector, s);
 }
 
+// The backward's plan.  Where a row fits in at most kBwdChunks chunks of a
+// block of at most kBwdThreads threads, that block (the fewest chunks), and
+// kBwdPartsSmall of them: four such blocks share an SM of an H100 (128
+// registers a thread at 3 chunks).  Otherwise the forward's plan and
+// kBwdParts blocks, two an SM.  At R2048 D3072 bf16 on an H100, 128 x 3 on
+// 528 blocks took 0.0212 ms with the sum's gradient, the forward's 384 x 1 on
+// 256 blocks 0.0225.  Each block writes one row of partial dw.
+static const int kBwdThreads = 128, kBwdChunks = 3;
+static const int kBwdPartsSmall = 528, kBwdParts = 256;
+
+static RmsPlan rms_bwd_plan(int D, int itemsize, int aligned) {
+  const int vec = 16 / itemsize;
+  const int vector = (aligned && D % vec == 0) ? vec : 1;
+  const int n = D / vector;
+  const int* chunks = vector > 1 ? kVecChunks : kScalarChunks;
+  for (int k = 0; k < 6 && chunks[k] <= kBwdChunks; ++k) {
+    const int t = ((n + chunks[k] - 1) / chunks[k] + 31) / 32 * 32;
+    if (t <= kBwdThreads) return RmsPlan{t, chunks[k], vector};
+  }
+  return rms_plan(D, itemsize, aligned);
+}
+
+// out[0..4] = the backward's plan for `rows` rows of D (aligned as for
+// rmsnorm_plan): threads, chunks, vector, the blocks that walk the rows
+// (`parts`, at most `rows`) and the blocks of the dw sum.  Returns 0, or
+// cudaErrorInvalidValue past the limit.
+extern "C" int rmsnorm_bwd_plan(int D, int x_dtype, int aligned, int rows, int* out) {
+  if (D <= 0 || (x_dtype != DT_F32 && x_dtype != DT_BF16)) return (int)cudaErrorInvalidValue;
+  const RmsPlan p = rms_bwd_plan(D, x_dtype == DT_F32 ? 4 : 2, aligned);
+  const int cap = p.threads <= kBwdThreads ? kBwdPartsSmall : kBwdParts;
+  out[0] = p.threads;
+  out[1] = p.chunks;
+  out[2] = p.vector;
+  out[3] = rows < cap ? (rows > 0 ? rows : 1) : cap;
+  out[4] = (D + DW_COLS - 1) / DW_COLS;
+  return p.threads > 0 ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // Backward.  x (the normalised input: the rounded sum where the forward had a
 // residual), dy, ds (may be null: add_rmsnorm's gradient of the written sum),
 // dx: (rows, D) contiguous, of x_dtype; w, dw: (D,) of w_dtype; dw_part:
-// (parts, D) fp32 scratch.  The plan is the forward's for the same D and
-// alignment; `parts` blocks walk the rows, 1 <= parts <= rows.  Launches the
+// (parts, D) fp32 scratch.  (threads, chunks, vector) is a plan the kernel is
+// built for that covers D (rmsnorm_bwd_plan's); `parts` blocks walk the rows,
+// 1 <= parts <= rows.  Launches the
 // row kernel and the dw reduction.  Returns cudaGetLastError().
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* w, const void* dy, const void* ds,
                                   void* dx, void* dw, float* dw_part, int rows, int D, float eps,

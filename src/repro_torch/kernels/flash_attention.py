@@ -7,8 +7,11 @@ q head, q tile) with the KV loop inside; for bf16 a warp-specialised block of
 TMA loads and ``wgmma`` products (:func:`tile_plan`), for float32 fp32 FMAs;
 given ``lse`` it launches the variant that also writes the row log-sum-exp.
 The backward (``csrc/flash_attention_bwd.cu``, which the reference does not
-have): a delta kernel, a dK/dV kernel that walks the q tiles of a kv head's
-whole group and a dQ kernel that walks the kv tiles, fp32 FMAs.  They take
+have): a delta kernel, a dK/dV kernel of one block a (batch, q head, kv
+tile) that walks the q tiles seeing it, a sum of the group's partial dK/dV in
+head order, and a dQ kernel that walks the kv tiles; for bf16 at D 64/128
+TMA loads and ``wgmma`` products (:func:`bwd_tile_plan`, the walks
+:func:`bwd_q_tiles` / :func:`bwd_kv_tiles`), otherwise fp32 FMAs.  They take
 strides, so the model's ``(B,S,H,D)`` tensors are passed as permuted views
 and never copied.  For a CUDA tensor a wrapper launches its kernels or
 raises; only a tensor on the CPU takes the plain version.  The autograd glue
@@ -42,6 +45,78 @@ def tile_plan(D: int) -> dict[str, int]:
     return {"q_rows": bq, "kv_rows": bk, "stages": stages, "threads": 256,
             "blocks_per_sm": 2 if D < 256 else 1,
             "smem_bytes": bq * D * 2 + 2 * stages * bk * D * 2 + 256}
+
+
+BWD_TC_D = (64, 128)     # head dims of the backward's tensor-core path (bf16, aligned views)
+BWD_TILE = 64            # q rows and kv rows of the tensor-core backward's tiles
+
+
+def bwd_tile_plan(D: int) -> dict[str, int]:
+    """The tensor-core backward's plan for head dim ``D`` (``BwdPlan`` in
+    the source): q rows and kv rows a tile, stages of each kernel's ring,
+    threads (one warpgroup), blocks an SM it is built for, and the dK/dV and
+    dQ kernels' shared-memory bytes (K and V, a ring of Q, dO and their 64
+    rows of lse and delta, 64 of barriers; Q and dO, a ring of K and V, 64 of
+    barriers)."""
+    if D not in BWD_TC_D:
+        raise ValueError(f"flash_attention_bwd: no tensor-core plan for D={D}")
+    tile, stages = BWD_TILE * D * 2, 2
+    return {"q_rows": BWD_TILE, "kv_rows": BWD_TILE, "stages": stages, "threads": 128,
+            "blocks_per_sm": 2,
+            "smem_dkdv": (2 + 2 * stages) * tile + 2 * stages * BWD_TILE * 4 + 64,
+            "smem_dq": (2 + 2 * stages) * tile + 64}
+
+
+def bwd_q_tiles(kt: int, Sq: int, Sk: int, causal: bool, window: int) -> range:
+    """The q tiles whose rows can see some row of kv tile ``kt``: what the
+    tensor-core dK/dV block of that tile walks (``dkdv_q_tiles`` in the
+    source)."""
+    k_last = min(kt * BWD_TILE + BWD_TILE, Sk) - 1
+    lo = kt if causal else 0
+    hi = min(Sq, k_last + window) if window > 0 else Sq
+    n = -(-(hi - lo * BWD_TILE) // BWD_TILE) if hi > lo * BWD_TILE else 0
+    return range(lo, lo + n)
+
+
+def bwd_kv_tiles(qt: int, Sq: int, Sk: int, causal: bool, window: int) -> range:
+    """The kv tiles that some row of q tile ``qt`` can see: what the
+    tensor-core dQ block of that tile walks (``dq_kv_tiles`` in the
+    source)."""
+    q0 = qt * BWD_TILE
+    q_last = min(q0 + BWD_TILE, Sq) - 1
+    lo = max(0, q0 - window + 1) // BWD_TILE if window > 0 else 0
+    hi = min(Sk, q_last + 1) if causal else Sk
+    n = -(-(hi - lo * BWD_TILE) // BWD_TILE) if hi > lo * BWD_TILE else 0
+    return range(lo, lo + n)
+
+
+def bwd_block_order(kind: str, B: int, H: int, S: int) -> list[tuple[int, int, int]]:
+    """(tile, q head, batch) of each block of the tensor-core ``"dkdv"`` or
+    ``"dq"`` kernel in the order of its one-dimensional grid: every head's
+    heaviest tile under a causal mask first (kv tile 0; the last q tile).
+    ``S`` is Sk for dK/dV, Sq for dQ."""
+    n = -(-S // BWD_TILE)
+    order = []
+    for i in range(n * H * B):
+        t, hb = divmod(i, H * B)
+        b, h = divmod(hb, H)
+        order.append((t if kind == "dkdv" else n - 1 - t, h, b))
+    return order
+
+
+def bwd_workspace_bytes(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
+                        dtype: torch.dtype, aligned: bool) -> int:
+    """Bytes of scratch the backward needs (``bwd_workspace`` in the
+    source): the FMA path's delta, (B,H,Sq) fp32; the tensor-core path's
+    delta and log2-unit lse over q rows padded to whole tiles, and for G > 1
+    each q head's partial dK and dV, (B,H,Sk,D) fp32 each.  The tensor-core
+    path takes bf16 at D 64 or 128 with every operand's base on 16 bytes and
+    its strides multiples of 8 elements (``aligned``; ``takes_wg`` in the
+    source)."""
+    if not (dtype == torch.bfloat16 and D in BWD_TC_D and aligned):
+        return B * H * Sq * 4
+    rows = B * H * -(-Sq // BWD_TILE) * BWD_TILE * 4
+    return 2 * rows + (2 * B * H * Sk * D * 4 if H > Hkv else 0)
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -204,11 +279,31 @@ flash_attention.launches = 0   # kernel launches made by this wrapper
 def _bwd_lib():
     lib = _build.load("flash_attention_bwd")
     if lib.flash_attention_bwd_launch.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_bwd_launch.argtypes = (
-            [vp, vp, vp, vp] + [ci] * 8 + [ctypes.c_float, ci, vp])
+            [vp, vp, vp, vp, ll] + [ci] * 8 + [ctypes.c_float, ci, vp])
         lib.flash_attention_bwd_launch.restype = ci
+        lib.flash_attention_bwd_plan.argtypes = [ci, ctypes.POINTER(ci)]
+        lib.flash_attention_bwd_plan.restype = ci
+        lib.flash_attention_bwd_workspace.argtypes = [ci] * 8
+        lib.flash_attention_bwd_workspace.restype = ll
     return lib
+
+
+def kernel_bwd_plan(D: int) -> dict[str, int]:
+    """:func:`bwd_tile_plan` as the compiled kernels report it (needs the library)."""
+    out = (ctypes.c_int * 7)()
+    if _bwd_lib().flash_attention_bwd_plan(D, out) != 0:
+        raise ValueError(f"flash_attention_bwd: no tensor-core plan for D={D}")
+    return dict(zip(("q_rows", "kv_rows", "stages", "threads", "blocks_per_sm", "smem_dkdv",
+                     "smem_dq"), out))
+
+
+def kernel_bwd_workspace_bytes(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
+                               dtype: torch.dtype, aligned: bool) -> int:
+    """:func:`bwd_workspace_bytes` as the compiled library computes it."""
+    return int(_bwd_lib().flash_attention_bwd_workspace(B, H, Hkv, Sq, Sk, D,
+                                                        _build.DTYPE_CODES[dtype], int(aligned)))
 
 
 def _check_bwd_operand(name: str, t: torch.Tensor) -> None:
@@ -266,14 +361,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
         dv.zero_()
         return dq.zero_(), dk, dv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    aligned = all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+                  for t in tensors)
+    nbytes = bwd_workspace_bytes(B, H, Hkv, Sq, Sk, D, q.dtype, aligned)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in tensors))
     strides = (ctypes.c_longlong * 24)(*(s for t in tensors for s in t.stride()[:3]))
     _build.launch(_bwd_lib().flash_attention_bwd_launch, q.device, "flash_attention_bwd",
-                  ptrs, strides, lse.data_ptr(), delta.data_ptr(), B, H, Hkv, Sq, Sk, D,
+                  ptrs, strides, lse.data_ptr(), ws.data_ptr(), nbytes, B, H, Hkv, Sq, Sk, D,
                   int(bool(causal)), int(window), float(scale), code)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0   # backward launches (delta, dK/dV and dQ kernels each)
+flash_attention_bwd.launches = 0   # backward launches (delta, dK/dV, [sum,] dQ kernels each)

@@ -3,9 +3,10 @@ backward: wrappers, plain versions, launch plan and launch counts.
 
 Counterpart of ``repro/kernels/rmsnorm.py``.  The kernels are CUDA C++
 (``csrc/rmsnorm.cu``): one block a row, the row held in registers as 16-byte
-vectors, sized by :func:`launch_plan`; the backward walks the rows with
-:data:`BWD_PARTS` blocks of the same plan and sums their fp32 partial ``dw``
-rows in a second kernel.  For a CUDA tensor each wrapper launches its kernel
+vectors, sized by :func:`launch_plan`; the backward (:func:`bwd_launch_plan`:
+smaller blocks, four an SM, where a row fits them) walks the rows with one
+barrier a row and sums the blocks' fp32 partial ``dw`` rows in a second
+kernel spread over the card.  For a CUDA tensor each wrapper launches its kernel
 or raises; only a tensor on the CPU takes the plain version.  The autograd
 glue that pairs forward and backward is ``ops.rmsnorm`` / ``ops.add_rmsnorm``.
 """
@@ -18,7 +19,10 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_D = 16384          # every dtype and variant holds a row this long in registers
-BWD_PARTS = 264        # blocks of the backward (two a SM of an H100), so partial dw rows
+BWD_THREADS, BWD_CHUNKS = 128, 3   # the backward's small blocks (kBwdThreads, kBwdChunks)
+BWD_PARTS_SMALL = 528  # most blocks of the backward in small blocks (four an SM of an H100)
+BWD_PARTS = 256        # most blocks of the backward in the forward's plan (two an SM)
+DW_COLS = 16           # columns of dw a block of the backward's sum (DW_COLS in the source)
 MAX_THREADS = 512      # RMS_MAX_THREADS in the source
 VECTOR_CHUNKS = (1, 2, 3, 4, 6, 8)        # chunks a thread the source is built for (kVecChunks)
 SCALAR_CHUNKS = (1, 2, 4, 8, 16, 32)      # and for its scalar variant (kScalarChunks)
@@ -49,6 +53,28 @@ def launch_plan(D: int, dtype: torch.dtype, *, aligned: bool = True) -> tuple[in
 
 
 _plans: dict[tuple, tuple[int, int, int]] = {}   # (D, dtype, aligned) -> launch_plan
+
+
+def bwd_launch_plan(D: int, dtype: torch.dtype, rows: int, *,
+                    aligned: bool = True) -> tuple[int, int, int, int, int]:
+    """(threads, chunks, vector, parts, dw blocks) of the backward for
+    ``rows`` rows of ``D`` (``rmsnorm_bwd_plan`` in the source): blocks of at
+    most :data:`BWD_THREADS` threads with the fewest chunks up to
+    :data:`BWD_CHUNKS` where the row fits them, at most
+    :data:`BWD_PARTS_SMALL` of them, else the forward's plan and at most
+    :data:`BWD_PARTS` blocks; ``parts`` blocks walk the rows (each writes one
+    fp32 row of partial dw; at least 1), and the blocks of the dw sum, one a
+    strip of :data:`DW_COLS` columns."""
+    vec = 16 // dtype.itemsize
+    if not aligned or D % vec:
+        vec = 1
+    n = D // vec
+    for c in (c for c in (VECTOR_CHUNKS if vec > 1 else SCALAR_CHUNKS) if c <= BWD_CHUNKS):
+        threads = -(-(-(-n // c)) // 32) * 32           # ceil(n / c) in whole warps
+        if threads <= BWD_THREADS:
+            return threads, c, vec, max(1, min(rows, BWD_PARTS_SMALL)), -(-D // DW_COLS)
+    return (*launch_plan(D, dtype, aligned=aligned), max(1, min(rows, BWD_PARTS)),
+            -(-D // DW_COLS))
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
@@ -106,8 +132,11 @@ def _fn(name: str):
         lib.rmsnorm_plan.restype = ci
         lib.rmsnorm_bwd_launch.argtypes = [vp] * 7 + [ci, ci, ctypes.c_float] + [ci] * 7 + [vp]
         lib.rmsnorm_bwd_launch.restype = ci
+        lib.rmsnorm_bwd_plan.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
+        lib.rmsnorm_bwd_plan.restype = ci
         _fns.update(rmsnorm_launch=lib.rmsnorm_launch, rmsnorm_plan=lib.rmsnorm_plan,
-                    rmsnorm_bwd_launch=lib.rmsnorm_bwd_launch)
+                    rmsnorm_bwd_launch=lib.rmsnorm_bwd_launch,
+                    rmsnorm_bwd_plan=lib.rmsnorm_bwd_plan)
         fn = _fns[name]
     return fn
 
@@ -118,6 +147,15 @@ def kernel_plan(D: int, dtype: torch.dtype, *, aligned: bool = True) -> tuple[in
     _build.check(_fn("rmsnorm_plan")(D, _build.DTYPE_CODES[dtype], int(aligned), out),
                  "rmsnorm_plan")
     return out[0], out[1], out[2]
+
+
+def kernel_bwd_plan(D: int, dtype: torch.dtype, rows: int, *,
+                    aligned: bool = True) -> tuple[int, int, int, int, int]:
+    """:func:`bwd_launch_plan` as the compiled kernel reports it (needs the library)."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_fn("rmsnorm_bwd_plan")(D, _build.DTYPE_CODES[dtype], int(aligned), rows, out),
+                 "rmsnorm_bwd_plan")
+    return tuple(out)
 
 
 def _launch(x, w, residual, *, eps, offset, with_sum, plan=None):
@@ -186,10 +224,11 @@ rmsnorm.launches = 0   # kernel launches made by this module's wrappers
 
 
 def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, eps: float = 1e-6,
-                offset: bool = False,
-                ds: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                offset: bool = False, ds: torch.Tensor | None = None,
+                parts: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dx, dw)`` of the norm (see :func:`rmsnorm_bwd_plain`).  x, dy, ds:
-    (..., D) contiguous of one dtype; w: (D,)."""
+    (..., D) contiguous of one dtype; w: (D,).  ``parts`` other than
+    :func:`bwd_launch_plan`'s is for timing alternatives on the card."""
     if _device(x, "rmsnorm_bwd") == "cpu":
         _build.dtype_code(w, "rmsnorm_bwd w")
         return rmsnorm_bwd_plain(x, w, dy, eps=eps, offset=offset, ds=ds)
@@ -211,9 +250,9 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *, eps: floa
     rows = x.numel() // D if D else 0
     if rows == 0:
         return dx, dw.zero_()
-    parts = min(rows, BWD_PARTS)
+    threads, chunks, vector, planned, _ = bwd_launch_plan(D, x.dtype, rows, aligned=aligned)
+    parts = planned if parts is None else parts
     part = torch.empty((parts, D), dtype=torch.float32, device=x.device)
-    threads, chunks, vector = launch_plan(D, x.dtype, aligned=aligned)
     _build.launch(_fn("rmsnorm_bwd_launch"), x.device, "rmsnorm_bwd", x.data_ptr(), w.data_ptr(),
                   dy.data_ptr(), None if ds is None else ds.data_ptr(), dx.data_ptr(),
                   dw.data_ptr(), part.data_ptr(), rows, D, float(eps), int(bool(offset)), x_code,

@@ -117,3 +117,65 @@ def test_operand_check_wants_16_byte_strides():
     shifted = torch.zeros(8 * 64 * 64 + 4, dtype=torch.bfloat16)[4:].view(1, 8, 64, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):         # base 8 bytes off
         fa.check_operand("v", shifted)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_tile_plan_fits_shared_memory_and_registers(D):
+    plan = fa.bwd_tile_plan(D)
+    assert plan["q_rows"] == plan["kv_rows"] == 64 and plan["stages"] >= 2   # wgmma's m64 tiles
+    assert plan["threads"] == 128                                          # one warpgroup
+    for kernel in ("smem_dkdv", "smem_dq"):
+        assert plan[kernel] <= fa.SMEM_LIMIT
+        assert plan["blocks_per_sm"] * (plan[kernel] + 1024) <= fa.SM_SMEM
+    tile = 64 * D * 2
+    assert plan["smem_dkdv"] == (2 + 2 * plan["stages"]) * tile + 2 * plan["stages"] * 256 + 64
+    assert plan["smem_dq"] == (2 + 2 * plan["stages"]) * tile + 64
+    # registers: a thread of the dK/dV warpgroup holds dK and dV of its 2 rows x D/4 columns,
+    # S^T and dP^T (32 each) and P^T, dS^T as bf16 pairs (16 each); the launch leaves it 255
+    cap = min(255, 65536 // (plan["threads"] * plan["blocks_per_sm"]))
+    assert cap == 255 and 2 * (D // 2) + 2 * 32 + 2 * 16 <= cap - 15
+
+
+@pytest.mark.parametrize("D", [32, 96, 256, 512])
+def test_flash_bwd_tile_plan_rejects_what_the_tensor_cores_lack(D):
+    with pytest.raises(ValueError):
+        fa.bwd_tile_plan(D)
+
+
+@pytest.mark.parametrize("G", [1, 3, 8])
+def test_flash_bwd_workspace_is_what_each_path_needs(G):
+    B, Hkv, Sq, Sk, D = 1, 8, 2048, 2048, 128
+    H = G * Hkv
+    rows = B * H * Sq * 4                                       # Sq a multiple of the tile
+    want = 2 * rows + (2 * B * H * Sk * D * 4 if G > 1 else 0)   # lse, delta, partial dK/dV
+    assert fa.bwd_workspace_bytes(B, H, Hkv, Sq, Sk, D, torch.bfloat16, True) == want
+    if G == 3:
+        assert want == 50_724_864                                # phi4-mini's train shape
+    # the FMA path (fp32, unaligned views, D = 256) needs delta alone
+    for dtype, aligned, d in ((torch.float32, True, 128), (torch.bfloat16, False, 128),
+                              (torch.bfloat16, True, 256)):
+        assert fa.bwd_workspace_bytes(B, H, Hkv, Sq, Sk, d, dtype, aligned) == B * H * Sq * 4
+    ragged = fa.bwd_workspace_bytes(2, 40, 8, 333, 333, 128, torch.bfloat16, True)
+    assert ragged == 2 * (2 * 40 * 384 * 4) + 2 * (2 * 40 * 333 * 128 * 4)   # rows padded to 384
+    assert all(part % 256 == 0 for part in (2 * 40 * 384 * 4, 2 * 40 * 333 * 128 * 4))
+
+
+@pytest.mark.parametrize("rows", [1, 8, 255, 256, 527, 528, 2048])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [3072, 64, 100, 256, 5120, 16384])
+def test_rmsnorm_bwd_plan_covers_the_rows_and_columns(D, dtype, aligned, rows):
+    threads, chunks, vector, parts, dw_blocks = rms.bwd_launch_plan(D, dtype, rows,
+                                                                    aligned=aligned)
+    fwd = rms.launch_plan(D, dtype, aligned=aligned)
+    assert vector == fwd[2] and D % vector == 0                          # the forward's loads
+    n = D // vector
+    assert threads % 32 == 0 and (threads - 32) * chunks < n <= threads * chunks   # covers the row
+    small = threads <= rms.BWD_THREADS and chunks <= rms.BWD_CHUNKS
+    assert small or (threads, chunks, vector) == fwd                     # else the forward's plan
+    if not small:                                                        # ... only where no
+        assert -(-n // rms.BWD_CHUNKS) > rms.BWD_THREADS or vector == 1  # small block holds it
+    assert parts == max(1, min(rows, rms.BWD_PARTS_SMALL if small else rms.BWD_PARTS))
+    assert (dw_blocks - 1) * rms.DW_COLS < D <= dw_blocks * rms.DW_COLS  # the sum covers dw
+    if D == 3072 and dtype is torch.bfloat16 and aligned and rows == 2048:
+        assert (threads, chunks, vector, parts, dw_blocks) == (128, 3, 8, 528, 192)
