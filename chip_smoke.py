@@ -76,6 +76,22 @@ Phases, each printing one JSON object on a line of its own:
            then a profiled run for device-busy time); predicted against
            measured makespan, TTFT p50/p95, output tokens/s, steps, also with
            the reference head's transpose of the embedding taken out
+  sweep    the simulator's design-space search priced on the card, a line a
+           part: (1) phi4-mini-3.8b decode (cache 2048) on 8 chips of
+           h100_sxm, 80 GB a chip, over tp (1,2,4,8) x pp (1,2,4) x batch
+           (8..256), a serial sweep whose profiling engine measures every
+           operator into a fresh DB (K2 counted): counts, pruned reasons,
+           operators measured, the top 3 by tokens/s per chip, the Pareto
+           front and the best candidate's gain over bench_explore's
+           engineering baseline (tp 8, batch 64); (2) the same sweep on a new
+           simulator over the saved DB, which must measure nothing and rank
+           alike; (3) the analytical sweep with workers=2, whose pool must
+           start under spawn (CUDA is initialised) and equal the serial sweep;
+           (4) goodput under failures over five checkpoint intervals for the
+           train phase's step on 64 chips (K1 forward and backward counted),
+           with the Young/Daly interval; (5) the two best tp=1, pp=1
+           candidates' per-replica decode step run by the port's own model,
+           tokens/s per chip predicted against measured
 
 `--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) and the
 train-shape backward of K1 and K3 of the tree at DIR (e.g. the parent
@@ -87,7 +103,7 @@ before the process profiles anything).
 Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
 (the train phase for a backward kernel), in the train phase and by the
-profiling engine in the simulate and serve_sim phases, error, time,
+profiling engine in the simulate, serve_sim and sweep phases, error, time,
 device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
 computes the same function; then the
@@ -2066,6 +2082,235 @@ def phase_serve_sim():
     return pred
 
 
+# --------------------------------------------------------------------------
+# design-space and resilience sweeps priced on the card
+# --------------------------------------------------------------------------
+
+SWEEP_AXES = {"tp": (1, 2, 4, 8), "pp": (1, 2, 4), "batch": (8, 16, 32, 64, 128, 256)}
+SWEEP_CACHE = 2048
+SWEEP_INTERVALS = (10, 25, 50, 100, 200)    # checkpoint intervals of the resilience sweep
+# tests/test_resilience.py's run is 400 steps of ~1.9 s; this step is ~0.2 s,
+# so 4000 steps keep the run about as long against the same fault model
+SWEEP_TRAIN_STEPS = 4000
+BASELINE = {"tp": 8, "pp": 1, "batch": 64}   # bench_explore's engineering baseline
+
+
+def fresh_db(name: str):
+    from repro_torch.core.backend import profiling as P
+    path = os.path.join(HERE, "build", "sweep", name)
+    if os.path.exists(path):
+        os.remove(path)
+    return P.ProfileDB(path)
+
+
+def cand_row(r) -> dict:
+    p = r.cand.par
+    return {"tp": p.tp, "pp": p.pp, "dp": p.dp, "batch": r.cand.global_batch,
+            "batch_a_replica": r.cand.B_local(), "step_us": r.report.step_time_us,
+            "tokens_s_chip": r.tps_per_chip, "tokens_s_user": r.tps_per_user,
+            "memory_gb": r.report.memory.total / 1e9}
+
+
+def ranking_key(res) -> list:
+    return [(r.spec.json_hash(), r.report.step_time_us, r.tps_per_chip) for r in res.ranked()]
+
+
+def phase_sweep():
+    """The simulator's design-space search on this card (``SWEEP_AXES`` over
+    phi4-mini-3.8b decode on 8 chips of ``h100_sxm``), one JSON line a part:
+    (1) the serial sweep priced by the profiling engine measuring every
+    operator on the card into a fresh DB (K2 for decode attention, counted),
+    ranked by tokens/s per chip against bench_explore's engineering baseline;
+    (2) the same sweep on a new simulator over the saved DB, which must
+    measure nothing and rank alike; (3) the analytical sweep with
+    ``workers=2``, whose pool must start its workers with ``spawn`` (CUDA is
+    initialised here) and equal the serial one; (4) a
+    ``goodput_under_failures`` sweep of the checkpoint interval for the train
+    phase's shape on 64 chips, priced by the profiling engine (K1 forward and
+    backward counted); (5) the port's own decode step at the per-replica
+    batch of the two best tp=1, pp=1 candidates of (1), tokens/s per chip
+    predicted against measured."""
+    from repro_torch import kernels as K
+    from repro_torch.api import (
+        CheckpointSpec, Cluster, DecodeWorkload, FaultModel, ResilienceSpec, SimSpec,
+        SweepSpace, sweep,
+    )
+    from repro_torch.api.pool import get_pool, shutdown_pools
+    from repro_torch.configs import get_config
+    from repro_torch.core import Simulator
+    from repro_torch.models import Model, zero_cache
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    base = SimSpec(cfg, cluster=Cluster("h100_sxm", chips=8, memory_limit=80e9),
+                   workload=DecodeWorkload(seq_len=SWEEP_CACHE))
+    space = SweepSpace(base, SWEEP_AXES)
+    launches = {}
+
+    # (1) the serving design space, priced on the card
+    db = fresh_db("profile_db_serving.json")
+    sim = Simulator("h100_sxm", engine="profiling", measure_on_miss=True, db=db)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = sweep(space, sim=sim)
+    seconds = time.perf_counter() - t0
+    counts = K.launch_counts()
+    measured = db.version
+    db.save()
+    if counts["decode_attention"] <= 0:
+        fail("sweep: the profiling engine did not launch K2 for decode attention")
+    if not res.evaluated:
+        fail("sweep: no candidate was evaluated")
+    for r in res.evaluated:
+        if not (math.isfinite(r.report.step_time_us) and r.report.step_time_us > 0):
+            fail(f"sweep: a non-positive or non-finite step time for {r.cand.key()}")
+    by_tps = sorted(res.evaluated, key=lambda r: -r.tps_per_chip)
+    baseline = next((r for r in res.evaluated
+                     if (r.cand.par.tp, r.cand.par.pp, r.cand.global_batch)
+                     == (BASELINE["tp"], BASELINE["pp"], BASELINE["batch"])), None)
+    if baseline is None:
+        fail("sweep: the engineering baseline was not evaluated")
+    reasons = {}
+    for r in res.pruned:
+        reasons[r.reason] = reasons.get(r.reason, 0) + 1
+    emit({"phase": "sweep", "part": "serving_space", "arch": cfg.name, "layers": cfg.num_layers,
+          "cluster": "h100_sxm x 8, 80 GB a chip", "cache_len": SWEEP_CACHE, "axes": SWEEP_AXES,
+          "points": space.size(), "enumerated": len(res.evaluated) + len(res.pruned),
+          "evaluated": len(res.evaluated), "pruned": len(res.pruned), "pruned_reasons": reasons,
+          "n_groups": res.n_groups, "operators_measured": measured, "seconds": seconds,
+          "launches": counts, "top3_by_tokens_s_chip": [cand_row(r) for r in by_tps[:3]],
+          "pareto": [cand_row(r) for r in res.pareto()],
+          "baseline": cand_row(baseline), "best": cand_row(by_tps[0]),
+          "predicted_gain_over_baseline": by_tps[0].tps_per_chip / baseline.tps_per_chip})
+    launches["serving_space"] = counts
+
+    # (2) the same sweep from the warm DB: nothing measured, the same ranking
+    warm_db = type(db)(db.path)
+    warm = Simulator("h100_sxm", engine="profiling", measure_on_miss=True, db=warm_db)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res2 = sweep(space, sim=warm)
+    seconds2 = time.perf_counter() - t0
+    counts2 = K.launch_counts()
+    same = ranking_key(res2) == ranking_key(res) and \
+        [(r.cand.key(), r.reason) for r in res2.pruned] == [(r.cand.key(), r.reason)
+                                                            for r in res.pruned]
+    emit({"phase": "sweep", "part": "warm_db", "db_entries": len(warm_db.data),
+          "operators_measured": warm_db.version, "launches": counts2, "seconds": seconds2,
+          "rankings_equal": same})
+    if warm_db.version != 0 or any(counts2.values()):
+        fail(f"sweep: the warm DB measured {warm_db.version} operators ({counts2})")
+    if not same:
+        fail("sweep: the warm DB's ranking differs from the measuring sweep's")
+
+    # (3) the analytical sweep in a spawned pool against the serial one
+    if not torch.cuda.is_initialized():
+        fail("sweep: CUDA is not initialised before the pooled sweep")
+    t0 = time.perf_counter()
+    serial = sweep(space, engine="analytical")
+    t1 = time.perf_counter()
+    pooled = sweep(space, engine="analytical", workers=2)
+    t2 = time.perf_counter()
+    context = get_pool(2).context_name
+    fields = lambda rs: [dataclasses.asdict(r) for r in rs]
+    equal = {"rankings": ranking_key(serial) == ranking_key(pooled),
+             "pruned": [(r.cand.key(), r.reason) for r in serial.pruned]
+             == [(r.cand.key(), r.reason) for r in pooled.pruned],
+             "eval_results": fields(serial.evaluated) == fields(pooled.evaluated)}
+    emit({"phase": "sweep", "part": "spawned_pool", "context": context,
+          "workers": pooled.workers, "serial_seconds": t1 - t0, "pooled_seconds": t2 - t1,
+          "evaluated": len(pooled.evaluated), "failed": len(pooled.failed), "equal": equal,
+          "best_analytical": cand_row(max(serial.evaluated, key=lambda r: r.tps_per_chip))})
+    shutdown_pools()
+    if context != "spawn" or pooled.workers != 2:
+        fail(f"sweep: the pool ran {pooled.workers} workers under {context!r}, not 2 under spawn")
+    if not all(equal.values()) or pooled.failed:
+        fail(f"sweep: the pooled sweep differs from the serial one ({equal})")
+
+    # (4) goodput under failures: the checkpoint interval of the train shape on 64 chips
+    res_spec = ResilienceSpec(total_steps=SWEEP_TRAIN_STEPS,
+                              faults=FaultModel(host_mtbf_s=1200.0, seed=11),
+                              ckpt=CheckpointSpec(interval_steps=10), chips_per_host=8,
+                              restart_delay_s=30.0, repair_s=600.0, optimize_interval=False)
+    train = train_spec(cfg, seq=TRAIN_SEQ, batch=64 * TRAIN_BATCH)
+    train = dataclasses.replace(
+        train, cluster=Cluster("h100_sxm", chips=64),
+        workload=dataclasses.replace(train.workload, resilience=res_spec))
+    rspace = SweepSpace(train, {"workload.resilience.ckpt.interval_steps": SWEEP_INTERVALS})
+    tdb = fresh_db("profile_db_train.json")
+    tsim = Simulator("h100_sxm", engine="profiling", measure_on_miss=True, db=tdb)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rres = sweep(rspace, sim=tsim, objective="goodput_under_failures")
+    seconds4 = time.perf_counter() - t0
+    counts4 = K.launch_counts()
+    tdb.save()
+    if min(counts4["flash_attention"], counts4["flash_attention_bwd"]) <= 0:
+        fail(f"sweep: the train pricing launched K1 forward and backward {counts4}")
+    rows = []
+    for r in sorted(rres.evaluated, key=lambda r: r.spec.workload.resilience.ckpt.interval_steps):
+        rep = r.resilience
+        parts = rep.useful_s + rep.rework_s + rep.straggler_s + rep.checkpoint_s + rep.downtime_s
+        if not (rep.completed and 0 < rep.goodput <= 1 and abs(parts / rep.wall_s - 1) < 1e-9):
+            fail(f"sweep: a resilience report that does not add up: {rep.summary()}")
+        rows.append({"interval_steps": rep.interval_steps, "goodput": rep.goodput,
+                     "tokens_per_s": rep.tokens_per_s, "wall_s": rep.wall_s,
+                     "failures": rep.n_failures, "restarts": rep.n_restarts,
+                     "checkpoints": rep.n_checkpoints, "checkpoint_s": rep.checkpoint_s,
+                     "rework_s": rep.rework_s, "downtime_s": rep.downtime_s})
+    first = rres.evaluated[0].resilience
+    emit({"phase": "sweep", "part": "resilience", "cluster": "h100_sxm x 64 (dp 64), 8 a host",
+          "step": "B1 S2048 a replica, AdamW, remat block",
+          "step_us": first.step_report.step_time_us, "save_s": first.save_s,
+          "restore_s": first.restore_s, "mtbf_system_s": first.mtbf_system_s,
+          "young_daly_interval_steps": first.young_daly_interval_steps,
+          "best_interval_steps": rres.ranked()[0].resilience.interval_steps,
+          "operators_measured": tdb.version, "launches": counts4, "seconds": seconds4,
+          "intervals": rows})
+    launches["resilience"] = counts4
+
+    # (5) the two best tp=1, pp=1 candidates against the port's own decode step
+    ones = sorted((r for r in res.evaluated if r.cand.par.tp == 1 and r.cand.par.pp == 1),
+                  key=lambda r: -r.tps_per_chip)[:2]
+    if len(ones) < 2:
+        fail("sweep: fewer than two tp=1, pp=1 candidates fit")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    out = []
+    for r in ones:
+        B = r.cand.B_local()
+        cache = zero_cache(cfg, B, SWEEP_CACHE, model.device)
+        cache["pos"].fill_(SWEEP_CACHE - 1)
+        step = {"tokens": rng.integers(0, cfg.vocab_size, (B, 1)).tolist()}
+        meas = measure_step(lambda: model.decode_step(params, cache, step), 10)
+        busy_tps, wall_tps = B / (meas["device_busy_us"] / 1e6), B / (meas["wall_us"] / 1e6)
+        # the port's step runs no transpose (cuBLAS reads the embedding
+        # transposed); the reference head's transpose, priced in, taken out
+        free_us = r.report.step_time_us - r.report.kind_us.get("transpose", 0.0)
+        free_tps = B / (free_us / 1e6)
+        out.append({**cand_row(r), "step_us_without_transpose": free_us,
+                    "tokens_s_chip_without_transpose": free_tps,
+                    "signed_error_without_transpose_vs_busy": free_tps / busy_tps - 1.0,
+                    "measured_busy_us": meas["device_busy_us"],
+                    "measured_wall_us": meas["wall_us"], "measured_tokens_s_chip_busy": busy_tps,
+                    "measured_tokens_s_chip_wall": wall_tps,
+                    "signed_error_vs_busy": r.tps_per_chip / busy_tps - 1.0,
+                    "signed_error_vs_wall": r.tps_per_chip / wall_tps - 1.0,
+                    "device_us": meas["device_us"]})
+        del cache
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "sweep", "part": "predicted_vs_measured", "gpu": gpu_name_and_power(),
+          "candidates": out,
+          "same_order_busy": out[0]["measured_tokens_s_chip_busy"]
+          >= out[1]["measured_tokens_s_chip_busy"],
+          "same_order_wall": out[0]["measured_tokens_s_chip_wall"]
+          >= out[1]["measured_tokens_s_chip_wall"],
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {"launches": {name: sum(c.get(name, 0) for c in launches.values())
+                         for name in KERNEL_INFO}}
+
+
 KERNEL_INFO = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:104"),
@@ -2096,11 +2341,12 @@ TRAIN_ONLY = {
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="env,build,kernels,serve,parity,train,train_parity,simulate,serve_sim",
+                    default="env,build,kernels,serve,parity,train,train_parity,simulate,"
+                            "serve_sim,sweep",
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
-                         "train_parity,simulate,serve_sim (and times, the serving-shape timings "
-                         "alone; serve_measure, the measured side of serve_sim alone); the "
-                         "closing lines are printed only when the nine of the default ran")
+                         "train_parity,simulate,serve_sim,sweep (and times, the serving-shape "
+                         "timings alone; serve_measure, the measured side of serve_sim alone); "
+                         "the closing lines are printed only when the ten of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -2161,8 +2407,9 @@ def main(argv=None) -> int:
     train_parity = phase_train_parity() if "train_parity" in phases else None
     sim = phase_simulate(train) if "simulate" in phases else None
     serve_sim = phase_serve_sim() if "serve_sim" in phases else None
+    swept = phase_sweep() if "sweep" in phases else None
     if (main_recs is None or counts is None or "parity" not in phases or train is None
-            or train_parity is None or sim is None or serve_sim is None):
+            or train_parity is None or sim is None or serve_sim is None or swept is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
@@ -2190,6 +2437,7 @@ def main(argv=None) -> int:
                "launches": launches, "train_launches": train["launches"][name],
                "simulate_launches": sim_launches[name],
                "serve_sim_launches": serve_sim["profiling"]["launches"].get(name, 0),
+               "sweep_launches": swept["launches"][name],
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,6 +1,7 @@
 """Typed spec API: one declarative surface for train, inference and serving.
 
-    from repro_torch.api import Cluster, DecodeWorkload, SimSpec, TrainWorkload
+    from repro_torch.api import (Cluster, DecodeWorkload, SimSpec, SweepSpace,
+                                 TrainWorkload, sweep)
     from repro_torch.core import Simulator
 
     spec = SimSpec(model=cfg, cluster=Cluster("h100_sxm"),
@@ -8,8 +9,8 @@
     report = Simulator("h100_sxm").run(spec)
 
 A ``ServingWorkload`` spec runs through
-``repro_torch.serving.sim.ServingSimulator(sim).run(spec)``.  Sweeps
-(``SweepSpace``, ``sweep``) are not ported yet (ROADMAP queue A item 4).
+``repro_torch.serving.sim.ServingSimulator(sim).run(spec)``; a
+``SweepSpace`` over any spec fields runs through ``sweep(space)``.
 """
 from repro_torch.api.spec import (
     STEP_WORKLOADS, AutoscalerSpec, CharonDeprecationWarning, CheckpointSpec,
@@ -17,10 +18,12 @@ from repro_torch.api.spec import (
     ReplicaFaultSpec, ResilienceSpec, RouterSpec, ServingWorkload, SimSpec,
     TrainWorkload,
 )
+from repro_torch.api.sweep import SweepSpace, spec_replace, sweep
 
 __all__ = [
     "STEP_WORKLOADS", "AutoscalerSpec", "CharonDeprecationWarning",
     "CheckpointSpec", "Cluster", "DecodeWorkload", "FaultModel", "FleetSpec",
     "PrefillWorkload", "ReplicaFaultSpec", "ResilienceSpec", "RouterSpec",
     "ServingWorkload", "SimSpec", "TrainWorkload",
+    "SweepSpace", "spec_replace", "sweep",
 ]

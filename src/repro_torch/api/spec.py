@@ -17,8 +17,7 @@ training, prefill, decode, or request-level serving — as
 
 Every spec component is frozen and hashable, so a ``SimSpec`` *is* a cache
 key (the simulator's serving bucket and the sweep reuse-grouping key both use
-it directly) and any field can be a sweep axis (sweeps, ``api/sweep.py``, are
-ROADMAP queue A item 4).
+it directly) and any field can be a sweep axis (see ``repro_torch.api.sweep``).
 
 Entry points: ``Simulator.run(spec) -> Report`` and
 ``ServingSimulator.run(spec) -> ServingReport``.  The legacy kwargs surfaces

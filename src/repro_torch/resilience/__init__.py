@@ -1,10 +1,17 @@
-"""Resilience-aware simulation: so far its seeded fault traces only.
+"""Resilience-aware simulation: fault injection, checkpoint pricing, and
+goodput under MTBF.
 
-``faults.py`` is carried from the reference because the fleet simulator's
-replica fault injection (``FleetSpec.faults``) draws from it.  The
-resilience simulator itself (``report.py``, ``sim.py``, ``timeline.py``) is
-ROADMAP queue A item 3.
+Attach a :class:`~repro_torch.api.spec.ResilienceSpec` to a ``TrainWorkload``
+and run it through :class:`ResilienceSimulator`; sweep checkpoint interval
+x MTBF x spares with ``sweep(space, objective="goodput_under_failures")``.
+See ``docs/resilience.md``.
 """
 from repro_torch.resilience.faults import KINDS, FailureEvent, FailureGen
+from repro_torch.resilience.report import ResilienceReport
+from repro_torch.resilience.sim import ResilienceSimulator
+from repro_torch.resilience.timeline import ReplayStats, replay
 
-__all__ = ["KINDS", "FailureEvent", "FailureGen"]
+__all__ = [
+    "KINDS", "FailureEvent", "FailureGen", "ReplayStats",
+    "ResilienceReport", "ResilienceSimulator", "replay",
+]

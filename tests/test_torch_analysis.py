@@ -665,8 +665,7 @@ def test_serving_and_fleet_report_fields_are_tuples():
 
 
 def test_sanitized_step_run_equals_the_plain_run_and_the_reference():
-    """In place of the reference's sweep-result case (sweeps are not ported):
-    a sanitized step report is bit-identical to the plain one, under the
+    """A sanitized step report is bit-identical to the plain one, under the
     flag and under ``CHARON_SANITIZE=1``, and within the step (15 %) and
     memory (3 %) tolerances that ``test_torch_simulator.py`` holds the port's
     plain reports to against the reference's sanitized one."""
@@ -686,6 +685,18 @@ def test_sanitized_step_run_equals_the_plain_run_and_the_reference():
         RSpec(R_CFG, cluster=RCluster("h100_sxm"), workload=RTrain(global_batch=8, seq_len=128)))
     assert sane.step_time_us == pytest.approx(ref.step_time_us, rel=0.15)
     assert sane.memory.total == pytest.approx(ref.memory.total, rel=0.03)
+
+
+def test_exploration_result_fields_are_tuples():
+    from repro_torch.api import DecodeWorkload, SweepSpace, sweep
+    base = SimSpec(CFG, cluster=Cluster("h100_sxm", chips=4),
+                   workload=DecodeWorkload(seq_len=128))
+    res = sweep(SweepSpace(base, {"tp": (1, 2), "batch": (8,)}),
+                sim=Simulator("h100_sxm", sanitize=True))
+    assert isinstance(res.evaluated, tuple)
+    assert isinstance(res.pruned, tuple)
+    assert isinstance(res.failed, tuple)
+    assert res.evaluated
 
 
 def test_memory_report_timeline_stays_tuple():

@@ -1,8 +1,5 @@
 """``repro_torch``'s fleet simulator against the reference's, on the CPU: the
-twin of ``tests/test_fleet_sim.py``, less its sweep cases
-(``test_fleet_sweep_*``, ``test_fleet_fields_are_sweep_axes``,
-``test_serving_base_requires_goodput``), which wait for the port of
-``api/sweep.py``.
+twin of ``tests/test_fleet_sim.py``, its fleet sweeps included.
 
 With one price table in both packages (``table_oracle`` of
 ``tests/test_torch_serving_sim.py``) every router, the autoscaler on a flash
@@ -24,7 +21,7 @@ from repro.configs import get_config as r_config
 from repro.core import ParallelConfig as RPar
 from repro_torch.api import (
     AutoscalerSpec, Cluster, FleetSpec, ReplicaFaultSpec, RouterSpec, ServingWorkload,
-    SimSpec,
+    SimSpec, SweepSpace, spec_replace, sweep,
 )
 from repro_torch.core import ParallelConfig, Simulator
 from repro_torch.serving.sim import (
@@ -400,3 +397,70 @@ def test_fleet_spec_run_needs_a_serving_workload(sim):
                    workload=ServingWorkload(n_requests=3, fleet=FleetSpec(replicas=2)))
     with pytest.raises(ValueError, match="cluster hardware"):
         FleetSimulator(Simulator("a100_80g")).run(spec)
+
+
+# ---------------- fleet sweeps ----------------
+
+def test_fleet_fields_are_sweep_axes():
+    spec = _spec()
+    out = spec_replace(spec, {"workload.fleet.replicas": 8,
+                              "workload.fleet.router": RouterSpec("least_loaded")})
+    assert out.workload.fleet.replicas == 8
+    assert out.workload.fleet.router.kind == "least_loaded"
+    assert spec.workload.fleet.replicas == 1
+    with pytest.raises(KeyError):
+        spec_replace(spec, {"workload.fleet.nope": 1})
+    with pytest.raises(KeyError):
+        spec_replace(spec, {"workload.fleet.autoscaler.min_replicas": 2})
+    # the same rebuilt spec, hash for hash, as the reference's spec_replace
+    ref = RA.spec_replace(_spec(A=RA, S=RS), {"workload.fleet.replicas": 8,
+                                               "workload.fleet.router":
+                                               RA.RouterSpec("least_loaded")})
+    assert ref.json_hash() == out.json_hash()
+
+
+def test_fleet_sweep_ranks_and_manifest(sim, tmp_path):
+    import json
+    from repro_torch.serving.sim import SLO
+    base = _spec(n=250, arrival="diurnal", rate=120.0, seed=1, slo=SLO(ttft_s=0.5, tpot_ms=60.0))
+    space = SweepSpace(base, {"workload.fleet.replicas": (1, 2, 4)})
+    path = tmp_path / "manifest.json"
+    res = sweep(space, sim=sim, objective="goodput", manifest=str(path))
+    ranked = res.ranked()
+    assert len(ranked) == 3
+    goodputs = {r.spec.workload.fleet.replicas: r.goodput_rps for r in ranked}
+    assert goodputs[4] > goodputs[2] > goodputs[1]
+    assert ranked[0].spec.workload.fleet.replicas == 4
+    assert ranked[0].goodput_rps == ranked[0].serving.goodput_rps
+    doc = json.loads(path.read_text())
+    assert doc["kind"] == "charon-sweep-manifest"
+    assert doc["base_hash"] == base.json_hash()
+    assert doc["axes"] == {"workload.fleet.replicas": [1, 2, 4]}
+    assert len(doc["candidates"]) == 3 and len(doc["ranking"]) == 3
+    assert doc["ranking"][0] == ranked[0].spec.json_hash()
+    assert set(doc["ranking"]) == {row["json_hash"] for row in doc["candidates"]}
+    for row in doc["candidates"]:
+        assert SimSpec.from_json(json.dumps(row["spec"])).json_hash() == row["json_hash"]
+        # and the reference rebuilds the same spec from the port's manifest
+        assert RA.SimSpec.from_json(json.dumps(row["spec"])).json_hash() == row["json_hash"]
+
+
+def test_fleet_sweep_parallel_bit_identical(sim):
+    from repro_torch.serving.sim import SLO
+    base = _spec(n=150, arrival="diurnal", rate=64.0, seed=1, slo=SLO(ttft_s=1.0, tpot_ms=80.0))
+    space = SweepSpace(base, {"workload.fleet.replicas": (1, 2),
+                              "workload.fleet.prefill_replicas": (0, 1)})
+    ser = sweep(space, sim=sim, objective="goodput")
+    par = sweep(space, objective="goodput", workers=2)
+    key = lambda res: [(r.spec.json_hash(), r.goodput_rps, r.report.step_time_us)
+                       for r in res.ranked()]
+    assert key(ser) == key(par)
+    assert par.workers == 2
+
+
+def test_serving_base_requires_goodput(sim):
+    space = SweepSpace(_spec(), {"workload.fleet.replicas": (1, 2)})
+    with pytest.raises(TypeError):
+        sweep(space, sim=sim)
+    with pytest.raises(TypeError):
+        sweep(space, sim=sim, objective="goodput", scenario=_spec().workload)

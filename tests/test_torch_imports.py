@@ -57,7 +57,8 @@ def test_the_slice_has_its_modules():
                  "serving/sim/__init__.py", "serving/sim/events.py", "serving/sim/workload.py",
                  "serving/sim/policies.py", "serving/sim/report.py", "serving/sim/oracle.py",
                  "serving/sim/router.py", "serving/sim/sim.py", "resilience/__init__.py",
-                 "resilience/faults.py",
+                 "resilience/faults.py", "resilience/report.py", "resilience/timeline.py",
+                 "resilience/sim.py", "core/explorer.py", "api/pool.py", "api/sweep.py",
                  "analysis/__init__.py", "analysis/chaos.py", "analysis/sanitize.py",
                  "analysis/lint/__init__.py", "analysis/lint/__main__.py",
                  "analysis/lint/engine.py", "analysis/lint/report.py", "analysis/lint/rules.py",

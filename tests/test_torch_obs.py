@@ -1,6 +1,6 @@
 """``repro_torch.obs`` (recorder, metrics, explain) and ``core/timeline.py``
-against the reference's, on the CPU: the twin of ``tests/test_obs.py``, less
-its resilience and sweep cases (ROADMAP queue A items 9 and 8).
+against the reference's, on the CPU: the twin of ``tests/test_obs.py`` (its
+resilience case is twinned in ``test_torch_resilience.py``).
 
 Contracts asserted here, as the reference asserts them:
 
@@ -30,7 +30,9 @@ import repro_torch.api as TA
 import repro_torch.obs as TO
 import repro_torch.serving.sim as TS
 from repro.core import timeline as r_timeline
-from repro_torch.api import Cluster, FleetSpec, RouterSpec, ServingWorkload, SimSpec, TrainWorkload
+from repro_torch.api import (
+    Cluster, FleetSpec, RouterSpec, ServingWorkload, SimSpec, SweepSpace, TrainWorkload, sweep,
+)
 from repro_torch.core import ParallelConfig, Simulator
 from repro_torch.core import timeline as t_timeline
 from repro_torch.obs import (
@@ -395,3 +397,50 @@ def test_memory_timeline_is_immutable_tuple(sim):
     assert isinstance(rep.memory.timeline, tuple)
     for entry in rep.memory.timeline:
         assert isinstance(entry, tuple)
+
+
+# ---------------- sweep ----------------
+
+def test_sweep_metrics_trace_and_progress(sim, capsys):
+    space = SweepSpace(_step_spec(), {"parallel.tp": (2,), "workload.global_batch": (16, 32, 64)})
+    rec, reg = TraceRecorder(), MetricsRegistry()
+    res = sweep(space, sim=sim, recorder=rec, metrics=reg, progress=True)
+    err = capsys.readouterr().err
+    assert "sweep 3/3" in err and "cfg/s" in err
+    assert res.metrics["counters"]["sweep.configs_done"] == 3.0
+    assert res.metrics["counters"]["sweep.evaluated"] == len(res.evaluated)
+    events = rec.events()
+    _assert_perfetto_valid(events)
+    assert any(ev["tid"].startswith("worker") for ev in events)
+    res_off = sweep(space, sim=sim)
+    key = lambda r: r.cand.key()
+    assert [key(r) for r in res.ranked()] == [key(r) for r in res_off.ranked()]
+    assert res_off.metrics["counters"]["sweep.configs_done"] == 3.0
+
+
+def test_sweep_manifest_rows_carry_explain(sim, tmp_path):
+    space = SweepSpace(_step_spec(), {"workload.global_batch": (16, 32)})
+    manifest = tmp_path / "m.json"
+    res = sweep(space, sim=sim, manifest=str(manifest))
+    doc = json.loads(manifest.read_text())
+    assert doc["metrics"]["counters"]["sweep.configs_done"] == 2.0
+    rows = [r for r in doc["candidates"] if not r["pruned"]]
+    assert rows and all(r["explain"]["step"]["dominant_phase"] for r in rows)
+    assert res.evaluated
+
+
+def test_sweep_trace_lanes_equal_the_reference_with_one_price_table():
+    """The sweep's trace (less its wall-clock spans) and counters through both
+    packages over ``StubSim``: the same prune instants, lanes and names."""
+    from test_torch_sweep import StubSim, counters_less_wall, space_pair
+    out = {}
+    for name, (A, _, O) in PKGS.items():
+        rec, reg = O.TraceRecorder(), O.MetricsRegistry()
+        res = A.sweep(space_pair("decode_h100")[name], sim=StubSim(name), recorder=rec,
+                      metrics=reg)
+        out[name] = ([(ev["name"], ev["ph"], ev["tid"], ev.get("args"))
+                      for ev in rec.events() if ev["ph"] != "X"],
+                     sorted((ev["name"], ev["tid"]) for ev in rec.events() if ev["ph"] == "X"),
+                     counters_less_wall(res.metrics))
+    assert out["port"] == out["ref"]
+    assert out["port"][0] and out["port"][1]

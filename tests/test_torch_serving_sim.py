@@ -1,6 +1,6 @@
 """``repro_torch.serving.sim`` against the reference's serving simulator, on
-the CPU: the twin of ``tests/test_serving_sim.py`` (less its sweep and
-explorer cases, which wait for the port of ``api/sweep.py``).
+the CPU: the twin of ``tests/test_serving_sim.py``, its explorer goodput
+objective included.
 
 Parity is held in two layers:
 
@@ -35,7 +35,10 @@ from repro.api import (
 from repro.configs import get_config as r_config
 from repro.core import ParallelConfig as RPar, Simulator as RSim
 from repro.serving import sp_planner as r_sp
-from repro_torch.api import CharonDeprecationWarning, Cluster, ServingWorkload, SimSpec
+from repro_torch.api import (
+    CharonDeprecationWarning, Cluster, DecodeWorkload, ServingWorkload, SimSpec, SweepSpace,
+    sweep,
+)
 from repro_torch.configs import get_config
 from repro_torch.core import ParallelConfig, Simulator
 from repro_torch.core.backend.hardware import H100_SXM, TPU_V5E
@@ -598,3 +601,38 @@ def test_sp_planner_equals_the_reference_and_defaults_to_h100():
     dyn = t_sp.plan_batch([256] * 6 + [32768], d_head=128, n_heads=24)
     static = t_sp.plan_batch([256] * 6 + [32768], d_head=128, n_heads=24, dynamic=False)
     assert dyn.makespan_us < static.makespan_us
+
+
+# ---------------- explorer goodput objective ----------------
+
+def test_goodput_ranking_diverges_from_step_time(sim):
+    """Under heavy load small batches win on step time but starve admission.
+    phi4-mini's decode step on ``h100_sxm`` is ~3-4 ms against xlstm-125m's
+    sub-millisecond one on ``tpu_v5e``, so the reference's SLO (50 ms TTFT,
+    2 ms TPOT) is scaled by ten; the load is the reference's."""
+    scen = ServingWorkload(
+        n_requests=160, rate_rps=2000.0,
+        prompt=LengthDist("lognormal", median=64.0, sigma=0.5, cap=256),
+        output=LengthDist("fixed", value=24), seed=11, slo=SLO(ttft_s=0.5, tpot_ms=20.0))
+    base = SimSpec(CFG, cluster=Cluster("h100_sxm", chips=8),
+                   workload=DecodeWorkload(seq_len=512))
+    res = sweep(SweepSpace(base, {"tp": (1, 2), "pp": (1,), "batch": (8, 32)}),
+                sim=sim, objective="goodput", scenario=scen)
+    assert res.evaluated and all(r.serving is not None for r in res.evaluated)
+    by_step = res.ranked("step_time")
+    by_goodput = res.ranked("goodput")
+    assert [r.cand.key() for r in by_step] != [r.cand.key() for r in by_goodput]
+    assert by_goodput[0].goodput_rps > by_step[0].goodput_rps
+    assert by_goodput[0].cand.global_batch > by_step[0].cand.global_batch
+
+
+def test_step_time_objective_requires_no_serving(sim):
+    base = SimSpec(CFG, cluster=Cluster("h100_sxm", chips=4),
+                   workload=DecodeWorkload(seq_len=512))
+    space = SweepSpace(base, {"tp": (1, 2), "pp": (1,), "batch": (8,)})
+    res = sweep(space, sim=sim)
+    assert res.ranked("step_time")
+    with pytest.raises(ValueError):
+        res.ranked("goodput")
+    with pytest.raises(ValueError):
+        sweep(space, sim=sim, objective="nonsense")
