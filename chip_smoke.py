@@ -92,6 +92,24 @@ Phases, each printing one JSON object on a line of its own:
            with the Young/Daly interval; (5) the two best tp=1, pp=1
            candidates' per-replica decode step run by the port's own model,
            tokens/s per chip predicted against measured
+  moe      the MoE family (olmoe-1b-7b: 64 experts, top 8, GQA with G=1), a
+           line a part: (1) serve at full width and depth (random bf16
+           weights from a seed, ServingEngine(slots=8, cache_len=2048), serve's
+           12 requests): tokens/s, TTFT, engine steps, peak memory, launches
+           against the path's formula, one profiled decode step at 8 live
+           slots by kernel group and by the MoE's operators (the experts'
+           batched products, the router's choice and sort, the gathers and
+           scatters), and no host sync in a decode step; (2) parity: 4
+           layers, kernels against plain versions, the share of (token, k)
+           expert choices alike layer by layer, each request with a flipped
+           route reported with the layer and the router margin there, and
+           the first-token logits held to 1e-1 (and the first token equal or
+           a near-tie) with the plain run on the kernel run's routes; (3)
+           simulate: Simulator.run prefill B1 S512 and decode B8 x 2048,
+           analytical and profiling (fresh DB, K1 and K2 counted), against
+           the port's own step, by op kind with the experts' products apart;
+           (4) train_parity: the train step cut to 4 layers as train_parity
+           does, the plain run on the kernel run's routes
 
 `--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) and the
 train-shape backward of K1 and K3 of the tree at DIR (e.g. the parent
@@ -102,8 +120,9 @@ before the process profiles anything).
 
 Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
-(the train phase for a backward kernel), in the train phase and by the
-profiling engine in the simulate, serve_sim and sweep phases, error, time,
+(the train phase for a backward kernel), in the train phase, by the
+profiling engine in the simulate, serve_sim and sweep phases and in the moe
+phase's parts, its timings at olmoe's shape where it has one, error, time,
 device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
 computes the same function; then the
@@ -902,6 +921,12 @@ def phase_kernels():
                                     window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
             if S == 1000 and dtype is bf16:
                 main["flash_attention"] = recs[-1]
+    # ... at olmoe-1b-7b's (16 q and 16 kv heads, G=1) ...
+    for dtype in (bf16, f32):
+        recs.append(check_flash(rng, B=1, H=16, Hkv=16, Sq=1000, Sk=1000, D=128, causal=True,
+                                window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+        if dtype is bf16:
+            main["moe_flash_attention"] = recs[-1]
     # ... and at edge shapes
     for dtype in (bf16, f32):
         edge = [dict(B=2, H=24, Hkv=8, Sq=777, Sk=777, D=128, causal=True, window=0, bshd=True),  # batch, ragged
@@ -924,6 +949,12 @@ def phase_kernels():
             main["decode_attention"] = recs[-1]
     recs.append(check_decode(rng, B=8, H=24, Hkv=8, T=2048, D=128, valid=[2048] * 8, dtype=bf16,
                              timed=True, bthd=True))
+    # ... at olmoe-1b-7b's (G=1) ...
+    for dtype in (bf16, f32):
+        recs.append(check_decode(rng, B=8, H=16, Hkv=16, T=2048, D=128, valid=mixed, dtype=dtype,
+                                 timed=dtype is bf16, bthd=True))
+        if dtype is bf16:
+            main["moe_decode_attention"] = recs[-1]
     # ... at qwen2.5-32b's group (G=5) and with a long cache (many splits) ...
     for dtype in (bf16, f32):
         recs.append(check_decode(rng, B=4, H=40, Hkv=8, T=1500, D=128, valid=None, dtype=dtype,
@@ -957,6 +988,13 @@ def phase_kernels():
         for dtype in (bf16, f32):
             recs.append(check_rmsnorm(rng, R=R, D=3072, dtype=dtype, w_dtype=dtype, offset=False,
                                       residual=True, fused=True, timed=dtype is bf16))
+    # ... at olmoe-1b-7b's width (D = 2048), its decode and prefill rows ...
+    for R in (8, 1000):
+        for dtype in (bf16, f32):
+            recs.append(check_rmsnorm(rng, R=R, D=2048, dtype=dtype, w_dtype=dtype, offset=False,
+                                      residual=True, fused=True, timed=dtype is bf16 and R == 1000))
+            if R == 1000 and dtype is bf16:
+                main["moe_rmsnorm"] = recs[-1]
     # ... with the residual inside the kernel, the 1 + w form, fp32 w beside bf16 x, odd rows,
     # D not a multiple of the 16-byte vector, a base off 16 bytes, and D above the 12288 that a
     # shared-memory row allowed
@@ -1007,6 +1045,9 @@ def phase_kernels():
                      misaligned=True)]                                            # FMA kernels
         for e in edge:
             recs.append(check_flash_bwd(rng, **e, dtype=dtype, timed=False))
+        # olmoe-1b-7b's train_parity shape (B2 S512, G=1)
+        recs.append(check_flash_bwd(rng, B=2, H=16, Hkv=16, Sq=512, Sk=512, D=128, causal=True,
+                                    window=0, dtype=dtype, timed=False, bshd=True))
 
     # --- K3 backward at the train path's rows (B1 S2048, D 3072: add_rmsnorm in 63 of a
     # step's 65 norms) and the serving path's, with and without the residual, the sum's
@@ -1021,6 +1062,9 @@ def phase_kernels():
                     main["rmsnorm_bwd"] = recs[-1]
             recs.append(check_rmsnorm_bwd(rng, R=R, D=3072, dtype=dtype, w_dtype=f32, offset=True,
                                           residual=True, timed=False))
+    for dtype in (bf16, f32):      # olmoe-1b-7b's train_parity rows (B2 S512, D 2048)
+        recs.append(check_rmsnorm_bwd(rng, R=1024, D=2048, dtype=dtype, w_dtype=dtype,
+                                      offset=False, residual=True, fused=True, timed=False))
     # --- the fused AdamW update: phi4-mini's leaves (a layer's up projection, the
     # embedding), bf16 parameters and gradients, fp32 moments; fp32 beside PyTorch's
     # fused AdamW; a length that is no multiple of 4 and a base off 16 bytes
@@ -1571,38 +1615,114 @@ def time_way(rec, fn, *args) -> None:
     rec["device_ms"] = device_ms(call, iters=2, cold=False)
 
 
-def phase_train_parity():
-    """The train step of phi4-mini cut to 4 layers, once through the kernels
+class RoutePin:
+    """Records the experts each MoE dispatch chooses (``torch.topk`` as
+    ``repro_torch.models.layers`` calls it) and replays them, in call order,
+    in another run, so that two runs are held against each other on the same
+    routes: routing is discontinuous, and where the kernels and their plain
+    versions round differently a near-tied choice flips now and then.  While
+    active it stands in for ``torch`` in that module; every other name is
+    torch's own."""
+
+    def __init__(self):
+        self.calls, self.margins, self.mode, self.next = [], [], None, 0
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def topk(self, probs, k, dim=-1, **kw):
+        if self.mode == "replay":
+            ids = self.calls[self.next]
+            self.next += 1
+            if ids.shape != (*probs.shape[:-1], k):
+                fail(f"route replay: dispatch {self.next} has {tuple(probs.shape)}, "
+                     f"the recorded routes {tuple(ids.shape)}")
+            return probs.gather(dim, ids), ids
+        vals, ids = torch.topk(probs, k, dim=dim, **kw)
+        if self.mode == "record":
+            # the router margin: the k-th choice's probability over the next one's
+            top = torch.topk(probs, k + 1, dim=dim).values
+            self.calls.append(ids)
+            self.margins.append(top[..., k - 1] - top[..., k])
+        return vals, ids
+
+    def run(self, mode: str, fn, *args):
+        from repro_torch.models import layers as L
+        if mode == "record":
+            self.calls, self.margins = [], []
+        self.mode, self.next = mode, 0
+        L.torch = self
+        try:
+            return fn(*args)
+        finally:
+            L.torch, self.mode = torch, None
+
+
+def route_agreement(a: list, b: list) -> list:
+    """Per dispatch (a layer's call), the share of (token, k) choices of run
+    ``a`` that run ``b`` also made for that token."""
+    out = []
+    for x, y in zip(a, b):
+        same = (x[..., :, None] == y[..., None, :]).any(-1)
+        out.append(float(same.float().mean()))
+    return out
+
+
+def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times: bool = True):
+    """The train step of ``arch`` cut to 4 layers, once through the kernels
     (the model's and AdamW's) and once through their plain versions, from the
     same parameters and batch, at lr PARITY_LR from the first step (warm-up
     1), so that the step moves bf16 parameters by several of their last
-    places: loss, every gradient leaf, and each parameter leaf's change.
-    Then ``adamw_tree_times`` on that tree."""
+    places: loss (and its cross-entropy and router parts), every gradient
+    leaf, and each parameter leaf's change.  A MoE model's plain run takes
+    the kernel run's routes (``RoutePin``); the share of choices an unpinned
+    plain forward makes alike is reported beside.  Then, with
+    ``tree_times``, ``adamw_tree_times`` on that tree."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig, ShapeConfig
     from repro_torch.models import Model
     from repro_torch.training import SyntheticTokenPipeline, init_state, make_loss_fn
     from repro_torch.training import make_train_step
     from repro_torch.training.optimizer import adamw, cosine_schedule, tree_leaves, tree_map
-    cfg = get_config(ARCH).replace(num_layers=4)
+    cfg = get_config(arch).replace(num_layers=4)
     run = RunConfig(model=cfg, shape=ShapeConfig("parity", 512, 2, "train"), remat_policy="block")
     pipe = SyntheticTokenPipeline(cfg, global_batch=2, seq_len=512, seed=SEED)
     batch = next(pipe)
     pipe.close()
     base = Model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED))
-    out = {}
-    for plain in (False, True):
+    pin = RoutePin() if cfg.is_moe else None
+    out, parts = {}, {}
+
+    def step(plain):
         tree = tree_map(lambda t: t.detach().clone().requires_grad_(), base)
         model = Model(cfg, remat_policy="block", plain_kernels=plain)
-        loss, _ = make_loss_fn(model)(tree, batch)
+        loss, m = make_loss_fn(model)(tree, batch)
         grads = [g.detach() for g in torch.autograd.grad(loss, tree_leaves(tree))]
         opt = adamw(cosine_schedule(PARITY_LR, warmup=1), plain_kernels=plain)
         state = init_state(tree, opt)
         state, metrics = make_train_step(cfg, run, opt, plain_kernels=plain)(state, batch)
         delta = [p.detach().float() - b.float()
                  for p, b in zip(tree_leaves(state["params"]), tree_leaves(base))]
-        out[plain] = (float(loss.detach()), float(metrics["loss"]), grads, delta, state)
-        del loss, metrics, tree
+        parts[plain] = {"ce": float(m["ce"].detach()), "aux_loss": float(m["aux_loss"].detach())}
+        return float(loss.detach()), float(metrics["loss"]), grads, delta, state
+
+    for plain in (False, True):
+        if pin is None:
+            out[plain] = step(plain)
+        else:
+            out[plain] = pin.run("replay" if plain else "record", step, plain)
+    rec_routes = {}
+    if pin is not None:
+        if pin.next != len(pin.calls):
+            fail(f"{phase}: the plain run made {pin.next} dispatches, the kernels' "
+                 f"{len(pin.calls)}")
+        # the forward's routes, kernels (recorded above) against an unpinned plain forward
+        kernel_calls = pin.calls
+        with torch.no_grad():
+            pin.run("record", Model(cfg, plain_kernels=True).forward, base, batch)
+        rec_routes = {"routes_pinned": True, "dispatches_replayed": len(kernel_calls),
+                      "unpinned_route_agreement_by_layer":
+                          route_agreement(kernel_calls[:cfg.num_layers], pin.calls)}
     (lk, mk, gk, dk, state), (lp, mp, gp, dp, _) = out.pop(False), out.pop(True)
     grad_err = max(rel_l2(a, b) for a, b in zip(gk, gp))
     update_err = max(rel_l2(a, b) for a, b in zip(dk, dp))
@@ -1614,22 +1734,28 @@ def phase_train_parity():
     # element whose gradient is near 0 may take the other sign on the other
     # side; no update at all reads 1, an update of unrelated gradients about 1.4
     tol = {"loss": 1e-2, "grad_rel_l2": 5e-2, "update_rel_l2": UPDATE_TOL}
-    rec = {"phase": "train_parity", "layers": cfg.num_layers, "batch": 2, "seq": 512,
+    rec = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "batch": 2, "seq": 512,
            "lr": PARITY_LR, "loss_kernels": lk, "loss_plain": lp, "loss_abs_diff": abs(lk - lp),
-           "step_loss_abs_diff": abs(mk - mp), "grad_leaves": len(gk),
+           "step_loss_abs_diff": abs(mk - mp), "loss_parts_kernels": parts[False],
+           "loss_parts_plain": parts[True], "grad_leaves": len(gk),
            "grad_rel_l2_max": grad_err, "update_rel_l2_max": update_err,
-           "share_of_elements_moved": moved, "tol": tol}
+           "share_of_elements_moved": moved, "tol": tol, **rec_routes}
     del dk
-    rec["adamw_tree"] = adamw_tree_times(state["params"], gk, state["opt"])
+    if tree_times:
+        rec["adamw_tree"] = adamw_tree_times(state["params"], gk, state["opt"])
     emit(rec)
     if not (abs(lk - lp) <= tol["loss"] and abs(mk - mp) <= tol["loss"]):
-        fail(f"train_parity: loss {lk} (kernels) against {lp} (plain)")
+        fail(f"{phase}: loss {lk} (kernels) against {lp} (plain)")
+    for k in ("ce", "aux_loss"):
+        if not abs(parts[False][k] - parts[True][k]) <= tol["loss"]:
+            fail(f"{phase}: {k} {parts[False][k]} (kernels) against {parts[True][k]} (plain)")
     if not grad_err <= tol["grad_rel_l2"]:
-        fail(f"train_parity: a gradient differs by {grad_err} (relative L2)")
+        fail(f"{phase}: a gradient differs by {grad_err} (relative L2)")
     if not update_err <= tol["update_rel_l2"]:
-        fail(f"train_parity: a parameter's change differs by {update_err} (relative L2)")
-    if not all(rec["adamw_tree"][w]["bit_equal"] for w in ("plain_per_leaf", "plain_foreach")):
-        fail(f"train_parity: the AdamW updates of the tree differ: {rec['adamw_tree']}")
+        fail(f"{phase}: a parameter's change differs by {update_err} (relative L2)")
+    if tree_times and not all(rec["adamw_tree"][w]["bit_equal"]
+                              for w in ("plain_per_leaf", "plain_foreach")):
+        fail(f"{phase}: the AdamW updates of the tree differ: {rec['adamw_tree']}")
     del base, state, gk
     torch.cuda.empty_cache()
     return rec
@@ -1677,10 +1803,32 @@ def top_kernels(avgs, group: str, n: int = 10) -> list:
     return [list(r) for r in sorted(rows, key=lambda r: -r[1])[:n]]
 
 
+# The MoE block's own work, by the aten operator that launched it (its
+# kernels' device time, children included; no name here runs inside another):
+# the experts' batched products, the router's choice and the dispatch's sort,
+# and the gathers and scatters of dispatch and combine (which hold the cache
+# rows' writes and the embedding lookup too).
+MOE_OPS = {"expert_bmm": ("aten::bmm",),
+           "route_sort": ("aten::topk", "aten::sort", "aten::searchsorted", "aten::softmax"),
+           "scatter_gather": ("aten::index_add", "aten::index", "aten::index_put_")}
+
+
+def moe_op_us(avgs) -> dict:
+    """Device µs (whole window) of the ``MOE_OPS`` groups."""
+    out = {g: 0.0 for g in MOE_OPS}
+    for e in avgs:
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for g, names in MOE_OPS.items():
+            if e.key in names:
+                out[g] += e.device_time_total
+    return out
+
+
 def measure_step(fn, n: int) -> dict:
     """The port's step: wall µs a call from CUDA events around ``n`` calls,
     then device-busy µs a call and its groups from the profiler over ``n``
-    more."""
+    more (and the ``MOE_OPS`` groups' share of it)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1699,7 +1847,10 @@ def measure_step(fn, n: int) -> dict:
     groups = {k: v / n for k, v in device_groups(avgs).items()}
     launches = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA)
     return {"wall_us": wall_us, "device_busy_us": sum(groups.values()), "device_us": groups,
-            "device_launches": launches // n}
+            "device_launches": launches // n,
+            "moe_op_us": {k: v / n for k, v in moe_op_us(avgs).items()},
+            "top_other_kernels": [[name[:80], ms / n, count // n]
+                                  for name, ms, count in top_kernels(avgs, "other", 6)]}
 
 
 def phase_simulate(train=None):
@@ -2311,6 +2462,314 @@ def phase_sweep():
                          for name in KERNEL_INFO}}
 
 
+# --------------------------------------------------------------------------
+# the MoE family: olmoe-1b-7b served, held against the plain versions,
+# simulated and trained in parity on the card
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "olmoe-1b-7b"
+
+
+def moe_serve(cfg) -> dict:
+    """olmoe at full width and depth: ServingEngine(slots=8, cache_len=2048)
+    on serve's 12 requests, launches against the path's formula, then one
+    decode step at 8 live slots under the profiler and the host syncs of one
+    ``decode_step`` (``torch.cuda.set_sync_debug_mode``)."""
+    import warnings
+    from repro_torch import kernels as K
+    from repro_torch.models import Model, count_params
+    from repro_torch.serving import Request, ServingEngine
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    reqs, steps, seconds, finite = run_engine(cfg, params, plain=False)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.num_layers
+    want = {"flash_attention": L * len(reqs), "decode_attention": L * steps,
+            "rmsnorm": (2 * L + 1) * (len(reqs) + steps), "flash_attention_bwd": 0,
+            "rmsnorm_bwd": 0, "adamw": 0}
+    toks = sum(len(r.tokens) for r in reqs)
+    ttft = [r.ttft_s * 1e3 for r in reqs]
+    # a steady decode step: 8 live slots of 512-token prompts
+    engine = ServingEngine(cfg, params, slots=8, cache_len=2048)
+    rng = np.random.default_rng(SEED)
+    for rid in range(8):
+        engine.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, 512).tolist(),
+                              max_new_tokens=64))
+    for _ in range(3):
+        engine.step()
+    step = measure_step(engine.step, 3)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            engine.model.decode_step(params, engine.cache, {"tokens": engine._last_tok})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice ("a prototype feature ...") is not a sync
+    syncs = [str(w.message)[:160] for w in caught
+             if "called a synchronizing" in str(w.message)]
+    rec = {"part": "serve", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+           "experts": cfg.num_experts, "top_k": cfg.top_k, "params": count_params(cfg),
+           "active_params": count_params(cfg, active_only=True), "slots": 8, "cache_len": 2048,
+           "requests": len(reqs), "prompt_tokens": sum(len(r.prompt) for r in reqs),
+           "new_tokens": toks, "engine_steps": steps, "seconds": seconds,
+           "tokens_per_s": toks / seconds, "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_p95": float(np.percentile(ttft, 95)), "init_seconds": init_s,
+           "logits_finite": finite, "launches": counts, "launches_expected": want,
+           "allocated_after_init_bytes": allocated, "peak_bytes": peak, "decode_step": step,
+           "decode_step_host_syncs": syncs}
+    emit({"phase": "moe", **rec})
+    if any(len(r.tokens) != 32 or r.finished_s is None for r in reqs):
+        fail(f"moe serve: a request did not finish with 32 tokens: {rec}")
+    if any(not (0 <= t < cfg.vocab_size) for r in reqs for t in r.tokens):
+        fail("moe serve: a token outside the vocabulary")
+    if not finite:
+        fail("moe serve: non-finite logits on the serving path")
+    if counts != want:
+        fail(f"moe serve: launch counts {counts} differ from what the path implies {want}")
+    if syncs:
+        fail(f"moe serve: a decode step synchronised with the host: {syncs}")
+    del params, engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_parity(cfg) -> dict:
+    """olmoe cut to 4 layers, serve's requests prefilled through the kernels
+    and through their plain versions, the experts each dispatch chose
+    recorded (``RoutePin``).  Unpinned, the plain run routes on its own: the
+    share of (token, k) choices alike layer by layer, and for each request
+    the first-token logit difference, the layer of its first flip and the
+    plain run's router margins there (the gap between the k-th and the next
+    expert's probability) of the tokens that flipped.  A flipped route
+    is a real difference in the answer, so the bound is not held there: the
+    plain run is made again on the kernel run's routes, and the 1e-1 bound
+    and the first-token rule (equal, or a near-tie of the two best logits)
+    hold on those, for every request."""
+    from repro_torch.models import Model
+    cfg = cfg.replace(num_layers=4)
+    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED))
+    L = cfg.num_layers
+    reqs = make_requests(cfg.vocab_size)
+    pin = RoutePin()
+    first, routes, margins = {}, {}, []
+    for way, plain, mode in (("kernels", False, "record"), ("plain", True, "record"),
+                             ("plain_pinned", True, "replay")):
+        m = Model(cfg, plain_kernels=plain)
+        logits, calls = [], []
+        for i, r in enumerate(reqs):
+            if mode == "replay":
+                pin.calls = routes["kernels"][i]
+            lg, _ = pin.run(mode, m.prefill, params, {"tokens": [r.prompt]}, 2048)
+            if mode == "replay" and pin.next != len(pin.calls):
+                fail(f"moe parity: request {r.rid} replayed {pin.next} of {len(pin.calls)} routes")
+            if way == "plain":
+                margins.append(pin.margins)
+            logits.append(lg[0, -1])
+            calls.append(pin.calls)
+        first[way], routes[way] = torch.stack(logits), calls
+    diff = {w: (first["kernels"] - first[w]).abs().amax(dim=-1) for w in ("plain", "plain_pinned")}
+    top2 = first["plain_pinned"].topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    tol = 1e-1
+    by_layer = [[0.0, 0] for _ in range(L)]
+    per_req, flips, same_first, near_tie = [], 0, 0, 0
+    for i, r in enumerate(reqs):
+        shares = route_agreement(routes["kernels"][i], routes["plain"][i])
+        for j, sh in enumerate(shares):
+            n = routes["kernels"][i][j].numel()
+            by_layer[j][0] += sh * n
+            by_layer[j][1] += n
+        flipped = [j for j, sh in enumerate(shares) if sh < 1.0]
+        entry = {"rid": r.rid, "prompt": len(r.prompt),
+                 "first_logits_max_abs_diff_unpinned": float(diff["plain"][i]),
+                 "first_logits_max_abs_diff_pinned": float(diff["plain_pinned"][i]),
+                 "routes_agree": not flipped}
+        if flipped:
+            flips += 1
+            j = flipped[0]
+            a, b = routes["kernels"][i][j], routes["plain"][i][j]
+            tok = (~(a.sort(-1).values == b.sort(-1).values).all(-1)).nonzero()[:, 0]
+            at_flip = margins[i][j][tok]
+            entry.update(first_flip_layer=j, tokens_flipped_there=int(tok.numel()),
+                         choices=int(a.numel()),
+                         router_margin_at_flip_min=float(at_flip.min()),
+                         router_margin_at_flip_max=float(at_flip.max()),
+                         router_margin_median_at_that_layer=float(margins[i][j].median()))
+        per_req.append(entry)
+        a, b = int(first["kernels"][i].argmax()), int(first["plain_pinned"][i].argmax())
+        same_first += a == b
+        near_tie += a != b and float(margin[i]) <= 2 * float(diff["plain_pinned"][i])
+    rec = {"part": "parity", "arch": cfg.name, "layers": L, "requests": len(reqs),
+           "route_agreement_by_layer": [s_ / max(n, 1) for s_, n in by_layer],
+           "requests_with_a_flipped_route": flips, "tol": tol,
+           "first_logits_max_abs_diff_pinned": float(diff["plain_pinned"].max()),
+           "first_logits_max_abs_diff_unpinned": float(diff["plain"].max()),
+           "first_logits_max_abs_diff_unpinned_routes_agree":
+               max((e["first_logits_max_abs_diff_unpinned"] for e in per_req
+                    if e["routes_agree"]), default=None),
+           "first_token_equal_pinned": same_first, "first_token_near_tie_pinned": near_tie,
+           "first_token_equal_unpinned": int((first["kernels"].argmax(-1)
+                                              == first["plain"].argmax(-1)).sum()),
+           "per_request": per_req}
+    del params
+    torch.cuda.empty_cache()
+    return rec, same_first + near_tie
+
+
+def moe_simulate(cfg) -> dict:
+    """Simulator.run for olmoe on h100_sxm, prefill B1 S512 and decode B8 at
+    cache 2048, analytical and profiling (a fresh DB; K1 and K2 counted), then
+    the port's own Model.prefill / decode_step at those shapes; the signed
+    errors, also by op kind: the experts' products (the matmul nodes tagged
+    ``moe_expert``) against ``aten::bmm``'s device time, the other products
+    against the rest of cuBLAS, attention against K1 + K2, and the rest."""
+    from repro_torch import kernels as K
+    from repro_torch.api import Cluster, DecodeWorkload, PrefillWorkload, SimSpec
+    from repro_torch.core import Simulator
+    from repro_torch.core.backend import profiling as P
+    from repro_torch.core.model_ingest import ingest_graphs
+    from repro_torch.models import Model, zero_cache
+    db_path = os.path.join(HERE, "build", "moe", "profile_db_torch.json")
+    if os.path.exists(db_path):
+        os.remove(db_path)
+    db = P.ProfileDB(db_path)
+    cluster = Cluster("h100_sxm", chips=1)
+    specs = {"prefill": SimSpec(cfg, cluster=cluster,
+                                workload=PrefillWorkload(global_batch=1, seq_len=512)),
+             "decode": SimSpec(cfg, cluster=cluster,
+                               workload=DecodeWorkload(global_batch=8, seq_len=2048))}
+    sims = {"analytical": Simulator("h100_sxm"),
+            "profiling": Simulator("h100_sxm", engine="profiling", db=db, measure_on_miss=True)}
+    out = {}
+    for mode, spec in specs.items():
+        r = {"part": "simulate", "mode": mode}
+        reports = {}
+        for name, sim in sims.items():
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            reports[name] = sim.run(spec)
+            r[f"{name}_s"] = time.perf_counter() - t0
+            r[f"{name}_launches"] = K.launch_counts()
+        w = spec.workload
+        mg = ingest_graphs(cfg, w.global_batch, 1 if mode == "decode" else w.seq_len, mode,
+                           cache_len=w.cache_len or w.seq_len)
+        # each engine's price of the experts' products and of the other products
+        # (one layer's graph times its repeat), and who priced each operator
+        priced, by_engine = {}, {}
+        for name, sim in sims.items():
+            expert = other = 0.0
+            for b in mg.all_blocks():
+                for n in b.fwd:
+                    us = sim.engine.latency_us(n)
+                    if us is None or not math.isfinite(us):
+                        fail(f"moe simulate {mode}: {name} left {n.kind} {n.out_shape} unpriced")
+                    if name == "profiling":
+                        e = sim.engine.engine_for(n)
+                        by_engine[e] = by_engine.get(e, 0) + 1
+                    if n.kind == "matmul":
+                        if n.attrs.get("moe_expert"):
+                            expert += us * n.repeat * b.repeat
+                        else:
+                            other += us * n.repeat * b.repeat
+            priced[name] = {"expert_matmul_us": expert, "other_matmul_us": other}
+        r.update({f"{name}_us": rep.step_time_us for name, rep in reports.items()})
+        r.update({f"{name}_kind_us": rep.kind_us for name, rep in reports.items()})
+        r["priced_matmul_us"] = priced
+        r["operators_by_engine"] = by_engine
+        out[mode] = (r, reports, priced)
+    if out["prefill"][0]["profiling_launches"]["flash_attention"] <= 0:
+        fail("moe simulate: the profiling engine did not launch K1 for the prefill's attention")
+    if out["decode"][0]["profiling_launches"]["decode_attention"] <= 0:
+        fail("moe simulate: the profiling engine did not launch K2 for the decode's attention")
+    db.save()
+
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    prompt = {"tokens": rng.integers(0, cfg.vocab_size, (1, 512)).tolist()}
+    cache = zero_cache(cfg, 8, 2048, model.device)
+    cache["pos"].fill_(2047)            # every slot holds 2048 valid rows
+    step = {"tokens": rng.integers(0, cfg.vocab_size, (8, 1)).tolist()}
+    runs = {"prefill": (lambda: model.prefill(params, prompt, cache_len=512), 5),
+            "decode": (lambda: model.decode_step(params, cache, step), 10)}
+    recs = []
+    for mode, (fn, n) in runs.items():
+        r, reports, priced = out[mode]
+        meas = measure_step(fn, n)
+        err = {f"{p}_vs_{m}": rep.step_time_us / meas[key] - 1.0
+               for p, rep in reports.items()
+               for m, key in (("wall", "wall_us"), ("device_busy", "device_busy_us"))}
+        dev, ops = meas["device_us"], meas["moe_op_us"]
+        by_kind = {}
+        for p, rep in reports.items():
+            kinds = rep.kind_us
+            rest = sum(v for k, v in kinds.items() if k not in ("matmul", "attention"))
+            by_kind[p] = {
+                "matmul_moe_expert/aten_bmm": [priced[p]["expert_matmul_us"], ops["expert_bmm"]],
+                "matmul_other/cublas_rest": [priced[p]["other_matmul_us"],
+                                             dev["cublas"] - ops["expert_bmm"]],
+                "attention/K1+K2": [kinds.get("attention", 0.0), dev["K1"] + dev["K2"]],
+                "rest/K3+other": [rest, dev["K3"] + dev["other"]]}
+            for k, (pred, got) in by_kind[p].items():
+                by_kind[p][k].append(pred / got - 1.0 if got > 0 else None)
+        r.update(measured=meas, signed_error=err, kind_vs_measured_us=by_kind,
+                 device_idle_share=max(0.0, 1.0 - meas["device_busy_us"] / meas["wall_us"]))
+        for v in [rep.step_time_us for rep in reports.values()] + [meas["wall_us"],
+                                                                    meas["device_busy_us"]]:
+            if not (math.isfinite(v) and v > 0):
+                fail(f"moe simulate {mode}: a non-positive or non-finite step time in {r}")
+        if not all(math.isfinite(x) for x in err.values()):
+            fail(f"moe simulate {mode}: a non-finite error {err}")
+        recs.append(r)
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"prefill": recs[0], "decode": recs[1], "profile_db_entries": len(db.data)}
+
+
+def phase_moe() -> dict:
+    """The MoE family on the card, a line a part: serve, parity, simulate,
+    train_parity (see ``moe_serve``, ``moe_parity``, ``moe_simulate`` and
+    ``phase_train_parity``); returns the launches of each part."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    serve = moe_serve(cfg)
+    parity, ok_first = moe_parity(cfg)
+    emit({"phase": "moe", **parity})
+    sim = moe_simulate(cfg)
+    for mode in ("prefill", "decode"):
+        emit({"phase": "moe", **sim[mode]})
+    K.reset_launch_counts()
+    tp = phase_train_parity(MOE_ARCH, phase="moe_train_parity", tree_times=False)
+    tp_launches = K.launch_counts()
+    emit({"phase": "moe", "part": "done", "seconds": time.perf_counter() - t0,
+          "profile_db_entries": sim["profile_db_entries"],
+          "train_parity_launches": tp_launches, "gpu": gpu_name_and_power()})
+    # the parity part's checks, after every part has printed its line
+    if not parity["first_logits_max_abs_diff_pinned"] <= parity["tol"]:
+        fail(f"moe parity: first-token logits differ by "
+             f"{parity['first_logits_max_abs_diff_pinned']} > {parity['tol']} on the same routes")
+    if ok_first != parity["requests"]:
+        fail("moe parity: a first token differs between kernels and plain versions beyond a "
+             "near-tie, on the same routes")
+    if min(tp_launches["flash_attention_bwd"], tp_launches["rmsnorm_bwd"]) <= 0:
+        fail(f"moe train_parity: K1's or K3's backward was not launched: {tp_launches}")
+    return {"serve": serve["launches"],
+            "simulate": {k: sim["prefill"]["profiling_launches"][k]
+                         + sim["decode"]["profiling_launches"][k] for k in tp_launches},
+            "train_parity": tp_launches, "serve_rec": serve, "train_parity_rec": tp}
+
+
 KERNEL_INFO = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:104"),
@@ -2342,11 +2801,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,serve,parity,train,train_parity,simulate,"
-                            "serve_sim,sweep",
+                            "serve_sim,sweep,moe",
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
-                         "train_parity,simulate,serve_sim,sweep (and times, the serving-shape "
-                         "timings alone; serve_measure, the measured side of serve_sim alone); "
-                         "the closing lines are printed only when the ten of the default ran")
+                         "train_parity,simulate,serve_sim,sweep,moe (and times, the "
+                         "serving-shape timings alone; serve_measure, the measured side of "
+                         "serve_sim alone); the closing lines are printed only when the "
+                         "eleven of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -2408,8 +2868,10 @@ def main(argv=None) -> int:
     sim = phase_simulate(train) if "simulate" in phases else None
     serve_sim = phase_serve_sim() if "serve_sim" in phases else None
     swept = phase_sweep() if "sweep" in phases else None
+    moe = phase_moe() if "moe" in phases else None
     if (main_recs is None or counts is None or "parity" not in phases or train is None
-            or train_parity is None or sim is None or serve_sim is None or swept is None):
+            or train_parity is None or sim is None or serve_sim is None or swept is None
+            or moe is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
@@ -2438,6 +2900,10 @@ def main(argv=None) -> int:
                "simulate_launches": sim_launches[name],
                "serve_sim_launches": serve_sim["profiling"]["launches"].get(name, 0),
                "sweep_launches": swept["launches"][name],
+               # olmoe-1b-7b: serving (forward kernels), the profiling engine's
+               # measurements, and the 4-layer train step through the kernels
+               "moe_launches": {part: moe[part][name]
+                                for part in ("serve", "simulate", "train_parity")},
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2454,6 +2920,12 @@ def main(argv=None) -> int:
             price = sim["train"]["bwd_attention_us_a_layer"]
             rec["simulate_price_us_a_layer"] = price
             rec["simulate_price_vs_device_ms"] = price / 1e3 / r["device_ms"] - 1.0
+        moe_rec = main_recs.get(f"moe_{name}")
+        if moe_rec is not None:
+            # the same kernel at olmoe-1b-7b's serving shape
+            rec["moe_shape"] = {k: moe_rec[k] for k in (
+                "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")}
         if name in TRAIN_ONLY:
             rec["note"] = TRAIN_ONLY[name]
         kernels.append(rec)

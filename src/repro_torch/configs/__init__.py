@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolves through here.
 
 ``ARCH_IDS`` lists only what the port can run today: the four dense decoders
-(block kind ``attn_ffn``).  The reference's six other families arrive with
-their layers in later slices.
+(block kind ``attn_ffn``) and the MoE decoder with GQA attention (olmoe, block
+kind ``moe_attn_ffn``).  The reference's other families (MLA MoE, hybrid,
+SSM, audio, VLM) arrive with their layers in later slices.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ _ARCH_MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "gemma-7b": "gemma_7b",
     "yi-34b": "yi_34b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

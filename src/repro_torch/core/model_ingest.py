@@ -301,7 +301,7 @@ def _fake_layer_params(cfg: ModelConfig, kind: str):
 def _full_fn(cfg: ModelConfig, kind: str):
     def fwd_fn(p, x, pend, positions):
         aux = {"positions": positions, "cache_len": 0, "plain": True}
-        h, f, _ = apply_block_full(cfg, kind, p, x, pend, aux, False)
+        h, f, _, _ = apply_block_full(cfg, kind, p, x, pend, aux, False)
         return h, f
     return fwd_fn
 
@@ -317,8 +317,10 @@ def _decode_fn(cfg: ModelConfig, kind: str):
 def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
                  *, cache_len: int = 0) -> ModelGraphs:
     """Trace one graph per distinct block kind (+ embed/head).  Only the
-    dense decoders are ported (``block_cycle`` rejects the other families),
-    so there is no encoder graph."""
+    dense decoders and the GQA MoE decoders are ported (``block_cycle``
+    rejects the other families), so there is no encoder graph.  The MoE
+    block's expert products are tagged ``moe_expert`` by ``_tag_moe``, as in
+    the reference."""
     cycle, n_cycles, tail = block_cycle(cfg)
     counts: dict[int, int] = {}
     kinds: dict[int, str] = {}

@@ -1,5 +1,5 @@
 """Decode-cache construction (counterpart of ``repro/models/kvcache.py``) for
-the ``attn_ffn`` ring caches.
+the ring caches of the ``attn_ffn`` and ``moe_attn_ffn`` blocks.
 
 Layout: ``cache["blocks"]`` is a list with one ``{"k", "v"}`` a layer, each
 ``(B, T, Hkv, D)`` as in the reference (which stacks them over depth), plus
@@ -21,7 +21,7 @@ CacheCreator = Callable[..., object]  # creator(shape, dtype) -> leaf
 
 def _kind_cache(cfg: ModelConfig, kind: str, c: CacheCreator, batch: int, cache_len: int):
     dt = torch_dtype(cfg.dtype)
-    if kind == "attn_ffn":
+    if kind in ("attn_ffn", "moe_attn_ffn"):
         shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
         return {"k": c(shape, dt), "v": c(shape, dt)}
     raise ValueError(kind)

@@ -1,4 +1,5 @@
-"""Core neural layers, dense subset (counterpart of ``repro/models/layers.py``).
+"""Core neural layers: the dense and GQA-MoE subset (counterpart of
+``repro/models/layers.py``).
 
 Everything is functional: ``apply(params, x, ...) -> y``.  The reference's
 logical sharding constraints are dropped: this slice runs on one device.
@@ -226,3 +227,92 @@ def ffn(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(linear(p["up"], x), approximate="tanh")
     return linear(p["down"], h)
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (capacity-factor, sort-based dispatch)
+# --------------------------------------------------------------------------
+#
+# Plain torch, as the reference's is plain lax (no Pallas kernel): the expert
+# products are batched matrix products, the dispatch and combine sorts,
+# gathers and scatters.  Every shape is static (no boolean-mask indexing, no
+# ``nonzero``, no host read), so the dispatch traces over FakeTensors and runs
+# on the card without a host sync.
+
+
+def _moe_dispatch(cfg, xf: torch.Tensor, router_w: torch.Tensor, cap: int):
+    """Local sort-based top-k dispatch.  xf: (T, D) -> buf (E, cap, D) plus
+    combine metadata ``(order, sorted_ids, pos, keep, gate_vals)`` and the
+    Switch load-balancing aux loss.
+
+    The reference scatters with ``mode="drop"``, so a (token, k) choice past
+    its expert's capacity writes nothing.  Here the choices are added into a
+    zero buffer (``index_add``, one launch): a kept choice owns its row, and a
+    dropped one adds exact zeros to its expert's last row.  Each row then
+    holds one value plus zeros, so the sum is that value whatever the order
+    of the adds, and the buffer is the reference's bit for bit."""
+    T, D = xf.shape
+    E, K = cfg.num_experts, cfg.top_k
+    logits = xf.float() @ router_w.float()                         # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, ids = torch.topk(probs, K, dim=-1)                   # (T, K)
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True), 1e-9)
+    onehot = (ids[:, :1] == torch.arange(E, device=ids.device)).float()
+    aux = E * torch.mean(onehot.mean(0) * probs.mean(0)) * cfg.router_aux_coef
+
+    flat_ids = ids.reshape(-1)                                      # (T*K,)
+    order = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids[order]
+    seg_start = torch.searchsorted(sorted_ids, sorted_ids, side="left")
+    pos = torch.arange(T * K, device=xf.device) - seg_start         # position within expert
+    keep = pos < cap
+    xs = xf[order // K]
+    rows = sorted_ids * cap + torch.clamp(pos, max=cap - 1)
+    buf = torch.zeros((E * cap, D), dtype=xf.dtype, device=xf.device)
+    buf = buf.index_add(0, rows, torch.where(keep[:, None], xs, 0.0))
+    return buf.view(E, cap, D), (order, sorted_ids, pos, keep, gate_vals), aux
+
+
+def _moe_combine(eo: torch.Tensor, meta, T: int, K: int, dtype):
+    """Each (token, k) choice's expert output, weighted by its gate and summed
+    over k.  As in the reference the gate product is rounded to the expert
+    output's type; the sum over k then accumulates in float32 and rounds once
+    (torch's reduction of a bf16 tensor), where XLA rounds at its own places:
+    the layer-level bf16 test holds the two within its tolerance."""
+    order, sorted_ids, pos, keep, gate_vals = meta
+    D = eo.shape[-1]
+    back = eo[sorted_ids, torch.where(keep, pos, 0)] * keep[:, None].to(eo.dtype)
+    unsorted = torch.zeros(back.shape, dtype=back.dtype, device=back.device)
+    unsorted = unsorted.index_put((order,), back)                   # (T*K, D)
+    return (unsorted.reshape(T, K, D) * gate_vals[..., None].to(eo.dtype)).sum(1).to(dtype)
+
+
+def _expert_mlp(p: dict, buf: torch.Tensor, dtype) -> torch.Tensor:
+    """(E, C, D) x per-expert SwiGLU weights (E, D, F) -> (E, C, D): three
+    batched products (the reference's ``ecd,edf->ecf`` and ``ecf,efd->ecd``)."""
+    g = torch.bmm(buf, p["gate"].to(dtype))
+    u = torch.bmm(buf, p["up"].to(dtype))
+    return torch.bmm(F.silu(g) * u, p["down"].to(dtype))
+
+
+def moe_capacity(cfg, tokens: int) -> int:
+    """Rows an expert takes in one call of ``tokens`` tokens."""
+    return max(int(math.ceil(tokens * cfg.top_k / cfg.num_experts * cfg.capacity_factor)), 4)
+
+
+def moe_ffn(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts on one device.  Returns (output, router_aux_loss).
+
+    This is the reference's single-device path: every token is dispatched
+    locally and every expert runs here.  Its ``shard_map``/``all_to_all``
+    expert-parallel path needs a device mesh, which the port does not have yet
+    (it comes with the sharding rule table)."""
+    B, S, D = x.shape
+    K = cfg.top_k
+    xf = x.reshape(B * S, D)
+    buf, meta, aux = _moe_dispatch(cfg, xf, p["router"]["w"], moe_capacity(cfg, B * S))
+    eo = _expert_mlp(p["experts"], buf, x.dtype)
+    out = _moe_combine(eo, meta, B * S, K, x.dtype).reshape(B, S, D)
+    if cfg.num_shared_experts > 0:
+        out = out + ffn(cfg, p["shared"], x)
+    return out, aux

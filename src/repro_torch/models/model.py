@@ -1,4 +1,5 @@
-"""Model assembly for the dense decoders (counterpart of ``repro/models/model.py``).
+"""Model assembly for the dense decoders and the GQA MoE decoders (counterpart
+of ``repro/models/model.py``).
 
 ``Model`` exposes:
   * ``init(generator)``                    — concrete params on the model's device
@@ -137,7 +138,9 @@ def gqa_decode(cfg, p, x, pos, cache, *, rope=True, positions=None, rope_tables=
 
 
 def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
-    """Returns (h, f, cache_out_or_None)."""
+    """Returns (h, f, cache_out_or_None, aux_loss): ``aux_loss`` is the MoE
+    router's load-balancing loss, None for the dense block (the reference's
+    zero, left out so that the dense path launches nothing for it)."""
     positions = aux["positions"]
     plain = aux.get("plain", False)
     cache_len = aux.get("cache_len", 0)
@@ -154,12 +157,15 @@ def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
         vc[:, :S] = v
         return {"k": kc, "v": vc}
 
-    if kind == "attn_ffn":
+    if kind in ("attn_ffn", "moe_attn_ffn"):
         h, x = L.add_norm(cfg, p["ln1"], h, pending, plain=plain)
         a, (k, v) = gqa_full(cfg, p["attn"], x, positions, rope_tables=aux.get("rope_tables"),
                              plain=plain)
         h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
-        return h, L.ffn(cfg, p["mlp"], x), kv_cache(k, v)
+        if kind == "moe_attn_ffn":
+            f, aux_loss = L.moe_ffn(cfg, p["moe"], x)
+            return h, f, kv_cache(k, v), aux_loss
+        return h, L.ffn(cfg, p["mlp"], x), kv_cache(k, v), None
 
     raise ValueError(kind)
 
@@ -170,12 +176,14 @@ def apply_block_decode(cfg, kind, p, h, pending, cache, aux):
     positions = aux.get("decode_positions")
     plain = aux.get("plain", False)
 
-    if kind == "attn_ffn":
+    if kind in ("attn_ffn", "moe_attn_ffn"):
         h, x = L.add_norm(cfg, p["ln1"], h, pending, plain=plain)
         a, c = gqa_decode(cfg, p["attn"], x, pos, cache, positions=positions,
                           rope_tables=aux.get("rope_tables"), indices=aux.get("indices"),
                           plain=plain)
         h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
+        if kind == "moe_attn_ffn":
+            return h, L.moe_ffn(cfg, p["moe"], x)[0], c
         return h, L.ffn(cfg, p["mlp"], x), c
 
     raise ValueError(kind)
@@ -223,8 +231,7 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, device=None, *, remat_policy: str = "none",
                  plain_kernels: bool = False):
-        if cfg.family != "dense":
-            raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
+        layer_kinds(cfg)        # raises for a family that is not ported yet
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r}: one of {REMAT_POLICIES}")
         self.cfg = cfg
@@ -268,11 +275,14 @@ class Model:
 
     # ---- full-sequence stack ----
     def _block(self, kind, p, aux, h, pending):
-        return apply_block_full(self.cfg, kind, p, h, pending, aux, False)[:2]
+        h, f, _, aux_loss = apply_block_full(self.cfg, kind, p, h, pending, aux, False)
+        return h, f, aux_loss
 
     def _run_stack(self, params, h, aux, collect_cache):
-        """Returns (h, f, caches): the stack's output is ``h + f``."""
-        caches, f = [], None
+        """Returns (h, f, aux_loss, caches): the stack's output is ``h + f``;
+        ``aux_loss`` is the sum of the blocks' router losses, in layer order,
+        as the reference's scan carries it (None where no block has one)."""
+        caches, f, aux_loss = [], None, None
         remat = (self.remat_policy != "none" and not collect_cache and torch.is_grad_enabled())
         for kind, p in zip(self.kinds, params["blocks"]):
             if remat:
@@ -280,13 +290,15 @@ class Model:
                 if self.remat_policy == "dots":
                     kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                          _save_dots)
-                h, f = checkpoint(functools.partial(self._block, kind, p, aux), h, f,
-                                  use_reentrant=False, **kw)
+                h, f, al = checkpoint(functools.partial(self._block, kind, p, aux), h, f,
+                                      use_reentrant=False, **kw)
                 caches.append(None)
-                continue
-            h, f, c_out = apply_block_full(self.cfg, kind, p, h, f, aux, collect_cache)
-            caches.append(c_out)
-        return h, f, caches
+            else:
+                h, f, c_out, al = apply_block_full(self.cfg, kind, p, h, f, aux, collect_cache)
+                caches.append(c_out)
+            if al is not None:
+                aux_loss = al if aux_loss is None else aux_loss + al
+        return h, f, aux_loss, caches
 
     def _final_norm(self, params, h, f):
         return L.apply_norm(self.cfg, params["final_norm"], h, residual=f,
@@ -295,7 +307,8 @@ class Model:
     # ---- public entry points ----
     def forward(self, params, batch):
         """Full-sequence forward.  batch: tokens (B,S)[, positions].  Returns
-        (logits, aux_loss); the auxiliary loss is 0 for the dense families.
+        (logits, aux_loss): the MoE router's load-balancing loss summed over
+        the layers, 0 for the dense families.
         Recorded by autograd where grad mode is on and a parameter requires
         grad (call it under ``torch.no_grad()`` for inference)."""
         tokens = self._tokens(batch)
@@ -303,9 +316,11 @@ class Model:
         positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))
         aux = self._aux(positions)
         h = self._embed(params, tokens)
-        h, f, _ = self._run_stack(params, h, aux, collect_cache=False)
+        h, f, aux_loss, _ = self._run_stack(params, h, aux, collect_cache=False)
         h = self._final_norm(params, h, f)
-        return self._logits(params, h), torch.zeros((), dtype=torch.float32, device=self.device)
+        if aux_loss is None:
+            aux_loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        return self._logits(params, h), aux_loss
 
     @torch.no_grad()
     def prefill(self, params, batch, cache_len: int):
@@ -315,7 +330,7 @@ class Model:
         positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))
         aux = self._aux(positions, cache_len=cache_len)
         h = self._embed(params, tokens)
-        h, f, caches = self._run_stack(params, h, aux, collect_cache=True)
+        h, f, _, caches = self._run_stack(params, h, aux, collect_cache=True)
         h = self._final_norm(params, h, f)
         logits = self._logits(params, h[:, -1:])
         cache = {"blocks": caches,

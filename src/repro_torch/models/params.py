@@ -1,5 +1,6 @@
 """Parameter-tree construction (counterpart of ``repro/models/params.py``), for the
-``attn_ffn`` block of the dense decoders.
+``attn_ffn`` block of the dense decoders and the ``moe_attn_ffn`` block of the
+MoE decoders with GQA attention.
 
 One function (``build_params``) drives its consumers through a creator
 callback: concrete init (``init_params``) and parameter counts
@@ -26,8 +27,13 @@ def block_cycle(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
     """Return (cycle_kinds, n_cycles, tail_kinds) for the decoder stack."""
     if cfg.family == "dense":
         cycle = ("attn_ffn",)
+    elif cfg.family == "moe" and cfg.attention != "mla":
+        cycle = ("moe_attn_ffn",)
+    elif cfg.family == "moe":
+        raise ValueError("family 'moe' with MLA attention (block kind 'mla_moe') is not "
+                         "ported yet: it comes with the MLA slice")
     else:
-        raise ValueError(f"family {cfg.family!r} is not ported yet (dense only)")
+        raise ValueError(f"family {cfg.family!r} is not ported yet (dense and GQA MoE only)")
     n = cfg.num_layers // len(cycle)
     tail_len = cfg.num_layers - n * len(cycle)
     return cycle, n, cycle[:tail_len]
@@ -55,13 +61,29 @@ def _gqa_attn(cfg, c: Creator, path):
     return p
 
 
-def _mlp(cfg, c: Creator, path):
-    D, F = cfg.d_model, cfg.d_ff
+def _mlp(cfg, c: Creator, path, d_ff=None):
+    D = cfg.d_model
+    F = d_ff if d_ff is not None else cfg.d_ff
     p = {}
     if cfg.act in ("swiglu", "geglu"):
         p["gate"] = {"w": c(path + ("gate", "w"), (D, F), D)}
     p["up"] = {"w": c(path + ("up", "w"), (D, F), D)}
     p["down"] = {"w": c(path + ("down", "w"), (F, D), F)}
+    return p
+
+
+def _moe(cfg, c: Creator, path):
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    p = {
+        "router": {"w": c(path + ("router", "w"), (D, E), D)},
+        "experts": {
+            "gate": c(path + ("experts", "gate"), (E, D, F), D),
+            "up": c(path + ("experts", "up"), (E, D, F), D),
+            "down": c(path + ("experts", "down"), (E, F, D), F),
+        },
+    }
+    if cfg.num_shared_experts > 0:
+        p["shared"] = _mlp(cfg, c, path + ("shared",), cfg.moe_d_ff * cfg.num_shared_experts)
     return p
 
 
@@ -74,7 +96,16 @@ def _attn_ffn(cfg, c: Creator, path):
     }
 
 
-BLOCK_PARAMS = {"attn_ffn": _attn_ffn}
+def _moe_attn_ffn(cfg, c: Creator, path):
+    return {
+        "ln1": _norm(cfg, c, path + ("ln1",)),
+        "attn": _gqa_attn(cfg, c, path + ("attn",)),
+        "ln2": _norm(cfg, c, path + ("ln2",)),
+        "moe": _moe(cfg, c, path + ("moe",)),
+    }
+
+
+BLOCK_PARAMS = {"attn_ffn": _attn_ffn, "moe_attn_ffn": _moe_attn_ffn}
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -121,12 +152,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, dtype=None
 
 @functools.lru_cache(maxsize=512)
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Total parameter count (``active_only`` matters for MoE only; the dense
-    families count the same either way)."""
+    """Total parameter count; ``active_only`` counts the top-k routed experts
+    only (the MoE's active parameters, ``MODEL_FLOPS = 6 * N_active * D``),
+    scaling each expert leaf by ``top_k / num_experts`` as the reference does.
+    The dense families count the same either way."""
     total = [0]
 
     def c(path, shape, fan_in):
-        total[0] += math.prod(shape)
+        n = math.prod(shape)
+        if active_only and "experts" in path:
+            n = n * (cfg.top_k / cfg.num_experts)
+        total[0] += n
         return None
 
     build_params(cfg, c)

@@ -16,15 +16,24 @@ explained in ``PERF.md``:
   for a lookup, as ``jnp.take`` is a ``jit`` call its tracer does not
   inline, and fuses the train loss's log-softmax into one node where the
   port writes the float32 log-probabilities, as eager torch does).
+* ``REST_BYTES["moe_joint"]``: olmoe's MoE block in the train joint graph,
+  0.45-1.10 (measured 0.507).  The reference's autodiff of the dispatch's and
+  the combine's gathers and scatters writes float32 buffers of the (E, cap, D)
+  and (T*K, D) shapes: 45.9 of the 93.6 GB of its remainder, where the port's
+  autograd keeps them in bf16 (0.4 GB of float32 in 47.5 GB).  The forward
+  graphs of that block are held to the ``block`` bounds (measured 0.928-0.939).
 * ``REST_NODES``: the remainder's node counts over the reference's,
-  0.50-1.25 (measured 0.57-1.18).
+  0.50-1.25 (measured 0.57-1.18; olmoe 0.66-0.72).
 * ``TOTAL_FLOPS``: all flops within 0.1 % (measured at most 0.049 %:
   elementwise flops differ).
 
 In the train joint graph, torch's ``mm`` backward forms a weight gradient
 as ``x^T @ dy``; for three products of a block (two of them the k/v weights)
 JAX forms the transposed product, so their ``mm_dims`` have M and N swapped:
-those are compared as unordered (M, N) pairs with K and flops exact.
+those are compared as unordered (M, N) pairs with K and flops exact.  In the
+MoE block JAX also transposes the three expert weights' batched gradients;
+their M folds in the E experts, so the pair compared is the per-expert
+(M / E, N), with E, K and flops exact.
 """
 import collections
 
@@ -40,7 +49,7 @@ from repro_torch.configs import ARCH_IDS, get_config as t_config
 from repro_torch.core import model_ingest as t_ingest, stubs, tracer as t_tracer
 from repro_torch.core.ir import Graph as TGraph
 
-REST_BYTES = {"block": (0.60, 1.10), "head": (0.60, 2.20)}
+REST_BYTES = {"block": (0.60, 1.10), "head": (0.60, 2.20), "moe_joint": (0.45, 1.10)}
 REST_NODES = (0.50, 1.25)
 TOTAL_FLOPS = 1e-3
 SHAPES = {"train": (8, 2048, 0), "prefill": (1, 512, 0), "decode": (8, 1, 2048)}
@@ -50,7 +59,13 @@ CORE = ("matmul", "attention")
 def _core_key(n, *, unordered_mn=False):
     mm = n.attrs.get("mm_dims")
     if mm is not None and unordered_mn:
-        mm = (tuple(sorted(mm[:2])), mm[2])
+        if n.attrs.get("moe_expert") and len(n.out_shape) == 3:
+            # a batched expert product: M holds the E batch, so the swap is
+            # of the per-expert (M, N)
+            e = n.out_shape[0]
+            mm = (e, tuple(sorted((mm[0] // e, mm[1]))), mm[2])
+        else:
+            mm = (tuple(sorted(mm[:2])), mm[2])
     return (n.kind, mm, n.attrs.get("attn_dims"), n.flops, n.repeat, n.phase)
 
 
@@ -94,7 +109,7 @@ def test_block_graphs_match_the_reference(arch, mode):
             else:
                 assert _core(rg, unordered_mn=True) == _core(tg, unordered_mn=True), where
                 swapped = sum((_core(tg) - _core(rg)).values())
-                assert swapped <= 3, where
+                assert swapped <= (6 if rb.kind == "moe_attn_ffn" else 3), where
             for n in tg:
                 if n.kind == "attention":
                     assert n.attrs["G"] == t_config(arch).q_per_kv
@@ -102,10 +117,38 @@ def test_block_graphs_match_the_reference(arch, mode):
             assert core_flops[0] == core_flops[1], where
             assert tg.total("flops") == pytest.approx(rg.total("flops"), rel=TOTAL_FLOPS), where
             (rn, rbytes), (tn, tbytes) = _rest(rg), _rest(tg)
-            lo, hi = REST_BYTES[part]
+            lo, hi = REST_BYTES["moe_joint" if rb.kind == "moe_attn_ffn" and which == "joint"
+                                else part]
             assert lo <= tbytes / rbytes <= hi, where
             lo, hi = REST_NODES
             assert lo <= tn / rn <= hi, where
+
+
+@pytest.mark.parametrize("mode", ["train", "prefill", "decode"])
+def test_moe_expert_tags_match_the_reference(mode):
+    """``_tag_moe`` tags the same batched expert products in both packages
+    (three forward, six more in the joint graph).  The one difference: JAX
+    forms the router's weight gradient transposed, (E, D), which the
+    reference's rule (``out_shape[0] == E``) also tags; torch forms it (D, E)."""
+    r, t = graphs("olmoe-1b-7b", mode)
+    cfg = t_config("olmoe-1b-7b")
+    for rb, tb in zip(r.blocks, t.blocks):
+        for which in ("fwd", "joint"):
+            rg, tg = getattr(rb, which), getattr(tb, which)
+            if rg is None:
+                continue
+
+            def tagged(g, ndim):
+                return collections.Counter((tuple(sorted(n.out_shape[1:])), n.flops) for n in g
+                                           if n.attrs.get("moe_expert") and len(n.out_shape) == ndim)
+
+            assert tagged(rg, 3) == tagged(tg, 3)
+            assert sum(tagged(tg, 3).values()) == (9 if which == "joint" else 3)
+            assert not tagged(tg, 2)
+            assert sum(tagged(rg, 2).values()) == (1 if which == "joint" else 0)
+            if which == "joint":
+                (shape, _), = tagged(rg, 2)
+                assert shape == (cfg.d_model,)
 
 
 def test_decode_block_writes_its_cache_rows_as_the_reference_does():
@@ -295,6 +338,38 @@ def test_ingest_extrapolation_verifies_and_extrapolates_as_the_reference():
             mod.ingest_extrapolation_clear()
     assert stats["port"] == stats["ref"]
     assert stats["port"]["extrapolated"] >= 2 and stats["port"]["traced"] <= 5
+
+
+@pytest.mark.parametrize("seq", [(1, 2, 4, 8, 16, 32, 64), (1, 2, 4, 32, 64, 8)],
+                         ids=["verified-before-cap-grows", "cap-grows-while-verifying"])
+def test_moe_ingest_extrapolation_reads_as_the_reference(seq):
+    """olmoe's decode capacity ``max(ceil(B*K/E*1.25), 4)`` is 4 up to B 25 and
+    grows after, so it is not affine in B.  Where a cap change meets the
+    verification (B 32 after anchors 2 and 4) both packages disable the
+    family.  Where it does not, both verify at B 8 and 16 and then extrapolate
+    B 32 and 64 with the anchors' cap of 4 (it is 5 and 10): a fault of the
+    reference kept for parity (ROADMAP queue C).  Either way the stats and
+    the graphs given are the reference's."""
+    got = {}
+    for name, mod, cfg in (("ref", r_ingest, r_config("olmoe-1b-7b")),
+                           ("port", t_ingest, t_config("olmoe-1b-7b"))):
+        mod.ingest_extrapolation_clear()
+        try:
+            caps = []
+            for B in seq:
+                g = mod.ingest_graphs(cfg, B, 1, "decode", cache_len=512)
+                caps.append(next(n.out_shape[1] for n in g.blocks[0].fwd
+                                 if n.kind == "elementwise" and len(n.out_shape) == 3
+                                 and n.out_shape[::2] == (cfg.num_experts, cfg.moe_d_ff)))
+            got[name] = (mod.ingest_extrapolation_stats(), caps)
+        finally:
+            mod.ingest_extrapolation_clear()
+    assert got["port"] == got["ref"]
+    stats, caps = got["port"]
+    if seq[4] == 16:
+        assert stats == {"extrapolated": 2, "traced": 5} and caps == [4] * 7
+    else:
+        assert stats == {"extrapolated": 0, "traced": 6} and caps == [4, 4, 4, 5, 10, 4]
 
 
 def test_ingest_key_is_the_reference_key():

@@ -18,13 +18,15 @@ from repro.configs import get_config as j_config, get_tiny_config as j_tiny
 from repro.models import Model as JModel, count_params as j_count
 from repro.models.kvcache import cache_bytes as j_cache_bytes
 from repro_torch.configs import ARCH_IDS, get_config as t_config, get_tiny_config as t_tiny
-from repro_torch.convert import from_reference_cache, from_reference_params
+from repro_torch.convert import from_reference_cache, from_reference_params, to_reference_params
 from repro_torch import kernels as K
 from repro_torch.models import Model as TModel, cache_bytes as t_cache_bytes, count_params as t_count
 from repro_torch.models import layers as TL, model as TM
 
 TOL = 1e-4
-FULL_COUNTS = {"phi4-mini-3.8b": 3_836_021_760, "gemma-7b": 8_537_680_896}
+FULL_COUNTS = {"phi4-mini-3.8b": 3_836_021_760, "gemma-7b": 8_537_680_896,
+               "olmoe-1b-7b": 6_919_096_320}
+ACTIVE_COUNTS = {"olmoe-1b-7b": 1_281_951_744}
 
 
 def to_np(tree):
@@ -72,10 +74,15 @@ def test_forward_matches_reference(arch):
     cj, ct, pj, pn = perturbed_reference_params(arch)
     pt = from_reference_params(pn, ct, "cpu")
     toks = tokens(cj, 2, 24)
-    want, _ = JModel(cj).forward(pj, {"tokens": jnp.asarray(toks)})
+    want, want_aux = JModel(cj).forward(pj, {"tokens": jnp.asarray(toks)})
     got, aux = TModel(ct, "cpu").forward(pt, {"tokens": toks})
     assert got.shape == (2, 24, ct.vocab_size) and got.dtype == torch.float32
-    assert float(aux) == 0.0
+    assert aux.shape == () and aux.dtype == torch.float32
+    if ct.is_moe:     # the router's load-balancing loss, summed over the layers
+        assert float(want_aux) > 0.0
+        assert float(aux) == pytest.approx(float(want_aux), rel=TOL, abs=TOL * 1e-3)
+    else:
+        assert float(aux) == float(want_aux) == 0.0
     close(got, want)
 
 
@@ -119,6 +126,10 @@ def test_prefill_decode_match_forward_inside_the_port(arch):
     """Twin of test_archs.py::test_prefill_decode_match_forward, in the
     config's own bfloat16 and with the port's own init."""
     cfg = t_tiny(arch)
+    if cfg.num_experts:
+        # as the twin does: capacity depends on the tokens of a call, so only
+        # a capacity no choice exceeds makes the three calls route alike
+        cfg = cfg.replace(capacity_factor=float(cfg.num_experts))
     m = TModel(cfg, "cpu")
     params = m.init(torch.Generator().manual_seed(0))
     B, S = 2, 12
@@ -165,6 +176,9 @@ def test_count_params_equal_on_full_configs(arch):
     assert n == t_config(arch).param_count()
     if arch in FULL_COUNTS:
         assert n == FULL_COUNTS[arch]
+    active = t_count(t_config(arch), active_only=True)
+    assert active == j_count(j_config(arch), active_only=True)
+    assert active == ACTIVE_COUNTS.get(arch, n)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -177,6 +191,45 @@ def test_from_reference_params_rejects_a_tree_of_another_config():
     _, _, _, pn = perturbed_reference_params("gemma-7b")
     with pytest.raises(ValueError):
         from_reference_params(pn, t_tiny("qwen2.5-32b"), "cpu")     # qwen has biases, other widths
+
+
+def test_moe_tree_round_trips_and_rejects_other_configs():
+    cj, ct, pj, pn = perturbed_reference_params("olmoe-1b-7b")
+    pt = from_reference_params(pn, ct, "cpu")
+    blk = pt["blocks"][1]["moe"]
+    E, D, F = ct.num_experts, ct.d_model, ct.moe_d_ff
+    assert blk["router"]["w"].shape == (D, E)
+    assert blk["experts"]["gate"].shape == blk["experts"]["up"].shape == (E, D, F)
+    assert blk["experts"]["down"].shape == (E, F, D)
+    assert np.array_equal(blk["experts"]["down"].numpy(),
+                          pn["blocks"]["cycle"][0]["moe"]["experts"]["down"][1])
+    back = to_reference_params(pt, ct)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(pn)):
+        assert np.array_equal(a, b)
+    with pytest.raises(ValueError):
+        from_reference_params(pn, t_tiny("phi4-mini-3.8b"), "cpu")        # a dense config
+    with pytest.raises(ValueError):
+        from_reference_params(pn, ct.replace(num_experts=4), "cpu")       # other widths
+    _, _, _, dense = perturbed_reference_params("phi4-mini-3.8b")
+    with pytest.raises(ValueError):
+        from_reference_params(dense, ct, "cpu")
+
+
+def test_cache_of_another_config_is_rejected():
+    cj, ct, pj, pn = perturbed_reference_params("olmoe-1b-7b")
+    _, cache_j = JModel(cj).prefill(pj, {"tokens": jnp.asarray(tokens(cj, 2, 8))}, cache_len=12)
+    np_cache = to_np(cache_j)
+    assert from_reference_cache(np_cache, ct, "cpu")["blocks"][0]["k"].shape == (2, 12, 4, 16)
+    with pytest.raises(ValueError):
+        from_reference_cache(np_cache, ct.replace(num_kv_heads=2), "cpu")
+
+
+def test_mla_moe_is_left_to_its_own_slice():
+    cfg = t_tiny("olmoe-1b-7b").replace(attention="mla")
+    with pytest.raises(ValueError, match="MLA"):
+        TModel(cfg, "cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        TModel(cfg.replace(family="ssm"), "cpu")
 
 
 def test_init_params_shapes_dtypes_and_statistics():
@@ -202,12 +255,14 @@ def test_init_params_shapes_dtypes_and_statistics():
 
 def _unfused(m, params, tokens, attend):
     """The block as it reads in the reference: ``h = h + a``, then ``h = h +
-    ffn(norm(h))``, each add a pass of its own, and the norm of ``h``."""
+    ffn(norm(h))`` (the MoE block's ``moe_ffn``), each add a pass of its own,
+    and the norm of ``h``."""
     cfg = m.cfg
     h = m._embed(params, tokens)
     for i, p in enumerate(params["blocks"]):
         h = h + attend(i, p["attn"], TL.apply_norm(cfg, p["ln1"], h))
-        h = h + TL.ffn(cfg, p["mlp"], TL.apply_norm(cfg, p["ln2"], h))
+        x = TL.apply_norm(cfg, p["ln2"], h)
+        h = h + (TL.moe_ffn(cfg, p["moe"], x)[0] if "moe" in p else TL.ffn(cfg, p["mlp"], x))
     return TL.apply_norm(cfg, params["final_norm"], h)
 
 

@@ -567,3 +567,30 @@ def test_default_context_spawns_once_cuda_is_initialised(monkeypatch, cuda_up, w
     assert TP.default_context() == want
     # the reference's rule, which knows nothing of CUDA
     assert RP.default_context() == ("fork" if "fork" in mp.get_all_start_methods() else "spawn")
+
+
+def test_moe_sweep_derives_ep_as_the_reference():
+    """An MoE model's expert parallelism follows tp unless ep is an axis: the
+    derived specs, and each package's own analytical reports of them (the
+    expert-parallel pass, its all_to_all pair), equal the reference's."""
+    kw = dict(model="olmoe-1b-7b", chips=8, workload=lambda A: A.DecodeWorkload(
+        global_batch=8, seq_len=2048))
+    sp = {name: PKGS[name][0].SweepSpace(pkg_spec(name, **kw), {"tp": (1, 2, 4, 8)})
+          for name in PKGS}
+    pts = {name: list(s.points()) for name, s in sp.items()}
+    assert [p.parallel.ep for p in pts["port"]] == [p.parallel.ep for p in pts["ref"]] == \
+        [1, 2, 4, 8]
+    assert [p.json_hash() for p in pts["port"]] == [p.json_hash() for p in pts["ref"]]
+    res = {"ref": RA.sweep(sp["ref"], sim=RSim("h100_sxm")),
+           "port": sweep(sp["port"], sim=Simulator("h100_sxm"))}
+    by = {name: {r.spec.parallel.tp: r.report for r in res[name].evaluated} for name in res}
+    assert sorted(by["port"]) == sorted(by["ref"]) == [1, 2, 4, 8]
+    for tp, t in by["port"].items():
+        r = by["ref"][tp]
+        assert t.kind_us.get("all_to_all", 0.0) == pytest.approx(
+            r.kind_us.get("all_to_all", 0.0), rel=1e-12)
+        assert t.kind_us["matmul"] == pytest.approx(r.kind_us["matmul"], rel=1e-12)
+        assert t.step_time_us == pytest.approx(r.step_time_us, rel=STEP_TOL)
+    assert "all_to_all" not in by["port"][1].kind_us and by["port"][8].kind_us["all_to_all"] > 0
+    explicit = SweepSpace(pkg_spec("port", **kw), {"tp": (2,), "ep": (1,)})
+    assert [p.parallel.ep for p in explicit.points()] == [1]

@@ -155,7 +155,7 @@ def test_int8_compression_equals_the_reference_per_stacked_leaf():
     assert maybe_compress(got, "none") is got
 
 
-# ---------------- the loss step of each dense decoder against the reference ----------------
+# ---------------- the loss step of each decoder against the reference ----------------
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_loss_and_gradients_match_reference(arch):
@@ -170,18 +170,22 @@ def test_loss_and_gradients_match_reference(arch):
     gt = torch.autograd.grad(lt, tree_leaves(pt))
     close(float(lt.detach()), float(lj))
     close(float(mt["tokens"]), float(mj["tokens"]))
+    close(float(mt["ce"].detach()), float(mj["ce"]))
+    close(float(mt["aux_loss"].detach()), float(mj["aux_loss"]))      # 0 for the dense decoders
     want = port_leaves(jax.tree.map(np.asarray, gj), ct)
     assert len(gt) == len(want)
     for a, b in zip(gt, want):
         close(a.numpy(), b.numpy())
 
 
-# every (microbatches, compression) pair under each optimizer, spread over the four configs
+# every (microbatches, compression) pair under each optimizer, spread over the four dense
+# configs; then the MoE decoder under AdamW
 STEP_CASES = [
     ("phi4-mini-3.8b", "adamw", 1, "none"), ("phi4-mini-3.8b", "adafactor", 2, "int8"),
     ("gemma-7b", "adamw", 2, "int8"), ("gemma-7b", "adafactor", 1, "none"),
     ("qwen2.5-32b", "adamw", 1, "int8"), ("qwen2.5-32b", "adafactor", 2, "none"),
     ("yi-34b", "adamw", 2, "none"), ("yi-34b", "adafactor", 1, "int8"),
+    ("olmoe-1b-7b", "adamw", 1, "none"),
 ]
 
 
