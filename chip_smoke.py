@@ -15,7 +15,8 @@ Phases, each printing one JSON object on a line of its own:
            flash-attention libraries, forward and backward, 16-byte loads and
            stores in the rmsnorm one
   kernels  every kernel against its plain PyTorch version on the card, at the
-           shapes the serving path gives it and at edge shapes, in float32
+           shapes the serving path gives it (K1 also at MLA's (192, 128),
+           with both K/V ring depths timed) and at edge shapes, in float32
            (tolerance 2e-5: another order of summation) and bfloat16 (2e-2);
            the backward kernels of K1 and K3 at the train path's shapes and
            at edge shapes, on the same tolerances, against autograd in
@@ -110,6 +111,14 @@ Phases, each printing one JSON object on a line of its own:
            the port's own step, by op kind with the experts' products apart;
            (4) train_parity: the train step cut to 4 layers as train_parity
            does, the plain run on the kernel run's routes
+  mla      the MLA family (deepseek-v3-671b at full width: 128 heads, q/k
+           head dim 192 and v head dim 128 in the prefill's K1, 256 experts,
+           top 8, one shared expert), depth cut to 2 layers (what one card
+           holds), random bf16 weights from the seed, a line a part: (1)
+           serve as moe's (launches: K1 a layer a prefill, no K2, K3 4L+1 a
+           call; the expert products apart from the absorbed attention's in
+           the profiled step); (2) parity as moe's on these 2 layers; (3)
+           simulate as moe's, K1 at (192, 128) counted in the prefill
 
 `--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) and the
 train-shape backward of K1 and K3 of the tree at DIR (e.g. the parent
@@ -122,7 +131,8 @@ Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
 (the train phase for a backward kernel), in the train phase, by the
 profiling engine in the simulate, serve_sim and sweep phases and in the moe
-phase's parts, its timings at olmoe's shape where it has one, error, time,
+and mla phases' parts, its timings at olmoe's and deepseek's shapes where it
+has them, error, time,
 device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
 computes the same function; then the
@@ -293,51 +303,74 @@ def visible_pairs(Sq, Sk, causal, window) -> int:
     return int(visible_per_row(Sq, Sk, causal, window).sum())
 
 
-def flash_inputs(rng, *, B, H, Hkv, Sq, Sk, D, dtype, bshd):
+def flash_inputs(rng, *, B, H, Hkv, Sq, Sk, D, dtype, bshd, Dv=None):
+    """q, k (head dim D) and v (head dim Dv, default D)."""
+    Dv = D if Dv is None else Dv
     if bshd:   # the model's layout: strided views, as the serving path passes them
         return (randn(rng, (B, Sq, H, D), dtype).permute(0, 2, 1, 3),
                 randn(rng, (B, Sk, Hkv, D), dtype).permute(0, 2, 1, 3),
-                randn(rng, (B, Sk, Hkv, D), dtype).permute(0, 2, 1, 3))
+                randn(rng, (B, Sk, Hkv, Dv), dtype).permute(0, 2, 1, 3))
     return (randn(rng, (B, H, Sq, D), dtype), randn(rng, (B, Hkv, Sk, D), dtype),
-            randn(rng, (B, Hkv, Sk, D), dtype))
+            randn(rng, (B, Hkv, Sk, Dv), dtype))
 
 
-def flash_work(q, k, causal, window) -> tuple[float, float]:
+def flash_work(q, k, causal, window, v=None) -> tuple[float, float]:
     """(bytes, operations) the function needs: q, k, v read once, o written
-    once; 4 D operations a visible (q, k) pair."""
+    once; 2 (D + Dv) operations a visible (q, k) pair (v: a head dim of its
+    own, as MLA's; default k's)."""
     B, H, Sq, D = q.shape
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return nbytes, 4.0 * B * H * D * visible_pairs(Sq, k.shape[2], causal, window)
+    Dv = D if v is None else v.shape[-1]
+    nbytes = (q.numel() + k.numel() + (k.numel() + B * H * Sq * D) * Dv // D) * q.element_size()
+    return nbytes, 2.0 * B * H * (D + Dv) * visible_pairs(Sq, k.shape[2], causal, window)
 
 
 def sdpa_flash(q, k, v, causal):
     return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
 
 
-def check_flash(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, bshd=False):
-    from repro_torch.kernels import flash_attention, flash_attention_plain
-    q, k, v = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, dtype=dtype, bshd=bshd)
-    got = flash_attention(q, k, v, causal=causal, window=window)
+def check_flash(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, bshd=False,
+                Dv=None, lse=False):
+    """K1 against its plain version; ``Dv``: v's head dim apart from q's and
+    k's (MLA's (192, 128)); ``lse``: the LSE variant, its row log-sum-exp
+    held too (its error over max(1, |lse|))."""
+    from repro_torch.kernels import flash_attention, flash_attention_lse_plain
+    q, k, v = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, dtype=dtype, bshd=bshd,
+                           Dv=Dv)
+    row_lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda") if lse else None
+    got = flash_attention(q, k, v, causal=causal, window=window, lse=row_lse)
     torch.cuda.synchronize()
-    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    want, want_lse = flash_attention_lse_plain(q, k, v, causal=causal, window=window)
     rec = {"kernel": "flash_attention", "dtype": dt_name(dtype),
-           "case": f"B{B} H{H} Hkv{Hkv} Sq{Sq} Sk{Sk} D{D} causal{int(causal)} window{window}"
-                   + (" bshd" if bshd else ""),
+           "case": f"B{B} H{H} Hkv{Hkv} Sq{Sq} Sk{Sk} D{D}"
+                   + ("" if Dv is None else f" Dv{Dv}")
+                   + f" causal{int(causal)} window{window}"
+                   + (" bshd" if bshd else "") + (" lse" if lse else ""),
            "max_abs_err": max_err(got, want), "tol": TOL[dtype]}
+    if lse:
+        rec["lse_err"] = float(((row_lse - want_lse).abs() / want_lse.abs().clamp_min(1)).max())
+        rec["max_abs_err"] = max(rec["max_abs_err"], rec["lse_err"])
+    del want, want_lse
     if timed:
-        nbytes, flops = flash_work(q, k, causal, window)
+        nbytes, flops = flash_work(q, k, causal, window, v)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dtype)
         call = lambda: flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
         rec["ms"] = time_ms(call)
         rec["device_ms"] = device_ms(call)
         rec["plain_ms"] = time_ms(
-            lambda: flash_attention_plain(q, k, v, causal=causal, window=window), iters=5)
+            lambda: flash_attention_lse_plain(q, k, v, causal=causal, window=window)[0], iters=5)
         if window == 0 and (causal is False or Sq == Sk):
             rec["library_ms"] = time_ms(sdpa_flash(q, k, v, causal))
-            rec["library_device_ms"] = device_ms(sdpa_flash(q, k, v, causal))
+            by_kernel = device_ms_by_kernel(sdpa_flash(q, k, v, causal))
+            rec["library_device_ms"] = sum(by_kernel.values())
+            if Dv is not None:
+                # which of SDPA's backends ran: its flash backend takes one head dim
+                rec["library_kernels"] = [name[:100] for name in by_kernel]
         else:
             rec["library_ms"] = rec["library_device_ms"] = None
     return rec
+
+
+MLA_K1 = dict(B=1, H=128, Hkv=128, D=192, Dv=128, causal=True, window=0, bshd=True)
 
 
 def row_err(got, want, zero_rows=()) -> float:
@@ -867,6 +900,10 @@ def check_plans(recs_plans: dict) -> None:
         recs_plans[f"flash D{D}"] = theirs
         if mine != theirs:
             fail(f"flash_attention plan D={D}: wrapper {mine}, kernel {theirs}")
+    mine, theirs = fa.tile_plan(*fa.MLA_D), fa.kernel_plan(*fa.MLA_D)
+    recs_plans[f"flash D{fa.MLA_D[0]} Dv{fa.MLA_D[1]}"] = theirs
+    if mine != theirs:
+        fail(f"flash_attention plan {fa.MLA_D}: wrapper {mine}, kernel {theirs}")
     for D in fa.BWD_TC_D:
         mine, theirs = fa.bwd_tile_plan(D), fa.kernel_bwd_plan(D)
         recs_plans[f"flash_bwd D{D}"] = theirs
@@ -927,6 +964,24 @@ def phase_kernels():
                                 window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
         if dtype is bf16:
             main["moe_flash_attention"] = recs[-1]
+    # ... at deepseek-v3-671b's MLA prefill (q/k head dim 192, v 128, 128 heads, G=1):
+    # the serving shape, S 1 / 63 / 65 / 1024, Sq != Sk unmasked, G > 1, and the LSE variant
+    for dtype in (bf16, f32):
+        recs.append(check_flash(rng, **MLA_K1, Sq=1000, Sk=1000, dtype=dtype, timed=dtype is bf16))
+        if dtype is bf16:
+            main["mla_flash_attention"] = recs[-1]
+        for S in (1, 63, 65, 1024):
+            recs.append(check_flash(rng, **MLA_K1, Sq=S, Sk=S, dtype=dtype,
+                                    timed=dtype is bf16 and S == 1024))
+        mla_edge = [dict(B=1, H=8, Hkv=8, Sq=100, Sk=300, causal=False, window=0, bshd=False),
+                    dict(B=2, H=16, Hkv=4, Sq=333, Sk=333, causal=True, window=0, bshd=True),   # G=4
+                    dict(B=1, H=8, Hkv=2, Sq=200, Sk=200, causal=True, window=64, bshd=False)]
+        for e in mla_edge:
+            recs.append(check_flash(rng, **e, D=192, Dv=128, dtype=dtype, timed=False))
+        recs.append(check_flash(rng, **MLA_K1, Sq=1000, Sk=1000, dtype=dtype, timed=False,
+                                lse=True))
+        recs.append(check_flash(rng, B=2, H=16, Hkv=4, Sq=129, Sk=129, D=192, Dv=128, causal=True,
+                                window=0, dtype=dtype, timed=False, lse=True))
     # ... and at edge shapes
     for dtype in (bf16, f32):
         edge = [dict(B=2, H=24, Hkv=8, Sq=777, Sk=777, D=128, causal=True, window=0, bshd=True),  # batch, ragged
@@ -995,6 +1050,17 @@ def phase_kernels():
                                       residual=True, fused=True, timed=dtype is bf16 and R == 1000))
             if R == 1000 and dtype is bf16:
                 main["moe_rmsnorm"] = recs[-1]
+    # ... at deepseek-v3-671b's: ln1/ln2 at D 7168 (the sum written), MLA's q_norm at
+    # D 1536 and kv_norm at D 512 (no residual), its decode and prefill rows ...
+    for R in (8, 1000):
+        for dtype in (bf16, f32):
+            recs.append(check_rmsnorm(rng, R=R, D=7168, dtype=dtype, w_dtype=dtype, offset=False,
+                                      residual=True, fused=True, timed=dtype is bf16 and R == 1000))
+            if R == 1000 and dtype is bf16:
+                main["mla_rmsnorm"] = recs[-1]
+            for D in (1536, 512):
+                recs.append(check_rmsnorm(rng, R=R, D=D, dtype=dtype, w_dtype=dtype,
+                                          offset=False, residual=False, timed=False))
     # ... with the residual inside the kernel, the 1 + w form, fp32 w beside bf16 x, odd rows,
     # D not a multiple of the 16-byte vector, a base off 16 bytes, and D above the 12288 that a
     # shared-memory row allowed
@@ -1106,10 +1172,16 @@ SASS_WANTED = {"flash_attention": (r"HGMMA", r"UTMALDG"),
                "rmsnorm": (r"LDG\.E\.128", r"STG\.E\.128")}
 
 
+# the bf16 forward's instantiations at MLA's dims (mangled: flash_fwd_tc_kernel<192, 128,
+# lse>), each of which must hold the flash library's wanted instructions too
+MLA_TC_FUNCTION = re.compile(r"flash_fwd_tc_kernelILi192ELi128ELb(\d)E")
+
+
 def sass_check() -> dict:
-    """Counts of the ``SASS_WANTED`` instructions in each library; fails if
-    one is missing, so a K1 that quietly stopped using the tensor cores or
-    TMA, or a K3 that stopped moving 16 bytes a load, does not pass."""
+    """Counts of the ``SASS_WANTED`` instructions in each library, and in each
+    of K1's instantiations at MLA's dims on its own; fails if one is missing,
+    so a K1 that quietly stopped using the tensor cores or TMA, or a K3 that
+    stopped moving 16 bytes a load, does not pass."""
     from repro_torch.kernels import _build
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     counts = {}
@@ -1119,11 +1191,30 @@ def sass_check() -> dict:
         sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                               timeout=300, check=True).stdout
         counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
+        if name == "flash_attention":
+            for part in sass.split("Function : ")[1:]:
+                m = MLA_TC_FUNCTION.search(part.split("\n", 1)[0])
+                if m:
+                    counts[f"flash_fwd_tc_kernel<192, 128, lse {m[1]}>"] = {
+                        op: len(re.findall(rf"\b{op}\b", part)) for op in ops}
+            if sum(k.startswith("flash_fwd_tc_kernel<192") for k in counts) != 2:
+                fail(f"the flash library lacks K1's two instantiations at (192, 128): "
+                     f"{sorted(counts)}")
     emit({"phase": "sass", "counts": counts})
     missing = [(name, op) for name, c in counts.items() for op, n in c.items() if n == 0]
     if missing:
         fail(f"instructions missing from the kernel libraries: {missing}")
     return counts
+
+
+def digest(out) -> str:
+    """A short hash of a kernel's output bits (a tuple's in order; bf16 widened
+    to fp32, which is exact)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, (tuple, list)) else (out,)):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def phase_times():
@@ -1133,7 +1224,8 @@ def phase_times():
     ``rmsnorm(x, w, eps=, offset=, residual=)``, K1's ``flash_attention(...,
     lse=)`` then ``flash_attention_bwd(q, k, v, o, lse, do, causal=,
     window=)``, K3's ``rmsnorm_bwd(x, w, dy, eps=, offset=, ds=)``): ms and
-    device_ms, and for K3 the host time of a call."""
+    device_ms, for K3 the host time of a call, and a digest of every output
+    (K1 in fp32 too), so that two trees' kernels are held bit for bit."""
     from repro_torch.kernels import (decode_attention, flash_attention, flash_attention_bwd,
                                      rmsnorm, rmsnorm_bwd)
     rng = np.random.default_rng(SEED)
@@ -1160,15 +1252,25 @@ def phase_times():
         q, k, v = flash_inputs(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)
         call = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
         out.append({"kernel": "flash_attention", "case": f"B1 H24 Hkv8 S{S} D128 causal bshd",
-                    "ms": time_ms(call), "device_ms": device_ms(call)})
+                    "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call())})
+    for D in (64, 128, 256):       # the fp32 FMA kernel and the other head dims' instantiations
+        for dtype in (bf16, torch.float32):
+            q, k, v = flash_inputs(rng, B=1, H=8, Hkv=2, Sq=333, Sk=333, D=D, dtype=dtype,
+                                   bshd=False)
+            call = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+            out.append({"kernel": "flash_attention", "case": f"B1 H8 Hkv2 S333 D{D} causal "
+                                                             f"{dt_name(dtype)}",
+                        "ms": time_ms(call), "device_ms": device_ms(call),
+                        "out_sha": digest(call())})
     for valid in ([2048] * 8, [1, 2048, 17, 1024, 300, 2047, 64, 1500]):
         q, k, v, vl = decode_inputs(rng, B=8, H=24, Hkv=8, T=2048, D=128, valid=valid,
                                     dtype=bf16, bthd=True)
         call = lambda: decode_attention(q, k, v, kv_valid_len=vl)  # noqa: E731
         out.append({"kernel": "decode_attention", "case": f"B8 H24 Hkv8 T2048 D128 valid{valid}",
-                    "ms": time_ms(call), "device_ms": device_ms(call)})
+                    "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call())})
     for rec, call in k3:
-        out.append({**rec, "ms": time_ms(call), "device_ms": device_ms(call)})
+        out.append({**rec, "ms": time_ms(call), "device_ms": device_ms(call),
+                    "out_sha": digest(call())})
     for S in (1000, 2048):
         q, k, v = flash_inputs(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)
         do = flash_inputs(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)[0]
@@ -1177,14 +1279,15 @@ def phase_times():
         flash_attention(q, k, v, causal=True, out=o, lse=lse)
         call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=0)  # noqa: E731
         out.append({"kernel": "flash_attention_bwd", "case": f"B1 H24 Hkv8 S{S} D128 causal bshd",
-                    "ms": time_ms(call), "device_ms": device_ms(call)})
+                    "ms": time_ms(call), "device_ms": device_ms(call),
+                    "out_sha": digest((o, lse, *call()))})
     for with_sum in (False, True):
         x, w, _ = rms_inputs(rng, 2048, 3072, bf16, bf16, False, False)
         dy = randn(rng, (2048, 3072), bf16)
         ds = randn(rng, (2048, 3072), bf16) if with_sum else None
         call = lambda: rmsnorm_bwd(x, w, dy, eps=1e-6, offset=False, ds=ds)  # noqa: E731
         out.append({"kernel": "rmsnorm_bwd", "case": "R2048 D3072" + (" with sum" if with_sum else ""),
-                    "ms": time_ms(call), "device_ms": device_ms(call)})
+                    "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call())})
     emit({"phase": "times", "src": SRC, "records": out, "host_pieces_us": host_pieces_us})
 
 
@@ -1205,7 +1308,13 @@ def phase_baseline(other: str) -> None:
         if res.returncode != 0 or not lines:
             fail(f"baseline run of {src} failed (exit {res.returncode}):\n{res.stderr[-4000:]}")
         runs.append({"tree": label, **json.loads(lines[0])})
-    emit({"phase": "baseline", "runs": runs})
+    # every kernel's output bits, this tree's against the other's, case by case
+    shas = [{(r["kernel"], r["case"]): r.get("out_sha") for r in run["records"]} for run in runs]
+    differ = [f"{k} {c}" for (k, c), sha in shas[0].items()
+              if len({s_.get((k, c)) for s_ in shas}) != 1]
+    emit({"phase": "baseline", "runs": runs, "outputs_bit_equal": not differ, "differ": differ})
+    if differ:
+        fail(f"--baseline-src: outputs differ from the other tree's: {differ}")
 
 
 # --------------------------------------------------------------------------
@@ -1813,22 +1922,34 @@ MOE_OPS = {"expert_bmm": ("aten::bmm",),
            "scatter_gather": ("aten::index_add", "aten::index", "aten::index_put_")}
 
 
-def moe_op_us(avgs) -> dict:
-    """Device µs (whole window) of the ``MOE_OPS`` groups."""
+def moe_op_us(avgs, experts: int | None = None) -> dict:
+    """Device µs (whole window) of the ``MOE_OPS`` groups.  ``experts`` (an
+    MoE's expert count): the profiler grouped by input shape, and only a
+    ``bmm`` whose batch is the experts is an expert product; the others
+    (MLA's absorbed attention) go to ``other_bmm``."""
     out = {g: 0.0 for g in MOE_OPS}
+    if experts:
+        out["other_bmm"] = 0.0
     for e in avgs:
         if e.device_type != torch.autograd.DeviceType.CPU:
             continue
         for g, names in MOE_OPS.items():
             if e.key in names:
+                if (g == "expert_bmm" and experts
+                        and not (e.input_shapes and e.input_shapes[0]
+                                 and e.input_shapes[0][0] == experts)):
+                    g = "other_bmm"
+                    out.setdefault("other_bmm_shapes", []).append(
+                        [e.input_shapes[:2], e.count, e.device_time_total])
                 out[g] += e.device_time_total
     return out
 
 
-def measure_step(fn, n: int) -> dict:
+def measure_step(fn, n: int, experts: int | None = None) -> dict:
     """The port's step: wall µs a call from CUDA events around ``n`` calls,
     then device-busy µs a call and its groups from the profiler over ``n``
-    more (and the ``MOE_OPS`` groups' share of it)."""
+    more (and the ``MOE_OPS`` groups' share of it; ``experts``: the expert
+    products told apart from the other batched products by their batch)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1839,16 +1960,18 @@ def measure_step(fn, n: int) -> dict:
     end.record()
     end.synchronize()
     wall_us = start.elapsed_time(end) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=experts is not None) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
+    avgs = prof.key_averages(group_by_input_shape=experts is not None)
     groups = {k: v / n for k, v in device_groups(avgs).items()}
     launches = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA)
     return {"wall_us": wall_us, "device_busy_us": sum(groups.values()), "device_us": groups,
             "device_launches": launches // n,
-            "moe_op_us": {k: v / n for k, v in moe_op_us(avgs).items()},
+            "moe_op_us": {k: (v / n if isinstance(v, float) else v)
+                          for k, v in moe_op_us(avgs, experts).items()},
             "top_other_kernels": [[name[:80], ms / n, count // n]
                                   for name, ms, count in top_kernels(avgs, "other", 6)]}
 
@@ -2470,20 +2593,25 @@ def phase_sweep():
 MOE_ARCH = "olmoe-1b-7b"
 
 
-def moe_serve(cfg) -> dict:
-    """olmoe at full width and depth: ServingEngine(slots=8, cache_len=2048)
-    on serve's 12 requests, launches against the path's formula, then one
-    decode step at 8 live slots under the profiler and the host syncs of one
-    ``decode_step`` (``torch.cuda.set_sync_debug_mode``)."""
+def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
+    """A MoE model (olmoe at full width and depth, or ``params`` of ``cfg``
+    made by the caller): ServingEngine(slots=8, cache_len=2048) on serve's 12
+    requests, launches against the path's formula, then one decode step at 8
+    live slots under the profiler and the host syncs of one ``decode_step``
+    (``torch.cuda.set_sync_debug_mode``).  The formula: K1 a layer a prefill;
+    K2 a layer a decode step (none for MLA, whose absorbed decode is plain
+    products); K3 2L+1 a call (4L+1 for MLA: its q_norm and kv_norm too)."""
     import warnings
     from repro_torch import kernels as K
     from repro_torch.models import Model, count_params
     from repro_torch.serving import Request, ServingEngine
-    model = Model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    init_s = None
+    if params is None:
+        model = Model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
     allocated = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -2491,9 +2619,10 @@ def moe_serve(cfg) -> dict:
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     L = cfg.num_layers
-    want = {"flash_attention": L * len(reqs), "decode_attention": L * steps,
-            "rmsnorm": (2 * L + 1) * (len(reqs) + steps), "flash_attention_bwd": 0,
-            "rmsnorm_bwd": 0, "adamw": 0}
+    mla = cfg.attention == "mla"
+    want = {"flash_attention": L * len(reqs), "decode_attention": 0 if mla else L * steps,
+            "rmsnorm": ((4 if mla else 2) * L + 1) * (len(reqs) + steps),
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "adamw": 0}
     toks = sum(len(r.tokens) for r in reqs)
     ttft = [r.ttft_s * 1e3 for r in reqs]
     # a steady decode step: 8 live slots of 512-token prompts
@@ -2504,7 +2633,7 @@ def moe_serve(cfg) -> dict:
                               max_new_tokens=64))
     for _ in range(3):
         engine.step()
-    step = measure_step(engine.step, 3)
+    step = measure_step(engine.step, 3, experts=cfg.num_experts)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2526,24 +2655,25 @@ def moe_serve(cfg) -> dict:
            "logits_finite": finite, "launches": counts, "launches_expected": want,
            "allocated_after_init_bytes": allocated, "peak_bytes": peak, "decode_step": step,
            "decode_step_host_syncs": syncs}
-    emit({"phase": "moe", **rec})
+    emit({"phase": phase, **rec})
     if any(len(r.tokens) != 32 or r.finished_s is None for r in reqs):
-        fail(f"moe serve: a request did not finish with 32 tokens: {rec}")
+        fail(f"{phase} serve: a request did not finish with 32 tokens: {rec}")
     if any(not (0 <= t < cfg.vocab_size) for r in reqs for t in r.tokens):
-        fail("moe serve: a token outside the vocabulary")
+        fail(f"{phase} serve: a token outside the vocabulary")
     if not finite:
-        fail("moe serve: non-finite logits on the serving path")
+        fail(f"{phase} serve: non-finite logits on the serving path")
     if counts != want:
-        fail(f"moe serve: launch counts {counts} differ from what the path implies {want}")
+        fail(f"{phase} serve: launch counts {counts} differ from what the path implies {want}")
     if syncs:
-        fail(f"moe serve: a decode step synchronised with the host: {syncs}")
+        fail(f"{phase} serve: a decode step synchronised with the host: {syncs}")
     del params, engine
     torch.cuda.empty_cache()
     return rec
 
 
-def moe_parity(cfg) -> dict:
-    """olmoe cut to 4 layers, serve's requests prefilled through the kernels
+def moe_parity(cfg, params=None) -> dict:
+    """olmoe cut to 4 layers (or ``params`` of ``cfg`` made by the caller,
+    already cut), serve's requests prefilled through the kernels
     and through their plain versions, the experts each dispatch chose
     recorded (``RoutePin``).  Unpinned, the plain run routes on its own: the
     share of (token, k) choices alike layer by layer, and for each request
@@ -2555,8 +2685,9 @@ def moe_parity(cfg) -> dict:
     and the first-token rule (equal, or a near-tie of the two best logits)
     hold on those, for every request."""
     from repro_torch.models import Model
-    cfg = cfg.replace(num_layers=4)
-    params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED))
+    if params is None:
+        cfg = cfg.replace(num_layers=4)
+        params = Model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED))
     L = cfg.num_layers
     reqs = make_requests(cfg.vocab_size)
     pin = RoutePin()
@@ -2570,7 +2701,8 @@ def moe_parity(cfg) -> dict:
                 pin.calls = routes["kernels"][i]
             lg, _ = pin.run(mode, m.prefill, params, {"tokens": [r.prompt]}, 2048)
             if mode == "replay" and pin.next != len(pin.calls):
-                fail(f"moe parity: request {r.rid} replayed {pin.next} of {len(pin.calls)} routes")
+                fail(f"{cfg.name} parity: request {r.rid} replayed {pin.next} of "
+                     f"{len(pin.calls)} routes")
             if way == "plain":
                 margins.append(pin.margins)
             logits.append(lg[0, -1])
@@ -2625,20 +2757,25 @@ def moe_parity(cfg) -> dict:
     return rec, same_first + near_tie
 
 
-def moe_simulate(cfg) -> dict:
-    """Simulator.run for olmoe on h100_sxm, prefill B1 S512 and decode B8 at
-    cache 2048, analytical and profiling (a fresh DB; K1 and K2 counted), then
-    the port's own Model.prefill / decode_step at those shapes; the signed
-    errors, also by op kind: the experts' products (the matmul nodes tagged
-    ``moe_expert``) against ``aten::bmm``'s device time, the other products
-    against the rest of cuBLAS, attention against K1 + K2, and the rest."""
+def moe_simulate(cfg, params=None, name: str = "moe",
+                 attention_kernels=(("prefill", "flash_attention"), ("decode", "decode_attention"))
+                 ) -> dict:
+    """Simulator.run for olmoe (or ``cfg``, whose ``params`` the caller made)
+    on h100_sxm, prefill B1 S512 and decode B8 at cache 2048, analytical and
+    profiling (a fresh DB under ``build/<name>``; each mode's attention kernel
+    of ``attention_kernels`` counted), then the port's own Model.prefill /
+    decode_step at those shapes; the signed errors, also by op kind: the
+    experts' products (the matmul nodes tagged ``moe_expert``) against the
+    device time of the ``aten::bmm`` calls over the experts, the other
+    products against the rest of cuBLAS, attention against K1 + K2, and the
+    rest."""
     from repro_torch import kernels as K
     from repro_torch.api import Cluster, DecodeWorkload, PrefillWorkload, SimSpec
     from repro_torch.core import Simulator
     from repro_torch.core.backend import profiling as P
     from repro_torch.core.model_ingest import ingest_graphs
     from repro_torch.models import Model, zero_cache
-    db_path = os.path.join(HERE, "build", "moe", "profile_db_torch.json")
+    db_path = os.path.join(HERE, "build", name, "profile_db_torch.json")
     if os.path.exists(db_path):
         os.remove(db_path)
     db = P.ProfileDB(db_path)
@@ -2653,26 +2790,27 @@ def moe_simulate(cfg) -> dict:
     for mode, spec in specs.items():
         r = {"part": "simulate", "mode": mode}
         reports = {}
-        for name, sim in sims.items():
+        for eng, sim in sims.items():
             K.reset_launch_counts()
             t0 = time.perf_counter()
-            reports[name] = sim.run(spec)
-            r[f"{name}_s"] = time.perf_counter() - t0
-            r[f"{name}_launches"] = K.launch_counts()
+            reports[eng] = sim.run(spec)
+            r[f"{eng}_s"] = time.perf_counter() - t0
+            r[f"{eng}_launches"] = K.launch_counts()
         w = spec.workload
         mg = ingest_graphs(cfg, w.global_batch, 1 if mode == "decode" else w.seq_len, mode,
                            cache_len=w.cache_len or w.seq_len)
         # each engine's price of the experts' products and of the other products
         # (one layer's graph times its repeat), and who priced each operator
         priced, by_engine = {}, {}
-        for name, sim in sims.items():
+        for eng, sim in sims.items():
             expert = other = 0.0
             for b in mg.all_blocks():
                 for n in b.fwd:
                     us = sim.engine.latency_us(n)
                     if us is None or not math.isfinite(us):
-                        fail(f"moe simulate {mode}: {name} left {n.kind} {n.out_shape} unpriced")
-                    if name == "profiling":
+                        fail(f"{cfg.name} simulate {mode}: {eng} left {n.kind} {n.out_shape} "
+                             "unpriced")
+                    if eng == "profiling":
                         e = sim.engine.engine_for(n)
                         by_engine[e] = by_engine.get(e, 0) + 1
                     if n.kind == "matmul":
@@ -2680,20 +2818,21 @@ def moe_simulate(cfg) -> dict:
                             expert += us * n.repeat * b.repeat
                         else:
                             other += us * n.repeat * b.repeat
-            priced[name] = {"expert_matmul_us": expert, "other_matmul_us": other}
-        r.update({f"{name}_us": rep.step_time_us for name, rep in reports.items()})
-        r.update({f"{name}_kind_us": rep.kind_us for name, rep in reports.items()})
+            priced[eng] = {"expert_matmul_us": expert, "other_matmul_us": other}
+        r.update({f"{eng}_us": rep.step_time_us for eng, rep in reports.items()})
+        r.update({f"{eng}_kind_us": rep.kind_us for eng, rep in reports.items()})
         r["priced_matmul_us"] = priced
         r["operators_by_engine"] = by_engine
         out[mode] = (r, reports, priced)
-    if out["prefill"][0]["profiling_launches"]["flash_attention"] <= 0:
-        fail("moe simulate: the profiling engine did not launch K1 for the prefill's attention")
-    if out["decode"][0]["profiling_launches"]["decode_attention"] <= 0:
-        fail("moe simulate: the profiling engine did not launch K2 for the decode's attention")
+    for mode, kernel in attention_kernels:
+        if out[mode][0]["profiling_launches"][kernel] <= 0:
+            fail(f"{cfg.name} simulate: the profiling engine did not launch {kernel} for the "
+                 f"{mode}'s attention")
     db.save()
 
     model = Model(cfg)
-    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    if params is None:
+        params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
     rng = np.random.default_rng(SEED)
     prompt = {"tokens": rng.integers(0, cfg.vocab_size, (1, 512)).tolist()}
     cache = zero_cache(cfg, 8, 2048, model.device)
@@ -2704,7 +2843,7 @@ def moe_simulate(cfg) -> dict:
     recs = []
     for mode, (fn, n) in runs.items():
         r, reports, priced = out[mode]
-        meas = measure_step(fn, n)
+        meas = measure_step(fn, n, experts=cfg.num_experts)
         err = {f"{p}_vs_{m}": rep.step_time_us / meas[key] - 1.0
                for p, rep in reports.items()
                for m, key in (("wall", "wall_us"), ("device_busy", "device_busy_us"))}
@@ -2726,9 +2865,9 @@ def moe_simulate(cfg) -> dict:
         for v in [rep.step_time_us for rep in reports.values()] + [meas["wall_us"],
                                                                     meas["device_busy_us"]]:
             if not (math.isfinite(v) and v > 0):
-                fail(f"moe simulate {mode}: a non-positive or non-finite step time in {r}")
+                fail(f"{cfg.name} simulate {mode}: a non-positive or non-finite step time in {r}")
         if not all(math.isfinite(x) for x in err.values()):
-            fail(f"moe simulate {mode}: a non-finite error {err}")
+            fail(f"{cfg.name} simulate {mode}: a non-finite error {err}")
         recs.append(r)
     del params, cache
     torch.cuda.empty_cache()
@@ -2770,6 +2909,67 @@ def phase_moe() -> dict:
             "train_parity": tp_launches, "serve_rec": serve, "train_parity_rec": tp}
 
 
+MLA_ARCH = "deepseek-v3-671b"
+# Depth cut to what one card holds: 2 layers are 24,867,937,280 parameters
+# (49.7 GB of bf16), and init makes each leaf in fp32 first (an expert leaf,
+# 256 x 7168 x 2048, is 15.0 GB beside its 7.5 GB result), so it peaks near
+# 65 GB; 3 layers are 72.75 GB of weights.
+MLA_LAYERS = 2
+
+
+def phase_mla() -> dict:
+    """The MLA family on the card (deepseek-v3-671b at full width, depth cut
+    to ``MLA_LAYERS``, random bf16 weights from the seed, made once and
+    shared by the parts), a line a part: serve (``moe_serve``), parity
+    (``moe_parity``, the plain run on the kernel run's routes) and simulate
+    (``moe_simulate``: K1 at (192, 128) counted in the profiling engine's
+    prefill; the absorbed decode has no attention node).  Returns the
+    launches of each part."""
+    import gc
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, count_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    full = get_config(MLA_ARCH)
+    cfg = full.replace(num_layers=MLA_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init = {"seconds": time.perf_counter() - t0, "allocated_before_bytes": before,
+            "allocated_bytes": torch.cuda.memory_allocated(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    reduced = {"num_layers": [full.num_layers, MLA_LAYERS],
+               "params": [count_params(full), count_params(cfg)],
+               "why": "2 layers of bf16 weights (49.7 GB) and their fp32 init fit the card's "
+                      "80 GB; 3 layers (72.75 GB) do not"}
+    serve = moe_serve(cfg, params, phase="mla")
+    parity, ok_first = moe_parity(cfg, params)
+    emit({"phase": "mla", **parity})
+    sim = moe_simulate(cfg, params, name="mla", attention_kernels=(("prefill", "flash_attention"),))
+    for mode in ("prefill", "decode"):
+        emit({"phase": "mla", **sim[mode]})
+    emit({"phase": "mla", "part": "done", "arch": cfg.name, "seconds": time.perf_counter() - t0,
+          "init": init, "reduced": reduced, "profile_db_entries": sim["profile_db_entries"],
+          "gpu": gpu_name_and_power()})
+    if not parity["first_logits_max_abs_diff_pinned"] <= parity["tol"]:
+        fail(f"mla parity: first-token logits differ by "
+             f"{parity['first_logits_max_abs_diff_pinned']} > {parity['tol']} on the same routes")
+    if ok_first != parity["requests"]:
+        fail("mla parity: a first token differs between kernels and plain versions beyond a "
+             "near-tie, on the same routes")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve": serve["launches"],
+            "simulate": {k: sim["prefill"]["profiling_launches"][k]
+                         + sim["decode"]["profiling_launches"][k] for k in serve["launches"]},
+            "serve_rec": serve}
+
+
 KERNEL_INFO = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:104"),
@@ -2801,12 +3001,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,serve,parity,train,train_parity,simulate,"
-                            "serve_sim,sweep,moe",
+                            "serve_sim,sweep,moe,mla",
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
-                         "train_parity,simulate,serve_sim,sweep,moe (and times, the "
+                         "train_parity,simulate,serve_sim,sweep,moe,mla (and times, the "
                          "serving-shape timings alone; serve_measure, the measured side of "
                          "serve_sim alone); the closing lines are printed only when the "
-                         "eleven of the default ran")
+                         "twelve of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -2869,9 +3069,10 @@ def main(argv=None) -> int:
     serve_sim = phase_serve_sim() if "serve_sim" in phases else None
     swept = phase_sweep() if "sweep" in phases else None
     moe = phase_moe() if "moe" in phases else None
+    mla = phase_mla() if "mla" in phases else None
     if (main_recs is None or counts is None or "parity" not in phases or train is None
             or train_parity is None or sim is None or serve_sim is None or swept is None
-            or moe is None):
+            or moe is None or mla is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
@@ -2904,6 +3105,9 @@ def main(argv=None) -> int:
                # measurements, and the 4-layer train step through the kernels
                "moe_launches": {part: moe[part][name]
                                 for part in ("serve", "simulate", "train_parity")},
+               # deepseek-v3-671b cut to 2 layers: serving, and the profiling
+               # engine's measurements (K1 at (192, 128) in its prefill)
+               "mla_launches": {part: mla[part][name] for part in ("serve", "simulate")},
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -2926,6 +3130,13 @@ def main(argv=None) -> int:
             rec["moe_shape"] = {k: moe_rec[k] for k in (
                 "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")}
+        mla_rec = main_recs.get(f"mla_{name}")
+        if mla_rec is not None:
+            # the same kernel at deepseek-v3-671b's prefill shape (K1 at (192, 128),
+            # K3 at D 7168 with the sum)
+            rec["mla_shape"] = {k: mla_rec.get(k) for k in (
+                "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms", "library_kernels")}
         if name in TRAIN_ONLY:
             rec["note"] = TRAIN_ONLY[name]
         kernels.append(rec)

@@ -1,9 +1,10 @@
 """Architecture registry: ``--arch <id>`` resolves through here.
 
 ``ARCH_IDS`` lists only what the port can run today: the four dense decoders
-(block kind ``attn_ffn``) and the MoE decoder with GQA attention (olmoe, block
-kind ``moe_attn_ffn``).  The reference's other families (MLA MoE, hybrid,
-SSM, audio, VLM) arrive with their layers in later slices.
+(block kind ``attn_ffn``), the MoE decoder with GQA attention (olmoe, block
+kind ``moe_attn_ffn``) and the MoE decoder with MLA attention (deepseek, block
+kind ``mla_moe``).  The reference's other families (hybrid, SSM, audio, VLM)
+arrive with their layers in later slices.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ _ARCH_MODULES = {
     "gemma-7b": "gemma_7b",
     "yi-34b": "yi_34b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

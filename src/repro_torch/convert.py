@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
-from repro_torch.models.kvcache import build_cache
+from repro_torch.models.kvcache import build_cache, cache_len_of
 from repro_torch.models.params import block_cycle, build_params
 
 
@@ -53,9 +53,11 @@ def from_reference_params(np_tree: dict, cfg: ModelConfig, device, dtype=None) -
     """Reference parameter tree (``repro.models.params.build_params`` names:
     ``embed.w (V,D)``, ``blocks.cycle[0].{ln1,ln2}.w (L,D)``, ``attn.{q,k,v,o}``,
     ``mlp.{gate,up,down}`` or, in a MoE block, ``moe.router.w (L,D,E)`` and
-    ``moe.experts.{gate,up} (L,E,D,F)``, ``moe.experts.down (L,E,F,D)``,
-    ``final_norm.w``, optional ``lm_head.w``) as numpy arrays -> the port's
-    tree on ``device``.  A tree of another config (names or shapes) raises."""
+    ``moe.experts.{gate,up} (L,E,D,F)``, ``moe.experts.down (L,E,F,D)``, a
+    shared expert's ``moe.shared.{gate,up,down}``, MLA's ``attn.{dq, q_norm,
+    uq, dkv, kv_norm, uk, uv, kr, o}``, ``final_norm.w``, optional
+    ``lm_head.w``) as numpy arrays -> the port's tree on ``device``.  A tree
+    of another config (names or shapes) raises."""
     dt = dtype or torch_dtype(cfg.param_dtype)
     device = torch.device(device)
 
@@ -156,9 +158,11 @@ def to_reference_params(tree: dict, cfg: ModelConfig) -> dict:
 
 
 def from_reference_cache(np_cache: dict, cfg: ModelConfig, device, dtype=None) -> dict:
-    """Reference decode cache (``blocks.cycle[0].{k,v} (L,B,T,Hkv,D)``,
-    ``pos (B,)``) as numpy arrays -> the port's cache on ``device``.  A cache
-    of another config (names or shapes) raises."""
+    """Reference decode cache (``blocks.cycle[0].{k,v} (L,B,T,Hkv,D)``, or
+    MLA's ``blocks.cycle[0].ckv (L,B,T,kv_lora_rank)`` and ``.kr
+    (L,B,T,qk_rope_head_dim)``; ``pos (B,)``) as numpy arrays -> the port's
+    cache on ``device``.  A cache of another config (names or shapes)
+    raises."""
     dt = dtype or torch_dtype(cfg.dtype)
     device = torch.device(device)
     cache = {
@@ -166,7 +170,7 @@ def from_reference_cache(np_cache: dict, cfg: ModelConfig, device, dtype=None) -
         "pos": _leaf(np_cache["pos"], device, torch.int32),
     }
     # hold the result to the port's own build_cache at the cache's batch and length
-    B, T = cache["blocks"][0]["k"].shape[:2]
+    B, T = cache["pos"].shape[0], cache_len_of(cache)
     want = build_cache(cfg, lambda shape, d: tuple(shape), B, T)
     _check_same(want, _map(cache, lambda t: tuple(t.shape)), "cache")
     return cache

@@ -11,7 +11,9 @@ split-KV decode kernel (K2, every cache row valid), ``norm`` the rmsnorm
 kernel (K3), ``matmul`` cuBLAS through ``torch.matmul``, and an elementwise,
 reduce, copy or transpose node one PyTorch launch.  Attention is synthesised
 grouped: the tracer records the group size ``G`` on the node, and
-:func:`node_key` appends it to an attention key.  A backward operator's
+:func:`node_key` appends it to an attention key.  ``attn_dims`` carries q's
+head dim; where v's differs (MLA's prefill, K1 at (192, 128)) the tracer
+records it as ``attrs["dv"]`` and the key gains ``|Dv<n>``.  A backward operator's
 node (``attrs["backward"]``: the tracer sets it on attention's backward;
 ``phase`` cannot tell, since every node of a joint graph, the recomputed
 forward too, has phase "bwd") is timed through K1's backward kernels
@@ -44,7 +46,7 @@ from repro_torch.core.ir import OpNode
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import SUPPORTED_D as K2_D, SUPPORTED_G
 from repro_torch.kernels.flash_attention import (
-    SUPPORTED_D as K1_D, flash_attention, flash_attention_bwd,
+    flash_attention, flash_attention_bwd, supported as k1_supported,
 )
 from repro_torch.kernels.rmsnorm import MAX_D
 
@@ -69,9 +71,18 @@ def node_key(node: OpNode, hw_name: str) -> str:
         # grouped-query attention: the same dims at another group size are
         # another kernel launch (the reference synthesises multi-head only)
         key += f"|G{int(node.attrs.get('G', 1))}"
+        if "dv" in node.attrs:
+            # MLA: v's head dim apart from q's (the reference keys q's alone)
+            key += f"|Dv{int(node.attrs['dv'])}"
     if node.kind == "attention" and node.attrs.get("backward"):
         key += "|bwd"    # timed through the backward kernels, not the forward's
     return key
+
+
+def attn_v_dim(node: OpNode) -> int:
+    """v's head dim of an attention node: ``attrs["dv"]`` where the tracer
+    recorded one (MLA), else q's."""
+    return int(node.attrs.get("dv", node.attrs["attn_dims"][-1]))
 
 
 class ProfileDB:
@@ -231,25 +242,28 @@ def synthesize_and_measure(node: OpNode, device="cuda") -> float | None:
         if not dims or dt not in _KERNEL_DTYPES:
             return None
         bsz, h, sq, skv, d = (int(x) for x in dims)
+        dv = attn_v_dim(node)
         g = int(node.attrs.get("G", 1))
         if h % g:
             return None
         hkv = h // g
         if sq > 1:
-            if d not in K1_D:
+            if not k1_supported(d, dv):
                 return None
             causal = bool(node.attrs.get("causal", True))
             window = int(node.attrs.get("window", 0))
             if node.attrs.get("backward"):
+                if dv != d:
+                    return None      # K1's backward takes one head dim (ROADMAP queue B)
                 return _time_fn(lambda *a: flash_attention_bwd(*a, causal=causal,
                                                                window=window),
                                 sets(lambda: _flash_bwd_inputs(randn, bsz, sq, skv, hkv, g, d,
                                                                causal, window)), dev)
             args = sets(lambda: (randn((bsz, sq, hkv, g, d)), randn((bsz, skv, hkv, d)),
-                                 randn((bsz, skv, hkv, d))))
+                                 randn((bsz, skv, hkv, dv))))
             return _time_fn(lambda q, kk_, v: ops.flash_attention_bshd(
                 q, kk_, v, causal=causal, window=window), args, dev)
-        if node.attrs.get("backward") or d not in K2_D or g not in SUPPORTED_G:
+        if node.attrs.get("backward") or dv != d or d not in K2_D or g not in SUPPORTED_G:
             return None
         valid = torch.full((bsz,), skv, dtype=torch.int32, device=dev)
         args = sets(lambda: (randn((bsz, 1, hkv, g, d)), randn((bsz, skv, hkv, d)),

@@ -201,6 +201,10 @@ def _trace_fx(ctx: _TraceCtx, gm: torch.fx.GraphModule, phase: str):
             node.attrs["causal"], node.attrs["window"] = causal, window
             # GQA group: the profiling engine synthesises grouped attention
             node.attrs["G"] = int(g_)
+            if int(v.shape[-1]) != int(dq):
+                # MLA: v's head dim apart from q's (a backward node's output
+                # is dq, so the output's shape does not tell)
+                node.attrs["dv"] = int(v.shape[-1])
             if base.endswith("bwd"):
                 # every node of a joint graph has phase "bwd", the forward's
                 # too: this marks the backward operator, which the profiling

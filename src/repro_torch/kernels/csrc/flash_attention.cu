@@ -38,10 +38,23 @@
 // serving path launches the LSE = false instantiation, which is the kernel
 // as it was.
 //
-// Layout: q (B,H,Sq,D), k/v (B,Hkv,Sk,D), o (B,H,Sq,D), each with free
-// strides over its first three dims and stride 1 over D, so the model's
-// (B,S,H,D) tensors are read where they lie: the bf16 path's tensor maps
-// are 4-D over (D, S, H, B) with the view's own strides.
+// Head dims: one D for q, k and v (64, 128 or 256), or MLA's prefill, whose
+// q and k have a head dim DQK = 192 (128 of the latent's up projection and
+// 64 rotary) and v a head dim DV = 128.  Every kernel is a template over
+// (DQK, DV); a single-D instantiation is (D, D) and compiles to the kernel
+// it was before MLA.  At (192, 128) the bf16 kernel is the D = 128 one with
+// a longer contraction: S = Q K^T runs 12 wgmma k-steps of 16 where D = 128
+// runs 8, Q and each K tile arrive as three 64-column TMA boxes, V as two,
+// and O += P V keeps N = 128 and its accumulators (64 x 128 fp32 a
+// warpgroup), so the consumer's registers are those of D = 128.  Its K/V
+// ring has two stages (104 KB of shared memory, two blocks an SM): on an
+// H100 that ran 1.5x as fast as three stages (144 KB, one block an SM).
+//
+// Layout: q (B,H,Sq,DQK), k (B,Hkv,Sk,DQK), v (B,Hkv,Sk,DV), o (B,H,Sq,DV),
+// each with free strides over its first three dims and stride 1 over the
+// head dim, so the model's (B,S,H,D) tensors are read where they lie: the
+// bf16 path's tensor maps are 4-D over (D, S, H, B) with the view's own
+// strides.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -62,22 +75,22 @@ struct FlashParams {
   float scale;
 };
 
-template <int D> struct FlashSmem {
-  static constexpr int QS = D + 4;      // row stride of Qs and Ks (floats): 16-B aligned, and
+template <int DQK, int DV> struct FlashSmem {
+  static constexpr int QS = DQK + 4;    // row stride of Qs and Ks (floats): 16-B aligned, and
                                         // (QS/4) odd, so 8 rows hit 8 distinct 16-B bank groups
   static constexpr int PS = FA_BK + 4;  // row stride of Ps
-  static constexpr int FLOATS = FA_BQ * QS + FA_BK * QS + FA_BK * D + FA_BQ * PS;
+  static constexpr int FLOATS = FA_BQ * QS + FA_BK * QS + FA_BK * DV + FA_BQ * PS;
 };
 
-template <typename T, int D, bool LSE>
+template <typename T, int DQK, int DV, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams p) {
-  constexpr int QS = FlashSmem<D>::QS, PS = FlashSmem<D>::PS;
-  constexpr int DC = D / 16;   // output columns a thread
+  constexpr int QS = FlashSmem<DQK, DV>::QS, PS = FlashSmem<DQK, DV>::PS;
+  constexpr int DC = DV / 16;  // output columns a thread
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + FA_BQ * QS;
   float* Vs = Ks + FA_BK * QS;
-  float* Ps = Vs + FA_BK * D;
+  float* Ps = Vs + FA_BK * DV;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;   // S columns tx + 16 j, O columns tx + 16 j
@@ -93,8 +106,8 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
   T* op = (T*)p.o + b * p.o_sb + h * p.o_sh;
 
   // Q tile -> shared memory, fp32, rows past Sq as zeros.
-  for (int c = tid; c < FA_BQ * (D / 4); c += FA_THREADS) {
-    const int r = c / (D / 4), d4 = (c % (D / 4)) * 4;
+  for (int c = tid; c < FA_BQ * (DQK / 4); c += FA_THREADS) {
+    const int r = c / (DQK / 4), d4 = (c % (DQK / 4)) * 4;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < p.Sq) val = load4<T>(qp + (long long)(q0 + r) * p.q_ss + d4);
     *reinterpret_cast<float4*>(&Qs[r * QS + d4]) = val;
@@ -121,16 +134,25 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
 
   for (int k0 = kv_lo; k0 < kv_hi; k0 += FA_BK) {
     __syncthreads();   // the tile before is read to its end
-    // K and V tiles -> shared memory, rows past Sk as zeros.
-    for (int c = tid; c < FA_BK * (D / 4); c += FA_THREADS) {
-      const int r = c / (D / 4), d4 = (c % (D / 4)) * 4;
+    // K and V tiles -> shared memory, rows past Sk as zeros: in one pass
+    // where they share a head dim, else V in a pass of its own.
+    for (int c = tid; c < FA_BK * (DQK / 4); c += FA_THREADS) {
+      const int r = c / (DQK / 4), d4 = (c % (DQK / 4)) * 4;
       float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
       if (k0 + r < p.Sk) {
         kv4 = load4<T>(kp + (long long)(k0 + r) * p.k_ss + d4);
-        vv4 = load4<T>(vp + (long long)(k0 + r) * p.v_ss + d4);
+        if constexpr (DQK == DV) vv4 = load4<T>(vp + (long long)(k0 + r) * p.v_ss + d4);
       }
       *reinterpret_cast<float4*>(&Ks[r * QS + d4]) = kv4;
-      *reinterpret_cast<float4*>(&Vs[r * D + d4]) = vv4;
+      if constexpr (DQK == DV) *reinterpret_cast<float4*>(&Vs[r * DV + d4]) = vv4;
+    }
+    if constexpr (DQK != DV) {
+      for (int c = tid; c < FA_BK * (DV / 4); c += FA_THREADS) {
+        const int r = c / (DV / 4), d4 = (c % (DV / 4)) * 4;
+        float4 vv4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + r < p.Sk) vv4 = load4<T>(vp + (long long)(k0 + r) * p.v_ss + d4);
+        *reinterpret_cast<float4*>(&Vs[r * DV + d4]) = vv4;
+      }
     }
     __syncthreads();
 
@@ -139,7 +161,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
 #pragma unroll
     for (int i = 0; i < 4; ++i) { s[i][0] = 0.f; s[i][1] = 0.f; }
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       float4 qv[4], kv[2];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -203,7 +225,7 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
       for (int tt = 0; tt < 4; ++tt)
 #pragma unroll
         for (int j = 0; j < DC; ++j) {
-          const float vv = Vs[(t + tt) * D + tx + 16 * j];
+          const float vv = Vs[(t + tt) * DV + tx + 16 * j];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pr[i][tt], vv, acc[i][j]);
         }
@@ -237,24 +259,27 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
 // (D <= 128), which beat one block of two consumer warpgroups (128 q rows)
 // by 8-12 % at the serving shapes on an H100, and at D = 256 the block of
 // two ran out of registers.
-template <int D> struct TcPlan {
-  static constexpr int BQ = 64;        // q rows a block
-  static constexpr int BK = 64;        // kv rows a tile
-  static constexpr int STAGES = 3;     // K/V ring depth
-  static constexpr int CH = D / 64;    // 128-byte column chunks
-  static constexpr int THREADS = 256;  // a producer warpgroup and a consumer warpgroup
-  // Two blocks an SM where they fit; D = 256 takes one, so that ptxas may
-  // give a thread up to 255 registers.
-  static constexpr int MIN_BLOCKS = D < 256 ? 2 : 1;
+template <int DQK, int DV> struct TcPlan {
+  static constexpr int BQ = 64;          // q rows a block
+  static constexpr int BK = 64;          // kv rows a tile
+  static constexpr int STAGES = DQK != DV ? 2 : 3;  // K/V ring depth
+  static constexpr int CH_QK = DQK / 64; // 128-byte column chunks of Q and K
+  static constexpr int CH_V = DV / 64;   // and of V
+  static constexpr int THREADS = 256;    // a producer warpgroup and a consumer warpgroup
+  static constexpr int Q_BYTES = BQ * DQK * 2;
+  static constexpr int K_BYTES = BK * DQK * 2;  // K of one stage
+  static constexpr int V_BYTES = BK * DV * 2;   // V of one stage
+  static constexpr int BAR_BYTES = 256;
+  static constexpr int SMEM = Q_BYTES + STAGES * (K_BYTES + V_BYTES) + BAR_BYTES;
+  // Two blocks an SM where they fit (each with 1 KB reserved, in an SM's
+  // 228 KB); D = 256 takes one, so that ptxas may give a thread up to 255
+  // registers.
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
   // Registers moved from the producer to the consumer with setmaxnreg, where
   // the launch bounds cap a thread at 128: 40 + 216 = 2 * 128.
   static constexpr bool REBALANCE = MIN_BLOCKS == 2;
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int CONSUMER_REGS = 216;
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;   // K (or V) of one stage
-  static constexpr int BAR_BYTES = 256;
-  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES;
   // MIN_BLOCKS blocks, with 1 KB reserved for each, in an SM's 228 KB.
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an sm_90 SM");
   static_assert((3 * STAGES + 1) * 8 <= BAR_BYTES, "barriers");
@@ -336,20 +361,20 @@ template <int D> __device__ __forceinline__ void scale_rows(float* o, float2 c) 
   }
 }
 
-template <int D, bool LSE>
-__global__ void __launch_bounds__(TcPlan<D>::THREADS, TcPlan<D>::MIN_BLOCKS)
+template <int DQK, int DV, bool LSE>
+__global__ void __launch_bounds__(TcPlan<DQK, DV>::THREADS, TcPlan<DQK, DV>::MIN_BLOCKS)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, const TcParams p) {
-  using P = TcPlan<D>;
-  constexpr int BK = P::BK, ST = P::STAGES, CH = P::CH;
+  using P = TcPlan<DQK, DV>;
+  constexpr int BK = P::BK, ST = P::STAGES;
   // 128-byte swizzled tiles want 1024-byte aligned regions.
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   if (smem_u32(smem_raw) & 1023) __trap();
-  uint8_t* q_s = smem_raw;                      // [CH][64 rows][128 B]
-  uint8_t* k_s = q_s + P::Q_BYTES;              // [ST][CH][BK rows][128 B]
-  uint8_t* v_s = k_s + ST * P::KV_BYTES;        // [ST][CH][BK rows][128 B]
-  uint64_t* full_k = reinterpret_cast<uint64_t*>(v_s + ST * P::KV_BYTES);
+  uint8_t* q_s = smem_raw;                      // [CH_QK][64 rows][128 B]
+  uint8_t* k_s = q_s + P::Q_BYTES;              // [ST][CH_QK][BK rows][128 B]
+  uint8_t* v_s = k_s + ST * P::K_BYTES;         // [ST][CH_V][BK rows][128 B]
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(v_s + ST * P::V_BYTES);
   uint64_t* full_v = full_k + ST;
   uint64_t* empty = full_v + ST;
   uint64_t* q_full = empty + ST;
@@ -391,20 +416,20 @@ __global__ void __launch_bounds__(TcPlan<D>::THREADS, TcPlan<D>::MIN_BLOCKS)
     if (threadIdx.x == 0) {
       mbar_arrive_expect_tx(q_full, P::Q_BYTES);
 #pragma unroll
-      for (int c = 0; c < CH; ++c)
+      for (int c = 0; c < P::CH_QK; ++c)
         tma_load_4d(q_s + c * 64 * 128, &tq, q_full, c * 64, q0, h, b);
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % ST;
         if (j >= ST) mbar_wait(&empty[s], ((j / ST) - 1) & 1);
         const int k0 = kv_lo + j * BK;
-        mbar_arrive_expect_tx(&full_k[s], P::KV_BYTES);
+        mbar_arrive_expect_tx(&full_k[s], P::K_BYTES);
 #pragma unroll
-        for (int c = 0; c < CH; ++c)
-          tma_load_4d(k_s + s * P::KV_BYTES + c * BK * 128, &tk, &full_k[s], c * 64, k0, hk, b);
-        mbar_arrive_expect_tx(&full_v[s], P::KV_BYTES);
+        for (int c = 0; c < P::CH_QK; ++c)
+          tma_load_4d(k_s + s * P::K_BYTES + c * BK * 128, &tk, &full_k[s], c * 64, k0, hk, b);
+        mbar_arrive_expect_tx(&full_v[s], P::V_BYTES);
 #pragma unroll
-        for (int c = 0; c < CH; ++c)
-          tma_load_4d(v_s + s * P::KV_BYTES + c * BK * 128, &tv, &full_v[s], c * 64, k0, hk, b);
+        for (int c = 0; c < P::CH_V; ++c)
+          tma_load_4d(v_s + s * P::V_BYTES + c * BK * 128, &tv, &full_v[s], c * 64, k0, hk, b);
       }
     }
   } else {
@@ -419,12 +444,12 @@ __global__ void __launch_bounds__(TcPlan<D>::THREADS, TcPlan<D>::MIN_BLOCKS)
       return (k0 + BK > p.Sk) || (p.causal && k0 + BK - 1 > q0) ||
              (p.window > 0 && k0 <= q0 + 63 - p.window);
     };
-    auto k_addr = [&](int s) { return smem_u32(k_s + s * P::KV_BYTES); };
-    auto v_addr = [&](int s) { return smem_u32(v_s + s * P::KV_BYTES); };
+    auto k_addr = [&](int s) { return smem_u32(k_s + s * P::K_BYTES); };
+    auto v_addr = [&](int s) { return smem_u32(v_s + s * P::V_BYTES); };
 
-    float o[D / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     Rows rows{MAX_FLOOR, MAX_FLOOR, 0.f, 0.f};
 
     const uint32_t q_addr = smem_u32(q_s);
@@ -437,14 +462,14 @@ __global__ void __launch_bounds__(TcPlan<D>::THREADS, TcPlan<D>::MIN_BLOCKS)
       float sc[BK / 2];
       uint32_t pa[BK / 4];
       mbar_wait(&full_k[s], par);
-      issue_qk<D, BK>(sc, q_addr, k_addr(s));
+      issue_qk<DQK, BK>(sc, q_addr, k_addr(s));
       wgmma_wait<0>();
       fence_all<BK / 2>(sc);
-      scale_rows<D>(o, softmax_tile<BK>(sc, pa, k0, r0, cq, edge(k0), p, rows));
+      scale_rows<DV>(o, softmax_tile<BK>(sc, pa, k0, r0, cq, edge(k0), p, rows));
       mbar_wait(&full_v[s], par);
-      issue_pv<D, BK>(o, pa, v_addr(s));
+      issue_pv<DV, BK>(o, pa, v_addr(s));
       wgmma_wait<0>();
-      fence_all<D / 2>(o);
+      fence_all<DV / 2>(o);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
     float l0 = rows.l0, l1 = rows.l1;
@@ -457,7 +482,7 @@ __global__ void __launch_bounds__(TcPlan<D>::THREADS, TcPlan<D>::MIN_BLOCKS)
     const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
     __nv_bfloat16* op = p.o + b * p.o_sb + h * p.o_sh;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       const int col = 8 * i + cq;
       if (r0 < p.Sq)
         *reinterpret_cast<uint32_t*>(op + (long long)r0 * p.o_ss + col) =
@@ -479,20 +504,20 @@ __global__ void __launch_bounds__(TcPlan<D>::THREADS, TcPlan<D>::MIN_BLOCKS)
 
 // ---- host side ------------------------------------------------------------
 
-template <int D, bool LSE>
+template <int DQK, int DV, bool LSE>
 static cudaError_t launch_tc(const FlashParams& f, int B, cudaStream_t stream) {
-  using P = TcPlan<D>;
+  using P = TcPlan<DQK, DV>;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D, LSE>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<DQK, DV, LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, f.q, B, f.H, f.Sq, D, f.q_sb, f.q_sh, f.q_ss, 64) ||
-      !make_map(&tk, f.k, B, f.Hkv, f.Sk, D, f.k_sb, f.k_sh, f.k_ss, P::BK) ||
-      !make_map(&tv, f.v, B, f.Hkv, f.Sk, D, f.v_sb, f.v_sh, f.v_ss, P::BK))
+  if (!make_map(&tq, f.q, B, f.H, f.Sq, DQK, f.q_sb, f.q_sh, f.q_ss, 64) ||
+      !make_map(&tk, f.k, B, f.Hkv, f.Sk, DQK, f.k_sb, f.k_sh, f.k_ss, P::BK) ||
+      !make_map(&tv, f.v, B, f.Hkv, f.Sk, DV, f.v_sb, f.v_sh, f.v_ss, P::BK))
     return cudaErrorInvalidValue;
   TcParams p;
   p.o = (__nv_bfloat16*)f.o;
@@ -502,52 +527,56 @@ static cudaError_t launch_tc(const FlashParams& f, int B, cudaStream_t stream) {
   p.causal = f.causal; p.window = f.window;
   p.scale_log2 = f.scale * 1.4426950408889634f;
   const dim3 grid((f.Sq + P::BQ - 1) / P::BQ, f.H, B);
-  flash_fwd_tc_kernel<D, LSE><<<grid, P::THREADS, P::SMEM, stream>>>(tq, tk, tv, p);
+  flash_fwd_tc_kernel<DQK, DV, LSE><<<grid, P::THREADS, P::SMEM, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
 template <bool LSE>
-static cudaError_t launch_tc_d(const FlashParams& f, int B, int D, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch_tc<64, LSE>(f, B, stream);
-    case 128: return launch_tc<128, LSE>(f, B, stream);
-    case 256: return launch_tc<256, LSE>(f, B, stream);
+static cudaError_t launch_tc_d(const FlashParams& f, int B, int Dqk, int Dv, cudaStream_t stream) {
+  if (Dqk == 192 && Dv == 128) return launch_tc<192, 128, LSE>(f, B, stream);
+  if (Dqk != Dv) return cudaErrorInvalidValue;
+  switch (Dqk) {
+    case 64: return launch_tc<64, 64, LSE>(f, B, stream);
+    case 128: return launch_tc<128, 128, LSE>(f, B, stream);
+    case 256: return launch_tc<256, 256, LSE>(f, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int D, bool LSE>
+template <int DQK, int DV, bool LSE>
 static cudaError_t launch_fma(const FlashParams& p, int B, cudaStream_t stream) {
-  constexpr size_t bytes = (size_t)FlashSmem<D>::FLOATS * sizeof(float);
+  constexpr size_t bytes = (size_t)FlashSmem<DQK, DV>::FLOATS * sizeof(float);
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<float, D, LSE>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<float, DQK, DV, LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
   const dim3 grid((p.Sq + FA_BQ - 1) / FA_BQ, p.H, B);
-  flash_fwd_kernel<float, D, LSE><<<grid, FA_THREADS, bytes, stream>>>(p);
+  flash_fwd_kernel<float, DQK, DV, LSE><<<grid, FA_THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <bool LSE>
-static cudaError_t launch_fma_d(const FlashParams& p, int B, int D, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch_fma<64, LSE>(p, B, stream);
-    case 128: return launch_fma<128, LSE>(p, B, stream);
-    case 256: return launch_fma<256, LSE>(p, B, stream);
+static cudaError_t launch_fma_d(const FlashParams& p, int B, int Dqk, int Dv, cudaStream_t stream) {
+  if (Dqk == 192 && Dv == 128) return launch_fma<192, 128, LSE>(p, B, stream);
+  if (Dqk != Dv) return cudaErrorInvalidValue;
+  switch (Dqk) {
+    case 64: return launch_fma<64, 64, LSE>(p, B, stream);
+    case 128: return launch_fma<128, 128, LSE>(p, B, stream);
+    case 256: return launch_fma<256, 256, LSE>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// Strides are in elements.  D must be 64, 128 or 256; every pointer and every
-// stride 16-byte aligned (TMA's rule for the bf16 path).  lse: null, or a
-// contiguous (B, H, Sq) fp32 tensor that the LSE variant fills.  Returns
-// cudaGetLastError().
+// Strides are in elements.  (Dqk, Dv): (64, 64), (128, 128), (256, 256) or
+// (192, 128); every pointer and every stride 16-byte aligned (TMA's rule for
+// the bf16 path).  lse: null, or a contiguous (B, H, Sq) fp32 tensor that the
+// LSE variant fills.  Returns cudaGetLastError().
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, float* lse, int B, int H, int Hkv, int Sq,
-    int Sk, int D, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    int Sk, int Dqk, int Dv, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, int causal, int window, float scale,
     int dtype, void* stream) {
@@ -562,25 +591,27 @@ extern "C" int flash_attention_launch(
   p.causal = causal; p.window = window; p.scale = scale;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == DT_F32)
-    return (int)(lse ? launch_fma_d<true>(p, B, D, s) : launch_fma_d<false>(p, B, D, s));
+    return (int)(lse ? launch_fma_d<true>(p, B, Dqk, Dv, s) : launch_fma_d<false>(p, B, Dqk, Dv, s));
   if (dtype == DT_BF16)
-    return (int)(lse ? launch_tc_d<true>(p, B, D, s) : launch_tc_d<false>(p, B, D, s));
+    return (int)(lse ? launch_tc_d<true>(p, B, Dqk, Dv, s) : launch_tc_d<false>(p, B, Dqk, Dv, s));
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 kernel's plan for D: {q rows, kv rows, stages, threads, blocks an
-// SM, shared-memory bytes} into out[6].  Returns 0, or -1 for a D the kernel
-// does not take.
-template <int D> static void plan_of(int* out) {
-  using P = TcPlan<D>;
+// The bf16 kernel's plan for (Dqk, Dv): {q rows, kv rows, stages, threads,
+// blocks an SM, shared-memory bytes} into out[6].  Returns 0, or -1 for dims
+// the kernel does not take.
+template <int DQK, int DV> static void plan_of(int* out) {
+  using P = TcPlan<DQK, DV>;
   out[0] = P::BQ; out[1] = P::BK; out[2] = P::STAGES; out[3] = P::THREADS;
   out[4] = P::MIN_BLOCKS; out[5] = P::SMEM;
 }
-extern "C" int flash_attention_plan(int D, int* out) {
-  switch (D) {
-    case 64: plan_of<64>(out); return 0;
-    case 128: plan_of<128>(out); return 0;
-    case 256: plan_of<256>(out); return 0;
+extern "C" int flash_attention_plan(int Dqk, int Dv, int* out) {
+  if (Dqk == 192 && Dv == 128) { plan_of<192, 128>(out); return 0; }
+  if (Dqk != Dv) return -1;
+  switch (Dqk) {
+    case 64: plan_of<64, 64>(out); return 0;
+    case 128: plan_of<128, 128>(out); return 0;
+    case 256: plan_of<256, 256>(out); return 0;
     default: return -1;
   }
 }

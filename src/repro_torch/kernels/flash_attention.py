@@ -16,6 +16,12 @@ strides, so the model's ``(B,S,H,D)`` tensors are passed as permuted views
 and never copied.  For a CUDA tensor a wrapper launches its kernels or
 raises; only a tensor on the CPU takes the plain version.  The autograd glue
 is ``ops.flash_attention_bshd``.
+
+The forward takes one head dim for q, k and v (``SUPPORTED_D``), or MLA's
+prefill dims (``MLA_D``): q and k at 192, v at 128, the output at v's.  The
+backward takes one head dim; at MLA's dims it raises on the card (its
+kernels come with the MLA training slice) and the CPU's plain version
+computes it.
 """
 from __future__ import annotations
 
@@ -27,24 +33,33 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-SUPPORTED_D = (64, 128, 256)
+SUPPORTED_D = (64, 128, 256)   # one head dim for q, k and v
+MLA_D = (192, 128)             # MLA's prefill: (q/k head dim, v head dim)
 SMEM_LIMIT = 232_448     # shared memory one block may use on sm_90 (227 KB)
 SM_SMEM = 233_472        # shared memory of an sm_90 SM (228 KB), 1 KB of it reserved a block
 
 
-def tile_plan(D: int) -> dict[str, int]:
-    """The bf16 kernel's tiles for head dim ``D`` (``TcPlan`` in the source):
-    q rows a block (one consumer warpgroup), kv rows a tile, stages of the
-    K/V ring, threads (a producer warpgroup beside the consumer), blocks an
-    SM it is built for, and shared-memory bytes (Q, the K and V ring, 256 of
-    barriers)."""
-    if D not in SUPPORTED_D:
-        raise ValueError(f"flash_attention: no bf16 plan for D={D}")
+def supported(Dqk: int, Dv: int) -> bool:
+    """Whether the forward kernels take q/k head dim ``Dqk`` and v head dim ``Dv``."""
+    return (Dqk == Dv and Dqk in SUPPORTED_D) or (Dqk, Dv) == MLA_D
+
+
+def tile_plan(D: int, Dv: int | None = None) -> dict[str, int]:
+    """The bf16 kernel's tiles for q/k head dim ``D`` and v head dim ``Dv``
+    (default ``D``), ``TcPlan`` in the source: q rows a block (one consumer
+    warpgroup), kv rows a tile, stages of the K/V ring, threads (a producer
+    warpgroup beside the consumer), blocks an SM it is built for (two where
+    two fit an SM's shared memory), and shared-memory bytes (Q, the K and V
+    ring, 256 of barriers).  The ring is three stages deep for one head dim
+    and two at ``MLA_D``, where two blocks then share an SM."""
+    Dv = D if Dv is None else Dv
+    if not supported(D, Dv):
+        raise ValueError(f"flash_attention: no bf16 plan for D={D}, Dv={Dv}")
     bq = bk = 64
-    stages = 3
+    stages = 2 if D != Dv else 3
+    smem = bq * D * 2 + stages * bk * (D + Dv) * 2 + 256
     return {"q_rows": bq, "kv_rows": bk, "stages": stages, "threads": 256,
-            "blocks_per_sm": 2 if D < 256 else 1,
-            "smem_bytes": bq * D * 2 + 2 * stages * bk * D * 2 + 256}
+            "blocks_per_sm": 2 if 2 * (smem + 1024) <= SM_SMEM else 1, "smem_bytes": smem}
 
 
 BWD_TC_D = (64, 128)     # head dims of the backward's tensor-core path (bf16, aligned views)
@@ -134,12 +149,13 @@ def _mask(Sq: int, Sk: int, causal: bool, window: int, device) -> torch.Tensor:
 def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
                               scale: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's function in plain torch, with the row log-sum-exp
-    of the scaled scores that its LSE variant writes.  q: (B,H,Sq,D); k/v:
-    (B,Hkv,Sk,D) -> ((B,H,Sq,D) in q's dtype, (B,H,Sq) fp32).  Follows the
-    kernel, not ``ref.py``: the running maximum is floored at -1e30, so a
-    fully masked row gives 0 (and a log-sum-exp near -1e30)."""
+    of the scaled scores that its LSE variant writes.  q: (B,H,Sq,D); k:
+    (B,Hkv,Sk,D); v: (B,Hkv,Sk,Dv) -> ((B,H,Sq,Dv) in q's dtype, (B,H,Sq)
+    fp32); the scale defaults to 1/sqrt(D).  Follows the kernel, not
+    ``ref.py``: the running maximum is floored at -1e30, so a fully masked
+    row gives 0 (and a log-sum-exp near -1e30)."""
     B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qg = q.float().reshape(B, Hkv, G, Sq, D)
@@ -150,13 +166,13 @@ def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
     l = p.sum(dim=-1, keepdim=True)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float()) / l.clamp_min(1e-30)
     lse = (m + torch.log(l.clamp_min(1e-30))).reshape(B, H, Sq)
-    return o.reshape(B, H, Sq, D).to(q.dtype), lse
+    return o.reshape(B, H, Sq, Dv).to(q.dtype), lse
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           scale: float | None = None) -> torch.Tensor:
-    """The kernel's function in plain torch.  q: (B,H,Sq,D); k/v:
-    (B,Hkv,Sk,D) -> (B,H,Sq,D).  Follows the kernel, not ``ref.py``: the
+    """The kernel's function in plain torch.  q: (B,H,Sq,D); k: (B,Hkv,Sk,D);
+    v: (B,Hkv,Sk,Dv) -> (B,H,Sq,Dv).  Follows the kernel, not ``ref.py``: the
     running maximum is floored at -1e30, so a fully masked row gives 0."""
     return flash_attention_lse_plain(q, k, v, causal=causal, window=window, scale=scale)[0]
 
@@ -165,16 +181,17 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True, windo
                               scale: float | None = None):
     """The backward kernels' arithmetic in plain torch, step by step: ``(dq,
     dk, dv)`` of the forward given its output ``o``, its log-sum-exp ``lse``
-    (B,H,Sq) and the gradient ``do`` of ``o``.  Shapes as the forward's;
-    fp32 throughout, each gradient in its input's dtype.  A masked score has
-    P = 0, so a fully masked row sends no gradient."""
+    (B,H,Sq) and the gradient ``do`` of ``o``.  Shapes as the forward's (v,
+    o and do at v's head dim); fp32 throughout, each gradient in its input's
+    dtype.  A masked score has P = 0, so a fully masked row sends no
+    gradient."""
     B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qg = q.float().reshape(B, Hkv, G, Sq, D)
-    og = o.float().reshape(B, Hkv, G, Sq, D)
-    dog = do.float().reshape(B, Hkv, G, Sq, D)
+    og = o.float().reshape(B, Hkv, G, Sq, Dv)
+    dog = do.float().reshape(B, Hkv, G, Sq, Dv)
     kf, vf = k.float(), v.float()
     s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
     p = torch.exp(s - lse.float().reshape(B, Hkv, G, Sq, 1))
@@ -193,18 +210,19 @@ def _lib():
     if lib.flash_attention_launch.argtypes is None:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_launch.argtypes = (
-            [vp, vp, vp, vp, vp] + [ci] * 6 + [ll] * 12 + [ci, ci, ctypes.c_float, ci, vp])
+            [vp, vp, vp, vp, vp] + [ci] * 7 + [ll] * 12 + [ci, ci, ctypes.c_float, ci, vp])
         lib.flash_attention_launch.restype = ci
-        lib.flash_attention_plan.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
+        lib.flash_attention_plan.argtypes = [ci, ci, ctypes.POINTER(ctypes.c_int)]
         lib.flash_attention_plan.restype = ci
     return lib
 
 
-def kernel_plan(D: int) -> dict[str, int]:
+def kernel_plan(D: int, Dv: int | None = None) -> dict[str, int]:
     """:func:`tile_plan` as the compiled kernel reports it (needs the library)."""
+    Dv = D if Dv is None else Dv
     out = (ctypes.c_int * 6)()
-    if _lib().flash_attention_plan(D, out) != 0:
-        raise ValueError(f"flash_attention: no bf16 plan for D={D}")
+    if _lib().flash_attention_plan(D, Dv, out) != 0:
+        raise ValueError(f"flash_attention: no bf16 plan for D={D}, Dv={Dv}")
     return dict(zip(("q_rows", "kv_rows", "stages", "threads", "blocks_per_sm", "smem_bytes"),
                     out))
 
@@ -224,15 +242,16 @@ def check_operand(name: str, t: torch.Tensor) -> None:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None, out: torch.Tensor | None = None,
                     lse: torch.Tensor | None = None) -> torch.Tensor:
-    """q: (B,H,Sq,D); k/v: (B,Hkv,Sk,D) with H % Hkv == 0 -> (B,H,Sq,D).
-    Any strides over the first three dims that are multiples of 16 bytes.
-    ``out``, if given, is a ``(B,H,Sq,D)`` tensor (view) of ``q.dtype`` that
-    receives the result.  ``lse``, if given, is a contiguous ``(B,H,Sq)``
-    fp32 tensor that receives the row log-sum-exp (the kernel's LSE
-    variant, for the backward)."""
+    """q: (B,H,Sq,D); k: (B,Hkv,Sk,D); v: (B,Hkv,Sk,Dv) with H % Hkv == 0 ->
+    (B,H,Sq,Dv); the scale defaults to 1/sqrt(D).  Any strides over the
+    first three dims that are multiples of 16 bytes.  ``out``, if given, is
+    a ``(B,H,Sq,Dv)`` tensor (view) of ``q.dtype`` that receives the result.
+    ``lse``, if given, is a contiguous ``(B,H,Sq)`` fp32 tensor that
+    receives the row log-sum-exp (the kernel's LSE variant, for the
+    backward)."""
     B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    if H % Hkv or k.shape != (B, Hkv, Sk, D) or v.shape != k.shape:
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if H % Hkv or k.shape != (B, Hkv, Sk, D) or v.shape != (B, Hkv, Sk, Dv):
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
     code = _build.dtype_code(q, "flash_attention q")
@@ -252,13 +271,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype or k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v must share dtype and device")
-    if D not in SUPPORTED_D:
-        raise ValueError(f"flash_attention: head dim {D} not supported by the kernel "
-                         f"(supported: {SUPPORTED_D})")
+    if not supported(D, Dv):
+        raise ValueError(f"flash_attention: head dims {D} (q, k) and {Dv} (v) not supported by "
+                         f"the kernel (supported: one of {SUPPORTED_D}, or {MLA_D})")
     if out is None:
-        out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
-    elif out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
-        raise ValueError("flash_attention: out must match q in shape, dtype and device")
+        out = torch.empty((B, H, Sq, Dv), dtype=q.dtype, device=q.device)
+    elif out.shape != (B, H, Sq, Dv) or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError("flash_attention: out must be (B,H,Sq,Dv) of q's dtype and device")
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
         check_operand(name, t)
     if B == 0 or Sq == 0:
@@ -266,7 +285,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     _build.launch(_lib().flash_attention_launch, q.device, "flash_attention",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  None if lse is None else lse.data_ptr(), B, H, Hkv, Sq, Sk, D,
+                  None if lse is None else lse.data_ptr(), B, H, Hkv, Sq, Sk, D, Dv,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                   int(bool(causal)), int(window), float(scale), code)
     flash_attention.launches += 1
@@ -317,14 +336,16 @@ def _check_bwd_operand(name: str, t: torch.Tensor) -> None:
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
                         scale: float | None = None, dq=None, dk=None, dv=None):
     """``(dq, dk, dv)`` of :func:`flash_attention` (see
-    :func:`flash_attention_bwd_plain`).  q, o, do, dq: (B,H,Sq,D); k, v, dk,
-    dv: (B,Hkv,Sk,D), all of one dtype, with strides as the forward's; lse:
-    the forward's contiguous (B,H,Sq) fp32 log-sum-exp.  ``dq``/``dk``/``dv``,
-    if given, are tensors (views) that receive the gradients."""
+    :func:`flash_attention_bwd_plain`).  q, dq: (B,H,Sq,D); o, do:
+    (B,H,Sq,Dv); k, dk: (B,Hkv,Sk,D); v, dv: (B,Hkv,Sk,Dv), all of one dtype,
+    with strides as the forward's; lse: the forward's contiguous (B,H,Sq) fp32
+    log-sum-exp.  ``dq``/``dk``/``dv``, if given, are tensors (views) that
+    receive the gradients.  The kernels take one head dim (D = Dv); MLA's
+    dims are computed on the CPU only."""
     B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    if (H % Hkv or k.shape != (B, Hkv, Sk, D) or v.shape != k.shape or o.shape != q.shape
-            or do.shape != q.shape or lse.shape != (B, H, Sq)):
+    Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if (H % Hkv or k.shape != (B, Hkv, Sk, D) or v.shape != (B, Hkv, Sk, Dv)
+            or o.shape != (B, H, Sq, Dv) or do.shape != o.shape or lse.shape != (B, H, Sq)):
         raise ValueError(f"flash_attention_bwd: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} o {tuple(o.shape)} do {tuple(do.shape)} "
                          f"lse {tuple(lse.shape)}")
@@ -347,6 +368,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
         raise ValueError("flash_attention_bwd: q, k, v, o and do must share dtype and device")
     if lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be contiguous float32 on q's device")
+    if D != Dv:
+        raise NotImplementedError(
+            f"flash_attention_bwd: no kernel for a q/k head dim {D} apart from the v head dim "
+            f"{Dv} (MLA): K1's backward at those dims comes with the MLA training slice "
+            "(ROADMAP queue B)")
     if D not in SUPPORTED_D:
         raise ValueError(f"flash_attention_bwd: head dim {D} not supported by the kernels "
                          f"(supported: {SUPPORTED_D})")

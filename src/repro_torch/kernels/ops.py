@@ -34,7 +34,7 @@ def _records(*tensors) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B,H,Sq,D); k/v: (B,Hkv,Sk,D)."""
+    """q: (B,H,Sq,D); k: (B,Hkv,Sk,D); v: (B,Hkv,Sk,Dv)."""
     return _flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -49,13 +49,13 @@ class _FlashAttentionBSHD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         B, S, Hkv, G, D = q.shape
-        out = torch.empty((B, S, Hkv * G, D), dtype=q.dtype, device=q.device)
+        out = torch.empty((B, S, Hkv * G, v.shape[-1]), dtype=q.dtype, device=q.device)
         lse = torch.empty((B, Hkv * G, S), dtype=torch.float32, device=q.device)
         _flash_attention(_heads(q.reshape(B, S, Hkv * G, D)), _heads(k), _heads(v),
                          causal=causal, window=window, scale=scale, out=_heads(out), lse=lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.scale = causal, window, scale
-        return out.reshape(B, S, Hkv, G, D)
+        return out.reshape(B, S, Hkv, G, -1)
 
     @staticmethod
     def backward(ctx, do):
@@ -64,7 +64,7 @@ class _FlashAttentionBSHD(torch.autograd.Function):
         dq = torch.empty((B, S, Hkv * G, D), dtype=q.dtype, device=q.device)
         dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
         dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-        do = do.contiguous().reshape(B, S, Hkv * G, D)
+        do = do.contiguous().reshape(B, S, Hkv * G, v.shape[-1])
         _flash_attention_bwd(_heads(q.reshape(B, S, Hkv * G, D)), _heads(k), _heads(v),
                              _heads(out), lse, _heads(do), causal=ctx.causal, window=ctx.window,
                              scale=ctx.scale, dq=_heads(dq), dk=_heads(dk), dv=_heads(dv))
@@ -72,15 +72,18 @@ class _FlashAttentionBSHD(torch.autograd.Function):
 
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0, scale=None):
-    """Model layout: q (B,S,Hkv,G,D); k/v (B,T,Hkv,D) -> (B,S,Hkv,G,D).
-    Differentiable through K1's backward kernels where autograd records."""
+    """Model layout: q (B,S,Hkv,G,D); k (B,T,Hkv,D); v (B,T,Hkv,Dv) ->
+    (B,S,Hkv,G,Dv).  Differentiable through K1's backward kernels where
+    autograd records (one head dim only: at MLA's dims they raise on the
+    card)."""
     if _records(q, k, v):
         return _FlashAttentionBSHD.apply(q, k, v, causal, window, scale)
     B, S, Hkv, G, D = q.shape
-    out = torch.empty((B, S, Hkv * G, D), dtype=q.dtype, device=q.device)
+    Dv = v.shape[-1]
+    out = torch.empty((B, S, Hkv * G, Dv), dtype=q.dtype, device=q.device)
     _flash_attention(_heads(q.reshape(B, S, Hkv * G, D)), _heads(k), _heads(v), causal=causal,
                      window=window, scale=scale, out=_heads(out))
-    return out.reshape(B, S, Hkv, G, D)
+    return out.reshape(B, S, Hkv, G, Dv)
 
 
 def decode_attention(q, k, v, kv_valid_len=None):

@@ -1,9 +1,12 @@
 """Decode-cache construction (counterpart of ``repro/models/kvcache.py``) for
-the ring caches of the ``attn_ffn`` and ``moe_attn_ffn`` blocks.
+the ring caches of the ``attn_ffn``, ``moe_attn_ffn`` and ``mla_moe`` blocks.
 
-Layout: ``cache["blocks"]`` is a list with one ``{"k", "v"}`` a layer, each
-``(B, T, Hkv, D)`` as in the reference (which stacks them over depth), plus
-``cache["pos"]``, the per-slot absolute position, ``(B,) int32``.
+Layout: ``cache["blocks"]`` is a list with one dict a layer, as in the
+reference (which stacks them over depth): ``{"k", "v"}``, each ``(B, T, Hkv,
+D)``, for the GQA blocks; ``{"ckv": (B, T, kv_lora_rank), "kr": (B, T,
+qk_rope_head_dim)}``, MLA's compressed latent and its rotary key, for
+``mla_moe``.  Plus ``cache["pos"]``, the per-slot absolute position, ``(B,)
+int32``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,15 @@ def _kind_cache(cfg: ModelConfig, kind: str, c: CacheCreator, batch: int, cache_
     if kind in ("attn_ffn", "moe_attn_ffn"):
         shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
         return {"k": c(shape, dt), "v": c(shape, dt)}
+    if kind == "mla_moe":
+        return {"ckv": c((batch, cache_len, cfg.kv_lora_rank), dt),
+                "kr": c((batch, cache_len, cfg.qk_rope_head_dim), dt)}
     raise ValueError(kind)
+
+
+def cache_len_of(cache: dict) -> int:
+    """The ring's length T of a cache built here (every leaf is ``(B, T, ...)``)."""
+    return next(iter(cache["blocks"][0].values())).shape[1]
 
 
 def build_cache(cfg: ModelConfig, creator: CacheCreator, batch: int, cache_len: int):

@@ -1,4 +1,4 @@
-"""Core neural layers: the dense and GQA-MoE subset (counterpart of
+"""Core neural layers: the dense and MoE subset (counterpart of
 ``repro/models/layers.py``).
 
 Everything is functional: ``apply(params, x, ...) -> y``.  The reference's
@@ -97,6 +97,12 @@ def _rot_dim(cfg, d: int) -> int:
     return rot - rot % 2
 
 
+def rope_head_dim(cfg) -> int:
+    """The head dim a block of ``cfg`` rotates: MLA's rotary part
+    (``qk_rope_head_dim``), else the head."""
+    return cfg.qk_rope_head_dim if cfg.attention == "mla" else cfg.head_dim
+
+
 def rope_tables(cfg, positions: torch.Tensor, head_dim: int):
     """(cos, sin), each (B, S, 1, rot/2) float32, for ``apply_rope``.  They
     depend on the positions only, so a model call computes them once and
@@ -166,8 +172,10 @@ def attend_dense(q, k, v, *, q_offset, causal: bool, window: int = 0,
 
 
 def _attend_kernel(q, k, v, *, q_offset, causal, window, kv_valid_len, soft_cap, scale, plain):
-    """Route one attention call to the kernel that computes it."""
+    """Route one attention call to the kernel that computes it.  The output
+    takes v's head dim, which MLA's prefill has apart from q's and k's."""
     B, Sq, Hkv, G, D = q.shape
+    Dv = v.shape[-1]
     if soft_cap != 0.0 or q_offset != 0:
         raise ValueError("attention(strategy='kernel'): soft_cap and q_offset are not "
                          "taken by the kernels")
@@ -176,7 +184,7 @@ def _attend_kernel(q, k, v, *, q_offset, causal, window, kv_valid_len, soft_cap,
             qh = q.reshape(B, Sq, Hkv * G, D).permute(0, 2, 1, 3)
             o = flash_attention_plain(qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
                                       causal=causal, window=window, scale=scale)
-            return o.permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, D)
+            return o.permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, Dv)
         return ops.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
     if Sq == 1 and not causal and window == 0:
         vl = kv_valid_len
@@ -185,7 +193,7 @@ def _attend_kernel(q, k, v, *, q_offset, causal, window, kv_valid_len, soft_cap,
         if plain:
             o = decode_attention_plain(q.reshape(B, Hkv * G, D), k.permute(0, 2, 1, 3),
                                        v.permute(0, 2, 1, 3), kv_valid_len=vl, scale=scale)
-            return o.reshape(B, 1, Hkv, G, D)
+            return o.reshape(B, 1, Hkv, G, Dv)
         return ops.decode_attention_bthd(q, k, v, vl, scale=scale)
     raise ValueError("attention(strategy='kernel'): kv_valid_len is taken only for one "
                      "unmasked query token a sequence (decode)")

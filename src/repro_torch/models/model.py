@@ -1,5 +1,5 @@
-"""Model assembly for the dense decoders and the GQA MoE decoders (counterpart
-of ``repro/models/model.py``).
+"""Model assembly for the dense decoders and the MoE decoders, with GQA or
+with MLA attention (counterpart of ``repro/models/model.py``).
 
 ``Model`` exposes:
   * ``init(generator)``                    — concrete params on the model's device
@@ -28,6 +28,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models.kvcache import cache_len_of
 from repro_torch.models.params import init_params, layer_kinds
 
 Tree = Any
@@ -125,6 +126,102 @@ def gqa_decode(cfg, p, x, pos, cache, *, rope=True, positions=None, rope_tables=
     return _attn_out(p, o, x.dtype), {"k": k, "v": v}
 
 
+# --- MLA (deepseek) -------------------------------------------------------
+
+def _mla_q(cfg, p, x, plain):
+    """(B,S,H,dn+dr): the query's down projection, its K3 norm (``q_norm``,
+    no residual) and its up projection, RoPE not applied yet."""
+    B, S, _ = x.shape
+    cq = L.rmsnorm(p["q_norm"]["w"], x @ p["dq"]["w"].to(x.dtype), eps=cfg.norm_eps, plain=plain)
+    w = p["uq"]["w"].to(x.dtype)                          # (qr, H, dn+dr)
+    return (cq @ w.reshape(w.shape[0], -1)).reshape(B, S, w.shape[1], w.shape[2])
+
+
+def _mla_latent(cfg, p, x, positions, rope_tables, plain):
+    """(ckv (B,S,kv_lora_rank), k_rope (B,S,1,dr)): the compressed latent
+    (down projection and its K3 norm ``kv_norm``) and the rotary key that
+    every head shares, which is what the cache keeps."""
+    ckv = L.rmsnorm(p["kv_norm"]["w"], x @ p["dkv"]["w"].to(x.dtype), eps=cfg.norm_eps,
+                    plain=plain)
+    kr = L.apply_rope(cfg, (x @ p["kr"]["w"].to(x.dtype))[:, :, None, :], positions,
+                      tables=rope_tables)
+    return ckv, kr
+
+
+def mla_full(cfg, p, x, positions, *, rope_tables=None, plain=False):
+    """Expanded-form MLA for train and prefill; returns the compressed cache
+    parts ``(ckv, k_rope)``.  The heads' keys are their up-projected latent
+    beside the shared rotary key, so q and k have a head dim of dn + dr and
+    v one of dv: on the card this is K1 at (dn + dr, dv), scale 1/sqrt(dn +
+    dr), G = 1."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q = _mla_q(cfg, p, x, plain)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = L.apply_rope(cfg, q_rope, positions, tables=rope_tables)
+    ckv, k_rope = _mla_latent(cfg, p, x, positions, rope_tables, plain)
+    r = ckv.shape[-1]
+    k_nope = (ckv @ p["uk"]["w"].to(x.dtype).reshape(r, H * dn)).reshape(B, S, H, dn)
+    v = (ckv @ p["uv"]["w"].to(x.dtype).reshape(r, H * dv)).reshape(B, S, H, dv)
+    q_all = torch.cat([q_nope, q_rope], -1).reshape(B, S, H, 1, dn + dr)
+    k_all = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
+    o = L.attention(q_all, k_all, v, q_offset=0, causal=True, scale=1.0 / math.sqrt(dn + dr),
+                    plain=plain)
+    o = o.reshape(B, S, H, dv)
+    return _attn_out(p, o, x.dtype), (ckv, k_rope[:, :, 0, :])
+
+
+def mla_decode(cfg, p, x, pos, cache, *, positions=None, rope_tables=None, indices=None,
+               plain=False):
+    """Absorbed-form MLA decode on the compressed ``{"ckv", "kr"}`` ring
+    cache, whose new rows are written **in place**.  ``W_uk`` is absorbed
+    into the query and ``W_uv`` applied after the weighted sum, so the
+    scores run over the latent, in float32, outside any kernel (the
+    reference's einsums, none of which is a Pallas kernel either).
+
+    Each product is the batched product the reference's einsum contracts,
+    with its operands in the same order (the larger first), so both tracers
+    see one (M, N, K): torch's ``einsum`` would order them its own way.  The
+    operands are strided views, which the matrix product reads as they lie;
+    the scores come out (B, T, H) and are softmaxed as (B, H, T), the
+    reference's two transposes."""
+    B = x.shape[0]
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    T = cache["ckv"].shape[1]
+    if positions is None:
+        positions = pos[:, None]
+    q = _mla_q(cfg, p, x, plain)                          # (B, 1, H, dn+dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = L.apply_rope(cfg, q_rope, positions, tables=rope_tables)
+    # absorb W_uk: q_lat[h] = W_uk[h] q_nope[h], (H, r, dn) @ (H, dn, B) -> (H, r, B)
+    uk = p["uk"]["w"].to(x.dtype)                         # (r, H, dn)
+    q_lat = torch.bmm(uk.permute(1, 0, 2), q_nope.reshape(B, H, dn).permute(1, 2, 0))
+    ckv_new, kr_new = _mla_latent(cfg, p, x, positions, rope_tables, plain)
+    b_idx, slot, valid = indices if indices is not None else decode_indices(pos, T)
+    ckv, kr = cache["ckv"], cache["kr"]
+    ckv[b_idx, slot] = ckv_new[:, 0]      # in place
+    kr[b_idx, slot] = kr_new[:, 0, 0]
+    scale = 1.0 / math.sqrt(dn + dr)
+    ckv_f = ckv.float()                                   # (B, T, r)
+    s = (torch.bmm(ckv_f, q_lat.permute(2, 1, 0).float())                       # (B, T, H)
+         + torch.bmm(kr.float(), q_rope.reshape(B, H, dr).transpose(1, 2).float())) * scale
+    # (B, H, T): a softmax over the last dim (over dim 1 of (B, T, H) it took
+    # 1.3 ms a layer on an H100 at B8 T2048, a tenth of the step)
+    s = s.transpose(1, 2)
+    s = torch.where(torch.arange(T, device=x.device) < valid[:, None, None], s, L.NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.bmm(ckv_f.transpose(1, 2), pr.transpose(1, 2)).to(x.dtype)    # (B, r, H)
+    uv = p["uv"]["w"].to(x.dtype)                         # (r, H, dv)
+    o = torch.bmm(uv.permute(1, 2, 0), o_lat.permute(2, 1, 0))                  # (H, dv, B)
+    # (B, 1, H, dv) laid out densely: the output product then reads it as one
+    # matrix, where a strided view would make torch.matmul copy the weight
+    # once a row
+    o = o.permute(2, 0, 1).contiguous().reshape(B, 1, H, dv)
+    return _attn_out(p, o, x.dtype), {"ckv": ckv, "kr": kr}
+
+
 # ==========================================================================
 # Block dispatch
 # ==========================================================================
@@ -145,27 +242,31 @@ def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
     plain = aux.get("plain", False)
     cache_len = aux.get("cache_len", 0)
 
-    def kv_cache(k, v):
+    def ring(rows: dict):
+        """A ring cache of ``cache_len`` rows holding the prompt's rows first."""
         if not collect_cache:
             return None
-        S = k.shape[1]
-        if S > cache_len:
-            raise ValueError(f"prompt of {S} tokens does not fit a cache of {cache_len}")
-        kc = torch.zeros((k.shape[0], cache_len, *k.shape[2:]), dtype=k.dtype, device=k.device)
-        vc = torch.zeros_like(kc)
-        kc[:, :S] = k
-        vc[:, :S] = v
-        return {"k": kc, "v": vc}
+        out = {}
+        for name, t in rows.items():
+            S = t.shape[1]
+            if S > cache_len:
+                raise ValueError(f"prompt of {S} tokens does not fit a cache of {cache_len}")
+            out[name] = torch.zeros((t.shape[0], cache_len, *t.shape[2:]), dtype=t.dtype,
+                                    device=t.device)
+            out[name][:, :S] = t
+        return out
 
-    if kind in ("attn_ffn", "moe_attn_ffn"):
+    if kind in ("attn_ffn", "moe_attn_ffn", "mla_moe"):
         h, x = L.add_norm(cfg, p["ln1"], h, pending, plain=plain)
-        a, (k, v) = gqa_full(cfg, p["attn"], x, positions, rope_tables=aux.get("rope_tables"),
-                             plain=plain)
+        attend = mla_full if kind == "mla_moe" else gqa_full
+        a, rows = attend(cfg, p["attn"], x, positions, rope_tables=aux.get("rope_tables"),
+                         plain=plain)
+        names = ("ckv", "kr") if kind == "mla_moe" else ("k", "v")
         h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
-        if kind == "moe_attn_ffn":
-            f, aux_loss = L.moe_ffn(cfg, p["moe"], x)
-            return h, f, kv_cache(k, v), aux_loss
-        return h, L.ffn(cfg, p["mlp"], x), kv_cache(k, v), None
+        if kind == "attn_ffn":
+            return h, L.ffn(cfg, p["mlp"], x), ring(dict(zip(names, rows))), None
+        f, aux_loss = L.moe_ffn(cfg, p["moe"], x)
+        return h, f, ring(dict(zip(names, rows))), aux_loss
 
     raise ValueError(kind)
 
@@ -176,15 +277,16 @@ def apply_block_decode(cfg, kind, p, h, pending, cache, aux):
     positions = aux.get("decode_positions")
     plain = aux.get("plain", False)
 
-    if kind in ("attn_ffn", "moe_attn_ffn"):
+    if kind in ("attn_ffn", "moe_attn_ffn", "mla_moe"):
         h, x = L.add_norm(cfg, p["ln1"], h, pending, plain=plain)
-        a, c = gqa_decode(cfg, p["attn"], x, pos, cache, positions=positions,
-                          rope_tables=aux.get("rope_tables"), indices=aux.get("indices"),
-                          plain=plain)
+        attend = mla_decode if kind == "mla_moe" else gqa_decode
+        a, c = attend(cfg, p["attn"], x, pos, cache, positions=positions,
+                      rope_tables=aux.get("rope_tables"), indices=aux.get("indices"),
+                      plain=plain)
         h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
-        if kind == "moe_attn_ffn":
-            return h, L.moe_ffn(cfg, p["moe"], x)[0], c
-        return h, L.ffn(cfg, p["mlp"], x), c
+        if kind == "attn_ffn":
+            return h, L.ffn(cfg, p["mlp"], x), c
+        return h, L.moe_ffn(cfg, p["moe"], x)[0], c
 
     raise ValueError(kind)
 
@@ -269,9 +371,11 @@ class Model:
 
     def _aux(self, positions, **kw) -> dict:
         """What every layer of one call shares: positions, the RoPE tables
-        computed once from them, and the plain-versions switch."""
+        computed once from them for the dim the blocks rotate, and the
+        plain-versions switch."""
         return {"positions": positions, "plain": self.plain_kernels,
-                "rope_tables": L.rope_tables(self.cfg, positions, self.cfg.head_dim), **kw}
+                "rope_tables": L.rope_tables(self.cfg, positions, L.rope_head_dim(self.cfg)),
+                **kw}
 
     # ---- full-sequence stack ----
     def _block(self, kind, p, aux, h, pending):
@@ -346,7 +450,7 @@ class Model:
         tokens = self._tokens(batch)
         pos = cache["pos"]                    # (B,) per-slot positions
         positions = self._positions(batch, pos[:, None])
-        T = cache["blocks"][0]["k"].shape[1]
+        T = cache_len_of(cache)
         aux = self._aux(positions, pos=pos, decode_positions=positions,
                         indices=decode_indices(pos, T))
         h = self._embed(params, tokens)

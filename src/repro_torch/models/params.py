@@ -1,6 +1,6 @@
 """Parameter-tree construction (counterpart of ``repro/models/params.py``), for the
-``attn_ffn`` block of the dense decoders and the ``moe_attn_ffn`` block of the
-MoE decoders with GQA attention.
+``attn_ffn`` block of the dense decoders, the ``moe_attn_ffn`` block of the
+MoE decoders with GQA attention and the ``mla_moe`` block of those with MLA.
 
 One function (``build_params``) drives its consumers through a creator
 callback: concrete init (``init_params``) and parameter counts
@@ -27,13 +27,13 @@ def block_cycle(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
     """Return (cycle_kinds, n_cycles, tail_kinds) for the decoder stack."""
     if cfg.family == "dense":
         cycle = ("attn_ffn",)
-    elif cfg.family == "moe" and cfg.attention != "mla":
-        cycle = ("moe_attn_ffn",)
     elif cfg.family == "moe":
-        raise ValueError("family 'moe' with MLA attention (block kind 'mla_moe') is not "
-                         "ported yet: it comes with the MLA slice")
+        cycle = ("moe_attn_ffn" if cfg.attention != "mla" else "mla_moe",)
+    elif cfg.family == "hybrid":
+        raise ValueError("family 'hybrid' (block kinds 'griffin_rec' and 'griffin_attn') is "
+                         "not ported yet: it comes with the RG-LRU slice")
     else:
-        raise ValueError(f"family {cfg.family!r} is not ported yet (dense and GQA MoE only)")
+        raise ValueError(f"family {cfg.family!r} is not ported yet (dense and MoE only)")
     n = cfg.num_layers // len(cycle)
     tail_len = cfg.num_layers - n * len(cycle)
     return cycle, n, cycle[:tail_len]
@@ -44,6 +44,10 @@ def _norm(cfg, c: Creator, path):
     if cfg.norm == "layernorm":
         p["b"] = c(path + ("b",), (cfg.d_model,), 0)
     return p
+
+
+def _vec_norm(cfg, c: Creator, path, dim):
+    return {"w": c(path + ("w",), (dim,), 0)}
 
 
 def _gqa_attn(cfg, c: Creator, path):
@@ -59,6 +63,23 @@ def _gqa_attn(cfg, c: Creator, path):
         p["k"]["b"] = c(path + ("k", "b"), (Hkv, Dh), 0)
         p["v"]["b"] = c(path + ("v", "b"), (Hkv, Dh), 0)
     return p
+
+
+def _mla_attn(cfg, c: Creator, path):
+    D, H = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "dq": {"w": c(path + ("dq", "w"), (D, qr), D)},
+        "q_norm": _vec_norm(cfg, c, path + ("q_norm",), qr),
+        "uq": {"w": c(path + ("uq", "w"), (qr, H, dn + dr), qr)},
+        "dkv": {"w": c(path + ("dkv", "w"), (D, kvr), D)},
+        "kv_norm": _vec_norm(cfg, c, path + ("kv_norm",), kvr),
+        "uk": {"w": c(path + ("uk", "w"), (kvr, H, dn), kvr)},
+        "uv": {"w": c(path + ("uv", "w"), (kvr, H, dv), kvr)},
+        "kr": {"w": c(path + ("kr", "w"), (D, dr), D)},
+        "o": {"w": c(path + ("o", "w"), (H, dv, D), H * dv)},
+    }
 
 
 def _mlp(cfg, c: Creator, path, d_ff=None):
@@ -105,7 +126,16 @@ def _moe_attn_ffn(cfg, c: Creator, path):
     }
 
 
-BLOCK_PARAMS = {"attn_ffn": _attn_ffn, "moe_attn_ffn": _moe_attn_ffn}
+def _mla_moe(cfg, c: Creator, path):
+    return {
+        "ln1": _norm(cfg, c, path + ("ln1",)),
+        "attn": _mla_attn(cfg, c, path + ("attn",)),
+        "ln2": _norm(cfg, c, path + ("ln2",)),
+        "moe": _moe(cfg, c, path + ("moe",)),
+    }
+
+
+BLOCK_PARAMS = {"attn_ffn": _attn_ffn, "moe_attn_ffn": _moe_attn_ffn, "mla_moe": _mla_moe}
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:

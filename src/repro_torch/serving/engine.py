@@ -84,10 +84,11 @@ class ServingEngine:
             tok = int(torch.argmax(logits[0, -1]))     # waits for the device
             req.tokens.append(tok)
             req.ttft_s = self.clock() - req.arrival_s
-            # copy the single-request (batch=1) cache into this slot, in place
+            # copy the single-request (batch=1) cache into this slot, in place,
+            # every leaf of the layer's cache ({k, v}, or MLA's {ckv, kr})
             for mine, new in zip(self.cache["blocks"], pc["blocks"]):
-                mine["k"][slot].copy_(new["k"][0])
-                mine["v"][slot].copy_(new["v"][0])
+                for name, t in mine.items():
+                    t[slot].copy_(new[name][0])
             self.cache["pos"][slot] = len(req.prompt)
             self._last_tok[slot, 0] = tok
             self.active[slot] = req

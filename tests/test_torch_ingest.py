@@ -22,8 +22,15 @@ explained in ``PERF.md``:
   and (T*K, D) shapes: 45.9 of the 93.6 GB of its remainder, where the port's
   autograd keeps them in bf16 (0.4 GB of float32 in 47.5 GB).  The forward
   graphs of that block are held to the ``block`` bounds (measured 0.928-0.939).
+  deepseek's MLA MoE block reads 0.569 there for the same reason, and
+  0.927 in its train and prefill forward graphs.
+* ``REST_BYTES["mla_decode"]``: deepseek's absorbed MLA decode block,
+  0.60-1.20 (measured 1.106).  Its batched products read permuted views of
+  W_uk, W_uv, the float32 latent and the probabilities (torch.bmm takes its
+  batch dim first; dot_general takes dimension numbers), which the tracer
+  prices as transposes: 153.6 MB a layer, without which it reads 0.585.
 * ``REST_NODES``: the remainder's node counts over the reference's,
-  0.50-1.25 (measured 0.57-1.18; olmoe 0.66-0.72).
+  0.50-1.25 (measured 0.57-1.18; olmoe 0.66-0.72; deepseek 0.77-0.82).
 * ``TOTAL_FLOPS``: all flops within 0.1 % (measured at most 0.049 %:
   elementwise flops differ).
 
@@ -33,7 +40,10 @@ JAX forms the transposed product, so their ``mm_dims`` have M and N swapped:
 those are compared as unordered (M, N) pairs with K and flops exact.  In the
 MoE block JAX also transposes the three expert weights' batched gradients;
 their M folds in the E experts, so the pair compared is the per-expert
-(M / E, N), with E, K and flops exact.
+(M / E, N), with E, K and flops exact.  ``SWAPPED`` bounds how many a
+block's joint graph has: in deepseek's MLA block, the weight gradients of
+its seven projections (dq, uq, dkv, uk, uv, kr, o), of the router and of
+the shared expert's down projection, and one of the expert weights'.
 """
 import collections
 
@@ -49,8 +59,10 @@ from repro_torch.configs import ARCH_IDS, get_config as t_config
 from repro_torch.core import model_ingest as t_ingest, stubs, tracer as t_tracer
 from repro_torch.core.ir import Graph as TGraph
 
-REST_BYTES = {"block": (0.60, 1.10), "head": (0.60, 2.20), "moe_joint": (0.45, 1.10)}
+REST_BYTES = {"block": (0.60, 1.10), "head": (0.60, 2.20), "moe_joint": (0.45, 1.10),
+              "mla_decode": (0.60, 1.20)}
 REST_NODES = (0.50, 1.25)
+SWAPPED = {"attn_ffn": 3, "moe_attn_ffn": 6, "mla_moe": 10, "head": 3}
 TOTAL_FLOPS = 1e-3
 SHAPES = {"train": (8, 2048, 0), "prefill": (1, 512, 0), "decode": (8, 1, 2048)}
 CORE = ("matmul", "attention")
@@ -109,7 +121,7 @@ def test_block_graphs_match_the_reference(arch, mode):
             else:
                 assert _core(rg, unordered_mn=True) == _core(tg, unordered_mn=True), where
                 swapped = sum((_core(tg) - _core(rg)).values())
-                assert swapped <= (6 if rb.kind == "moe_attn_ffn" else 3), where
+                assert swapped <= SWAPPED[rb.kind], where
             for n in tg:
                 if n.kind == "attention":
                     assert n.attrs["G"] == t_config(arch).q_per_kv
@@ -117,8 +129,9 @@ def test_block_graphs_match_the_reference(arch, mode):
             assert core_flops[0] == core_flops[1], where
             assert tg.total("flops") == pytest.approx(rg.total("flops"), rel=TOTAL_FLOPS), where
             (rn, rbytes), (tn, tbytes) = _rest(rg), _rest(tg)
-            lo, hi = REST_BYTES["moe_joint" if rb.kind == "moe_attn_ffn" and which == "joint"
-                                else part]
+            moe = rb.kind in ("moe_attn_ffn", "mla_moe")
+            lo, hi = REST_BYTES["moe_joint" if moe and which == "joint" else
+                                "mla_decode" if rb.kind == "mla_moe" and mode == "decode" else part]
             assert lo <= tbytes / rbytes <= hi, where
             lo, hi = REST_NODES
             assert lo <= tn / rn <= hi, where

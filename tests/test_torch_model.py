@@ -25,8 +25,8 @@ from repro_torch.models import layers as TL, model as TM
 
 TOL = 1e-4
 FULL_COUNTS = {"phi4-mini-3.8b": 3_836_021_760, "gemma-7b": 8_537_680_896,
-               "olmoe-1b-7b": 6_919_096_320}
-ACTIVE_COUNTS = {"olmoe-1b-7b": 1_281_951_744}
+               "olmoe-1b-7b": 6_919_096_320, "deepseek-v3-671b": 703_797_812_224}
+ACTIVE_COUNTS = {"olmoe-1b-7b": 1_281_951_744, "deepseek-v3-671b": 37_557_787_648}
 
 
 def to_np(tree):
@@ -64,9 +64,10 @@ def close(got: torch.Tensor, want, tol=TOL):
 def cache_close(cfg, t_cache, j_cache, tol=TOL):
     want = from_reference_cache(to_np(j_cache), cfg, "cpu", torch.float32)
     assert torch.equal(t_cache["pos"], want["pos"])
-    for mine, theirs in zip(t_cache["blocks"], want["blocks"]):
-        close(mine["k"], theirs["k"].numpy(), tol)
-        close(mine["v"], theirs["v"].numpy(), tol)
+    for mine, theirs in zip(t_cache["blocks"], want["blocks"], strict=True):
+        assert set(mine) == set(theirs)                   # {k, v}, or MLA's {ckv, kr}
+        for name in mine:
+            close(mine[name], theirs[name].numpy(), tol)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -143,7 +144,8 @@ def test_prefill_decode_match_forward_inside_the_port(arch):
     assert float((ld - lf[:, S:S + 1]).abs().max()) < tol
     assert int(cache2["pos"][0]) == S + 1
     # the cache is updated in place: the returned tensors are the ones passed in
-    assert cache2["blocks"][0]["k"] is cache["blocks"][0]["k"]
+    for name, t in cache["blocks"][0].items():
+        assert cache2["blocks"][0][name] is t
 
 
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma-7b"])
@@ -225,9 +227,20 @@ def test_cache_of_another_config_is_rejected():
 
 
 def test_mla_moe_is_left_to_its_own_slice():
-    cfg = t_tiny("olmoe-1b-7b").replace(attention="mla")
-    with pytest.raises(ValueError, match="MLA"):
-        TModel(cfg, "cpu")
+    """MLA came with a slice of its own: a MoE config with MLA attention
+    builds ``mla_moe`` blocks and their compressed caches.  The next family
+    (hybrid, RG-LRU) still raises, naming its slice, and so do the others."""
+    cfg = t_tiny("olmoe-1b-7b").replace(attention="mla", q_lora_rank=32, kv_lora_rank=16,
+                                        qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
+    m = TModel(cfg, "cpu")
+    assert m.kinds == ("mla_moe",) * cfg.num_layers
+    params = m.init(torch.Generator().manual_seed(0))
+    assert params["blocks"][0]["attn"]["uq"]["w"].shape == (32, cfg.num_heads, 24)
+    _, cache = m.prefill(params, {"tokens": tokens(cfg, 1, 5)}, cache_len=8)
+    assert {k: tuple(v.shape) for k, v in cache["blocks"][0].items()} == {
+        "ckv": (1, 8, 16), "kr": (1, 8, 8)}
+    with pytest.raises(ValueError, match="RG-LRU"):
+        TModel(cfg.replace(family="hybrid"), "cpu")
     with pytest.raises(ValueError, match="not ported"):
         TModel(cfg.replace(family="ssm"), "cpu")
 
@@ -271,16 +284,19 @@ def unfused_forward(m, params, toks, cache_len=None):
     tokens = torch.as_tensor(toks).long()
     B, S = tokens.shape
     positions = torch.arange(S).expand(B, S)
-    tables = TL.rope_tables(m.cfg, positions, m.cfg.head_dim)
+    tables = TL.rope_tables(m.cfg, positions, TL.rope_head_dim(m.cfg))
+    mla = m.cfg.attention == "mla"
     caches = []
 
     def attend(i, p, x):
-        a, (k, v) = TM.gqa_full(m.cfg, p, x, positions, rope_tables=tables)
+        a, rows = (TM.mla_full if mla else TM.gqa_full)(m.cfg, p, x, positions,
+                                                         rope_tables=tables)
         if cache_len:
-            kc = torch.zeros((B, cache_len, *k.shape[2:]), dtype=k.dtype)
-            vc = torch.zeros_like(kc)
-            kc[:, :S], vc[:, :S] = k, v
-            caches.append({"k": kc, "v": vc})
+            ring = {}
+            for name, t in zip(("ckv", "kr") if mla else ("k", "v"), rows):
+                ring[name] = torch.zeros((B, cache_len, *t.shape[2:]), dtype=t.dtype)
+                ring[name][:, :S] = t
+            caches.append(ring)
         return a
 
     h = _unfused(m, params, tokens, attend)
@@ -291,12 +307,13 @@ def unfused_decode_step(m, params, cache, toks):
     tokens = torch.as_tensor(toks).long()
     pos = cache["pos"]
     positions = pos[:, None]
-    tables = TL.rope_tables(m.cfg, positions, m.cfg.head_dim)
-    indices = TM.decode_indices(pos, cache["blocks"][0]["k"].shape[1])
+    tables = TL.rope_tables(m.cfg, positions, TL.rope_head_dim(m.cfg))
+    indices = TM.decode_indices(pos, next(iter(cache["blocks"][0].values())).shape[1])
+    decode = TM.mla_decode if m.cfg.attention == "mla" else TM.gqa_decode
 
     def attend(i, p, x):
-        return TM.gqa_decode(m.cfg, p, x, pos, cache["blocks"][i], positions=positions,
-                             rope_tables=tables, indices=indices)[0]
+        return decode(m.cfg, p, x, pos, cache["blocks"][i], positions=positions,
+                      rope_tables=tables, indices=indices)[0]
 
     h = _unfused(m, params, tokens, attend)
     return m._logits(params, h[:, -1:]), {"blocks": cache["blocks"], "pos": pos + 1}
@@ -305,7 +322,7 @@ def unfused_decode_step(m, params, cache, toks):
 def caches_equal(a, b):
     assert torch.equal(a["pos"], b["pos"])
     for x, y in zip(a["blocks"], b["blocks"], strict=True):
-        assert torch.equal(x["k"], y["k"]) and torch.equal(x["v"], y["v"])
+        assert set(x) == set(y) and all(torch.equal(x[n], y[n]) for n in x)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
