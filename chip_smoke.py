@@ -15,8 +15,9 @@ Phases, each printing one JSON object on a line of its own:
            flash-attention libraries, forward and backward, 16-byte loads and
            stores in the rmsnorm one
   kernels  every kernel against its plain PyTorch version on the card, at the
-           shapes the serving path gives it (K1 also at MLA's (192, 128),
-           with both K/V ring depths timed) and at edge shapes, in float32
+           shapes the serving path gives it (K1 also at MLA's (192, 128)
+           and at recurrentgemma's 16 q heads on one kv head, D 256, with a
+           window; K2 at its group of 16) and at edge shapes, in float32
            (tolerance 2e-5: another order of summation) and bfloat16 (2e-2);
            the backward kernels of K1 and K3 at the train path's shapes and
            at edge shapes, on the same tolerances, against autograd in
@@ -111,10 +112,22 @@ Phases, each printing one JSON object on a line of its own:
            the port's own step, by op kind with the experts' products apart;
            (4) train_parity: the train step cut to 4 layers as train_parity
            does, the plain run on the kernel run's routes
+  griffin  the RG-LRU family (recurrentgemma-9b at full width and depth: 38
+           layers, 26 recurrent and 12 local-attention ones with 16 q heads
+           on one kv head at D 256, window 2048), random bf16 weights from
+           the seed, a line a part: (1) serve as moe's (launches: K1 an
+           attention layer a prefill, K2 one a decode step, K3 2L+1 a call;
+           the recurrence's and the conv's kernels apart in the profiled
+           step); (2) parity: the first 6 layers, kernels against plain
+           versions as the parity phase holds them; (3) simulate as moe's,
+           K1 and K2 (G = 16) counted
   mla      the MLA family (deepseek-v3-671b at full width: 128 heads, q/k
            head dim 192 and v head dim 128 in the prefill's K1, 256 experts,
            top 8, one shared expert), depth cut to 2 layers (what one card
-           holds), random bf16 weights from the seed, a line a part: (1)
+           holds), random bf16 weights from the seed, a line a part: (0)
+           layout: the absorbed decode's five batched products profiled at
+           full width, none of which may copy an operand, and the
+           transposes the tracer prices for that block; (1)
            serve as moe's (launches: K1 a layer a prefill, no K2, K3 4L+1 a
            call; the expert products apart from the absorbed attention's in
            the profiled step); (2) parity as moe's on these 2 layers; (3)
@@ -130,9 +143,9 @@ before the process profiles anything).
 Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
 (the train phase for a backward kernel), in the train phase, by the
-profiling engine in the simulate, serve_sim and sweep phases and in the moe
-and mla phases' parts, its timings at olmoe's and deepseek's shapes where it
-has them, error, time,
+profiling engine in the simulate, serve_sim and sweep phases and in the moe,
+griffin and mla phases' parts, its timings at olmoe's, recurrentgemma's and
+deepseek's shapes where it has them, error, time,
 device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
 computes the same function; then the
@@ -143,6 +156,7 @@ non-zero exit code and no last line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -358,7 +372,8 @@ def check_flash(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, bshd
         rec["device_ms"] = device_ms(call)
         rec["plain_ms"] = time_ms(
             lambda: flash_attention_lse_plain(q, k, v, causal=causal, window=window)[0], iters=5)
-        if window == 0 and (causal is False or Sq == Sk):
+        # a window of at least Sk hides no key: SDPA computes the same function
+        if (window == 0 or window >= Sk) and (causal is False or Sq == Sk):
             rec["library_ms"] = time_ms(sdpa_flash(q, k, v, causal))
             by_kernel = device_ms_by_kernel(sdpa_flash(q, k, v, causal))
             rec["library_device_ms"] = sum(by_kernel.values())
@@ -513,7 +528,8 @@ def check_flash_bwd(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, 
             return torch.autograd.grad(flash_attention_plain(*leaves, causal=causal,
                                                              window=window), leaves, do)
         rec["plain_ms"] = time_ms(plain, iters=3)   # the plain forward and autograd's backward
-        if window == 0 and (causal is False or Sq == Sk):
+        # a window of at least Sk hides no key: SDPA computes the same function
+        if (window == 0 or window >= Sk) and (causal is False or Sq == Sk):
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             lo = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
             lib = lambda: torch.autograd.grad(lo, leaves, do, retain_graph=True)  # noqa: E731
@@ -564,11 +580,12 @@ def check_decode(rng, *, B, H, Hkv, T, D, valid, dtype, timed, bthd=False):
     torch.cuda.synchronize()
     want = decode_attention_plain(q, k, v, kv_valid_len=vl)
     sm_count, per_sm, rows = dec.kernel_plan(q.device, H // Hkv, D, dtype)
-    ns, chunk = dec.split_plan(B, Hkv, T, sm_count=sm_count, blocks_per_sm=per_sm,
+    head_blocks = dec.head_blocks(Hkv, H // Hkv)
+    ns, chunk = dec.split_plan(B, head_blocks, T, sm_count=sm_count, blocks_per_sm=per_sm,
                                rows_per_iter=rows)
     rec = {"kernel": "decode_attention", "dtype": dt_name(dtype),
            "case": f"B{B} H{H} Hkv{Hkv} T{T} D{D} valid{valid}" + (" bthd" if bthd else ""),
-           "splits": ns, "chunk": chunk, "blocks_per_sm": per_sm,
+           "splits": ns, "chunk": chunk, "blocks_per_sm": per_sm, "head_blocks": head_blocks,
            "max_abs_err": max_err(got, want), "tol": TOL[dtype]}
     if valid is not None and 0 in valid:   # the pinned semantics: a dead row gives 0
         rec["zero_rows_max_abs"] = float(got[[i for i, n in enumerate(valid) if n == 0]]
@@ -941,6 +958,11 @@ def check_plans(recs_plans: dict) -> None:
                 if rows != want or per_sm < 1:
                     fail(f"decode_attention plan {dt_name(dtype)} D={D} G={G}: kernel "
                          f"{(per_sm, rows)}, wrapper rows {want}")
+    for G in dec.SUPPORTED_G:
+        mine, theirs = dec.heads_a_block(G), dec.kernel_heads_a_block(G)
+        recs_plans[f"decode heads_a_block G{G}"] = theirs
+        if mine != theirs:
+            fail(f"decode_attention heads a block for G={G}: wrapper {mine}, kernel {theirs}")
 
 
 def phase_kernels():
@@ -982,6 +1004,15 @@ def phase_kernels():
                                 lse=True))
         recs.append(check_flash(rng, B=2, H=16, Hkv=4, Sq=129, Sk=129, D=192, Dv=128, causal=True,
                                 window=0, dtype=dtype, timed=False, lse=True))
+    # ... at recurrentgemma-9b's local attention (16 q heads on one kv head, D 256, window
+    # 2048): the serving shape, where the window does not bite, and a window that does
+    for dtype in (bf16, f32):
+        recs.append(check_flash(rng, B=1, H=16, Hkv=1, Sq=1000, Sk=1000, D=256, causal=True,
+                                window=2048, dtype=dtype, timed=dtype is bf16, bshd=True))
+        if dtype is bf16:
+            main["griffin_flash_attention"] = recs[-1]
+        recs.append(check_flash(rng, B=2, H=16, Hkv=1, Sq=300, Sk=300, D=256, causal=True,
+                                window=64, dtype=dtype, timed=False, bshd=True))
     # ... and at edge shapes
     for dtype in (bf16, f32):
         edge = [dict(B=2, H=24, Hkv=8, Sq=777, Sk=777, D=128, causal=True, window=0, bshd=True),  # batch, ragged
@@ -1010,6 +1041,17 @@ def phase_kernels():
                                  timed=dtype is bf16, bthd=True))
         if dtype is bf16:
             main["moe_decode_attention"] = recs[-1]
+    # ... at recurrentgemma-9b's (G=16 at D 256: two blocks of 8 heads a kv head), the
+    # serving shape and a ragged ring ...
+    for dtype in (bf16, f32):
+        recs.append(check_decode(rng, B=8, H=16, Hkv=1, T=2048, D=256, valid=mixed, dtype=dtype,
+                                 timed=dtype is bf16, bthd=True))
+        if dtype is bf16:
+            main["griffin_decode_attention"] = recs[-1]
+        recs.append(check_decode(rng, B=3, H=16, Hkv=1, T=333, D=256, valid=[333, 7, 0],
+                                 dtype=dtype, timed=False, bthd=True))
+    recs.append(check_decode(rng, B=8, H=16, Hkv=1, T=2048, D=256, valid=[2048] * 8, dtype=bf16,
+                             timed=True, bthd=True))
     # ... at qwen2.5-32b's group (G=5) and with a long cache (many splits) ...
     for dtype in (bf16, f32):
         recs.append(check_decode(rng, B=4, H=40, Hkv=8, T=1500, D=128, valid=None, dtype=dtype,
@@ -1061,6 +1103,13 @@ def phase_kernels():
             for D in (1536, 512):
                 recs.append(check_rmsnorm(rng, R=R, D=D, dtype=dtype, w_dtype=dtype,
                                           offset=False, residual=False, timed=False))
+    # ... at recurrentgemma-9b's (D 4096, the 1 + w form, the sum written) ...
+    for R in (8, 1000):
+        for dtype in (bf16, f32):
+            recs.append(check_rmsnorm(rng, R=R, D=4096, dtype=dtype, w_dtype=dtype, offset=True,
+                                      residual=True, fused=True, timed=dtype is bf16 and R == 1000))
+            if R == 1000 and dtype is bf16:
+                main["griffin_rmsnorm"] = recs[-1]
     # ... with the residual inside the kernel, the 1 + w form, fp32 w beside bf16 x, odd rows,
     # D not a multiple of the 16-byte vector, a base off 16 bytes, and D above the 12288 that a
     # shared-memory row allowed
@@ -1268,6 +1317,28 @@ def phase_times():
         call = lambda: decode_attention(q, k, v, kv_valid_len=vl)  # noqa: E731
         out.append({"kernel": "decode_attention", "case": f"B8 H24 Hkv8 T2048 D128 valid{valid}",
                     "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call())})
+    # every group a kernel takes, each head dim, both dtypes, split: the output bits alone
+    # (inputs from streams of their own, so that a tree that takes more groups draws the
+    # cases after these as every other tree does)
+    import importlib
+    dec = importlib.import_module("repro_torch.kernels.decode_attention")
+    sweep_rng = np.random.default_rng(SEED + 1)
+    for G in dec.SUPPORTED_G:
+        for D in (64, 128, 256):
+            for dtype in (bf16, torch.float32):
+                q, k, v, vl = decode_inputs(sweep_rng, B=2, H=2 * G, Hkv=2, T=700, D=D,
+                                            valid=[700, 333], dtype=dtype, bthd=True)
+                out.append({"kernel": "decode_attention",
+                            "case": f"B2 H{2 * G} Hkv2 T700 D{D} {dt_name(dtype)}",
+                            "out_sha": digest(decode_attention(q, k, v, kv_valid_len=vl))})
+    if 16 in dec.SUPPORTED_G:      # recurrentgemma's decode, where the tree takes it
+        for valid in ([2048] * 8, [1, 2048, 17, 1024, 300, 2047, 64, 1500]):
+            q, k, v, vl = decode_inputs(sweep_rng, B=8, H=16, Hkv=1, T=2048, D=256,
+                                        valid=valid, dtype=bf16, bthd=True)
+            call = lambda: decode_attention(q, k, v, kv_valid_len=vl)  # noqa: E731
+            out.append({"kernel": "decode_attention",
+                        "case": f"B8 H16 Hkv1 T2048 D256 valid{valid}", "ms": time_ms(call),
+                        "device_ms": device_ms(call), "out_sha": digest(call())})
     for rec, call in k3:
         out.append({**rec, "ms": time_ms(call), "device_ms": device_ms(call),
                     "out_sha": digest(call())})
@@ -1308,11 +1379,14 @@ def phase_baseline(other: str) -> None:
         if res.returncode != 0 or not lines:
             fail(f"baseline run of {src} failed (exit {res.returncode}):\n{res.stderr[-4000:]}")
         runs.append({"tree": label, **json.loads(lines[0])})
-    # every kernel's output bits, this tree's against the other's, case by case
+    # every kernel's output bits, this tree's against the other's, case by case (the
+    # cases both trees run: a shape the other tree's kernels do not take is this one's alone)
     shas = [{(r["kernel"], r["case"]): r.get("out_sha") for r in run["records"]} for run in runs]
-    differ = [f"{k} {c}" for (k, c), sha in shas[0].items()
-              if len({s_.get((k, c)) for s_ in shas}) != 1]
-    emit({"phase": "baseline", "runs": runs, "outputs_bit_equal": not differ, "differ": differ})
+    common = set.intersection(*(set(s_) for s_ in shas))
+    differ = [f"{k} {c}" for (k, c) in sorted(common) if len({s_[(k, c)] for s_ in shas}) != 1]
+    emit({"phase": "baseline", "runs": runs, "outputs_bit_equal": not differ, "differ": differ,
+          "cases_compared": len(common),
+          "this_tree_only": sorted(f"{k} {c}" for (k, c) in set(shas[1]) - common)})
     if differ:
         fail(f"--baseline-src: outputs differ from the other tree's: {differ}")
 
@@ -1467,13 +1541,16 @@ def phase_profile(out_dir: str):
     torch.cuda.empty_cache()
 
 
-def phase_parity():
-    """4 layers of the same model: kernels against their plain versions."""
+def phase_parity(cfg=None, params=None, phase: str = "parity") -> dict:
+    """4 layers of the serve model (or ``params`` of ``cfg``, made by the
+    caller): kernels against their plain versions, the first-token logits
+    of serve's 12 prompts, then both engines' tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
-    cfg = get_config(ARCH).replace(num_layers=4)
-    model = Model(cfg)
-    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    if cfg is None:
+        cfg = get_config(ARCH).replace(num_layers=4)
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
     first = {}
     runs = {}
     for plain in (False, True):
@@ -1487,23 +1564,25 @@ def phase_parity():
     diff = (first[False] - first[True]).abs().amax(dim=-1)              # per request
     top2 = first[True].topk(2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
-    tol = 1e-1   # bf16 activations through 4 layers: one rounding step differs here and there
+    tol = 1e-1   # bf16 activations through the layers: one rounding step differs here and there
     same_first, near_tie, equal, total = 0, 0, 0, 0
     for i, (a, b) in enumerate(zip(runs[False], runs[True])):
         same_first += a.tokens[0] == b.tokens[0]
         near_tie += (a.tokens[0] != b.tokens[0]) and float(margin[i]) <= 2 * float(diff[i])
         equal += sum(x == y for x, y in zip(a.tokens, b.tokens))
         total += len(a.tokens)
-    rec = {"phase": "parity", "layers": cfg.num_layers, "requests": len(runs[False]),
+    rec = {"phase": phase, **({"part": "parity", "arch": cfg.name} if phase != "parity" else {}),
+           "layers": cfg.num_layers, "requests": len(runs[False]),
            "first_logits_max_abs_diff": float(diff.max()), "tol": tol,
            "first_token_equal": same_first, "first_token_near_tie": near_tie,
            "tokens_equal_share": equal / total}
     emit(rec)
     if not float(diff.max()) <= tol:
-        fail(f"first-token logits differ by {float(diff.max())} > {tol}")
+        fail(f"{phase}: first-token logits differ by {float(diff.max())} > {tol}")
     if same_first + near_tie != len(runs[False]):
-        fail("a first token differs between kernels and plain versions beyond a near-tie "
-             "of the two best logits")
+        fail(f"{phase}: a first token differs between kernels and plain versions beyond a "
+             "near-tie of the two best logits")
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -1893,13 +1972,20 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
+def is_kernel(e) -> bool:
+    """A device kernel of the profiler's averages (a range opened with
+    ``record_function`` also shows on the device's timeline, spanning its
+    kernels and the gaps between them: it is no kernel)."""
+    return e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("griffin::")
+
+
 def device_groups(avgs) -> dict:
     """Self device time (µs, whole window) of the profiler's kernels by who
     wrote them (``kernel_group``)."""
     out = {"K1": 0.0, "K1_bwd": 0.0, "K2": 0.0, "K3": 0.0, "K3_bwd": 0.0, "cublas": 0.0,
            "other": 0.0}
     for e in avgs:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if is_kernel(e):
             out[kernel_group(e.key)] += e.self_device_time_total
     return out
 
@@ -1908,7 +1994,7 @@ def top_kernels(avgs, group: str, n: int = 10) -> list:
     """The ``n`` kernels of ``group`` (``device_groups``' names) with the most
     device time in the window: [name, ms, launches]."""
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in avgs
-            if e.device_type == torch.autograd.DeviceType.CUDA and kernel_group(e.key) == group]
+            if is_kernel(e) and kernel_group(e.key) == group]
     return [list(r) for r in sorted(rows, key=lambda r: -r[1])[:n]]
 
 
@@ -1923,20 +2009,21 @@ MOE_OPS = {"expert_bmm": ("aten::bmm",),
 
 
 def moe_op_us(avgs, experts: int | None = None) -> dict:
-    """Device µs (whole window) of the ``MOE_OPS`` groups.  ``experts`` (an
-    MoE's expert count): the profiler grouped by input shape, and only a
-    ``bmm`` whose batch is the experts is an expert product; the others
-    (MLA's absorbed attention) go to ``other_bmm``."""
+    """Device µs (whole window) of the ``MOE_OPS`` groups.  ``experts`` (a
+    model's expert count, 0 for one without): the profiler grouped by input
+    shape, and only a ``bmm`` whose batch is the experts is an expert
+    product; the others (MLA's absorbed attention, any batched product of a
+    model without experts) go to ``other_bmm``."""
     out = {g: 0.0 for g in MOE_OPS}
-    if experts:
+    if experts is not None:
         out["other_bmm"] = 0.0
     for e in avgs:
         if e.device_type != torch.autograd.DeviceType.CPU:
             continue
         for g, names in MOE_OPS.items():
             if e.key in names:
-                if (g == "expert_bmm" and experts
-                        and not (e.input_shapes and e.input_shapes[0]
+                if (g == "expert_bmm" and experts is not None
+                        and not (experts and e.input_shapes and e.input_shapes[0]
                                  and e.input_shapes[0][0] == experts)):
                     g = "other_bmm"
                     out.setdefault("other_bmm_shapes", []).append(
@@ -1945,11 +2032,41 @@ def moe_op_us(avgs, experts: int | None = None) -> dict:
     return out
 
 
-def measure_step(fn, n: int, experts: int | None = None) -> dict:
+# The RG-LRU block's own work, by the layer function that launched it: the
+# recurrence (the log-depth scan in a prefill, one step in a decode, with
+# their float32 gate products) and the causal conv.
+GRIFFIN_OPS = {"rglru": ("rglru_scan", "rglru_step"), "conv": ("causal_conv1d",)}
+
+
+@contextlib.contextmanager
+def griffin_annotations():
+    """While open, each ``GRIFFIN_OPS`` function of ``models.layers`` runs
+    inside a profiler range ``griffin::<group>``, whose device time holds its
+    kernels'."""
+    from repro_torch.models import layers as L
+    saved = {}
+    for group, names in GRIFFIN_OPS.items():
+        for name in names:
+            saved[name] = fn = getattr(L, name)
+
+            def wrapped(*a, _fn=fn, _label=f"griffin::{group}", **kw):
+                with torch.profiler.record_function(_label):
+                    return _fn(*a, **kw)
+            setattr(L, name, wrapped)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(L, name, fn)
+
+
+def measure_step(fn, n: int, experts: int | None = None, annotate: bool = False) -> dict:
     """The port's step: wall µs a call from CUDA events around ``n`` calls,
     then device-busy µs a call and its groups from the profiler over ``n``
     more (and the ``MOE_OPS`` groups' share of it; ``experts``: the expert
-    products told apart from the other batched products by their batch)."""
+    products told apart from the other batched products by their batch;
+    ``annotate``: the ``GRIFFIN_OPS`` groups' device µs too, ranges opened in
+    the profiled calls only)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1960,20 +2077,27 @@ def measure_step(fn, n: int, experts: int | None = None) -> dict:
     end.record()
     end.synchronize()
     wall_us = start.elapsed_time(end) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=experts is not None) as prof:
+    with (griffin_annotations() if annotate else contextlib.nullcontext()), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    record_shapes=experts is not None) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
     avgs = prof.key_averages(group_by_input_shape=experts is not None)
     groups = {k: v / n for k, v in device_groups(avgs).items()}
-    launches = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA)
-    return {"wall_us": wall_us, "device_busy_us": sum(groups.values()), "device_us": groups,
-            "device_launches": launches // n,
-            "moe_op_us": {k: (v / n if isinstance(v, float) else v)
-                          for k, v in moe_op_us(avgs, experts).items()},
-            "top_other_kernels": [[name[:80], ms / n, count // n]
-                                  for name, ms, count in top_kernels(avgs, "other", 6)]}
+    launches = sum(e.count for e in avgs if is_kernel(e))
+    rec = {"wall_us": wall_us, "device_busy_us": sum(groups.values()), "device_us": groups,
+           "device_launches": launches // n,
+           "moe_op_us": {k: (v / n if isinstance(v, float) else v)
+                         for k, v in moe_op_us(avgs, experts).items()},
+           "top_other_kernels": [[name[:80], ms / n, count // n]
+                                 for name, ms, count in top_kernels(avgs, "other", 6)]}
+    if annotate:
+        rec["griffin_op_us"] = {g: sum(e.device_time_total for e in avgs
+                                       if e.key == f"griffin::{g}"
+                                       and e.device_type == torch.autograd.DeviceType.CPU) / n
+                                for g in GRIFFIN_OPS}
+    return rec
 
 
 def phase_simulate(train=None):
@@ -2594,16 +2718,19 @@ MOE_ARCH = "olmoe-1b-7b"
 
 
 def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
-    """A MoE model (olmoe at full width and depth, or ``params`` of ``cfg``
-    made by the caller): ServingEngine(slots=8, cache_len=2048) on serve's 12
-    requests, launches against the path's formula, then one decode step at 8
-    live slots under the profiler and the host syncs of one ``decode_step``
-    (``torch.cuda.set_sync_debug_mode``).  The formula: K1 a layer a prefill;
-    K2 a layer a decode step (none for MLA, whose absorbed decode is plain
-    products); K3 2L+1 a call (4L+1 for MLA: its q_norm and kv_norm too)."""
+    """A model of a family with its own phase (olmoe at full width and depth,
+    or ``params`` of ``cfg`` made by the caller): ServingEngine(slots=8,
+    cache_len=2048) on serve's 12 requests, launches against the path's
+    formula, then one decode step at 8 live slots under the profiler and the
+    host syncs of one ``decode_step`` (``torch.cuda.set_sync_debug_mode``).
+    The formula: K1 an attention layer a prefill; K2 an attention layer a
+    decode step (none for MLA, whose absorbed decode is plain products); K3
+    2L+1 a call (4L+1 for MLA: its q_norm and kv_norm too).  An RG-LRU
+    layer (``griffin_rec``) has no attention and its two norms."""
     import warnings
     from repro_torch import kernels as K
     from repro_torch.models import Model, count_params
+    from repro_torch.models.params import layer_kinds
     from repro_torch.serving import Request, ServingEngine
     init_s = None
     if params is None:
@@ -2619,8 +2746,9 @@ def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     L = cfg.num_layers
+    La = sum(kind != "griffin_rec" for kind in layer_kinds(cfg))     # attention layers
     mla = cfg.attention == "mla"
-    want = {"flash_attention": L * len(reqs), "decode_attention": 0 if mla else L * steps,
+    want = {"flash_attention": La * len(reqs), "decode_attention": 0 if mla else La * steps,
             "rmsnorm": ((4 if mla else 2) * L + 1) * (len(reqs) + steps),
             "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "adamw": 0}
     toks = sum(len(r.tokens) for r in reqs)
@@ -2633,7 +2761,8 @@ def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
                               max_new_tokens=64))
     for _ in range(3):
         engine.step()
-    step = measure_step(engine.step, 3, experts=cfg.num_experts)
+    step = measure_step(engine.step, 3, experts=cfg.num_experts,
+                        annotate=cfg.family == "hybrid")
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2645,7 +2774,8 @@ def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
     # the mode's own notice ("a prototype feature ...") is not a sync
     syncs = [str(w.message)[:160] for w in caught
              if "called a synchronizing" in str(w.message)]
-    rec = {"part": "serve", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+    rec = {"part": "serve", "arch": cfg.name, "layers": L, "attention_layers": La,
+           "d_model": cfg.d_model,
            "experts": cfg.num_experts, "top_k": cfg.top_k, "params": count_params(cfg),
            "active_params": count_params(cfg, active_only=True), "slots": 8, "cache_len": 2048,
            "requests": len(reqs), "prompt_tokens": sum(len(r.prompt) for r in reqs),
@@ -2843,7 +2973,7 @@ def moe_simulate(cfg, params=None, name: str = "moe",
     recs = []
     for mode, (fn, n) in runs.items():
         r, reports, priced = out[mode]
-        meas = measure_step(fn, n, experts=cfg.num_experts)
+        meas = measure_step(fn, n, experts=cfg.num_experts, annotate=cfg.family == "hybrid")
         err = {f"{p}_vs_{m}": rep.step_time_us / meas[key] - 1.0
                for p, rep in reports.items()
                for m, key in (("wall", "wall_us"), ("device_busy", "device_busy_us"))}
@@ -2909,12 +3039,126 @@ def phase_moe() -> dict:
             "train_parity": tp_launches, "serve_rec": serve, "train_parity_rec": tp}
 
 
+GRIFFIN_ARCH = "recurrentgemma-9b"
+GRIFFIN_PARITY_LAYERS = 6       # two whole (rec, rec, attn) cycles
+
+
+def phase_griffin() -> dict:
+    """The RG-LRU family on the card (recurrentgemma-9b at full width and
+    depth: 38 layers, 26 ``griffin_rec`` and 12 ``griffin_attn`` with MQA
+    over 16 heads at D 256 and a window of 2048), random bf16 weights from
+    the seed, made once and shared by the parts, a line a part: serve
+    (``moe_serve``: K1 a local-attention layer a prefill, K2 one a decode
+    step, K3 2L+1 a call; the profiled step with the recurrence's and the
+    conv's kernels apart), parity (``phase_parity`` on the first
+    ``GRIFFIN_PARITY_LAYERS`` layers) and simulate (``moe_simulate``: K1 and
+    K2 counted in the profiling engine's prefill and decode).  The
+    reference's init leaves the conv filters 0, so the recurrence would
+    carry nothing; here they are drawn from the seed too (normal, std
+    1/sqrt(conv_width)).  Returns the launches of each part."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(GRIFFIN_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    gen = torch.Generator(device=model.device).manual_seed(SEED)
+    params = model.init(gen)
+    for p in params["blocks"]:
+        if "conv" in p:
+            w = p["conv"]["w"]
+            w.copy_(torch.randn(w.shape, generator=gen, device=w.device) / math.sqrt(w.shape[0]))
+    torch.cuda.synchronize()
+    init = {"seconds": time.perf_counter() - t0, "allocated_bytes": torch.cuda.memory_allocated(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    serve = moe_serve(cfg, params, phase="griffin")
+    cut = cfg.replace(num_layers=GRIFFIN_PARITY_LAYERS)
+    parity = phase_parity(cut, {**params, "blocks": params["blocks"][:GRIFFIN_PARITY_LAYERS]},
+                          phase="griffin")
+    sim = moe_simulate(cfg, params, name="griffin")
+    for mode in ("prefill", "decode"):
+        emit({"phase": "griffin", **sim[mode]})
+    emit({"phase": "griffin", "part": "done", "arch": cfg.name,
+          "seconds": time.perf_counter() - t0, "init": init, "parity_layers": parity["layers"],
+          "profile_db_entries": sim["profile_db_entries"], "gpu": gpu_name_and_power()})
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve": serve["launches"],
+            "simulate": {k: sim["prefill"]["profiling_launches"][k]
+                         + sim["decode"]["profiling_launches"][k] for k in serve["launches"]},
+            "serve_rec": serve}
+
+
 MLA_ARCH = "deepseek-v3-671b"
 # Depth cut to what one card holds: 2 layers are 24,867,937,280 parameters
 # (49.7 GB of bf16), and init makes each leaf in fp32 first (an expert leaf,
 # 256 x 7168 x 2048, is 15.0 GB beside its 7.5 GB result), so it peaks near
 # 65 GB; 3 layers are 72.75 GB of weights.
 MLA_LAYERS = 2
+
+
+def _subtree_kernels(ev) -> list:
+    """The device kernels a profiled CPU operator launched, its children's
+    included."""
+    out = [k.name for k in getattr(ev, "kernels", [])]
+    for child in ev.cpu_children:
+        out += _subtree_kernels(child)
+    return out
+
+
+def mla_layout() -> dict:
+    """deepseek-v3-671b's absorbed decode (``mla_decode``, one layer's
+    attention weights at full width, B8 at a ring of 2048, plain norms) once
+    under the profiler: the device kernels each of its five ``aten::bmm``
+    launched.  A product that cannot read an operand where it lies copies it
+    first, a copy kernel beside its GEMM.  Also the transposes the port's
+    tracer prices for that block, against the reference's 40.4 MB."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.model_ingest import block_graphs
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _mla_attn
+    cfg = get_config(MLA_ARCH)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def c(path, shape, fan_in):
+        w = torch.randn(shape, generator=gen, device="cuda")
+        return (w if fan_in <= 0 else w / math.sqrt(fan_in)).to(bf16)
+
+    p = _mla_attn(cfg, c, ("attn",))
+    B, T = 8, 2048
+    rng = np.random.default_rng(SEED)
+    x = randn(rng, (B, 1, cfg.d_model), bf16)
+    cache = {"ckv": randn(rng, (B, T, cfg.kv_lora_rank), bf16),
+             "kr": randn(rng, (B, T, cfg.qk_rope_head_dim), bf16)}
+    pos = torch.full((B,), T - 1, dtype=torch.int32, device="cuda")
+    M.mla_decode(cfg, p, x, pos, cache, plain=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        M.mla_decode(cfg, p, x, pos, cache, plain=True)
+        torch.cuda.synchronize()
+    products = []
+    for ev in prof.events():
+        if ev.name == "aten::bmm" and ev.device_type == torch.autograd.DeviceType.CPU:
+            names = _subtree_kernels(ev)
+            products.append({"shapes": ev.input_shapes[:2], "kernels": [n[:90] for n in names],
+                             "copies": sum(kernel_group(n) != "cublas" for n in names)})
+    mg = block_graphs(cfg.replace(num_layers=1), B, 1, "decode", cache_len=T)
+    priced = [n for n in mg.blocks[0].fwd if n.kind == "transpose"]
+    rec = {"part": "layout", "products": products,
+           "bmm_with_a_copy": sum(pr["copies"] > 0 for pr in products),
+           "priced_transposes": [[list(n.out_shape), n.dtype, n.bytes_out] for n in priced],
+           "priced_transpose_bytes": sum(n.total_bytes for n in priced)}
+    emit({"phase": "mla", **rec})
+    if len(products) != 5:
+        fail(f"mla layout: {len(products)} batched products profiled, 5 expected: {products}")
+    return rec
 
 
 def phase_mla() -> dict:
@@ -2929,6 +3173,10 @@ def phase_mla() -> dict:
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.models import Model, count_params
+    layout = mla_layout()
+    if layout["bmm_with_a_copy"]:
+        fail(f"mla layout: a batched product of the absorbed decode copied an operand: "
+             f"{layout['products']}")
     gc.collect()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
@@ -3001,12 +3249,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,serve,parity,train,train_parity,simulate,"
-                            "serve_sim,sweep,moe,mla",
+                            "serve_sim,sweep,moe,griffin,mla",
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
-                         "train_parity,simulate,serve_sim,sweep,moe,mla (and times, the "
+                         "train_parity,simulate,serve_sim,sweep,moe,griffin,mla (and times, the "
                          "serving-shape timings alone; serve_measure, the measured side of "
-                         "serve_sim alone); the closing lines are printed only when the "
-                         "twelve of the default ran")
+                         "serve_sim alone; mla_layout, the mla phase's first part alone); "
+                         "the closing lines are printed only when the thirteen of the "
+                         "default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -3069,10 +3318,13 @@ def main(argv=None) -> int:
     serve_sim = phase_serve_sim() if "serve_sim" in phases else None
     swept = phase_sweep() if "sweep" in phases else None
     moe = phase_moe() if "moe" in phases else None
+    griffin = phase_griffin() if "griffin" in phases else None
+    if "mla_layout" in phases:
+        mla_layout()
     mla = phase_mla() if "mla" in phases else None
     if (main_recs is None or counts is None or "parity" not in phases or train is None
             or train_parity is None or sim is None or serve_sim is None or swept is None
-            or moe is None or mla is None):
+            or moe is None or griffin is None or mla is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
@@ -3108,6 +3360,9 @@ def main(argv=None) -> int:
                # deepseek-v3-671b cut to 2 layers: serving, and the profiling
                # engine's measurements (K1 at (192, 128) in its prefill)
                "mla_launches": {part: mla[part][name] for part in ("serve", "simulate")},
+               # recurrentgemma-9b at full width and depth: serving, and the profiling
+               # engine's measurements (K1 in its prefill, K2 at G = 16 in its decode)
+               "griffin_launches": {part: griffin[part][name] for part in ("serve", "simulate")},
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3137,6 +3392,13 @@ def main(argv=None) -> int:
             rec["mla_shape"] = {k: mla_rec.get(k) for k in (
                 "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms", "library_kernels")}
+        griffin_rec = main_recs.get(f"griffin_{name}")
+        if griffin_rec is not None:
+            # the same kernel at recurrentgemma-9b's serving shapes (K1 at H16 Hkv1 D256
+            # with its window, K2 at G = 16, K3 at D 4096 in the 1 + w form)
+            rec["griffin_shape"] = {k: griffin_rec.get(k) for k in (
+                "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")}
         if name in TRAIN_ONLY:
             rec["note"] = TRAIN_ONLY[name]
         kernels.append(rec)

@@ -34,18 +34,30 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _map_keyed(tree, fn, keys=()):
+    """``fn(leaf, keys)`` at every leaf, ``keys`` the dict keys and list
+    indices on its way."""
+    if isinstance(tree, dict):
+        return {k: _map_keyed(v, fn, keys + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_keyed(v, fn, keys + (i,)) for i, v in enumerate(tree)]
+    return fn(tree, keys)
+
+
 def _unstack_blocks(cfg: ModelConfig, blocks, convert):
     """``{"cycle": [stacked tree a kind], "tail": [tree a kind]}`` -> one tree
-    a layer, in layer order."""
+    a layer, in layer order; ``convert(array, keys)`` makes each leaf."""
     cycle, n, tail = block_cycle(cfg)
     if len(blocks["cycle"]) != len(cycle) or len(blocks["tail"]) != len(tail):
         raise ValueError("reference tree does not match the config's block cycle")
     layers = []
     for i in range(n):
         for j in range(len(cycle)):
-            layers.append(_map(blocks["cycle"][j], lambda a, i=i: convert(np.asarray(a)[i])))
+            layers.append(_map_keyed(blocks["cycle"][j],
+                                     lambda a, keys, i=i: convert(np.asarray(a)[i], keys)))
     for j in range(len(tail)):
-        layers.append(_map(blocks["tail"][j], lambda a: convert(np.asarray(a))))
+        layers.append(_map_keyed(blocks["tail"][j],
+                                 lambda a, keys: convert(np.asarray(a), keys)))
     return layers
 
 
@@ -55,14 +67,17 @@ def from_reference_params(np_tree: dict, cfg: ModelConfig, device, dtype=None) -
     ``mlp.{gate,up,down}`` or, in a MoE block, ``moe.router.w (L,D,E)`` and
     ``moe.experts.{gate,up} (L,E,D,F)``, ``moe.experts.down (L,E,F,D)``, a
     shared expert's ``moe.shared.{gate,up,down}``, MLA's ``attn.{dq, q_norm,
-    uq, dkv, kv_norm, uk, uv, kr, o}``, ``final_norm.w``, optional
-    ``lm_head.w``) as numpy arrays -> the port's tree on ``device``.  A tree
-    of another config (names or shapes) raises."""
+    uq, dkv, kv_norm, uk, uv, kr, o}``, the RG-LRU block's ``ln``, ``in_gate``,
+    ``in_rec``, ``conv.{w, b}``, ``rglru.{wa, ba, wx, bx, lam}``, ``out``,
+    ``final_norm.w``, optional ``lm_head.w``) as numpy arrays -> the port's
+    tree on ``device``, every leaf in ``dtype`` but ``rglru.lam``, which stays
+    float32 as the reference's init makes it.  A tree of another config
+    (names or shapes) raises."""
     dt = dtype or torch_dtype(cfg.param_dtype)
     device = torch.device(device)
 
-    def convert(a):
-        return _leaf(a, device, dt)
+    def convert(a, keys=()):
+        return _leaf(a, device, torch.float32 if keys[-1:] == ("lam",) else dt)
 
     tree = {
         "embed": _map(np_tree["embed"], convert),
@@ -160,17 +175,19 @@ def to_reference_params(tree: dict, cfg: ModelConfig) -> dict:
 def from_reference_cache(np_cache: dict, cfg: ModelConfig, device, dtype=None) -> dict:
     """Reference decode cache (``blocks.cycle[0].{k,v} (L,B,T,Hkv,D)``, or
     MLA's ``blocks.cycle[0].ckv (L,B,T,kv_lora_rank)`` and ``.kr
-    (L,B,T,qk_rope_head_dim)``; ``pos (B,)``) as numpy arrays -> the port's
-    cache on ``device``.  A cache of another config (names or shapes)
-    raises."""
+    (L,B,T,qk_rope_head_dim)``, or the RG-LRU's ``.h (L,B,W)`` and ``.conv
+    (L,B,K-1,W)``; ``pos (B,)``) as numpy arrays -> the port's cache on
+    ``device``.  A cache of another config (names or shapes) raises."""
     dt = dtype or torch_dtype(cfg.dtype)
     device = torch.device(device)
     cache = {
-        "blocks": _unstack_blocks(cfg, np_cache["blocks"], lambda a: _leaf(a, device, dt)),
+        "blocks": _unstack_blocks(cfg, np_cache["blocks"], lambda a, keys: _leaf(a, device, dt)),
         "pos": _leaf(np_cache["pos"], device, torch.int32),
     }
-    # hold the result to the port's own build_cache at the cache's batch and length
-    B, T = cache["pos"].shape[0], cache_len_of(cache)
+    # hold the result to the port's own build_cache at the cache's batch and its
+    # attention rings' rows (a windowed ring's min(cache_len, window) rows are what a
+    # cache of that many rows builds too; a stack with no ring has no T)
+    B, T = cache["pos"].shape[0], cache_len_of(cache) or 0
     want = build_cache(cfg, lambda shape, d: tuple(shape), B, T)
     _check_same(want, _map(cache, lambda t: tuple(t.shape)), "cache")
     return cache

@@ -316,9 +316,12 @@ def _decode_fn(cfg: ModelConfig, kind: str):
 
 def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
                  *, cache_len: int = 0) -> ModelGraphs:
-    """Trace one graph per distinct block kind (+ embed/head).  Only the
-    dense decoders and the GQA MoE decoders are ported (``block_cycle``
-    rejects the other families), so there is no encoder graph.  The MoE
+    """Trace one graph per distinct block kind (+ embed/head).  The dense
+    decoders, the MoE decoders (GQA and MLA) and the RG-LRU hybrid are
+    ported (``block_cycle`` rejects the other families), so there is no
+    encoder graph.  A decode graph reads the cache of its own kind, as the
+    reference builds it: a ring of ``cache_len`` rows, ``min(cache_len,
+    window)`` for ``griffin_attn``, and ``griffin_rec``'s state.  The MoE
     block's expert products are tagged ``moe_expert`` by ``_tag_moe``, as in
     the reference."""
     cycle, n_cycles, tail = block_cycle(cfg)

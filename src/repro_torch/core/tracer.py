@@ -152,9 +152,41 @@ def _matmul_reshapes(gm: torch.fx.GraphModule) -> set:
             and (_feeds_matmul(n) or _is_op(n.args[0], MATMUL))}
 
 
+def _feeds_bmm(fx_node) -> bool:
+    """Every use of ``fx_node`` is a ``bmm`` operand, directly or through
+    reshapes."""
+    return bool(fx_node.users) and all(
+        _is_op(u, {"bmm"}) or (_is_op(u, MATMUL_RESHAPE) and _feeds_bmm(u))
+        for u in fx_node.users)
+
+
+def _reads_in_place(t) -> bool:
+    """A batched product reads this operand where it lies: one of its two
+    matrix dims has stride 1 and the other spans the first (cuBLAS's plain or
+    transposed operand), so no copy is made for it."""
+    if t.ndim < 2:
+        return False
+    (m, n), (sm, sn) = t.shape[-2:], t.stride()[-2:]
+    return (sn == 1 and sm >= max(1, n)) or (sm == 1 and sn >= max(1, m))
+
+
+def _bmm_transposes(gm: torch.fx.GraphModule, phase: str) -> set:
+    """``permute``/``transpose`` views that only feed batched products,
+    which read them where they lie: the reference's ``dot_general`` takes its
+    operands' dims as dimension numbers, so these make no node, as the
+    reshapes around a product make none.  Forward graphs only: in a joint
+    graph they are autograd's transposes of a product's operands, which the
+    reference's autodiff prices as transposes too.  ``t`` stays priced (the
+    head's ``emb_w.t()``, as the reference materialises ``emb_w.T``)."""
+    if phase != "fwd":
+        return set()
+    return {n for n in gm.graph.nodes if _is_op(n, {"permute", "transpose"}) and _feeds_bmm(n)
+            and _reads_in_place(n.meta["val"])}
+
+
 def _trace_fx(ctx: _TraceCtx, gm: torch.fx.GraphModule, phase: str):
     g = ctx.graph
-    folded = _matmul_reshapes(gm)
+    folded = _matmul_reshapes(gm) | _bmm_transposes(gm, phase)
     for fx_node in gm.graph.nodes:
         if fx_node.op != "call_function":
             continue

@@ -6,10 +6,9 @@
 // the lines after the pallas_call).
 //
 // On this card the function is bound by bytes: every valid K and V row is
-// read once for 4*G*D operations (G <= 8 q heads a kv head), far below the
-// card's operations-per-byte ridge, and G is below any tensor-core tile.  So
-// the CUDA cores do the arithmetic (no tensor core is needed) and the design
-// is about keeping bytes in flight:
+// read once for 4*G*D operations (G <= 16 q heads a kv head), far below the
+// card's operations-per-byte ridge.  So the CUDA cores do the arithmetic (no
+// tensor core is needed) and the design is about keeping bytes in flight:
 //   * 16-byte loads: a row of D elements is read by D*size/16 lanes (16 lanes
 //     for bf16 at D = 128, so one load instruction of a warp covers 2 rows);
 //   * each lane issues the K and V loads of NI rows (4 for one vector a row)
@@ -17,17 +16,25 @@
 //     it uses these, then computes the NI x G scores (the dot of a row is
 //     summed over its lanes by xor shuffles) and makes ONE online-softmax
 //     update a head for those rows;
-//   * the wrapper cuts T into splits so that B*Hkv*splits blocks fill the
+//   * the wrapper cuts T into splits so that B*HB*splits blocks (HB head
+//     blocks: Hkv, or 2*Hkv where a group is split, below) fill the
 //     card once at this kernel's measured occupancy, each split a whole
 //     number of the block's iterations;
 //   * the kernel is instantiated for each group size G, so registers hold
-//     exactly G heads.
+//     exactly G heads;
+//   * a group of 16 (recurrentgemma's MQA, G = 16 at D = 256) is split over
+//     two blocks of 8 heads (`heads_a_block`): 16 heads would need 64 KB of
+//     static shared memory for the block's merge (48 KB is the static limit)
+//     and 256 registers a thread for q and the accumulators alone.  Each of
+//     the two blocks reads the kv head's rows; they run side by side, so the
+//     second read is mostly served by L2.  The combine is keyed on the
+//     (batch, head block), so the 8-head kernel runs unchanged.
 // The cache is read where it lies through strides (the model keeps it as
 // (B,T,Hkv,D); no transposed copy), and rows at or past kv_valid_len[b],
 // which stays on the device, are never read.
 //
 // The combine is fused: every block writes its partial (acc, m, l) to
-// scratch, and the last block of a (b, kv head) to finish, found by an atomic
+// scratch, and the last block of a (b, head block) to finish, found by an atomic
 // counter after a __threadfence, merges the splits, writes the output in q's
 // dtype and resets the counter to 0 for the next launch.  With one split the
 // block writes the output directly.  One launch a layer a decode step.
@@ -54,6 +61,7 @@ struct DecodeParams {
   const void* q; const void* k; const void* v; const int* valid; void* out;
   float* part_acc; float* part_m; float* part_l; int* counter;
   int H, Hkv, T, ns, chunk;
+  int blocks_a_kv_head;   // gridDim.y / Hkv: 2 where a group of 16 is split, else 1
   long long k_sb, k_sh, k_st, v_sb, v_sh, v_st;
   float scale_log2;   // softmax scale * log2(e)
 };
@@ -83,11 +91,14 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int sub = lane / LPR, lir = lane % LPR;   // row of the warp-wide load, lane in the row
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  // blockIdx.y is the head block: the G q heads hy*G .. hy*G+G-1, all of kv
+  // head hy / blocks_a_kv_head
+  const int split = blockIdx.x, hy = blockIdx.y, b = blockIdx.z;
+  const int hk = hy / p.blocks_a_kv_head;
 
-  // The G q heads of this kv head, pre-scaled so that a dot is a log2 score.
+  // The G q heads of this block, pre-scaled so that a dot is a log2 score.
   float qf[G][EPL];
-  const T* qp = (const T*)p.q + ((long long)b * p.H + (long long)hk * G) * D;
+  const T* qp = (const T*)p.q + ((long long)b * p.H + (long long)hy * G) * D;
 #pragma unroll
   for (int g = 0; g < G; ++g)
 #pragma unroll
@@ -208,9 +219,9 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
   }
   __syncthreads();
 
-  const long long bh = (long long)b * p.Hkv + hk;
-  T* out = (T*)p.out + (bh * G) * D;            // (G, D) rows of this kv head
-  const long long part = bh * p.ns + split;     // index over (B, Hkv, ns)
+  const long long bh = (long long)b * gridDim.y + hy;   // (batch, head block)
+  T* out = (T*)p.out + (bh * G) * D;            // (G, D) rows of this head block
+  const long long part = bh * p.ns + split;     // index over (B, head blocks, ns)
   for (int idx = tid; idx < G * D; idx += DEC_THREADS) {
     const int g = idx / D, d = idx % D;
     float mm = MAX_FLOOR;
@@ -232,7 +243,7 @@ __global__ void __launch_bounds__(DEC_THREADS) decode_kernel(const DecodeParams 
   }
   if (p.ns == 1) return;
 
-  // The last block of this (b, kv head) to finish merges the splits.
+  // The last block of this (b, head block) to finish merges the splits.
   __threadfence();
   __syncthreads();
   if (tid == 0) s_last = atomicAdd(&p.counter[bh], 1) == p.ns - 1;
@@ -268,8 +279,14 @@ static const void* kernel_for_d(int D) {
   }
 }
 
-// The group sizes of the supported models (gemma-7b 1, phi4-mini 3,
-// qwen2.5-32b 5, yi-34b 7) and 2 and 8 for the edge cases.
+// Q heads a block for a group of G: 8 for a group of 16, split over two
+// blocks; else the whole group.  Mirrored by kernels/decode_attention.py
+// `heads_a_block`.
+static int heads_a_block(int G) { return G == 16 ? 8 : G; }
+
+// The heads a block of the supported models (gemma-7b 1, phi4-mini 3,
+// qwen2.5-32b 5, yi-34b 7, recurrentgemma-9b's 16 as two blocks of 8) and 2
+// for the edge cases.
 template <typename T>
 static const void* kernel_for_g(int G, int D) {
   switch (G) {
@@ -283,9 +300,12 @@ static const void* kernel_for_g(int G, int D) {
   }
 }
 
+// The kernel for a group of G q heads a kv head (instantiated for the heads
+// a block of that group).
 static const void* find_kernel(int dtype, int G, int D) {
-  if (dtype == DT_F32) return kernel_for_g<float>(G, D);
-  if (dtype == DT_BF16) return kernel_for_g<__nv_bfloat16>(G, D);
+  const int gb = heads_a_block(G);
+  if (dtype == DT_F32) return kernel_for_g<float>(gb, D);
+  if (dtype == DT_BF16) return kernel_for_g<__nv_bfloat16>(gb, D);
   return nullptr;
 }
 
@@ -306,6 +326,11 @@ static int rows_per_iter(int dtype, int D) {
   return 0;
 }
 
+// Q heads a block for a group of G (0 where no kernel takes G).
+extern "C" int decode_attention_heads_a_block(int G) {
+  return find_kernel(DT_BF16, G, 64) == nullptr ? 0 : heads_a_block(G);
+}
+
 // For (G, D, dtype) on the current device: out[0] = resident blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] = rows a block
 // reads an iteration, out[2] = threads a block.  Returns a CUDA error code.
@@ -323,9 +348,10 @@ extern "C" int decode_attention_plan(int G, int D, int dtype, int* out) {
 
 // q (B,H,D) contiguous; k/v (B,Hkv,T,D) with strides in elements over their
 // first three dims and stride 1 over D, every row 16-byte aligned; valid (B,)
-// int32; out (B,H,D) contiguous of `dtype`.  Scratch: part_acc
-// (B,Hkv,ns,G,D), part_m and part_l (B,Hkv,ns,G) fp32, counter (B*Hkv) int32
-// that must be 0 (the kernel leaves it 0).  Split s covers rows
+// int32; out (B,H,D) contiguous of `dtype`.  With HB = H / heads_a_block(G)
+// head blocks (Hkv unless a group is split), scratch: part_acc
+// (B,HB,ns,H/HB,D), part_m and part_l (B,HB,ns,H/HB) fp32, counter (B*HB)
+// int32 that must be 0 (the kernel leaves it 0).  Split s covers rows
 // [s*chunk, (s+1)*chunk).  Returns cudaGetLastError().
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* valid, void* out, void* part_acc,
@@ -334,18 +360,21 @@ extern "C" int decode_attention_launch(
     long long v_st, float scale, int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (Hkv <= 0 || H % Hkv) return (int)cudaErrorInvalidValue;
-  const void* fn = find_kernel(dtype, H / Hkv, D);
+  const int G = H / Hkv;
+  const void* fn = find_kernel(dtype, G, D);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const int per_kv = G / heads_a_block(G);
   DecodeParams p;
   p.q = q; p.k = k; p.v = v; p.valid = (const int*)valid; p.out = out;
   p.part_acc = (float*)part_acc; p.part_m = (float*)part_m; p.part_l = (float*)part_l;
   p.counter = (int*)counter;
   p.H = H; p.Hkv = Hkv; p.T = T; p.ns = ns; p.chunk = chunk;
+  p.blocks_a_kv_head = per_kv;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_st = k_st;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_st = v_st;
   p.scale_log2 = scale * 1.4426950408889634f;
   void* args[] = {&p};
-  const cudaError_t e = cudaLaunchKernel(fn, dim3(ns, Hkv, B), dim3(DEC_THREADS), args, 0,
+  const cudaError_t e = cudaLaunchKernel(fn, dim3(ns, Hkv * per_kv, B), dim3(DEC_THREADS), args, 0,
                                          (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/kernels/decode_attention.py``.  One CUDA C++ kernel
 (``csrc/decode_attention.cu``) computes a partial ``(acc, m, l)`` for each
-(batch, kv head, split) and, in the last block of a (batch, kv head) to
-finish, combines the splits: one launch a call.  K and V are read through
+(batch, head block, split) and, in the last block of a (batch, head block)
+to finish, combines the splits: one launch a call.  A head block is a kv
+head's group of q heads, or half of a group of 16 (:func:`heads_a_block`).  K and V are read through
 strides, so the model's ``(B,T,Hkv,D)`` cache is passed as a permuted view
 and never copied.  For a CUDA tensor the wrapper launches the kernel or
 raises; only a tensor on the CPU takes the plain versions.
@@ -19,7 +20,7 @@ from repro_torch.kernels import _build
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 SUPPORTED_D = (64, 128, 256)
-SUPPORTED_G = (1, 2, 3, 5, 7, 8)   # group sizes the kernel is instantiated for
+SUPPORTED_G = (1, 2, 3, 5, 7, 8, 16)   # group sizes the kernel takes
 WARPS = 4                          # warps a block (DEC_WARPS in the source)
 DEFAULT_SM_COUNT = 132             # used where no CUDA device is asked (plain version on the CPU)
 DEFAULT_BLOCKS_PER_SM = 4          # likewise; on the card the kernel's measured occupancy
@@ -35,12 +36,26 @@ def rows_per_iter(D: int, itemsize: int) -> int:
     return (4 // loads_a_row) * (32 // lanes_a_row) * WARPS
 
 
+def heads_a_block(G: int) -> int:
+    """Q heads a block for a group of G (``heads_a_block`` in the source): a
+    group of 16 is split over two blocks of 8, whose registers and shared
+    memory the 8-head kernel fits; a smaller group is one block's."""
+    return 8 if G == 16 else G
+
+
+def head_blocks(Hkv: int, G: int) -> int:
+    """Blocks over the heads of one sequence: one a kv head, two where its
+    group is split."""
+    return Hkv * (G // heads_a_block(G))
+
+
 def split_plan(B: int, Hkv: int, T: int, *, sm_count: int = DEFAULT_SM_COUNT,
                blocks_per_sm: int = DEFAULT_BLOCKS_PER_SM, rows_per_iter: int = 32,
                n_splits: int | None = None) -> tuple[int, int]:
-    """(number of splits, rows a split) for a (B, Hkv, T, D) cache.  The
-    splits are as many as let B*Hkv*ns blocks fill the card once (``sm_count
-    * blocks_per_sm`` resident blocks), at least one, and each split is a
+    """(number of splits, rows a split) for a (B, T, D) cache read by
+    ``Hkv`` head blocks a sequence (:func:`head_blocks`).  The splits are as
+    many as let B*Hkv*ns blocks fill the card once (``sm_count *
+    blocks_per_sm`` resident blocks), at least one, and each split is a
     whole number of the block's iterations of ``rows_per_iter`` rows."""
     T = max(T, 1)
     if n_splits is None:
@@ -92,8 +107,8 @@ def decode_attention_plain(q, k, v, *, kv_valid_len=None, scale: float | None = 
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if kv_valid_len is None:
         kv_valid_len = torch.full((B,), T, dtype=torch.int32, device=q.device)
-    ns, chunk = split_plan(B, Hkv, T, rows_per_iter=rows_per_iter(D, q.element_size()),
-                           n_splits=n_splits)
+    ns, chunk = split_plan(B, head_blocks(Hkv, H // Hkv), T,
+                           rows_per_iter=rows_per_iter(D, q.element_size()), n_splits=n_splits)
     o, m, l = decode_partials_plain(q, k, v, kv_valid_len, scale, ns, chunk)
     return combine_splits_plain(o, m, l, q.dtype)
 
@@ -107,11 +122,19 @@ def _lib():
         lib.decode_attention_launch.restype = ci
         lib.decode_attention_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ctypes.c_int)]
         lib.decode_attention_plan.restype = ci
+        lib.decode_attention_heads_a_block.argtypes = [ci]
+        lib.decode_attention_heads_a_block.restype = ci
     return lib
 
 
 _plans: dict[tuple, tuple[int, int, int]] = {}   # (device, G, D, dtype) -> plan
-_scratch: dict[tuple, torch.Tensor] = {}          # (device, B, Hkv, ns, G, D) -> buffer
+_scratch: dict[tuple, torch.Tensor] = {}          # (device, B, head blocks, ns, G, D) -> buffer
+
+
+def kernel_heads_a_block(G: int) -> int:
+    """Q heads a block for a group of G, as the compiled library has it (0
+    where it takes no such group)."""
+    return _lib().decode_attention_heads_a_block(G)
 
 
 def kernel_plan(device: torch.device, G: int, D: int, dtype: torch.dtype) -> tuple[int, int, int]:
@@ -129,16 +152,16 @@ def kernel_plan(device: torch.device, G: int, D: int, dtype: torch.dtype) -> tup
     return plan
 
 
-def _scratch_for(device: torch.device, B: int, Hkv: int, ns: int, G: int, D: int):
-    """Pointers to the fp32 partials (acc, m, l) and the B*Hkv counters of one
-    int32 buffer kept a (device, shape).  The counters start at 0 and the
-    kernel leaves them at 0.  Calls that share a shape share the buffer, so
-    they must run on one stream."""
-    n = B * Hkv * ns * G
-    key = (device.index, B, Hkv, ns, G, D)
+def _scratch_for(device: torch.device, B: int, HB: int, ns: int, G: int, D: int):
+    """Pointers to the fp32 partials (acc, m, l) of ``HB`` head blocks of
+    ``G`` heads and the B*HB counters, in one int32 buffer kept a (device,
+    shape).  The counters start at 0 and the kernel leaves them at 0.  Calls
+    that share a shape share the buffer, so they must run on one stream."""
+    n = B * HB * ns * G
+    key = (device.index, B, HB, ns, G, D)
     buf = _scratch.get(key)
     if buf is None:
-        buf = _scratch[key] = torch.zeros(n * (D + 2) + B * Hkv, dtype=torch.int32, device=device)
+        buf = _scratch[key] = torch.zeros(n * (D + 2) + B * HB, dtype=torch.int32, device=device)
     base = buf.data_ptr()
     return base, base + 4 * n * D, base + 4 * n * (D + 1), base + 4 * n * (D + 2)
 
@@ -184,9 +207,10 @@ def decode_attention(q, k, v, *, kv_valid_len=None, scale: float | None = None) 
         return torch.zeros((B, H, D), dtype=q.dtype, device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     sm_count, blocks_per_sm, rows = kernel_plan(q.device, G, D, q.dtype)
-    ns, chunk = split_plan(B, Hkv, T, sm_count=sm_count, blocks_per_sm=blocks_per_sm,
+    HB = head_blocks(Hkv, G)
+    ns, chunk = split_plan(B, HB, T, sm_count=sm_count, blocks_per_sm=blocks_per_sm,
                            rows_per_iter=rows)
-    acc, m, l, counter = _scratch_for(q.device, B, Hkv, ns, G, D)
+    acc, m, l, counter = _scratch_for(q.device, B, HB, ns, H // HB, D)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     _build.launch(_lib().decode_attention_launch, q.device, "decode_attention",
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid_len.data_ptr(),

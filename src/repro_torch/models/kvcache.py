@@ -1,12 +1,15 @@
 """Decode-cache construction (counterpart of ``repro/models/kvcache.py``) for
-the ring caches of the ``attn_ffn``, ``moe_attn_ffn`` and ``mla_moe`` blocks.
+the ring caches of the ``attn_ffn``, ``moe_attn_ffn``, ``mla_moe`` and
+``griffin_attn`` blocks and the recurrent state of ``griffin_rec``.
 
 Layout: ``cache["blocks"]`` is a list with one dict a layer, as in the
 reference (which stacks them over depth): ``{"k", "v"}``, each ``(B, T, Hkv,
-D)``, for the GQA blocks; ``{"ckv": (B, T, kv_lora_rank), "kr": (B, T,
+D)``, for the GQA blocks (``griffin_attn``'s ring has ``min(cache_len,
+window)`` rows); ``{"ckv": (B, T, kv_lora_rank), "kr": (B, T,
 qk_rope_head_dim)}``, MLA's compressed latent and its rotary key, for
-``mla_moe``.  Plus ``cache["pos"]``, the per-slot absolute position, ``(B,)
-int32``.
+``mla_moe``; ``{"h": (B, W), "conv": (B, conv_width - 1, W)}``, the RG-LRU's
+state and the causal conv's last inputs, for ``griffin_rec``.  Plus
+``cache["pos"]``, the per-slot absolute position, ``(B,) int32``.
 """
 from __future__ import annotations
 
@@ -22,20 +25,41 @@ from repro_torch.models.params import layer_kinds
 CacheCreator = Callable[..., object]  # creator(shape, dtype) -> leaf
 
 
+def ring_rows(cache_len: int, window: int) -> int:
+    """Rows of an attention ring: ``cache_len``, or the window where it is
+    shorter (a windowed layer keeps no more)."""
+    return min(cache_len, window) if window else cache_len
+
+
 def _kind_cache(cfg: ModelConfig, kind: str, c: CacheCreator, batch: int, cache_len: int):
     dt = torch_dtype(cfg.dtype)
     if kind in ("attn_ffn", "moe_attn_ffn"):
         shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
         return {"k": c(shape, dt), "v": c(shape, dt)}
+    if kind == "griffin_attn":
+        shape = (batch, ring_rows(cache_len, cfg.window), cfg.num_kv_heads, cfg.head_dim)
+        return {"k": c(shape, dt), "v": c(shape, dt)}
     if kind == "mla_moe":
         return {"ckv": c((batch, cache_len, cfg.kv_lora_rank), dt),
                 "kr": c((batch, cache_len, cfg.qk_rope_head_dim), dt)}
+    if kind == "griffin_rec":
+        W = cfg.lru_width or cfg.d_model
+        return {"h": c((batch, W), dt), "conv": c((batch, cfg.conv_width - 1, W), dt)}
     raise ValueError(kind)
 
 
-def cache_len_of(cache: dict) -> int:
-    """The ring's length T of a cache built here (every leaf is ``(B, T, ...)``)."""
-    return next(iter(cache["blocks"][0].values())).shape[1]
+RING_LEAVES = ("k", "ckv")     # the first leaf of an attention ring, (B, T, ...)
+
+
+def cache_len_of(cache: dict) -> int | None:
+    """The rows T of the attention rings of a cache built here (the first
+    layer that has one: a recurrent layer's state has no T), or None for a
+    stack with no ring (the xLSTM family's), whose decode writes no slot."""
+    for layer in cache["blocks"]:
+        for name in RING_LEAVES:
+            if name in layer:
+                return layer[name].shape[1]
+    return None
 
 
 def build_cache(cfg: ModelConfig, creator: CacheCreator, batch: int, cache_len: int):

@@ -1,4 +1,4 @@
-"""Core neural layers: the dense and MoE subset (counterpart of
+"""Core neural layers: the dense, MoE and RG-LRU subset (counterpart of
 ``repro/models/layers.py``).
 
 Everything is functional: ``apply(params, x, ...) -> y``.  The reference's
@@ -324,3 +324,116 @@ def moe_ffn(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if cfg.num_shared_experts > 0:
         out = out + ffn(cfg, p["shared"], x)
     return out, aux
+
+
+# --------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma recurrent block)
+# --------------------------------------------------------------------------
+#
+# Plain torch, as the reference's is plain lax (no Pallas kernel): the gate
+# products are float32 matrix products (TF32 stays off), the recurrence is
+# the reference's log-depth scan written out.
+
+_RGLRU_C = 8.0
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, which is ``logaddexp(x, 0)``; ``F.softplus``
+    returns ``x`` itself above its threshold of 20."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _rglru_gate_matmul(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Full (W, W) or block-diagonal (nb, Wb, Wb) gate projection of a float32
+    (..., W), in float32."""
+    wf = w.float()
+    if w.ndim == 3:
+        nb, Wb, _ = w.shape
+        xs = x.reshape(-1, nb, Wb).transpose(0, 1)             # (nb, N, Wb), a view
+        return torch.bmm(xs, wf).transpose(0, 1).reshape(x.shape)
+    return x @ wf
+
+
+def _rglru_coeffs(p: dict, xf: torch.Tensor):
+    """``(a, b)`` of the recurrence ``h_t = a_t h_{t-1} + b_t`` for float32
+    inputs: ``a = exp(-c softplus(lam) r)``, ``b = sqrt(1 - a^2) i x``."""
+    r = torch.sigmoid(_rglru_gate_matmul(p["wa"], xf) + p["ba"])
+    i = torch.sigmoid(_rglru_gate_matmul(p["wx"], xf) + p["bx"])
+    log_a = -_RGLRU_C * _softplus(p["lam"].float()) * r           # <= 0
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    return a, beta * i * xf
+
+
+def _scan_combine(a1, b1, a2, b2):
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x at the even positions of dim 1, y at the odd ones; x has as many
+    rows as y or one more."""
+    if x.shape[1] == y.shape[1]:
+        return torch.stack([x, y], dim=2).flatten(1, 2)
+    return torch.cat([torch.stack([x[:, :-1], y], dim=2).flatten(1, 2), x[:, -1:]], dim=1)
+
+
+def _associative_scan(a: torch.Tensor, b: torch.Tensor):
+    """``jax.lax.associative_scan`` of the recurrence's combine over dim 1,
+    written out as jax 0.9 computes it (``lax/control_flow/loops.py``:
+    ``_scan`` and ``_interleave``): combine the even elements with the odd
+    ones (strided slices), scan those pairs by recursion, combine the odd
+    results with the elements from 2 on, put element 0 first and interleave.
+    The products pair up as the reference's do, so float32 results agree
+    with it to the last bits or nearly, and the traced graph has the
+    reference's log depth (about 20 nodes a level), where a loop over S
+    would trace S steps."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ra, rb = _scan_combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2])
+    oa, ob = _associative_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = _scan_combine(oa[:, :-1], ob[:, :-1], a[:, 2::2], b[:, 2::2])
+    else:
+        ea, eb = _scan_combine(oa, ob, a[:, 2::2], b[:, 2::2])
+    ea = torch.cat([a[:, :1], ea], dim=1)
+    eb = torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def rglru_scan(p: dict, x: torch.Tensor, h0: torch.Tensor | None):
+    """x: (B, S, W).  Returns (y in x's dtype, h_last in float32).  Diagonal
+    gated linear recurrence ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) i_t x_t``,
+    computed in float32 by the log-depth scan; ``h0`` is folded into the
+    first step, as in the reference."""
+    xf = x.float()
+    a, b = _rglru_coeffs(p, xf)
+    if h0 is not None:
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]], dim=1)
+    _, h = _associative_scan(a, b)
+    return h.to(x.dtype), h[:, -1]
+
+
+def rglru_step(p: dict, x_t: torch.Tensor, h: torch.Tensor):
+    """One decode step; x_t, h: (B, W).  Returns (h_new in x_t's dtype, h_new
+    in float32)."""
+    xf = x_t.float()
+    a, b = _rglru_coeffs(p, xf)
+    h_new = a * h.float() + b
+    return h_new.to(x_t.dtype), h_new
+
+
+def causal_conv1d(p: dict, x: torch.Tensor, state: torch.Tensor | None):
+    """Depthwise causal conv of width K.  x: (B, S, W); state: (B, K-1, W) or
+    None.  Returns (y, new_state).  The K terms are summed in x's dtype in
+    the reference's order (Python's ``sum``, from 0)."""
+    Kw = p["w"].shape[0]
+    B, S, W = x.shape
+    if state is None:
+        state = torch.zeros((B, Kw - 1, W), dtype=x.dtype, device=x.device)
+    xx = torch.cat([state, x], dim=1)
+    y = sum(xx[:, i:i + S] * p["w"][i].to(x.dtype) for i in range(Kw))
+    y = y + p["b"].to(x.dtype)
+    new_state = xx[:, -(Kw - 1):] if Kw > 1 else torch.zeros((B, 0, W), dtype=x.dtype,
+                                                               device=x.device)
+    return y, new_state

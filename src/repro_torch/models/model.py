@@ -1,5 +1,6 @@
-"""Model assembly for the dense decoders and the MoE decoders, with GQA or
-with MLA attention (counterpart of ``repro/models/model.py``).
+"""Model assembly for the dense decoders, the MoE decoders, with GQA or with
+MLA attention, and the RG-LRU hybrid (counterpart of
+``repro/models/model.py``).
 
 ``Model`` exposes:
   * ``init(generator)``                    — concrete params on the model's device
@@ -22,13 +23,14 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.models.kvcache import cache_len_of
+from repro_torch.models.kvcache import cache_len_of, ring_rows
 from repro_torch.models.params import init_params, layer_kinds
 
 Tree = Any
@@ -182,10 +184,13 @@ def mla_decode(cfg, p, x, pos, cache, *, positions=None, rope_tables=None, indic
 
     Each product is the batched product the reference's einsum contracts,
     with its operands in the same order (the larger first), so both tracers
-    see one (M, N, K): torch's ``einsum`` would order them its own way.  The
-    operands are strided views, which the matrix product reads as they lie;
-    the scores come out (B, T, H) and are softmaxed as (B, H, T), the
-    reference's two transposes."""
+    see one (M, N, K): torch's ``einsum`` would order them its own way.  Every
+    operand is a view that cuBLAS reads where it lies (one of its matrix dims
+    of stride 1), so no product copies an operand, and the tracer prices none
+    of those views.  Where the reference transposes a product's output into
+    its einsum's order (the absorbed query, the two score products, the
+    weighted latent, the output: five transposes), the port does too: the
+    query's and the latent's as part of the cast that follows, in one pass."""
     B = x.shape[0]
     H = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -198,6 +203,8 @@ def mla_decode(cfg, p, x, pos, cache, *, positions=None, rope_tables=None, indic
     # absorb W_uk: q_lat[h] = W_uk[h] q_nope[h], (H, r, dn) @ (H, dn, B) -> (H, r, B)
     uk = p["uk"]["w"].to(x.dtype)                         # (r, H, dn)
     q_lat = torch.bmm(uk.permute(1, 0, 2), q_nope.reshape(B, H, dn).permute(1, 2, 0))
+    # (B, H, r) in float32, transposed and widened in one pass
+    q_lat = q_lat.permute(2, 0, 1).to(torch.float32, memory_format=torch.contiguous_format)
     ckv_new, kr_new = _mla_latent(cfg, p, x, positions, rope_tables, plain)
     b_idx, slot, valid = indices if indices is not None else decode_indices(pos, T)
     ckv, kr = cache["ckv"], cache["kr"]
@@ -205,16 +212,18 @@ def mla_decode(cfg, p, x, pos, cache, *, positions=None, rope_tables=None, indic
     kr[b_idx, slot] = kr_new[:, 0, 0]
     scale = 1.0 / math.sqrt(dn + dr)
     ckv_f = ckv.float()                                   # (B, T, r)
-    s = (torch.bmm(ckv_f, q_lat.permute(2, 1, 0).float())                       # (B, T, H)
-         + torch.bmm(kr.float(), q_rope.reshape(B, H, dr).transpose(1, 2).float())) * scale
+    s_lat = torch.bmm(ckv_f, q_lat.transpose(1, 2))                             # (B, T, H)
+    s_rope = torch.bmm(kr.float(), q_rope.reshape(B, H, dr).float().transpose(1, 2))
     # (B, H, T): a softmax over the last dim (over dim 1 of (B, T, H) it took
     # 1.3 ms a layer on an H100 at B8 T2048, a tenth of the step)
-    s = s.transpose(1, 2)
+    s = (s_lat.transpose(1, 2) + s_rope.transpose(1, 2)) * scale
     s = torch.where(torch.arange(T, device=x.device) < valid[:, None, None], s, L.NEG_INF)
     pr = torch.softmax(s, dim=-1)
-    o_lat = torch.bmm(ckv_f.transpose(1, 2), pr.transpose(1, 2)).to(x.dtype)    # (B, r, H)
+    o_lat = torch.bmm(ckv_f.transpose(1, 2), pr.transpose(1, 2))                # (B, r, H)
+    # (B, H, r) in the activation dtype, transposed and narrowed in one pass
+    o_lat = o_lat.transpose(1, 2).to(x.dtype, memory_format=torch.contiguous_format)
     uv = p["uv"]["w"].to(x.dtype)                         # (r, H, dv)
-    o = torch.bmm(uv.permute(1, 2, 0), o_lat.permute(2, 1, 0))                  # (H, dv, B)
+    o = torch.bmm(uv.permute(1, 2, 0), o_lat.permute(1, 2, 0))                  # (H, dv, B)
     # (B, 1, H, dv) laid out densely: the output product then reads it as one
     # matrix, where a strided view would make torch.matmul copy the weight
     # once a row
@@ -242,16 +251,23 @@ def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
     plain = aux.get("plain", False)
     cache_len = aux.get("cache_len", 0)
 
-    def ring(rows: dict):
-        """A ring cache of ``cache_len`` rows holding the prompt's rows first."""
+    def ring(rows: dict, window: int = 0):
+        """A ring cache of ``cache_len`` rows holding the prompt's rows first.
+        A windowed layer's ring has ``min(cache_len, window)`` rows, and a
+        longer prompt keeps its last T rows, written from row 0, as the
+        reference's ``kv_cache`` does (so its first decode step writes slot
+        ``S % T``: the reference's slot, kept for parity; ROADMAP queue C)."""
         if not collect_cache:
             return None
+        T = ring_rows(cache_len, window)
         out = {}
         for name, t in rows.items():
+            if window and t.shape[1] > T:
+                t = t[:, -T:]
             S = t.shape[1]
-            if S > cache_len:
-                raise ValueError(f"prompt of {S} tokens does not fit a cache of {cache_len}")
-            out[name] = torch.zeros((t.shape[0], cache_len, *t.shape[2:]), dtype=t.dtype,
+            if S > T:
+                raise ValueError(f"prompt of {S} tokens does not fit a cache of {T}")
+            out[name] = torch.zeros((t.shape[0], T, *t.shape[2:]), dtype=t.dtype,
                                     device=t.device)
             out[name][:, :S] = t
         return out
@@ -268,6 +284,22 @@ def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
         f, aux_loss = L.moe_ffn(cfg, p["moe"], x)
         return h, f, ring(dict(zip(names, rows))), aux_loss
 
+    if kind == "griffin_attn":
+        h, x = L.add_norm(cfg, p["ln"], h, pending, plain=plain)
+        a, (k, v) = gqa_full(cfg, p["attn"], x, positions, window=cfg.window,
+                             rope_tables=aux.get("rope_tables"), plain=plain)
+        h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
+        return h, L.ffn(cfg, p["mlp"], x), ring({"k": k, "v": v}, cfg.window), None
+
+    if kind == "griffin_rec":
+        h, y = L.add_norm(cfg, p["ln"], h, pending, plain=plain)
+        g = F.gelu(L.linear(p["in_gate"], y), approximate="tanh")
+        r, conv_state = L.causal_conv1d(p["conv"], L.linear(p["in_rec"], y), None)
+        r, h_last = L.rglru_scan(p["rglru"], r, None)
+        h, x = L.add_norm(cfg, p["ln2"], h, L.linear(p["out"], g * r), plain=plain)
+        cache = {"h": h_last.to(h.dtype), "conv": conv_state} if collect_cache else None
+        return h, L.ffn(cfg, p["mlp"], x), cache, None
+
     raise ValueError(kind)
 
 
@@ -277,14 +309,28 @@ def apply_block_decode(cfg, kind, p, h, pending, cache, aux):
     positions = aux.get("decode_positions")
     plain = aux.get("plain", False)
 
-    if kind in ("attn_ffn", "moe_attn_ffn", "mla_moe"):
-        h, x = L.add_norm(cfg, p["ln1"], h, pending, plain=plain)
+    if kind == "griffin_rec":
+        h, y = L.add_norm(cfg, p["ln"], h, pending, plain=plain)
+        g = F.gelu(L.linear(p["in_gate"], y), approximate="tanh")
+        r, conv_state = L.causal_conv1d(p["conv"], L.linear(p["in_rec"], y), cache["conv"])
+        r_t, h_state = L.rglru_step(p["rglru"], r[:, 0], cache["h"])
+        h, x = L.add_norm(cfg, p["ln2"], h, L.linear(p["out"], g * r_t[:, None, :]),
+                          plain=plain)
+        cache["h"].copy_(h_state)            # in place, rounded to the cache's dtype
+        cache["conv"].copy_(conv_state)
+        return h, L.ffn(cfg, p["mlp"], x), cache
+
+    if kind in ("attn_ffn", "moe_attn_ffn", "mla_moe", "griffin_attn"):
+        # griffin_attn's window needs no mask here: its ring holds the window
+        # (the reference's gqa_decode takes no window either)
+        h, x = L.add_norm(cfg, p["ln" if kind == "griffin_attn" else "ln1"], h, pending,
+                          plain=plain)
         attend = mla_decode if kind == "mla_moe" else gqa_decode
         a, c = attend(cfg, p["attn"], x, pos, cache, positions=positions,
                       rope_tables=aux.get("rope_tables"), indices=aux.get("indices"),
                       plain=plain)
         h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
-        if kind == "attn_ffn":
+        if kind in ("attn_ffn", "griffin_attn"):
             return h, L.ffn(cfg, p["mlp"], x), c
         return h, L.moe_ffn(cfg, p["moe"], x)[0], c
 
@@ -352,8 +398,9 @@ class Model:
         h = params["embed"]["w"][tokens].to(torch_dtype(cfg.dtype))
         if cfg.scale_embedding:
             # the factor is rounded to the activation type before the product,
-            # as the reference's weakly typed scalar is
-            h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype, device=h.device)
+            # as the reference's weakly typed scalar is; filled on the device
+            # (a tensor made from a host scalar would copy, and wait, a call)
+            h = h * torch.full((), math.sqrt(cfg.d_model), dtype=h.dtype, device=h.device)
         return h
 
     def _logits(self, params, h):
@@ -444,15 +491,16 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, cache, batch):
         """One-token decode.  batch: tokens (B,1)[, positions (B,1)].  Returns
-        (logits, cache).  The K/V tensors of ``cache`` are updated **in
-        place** and returned in a new dict beside a new ``pos``; the
-        reference returns fresh arrays and leaves its argument as it was."""
+        (logits, cache).  The tensors of ``cache`` (K/V rings, recurrent
+        state) are updated **in place** and returned in a new dict beside a
+        new ``pos``; the reference returns fresh arrays and leaves its
+        argument as it was."""
         tokens = self._tokens(batch)
         pos = cache["pos"]                    # (B,) per-slot positions
         positions = self._positions(batch, pos[:, None])
-        T = cache_len_of(cache)
+        T = cache_len_of(cache)               # the attention rings' rows (one T for all)
         aux = self._aux(positions, pos=pos, decode_positions=positions,
-                        indices=decode_indices(pos, T))
+                        indices=decode_indices(pos, T) if T is not None else None)
         h = self._embed(params, tokens)
         new_blocks, f = [], None
         for kind, p, c in zip(self.kinds, params["blocks"], cache["blocks"]):

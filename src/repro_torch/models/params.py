@@ -1,6 +1,7 @@
 """Parameter-tree construction (counterpart of ``repro/models/params.py``), for the
 ``attn_ffn`` block of the dense decoders, the ``moe_attn_ffn`` block of the
-MoE decoders with GQA attention and the ``mla_moe`` block of those with MLA.
+MoE decoders with GQA attention, the ``mla_moe`` block of those with MLA and
+the ``griffin_rec`` / ``griffin_attn`` blocks of the RG-LRU hybrid.
 
 One function (``build_params``) drives its consumers through a creator
 callback: concrete init (``init_params``) and parameter counts
@@ -30,10 +31,12 @@ def block_cycle(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
     elif cfg.family == "moe":
         cycle = ("moe_attn_ffn" if cfg.attention != "mla" else "mla_moe",)
     elif cfg.family == "hybrid":
-        raise ValueError("family 'hybrid' (block kinds 'griffin_rec' and 'griffin_attn') is "
-                         "not ported yet: it comes with the RG-LRU slice")
+        cycle = tuple("griffin_rec" if k == "rec" else "griffin_attn" for k in cfg.block_pattern)
+    elif cfg.family == "ssm":
+        raise ValueError("family 'ssm' (block kinds 'mlstm' and 'slstm') is not ported yet: "
+                         "it comes with the xLSTM slice")
     else:
-        raise ValueError(f"family {cfg.family!r} is not ported yet (dense and MoE only)")
+        raise ValueError(f"family {cfg.family!r} is not ported yet (dense, MoE and hybrid only)")
     n = cfg.num_layers // len(cycle)
     tail_len = cfg.num_layers - n * len(cycle)
     return cycle, n, cycle[:tail_len]
@@ -108,6 +111,43 @@ def _moe(cfg, c: Creator, path):
     return p
 
 
+def _rglru_gates(cfg, c: Creator, path, W: int):
+    nb = max(cfg.lru_gate_blocks, 1)
+    # Griffin's appendix: block-diagonal recurrence and input gates, (nb, Wb, Wb)
+    shp = (nb, W // nb, W // nb) if nb > 1 else (W, W)
+    return {
+        "wa": c(path + ("rglru", "wa"), shp, shp[-1]),
+        "ba": c(path + ("rglru", "ba"), (W,), 0),
+        "wx": c(path + ("rglru", "wx"), shp, shp[-1]),
+        "bx": c(path + ("rglru", "bx"), (W,), 0),
+        "lam": c(path + ("rglru", "lam"), (W,), 0),
+    }
+
+
+def _griffin_rec(cfg, c: Creator, path):
+    D, W, K = cfg.d_model, cfg.lru_width or cfg.d_model, cfg.conv_width
+    return {
+        "ln": _norm(cfg, c, path + ("ln",)),
+        "in_gate": {"w": c(path + ("in_gate", "w"), (D, W), D)},
+        "in_rec": {"w": c(path + ("in_rec", "w"), (D, W), D)},
+        "conv": {"w": c(path + ("conv", "w"), (K, W), 0),
+                 "b": c(path + ("conv", "b"), (W,), 0)},
+        "rglru": _rglru_gates(cfg, c, path, W),
+        "out": {"w": c(path + ("out", "w"), (W, D), W)},
+        "ln2": _norm(cfg, c, path + ("ln2",)),
+        "mlp": _mlp(cfg, c, path + ("mlp",)),
+    }
+
+
+def _griffin_attn(cfg, c: Creator, path):
+    return {
+        "ln": _norm(cfg, c, path + ("ln",)),
+        "attn": _gqa_attn(cfg, c, path + ("attn",)),
+        "ln2": _norm(cfg, c, path + ("ln2",)),
+        "mlp": _mlp(cfg, c, path + ("mlp",)),
+    }
+
+
 def _attn_ffn(cfg, c: Creator, path):
     return {
         "ln1": _norm(cfg, c, path + ("ln1",)),
@@ -135,7 +175,8 @@ def _mla_moe(cfg, c: Creator, path):
     }
 
 
-BLOCK_PARAMS = {"attn_ffn": _attn_ffn, "moe_attn_ffn": _moe_attn_ffn, "mla_moe": _mla_moe}
+BLOCK_PARAMS = {"attn_ffn": _attn_ffn, "moe_attn_ffn": _moe_attn_ffn, "mla_moe": _mla_moe,
+                "griffin_rec": _griffin_rec, "griffin_attn": _griffin_attn}
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -161,17 +202,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, dtype=None
     """Concrete init on ``device`` from ``generator`` (which must live on the
     same device).  Same distributions as the reference: normal with std
     ``1/sqrt(fan_in)`` for matrices, norm scales 1 (0 for the ``1 + w`` form),
-    biases 0.  The numbers differ from the reference's for the same seed (the
+    biases 0, and the RG-LRU's ``lam`` in float32 such that its decay
+    ``exp(-8 softplus(lam))`` is uniform in [0.9, 0.999] (Griffin's appendix;
+    the conv filter, which the reference's creator treats as a bias, is 0
+    too).  The numbers differ from the reference's for the same seed (the
     two frameworks' generators differ); tests carry weights across instead."""
     dt = dtype or torch_dtype(cfg.param_dtype)
     device = torch.device(device)
 
     def c(path, shape, fan_in):
-        if fan_in <= 0:  # biases / norm scales
+        if fan_in <= 0:  # biases / norm scales / gates
             name, parent = path[-1], path[-2] if len(path) > 1 else ""
             is_norm = parent.startswith("ln") or "norm" in parent
             if name == "w" and is_norm and not cfg.rms_offset:
                 return torch.ones(shape, dtype=dt, device=device)
+            if name == "lam":
+                u = torch.rand(shape, generator=generator, dtype=torch.float32, device=device)
+                u = 0.9 + u * (0.999 - 0.9)
+                return torch.log(torch.expm1(-torch.log(u) / 8.0))
             return torch.zeros(shape, dtype=dt, device=device)
         std = 1.0 / math.sqrt(fan_in)
         w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)

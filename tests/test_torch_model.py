@@ -7,6 +7,8 @@ models run on the same tree.
 float32 logits agree to 1e-4: the two frameworks sum the matrix products and
 the softmax in another order, and the error grows through the layers.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -228,8 +230,10 @@ def test_cache_of_another_config_is_rejected():
 
 def test_mla_moe_is_left_to_its_own_slice():
     """MLA came with a slice of its own: a MoE config with MLA attention
-    builds ``mla_moe`` blocks and their compressed caches.  The next family
-    (hybrid, RG-LRU) still raises, naming its slice, and so do the others."""
+    builds ``mla_moe`` blocks and their compressed caches.  So did the
+    hybrid (RG-LRU): a tiny hybrid config builds its (rec, rec, attn) cycle,
+    its recurrent state and its windowed ring.  The next family (ssm, xLSTM)
+    still raises, naming its slice, and so do the others."""
     cfg = t_tiny("olmoe-1b-7b").replace(attention="mla", q_lora_rank=32, kv_lora_rank=16,
                                         qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
     m = TModel(cfg, "cpu")
@@ -239,10 +243,23 @@ def test_mla_moe_is_left_to_its_own_slice():
     _, cache = m.prefill(params, {"tokens": tokens(cfg, 1, 5)}, cache_len=8)
     assert {k: tuple(v.shape) for k, v in cache["blocks"][0].items()} == {
         "ckv": (1, 8, 16), "kr": (1, 8, 8)}
-    with pytest.raises(ValueError, match="RG-LRU"):
-        TModel(cfg.replace(family="hybrid"), "cpu")
+    hyb = t_tiny("recurrentgemma-9b").replace(num_layers=4, window=6)
+    m = TModel(hyb, "cpu")
+    assert m.kinds == ("griffin_rec", "griffin_rec", "griffin_attn", "griffin_rec")
+    params = m.init(torch.Generator().manual_seed(0))
+    W = hyb.lru_width
+    assert params["blocks"][0]["rglru"]["wa"].shape == (W, W)
+    assert params["blocks"][0]["rglru"]["lam"].dtype == torch.float32
+    a = torch.exp(-8.0 * torch.nn.functional.softplus(params["blocks"][0]["rglru"]["lam"]))
+    assert 0.9 <= float(a.min()) and float(a.max()) <= 0.999    # Griffin's init of the decay
+    _, cache = m.prefill(params, {"tokens": tokens(hyb, 1, 5)}, cache_len=8)
+    assert [{k: tuple(v.shape) for k, v in c.items()} for c in cache["blocks"][1:3]] == [
+        {"h": (1, W), "conv": (1, hyb.conv_width - 1, W)},
+        {"k": (1, 6, 1, hyb.head_dim), "v": (1, 6, 1, hyb.head_dim)}]   # min(cache_len, window)
+    with pytest.raises(ValueError, match="xLSTM"):
+        TModel(t_tiny("recurrentgemma-9b").replace(family="ssm"), "cpu")
     with pytest.raises(ValueError, match="not ported"):
-        TModel(cfg.replace(family="ssm"), "cpu")
+        TModel(cfg.replace(family="audio"), "cpu")
 
 
 def test_init_params_shapes_dtypes_and_statistics():
@@ -266,17 +283,27 @@ def test_init_params_shapes_dtypes_and_statistics():
 # The residual adds carried into the norms
 # --------------------------------------------------------------------------
 
-def _unfused(m, params, tokens, attend):
+def _unfused(m, params, tokens, attend, recur=None):
     """The block as it reads in the reference: ``h = h + a``, then ``h = h +
     ffn(norm(h))`` (the MoE block's ``moe_ffn``), each add a pass of its own,
-    and the norm of ``h``."""
+    and the norm of ``h``.  ``a`` is the attention (``attend``) or, in an
+    RG-LRU block, the recurrent branch (``recur``)."""
     cfg = m.cfg
     h = m._embed(params, tokens)
     for i, p in enumerate(params["blocks"]):
-        h = h + attend(i, p["attn"], TL.apply_norm(cfg, p["ln1"], h))
+        x = TL.apply_norm(cfg, p["ln" if "ln" in p else "ln1"], h)
+        h = h + (attend(i, p["attn"], x) if "attn" in p else recur(i, p, x))
         x = TL.apply_norm(cfg, p["ln2"], h)
         h = h + (TL.moe_ffn(cfg, p["moe"], x)[0] if "moe" in p else TL.ffn(cfg, p["mlp"], x))
     return TL.apply_norm(cfg, params["final_norm"], h)
+
+
+def _recur_full(cfg, p, y):
+    """The RG-LRU block's recurrent branch over a sequence; (output, state)."""
+    g = torch.nn.functional.gelu(TL.linear(p["in_gate"], y), approximate="tanh")
+    r, conv = TL.causal_conv1d(p["conv"], TL.linear(p["in_rec"], y), None)
+    r, h_last = TL.rglru_scan(p["rglru"], r, None)
+    return TL.linear(p["out"], g * r), {"h": h_last.to(y.dtype), "conv": conv}
 
 
 def unfused_forward(m, params, toks, cache_len=None):
@@ -286,20 +313,27 @@ def unfused_forward(m, params, toks, cache_len=None):
     positions = torch.arange(S).expand(B, S)
     tables = TL.rope_tables(m.cfg, positions, TL.rope_head_dim(m.cfg))
     mla = m.cfg.attention == "mla"
+    window = m.cfg.window if m.cfg.family == "hybrid" else 0
     caches = []
 
     def attend(i, p, x):
-        a, rows = (TM.mla_full if mla else TM.gqa_full)(m.cfg, p, x, positions,
-                                                         rope_tables=tables)
+        full = TM.mla_full if mla else functools.partial(TM.gqa_full, window=window)
+        a, rows = full(m.cfg, p, x, positions, rope_tables=tables)
         if cache_len:
+            T = min(cache_len, window) if window else cache_len
             ring = {}
             for name, t in zip(("ckv", "kr") if mla else ("k", "v"), rows):
-                ring[name] = torch.zeros((B, cache_len, *t.shape[2:]), dtype=t.dtype)
-                ring[name][:, :S] = t
+                ring[name] = torch.zeros((B, T, *t.shape[2:]), dtype=t.dtype)
+                ring[name][:, :min(S, T)] = t[:, -T:]
             caches.append(ring)
         return a
 
-    h = _unfused(m, params, tokens, attend)
+    def recur(i, p, y):
+        out, state = _recur_full(m.cfg, p, y)
+        caches.append(state)
+        return out
+
+    h = _unfused(m, params, tokens, attend, recur)
     return m._logits(params, h), {"blocks": caches, "pos": torch.full((B,), S, dtype=torch.int32)}
 
 
@@ -308,14 +342,24 @@ def unfused_decode_step(m, params, cache, toks):
     pos = cache["pos"]
     positions = pos[:, None]
     tables = TL.rope_tables(m.cfg, positions, TL.rope_head_dim(m.cfg))
-    indices = TM.decode_indices(pos, next(iter(cache["blocks"][0].values())).shape[1])
+    T = next(c["k" if "k" in c else "ckv"].shape[1] for c in cache["blocks"]
+             if "k" in c or "ckv" in c)
+    indices = TM.decode_indices(pos, T)
     decode = TM.mla_decode if m.cfg.attention == "mla" else TM.gqa_decode
 
     def attend(i, p, x):
         return decode(m.cfg, p, x, pos, cache["blocks"][i], positions=positions,
                       rope_tables=tables, indices=indices)[0]
 
-    h = _unfused(m, params, tokens, attend)
+    def recur(i, p, y):
+        c = cache["blocks"][i]
+        g = torch.nn.functional.gelu(TL.linear(p["in_gate"], y), approximate="tanh")
+        r, conv = TL.causal_conv1d(p["conv"], TL.linear(p["in_rec"], y), c["conv"])
+        r_t, h_state = TL.rglru_step(p["rglru"], r[:, 0], c["h"])
+        c["h"], c["conv"] = h_state.to(y.dtype), conv
+        return TL.linear(p["out"], g * r_t[:, None, :])
+
+    h = _unfused(m, params, tokens, attend, recur)
     return m._logits(params, h[:, -1:]), {"blocks": cache["blocks"], "pos": pos + 1}
 
 

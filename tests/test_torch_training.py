@@ -179,13 +179,14 @@ def test_loss_and_gradients_match_reference(arch):
 
 
 # every (microbatches, compression) pair under each optimizer, spread over the four dense
-# configs; then the MoE decoders (GQA and MLA) under AdamW
+# configs; then the MoE decoders (GQA and MLA) and the RG-LRU hybrid under AdamW
 STEP_CASES = [
     ("phi4-mini-3.8b", "adamw", 1, "none"), ("phi4-mini-3.8b", "adafactor", 2, "int8"),
     ("gemma-7b", "adamw", 2, "int8"), ("gemma-7b", "adafactor", 1, "none"),
     ("qwen2.5-32b", "adamw", 1, "int8"), ("qwen2.5-32b", "adafactor", 2, "none"),
     ("yi-34b", "adamw", 2, "none"), ("yi-34b", "adafactor", 1, "int8"),
     ("olmoe-1b-7b", "adamw", 1, "none"), ("deepseek-v3-671b", "adamw", 1, "none"),
+    ("recurrentgemma-9b", "adamw", 1, "none"),
 ]
 
 
