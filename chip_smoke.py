@@ -121,6 +121,22 @@ Phases, each printing one JSON object on a line of its own:
            step); (2) parity: the first 6 layers, kernels against plain
            versions as the parity phase holds them; (3) simulate as moe's,
            K1 and K2 (G = 16) counted
+  xlstm    the xLSTM family (xlstm-125m at full width and depth: 12 layers,
+           m, m, m, s three times, 4 heads of 192, chunk 256), random bf16
+           weights from the seed, the mLSTM's conv filter and bias and gate
+           bias drawn too (the reference's init leaves them 0, which makes
+           every mLSTM block add 0), a line a part: (1) serve as moe's
+           (launches: no K1 or K2, K3 2L+1 a call; the mLSTM's, the sLSTM's
+           and the conv's kernels apart in the profiled step; the prompts
+           the padded-chunk fault touches counted); (2) parity at full
+           depth: in float32 within the 0.1 limit (and the engines'
+           tokens), in bf16 within twice what a float64 rounding of the
+           plain norms moves the plain run by; (3) simulate as moe's, no
+           attention; (4) the chunk body's all-batch (2097152, 1, 1) and
+           outer (8192, 1, 192) products as bmm beside a multiply; (5) one
+           timed AdamW step of the launcher (B1 S512, remat "block": K3 and
+           its backward at D 768, the AdamW kernel) against the simulator's
+           train prediction and its memory
   mla      the MLA family (deepseek-v3-671b at full width: 128 heads, q/k
            head dim 192 and v head dim 128 in the prefill's K1, 256 experts,
            top 8, one shared expert), depth cut to 2 layers (what one card
@@ -144,8 +160,8 @@ Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
 (the train phase for a backward kernel), in the train phase, by the
 profiling engine in the simulate, serve_sim and sweep phases and in the moe,
-griffin and mla phases' parts, its timings at olmoe's, recurrentgemma's and
-deepseek's shapes where it has them, error, time,
+griffin, xlstm and mla phases' parts, its timings at olmoe's, recurrentgemma's,
+xlstm's and deepseek's shapes where it has them, error, time,
 device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
 computes the same function; then the
@@ -258,6 +274,9 @@ def device_ms_by_kernel(fn, iters: int = 10, cold: bool = True) -> dict:
     flush = _flush_i64
     on_dev = torch.autograd.DeviceType.CUDA
     if _flush_names is None:
+        # work still queued would run inside this window and lend its kernels'
+        # names to the flush's, which are left out of every later sum
+        torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             flush.sum()
             torch.cuda.synchronize()
@@ -1110,6 +1129,16 @@ def phase_kernels():
                                       residual=True, fused=True, timed=dtype is bf16 and R == 1000))
             if R == 1000 and dtype is bf16:
                 main["griffin_rmsnorm"] = recs[-1]
+    # ... at xlstm-125m's (D 768: ln with the sum written, and out_norm, no residual,
+    # over the mLSTM's 4 x 192 heads and the sLSTM's width) ...
+    for R in (8, 1000):
+        for dtype in (bf16, f32):
+            for fused in (False, True):
+                recs.append(check_rmsnorm(rng, R=R, D=768, dtype=dtype, w_dtype=dtype,
+                                          offset=False, residual=fused, fused=fused,
+                                          timed=dtype is bf16 and R == 1000))
+                if R == 1000 and dtype is bf16:
+                    main["xlstm_add_rmsnorm" if fused else "xlstm_rmsnorm"] = recs[-1]
     # ... with the residual inside the kernel, the 1 + w form, fp32 w beside bf16 x, odd rows,
     # D not a multiple of the 16-byte vector, a base off 16 bytes, and D above the 12288 that a
     # shared-memory row allowed
@@ -1180,6 +1209,13 @@ def phase_kernels():
     for dtype in (bf16, f32):      # olmoe-1b-7b's train_parity rows (B2 S512, D 2048)
         recs.append(check_rmsnorm_bwd(rng, R=1024, D=2048, dtype=dtype, w_dtype=dtype,
                                       offset=False, residual=True, fused=True, timed=False))
+    for dtype in (bf16, f32):      # xlstm-125m's rows at B1 S2048, D 768
+        for fused in (False, True):
+            recs.append(check_rmsnorm_bwd(rng, R=2048, D=768, dtype=dtype, w_dtype=dtype,
+                                          offset=False, residual=fused, fused=fused,
+                                          timed=dtype is bf16))
+            if dtype is bf16 and fused:
+                main["xlstm_rmsnorm_bwd"] = recs[-1]
     # --- the fused AdamW update: phi4-mini's leaves (a layer's up projection, the
     # embedding), bf16 parameters and gradients, fp32 moments; fp32 beside PyTorch's
     # fused AdamW; a length that is no multiple of 4 and a base off 16 bytes
@@ -1600,13 +1636,12 @@ def train_spec(cfg, *, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH):
                                           optimizer="adamw"))
 
 
-def train_shape(cfg) -> tuple[int, int, float]:
-    """(batch, sequence, predicted bytes): B1 S2048 if the port's simulator
-    says its step fits the card's memory, else the sequence halved until it
-    does (depth and width are never cut)."""
+def train_shape(cfg, seq: int = TRAIN_SEQ) -> tuple[int, int, float]:
+    """(batch, sequence, predicted bytes): B1 S``seq`` if the port's
+    simulator says its step fits the card's memory, else the sequence halved
+    until it does (depth and width are never cut)."""
     from repro_torch.core import Simulator
     total = torch.cuda.get_device_properties(0).total_memory
-    seq = TRAIN_SEQ
     while True:
         need = Simulator("h100_sxm").run(train_spec(cfg, seq=seq)).memory.total
         if need <= total or seq <= 128:
@@ -1614,23 +1649,31 @@ def train_shape(cfg) -> tuple[int, int, float]:
         seq //= 2
 
 
-def phase_train():
-    """phi4-mini-3.8b at full width and depth through repro_torch.launch.train's
-    pieces (its Trainer: config, synthetic data, AdamW, remat "block", the
-    train step): one warm-up step, TRAIN_STEPS steps timed with CUDA events
-    and counted by the kernel wrappers, one step under the profiler; loss and
-    grad norm finite at every step, the step counter advancing by one."""
+def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN_STEPS,
+                perturb=None, seq: int = TRAIN_SEQ):
+    """phi4-mini-3.8b (or ``arch``) at full width and depth through
+    repro_torch.launch.train's pieces (its Trainer: config, synthetic data,
+    AdamW, remat "block", the train step): one warm-up step, ``timed_steps``
+    steps timed with CUDA events and counted by the kernel wrappers, one step
+    under the profiler; loss and grad norm finite at every step, the step
+    counter advancing by one.  ``perturb(params)``: changes the initial
+    parameters in place (leaves the reference's init leaves at 0); ``seq``:
+    the sequence to start from."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.launch import train as T
-    cfg = get_config(ARCH)
-    B, S, predicted_bytes = train_shape(cfg)
-    trainer = T.Trainer(T.parse_args(["--arch", ARCH, "--batch", str(B), "--seq", str(S),
+    from repro_torch.models.params import layer_kinds
+    cfg = get_config(arch)
+    B, S, predicted_bytes = train_shape(cfg, seq)
+    trainer = T.Trainer(T.parse_args(["--arch", arch, "--batch", str(B), "--seq", str(S),
                                       "--remat", "block", "--optimizer", "adamw",
-                                      "--steps", str(TRAIN_STEPS + 2), "--ckpt-every", "0",
+                                      "--steps", str(timed_steps + 2), "--ckpt-every", "0",
                                       "--seed", str(SEED)]))
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state()
+    if perturb is not None:
+        with torch.no_grad():
+            perturb(state["params"])
     from repro_torch.training.optimizer import tree_leaves
     n_leaves = len(tree_leaves(state["params"]))
     pipe = trainer.pipeline(0)
@@ -1653,7 +1696,7 @@ def phase_train():
         warm_s = time.perf_counter() - t0
         K.reset_launch_counts()
         wall_ms = []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(timed_steps):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             state = one(state)
@@ -1682,16 +1725,18 @@ def phase_train():
         del grads
     finally:
         pipe.close()
-    per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+    per_step = {k: v / timed_steps for k, v in counts.items()}
     L = cfg.num_layers
-    # what one step of the path launches: K1 forward twice a layer (the
-    # forward and its recomputation under remat "block"), its backward once;
-    # K3 forward 2L + 1 (the final norm outside the checkpoints) plus 2L
-    # recomputed, its backward 2L + 1; the AdamW update once a parameter tensor
-    want = {"flash_attention": 2 * L, "flash_attention_bwd": L,
+    La = sum(kind in ATTENTION_KINDS for kind in layer_kinds(cfg))   # attention layers
+    # what one step of the path launches: K1 forward twice an attention layer
+    # (the forward and its recomputation under remat "block"), its backward
+    # once; K3 forward 2L + 1 (two norms a block, the final norm outside the
+    # checkpoints) plus 2L recomputed, its backward 2L + 1; the AdamW update
+    # once a parameter tensor
+    want = {"flash_attention": 2 * La, "flash_attention_bwd": La,
             "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1, "decode_attention": 0,
             "adamw": n_leaves}
-    rec = {"phase": "train", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+    rec = {"phase": phase, "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
            "params": cfg.param_count(), "batch": B, "seq": S, "remat": "block",
            "optimizer": "adamw", "predicted_bytes": predicted_bytes,
            "steps": steps, "warmup_s": warm_s, "wall_ms": wall_ms,
@@ -1705,7 +1750,7 @@ def phase_train():
            "gpu": gpu_name_and_power()}
     emit(rec)
     if any(per_step[k] != v for k, v in want.items()):
-        fail(f"train: kernel launches a step {per_step}, the path implies {want}")
+        fail(f"{phase}: kernel launches a step {per_step}, the path implies {want}")
     del state, trainer
     torch.cuda.empty_cache()
     return rec
@@ -1976,7 +2021,8 @@ def is_kernel(e) -> bool:
     """A device kernel of the profiler's averages (a range opened with
     ``record_function`` also shows on the device's timeline, spanning its
     kernels and the gaps between them: it is no kernel)."""
-    return e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("griffin::")
+    return e.device_type == torch.autograd.DeviceType.CUDA and not any(
+        e.key.startswith(f"{label}::") for label, _ in FAMILY_OPS.values())
 
 
 def device_groups(avgs) -> dict:
@@ -2036,20 +2082,24 @@ def moe_op_us(avgs, experts: int | None = None) -> dict:
 # recurrence (the log-depth scan in a prefill, one step in a decode, with
 # their float32 gate products) and the causal conv.
 GRIFFIN_OPS = {"rglru": ("rglru_scan", "rglru_step"), "conv": ("causal_conv1d",)}
+XLSTM_OPS = {"mlstm": ("mlstm_chunkwise", "mlstm_step"), "slstm": ("slstm_scan",),
+             "conv": ("causal_conv1d",)}
+# a family's recurrent operators, put apart in a profiled step: (label, groups)
+FAMILY_OPS = {"hybrid": ("griffin", GRIFFIN_OPS), "ssm": ("xlstm", XLSTM_OPS)}
 
 
 @contextlib.contextmanager
-def griffin_annotations():
-    """While open, each ``GRIFFIN_OPS`` function of ``models.layers`` runs
-    inside a profiler range ``griffin::<group>``, whose device time holds its
+def op_annotations(label: str, ops: dict):
+    """While open, each ``ops`` function of ``models.layers`` runs inside a
+    profiler range ``<label>::<group>``, whose device time holds its
     kernels'."""
     from repro_torch.models import layers as L
     saved = {}
-    for group, names in GRIFFIN_OPS.items():
+    for group, names in ops.items():
         for name in names:
             saved[name] = fn = getattr(L, name)
 
-            def wrapped(*a, _fn=fn, _label=f"griffin::{group}", **kw):
+            def wrapped(*a, _fn=fn, _label=f"{label}::{group}", **kw):
                 with torch.profiler.record_function(_label):
                     return _fn(*a, **kw)
             setattr(L, name, wrapped)
@@ -2060,13 +2110,13 @@ def griffin_annotations():
             setattr(L, name, fn)
 
 
-def measure_step(fn, n: int, experts: int | None = None, annotate: bool = False) -> dict:
+def measure_step(fn, n: int, experts: int | None = None, annotate=None) -> dict:
     """The port's step: wall µs a call from CUDA events around ``n`` calls,
     then device-busy µs a call and its groups from the profiler over ``n``
     more (and the ``MOE_OPS`` groups' share of it; ``experts``: the expert
     products told apart from the other batched products by their batch;
-    ``annotate``: the ``GRIFFIN_OPS`` groups' device µs too, ranges opened in
-    the profiled calls only)."""
+    ``annotate``: a ``FAMILY_OPS`` entry, whose groups' device µs are given
+    too, ranges opened in the profiled calls only)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2077,7 +2127,7 @@ def measure_step(fn, n: int, experts: int | None = None, annotate: bool = False)
     end.record()
     end.synchronize()
     wall_us = start.elapsed_time(end) * 1e3 / n
-    with (griffin_annotations() if annotate else contextlib.nullcontext()), \
+    with (op_annotations(*annotate) if annotate else contextlib.nullcontext()), \
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                     record_shapes=experts is not None) as prof:
         for _ in range(n):
@@ -2093,10 +2143,11 @@ def measure_step(fn, n: int, experts: int | None = None, annotate: bool = False)
            "top_other_kernels": [[name[:80], ms / n, count // n]
                                  for name, ms, count in top_kernels(avgs, "other", 6)]}
     if annotate:
-        rec["griffin_op_us"] = {g: sum(e.device_time_total for e in avgs
-                                       if e.key == f"griffin::{g}"
-                                       and e.device_type == torch.autograd.DeviceType.CPU) / n
-                                for g in GRIFFIN_OPS}
+        label, ops = annotate
+        rec[f"{label}_op_us"] = {g: sum(e.device_time_total for e in avgs
+                                        if e.key == f"{label}::{g}"
+                                        and e.device_type == torch.autograd.DeviceType.CPU) / n
+                                 for g in ops}
     return rec
 
 
@@ -2715,6 +2766,7 @@ def phase_sweep():
 # --------------------------------------------------------------------------
 
 MOE_ARCH = "olmoe-1b-7b"
+ATTENTION_KINDS = ("attn_ffn", "moe_attn_ffn", "mla_moe", "griffin_attn")
 
 
 def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
@@ -2726,7 +2778,8 @@ def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
     The formula: K1 an attention layer a prefill; K2 an attention layer a
     decode step (none for MLA, whose absorbed decode is plain products); K3
     2L+1 a call (4L+1 for MLA: its q_norm and kv_norm too).  An RG-LRU
-    layer (``griffin_rec``) has no attention and its two norms."""
+    layer (``griffin_rec``) has no attention and its two norms; so has an
+    xLSTM layer (``mlstm``: ``ln`` and ``out_norm``; ``slstm``: the same)."""
     import warnings
     from repro_torch import kernels as K
     from repro_torch.models import Model, count_params
@@ -2746,7 +2799,7 @@ def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     L = cfg.num_layers
-    La = sum(kind != "griffin_rec" for kind in layer_kinds(cfg))     # attention layers
+    La = sum(kind in ATTENTION_KINDS for kind in layer_kinds(cfg))   # attention layers
     mla = cfg.attention == "mla"
     want = {"flash_attention": La * len(reqs), "decode_attention": 0 if mla else La * steps,
             "rmsnorm": ((4 if mla else 2) * L + 1) * (len(reqs) + steps),
@@ -2762,7 +2815,7 @@ def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
     for _ in range(3):
         engine.step()
     step = measure_step(engine.step, 3, experts=cfg.num_experts,
-                        annotate=cfg.family == "hybrid")
+                        annotate=FAMILY_OPS.get(cfg.family))
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -2785,6 +2838,12 @@ def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
            "logits_finite": finite, "launches": counts, "launches_expected": want,
            "allocated_after_init_bytes": allocated, "peak_bytes": peak, "decode_step": step,
            "decode_step_host_syncs": syncs}
+    if cfg.family == "ssm":
+        # prompts the reference's padded-chunk fault touches (ROADMAP queue C):
+        # longer than a chunk and no multiple of it, their prefill hands the
+        # decode a wiped mLSTM state, in both packages
+        rec["padded_chunk_prompts"] = sum(len(r.prompt) > cfg.chunk_size
+                                          and len(r.prompt) % cfg.chunk_size != 0 for r in reqs)
     emit({"phase": phase, **rec})
     if any(len(r.tokens) != 32 or r.finished_s is None for r in reqs):
         fail(f"{phase} serve: a request did not finish with 32 tokens: {rec}")
@@ -2888,8 +2947,8 @@ def moe_parity(cfg, params=None) -> dict:
 
 
 def moe_simulate(cfg, params=None, name: str = "moe",
-                 attention_kernels=(("prefill", "flash_attention"), ("decode", "decode_attention"))
-                 ) -> dict:
+                 attention_kernels=(("prefill", "flash_attention"), ("decode", "decode_attention")),
+                 prefill_calls: int = 5) -> dict:
     """Simulator.run for olmoe (or ``cfg``, whose ``params`` the caller made)
     on h100_sxm, prefill B1 S512 and decode B8 at cache 2048, analytical and
     profiling (a fresh DB under ``build/<name>``; each mode's attention kernel
@@ -2968,12 +3027,12 @@ def moe_simulate(cfg, params=None, name: str = "moe",
     cache = zero_cache(cfg, 8, 2048, model.device)
     cache["pos"].fill_(2047)            # every slot holds 2048 valid rows
     step = {"tokens": rng.integers(0, cfg.vocab_size, (8, 1)).tolist()}
-    runs = {"prefill": (lambda: model.prefill(params, prompt, cache_len=512), 5),
+    runs = {"prefill": (lambda: model.prefill(params, prompt, cache_len=512), prefill_calls),
             "decode": (lambda: model.decode_step(params, cache, step), 10)}
     recs = []
     for mode, (fn, n) in runs.items():
         r, reports, priced = out[mode]
-        meas = measure_step(fn, n, experts=cfg.num_experts, annotate=cfg.family == "hybrid")
+        meas = measure_step(fn, n, experts=cfg.num_experts, annotate=FAMILY_OPS.get(cfg.family))
         err = {f"{p}_vs_{m}": rep.step_time_us / meas[key] - 1.0
                for p, rep in reports.items()
                for m, key in (("wall", "wall_us"), ("device_busy", "device_busy_us"))}
@@ -3091,6 +3150,214 @@ def phase_griffin() -> dict:
             "simulate": {k: sim["prefill"]["profiling_launches"][k]
                          + sim["decode"]["profiling_launches"][k] for k in serve["launches"]},
             "serve_rec": serve}
+
+
+XLSTM_ARCH = "xlstm-125m"
+# The train part's sequence: at S2048 the sLSTM's eager loop makes a step of
+# 764,208 launches (17.1 s wall, 1.43 s busy on an H100 at 700 W), and the
+# profiled step took about 360 s of the profiler's processing; at 512 a step
+# makes about a quarter of them (two chunks of the mLSTM, 512 sLSTM steps).
+XLSTM_TRAIN_SEQ = 512
+
+
+def xlstm_draw(params, gen) -> None:
+    """The mLSTM blocks' conv filter and bias and gate bias drawn from
+    ``gen`` in place (normal; std 1/sqrt(conv_width), 0.1 and 1).  The
+    reference's init leaves them 0, and then every mLSTM block adds exactly
+    0 (q = k = 0)."""
+    for p in params["blocks"]:
+        if "gates" in p:
+            for t, std in ((p["conv"]["w"], 1.0 / math.sqrt(p["conv"]["w"].shape[0])),
+                           (p["conv"]["b"], 0.1), (p["gates"]["b"], 1.0)):
+                t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * std)
+
+
+def xlstm_degenerate_products() -> dict:
+    """The mLSTM chunk body's products that JAX emits as ``dot_general`` of
+    elementwise work, at the train shape (B8, chunk 256, 4 heads of 192), as
+    the port runs them (``torch.bmm`` over N matrices) beside the elementwise
+    multiply that gives the same numbers: the all-batch (2097152, 1, 1) of
+    the intra-chunk weights and the outer (8192, 1, 192) of the state's
+    weights; time, device time, and whether the two agree bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for name, (a_shape, b_shape) in {"all_batch_2097152x1x1": ((2097152, 1, 1), (2097152, 1, 1)),
+                                     "outer_8192x1x192": ((8192, 1, 1), (8192, 1, 192))}.items():
+        a = torch.randn(a_shape, generator=gen, device="cuda")
+        b = torch.randn(b_shape, generator=gen, device="cuda")
+        bmm = lambda: torch.bmm(a, b)  # noqa: E731
+        mul = lambda: a * b  # noqa: E731
+        out[name] = {"bmm_ms": time_ms(bmm), "bmm_device_ms": device_ms(bmm),
+                     "mul_ms": time_ms(mul), "mul_device_ms": device_ms(mul),
+                     "bit_equal": bool(torch.equal(bmm(), mul())),
+                     "bytes_bound_ms": bound(4.0 * (a.numel() + 2 * b.numel()), 0.0,
+                                             torch.float32)[0]}
+    return out
+
+
+def first_token_logits(cfg, params, *, plain: bool) -> torch.Tensor:
+    """(12, V) float32: the last position's logits of serve's 12 prompts,
+    each prefilled alone, through the kernels or their plain versions."""
+    from repro_torch.models import Model
+    m = Model(cfg, plain_kernels=plain)
+    return torch.stack([m.prefill(params, {"tokens": [r.prompt]}, cache_len=2048)[0][0, -1]
+                        for r in make_requests(cfg.vocab_size)])
+
+
+@contextlib.contextmanager
+def float64_norms():
+    """While open, the plain versions of K3 that the model calls compute in
+    float64 and round once to the activation type: a third rounding of the
+    same function, beside the kernel's and the plain version's (float32)."""
+    from repro_torch.models import layers as L
+
+    def norm(x, w, *, eps=1e-6, offset=False, residual=None):
+        xs = (x if residual is None else x + residual).double()
+        y = xs * torch.rsqrt(xs.square().mean(-1, keepdim=True) + eps)
+        return (y * (w.double() + (1.0 if offset else 0.0))).to(x.dtype)
+
+    def add_norm(x, residual, w, *, eps=1e-6, offset=False):
+        s_ = x + residual
+        return s_, norm(s_, w, eps=eps, offset=offset)
+
+    saved = L.rmsnorm_plain, L.add_rmsnorm_plain
+    L.rmsnorm_plain, L.add_rmsnorm_plain = norm, add_norm
+    try:
+        yield
+    finally:
+        L.rmsnorm_plain, L.add_rmsnorm_plain = saved
+
+
+def first_token_rule(a, b, diff) -> tuple[int, int]:
+    """(first tokens equal, first tokens differing on a near-tie of b's two
+    best logits, within twice the logits' difference)."""
+    top2 = b.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    same = a.argmax(-1) == b.argmax(-1)
+    return int(same.sum()), int((~same & (margin <= 2 * diff)).sum())
+
+
+def xlstm_parity(cfg, params) -> dict:
+    """xlstm-125m at full depth, kernels against their plain versions, two
+    ways.  (1) In float32 (the bf16 weights widened; K3's float32 build):
+    first-token logits of serve's 12 prompts within the 0.1 limit the other
+    families are held to, every first token equal or a near-tie, then both
+    engines' served tokens.  (2) In bfloat16, as served: the mLSTM block
+    amplifies a rounding step of its input about twentyfold (its normaliser
+    divides by q.n, which random weights leave near 0 for some tokens: one
+    1-ulp change of every norm moves the logits of a 256-wide, 12-layer stack
+    by up to 0.13 on the CPU), so the kernels' difference from the plain
+    versions is held to twice what a third rounding of the same norms
+    (``float64_norms``) moves the plain run by, and the first tokens to
+    equal or near-tied."""
+    tol = 1e-1
+    from repro_torch.training.optimizer import tree_map
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    k32, q32 = (first_token_logits(c32, p32, plain=plain) for plain in (False, True))
+    d32 = (k32 - q32).abs().amax(dim=-1)
+    eq32, tie32 = first_token_rule(k32, q32, d32)
+    runs = {plain: run_engine(c32, p32, plain=plain)[0] for plain in (False, True)}
+    equal = sum(x == y for a, b in zip(runs[False], runs[True]) for x, y in zip(a.tokens, b.tokens))
+    total = sum(len(a.tokens) for a in runs[False])
+    del p32
+    kb, qb = (first_token_logits(cfg, params, plain=plain) for plain in (False, True))
+    with float64_norms():
+        q64 = first_token_logits(cfg, params, plain=True)
+    db, floor = (kb - qb).abs().amax(dim=-1), (q64 - qb).abs().amax(dim=-1)
+    eqb, tieb = first_token_rule(kb, qb, db)
+    rec = {"phase": "xlstm", "part": "parity", "arch": cfg.name, "layers": cfg.num_layers,
+           "requests": len(runs[False]),
+           "float32": {"first_logits_max_abs_diff": float(d32.max()), "tol": tol,
+                       "first_token_equal": eq32, "first_token_near_tie": tie32,
+                       "tokens_equal_share": equal / total},
+           "bfloat16": {"first_logits_max_abs_diff": float(db.max()),
+                        "first_logits_max_abs_diff_float64_norms": float(floor.max()),
+                        "tol": 2 * float(floor.max()),
+                        "per_request": [[float(a), float(b)] for a, b in zip(db, floor)],
+                        "first_token_equal": eqb, "first_token_near_tie": tieb},
+           "gpu": gpu_name_and_power()}
+    emit(rec)
+    if not float(d32.max()) <= tol:
+        fail(f"xlstm parity: float32 first-token logits differ by {float(d32.max())} > {tol}")
+    if eq32 + tie32 != len(runs[False]) or eqb + tieb != len(runs[False]):
+        fail("xlstm parity: a first token differs between kernels and plain versions beyond a "
+             "near-tie of the two best logits")
+    if not float(db.max()) <= 2 * float(floor.max()):
+        fail(f"xlstm parity: bf16 first-token logits differ by {float(db.max())}, over twice "
+             f"the float64-norm rounding's {float(floor.max())}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_xlstm() -> dict:
+    """The xLSTM family on the card (xlstm-125m at full width and depth: 12
+    layers, m, m, m, s three times, 4 heads of 192, chunk 256), random bf16
+    weights from the seed (the mLSTM's conv filter and bias and gate bias
+    drawn too, ``xlstm_draw``), a line a part: serve (``moe_serve``: no K1
+    or K2, K3 2L+1 a call, the mLSTM's, sLSTM's and conv's kernels apart in
+    the profiled step, the prompts the padded-chunk fault touches counted),
+    parity (``xlstm_parity`` at full depth), simulate (``moe_simulate``, no
+    attention), the chunk body's degenerate products timed as bmm and as a
+    multiply, then train (``phase_train``: one timed AdamW step of the
+    launcher at full width and depth, B1 S``XLSTM_TRAIN_SEQ``) against the
+    simulator's train prediction and its memory.  Returns the launches of
+    each part."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import Simulator
+    from repro_torch.models import Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(XLSTM_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    gen = torch.Generator(device=model.device).manual_seed(SEED)
+    params = model.init(gen)
+    xlstm_draw(params, gen)
+    torch.cuda.synchronize()
+    serve = moe_serve(cfg, params, phase="xlstm")
+    parts = {"serve_s": time.perf_counter() - t0}
+    parity = xlstm_parity(cfg, params)
+    parts["parity_s"] = time.perf_counter() - t0 - sum(parts.values())
+    # two prefills timed and two profiled: each launches about 46,000 kernels
+    sim = moe_simulate(cfg, params, name="xlstm", attention_kernels=(), prefill_calls=2)
+    for mode in ("prefill", "decode"):
+        emit({"phase": "xlstm", **sim[mode]})
+    parts["simulate_s"] = time.perf_counter() - t0 - sum(parts.values())
+    degenerate = xlstm_degenerate_products()
+    emit({"phase": "xlstm", "part": "degenerate_products", **degenerate,
+          "gpu": gpu_name_and_power()})
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tgen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    train = phase_train(XLSTM_ARCH, phase="xlstm_train", timed_steps=1,
+                        perturb=lambda p: xlstm_draw(p, tgen), seq=XLSTM_TRAIN_SEQ)
+    parts["train_s"] = time.perf_counter() - t0 - sum(parts.values())
+    pred = Simulator("h100_sxm").run(train_spec(cfg, seq=train["seq"], batch=train["batch"]))
+    wall_us, busy_us = train["wall_ms_median"] * 1e3, train["device_busy_ms"] * 1e3
+    versus = {"part": "train_vs_simulate", "arch": cfg.name, "batch": train["batch"],
+              "seq": train["seq"], "analytical_us": pred.step_time_us,
+              "analytical_breakdown_us": pred.breakdown_us,
+              "measured_wall_us": wall_us, "measured_device_busy_us": busy_us,
+              "signed_error": {"analytical_vs_wall": pred.step_time_us / wall_us - 1.0,
+                               "analytical_vs_device_busy": pred.step_time_us / busy_us - 1.0},
+              "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
+              "memory": {"analytical_bytes": pred.memory.total,
+                         "measured_peak_bytes": train["peak_bytes"],
+                         "signed_error": pred.memory.total / train["peak_bytes"] - 1.0}}
+    emit({"phase": "xlstm", **versus})
+    if not (math.isfinite(pred.step_time_us) and pred.step_time_us > 0):
+        fail(f"xlstm train: a non-positive or non-finite predicted step time {versus}")
+    emit({"phase": "xlstm", "part": "done", "arch": cfg.name,
+          "seconds": time.perf_counter() - t0, "parts_s": parts,
+          "parity_layers": parity["layers"], "profile_db_entries": sim["profile_db_entries"],
+          "gpu": gpu_name_and_power()})
+    return {"serve": serve["launches"],
+            "simulate": {k: sim["prefill"]["profiling_launches"][k]
+                         + sim["decode"]["profiling_launches"][k] for k in serve["launches"]},
+            "train": train["launches_per_step"], "serve_rec": serve}
 
 
 MLA_ARCH = "deepseek-v3-671b"
@@ -3249,12 +3516,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,serve,parity,train,train_parity,simulate,"
-                            "serve_sim,sweep,moe,griffin,mla",
+                            "serve_sim,sweep,moe,griffin,xlstm,mla",
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
-                         "train_parity,simulate,serve_sim,sweep,moe,griffin,mla (and times, the "
-                         "serving-shape timings alone; serve_measure, the measured side of "
-                         "serve_sim alone; mla_layout, the mla phase's first part alone); "
-                         "the closing lines are printed only when the thirteen of the "
+                         "train_parity,simulate,serve_sim,sweep,moe,griffin,xlstm,mla (and "
+                         "times, the serving-shape timings alone; serve_measure, the measured "
+                         "side of serve_sim alone; mla_layout, the mla phase's first part "
+                         "alone); the closing lines are printed only when the fourteen of the "
                          "default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
@@ -3319,12 +3586,13 @@ def main(argv=None) -> int:
     swept = phase_sweep() if "sweep" in phases else None
     moe = phase_moe() if "moe" in phases else None
     griffin = phase_griffin() if "griffin" in phases else None
+    xlstm = phase_xlstm() if "xlstm" in phases else None
     if "mla_layout" in phases:
         mla_layout()
     mla = phase_mla() if "mla" in phases else None
     if (main_recs is None or counts is None or "parity" not in phases or train is None
             or train_parity is None or sim is None or serve_sim is None or swept is None
-            or moe is None or griffin is None or mla is None):
+            or moe is None or griffin is None or xlstm is None or mla is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
@@ -3363,6 +3631,10 @@ def main(argv=None) -> int:
                # recurrentgemma-9b at full width and depth: serving, and the profiling
                # engine's measurements (K1 in its prefill, K2 at G = 16 in its decode)
                "griffin_launches": {part: griffin[part][name] for part in ("serve", "simulate")},
+               # xlstm-125m at full width and depth: serving (K3 only), the profiling
+               # engine's measurements, and the launcher's train step (a step)
+               "xlstm_launches": {part: xlstm[part][name]
+                                  for part in ("serve", "simulate", "train")},
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3399,6 +3671,16 @@ def main(argv=None) -> int:
             rec["griffin_shape"] = {k: griffin_rec.get(k) for k in (
                 "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")}
+        for key, label in ((f"xlstm_{name}", "xlstm_shape"),
+                           (f"xlstm_add_{name}", "xlstm_shape_add")):
+            xlstm_rec = main_recs.get(key)
+            if xlstm_rec is not None:
+                # the same kernel at xlstm-125m's width (D 768): out_norm (no
+                # residual), ln with the sum written, the backward at the train rows
+                rec[label] = {
+                    k: xlstm_rec.get(k) for k in (
+                        "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "library_device_ms")}
         if name in TRAIN_ONLY:
             rec["note"] = TRAIN_ONLY[name]
         kernels.append(rec)

@@ -3,9 +3,10 @@
 ``ARCH_IDS`` lists only what the port can run today: the four dense decoders
 (block kind ``attn_ffn``), the MoE decoder with GQA attention (olmoe, block
 kind ``moe_attn_ffn``), the MoE decoder with MLA attention (deepseek, block
-kind ``mla_moe``) and the RG-LRU hybrid (recurrentgemma, block kinds
-``griffin_rec`` and ``griffin_attn``).  The reference's other families (SSM,
-audio, VLM) arrive with their layers in later slices.
+kind ``mla_moe``), the RG-LRU hybrid (recurrentgemma, block kinds
+``griffin_rec`` and ``griffin_attn``) and the xLSTM stack (xlstm, block kinds
+``mlstm`` and ``slstm``).  The reference's other families (audio, VLM) arrive
+with their layers in later slices.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ _ARCH_MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "xlstm-125m": "xlstm_125m",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

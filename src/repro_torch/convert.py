@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
-from repro_torch.models.kvcache import build_cache, cache_len_of
-from repro_torch.models.params import block_cycle, build_params
+from repro_torch.models.kvcache import _kind_cache, build_cache, cache_len_of
+from repro_torch.models.params import block_cycle, build_params, layer_kinds
 
 
 def _leaf(a, device, dtype) -> torch.Tensor:
@@ -176,14 +176,21 @@ def from_reference_cache(np_cache: dict, cfg: ModelConfig, device, dtype=None) -
     """Reference decode cache (``blocks.cycle[0].{k,v} (L,B,T,Hkv,D)``, or
     MLA's ``blocks.cycle[0].ckv (L,B,T,kv_lora_rank)`` and ``.kr
     (L,B,T,qk_rope_head_dim)``, or the RG-LRU's ``.h (L,B,W)`` and ``.conv
-    (L,B,K-1,W)``; ``pos (B,)``) as numpy arrays -> the port's cache on
-    ``device``.  A cache of another config (names or shapes) raises."""
+    (L,B,K-1,W)``, or the mLSTM's ``.conv``, ``.C (L,B,H,D,D)``, ``.n``,
+    ``.m`` and the sLSTM's ``.c``, ``.n``, ``.h``, ``.m (L,B,W)``; ``pos
+    (B,)``) as numpy arrays -> the port's cache on ``device``, every leaf in
+    ``dtype`` but the xLSTM's states, which stay float32 as the reference
+    keeps them.  A cache of another config (names or shapes) raises."""
     dt = dtype or torch_dtype(cfg.dtype)
     device = torch.device(device)
-    cache = {
-        "blocks": _unstack_blocks(cfg, np_cache["blocks"], lambda a, keys: _leaf(a, device, dt)),
-        "pos": _leaf(np_cache["pos"], device, torch.int32),
-    }
+    blocks = []
+    for kind, layer in zip(layer_kinds(cfg), _unstack_blocks(cfg, np_cache["blocks"],
+                                                             lambda a, keys: a)):
+        # a leaf the port keeps in float32 (the xLSTM states) stays float32
+        own = _kind_cache(cfg, kind, lambda shape, d: d, 1, 1)
+        blocks.append({name: _leaf(a, device, torch.float32 if own.get(name) == torch.float32
+                                   else dt) for name, a in layer.items()})
+    cache = {"blocks": blocks, "pos": _leaf(np_cache["pos"], device, torch.int32)}
     # hold the result to the port's own build_cache at the cache's batch and its
     # attention rings' rows (a windowed ring's min(cache_len, window) rows are what a
     # cache of that many rows builds too; a stack with no ring has no T)

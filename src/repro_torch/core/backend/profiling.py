@@ -8,7 +8,9 @@ engine.
 Which code runs an operator follows the port's own path: ``attention``
 with ``sq > 1`` is the flash-attention kernel (K1), with ``sq == 1`` the
 split-KV decode kernel (K2, every cache row valid), ``norm`` the rmsnorm
-kernel (K3), ``matmul`` cuBLAS through ``torch.matmul``, and an elementwise,
+kernel (K3), ``matmul`` cuBLAS through ``torch.matmul`` (a batched product
+of 1-wide matrices through ``torch.bmm``, as the port runs it:
+:func:`degenerate_batched`), and an elementwise,
 reduce, copy or transpose node one PyTorch launch.  Attention is synthesised
 grouped: the tracer records the group size ``G`` on the node, and
 :func:`node_key` appends it to an attention key.  ``attn_dims`` carries q's
@@ -76,7 +78,24 @@ def node_key(node: OpNode, hw_name: str) -> str:
             key += f"|Dv{int(node.attrs['dv'])}"
     if node.kind == "attention" and node.attrs.get("backward"):
         key += "|bwd"    # timed through the backward kernels, not the forward's
+    if degenerate_batched(node):
+        key += f"|b{int(node.attrs['batch'])}"
     return key
+
+
+def degenerate_batched(node: OpNode) -> bool:
+    """A batched product (``bmm``, its batch in ``attrs["batch"]``) whose
+    matrices have a contraction or a column of 1: outer-product or
+    matrix-vector work that JAX emits as ``dot_general`` and the port runs
+    as ``torch.bmm`` over that many small matrices (the xLSTM cells' (N, 1,
+    D) and (N, 1, K) products).  Folded into one 2-D product of the same
+    (M, N, K) it would be other work, so it is timed as the bmm it is and
+    keyed ``|b<batch>``.  Other batched products (the MoE experts', MLA's
+    heads') keep the 2-D fold (ROADMAP queue C)."""
+    if node.kind != "matmul" or node.attrs.get("batch", 1) <= 1:
+        return False
+    dims = node.attrs.get("mm_dims")
+    return bool(dims) and (int(dims[1]) == 1 or int(dims[2]) == 1)
 
 
 def attn_v_dim(node: OpNode) -> int:
@@ -234,6 +253,11 @@ def synthesize_and_measure(node: OpNode, device="cuda") -> float | None:
         if not dims or not dt.is_floating_point:
             return None
         m, n, kk = (int(x) for x in dims)
+        batch = int(node.attrs.get("batch", 1))
+        if degenerate_batched(node) and m % batch == 0:
+            out = torch.empty((batch, m // batch, n), dtype=dt, device=dev)
+            args = sets(lambda: (randn((batch, m // batch, kk)), randn((batch, kk, n))))
+            return _time_fn(lambda a, b: torch.bmm(a, b, out=out), args, dev)
         out = torch.empty((m, n), dtype=dt, device=dev)
         args = sets(lambda: (randn((m, kk)), randn((kk, n))))
         return _time_fn(lambda a, b: torch.matmul(a, b, out=out), args, dev)

@@ -5,8 +5,10 @@ kind and extrapolates over depth.  Attention is traced as a single abstract
 operator via core/stubs.py.  Each block is the port's own torch code
 (``repro_torch.models.model``), traced by ``make_fx`` over FakeTensors with
 the kernels' plain versions, one layer's parameters built by ``build_params``
-with a FakeTensor creator; torch has no ``lax.scan``, so a block's ``repeat``
-comes from ``block_cycle``.
+with a FakeTensor creator.  A block's ``repeat`` comes from ``block_cycle``;
+a loop inside a block (the xLSTM cells' ``layers.scan``) is traced once and
+its nodes carry the loop's length as their ``repeat`` (``core/stubs.py``), as
+the reference traces a ``lax.scan``.
 
 All graphs are traced at the *per-data-shard* batch (B_local); the
 parallelism passes then rewrite for TP/SP/EP/CP.
@@ -16,12 +18,13 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import torch
+import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.core import tracer
 from repro_torch.core.ir import Graph
-from repro_torch.core.stubs import ingest_attention
+from repro_torch.core.stubs import ingest_attention, ingest_scan
 from repro_torch.models import layers as L
 from repro_torch.models.kvcache import _kind_cache
 from repro_torch.models.model import apply_block_decode, apply_block_full
@@ -317,11 +320,14 @@ def _decode_fn(cfg: ModelConfig, kind: str):
 def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
                  *, cache_len: int = 0) -> ModelGraphs:
     """Trace one graph per distinct block kind (+ embed/head).  The dense
-    decoders, the MoE decoders (GQA and MLA) and the RG-LRU hybrid are
-    ported (``block_cycle`` rejects the other families), so there is no
-    encoder graph.  A decode graph reads the cache of its own kind, as the
-    reference builds it: a ring of ``cache_len`` rows, ``min(cache_len,
-    window)`` for ``griffin_attn``, and ``griffin_rec``'s state.  The MoE
+    decoders, the MoE decoders (GQA and MLA), the RG-LRU hybrid and the
+    xLSTM stack are ported (``block_cycle`` rejects the other families), so
+    there is no encoder graph.  A decode graph reads the cache of its own
+    kind, as the reference builds it: a ring of ``cache_len`` rows,
+    ``min(cache_len, window)`` for ``griffin_attn``, ``griffin_rec``'s state,
+    the mLSTM's conv state and float32 matrix memory, the sLSTM's four
+    float32 states.  The xLSTM cells' loops are traced once, their nodes at
+    the loop's length (the mLSTM's chunks, the sLSTM's steps).  The MoE
     block's expert products are tagged ``moe_expert`` by ``_tag_moe``, as in
     the reference."""
     cycle, n_cycles, tail = block_cycle(cfg)
@@ -336,7 +342,7 @@ def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
     fake = FakeTensorMode()
 
     blocks: list[BlockGraphs] = []
-    with ingest_attention():
+    with ingest_attention(), ingest_scan():
         seen_kinds: dict[str, BlockGraphs] = {}
         for j, kind in kinds.items():
             if kind in seen_kinds:
@@ -391,8 +397,10 @@ def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
             hh = L.apply_norm(cfg, nrm, hh, plain=True)
             logits = (hh @ emb_w.t().to(dt)).float()
             if mode == "train":
+                # the port's loss (``training.cross_entropy``): log-softmax
+                # and the labels' negative log-likelihood
                 logp = torch.log_softmax(logits, dim=-1)
-                return -logp.gather(-1, tokens.clamp_min(0)[..., None]).mean()
+                return F.nll_loss(logp.flatten(0, 1), tokens.clamp_min(0).flatten())
             return logits
 
         hf = tracer.trace(head_fn, emb, nrm, h, tok, name="head.fwd")

@@ -1,4 +1,4 @@
-"""Abstract attention operator for simulator tracing.
+"""Abstract attention operator and traced loop for simulator tracing.
 
 When the simulator ingests a model it wants attention as ONE operator (the
 paper traces at torch-op granularity where sdpa/flash-attention is a single
@@ -61,6 +61,73 @@ def _attn_bwd(ctx, ct):
 charon_attention.register_autograd(_attn_bwd, setup_context=_attn_setup)
 
 
+@torch.library.custom_op("charon::scan_enter", mutates_args=())
+def scan_enter(tensors: list[torch.Tensor], length: int, n_carry: int) -> list[torch.Tensor]:
+    # the first n_carry tensors pass; the others, (length, ...), give one step's slice
+    raise NotImplementedError(f"scan_enter {_NOT_RUN}")
+
+
+@scan_enter.register_fake
+def _scan_enter_fake(tensors, length, n_carry):
+    return [t.new_empty(t.shape if i < n_carry else t.shape[1:]) for i, t in enumerate(tensors)]
+
+
+@torch.library.custom_op("charon::scan_exit", mutates_args=())
+def scan_exit(tensors: list[torch.Tensor], length: int, n_carry: int) -> list[torch.Tensor]:
+    # the first n_carry tensors pass; the others, one step's outputs, are stacked
+    raise NotImplementedError(f"scan_exit {_NOT_RUN}")
+
+
+@scan_exit.register_fake
+def _scan_exit_fake(tensors, length, n_carry):
+    return [t.new_empty(t.shape if i < n_carry else (length, *t.shape))
+            for i, t in enumerate(tensors)]
+
+
+def _scan_setup(ctx, inputs, output):
+    ctx.length, ctx.n_carry = inputs[1], inputs[2]
+    ctx.outs = [(t.shape, t.dtype, t.device) for t in output]
+
+
+def _grads(ctx, grads) -> list:
+    """The outputs' gradients, zeros where an output had none (made before
+    the mark, as JAX instantiates a loop's zero cotangents outside it)."""
+    return [torch.zeros(s, dtype=d, device=dev) if g is None else g
+            for g, (s, d, dev) in zip(grads, ctx.outs)]
+
+
+def _scan_enter_bwd(ctx, grads):
+    return scan_exit(_grads(ctx, grads), ctx.length, ctx.n_carry), None, None
+
+
+def _scan_exit_bwd(ctx, grads):
+    return scan_enter(_grads(ctx, grads), ctx.length, ctx.n_carry), None, None
+
+
+scan_enter.register_autograd(_scan_enter_bwd, setup_context=_scan_setup)
+scan_exit.register_autograd(_scan_exit_bwd, setup_context=_scan_setup)
+
+SCAN_MARKS = ("scan_enter", "scan_exit")
+
+
+def scan_stub(step, carry, xs, length=None):
+    """Signature-compatible replacement for layers.scan: one step traced
+    between the loop's marks."""
+    from repro_torch.models.layers import tree_leaves_of, tree_of
+    c_leaves, c_spec = tree_leaves_of(carry)
+    x_leaves, x_spec = tree_leaves_of(xs)
+    if length is None:
+        length = x_leaves[0].shape[0]
+    nc = len(c_leaves)
+    ins = scan_enter(c_leaves + x_leaves, int(length), nc)
+    carry, y = step(tree_of(ins[:nc], c_spec), tree_of(ins[nc:], x_spec))
+    c_leaves, c_spec = tree_leaves_of(carry)
+    y_leaves, y_spec = tree_leaves_of(y)
+    nc = len(c_leaves)
+    outs = scan_exit(c_leaves + y_leaves, int(length), nc)
+    return tree_of(outs[:nc], c_spec), tree_of(outs[nc:], y_spec)
+
+
 def attention_stub(q, k, v, *, q_offset=0, causal=True, window=0, kv_valid_len=None,
                    soft_cap=0.0, strategy="auto", scale=None, plain=False):
     """Signature-compatible replacement for layers.attention."""
@@ -77,6 +144,18 @@ def ingest_attention():
         yield
     finally:
         L.attention = orig
+
+
+@contextlib.contextmanager
+def ingest_scan():
+    """Swap layers.scan for the traced loop while tracing."""
+    from repro_torch.models import layers as L
+    orig = L.scan
+    L.scan = scan_stub
+    try:
+        yield
+    finally:
+        L.scan = orig
 
 
 def attention_flops(q_shape, v_shape, *, causal: bool, window: int) -> float:

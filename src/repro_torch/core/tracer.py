@@ -5,9 +5,13 @@ callable that ``make_fx`` can trace (the port's model zoo, user code) into an
 operator-level :class:`~repro_torch.core.ir.Graph`.  The trace runs over
 FakeTensors, so a full-width layer costs no memory.  Backward graphs come from
 ``torch.autograd.grad`` traced inside the same ``make_fx`` call (the
-aot_autograd joint graph).  Torch has no ``lax.scan``: a Python loop is
-unrolled into one node per iteration, and the model ingest sets a block's
-``repeat`` from the layer count instead (``core/model_ingest.py``).
+aot_autograd joint graph).  A loop written with ``layers.scan`` (the port's
+``lax.scan``) is traced once under the ingest, between the marks of
+``core/stubs.py``, and every node between them has the loop's length as its
+``repeat`` (marks nest and multiply), as the reference traces a
+``lax.scan`` body once; any other Python loop unrolls into one node per
+iteration.  A block's ``repeat`` comes from the layer count
+(``core/model_ingest.py``).
 
 The ATen-op tables below mirror the reference's lax-primitive tables, so
 that each op lands in the same node kind with the same flop and byte rules.
@@ -26,7 +30,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 
 from repro_torch.core.ir import Graph
-from repro_torch.core.stubs import attention_flops
+from repro_torch.core.stubs import SCAN_MARKS, attention_flops
 
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2, "int32": 4,
                 "uint32": 4, "int8": 1, "uint8": 1, "bool": 1, "float64": 8,
@@ -38,10 +42,14 @@ _DTYPE_SHORT = {"float32": "f32", "bfloat16": "bf16", "float16": "f16",
 # dtype cast ``_to_copy``, ...) is elementwise, one flop an element, as the
 # reference prices its ELEMENTWISE primitives and every unknown one.
 MATMUL = {"mm", "bmm", "addmm", "baddbmm"}
+# ``_log_softmax`` and its backward are not here: ``jax.nn.log_softmax`` is a
+# ``jit`` call, which the reference's tracer does not open (its INLINE set
+# names ``pjit``), so it prices the train loss's log-softmax as one node of
+# one flop an element, forward and backward; the port prices them alike
+# (ROADMAP queue C, a fault of the reference kept for parity).
 TRANSCENDENTAL = {"exp", "log", "tanh", "sigmoid", "rsqrt", "sqrt", "pow", "sin",
                   "cos", "erf", "erfinv", "log1p", "expm1", "exp2", "atan2", "silu",
-                  "gelu", "softplus", "_softmax", "_log_softmax",
-                  "_softmax_backward_data", "_log_softmax_backward_data",
+                  "gelu", "softplus", "_softmax", "_softmax_backward_data",
                   "silu_backward", "gelu_backward", "sigmoid_backward",
                   "tanh_backward"}
 MOVEMENT = {"view": "copy", "_unsafe_view": "copy", "reshape": "copy",
@@ -107,6 +115,8 @@ class _TraceCtx:
     def __init__(self, graph: Graph):
         self.graph = graph
         self.producer: dict[Any, str] = {}
+        self.mult = 1                          # product of the open loops' lengths
+        self.passed: dict[Any, list] = {}      # a loop mark -> its inputs' producers
 
     def dep_of(self, fx_node) -> str | None:
         return self.producer.get(fx_node)
@@ -192,13 +202,20 @@ def _trace_fx(ctx: _TraceCtx, gm: torch.fx.GraphModule, phase: str):
             continue
         target = fx_node.target
         if target is operator.getitem:
-            src = fx_node.args[0]
-            if ctx.dep_of(src):
-                ctx.producer[fx_node] = ctx.dep_of(src)
+            src, idx = fx_node.args
+            dep = ctx.passed[src][idx] if src in ctx.passed else ctx.dep_of(src)
+            if dep:
+                ctx.producer[fx_node] = dep
             continue
         if not isinstance(target, torch._ops.OpOverload):
             continue
         op = _op_name(target)
+        if op in SCAN_MARKS:
+            # a loop's bound: no node; each output passes its input's producer on
+            tensors, length = fx_node.args[0], fx_node.args[1]
+            ctx.passed[fx_node] = [ctx.dep_of(a) for a in tensors]
+            ctx.mult = ctx.mult * length if op == "scan_enter" else ctx.mult // length
+            continue
         # an in-place op is priced as its functional form (``copy_`` is a scatter)
         base = op if op in MOVEMENT else op.rstrip("_")
         fx_ins = _fx_inputs(fx_node)
@@ -219,7 +236,7 @@ def _trace_fx(ctx: _TraceCtx, gm: torch.fx.GraphModule, phase: str):
                       dtype=_short_dtype(out),
                       bytes_in=sum(_val_bytes(v) for v in ins),
                       bytes_out=sum(_val_bytes(v) for v in outs),
-                      repeat=1, phase=phase)
+                      repeat=ctx.mult, phase=phase)
         if base in ("charon_attention", "charon_attention_bwd"):
             q, k, v = ins[:3]
             causal, window = fx_node.args[-2], fx_node.args[-1]
@@ -244,6 +261,10 @@ def _trace_fx(ctx: _TraceCtx, gm: torch.fx.GraphModule, phase: str):
                 node.attrs["backward"] = True
         elif base in MATMUL:
             node = _mm_node(ctx, ins, out, common)
+            if base in ("bmm", "baddbmm"):
+                # the batch the product runs over (its M holds it), which the
+                # profiling engine reads (``profiling.degenerate_batched``)
+                node.attrs["batch"] = int(out.shape[0])
         elif base in REDUCTION:
             node = g.op("reduce", flops=sum(_val_elems(v) for v in ins), **common)
         elif base in MOVEMENT:

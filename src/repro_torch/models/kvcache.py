@@ -1,6 +1,7 @@
 """Decode-cache construction (counterpart of ``repro/models/kvcache.py``) for
 the ring caches of the ``attn_ffn``, ``moe_attn_ffn``, ``mla_moe`` and
-``griffin_attn`` blocks and the recurrent state of ``griffin_rec``.
+``griffin_attn`` blocks and the recurrent state of ``griffin_rec``, ``mlstm``
+and ``slstm``.
 
 Layout: ``cache["blocks"]`` is a list with one dict a layer, as in the
 reference (which stacks them over depth): ``{"k", "v"}``, each ``(B, T, Hkv,
@@ -8,7 +9,10 @@ D)``, for the GQA blocks (``griffin_attn``'s ring has ``min(cache_len,
 window)`` rows); ``{"ckv": (B, T, kv_lora_rank), "kr": (B, T,
 qk_rope_head_dim)}``, MLA's compressed latent and its rotary key, for
 ``mla_moe``; ``{"h": (B, W), "conv": (B, conv_width - 1, W)}``, the RG-LRU's
-state and the causal conv's last inputs, for ``griffin_rec``.  Plus
+state and the causal conv's last inputs, for ``griffin_rec``; ``{"conv": (B,
+conv_width - 1, Di), "C": (B, H, D, D), "n": (B, H, D), "m": (B, H)}``, the
+conv's last inputs and the matrix memory in float32, for ``mlstm``; ``{"c",
+"n", "h", "m"}``, each (B, W) in float32, for ``slstm``.  Plus
 ``cache["pos"]``, the per-slot absolute position, ``(B,) int32``.
 """
 from __future__ import annotations
@@ -23,6 +27,7 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models.params import layer_kinds
 
 CacheCreator = Callable[..., object]  # creator(shape, dtype) -> leaf
+SLSTM_STATE = ("c", "n", "h", "m")    # the sLSTM cell's state, in its scan's carry order
 
 
 def ring_rows(cache_len: int, window: int) -> int:
@@ -45,6 +50,15 @@ def _kind_cache(cfg: ModelConfig, kind: str, c: CacheCreator, batch: int, cache_
     if kind == "griffin_rec":
         W = cfg.lru_width or cfg.d_model
         return {"h": c((batch, W), dt), "conv": c((batch, cfg.conv_width - 1, W), dt)}
+    f32 = torch.float32
+    if kind == "mlstm":
+        H, D = cfg.num_heads, cfg.head_dim
+        Di = int(cfg.mlstm_proj_factor * cfg.d_model)
+        return {"conv": c((batch, cfg.conv_width - 1, Di), dt),
+                "C": c((batch, H, D, D), f32), "n": c((batch, H, D), f32),
+                "m": c((batch, H), f32)}
+    if kind == "slstm":
+        return {k: c((batch, cfg.d_model), f32) for k in SLSTM_STATE}
     raise ValueError(kind)
 
 

@@ -1,5 +1,5 @@
-"""Core neural layers: the dense, MoE and RG-LRU subset (counterpart of
-``repro/models/layers.py``).
+"""Core neural layers: the dense, MoE, RG-LRU and xLSTM subset (counterpart
+of ``repro/models/layers.py``).
 
 Everything is functional: ``apply(params, x, ...) -> y``.  The reference's
 logical sharding constraints are dropped: this slice runs on one device.
@@ -24,6 +24,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_plain
@@ -437,3 +438,228 @@ def causal_conv1d(p: dict, x: torch.Tensor, state: torch.Tensor | None):
     new_state = xx[:, -(Kw - 1):] if Kw > 1 else torch.zeros((B, 0, W), dtype=x.dtype,
                                                                device=x.device)
     return y, new_state
+
+
+# --------------------------------------------------------------------------
+# Loops: the port's ``lax.scan``
+# --------------------------------------------------------------------------
+
+def tree_leaves_of(tree):
+    """(leaves, spec) of a pytree, with None as an empty tree (as JAX has it;
+    torch's pytree takes None for a leaf)."""
+    return ([], None) if tree is None else tree_flatten(tree)
+
+
+def tree_of(leaves, spec):
+    """The inverse of :func:`tree_leaves_of`."""
+    return None if spec is None else tree_unflatten(list(leaves), spec)
+
+
+def scan(step, carry, xs, length=None):
+    """``jax.lax.scan``'s contract: ``step(carry, x) -> (carry, y)`` over dim 0
+    of every leaf of ``xs`` (or ``length`` times where ``xs`` is None);
+    returns the last carry and the ``y`` leaves stacked along dim 0.  It runs
+    as a Python loop.  The ingest swaps it for ``core.stubs.scan_stub``, which
+    traces one step and gives its nodes the length as ``repeat``, as the
+    reference's tracer does for a ``lax.scan`` body."""
+    x_leaves, x_spec = tree_leaves_of(xs)
+    n = length if length is not None else x_leaves[0].shape[0]
+    if n < 1:
+        raise ValueError("scan over an empty sequence")
+    ys = []
+    for t in range(n):
+        carry, y = step(carry, tree_of([a[t] for a in x_leaves], x_spec))
+        ys.append(tree_leaves_of(y))
+    y_spec = ys[0][1]
+    stacked = [torch.stack([leaves[i] for leaves, _ in ys]) for i in range(len(ys[0][0]))]
+    return carry, tree_of(stacked, y_spec)
+
+
+# --------------------------------------------------------------------------
+# xLSTM cells (mLSTM chunkwise-parallel + sLSTM sequential)
+# --------------------------------------------------------------------------
+#
+# Plain torch, as the reference's are plain lax (no Pallas kernel).  Each of
+# the reference's ``jnp.einsum`` contractions is written out as the batched
+# products JAX lowers it to (opt_einsum's order, ``dot_general``'s operand
+# roles), so that both tracers see the same (M, N, K), the outer products
+# ``(N, 1, D)`` among them.  The elementwise products JAX emits as
+# all-batch products, ``(N, 1, 1)``, are elementwise multiplies here: as a
+# ``torch.bmm`` over N 1x1 matrices the chunk body's (2097152, 1, 1) took
+# 1.86-1.90 ms on an H100 (CUDA events) against the multiply's 0.015, with
+# the same bits, so the ingest test sets them aside, counted (``ALL_BATCH``).  Every product runs
+# in float32 (TF32 stays off), with the batch and heads of a chunk leading
+# (``B*H`` is every product's batch dim), where the reference's layout is
+# (B, chunk, H, D).
+
+
+class _Dot(torch.autograd.Function):
+    """``torch.bmm`` whose backward forms each operand's gradient as JAX's
+    transpose of ``dot_general`` does: ``g @ b^T`` for ``a`` and ``(g^T @
+    a)^T`` for ``b`` (torch's ``a^T @ g`` has the same flops and other
+    (M, N, K)), so the joint graphs have the reference's products too.  An
+    outer product's ``b`` (``a`` (N, 1, 1)) takes ``g * a``: JAX's all-batch
+    (N*D, 1, 1) product, as a multiply."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = torch.bmm(g, b.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        gb = None
+        if ctx.needs_input_grad[1]:
+            gb = g * a if a.shape[1:] == (1, 1) else torch.bmm(g.transpose(1, 2), a).transpose(1, 2)
+        return ga, gb
+
+
+_dot = _Dot.apply
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -_softplus(-x)
+
+
+def _heads_first(t: torch.Tensor, B: int, NC: int, chunk: int, H: int) -> torch.Tensor:
+    """(B, NC*chunk, H[, X]) -> (NC, B*H, chunk[, X]) in float32, transposed
+    and widened in one pass (the reference's ``shp`` cast and its scan
+    transpose)."""
+    t = t.reshape(B, NC, chunk, H, -1)
+    t = t.permute(1, 0, 3, 2, 4).to(torch.float32, memory_format=torch.contiguous_format,
+                                    copy=True)
+    return t.reshape(NC, B * H, chunk, -1)
+
+
+def mlstm_chunkwise(q, k, v, i_gate, f_gate, state=None, *, chunk: int = 256):
+    """Stabilised chunkwise mLSTM (matrix-memory) forward.
+
+    q,k,v: (B, S, H, D);  i_gate,f_gate: (B, S, H) pre-activation.
+    state: optional (C, n, m) with C:(B,H,D,D), n:(B,H,D), m:(B,H).
+    Returns (y, (C,n,m)), the state in float32.  [arXiv:2405.04517]
+
+    A sequence that is not a multiple of the chunk is padded with forget
+    gates of -1e9, as in the reference: the outputs are right, but the
+    padded steps wipe the returned state (C = 0, n = 0, m = 0).  That is a
+    fault of the reference, kept bit for bit for parity (ROADMAP queue C:
+    fixed in both packages or in neither)."""
+    B, S, H, D = q.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        beyond = (torch.arange(S + pad, device=q.device) >= S)[None, :, None]
+        i_gate = F.pad(i_gate, (0, 0, 0, pad))
+        f_gate = F.pad(f_gate, (0, 0, 0, pad)) - (1e9 * beyond).to(f_gate.dtype)
+    Sp = q.shape[1]
+    NC, BH = Sp // chunk, B * H
+    q_, k_, v_ = (_heads_first(t, B, NC, chunk, H) for t in (q, k, v))       # (NC,BH,T,D)
+    ig = _heads_first(i_gate, B, NC, chunk, H)[..., 0]                      # (NC,BH,T)
+    lf = _log_sigmoid(_heads_first(f_gate, B, NC, chunk, H)[..., 0])
+    csum_f = torch.cumsum(lf, dim=-1)              # within-chunk cumulative log-forget
+    total_f = csum_f[..., -1]                      # (NC, BH)
+
+    scale = 1.0 / math.sqrt(D)
+    if state is None:
+        C0 = torch.zeros((BH, D, D), dtype=torch.float32, device=q.device)
+        n0 = torch.zeros((BH, D), dtype=torch.float32, device=q.device)
+        m0 = torch.full((BH,), NEG_INF, dtype=torch.float32, device=q.device)
+    else:
+        C0, n0, m0 = (s.float().reshape(BH, *s.shape[2:]) for s in state)
+
+    idx = torch.arange(chunk, device=q.device)
+    causal = idx[:, None] >= idx[None, :]          # (t, s)
+
+    def chunk_step(carry, inp):
+        C, n, m = carry
+        qc, kc, vc, igc, cfc, tfc = inp            # (BH,T,D) x3, (BH,T) x2, (BH,)
+        # log weights of the state path (decay from the chunk's start) and of
+        # the intra-chunk path: g[t, s] = cfc[t] - cfc[s] + igc[s] for s <= t
+        g = cfc[:, :, None] - cfc[:, None, :] + igc[:, None, :]            # (BH,t,s)
+        g = torch.where(causal, g, NEG_INF)
+        m_intra = g.amax(-1)                                                # (BH,t)
+        m_t = torch.maximum(cfc + m[:, None], m_intra)
+        w_state = torch.exp(cfc + m[:, None] - m_t)                         # (BH,t)
+        w_intra = torch.exp(g - m_t[:, :, None])                            # (BH,t,s)
+
+        s_intra = _dot(qc, kc.transpose(1, 2)) * scale                     # (BH,t,s)
+        sw = s_intra * w_intra                     # JAX: an all-batch (N, 1, 1) product
+        qs = qc * scale
+        cq = _dot(C.transpose(1, 2), qs.transpose(1, 2))                   # (BH,k,t)
+        num = _dot(sw, vc) + _dot(w_state.reshape(-1, 1, 1),
+                                  cq.transpose(1, 2).reshape(-1, 1, D)).view(BH, chunk, D)
+        den1 = _dot(s_intra.reshape(-1, 1, chunk), w_intra.reshape(-1, chunk, 1))
+        den2 = w_state * _dot(qs, n[:, :, None])[..., 0]    # JAX: all-batch (N, 1, 1)
+        den = torch.abs(den1.view(BH, chunk) + den2)
+        y = num / torch.maximum(den, torch.exp(-m_t))[..., None]  # lower-bound denom (xLSTM eq. 25)
+
+        # state update to the end of the chunk
+        m_next = torch.maximum(tfc + m, (tfc[:, None] - cfc + igc).amax(-1))
+        w_old = torch.exp(tfc + m - m_next)                                  # (BH,)
+        kw = torch.exp(tfc[:, None] - cfc + igc - m_next[:, None])           # (BH,s)
+        kv = _dot(kw.reshape(-1, 1, 1), vc.reshape(-1, 1, D)).view(BH, chunk, D)
+        C_next = C * w_old[:, None, None] + _dot(kc.transpose(1, 2), kv)
+        n_next = n * w_old[:, None] + _dot(kc.transpose(1, 2), kw[:, :, None])[..., 0]
+        return (C_next, n_next, m_next), y
+
+    (C, n, m), ys = scan(chunk_step, (C0, n0, m0), (q_, k_, v_, ig, csum_f, total_f))
+    y = ys.view(NC, B, H, chunk, D).permute(1, 0, 3, 2, 4)
+    y = y.to(q.dtype, memory_format=torch.contiguous_format, copy=True).reshape(B, Sp, H, D)
+    return y[:, :S].contiguous(), (C.view(B, H, D, D), n.view(B, H, D), m.view(B, H))
+
+
+def mlstm_step(q_t, k_t, v_t, i_t, f_t, state):
+    """Single-token mLSTM update; q_t,k_t,v_t: (B,H,D); i_t,f_t: (B,H);
+    state (C, n, m) float32, a decode cache's.  Returns (y in q_t's dtype,
+    (C, n, m)): the state's tensors, updated where they lie by the
+    reference's operations in its order, so the matrix memory is read and
+    written once a step (the reference returns new arrays)."""
+    C, n, m = state
+    B, H, D = q_t.shape
+    BH = B * H
+    qf, kf, vf = (t.float() for t in (q_t, k_t, v_t))
+    i_f = i_t.float()
+    lf = _log_sigmoid(f_t.float())
+    m_new = torch.maximum(lf + m, i_f)
+    kv = _dot(kf.reshape(BH, D, 1), vf.reshape(BH, 1, D)).view(B, H, D, D)
+    decay, gain = torch.exp(lf + m - m_new), torch.exp(i_f - m_new)
+    C.mul_(decay[..., None, None]).add_(gain[..., None, None] * kv)
+    n.mul_(decay[..., None]).add_(gain[..., None] * kf)
+    m_new = m.copy_(m_new)
+    qs = (qf * (1.0 / math.sqrt(D))).reshape(BH, 1, D)
+    num = _dot(qs, C.reshape(BH, D, D)).view(B, H, D)
+    den = torch.abs(_dot(qs, n.reshape(BH, D, 1)).view(B, H))
+    y = num / torch.maximum(den, torch.exp(-m_new))[..., None]
+    return y.to(q_t.dtype), (C, n, m_new)
+
+
+def slstm_scan(p: dict, x: torch.Tensor, state=None):
+    """Sequential sLSTM over time.  x: (B, S, 4W) pre-projected gates packed
+    as (i, f, z, o) contributions; the recurrent weights ``p["r"]`` (W, 4W)
+    act on h.  Returns (h over time in x's dtype, (c, n, h, m) in float32)."""
+    B, S, W4 = x.shape
+    W = W4 // 4
+    if state is None:
+        z = torch.zeros((B, W), dtype=torch.float32, device=x.device)
+        state = (z, z + 1e-6, z, z - 1e9)  # c, n, h, m
+
+    # R rides in the carry, unchanged: a traced step (``core.stubs.scan_stub``)
+    # then adds its gradient into the carried one at every step, as the loop's
+    # backward accumulates it (and JAX's transposed scan carries it)
+    def step(carry, x_t):
+        c, n, h, m, R = carry
+        g = x_t.float() + h @ R
+        gi, gf, gz, go = torch.split(g, W, dim=-1)
+        lf = _log_sigmoid(gf)
+        m_new = torch.maximum(lf + m, gi)
+        c_new = c * torch.exp(lf + m - m_new) + torch.exp(gi - m_new) * torch.tanh(gz)
+        n_new = n * torch.exp(lf + m - m_new) + torch.exp(gi - m_new)
+        h_new = torch.sigmoid(go) * c_new / torch.clamp_min(n_new, 1e-9)
+        return (c_new, n_new, h_new, m_new, R), h_new
+
+    (c, n, h, m, _), ys = scan(step, (*state, p["r"].float()), x.transpose(0, 1))
+    ys = ys.transpose(0, 1).to(x.dtype, memory_format=torch.contiguous_format, copy=True)
+    return ys, (c, n, h, m)

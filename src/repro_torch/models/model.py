@@ -1,5 +1,5 @@
 """Model assembly for the dense decoders, the MoE decoders, with GQA or with
-MLA attention, and the RG-LRU hybrid (counterpart of
+MLA attention, the RG-LRU hybrid and the xLSTM stack (counterpart of
 ``repro/models/model.py``).
 
 ``Model`` exposes:
@@ -30,7 +30,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
-from repro_torch.models.kvcache import cache_len_of, ring_rows
+from repro_torch.models.kvcache import SLSTM_STATE, cache_len_of, ring_rows
 from repro_torch.models.params import init_params, layer_kinds
 
 Tree = Any
@@ -300,7 +300,53 @@ def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
         cache = {"h": h_last.to(h.dtype), "conv": conv_state} if collect_cache else None
         return h, L.ffn(cfg, p["mlp"], x), cache, None
 
+    if kind == "mlstm":
+        h, y = L.add_norm(cfg, p["ln"], h, pending, plain=plain)
+        q, k, v, i_g, f_g, conv_state = _mlstm_in(cfg, p, y, None)
+        yc, (C, n, m) = L.mlstm_chunkwise(q, k, v, i_g, f_g, chunk=cfg.chunk_size)
+        cache = {"conv": conv_state, "C": C, "n": n, "m": m} if collect_cache else None
+        return h, _mlstm_out(cfg, p, y, yc, plain), cache, None
+
+    if kind == "slstm":
+        h, y = L.add_norm(cfg, p["ln"], h, pending, plain=plain)
+        hs, state = L.slstm_scan(p, L.linear(p["gates_in"], y), None)
+        cache = dict(zip(SLSTM_STATE, state)) if collect_cache else None
+        return h, _slstm_out(cfg, p, hs, plain), cache, None
+
     raise ValueError(kind)
+
+
+# --- xLSTM ----------------------------------------------------------------
+
+
+def _mlstm_in(cfg, p, y, conv_state):
+    """The mLSTM block's up projection, causal conv and q/k/v/gate
+    projections: (q, k, v, i_gate, f_gate, the conv's new state); q, k, v
+    (B, S, H, Dh)."""
+    B, S, _ = y.shape
+    H, Dh = cfg.num_heads, cfg.head_dim
+    u = L.linear(p["up"], y)
+    cv, conv_state = L.causal_conv1d(p["conv"], u, conv_state)
+    c = F.silu(cv)
+    q = L.linear(p["q"], c).reshape(B, S, H, Dh)
+    k = L.linear(p["k"], c).reshape(B, S, H, Dh)
+    v = L.linear(p["v"], u).reshape(B, S, H, Dh)
+    gates = L.linear(p["gates"], c)
+    return q, k, v, gates[..., :H], gates[..., H:], conv_state
+
+
+def _mlstm_out(cfg, p, y, yc, plain):
+    """The cell's output (B, S, H, Dh): its norm over H*Dh (K3 on the card),
+    gated by ``silu(z(y))``, projected back to the model width."""
+    B, S, H, Dh = yc.shape
+    yn = L.rmsnorm(p["out_norm"]["w"], yc.reshape(B, S, H * Dh), eps=cfg.norm_eps, plain=plain)
+    return L.linear(p["o"], yn * F.silu(L.linear(p["z"], y)))
+
+
+def _slstm_out(cfg, p, hs, plain):
+    """The sLSTM's hidden states' norm (K3 on the card) and its GELU FFN."""
+    hn = L.rmsnorm(p["out_norm"]["w"], hs, eps=cfg.norm_eps, plain=plain)
+    return L.linear(p["ffn_down"], F.gelu(L.linear(p["ffn_up"], hn), approximate="tanh"))
 
 
 def apply_block_decode(cfg, kind, p, h, pending, cache, aux):
@@ -319,6 +365,23 @@ def apply_block_decode(cfg, kind, p, h, pending, cache, aux):
         cache["h"].copy_(h_state)            # in place, rounded to the cache's dtype
         cache["conv"].copy_(conv_state)
         return h, L.ffn(cfg, p["mlp"], x), cache
+
+    if kind == "mlstm":
+        h, y = L.add_norm(cfg, p["ln"], h, pending, plain=plain)
+        q, k, v, i_g, f_g, conv_state = _mlstm_in(cfg, p, y, cache["conv"])
+        # C, n and m are updated in place
+        yc, _ = L.mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_g[:, 0], f_g[:, 0],
+                             (cache["C"], cache["n"], cache["m"]))
+        cache["conv"].copy_(conv_state)
+        return h, _mlstm_out(cfg, p, y, yc[:, None], plain), cache
+
+    if kind == "slstm":
+        h, y = L.add_norm(cfg, p["ln"], h, pending, plain=plain)
+        hs, state = L.slstm_scan(p, L.linear(p["gates_in"], y),
+                                 tuple(cache[name] for name in SLSTM_STATE))
+        for name, t in zip(SLSTM_STATE, state):
+            cache[name].copy_(t)             # in place
+        return h, _slstm_out(cfg, p, hs, plain), cache
 
     if kind in ("attn_ffn", "moe_attn_ffn", "mla_moe", "griffin_attn"):
         # griffin_attn's window needs no mask here: its ring holds the window

@@ -1,7 +1,8 @@
 """Parameter-tree construction (counterpart of ``repro/models/params.py``), for the
 ``attn_ffn`` block of the dense decoders, the ``moe_attn_ffn`` block of the
-MoE decoders with GQA attention, the ``mla_moe`` block of those with MLA and
-the ``griffin_rec`` / ``griffin_attn`` blocks of the RG-LRU hybrid.
+MoE decoders with GQA attention, the ``mla_moe`` block of those with MLA,
+the ``griffin_rec`` / ``griffin_attn`` blocks of the RG-LRU hybrid and the
+``mlstm`` / ``slstm`` blocks of the xLSTM stack.
 
 One function (``build_params``) drives its consumers through a creator
 callback: concrete init (``init_params``) and parameter counts
@@ -33,10 +34,13 @@ def block_cycle(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
     elif cfg.family == "hybrid":
         cycle = tuple("griffin_rec" if k == "rec" else "griffin_attn" for k in cfg.block_pattern)
     elif cfg.family == "ssm":
-        raise ValueError("family 'ssm' (block kinds 'mlstm' and 'slstm') is not ported yet: "
-                         "it comes with the xLSTM slice")
+        cycle = cfg.block_pattern
+    elif cfg.family == "audio":
+        raise ValueError("family 'audio' (block kind 'xattn') is not ported yet: "
+                         "it comes with the Whisper slice")
     else:
-        raise ValueError(f"family {cfg.family!r} is not ported yet (dense, MoE and hybrid only)")
+        raise ValueError(f"family {cfg.family!r} is not ported yet "
+                         "(dense, MoE, hybrid and ssm only)")
     n = cfg.num_layers // len(cycle)
     tail_len = cfg.num_layers - n * len(cycle)
     return cycle, n, cycle[:tail_len]
@@ -175,8 +179,44 @@ def _mla_moe(cfg, c: Creator, path):
     }
 
 
+def _mlstm_block(cfg, c: Creator, path):
+    D = cfg.d_model
+    Di = int(cfg.mlstm_proj_factor * D)
+    H, Dh = cfg.num_heads, cfg.head_dim
+    DQ = H * Dh
+    return {
+        "ln": _norm(cfg, c, path + ("ln",)),
+        "up": {"w": c(path + ("up", "w"), (D, Di), D)},
+        "conv": {"w": c(path + ("conv", "w"), (cfg.conv_width, Di), 0),
+                 "b": c(path + ("conv", "b"), (Di,), 0)},
+        "q": {"w": c(path + ("q", "w"), (Di, DQ), Di)},
+        "k": {"w": c(path + ("k", "w"), (Di, DQ), Di)},
+        "v": {"w": c(path + ("v", "w"), (Di, DQ), Di)},
+        "gates": {"w": c(path + ("gates", "w"), (Di, 2 * H), Di),
+                  "b": c(path + ("gates", "b"), (2 * H,), 0)},
+        "out_norm": _vec_norm(cfg, c, path + ("out_norm",), DQ),
+        "z": {"w": c(path + ("z", "w"), (D, DQ), D)},
+        "o": {"w": c(path + ("o", "w"), (DQ, D), DQ)},
+    }
+
+
+def _slstm_block(cfg, c: Creator, path):
+    D = cfg.d_model
+    W = D
+    F = int(cfg.slstm_proj_factor * D)
+    return {
+        "ln": _norm(cfg, c, path + ("ln",)),
+        "gates_in": {"w": c(path + ("gates_in", "w"), (D, 4 * W), D)},
+        "r": c(path + ("r",), (W, 4 * W), W),
+        "out_norm": _vec_norm(cfg, c, path + ("out_norm",), W),
+        "ffn_up": {"w": c(path + ("ffn_up", "w"), (W, F), W)},
+        "ffn_down": {"w": c(path + ("ffn_down", "w"), (F, D), F)},
+    }
+
+
 BLOCK_PARAMS = {"attn_ffn": _attn_ffn, "moe_attn_ffn": _moe_attn_ffn, "mla_moe": _mla_moe,
-                "griffin_rec": _griffin_rec, "griffin_attn": _griffin_attn}
+                "griffin_rec": _griffin_rec, "griffin_attn": _griffin_attn,
+                "mlstm": _mlstm_block, "slstm": _slstm_block}
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -204,8 +244,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, dtype=None
     ``1/sqrt(fan_in)`` for matrices, norm scales 1 (0 for the ``1 + w`` form),
     biases 0, and the RG-LRU's ``lam`` in float32 such that its decay
     ``exp(-8 softplus(lam))`` is uniform in [0.9, 0.999] (Griffin's appendix;
-    the conv filter, which the reference's creator treats as a bias, is 0
-    too).  The numbers differ from the reference's for the same seed (the
+    the conv filters, which the reference's creator treats as biases, are 0
+    too: at this init an mLSTM block adds exactly 0, so tests and the card's
+    checks draw them from a seed).  The numbers differ from the reference's for the same seed (the
     two frameworks' generators differ); tests carry weights across instead."""
     dt = dtype or torch_dtype(cfg.param_dtype)
     device = torch.device(device)

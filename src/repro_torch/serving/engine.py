@@ -85,8 +85,9 @@ class ServingEngine:
             req.tokens.append(tok)
             req.ttft_s = self.clock() - req.arrival_s
             # copy the single-request (batch=1) cache into this slot, in place,
-            # every leaf of the layer's cache ({k, v}, MLA's {ckv, kr}, or the
-            # RG-LRU's state {h, conv})
+            # every leaf of the layer's cache ({k, v}, MLA's {ckv, kr}, the
+            # RG-LRU's state {h, conv}, the mLSTM's {conv, C, n, m} or the
+            # sLSTM's {c, n, h, m})
             for mine, new in zip(self.cache["blocks"], pc["blocks"]):
                 for name, t in mine.items():
                     t[slot].copy_(new[name][0])

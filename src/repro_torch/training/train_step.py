@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import Model
@@ -26,12 +27,15 @@ Pytree = Any
 # --------------------------------------------------------------------------
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mean next-token CE over labels >= 0.  logits f32 (B,S,V); labels (B,S)."""
+    """Mean next-token CE over labels >= 0.  logits f32 (B,S,V); labels (B,S).
+    The labels' negative log-likelihood is ``nll_loss`` of the log-softmax:
+    the reference's gathered log-probabilities negated, bit for bit."""
     logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = F.nll_loss(logp.flatten(0, -2), labels.clamp_min(0).long().flatten(),
+                     reduction="none").view(labels.shape)
     mask = (labels >= 0).to(torch.float32)
     tok = torch.clamp(mask.sum(), min=1.0)
-    return -(ll * mask).sum() / tok, tok
+    return (nll * mask).sum() / tok, tok
 
 
 def make_loss_fn(model: Model):

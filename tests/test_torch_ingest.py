@@ -50,7 +50,25 @@ recurrentgemma's RG-LRU block one (a GeGLU weight's), in its local
 attention block three (the k/v weights' and a GeGLU weight's).
 
 recurrentgemma-9b's two blocks are held to the ``block`` bounds: measured
-rest bytes 0.71-0.99 and nodes 0.59-0.88.  Its RG-LRU block's scan is the
+rest bytes 0.71-0.99 and nodes 0.59-0.88.
+
+xlstm-125m's two blocks are held to the ``block`` bounds too, with every
+product of the reference's, repeats included: the mLSTM's chunk body at
+the chunk count (2 in prefill, 8 in train), the sLSTM's step at the
+sequence length (512, 2048), both traced once through ``layers.scan``
+(``core/stubs.py``).  The cells write each ``jnp.einsum`` out as the
+products JAX lowers it to and take their gradients as JAX transposes them
+(``layers._Dot``), but for the all-batch ``(N, 1, 1)`` products JAX emits
+for elementwise work, which the port runs as multiplies (about 125 times
+faster on the card; ``ALL_BATCH`` counts them: 2 in the mLSTM's forward graph, 8 in
+its joint graph, each at the chunk count, their flops within
+``TOTAL_FLOPS``); the ``SWAPPED``
+products are weight gradients of the blocks' projections (three in the
+mLSTM block, two in the sLSTM block: measured).  Measured rest nodes
+0.81-1.10, bytes 0.81-1.07.  The train head's loss is log-softmax and
+``nll_loss``, which the port prices as the reference prices its jitted
+``log_softmax`` (one node of one flop an element; ``core/tracer.py``):
+measured rest bytes 0.88-1.00 there for every config.  Its RG-LRU block's scan is the
 reference's log-depth ``associative_scan`` written out in torch (122 of
 the reference's 170 prefill nodes are that scan's slices, concatenations
 and pads), so its node count follows the reference's.
@@ -72,7 +90,12 @@ from repro_torch.core.ir import Graph as TGraph
 REST_BYTES = {"block": (0.60, 1.10), "head": (0.60, 2.20), "moe_joint": (0.45, 1.10)}
 REST_NODES = (0.50, 1.25)
 SWAPPED = {"attn_ffn": 3, "moe_attn_ffn": 6, "mla_moe": 10, "griffin_rec": 1, "griffin_attn": 3,
-           "head": 3}
+           "mlstm": 3, "slstm": 2, "head": 3}
+# The reference's all-batch products (N, 1, 1), elementwise work JAX emits as
+# ``dot_general``, which the port runs as multiplies (``layers.py``'s xLSTM
+# section): set aside from the reference's graph, counted per graph.
+ALL_BATCH = {("mlstm", "prefill", "fwd"): 2, ("mlstm", "train", "fwd"): 2,
+             ("mlstm", "train", "joint"): 8}
 TOTAL_FLOPS = 1e-3
 SHAPES = {"train": (8, 2048, 0), "prefill": (1, 512, 0), "decode": (8, 1, 2048)}
 CORE = ("matmul", "attention")
@@ -91,8 +114,13 @@ def _core_key(n, *, unordered_mn=False):
     return (n.kind, mm, n.attrs.get("attn_dims"), n.flops, n.repeat, n.phase)
 
 
-def _core(g, **kw):
-    return collections.Counter(_core_key(n, **kw) for n in g if n.kind in CORE)
+def _all_batch(n):
+    return n.kind == "matmul" and tuple(n.attrs["mm_dims"][1:]) == (1, 1)
+
+
+def _core(g, *, all_batch=True, **kw):
+    return collections.Counter(_core_key(n, **kw) for n in g
+                               if n.kind in CORE and (all_batch or not _all_batch(n)))
 
 
 def _rest(g):
@@ -126,16 +154,20 @@ def test_block_graphs_match_the_reference(arch, mode):
             if rg is None:
                 continue
             where = f"{arch} {mode} {rb.kind}.{which}"
+            assert sum(map(_all_batch, rg)) == ALL_BATCH.get((rb.kind, mode, which), 0), where
+            assert not any(map(_all_batch, tg)), where
             if which == "fwd":
-                assert _core(rg) == _core(tg), where
+                assert _core(rg, all_batch=False) == _core(tg), where
             else:
-                assert _core(rg, unordered_mn=True) == _core(tg, unordered_mn=True), where
+                assert _core(rg, all_batch=False, unordered_mn=True) == \
+                    _core(tg, unordered_mn=True), where
                 swapped = sum((_core(tg) - _core(rg)).values())
                 assert swapped <= SWAPPED[rb.kind], where
             for n in tg:
                 if n.kind == "attention":
                     assert n.attrs["G"] == t_config(arch).q_per_kv
-            core_flops = [g.total("flops", pred=lambda n: n.kind in CORE) for g in (rg, tg)]
+            core_flops = [g.total("flops", pred=lambda n: n.kind in CORE and not _all_batch(n))
+                          for g in (rg, tg)]
             assert core_flops[0] == core_flops[1], where
             assert tg.total("flops") == pytest.approx(rg.total("flops"), rel=TOTAL_FLOPS), where
             (rn, rbytes), (tn, tbytes) = _rest(rg), _rest(tg)
@@ -270,9 +302,14 @@ def test_trace_grad_matches_reference_products():
 
 
 def test_scan_repeat_multiplier():
-    """The reference multiplies a ``lax.scan`` body by its length; torch has
-    no scan, so a loop unrolls into as many nodes and the total is the same;
-    a model's depth becomes a block's ``repeat`` in both packages."""
+    """The reference multiplies a ``lax.scan`` body by its length.  A loop
+    through the port's ``layers.scan`` is traced once under the ingest
+    (``stubs.ingest_scan``): one product node with repeat 9, forward and
+    joint, as the reference's.  A plain Python loop unrolls into as many
+    nodes and the total is the same; a model's depth becomes a block's
+    ``repeat`` in both packages."""
+    from repro_torch.models import layers as TL
+
     def rf(x, w):
         def body(c, _):
             return c @ w, None
@@ -283,15 +320,70 @@ def test_scan_repeat_multiplier():
             x = x @ w
         return x
 
-    rg = r_tracer.trace(rf, jax.ShapeDtypeStruct((32, 32), jnp.float32),
-                        jax.ShapeDtypeStruct((32, 32), jnp.float32))
+    def tf_scan(x, w):
+        return TL.scan(lambda c, _: (c @ w, None), x, None, length=9)[0]
+
+    args = (jax.ShapeDtypeStruct((32, 32), jnp.float32),) * 2
+    rg, rj = r_tracer.trace(rf, *args), r_tracer.trace_grad(rf, *args)
     tg = t_tracer.trace(tf, torch.empty(32, 32), torch.empty(32, 32))
     assert tg.total("flops") == rg.total("flops") == 9 * 2 * 32 * 32 * 32
     assert sum(1 for n in tg if n.kind == "matmul") == 9
+    with stubs.ingest_scan():
+        sg = t_tracer.trace(tf_scan, torch.empty(32, 32), torch.empty(32, 32))
+        sj = t_tracer.trace_grad(tf_scan, torch.empty(32, 32), torch.empty(32, 32))
+    assert _core(sg) == _core(rg) == collections.Counter({
+        ("matmul", (32, 32, 32), None, 2.0 * 32 ** 3, 9, "fwd"): 1})
+    assert _core(sj, unordered_mn=True) == _core(rj, unordered_mn=True)
+    assert sum(_core(sj).values()) == 3
+    for a, b in ((sg, rg), (sj, rj)):
+        assert a.total("flops", pred=lambda n: n.kind == "matmul") == \
+            b.total("flops", pred=lambda n: n.kind == "matmul")
+    # eager, the helper is the loop
+    x, w = torch.randn(4, 4, dtype=torch.float64), torch.randn(4, 4, dtype=torch.float64)
+    assert torch.equal(tf_scan(x, w), tf(x, w))
     cfg_r, cfg_t = (c("phi4-mini-3.8b").replace(num_layers=9) for c in (r_config, t_config))
     r = r_ingest.block_graphs(cfg_r, 1, 16, "prefill")
     t = t_ingest.block_graphs(cfg_t, 1, 16, "prefill")
     assert [b.repeat for b in r.all_blocks()] == [b.repeat for b in t.all_blocks()] == [9, 1]
+
+
+def test_traced_loop_backward_stays_between_its_marks():
+    """In a joint graph the step's backward lies between the mirrored marks
+    (``scan_exit``'s backward opens them, ``scan_enter``'s closes them), and
+    no node from outside the loop is scheduled there, though the loop reads
+    a tensor made before it that is read after it too: autograd runs the
+    ready node of the highest sequence number first (``core/stubs.py``).
+    Inside: the step's forward and backward ops only; outside: the tanh
+    before the loop, the exp after it and their backward ops."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from repro_torch.models import layers as TL
+
+    def f(x, w, xs):
+        a = torch.tanh(x)
+
+        def body(c, x_t):
+            c = torch.sigmoid(c @ w + x_t)
+            return c, c * 2.0
+
+        c, ys = TL.scan(body, a, xs)
+        return (c * a).sum() + torch.exp(ys).sum()
+
+    def joint(x, w, xs):
+        return torch.autograd.grad(f(x, w, xs), (x, w, xs))
+
+    with stubs.ingest_scan():
+        gm = make_fx(joint, tracing_mode="fake")(
+            *(torch.empty(s).requires_grad_() for s in ((4, 8), (8, 8), (5, 4, 8))))
+    ops = [t._schema.name.split("::")[-1] for t in (n.target for n in gm.graph.nodes)
+           if isinstance(t, torch._ops.OpOverload)]
+    marks = [i for i, op in enumerate(ops) if op in stubs.SCAN_MARKS]
+    assert [ops[i] for i in marks] == ["scan_enter", "scan_exit"] * 2
+    inside = set(ops[marks[0] + 1:marks[1]]) | set(ops[marks[2] + 1:marks[3]])
+    outside = set(ops[:marks[0]] + ops[marks[1] + 1:marks[2]] + ops[marks[3] + 1:])
+    assert {"mm", "sigmoid", "sigmoid_backward"} <= inside
+    assert not inside & {"tanh", "tanh_backward", "exp"}
+    assert {"tanh", "tanh_backward", "exp"} <= outside
+    assert not outside & {"mm", "sigmoid", "sigmoid_backward"}
 
 
 def test_byte_rules_slice_reads_what_it_extracts_scatter_updates_in_place():

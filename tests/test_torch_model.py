@@ -24,6 +24,7 @@ from repro_torch.convert import from_reference_cache, from_reference_params, to_
 from repro_torch import kernels as K
 from repro_torch.models import Model as TModel, cache_bytes as t_cache_bytes, count_params as t_count
 from repro_torch.models import layers as TL, model as TM
+from repro_torch.models.kvcache import cache_len_of
 
 TOL = 1e-4
 FULL_COUNTS = {"phi4-mini-3.8b": 3_836_021_760, "gemma-7b": 8_537_680_896,
@@ -232,8 +233,10 @@ def test_mla_moe_is_left_to_its_own_slice():
     """MLA came with a slice of its own: a MoE config with MLA attention
     builds ``mla_moe`` blocks and their compressed caches.  So did the
     hybrid (RG-LRU): a tiny hybrid config builds its (rec, rec, attn) cycle,
-    its recurrent state and its windowed ring.  The next family (ssm, xLSTM)
-    still raises, naming its slice, and so do the others."""
+    its recurrent state and its windowed ring.  So did the xLSTM stack: a
+    tiny xLSTM builds its (m, m, m, s) cycle and its float32 states.  The
+    next family (audio, Whisper) still raises, naming its slice, and so do
+    the others."""
     cfg = t_tiny("olmoe-1b-7b").replace(attention="mla", q_lora_rank=32, kv_lora_rank=16,
                                         qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
     m = TModel(cfg, "cpu")
@@ -256,10 +259,23 @@ def test_mla_moe_is_left_to_its_own_slice():
     assert [{k: tuple(v.shape) for k, v in c.items()} for c in cache["blocks"][1:3]] == [
         {"h": (1, W), "conv": (1, hyb.conv_width - 1, W)},
         {"k": (1, 6, 1, hyb.head_dim), "v": (1, 6, 1, hyb.head_dim)}]   # min(cache_len, window)
-    with pytest.raises(ValueError, match="xLSTM"):
-        TModel(t_tiny("recurrentgemma-9b").replace(family="ssm"), "cpu")
-    with pytest.raises(ValueError, match="not ported"):
+    xl = t_tiny("xlstm-125m")
+    m = TModel(xl, "cpu")
+    assert m.kinds == ("mlstm", "mlstm", "mlstm", "slstm")
+    params = m.init(torch.Generator().manual_seed(0))
+    Di, H, Dh = int(xl.mlstm_proj_factor * xl.d_model), xl.num_heads, xl.head_dim
+    assert params["blocks"][0]["q"]["w"].shape == (Di, H * Dh)
+    assert params["blocks"][3]["r"].shape == (xl.d_model, 4 * xl.d_model)
+    _, cache = m.prefill(params, {"tokens": tokens(xl, 1, 5)}, cache_len=8)
+    assert [{k: (tuple(v.shape), v.dtype) for k, v in c.items()} for c in cache["blocks"][2:]] == [
+        {"conv": ((1, xl.conv_width - 1, Di), torch.bfloat16),
+         "C": ((1, H, Dh, Dh), torch.float32), "n": ((1, H, Dh), torch.float32),
+         "m": ((1, H), torch.float32)},
+        {k: ((1, xl.d_model), torch.float32) for k in ("c", "n", "h", "m")}]
+    with pytest.raises(ValueError, match="Whisper"):
         TModel(cfg.replace(family="audio"), "cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        TModel(cfg.replace(family="vlm"), "cpu")
 
 
 def test_init_params_shapes_dtypes_and_statistics():
@@ -287,15 +303,36 @@ def _unfused(m, params, tokens, attend, recur=None):
     """The block as it reads in the reference: ``h = h + a``, then ``h = h +
     ffn(norm(h))`` (the MoE block's ``moe_ffn``), each add a pass of its own,
     and the norm of ``h``.  ``a`` is the attention (``attend``) or, in an
-    RG-LRU block, the recurrent branch (``recur``)."""
+    RG-LRU block, the recurrent branch (``recur``).  An xLSTM block has one
+    add: its branch (``recur``) holds the cell and its projections."""
     cfg = m.cfg
     h = m._embed(params, tokens)
     for i, p in enumerate(params["blocks"]):
         x = TL.apply_norm(cfg, p["ln" if "ln" in p else "ln1"], h)
         h = h + (attend(i, p["attn"], x) if "attn" in p else recur(i, p, x))
+        if "ln2" not in p:
+            continue
         x = TL.apply_norm(cfg, p["ln2"], h)
         h = h + (TL.moe_ffn(cfg, p["moe"], x)[0] if "moe" in p else TL.ffn(cfg, p["mlp"], x))
     return TL.apply_norm(cfg, params["final_norm"], h)
+
+
+def _xlstm_branch(cfg, kind, p, y, state):
+    """An xLSTM block's branch over a sequence (``state`` None) or one
+    token; (output, new state)."""
+    if kind == "slstm":
+        st = None if state is None else tuple(state[k] for k in TM.SLSTM_STATE)
+        hs, st = TL.slstm_scan(p, TL.linear(p["gates_in"], y), st)
+        return TM._slstm_out(cfg, p, hs, False), dict(zip(TM.SLSTM_STATE, st))
+    q, k, v, i_g, f_g, conv = TM._mlstm_in(cfg, p, y, None if state is None else state["conv"])
+    if state is None:
+        yc, (C, n, m_) = TL.mlstm_chunkwise(q, k, v, i_g, f_g, chunk=cfg.chunk_size)
+    else:
+        yc, (C, n, m_) = TL.mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_g[:, 0], f_g[:, 0],
+                                       (state["C"].clone(), state["n"].clone(),
+                                        state["m"].clone()))
+        yc = yc[:, None]
+    return TM._mlstm_out(cfg, p, y, yc, False), {"conv": conv, "C": C, "n": n, "m": m_}
 
 
 def _recur_full(cfg, p, y):
@@ -329,7 +366,10 @@ def unfused_forward(m, params, toks, cache_len=None):
         return a
 
     def recur(i, p, y):
-        out, state = _recur_full(m.cfg, p, y)
+        if m.kinds[i] == "griffin_rec":
+            out, state = _recur_full(m.cfg, p, y)
+        else:
+            out, state = _xlstm_branch(m.cfg, m.kinds[i], p, y, None)
         caches.append(state)
         return out
 
@@ -342,9 +382,8 @@ def unfused_decode_step(m, params, cache, toks):
     pos = cache["pos"]
     positions = pos[:, None]
     tables = TL.rope_tables(m.cfg, positions, TL.rope_head_dim(m.cfg))
-    T = next(c["k" if "k" in c else "ckv"].shape[1] for c in cache["blocks"]
-             if "k" in c or "ckv" in c)
-    indices = TM.decode_indices(pos, T)
+    T = cache_len_of(cache)
+    indices = TM.decode_indices(pos, T) if T is not None else None
     decode = TM.mla_decode if m.cfg.attention == "mla" else TM.gqa_decode
 
     def attend(i, p, x):
@@ -353,6 +392,10 @@ def unfused_decode_step(m, params, cache, toks):
 
     def recur(i, p, y):
         c = cache["blocks"][i]
+        if m.kinds[i] != "griffin_rec":
+            out, state = _xlstm_branch(m.cfg, m.kinds[i], p, y, c)
+            c.update(state)
+            return out
         g = torch.nn.functional.gelu(TL.linear(p["in_gate"], y), approximate="tanh")
         r, conv = TL.causal_conv1d(p["conv"], TL.linear(p["in_rec"], y), c["conv"])
         r_t, h_state = TL.rglru_step(p["rglru"], r[:, 0], c["h"])

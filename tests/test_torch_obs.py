@@ -16,7 +16,10 @@ And across packages: with one price table (``table_oracle`` of
 ``tests/test_torch_serving_sim.py``) the serving and fleet runs give the
 reference's chrome-trace JSON, ``MetricsRegistry`` snapshot and
 ``explain_dict()``; for one core report, both packages' ``explain_report``,
-``render_report``, ``to_chrome_trace`` and ``record_report`` agree.
+``render_report``, ``to_chrome_trace`` and ``record_report`` agree.  The
+cases that price for real use phi4-mini-3.8b on ``h100_sxm``; the
+``test_xlstm_*`` cases run the reference's own xlstm-125m specs on
+``tpu_v5e``.
 """
 import dataclasses
 import json
@@ -444,3 +447,55 @@ def test_sweep_trace_lanes_equal_the_reference_with_one_price_table():
                      counters_less_wall(res.metrics))
     assert out["port"] == out["ref"]
     assert out["port"][0] and out["port"][1]
+
+
+# ---------------- the reference's own config: xlstm-125m, tp 2, tpu_v5e ----------------
+
+def _xlstm_step_spec():
+    from repro_torch.configs import get_config
+    return SimSpec(get_config("xlstm-125m"), cluster=Cluster("tpu_v5e"),
+                   parallel=ParallelConfig(tp=2),
+                   workload=TrainWorkload(global_batch=32, seq_len=512))
+
+
+def _xlstm_serving_spec(n=120):
+    from repro_torch.configs import get_config
+    return SimSpec(get_config("xlstm-125m"), cluster=Cluster("tpu_v5e"),
+                   parallel=ParallelConfig(tp=2),
+                   workload=ServingWorkload(n_requests=n, seed=3, rate_rps=48.0,
+                                            slo=SLO(ttft_s=1.0, tpot_ms=50.0), **short(TS)))
+
+
+def test_xlstm_core_run_bit_identical_traced_and_explained_as_the_reference():
+    """The reference's step spec (xlstm-125m train B32 S512, tp 2, on
+    ``tpu_v5e``): recording changes no priced field, the trace is
+    Perfetto-valid and the reference's ``record_report`` and
+    ``explain_report`` give the same of this report."""
+    sim = Simulator("tpu_v5e", engine="analytical")
+    spec = _xlstm_step_spec()
+    rep_off = sim.run(spec)
+    rec = TraceRecorder()
+    rep_on = sim.run(spec, recorder=rec)
+    for f in ("step_time_us", "tokens_per_s", "tps_per_chip", "mfu", "breakdown_us",
+              "kind_us"):
+        assert getattr(rep_on, f) == getattr(rep_off, f), f
+    _assert_perfetto_valid(rec.events())
+    ref_rec = RO.TraceRecorder()
+    r_timeline.record_report(ref_rec, rep_on)
+    assert ref_rec.to_json() == rec.to_json()
+    assert rep_on.explain_dict() == RO.explain_report(rep_on)
+
+
+def test_xlstm_serving_bit_identical_with_recorder_and_metrics():
+    sim = Simulator("tpu_v5e", engine="analytical")
+    spec = _xlstm_serving_spec()
+    rep_off = ServingSimulator(sim).run(spec)
+    rec, reg = TraceRecorder(), MetricsRegistry()
+    rep_on = ServingSimulator(sim).run(spec, recorder=rec, metrics=reg)
+    a, b = rep_on.summary(), rep_off.summary()
+    a.pop("oracle_stats"), b.pop("oracle_stats")
+    assert a == b and rep_on.requests == rep_off.requests
+    _assert_perfetto_valid(rec.events())
+    snap = reg.snapshot()["counters"]
+    assert snap["serving.requests"] == spec.workload.n_requests
+    assert snap["serving.steps"] > 0

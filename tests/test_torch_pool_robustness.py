@@ -9,7 +9,9 @@ reports and pruned reasons **bit-identical** to the fault-free serial sweep.
 The port prices with its own analytical engine (forked workers trace the
 torch block with ``make_fx`` over FakeTensors).  Its space is the
 reference's with phi4-mini-3.8b on ``h100_sxm`` in place of xlstm-125m on
-``tpu_v5e``, which the port cannot price.  The fault plans keep the
+``tpu_v5e`` (chosen before the port had xLSTM); the ``test_xlstm_*`` cases
+run the reference's own space, xlstm-125m on ``tpu_v5e``, through the crash,
+error and quarantine recoveries.  The fault plans keep the
 reference's seeds and ``RetryPolicy`` timeouts.  A plan decides on
 ``spec.json_hash()``, which is equal in both packages, so the plans fire on
 the same candidates in both: on the reference's own 18 candidates (4 poisoned,
@@ -426,3 +428,55 @@ def test_journal_roundtrips_results(tmp_path):
     if orig.report is not None:
         assert rehydrated.report.step_time_us == orig.report.step_time_us
         assert rehydrated.report.kind_us == orig.report.kind_us
+
+
+# ======================================================================
+# the reference's own space: xlstm-125m on tpu_v5e
+# ======================================================================
+
+XLSTM = get_config("xlstm-125m")
+
+
+def _xspace(memory_limit=16e9):
+    base = SimSpec(XLSTM, cluster=Cluster("tpu_v5e", chips=16, memory_limit=memory_limit),
+                   workload=DecodeWorkload(global_batch=8, seq_len=1024))
+    return SweepSpace(base, AXES)
+
+
+def test_xlstm_worker_crash_recovery_bit_identical():
+    serial = sweep(_xspace())
+    chaotic = sweep(_xspace(), workers=2, retry=FAST, faults=FaultPlan(**PLANS["worker_crash"]))
+    assert _result_key(serial) == _result_key(chaotic)
+    assert chaotic.failed == ()
+    c = _counters(chaotic)
+    assert c.get("pool.worker_deaths", 0) >= 1
+    assert c.get("pool.retries", 0) >= 1
+    assert c.get("pool.respawns", 0) >= 1
+    assert c.get("pool.quarantined", 0) == 0
+
+
+def test_xlstm_candidate_error_recovery_bit_identical_serial_and_pool():
+    plan = FaultPlan(**PLANS["candidate_error"])
+    clean = sweep(_xspace())
+    ser = sweep(_xspace(), faults=plan)
+    par = sweep(_xspace(), workers=2, retry=FAST, faults=plan)
+    assert _result_key(clean) == _result_key(ser) == _result_key(par)
+    assert ser.failed == () and par.failed == ()
+    for res in (ser, par):
+        c = _counters(res)
+        assert c.get("pool.candidate_errors", 0) >= 1
+        assert c.get("pool.retries", 0) >= 1
+
+
+def test_xlstm_quarantine_is_symmetric_between_serial_and_pool():
+    """4 of the reference's 18 candidates poisoned, as it verified."""
+    ser = sweep(_xspace(), faults=POISON, retry=ONE_RETRY)
+    par = sweep(_xspace(), workers=2, faults=POISON, retry=ONE_RETRY)
+    assert len(ser.failed) == len(par.failed) == 4
+    assert [f.spec.json_hash() for f in ser.failed] == [f.spec.json_hash() for f in par.failed]
+    for f in ser.failed + par.failed:
+        assert f.attempts == 2
+        assert "ChaosError" in f.reason
+    assert len(ser.evaluated) + len(ser.pruned) == 18 - 4
+    assert _result_key(ser) == _result_key(par)
+    assert _counters(par).get("pool.quarantined", 0) == 4

@@ -16,9 +16,12 @@ Parity is held in two layers:
   whose requests all arrive at once (sums of step prices, no queueing
   feedback) are held to the same 15 %.
 
-The reference's own twins use ``xlstm-125m`` on ``tpu_v5e``; the port has no
-xLSTM, so the cases that need a real oracle use the dense phi4-mini-3.8b on
-``h100_sxm``.
+The reference's own twins use ``xlstm-125m`` on ``tpu_v5e``.  The cases that
+need a real oracle use the dense phi4-mini-3.8b on ``h100_sxm`` (they came
+before the port had xLSTM); the ``test_xlstm_*`` cases run the reference's own
+config, ``CFG = get_config("xlstm-125m")`` with ``tp=2`` on ``tpu_v5e``, with
+the reference's assertions, and hold the trace's makespan and TTFT to the
+reference's within ``STEP_TOL``.
 """
 import dataclasses
 import functools
@@ -636,3 +639,94 @@ def test_step_time_objective_requires_no_serving(sim):
         res.ranked("goodput")
     with pytest.raises(ValueError):
         sweep(space, sim=sim, objective="nonsense")
+
+
+# ---------------- the reference's own config: xlstm-125m, tp 2, tpu_v5e ----------------
+
+XLSTM = get_config("xlstm-125m")
+XPAR = ParallelConfig(tp=2)
+
+
+@pytest.fixture(scope="module")
+def tpu_sim():
+    return Simulator("tpu_v5e", engine="analytical")
+
+
+@pytest.mark.parametrize("policy", CONSERVATION, ids=lambda p: p.name)
+def test_xlstm_conservation_invariants(tpu_sim, policy):
+    wl = _wl()
+    rep = ServingSimulator(tpu_sim, XLSTM, par=XPAR, policy=policy).run(
+        wl, slo=SLO(ttft_s=1.0, tpot_ms=50.0))
+    assert rep.n_requests == wl.n_requests
+    assert sorted(r.rid for r in rep.requests) == sorted(r.rid for r in wl.requests)
+    for r in rep.requests:
+        assert r.prefilled == r.prompt_len
+        assert r.decoded == r.output_len
+        assert r.arrival_s <= r.start_s <= r.first_token_s <= r.finished_s
+    assert rep.prompt_tokens == wl.prompt_tokens
+    assert rep.output_tokens == wl.output_tokens
+    assert all(r.decoded == 0 and r.finished_s is None for r in wl.requests)
+
+
+def test_xlstm_run_is_deterministic(tpu_sim):
+    wl = _wl(seed=9)
+    ssim = ServingSimulator(tpu_sim, XLSTM, par=XPAR, policy=ContinuousBatching(8))
+    a, b = ssim.run(wl).summary(), ssim.run(wl).summary()
+    a.pop("oracle_stats"), b.pop("oracle_stats")
+    assert a == b
+
+
+def test_xlstm_disaggregated_pool_roles(tpu_sim):
+    rep = ServingSimulator(
+        tpu_sim, XLSTM, par=XPAR,
+        policy=DisaggregatedPD(prefill_batch=2, decode_batch=8)).run(_wl())
+    assert set(rep.utilization) == {"prefill", "decode"}
+    assert "decode_frac" not in rep.utilization["prefill"]
+    assert "prefill_frac" not in rep.utilization["decode"]
+
+
+def test_xlstm_trace_within_the_step_gap_of_the_reference(tpu_sim):
+    """Each package's own analytical engine on the reference's config and
+    workload: the same requests and tokens, makespan and TTFT p50 within
+    ``STEP_TOL`` (measured -0.2 % and 0 %)."""
+    ref = RS.ServingSimulator(RSim("tpu_v5e", engine="analytical"), r_config("xlstm-125m"),
+                              par=RPar(tp=2), policy=RS.ContinuousBatching(8)).run(
+        _wl(RS), slo=RS.SLO(ttft_s=1.0, tpot_ms=50.0))
+    rep = ServingSimulator(tpu_sim, XLSTM, par=XPAR, policy=ContinuousBatching(8)).run(
+        _wl(), slo=SLO(ttft_s=1.0, tpot_ms=50.0))
+    assert (rep.n_requests, rep.prompt_tokens, rep.output_tokens) == \
+        (ref.n_requests, ref.prompt_tokens, ref.output_tokens)
+    r, t = ref.summary(), rep.summary()
+    for key in ("makespan_s", "ttft_p50_s"):
+        assert t[key] == pytest.approx(r[key], rel=STEP_TOL), key
+
+
+def test_xlstm_goodput_ranking_diverges_from_step_time(tpu_sim):
+    """The reference's scenario and SLO (50 ms TTFT, 2 ms TPOT) on its
+    config and cluster."""
+    scen = ServingWorkload(
+        n_requests=160, rate_rps=2000.0,
+        prompt=LengthDist("lognormal", median=64.0, sigma=0.5, cap=256),
+        output=LengthDist("fixed", value=24), seed=11, slo=SLO(ttft_s=0.05, tpot_ms=2.0))
+    base = SimSpec(XLSTM, cluster=Cluster("tpu_v5e", chips=8),
+                   workload=DecodeWorkload(seq_len=512))
+    res = sweep(SweepSpace(base, {"tp": (1, 2), "pp": (1,), "batch": (8, 32)}),
+                sim=tpu_sim, objective="goodput", scenario=scen)
+    assert res.evaluated and all(r.serving is not None for r in res.evaluated)
+    by_step = res.ranked("step_time")
+    by_goodput = res.ranked("goodput")
+    assert [r.cand.key() for r in by_step] != [r.cand.key() for r in by_goodput]
+    assert by_goodput[0].goodput_rps > by_step[0].goodput_rps
+    assert by_goodput[0].cand.global_batch > by_step[0].cand.global_batch
+
+
+def test_xlstm_step_time_objective_requires_no_serving(tpu_sim):
+    base = SimSpec(XLSTM, cluster=Cluster("tpu_v5e", chips=4),
+                   workload=DecodeWorkload(seq_len=512))
+    space = SweepSpace(base, {"tp": (1, 2), "pp": (1,), "batch": (8,)})
+    res = sweep(space, sim=tpu_sim)
+    assert res.ranked("step_time")
+    with pytest.raises(ValueError):
+        res.ranked("goodput")
+    with pytest.raises(ValueError):
+        sweep(space, sim=tpu_sim, objective="nonsense")

@@ -26,6 +26,7 @@ from repro.configs import get_config as r_config
 from repro.core import ParallelConfig as RPar, Simulator as RSim
 from repro.core.backend import profiling as r_prof
 from repro.core.backend.hardware import HARDWARE as R_HW
+from repro.core import model_ingest as r_ingest
 from repro.core.ir import OpNode as ROp
 from repro.models.params import param_logical_axes
 from repro_torch.api import (
@@ -52,6 +53,39 @@ MEMORY_TOL = 0.03
 # measured bwd -36.8 / -48.5 %, step -22.4 / -32.9 %, memory -8.2 / -8.0 % at
 # ep 1 / ep 8.  The forward stays within ``STEP_TOL``.
 MOE_TRAIN_TOL = {"bwd": 0.55, "step": 0.35, "memory": 0.10}
+# xlstm-125m's mLSTM chunk leads with B*H in the port (one batch dim for
+# every product) where the reference keeps (B, chunk, H): the reference
+# transposes two of the chunk body's outputs back to its layout and its
+# float32 inputs, the port one product's output and its bf16 inputs inside
+# their cast (tests/test_torch_ingest.py).  Its transpose time is then below
+# the reference's, never above: measured -22.8 % in prefill and -37.8 % in
+# train, equal in decode (the sLSTM's transposes and the head's are the
+# reference's).
+LAYOUT_TRANSPOSE_TOL = {"xlstm-125m": 0.45}
+# xlstm-125m's train memory: ``jax.nn.silu`` is a ``jit`` call, which the
+# reference's tracer keeps as one node, and in the joint graph that node
+# returns silu's residuals beside its output (151 MB for the mLSTM's conv
+# branch and 75 MB for its z gate, live at the block's peak), which the
+# port's ``silu`` does not save.  The port's activation peak is then below
+# the reference's, never above: measured total -5.5 %.
+SILU_TRAIN_MEMORY_TOL = {"xlstm-125m": 0.08}
+# xlstm-125m's mLSTM chunk body: the products JAX emits for elementwise work,
+# all-batch (N, 1, 1), are multiplies in the port (tests/test_torch_ingest.py,
+# ``ALL_BATCH``), so its matmul time is the reference's less theirs.
+ALL_BATCH_ARCHS = ("xlstm-125m",)
+
+
+def _matmul_share_without_all_batch(arch, mode) -> float:
+    """The reference's matmul time over its forward graphs at this mode's
+    shape, without its all-batch products, over all of it."""
+    from repro.core.backend.analytical import AnalyticalEngine as RAnalytical
+    B, S = WORKLOADS[mode][2]["global_batch"], WORKLOADS[mode][2]["seq_len"]
+    mg = r_ingest.block_graphs(r_config(arch), B, 1 if mode == "decode" else S, mode,
+                               cache_len=S if mode == "decode" else 0)
+    eng = RAnalytical(R_HW["h100_sxm"])
+    us = [(eng.latency_us(n) * n.repeat * b.repeat, tuple(n.attrs["mm_dims"][1:]) == (1, 1))
+          for b in mg.all_blocks() for n in b.fwd if n.kind == "matmul"]
+    return sum(u for u, ab in us if not ab) / sum(u for u, _ in us)
 WORKLOADS = {"train": (RTrain, TrainWorkload, dict(global_batch=8, seq_len=2048)),
              "prefill": (RPrefill, PrefillWorkload, dict(global_batch=1, seq_len=512)),
              "decode": (RDecode, DecodeWorkload, dict(global_batch=8, seq_len=2048))}
@@ -101,11 +135,20 @@ def check_report(arch, mode, r, t):
     if mode == "train":
         assert t.breakdown_us["optimizer"] == r.breakdown_us["optimizer"]
     for kind in ("matmul", "attention", "transpose", "all_to_all"):
+        if kind == "transpose" and arch in LAYOUT_TRANSPOSE_TOL:
+            _below_by_at_most(t.kind_us[kind], r.kind_us[kind], LAYOUT_TRANSPOSE_TOL[arch])
+            continue
+        if kind == "matmul" and arch in ALL_BATCH_ARCHS:
+            assert t.kind_us[kind] == pytest.approx(
+                r.kind_us[kind] * _matmul_share_without_all_batch(arch, mode), rel=1e-12)
+            continue
         # the same prices summed in another node order
         assert t.kind_us.get(kind, 0.0) == pytest.approx(r.kind_us.get(kind, 0.0),
                                                          rel=1e-12), kind
     if moe_train:
         _below_by_at_most(t.memory.total, r.memory.total, MOE_TRAIN_TOL["memory"])
+    elif mode == "train" and arch in SILU_TRAIN_MEMORY_TOL:
+        _below_by_at_most(t.memory.total, r.memory.total, SILU_TRAIN_MEMORY_TOL[arch])
     else:
         assert t.memory.total == pytest.approx(r.memory.total, rel=MEMORY_TOL)
     for k in ("weights", "grads", "opt_state", "kv_cache"):

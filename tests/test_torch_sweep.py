@@ -27,8 +27,12 @@ Parity is held in two layers:
   one sequence a replica); and every pair of candidates more than
   ``ORDER_GAP`` = 30 % apart in the reference is ordered the same way.
 
-The reference's own twins use ``xlstm-125m``, which the port lacks; the cases
-that price for real use the dense phi4-mini-3.8b or qwen2.5-32b.
+The reference's own twins use ``xlstm-125m``.  The cases that price for real
+use the dense phi4-mini-3.8b or qwen2.5-32b (they came before the port had
+xLSTM); the ``test_xlstm_*`` cases run the reference's own xlstm-125m space on
+``tpu_v5e`` (serial against pooled, memory pruning, batch extrapolation) with
+its assertions, and hold each candidate to the reference's within ``STEP_TOL``
+and ``MEM_TOL``.
 """
 import dataclasses
 import functools
@@ -594,3 +598,100 @@ def test_moe_sweep_derives_ep_as_the_reference():
     assert "all_to_all" not in by["port"][1].kind_us and by["port"][8].kind_us["all_to_all"] > 0
     explicit = SweepSpace(pkg_spec("port", **kw), {"tp": (2,), "ep": (1,)})
     assert [p.parallel.ep for p in explicit.points()] == [1]
+
+
+# ---------------- the reference's own config: xlstm-125m on tpu_v5e ----------------
+
+XLSTM = get_config("xlstm-125m")
+
+
+def _xspace(A=TA, memory_limit=16e9):
+    """The reference's ``_space`` (tests/test_sweep_parallel.py): xlstm-125m
+    decode on 16 chips of ``tpu_v5e``, tp x pp x batch."""
+    cfg = XLSTM if A is TA else r_config("xlstm-125m")
+    base = A.SimSpec(cfg, cluster=A.Cluster("tpu_v5e", chips=16, memory_limit=memory_limit),
+                     workload=A.DecodeWorkload(seq_len=1024))
+    return A.SweepSpace(base, {"tp": (1, 2, 4), "pp": (1, 2), "batch": (8, 16, 32)})
+
+
+def test_xlstm_serial_and_pooled_sweeps_are_bit_identical():
+    serial = sweep(_xspace())
+    parallel = sweep(_xspace(), workers=2)
+    key = lambda res: ([plain(r.report) for r in res.evaluated],
+                       [(r.cand.key(), r.reason) for r in res.pruned],
+                       [r.cand.key() for r in res.ranked()],
+                       [r.cand.key() for r in res.pareto()])
+    assert key(serial) == key(parallel)
+    assert parallel.workers == 2 and serial.workers == 1
+    for layer in ("ingest", "block_times", "pricing", "collectives"):
+        assert layer in parallel.cache_stats
+    assert len(parallel.evaluated) + len(parallel.pruned) == \
+        len(serial.evaluated) + len(serial.pruned)
+
+
+def test_xlstm_parallel_sweep_memory_pruning_matches():
+    serial = sweep(_xspace(memory_limit=2e9))
+    parallel = sweep(_xspace(memory_limit=2e9), workers=2)
+    assert [(p.cand.key(), p.reason) for p in serial.pruned] == \
+        [(p.cand.key(), p.reason) for p in parallel.pruned]
+
+
+def test_xlstm_sweep_within_tolerances_of_the_reference():
+    """Each package's own analytical engine on the reference's space: the
+    same candidates evaluated and pruned (18, none pruned), memory within
+    ``MEM_TOL`` and step time within ``STEP_TOL`` (measured memory +0.00 to
+    +0.03 %, step -8.8 to -13.3 %: the port's decode block is below the
+    reference's, ``tests/test_torch_simulator.py`` has its parts)."""
+    ref = RA.sweep(_xspace(RA), sim=RSim("tpu_v5e"))
+    port = sweep(_xspace(), sim=Simulator("tpu_v5e"))
+    by = lambda res: {r.spec.json_hash(): r for r in res.evaluated}
+    rr, pp = by(ref), by(port)
+    assert set(pp) == set(rr) and rr
+    assert [(r.spec.json_hash(), r.reason) for r in port.pruned] == \
+        [(r.spec.json_hash(), r.reason) for r in ref.pruned]
+    for h, r in rr.items():
+        a, b = r.report, pp[h].report
+        assert b.memory.total == pytest.approx(a.memory.total, rel=MEM_TOL), r.cand.key()
+        assert b.step_time_us == pytest.approx(a.step_time_us, rel=STEP_TOL), r.cand.key()
+
+
+def test_xlstm_ingest_extrapolation_bit_exact_and_self_verifying():
+    from repro.core import model_ingest as r_ingest
+    from repro_torch.core import model_ingest as t_ingest
+
+    def sig(mg):
+        return [(bg.kind, bg.repeat,
+                 [(n.name, n.kind, n.dtype, n.flops, n.bytes_in, n.bytes_out,
+                   tuple(n.out_shape), tuple(sorted(n.attrs.items())), tuple(n.deps), n.repeat)
+                  for g in (bg.fwd, bg.joint) if g is not None for n in g.toposort()])
+                for bg in mg.all_blocks()]
+
+    stats = {}
+    for name, mod, cfg in (("ref", r_ingest, r_config("xlstm-125m")), ("port", t_ingest, XLSTM)):
+        mod.ingest_extrapolation_clear()
+        try:
+            for B in (1, 2, 4, 8, 16, 32, 64):
+                a = mod.ingest_graphs(cfg, B, 1, "decode", cache_len=512)
+                if name == "port":
+                    assert sig(a) == sig(mod.block_graphs(cfg, B, 1, "decode", cache_len=512)), B
+            stats[name] = mod.ingest_extrapolation_stats()
+        finally:
+            mod.ingest_extrapolation_clear()
+    assert stats["port"] == stats["ref"]
+    assert stats["port"]["extrapolated"] >= 2 and stats["port"]["traced"] <= 5
+
+
+def test_xlstm_explorer_pruning_and_pareto():
+    """``tests/test_sim_core.py``'s case on its own config: xlstm-125m decode
+    on 16 chips of ``tpu_v5e``."""
+    base = SimSpec(XLSTM, cluster=Cluster("tpu_v5e", chips=16),
+                   workload=DecodeWorkload(seq_len=2048))
+    res = sweep(SweepSpace(base, {"tp": (1, 2, 4), "pp": (1,), "batch": (8, 16, 100)}),
+                sim=Simulator("tpu_v5e", engine="analytical"))
+    assert res.pruned, "divisibility rule should prune batch=100 w/ dp"
+    front = res.pareto()
+    xs = [1e6 / r.report.step_time_us for r in front]
+    assert xs == sorted(xs, reverse=True) or len(front) == 1
+    best = res.best_under_slo(tpot_ms=1e9)
+    assert best is not None
+    assert best.tps_per_chip == max(r.tps_per_chip for r in res.evaluated)

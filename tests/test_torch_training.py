@@ -186,7 +186,7 @@ STEP_CASES = [
     ("qwen2.5-32b", "adamw", 1, "int8"), ("qwen2.5-32b", "adafactor", 2, "none"),
     ("yi-34b", "adamw", 2, "none"), ("yi-34b", "adafactor", 1, "int8"),
     ("olmoe-1b-7b", "adamw", 1, "none"), ("deepseek-v3-671b", "adamw", 1, "none"),
-    ("recurrentgemma-9b", "adamw", 1, "none"),
+    ("recurrentgemma-9b", "adamw", 1, "none"), ("xlstm-125m", "adamw", 1, "none"),
 ]
 
 
