@@ -137,6 +137,27 @@ Phases, each printing one JSON object on a line of its own:
            timed AdamW step of the launcher (B1 S512, remat "block": K3 and
            its backward at D 768, the AdamW kernel) against the simulator's
            train prediction and its memory
+  whisper  the Whisper family (whisper-large-v3 at full width and depth: 32
+           encoder and 32 decoder layers, d_model 1280, 20 heads of 64, vocab
+           51,866), random bf16 weights from the seed, frame embeddings drawn
+           from the seed times 0.1, a line a part: (1) transcribe: the
+           reference's engine takes no frame embeddings, so Model.prefill and
+           decode_step are driven as a transcription, B8 requests, a 4-token
+           prompt, a ring of 448, 124 greedy new tokens, then one B1 prefill
+           of a 224-token prompt (tokens/s, time to the first token, peak
+           memory, launches: K1 2L + Le a prefill, K2 2L a decode step, no K3;
+           one profiled decode step, no host sync in it; the encoder alone);
+           (2) cross_decode: B8 H20 Sq1 Sk1500 D64 through K2 with every row
+           valid (the path's route), K1 with one query row and SDPA; (3)
+           parity at full depth, kernels against plain versions, the
+           first-token logits within 0.1 and the first tokens equal or
+           near-tied (in float32, and bf16 against a float64 rounding of the
+           plain attention, where bf16 alone moves them more); (4) simulate as
+           moe's at prefill B1 S224 and decode B8 at cache 448, the encoder's
+           price apart against Model.encode; (5) one timed AdamW step of the
+           launcher at B8 S448 with the 1500-frame encoder, remat "block" (K1
+           forward and backward at the encoder's, the decoder's and the cross
+           attention's shapes) against the simulator's train prediction
   mla      the MLA family (deepseek-v3-671b at full width: 128 heads, q/k
            head dim 192 and v head dim 128 in the prefill's K1, 256 experts,
            top 8, one shared expert), depth cut to 2 layers (what one card
@@ -160,8 +181,8 @@ Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
 (the train phase for a backward kernel), in the train phase, by the
 profiling engine in the simulate, serve_sim and sweep phases and in the moe,
-griffin, xlstm and mla phases' parts, its timings at olmoe's, recurrentgemma's,
-xlstm's and deepseek's shapes where it has them, error, time,
+griffin, xlstm, whisper and mla phases' parts, its timings at olmoe's,
+recurrentgemma's, xlstm's, whisper's and deepseek's shapes where it has them, error, time,
 device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
 computes the same function; then the
@@ -264,8 +285,12 @@ def device_ms(fn, iters: int = 10, cold: bool = True) -> float:
     return sum(device_ms_by_kernel(fn, iters, cold).values())
 
 
-def device_ms_by_kernel(fn, iters: int = 10, cold: bool = True) -> dict:
-    """:func:`device_ms` split by kernel name: {name: ms a call}."""
+def device_ms_by_kernel(fn, iters: int = 10, cold: bool = True, tries: int = 3) -> dict:
+    """:func:`device_ms` split by kernel name: {name: ms a call}.  A profile
+    that holds no kernel of the call (the tracer now and then delivers none)
+    is taken again, up to ``tries`` times; after that the call's time from
+    CUDA events stands under the name :data:`EVENTS_KEY`, so no call reads
+    0 ms."""
     global _flush_names, _flush_i64
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -274,26 +299,54 @@ def device_ms_by_kernel(fn, iters: int = 10, cold: bool = True) -> dict:
     flush = _flush_i64
     on_dev = torch.autograd.DeviceType.CUDA
     if _flush_names is None:
-        # work still queued would run inside this window and lend its kernels'
-        # names to the flush's, which are left out of every later sum
-        torch.cuda.synchronize()
-        with profile(activities=acts) as prof:
-            flush.sum()
+        # the flush's kernels are those of two sessions that ran it alone: a
+        # record of earlier work that the tracer delivers late lands in one
+        # session at most, and would otherwise leave its kernel out of every
+        # later sum
+        names = []
+        for _ in range(2):
             torch.cuda.synchronize()
-        _flush_names = {e.key for e in prof.key_averages() if e.device_type == on_dev}
+            with profile(activities=acts) as prof:
+                flush.sum()
+                torch.cuda.synchronize()
+            names.append({e.key for e in prof.key_averages() if e.device_type == on_dev})
+        _flush_names = names[0] & names[1]
     fn()
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        for _ in range(iters):
-            if cold:
-                flush.sum()
-            fn()
-        torch.cuda.synchronize()
-    # A kernel's mean time times its launches a call: the count is rounded, so
-    # an event the tracer drops now and then does not pull the sum down.
-    return {e.key: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3
-            for e in prof.key_averages()
-            if e.device_type == on_dev and e.key not in _flush_names and e.count}
+    for _ in range(tries):
+        with profile(activities=acts) as prof:
+            for _ in range(iters):
+                if cold:
+                    flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        # A kernel's mean time times its launches a call: the count is rounded,
+        # so an event the tracer drops now and then does not pull the sum down.
+        out = {e.key: e.self_device_time_total / e.count * max(1, round(e.count / iters)) / 1e3
+               for e in prof.key_averages()
+               if e.device_type == on_dev and e.key not in _flush_names and e.count}
+        if sum(out.values()) > 0:
+            return out
+    return {EVENTS_KEY: events_ms(fn, iters, cold)}
+
+
+EVENTS_KEY = "(cuda events: the profiler delivered no kernel of the call)"
+
+
+def events_ms(fn, iters: int, cold: bool) -> float:
+    """Median ms of one call from CUDA events, after the same int64 read as
+    :func:`device_ms_by_kernel` when ``cold``."""
+    times = []
+    for _ in range(iters):
+        if cold:
+            _flush_i64.sum()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -946,7 +999,8 @@ def check_plans(recs_plans: dict) -> None:
         if mine != theirs:
             fail(f"flash_attention_bwd plan D={D}: wrapper {mine}, kernel {theirs}")
     for shape in ((1, 24, 8, 2048, 2048, 128), (2, 40, 8, 333, 333, 128), (1, 8, 8, 200, 200, 128),
-                  (1, 16, 16, 300, 300, 256), (2, 8, 1, 192, 192, 64), (1, 4, 2, 300, 100, 64)):
+                  (1, 16, 16, 300, 300, 256), (2, 8, 1, 192, 192, 64), (1, 4, 2, 300, 100, 64),
+                  (8, 20, 20, 448, 1500, 64), (8, 20, 20, 1500, 1500, 64)):     # whisper
         for dtype in (torch.bfloat16, torch.float32):
             for aligned in (True, False):
                 mine = fa.bwd_workspace_bytes(*shape, dtype, aligned)
@@ -1032,6 +1086,16 @@ def phase_kernels():
             main["griffin_flash_attention"] = recs[-1]
         recs.append(check_flash(rng, B=2, H=16, Hkv=1, Sq=300, Sk=300, D=256, causal=True,
                                 window=64, dtype=dtype, timed=False, bshd=True))
+    # ... at whisper-large-v3's (20 heads, G = 1, D 64, not causal): the encoder's self
+    # attention over its 1500 frames, and the cross attention of the B1 context prefill
+    # (Sq 224 against the 1500 encoder rows)
+    for dtype in (bf16, f32):
+        for name, Sq in (("whisper_enc_flash_attention", 1500),
+                         ("whisper_cross_flash_attention", 224)):
+            recs.append(check_flash(rng, B=1, H=20, Hkv=20, Sq=Sq, Sk=1500, D=64, causal=False,
+                                    window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+            if dtype is bf16:
+                main[name] = recs[-1]
     # ... and at edge shapes
     for dtype in (bf16, f32):
         edge = [dict(B=2, H=24, Hkv=8, Sq=777, Sk=777, D=128, causal=True, window=0, bshd=True),  # batch, ragged
@@ -1071,6 +1135,19 @@ def phase_kernels():
                                  dtype=dtype, timed=False, bthd=True))
     recs.append(check_decode(rng, B=8, H=16, Hkv=1, T=2048, D=256, valid=[2048] * 8, dtype=bf16,
                              timed=True, bthd=True))
+    # ... at whisper-large-v3's (G = 1 at D 64): the self attention's ring of 448 with
+    # mixed valid lengths, and the cross attention over the encoder's 1500 rows, every
+    # row valid (the kernel's wrapper holds that valid length) ...
+    for dtype in (bf16, f32):
+        recs.append(check_decode(rng, B=8, H=20, Hkv=20, T=448, D=64,
+                                 valid=[1, 448, 17, 200, 127, 447, 64, 300], dtype=dtype,
+                                 timed=dtype is bf16, bthd=True))
+        if dtype is bf16:
+            main["whisper_self_decode_attention"] = recs[-1]
+        recs.append(check_decode(rng, B=8, H=20, Hkv=20, T=1500, D=64, valid=None, dtype=dtype,
+                                 timed=dtype is bf16, bthd=True))
+        if dtype is bf16:
+            main["whisper_cross_decode_attention"] = recs[-1]
     # ... at qwen2.5-32b's group (G=5) and with a long cache (many splits) ...
     for dtype in (bf16, f32):
         recs.append(check_decode(rng, B=4, H=40, Hkv=8, T=1500, D=128, valid=None, dtype=dtype,
@@ -1192,6 +1269,16 @@ def phase_kernels():
         # olmoe-1b-7b's train_parity shape (B2 S512, G=1)
         recs.append(check_flash_bwd(rng, B=2, H=16, Hkv=16, Sq=512, Sk=512, D=128, causal=True,
                                     window=0, dtype=dtype, timed=False, bshd=True))
+        # whisper-large-v3's train shapes (B8, 20 heads, D 64, not causal): the decoder's
+        # cross attention (Sq 448 against the encoder's 1500 rows) and the encoder's self
+        # attention (1500 x 1500)
+        for name, Sq in (("whisper_cross_flash_attention_bwd", 448),
+                         ("whisper_enc_flash_attention_bwd", 1500)):
+            recs.append(check_flash_bwd(rng, B=8, H=20, Hkv=20, Sq=Sq, Sk=1500, D=64,
+                                        causal=False, window=0, dtype=dtype,
+                                        timed=dtype is bf16, bshd=True))
+            if dtype is bf16:
+                main[name] = recs[-1]
 
     # --- K3 backward at the train path's rows (B1 S2048, D 3072: add_rmsnorm in 63 of a
     # step's 65 norms) and the serving path's, with and without the residual, the sum's
@@ -1629,6 +1716,30 @@ TRAIN_BATCH, TRAIN_SEQ = 1, 2048
 TRAIN_STEPS = 3          # timed steps, after one warm-up step and before one profiled step
 
 
+@contextlib.contextmanager
+def k1_calls_by_shape():
+    """While open, K1's forward and backward calls through the autograd glue
+    (``kernels/ops.py``) are counted by ``"fwd|bwd Sq<q> Sk<k> causal<c>"``
+    (into the dict it yields); the calls themselves are unchanged."""
+    from repro_torch.kernels import ops
+    counts: dict = {}
+    saved = ops._flash_attention, ops._flash_attention_bwd
+
+    def counted(way, fn):
+        def call(q, k, *a, causal=True, **kw):
+            key = f"{way} Sq{q.shape[2]} Sk{k.shape[2]} causal{int(causal)}"
+            counts[key] = counts.get(key, 0) + 1
+            return fn(q, k, *a, causal=causal, **kw)
+        return call
+
+    ops._flash_attention = counted("fwd", saved[0])
+    ops._flash_attention_bwd = counted("bwd", saved[1])
+    try:
+        yield counts
+    finally:
+        ops._flash_attention, ops._flash_attention_bwd = saved
+
+
 def train_spec(cfg, *, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH):
     from repro_torch.api import Cluster, SimSpec, TrainWorkload
     return SimSpec(cfg, cluster=Cluster("h100_sxm", chips=1),
@@ -1636,35 +1747,40 @@ def train_spec(cfg, *, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH):
                                           optimizer="adamw"))
 
 
-def train_shape(cfg, seq: int = TRAIN_SEQ) -> tuple[int, int, float]:
-    """(batch, sequence, predicted bytes): B1 S``seq`` if the port's
-    simulator says its step fits the card's memory, else the sequence halved
-    until it does (depth and width are never cut)."""
+def train_shape(cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
+                cut: str = "seq") -> tuple[int, int, float]:
+    """(batch, sequence, predicted bytes): B``batch`` S``seq`` if the port's
+    simulator says its step fits the card's memory, else the sequence (or,
+    ``cut="batch"``, the batch) halved until it does (depth and width are
+    never cut)."""
     from repro_torch.core import Simulator
     total = torch.cuda.get_device_properties(0).total_memory
     while True:
-        need = Simulator("h100_sxm").run(train_spec(cfg, seq=seq)).memory.total
-        if need <= total or seq <= 128:
-            return TRAIN_BATCH, seq, need
-        seq //= 2
+        need = Simulator("h100_sxm").run(train_spec(cfg, seq=seq, batch=batch)).memory.total
+        if need <= total or (seq <= 128 if cut == "seq" else batch <= 1):
+            return batch, seq, need
+        if cut == "seq":
+            seq //= 2
+        else:
+            batch //= 2
 
 
 def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN_STEPS,
-                perturb=None, seq: int = TRAIN_SEQ):
+                perturb=None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH, cut: str = "seq"):
     """phi4-mini-3.8b (or ``arch``) at full width and depth through
     repro_torch.launch.train's pieces (its Trainer: config, synthetic data,
     AdamW, remat "block", the train step): one warm-up step, ``timed_steps``
     steps timed with CUDA events and counted by the kernel wrappers, one step
     under the profiler; loss and grad norm finite at every step, the step
     counter advancing by one.  ``perturb(params)``: changes the initial
-    parameters in place (leaves the reference's init leaves at 0); ``seq``:
-    the sequence to start from."""
+    parameters in place (leaves the reference's init leaves at 0); ``seq``
+    and ``batch``: the shape to start from, ``cut`` what ``train_shape``
+    halves if it does not fit."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.launch import train as T
-    from repro_torch.models.params import layer_kinds
     cfg = get_config(arch)
-    B, S, predicted_bytes = train_shape(cfg, seq)
+    B, S, predicted_bytes = train_shape(cfg, seq, batch, cut)
     trainer = T.Trainer(T.parse_args(["--arch", arch, "--batch", str(B), "--seq", str(S),
                                       "--remat", "block", "--optimizer", "adamw",
                                       "--steps", str(timed_steps + 2), "--ckpt-every", "0",
@@ -1696,13 +1812,15 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
         warm_s = time.perf_counter() - t0
         K.reset_launch_counts()
         wall_ms = []
-        for _ in range(timed_steps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            state = one(state)
-            end.record()
-            end.synchronize()
-            wall_ms.append(start.elapsed_time(end))
+        with k1_calls_by_shape() as k1_shapes:
+            for _ in range(timed_steps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state = one(state)
+                end.record()
+                end.synchronize()
+                wall_ms.append(start.elapsed_time(end))
         counts = K.launch_counts()
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1727,15 +1845,16 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
         pipe.close()
     per_step = {k: v / timed_steps for k, v in counts.items()}
     L = cfg.num_layers
-    La = sum(kind in ATTENTION_KINDS for kind in layer_kinds(cfg))   # attention layers
-    # what one step of the path launches: K1 forward twice an attention layer
+    La = attention_calls(cfg)           # K1 calls of a forward
+    # what one step of the path launches: K1 forward twice an attention call
     # (the forward and its recomputation under remat "block"), its backward
     # once; K3 forward 2L + 1 (two norms a block, the final norm outside the
-    # checkpoints) plus 2L recomputed, its backward 2L + 1; the AdamW update
-    # once a parameter tensor
+    # checkpoints) plus 2L recomputed, its backward 2L + 1 (none where the
+    # norm is LayerNorm, plain torch); the AdamW update once a parameter tensor
+    rms = cfg.norm != "layernorm"
     want = {"flash_attention": 2 * La, "flash_attention_bwd": La,
-            "rmsnorm": 4 * L + 1, "rmsnorm_bwd": 2 * L + 1, "decode_attention": 0,
-            "adamw": n_leaves}
+            "rmsnorm": (4 * L + 1) * rms, "rmsnorm_bwd": (2 * L + 1) * rms,
+            "decode_attention": 0, "adamw": n_leaves}
     rec = {"phase": phase, "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
            "params": cfg.param_count(), "batch": B, "seq": S, "remat": "block",
            "optimizer": "adamw", "predicted_bytes": predicted_bytes,
@@ -1747,6 +1866,7 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
            "k1_bwd_kernels_ms": k1_bwd,
            "optimizer_ms": optimizer_ms, "optimizer_device_ms": optimizer_device_ms,
            "launches": counts, "launches_per_step": per_step, "launches_per_step_want": want,
+           "k1_launches_by_shape": {k: v / timed_steps for k, v in sorted(k1_shapes.items())},
            "gpu": gpu_name_and_power()}
     emit(rec)
     if any(per_step[k] != v for k, v in want.items()):
@@ -2127,14 +2247,19 @@ def measure_step(fn, n: int, experts: int | None = None, annotate=None) -> dict:
     end.record()
     end.synchronize()
     wall_us = start.elapsed_time(end) * 1e3 / n
-    with (op_annotations(*annotate) if annotate else contextlib.nullcontext()), \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                    record_shapes=experts is not None) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    avgs = prof.key_averages(group_by_input_shape=experts is not None)
-    groups = {k: v / n for k, v in device_groups(avgs).items()}
+    for _ in range(3):      # a profile that the tracer delivered no kernel of is taken again
+        with (op_annotations(*annotate) if annotate else contextlib.nullcontext()), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                        record_shapes=experts is not None) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages(group_by_input_shape=experts is not None)
+        groups = {k: v / n for k, v in device_groups(avgs).items()}
+        if sum(groups.values()) > 0:
+            break
+    else:
+        raise RuntimeError("the profiler delivered no kernel of the step in three sessions")
     launches = sum(e.count for e in avgs if is_kernel(e))
     rec = {"wall_us": wall_us, "device_busy_us": sum(groups.values()), "device_us": groups,
            "device_launches": launches // n,
@@ -2769,6 +2894,15 @@ MOE_ARCH = "olmoe-1b-7b"
 ATTENTION_KINDS = ("attn_ffn", "moe_attn_ffn", "mla_moe", "griffin_attn")
 
 
+def attention_calls(cfg) -> int:
+    """K1 calls of one full-sequence forward: one an attention layer, two a
+    Whisper decoder layer (self and cross attention), one an encoder layer."""
+    from repro_torch.models.params import layer_kinds
+    kinds = layer_kinds(cfg)
+    return (sum(kind in ATTENTION_KINDS for kind in kinds) + 2 * kinds.count("xattn")
+            + cfg.encoder_layers)
+
+
 def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
     """A model of a family with its own phase (olmoe at full width and depth,
     or ``params`` of ``cfg`` made by the caller): ServingEngine(slots=8,
@@ -2948,12 +3082,15 @@ def moe_parity(cfg, params=None) -> dict:
 
 def moe_simulate(cfg, params=None, name: str = "moe",
                  attention_kernels=(("prefill", "flash_attention"), ("decode", "decode_attention")),
-                 prefill_calls: int = 5) -> dict:
+                 prefill_calls: int = 5, prefill_seq: int = 512, decode_cache: int = 2048,
+                 frames=None) -> dict:
     """Simulator.run for olmoe (or ``cfg``, whose ``params`` the caller made)
-    on h100_sxm, prefill B1 S512 and decode B8 at cache 2048, analytical and
-    profiling (a fresh DB under ``build/<name>``; each mode's attention kernel
-    of ``attention_kernels`` counted), then the port's own Model.prefill /
-    decode_step at those shapes; the signed errors, also by op kind: the
+    on h100_sxm, prefill B1 S``prefill_seq`` and decode B8 at cache
+    ``decode_cache``, analytical and profiling (a fresh DB under
+    ``build/<name>``; each mode's attention kernel of ``attention_kernels``
+    counted), then the port's own Model.prefill / decode_step at those shapes
+    (``frames``: an encoder-decoder's frame embeddings for the prefill's one
+    request); the signed errors, also by op kind: the
     experts' products (the matmul nodes tagged ``moe_expert``) against the
     device time of the ``aten::bmm`` calls over the experts, the other
     products against the rest of cuBLAS, attention against K1 + K2, and the
@@ -2970,9 +3107,9 @@ def moe_simulate(cfg, params=None, name: str = "moe",
     db = P.ProfileDB(db_path)
     cluster = Cluster("h100_sxm", chips=1)
     specs = {"prefill": SimSpec(cfg, cluster=cluster,
-                                workload=PrefillWorkload(global_batch=1, seq_len=512)),
+                                workload=PrefillWorkload(global_batch=1, seq_len=prefill_seq)),
              "decode": SimSpec(cfg, cluster=cluster,
-                               workload=DecodeWorkload(global_batch=8, seq_len=2048))}
+                               workload=DecodeWorkload(global_batch=8, seq_len=decode_cache))}
     sims = {"analytical": Simulator("h100_sxm"),
             "profiling": Simulator("h100_sxm", engine="profiling", db=db, measure_on_miss=True)}
     out = {}
@@ -3023,11 +3160,14 @@ def moe_simulate(cfg, params=None, name: str = "moe",
     if params is None:
         params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
     rng = np.random.default_rng(SEED)
-    prompt = {"tokens": rng.integers(0, cfg.vocab_size, (1, 512)).tolist()}
-    cache = zero_cache(cfg, 8, 2048, model.device)
-    cache["pos"].fill_(2047)            # every slot holds 2048 valid rows
+    prompt = {"tokens": rng.integers(0, cfg.vocab_size, (1, prefill_seq)).tolist()}
+    if frames is not None:
+        prompt["frame_embeds"] = frames
+    cache = zero_cache(cfg, 8, decode_cache, model.device)
+    cache["pos"].fill_(decode_cache - 1)      # every slot holds a full ring of valid rows
     step = {"tokens": rng.integers(0, cfg.vocab_size, (8, 1)).tolist()}
-    runs = {"prefill": (lambda: model.prefill(params, prompt, cache_len=512), prefill_calls),
+    runs = {"prefill": (lambda: model.prefill(params, prompt, cache_len=prefill_seq),
+                        prefill_calls),
             "decode": (lambda: model.decode_step(params, cache, step), 10)}
     recs = []
     for mode, (fn, n) in runs.items():
@@ -3290,6 +3430,30 @@ def xlstm_parity(cfg, params) -> dict:
     return rec
 
 
+def train_versus(cfg, train: dict, phase: str) -> dict:
+    """The analytical simulator's train step at the train part's shape (B, S,
+    remat "block", AdamW) against its measured step (wall and device busy)
+    and its peak memory: one JSON line, returned."""
+    from repro_torch.core import Simulator
+    pred = Simulator("h100_sxm").run(train_spec(cfg, seq=train["seq"], batch=train["batch"]))
+    wall_us, busy_us = train["wall_ms_median"] * 1e3, train["device_busy_ms"] * 1e3
+    versus = {"part": "train_vs_simulate", "arch": cfg.name, "batch": train["batch"],
+              "seq": train["seq"], "analytical_us": pred.step_time_us,
+              "analytical_breakdown_us": pred.breakdown_us,
+              "analytical_t_fwd_us": pred.detail["t_fwd"],
+              "measured_wall_us": wall_us, "measured_device_busy_us": busy_us,
+              "signed_error": {"analytical_vs_wall": pred.step_time_us / wall_us - 1.0,
+                               "analytical_vs_device_busy": pred.step_time_us / busy_us - 1.0},
+              "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
+              "memory": {"analytical_bytes": pred.memory.total,
+                         "measured_peak_bytes": train["peak_bytes"],
+                         "signed_error": pred.memory.total / train["peak_bytes"] - 1.0}}
+    emit({"phase": phase, **versus})
+    if not (math.isfinite(pred.step_time_us) and pred.step_time_us > 0):
+        fail(f"{phase} train: a non-positive or non-finite predicted step time {versus}")
+    return versus
+
+
 def phase_xlstm() -> dict:
     """The xLSTM family on the card (xlstm-125m at full width and depth: 12
     layers, m, m, m, s three times, 4 heads of 192, chunk 256), random bf16
@@ -3305,7 +3469,6 @@ def phase_xlstm() -> dict:
     each part."""
     import gc
     from repro_torch.configs import get_config
-    from repro_torch.core import Simulator
     from repro_torch.models import Model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3335,21 +3498,7 @@ def phase_xlstm() -> dict:
     train = phase_train(XLSTM_ARCH, phase="xlstm_train", timed_steps=1,
                         perturb=lambda p: xlstm_draw(p, tgen), seq=XLSTM_TRAIN_SEQ)
     parts["train_s"] = time.perf_counter() - t0 - sum(parts.values())
-    pred = Simulator("h100_sxm").run(train_spec(cfg, seq=train["seq"], batch=train["batch"]))
-    wall_us, busy_us = train["wall_ms_median"] * 1e3, train["device_busy_ms"] * 1e3
-    versus = {"part": "train_vs_simulate", "arch": cfg.name, "batch": train["batch"],
-              "seq": train["seq"], "analytical_us": pred.step_time_us,
-              "analytical_breakdown_us": pred.breakdown_us,
-              "measured_wall_us": wall_us, "measured_device_busy_us": busy_us,
-              "signed_error": {"analytical_vs_wall": pred.step_time_us / wall_us - 1.0,
-                               "analytical_vs_device_busy": pred.step_time_us / busy_us - 1.0},
-              "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
-              "memory": {"analytical_bytes": pred.memory.total,
-                         "measured_peak_bytes": train["peak_bytes"],
-                         "signed_error": pred.memory.total / train["peak_bytes"] - 1.0}}
-    emit({"phase": "xlstm", **versus})
-    if not (math.isfinite(pred.step_time_us) and pred.step_time_us > 0):
-        fail(f"xlstm train: a non-positive or non-finite predicted step time {versus}")
+    train_versus(cfg, train, "xlstm")
     emit({"phase": "xlstm", "part": "done", "arch": cfg.name,
           "seconds": time.perf_counter() - t0, "parts_s": parts,
           "parity_layers": parity["layers"], "profile_db_entries": sim["profile_db_entries"],
@@ -3358,6 +3507,315 @@ def phase_xlstm() -> dict:
             "simulate": {k: sim["prefill"]["profiling_launches"][k]
                          + sim["decode"]["profiling_launches"][k] for k in serve["launches"]},
             "train": train["launches_per_step"], "serve_rec": serve}
+
+
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_B = 8            # requests, each with its own 30-second segment of frames
+WHISPER_PROMPT = 4       # the start-of-transcript prompt
+WHISPER_CACHE = 448      # the decoder's context
+WHISPER_NEW = 124        # greedy new tokens: 128 positions, about one segment's text
+WHISPER_CONTEXT = 224    # the previous segment's text, which Whisper conditions on (B1)
+WHISPER_TRAIN = (8, 448)  # (batch, sequence) of the train part; the encoder's 1500 frames
+
+
+def whisper_frames(cfg, B: int, seed: int) -> torch.Tensor:
+    """(B, 1500, d_model) float32 frame embeddings on the card: normal from
+    ``seed``, times 0.1, as ``tests/test_archs.py`` draws them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen, device="cuda") * 0.1
+
+
+def whisper_expected(cfg, decode_steps: int, prefills: int = 1) -> dict:
+    """The transcription's launches: K1 at every attention of a prefill (the
+    encoder's self attention, the decoder's self and cross attention: 2L +
+    Le), K2 at both of a decode step's (self against the ring, cross
+    against the encoder's rows: 2L), no K3 (LayerNorm is plain torch)."""
+    L, Le = cfg.num_layers, cfg.encoder_layers
+    return {"flash_attention": (2 * L + Le) * prefills, "decode_attention": 2 * L * decode_steps,
+            "rmsnorm": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "adamw": 0}
+
+
+def whisper_transcribe(cfg, model, params) -> dict:
+    """Model.prefill and decode_step driven as a transcription (the
+    reference's engine takes no frame embeddings, so neither does the
+    port's): B8 requests, each with its own frames, a 4-token prompt, a ring
+    of 448, 124 greedy new tokens; then one B1 prefill of a 224-token
+    prompt.  Tokens/s, time to the first token, peak memory, launches against
+    ``whisper_expected``, one profiled decode step at 8 rows by kernel
+    group, no host sync in a decode step, and the encoder alone timed."""
+    import warnings
+    from repro_torch import kernels as K
+    rng = np.random.default_rng(SEED)
+    B, V = WHISPER_B, cfg.vocab_size
+    prompt = torch.tensor(rng.integers(0, V, (B, WHISPER_PROMPT)), device="cuda")
+    fe = whisper_frames(cfg, B, SEED + 2)
+
+    def prefill():
+        return model.prefill(params, {"tokens": prompt, "frame_embeds": fe},
+                             cache_len=WHISPER_CACHE)
+
+    logits, cache = prefill()                # warm-up: the libraries and handles load
+    model.decode_step(params, cache, {"tokens": logits[:, -1].argmax(-1, keepdim=True)})
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    ttft_s = time.perf_counter() - t0
+    prefill_counts = K.launch_counts()
+    out, finite = [tok], [torch.isfinite(logits).all()]
+    for _ in range(WHISPER_NEW - 1):
+        logits, cache = model.decode_step(params, cache, {"tokens": tok})
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok)
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.cat(out, dim=1).cpu()
+    finite = bool(torch.stack(finite).all())
+    want = whisper_expected(cfg, WHISPER_NEW - 1)
+    # one decode step at the 8 rows under the profiler, and its host syncs
+    step = measure_step(lambda: model.decode_step(params, cache, {"tokens": tok}), 3)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.decode_step(params, cache, {"tokens": tok})
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:160] for w in caught if "called a synchronizing" in str(w.message)]
+    pos_after = int(cache["pos"][0])
+    del cache
+    # the previous segment's text, B1, and the encoder of one segment alone
+    ctx = {"tokens": torch.tensor(rng.integers(0, V, (1, WHISPER_CONTEXT)), device="cuda"),
+           "frame_embeds": fe[:1]}
+    K.reset_launch_counts()
+    model.prefill(params, ctx, cache_len=WHISPER_CACHE)
+    torch.cuda.synchronize()
+    ctx_counts = K.launch_counts()
+    ctx_step = measure_step(lambda: model.prefill(params, ctx, cache_len=WHISPER_CACHE), 2)
+    enc_step = measure_step(lambda: model.encode(params, fe[:1]), 2)
+    rec = {"part": "transcribe", "arch": cfg.name, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model, "vocab": V,
+           "batch": B, "prompt_tokens": WHISPER_PROMPT, "cache_len": WHISPER_CACHE,
+           "new_tokens": WHISPER_NEW, "decode_steps": WHISPER_NEW - 1, "seconds": seconds,
+           "tokens_per_s": B * WHISPER_NEW / seconds, "ttft_ms": ttft_s * 1e3,
+           "decode_ms_per_step": (seconds - ttft_s) * 1e3 / (WHISPER_NEW - 1),
+           "peak_bytes": peak, "logits_finite": finite, "first_tokens": tokens[:, 0].tolist(),
+           "launches": counts, "launches_expected": want, "prefill_launches": prefill_counts,
+           "decode_step": step, "decode_step_host_syncs": syncs, "pos_after": pos_after,
+           "context_prefill": {"batch": 1, "prompt_tokens": WHISPER_CONTEXT,
+                               "launches": ctx_counts, **ctx_step},
+           "encoder_b1": enc_step, "gpu": gpu_name_and_power()}
+    emit({"phase": "whisper", **rec})
+    if tokens.shape != (B, WHISPER_NEW) or not ((tokens >= 0) & (tokens < V)).all():
+        fail(f"whisper transcribe: tokens of shape {tuple(tokens.shape)} or outside the vocabulary")
+    if not finite:
+        fail("whisper transcribe: non-finite logits")
+    if counts != want or prefill_counts != whisper_expected(cfg, 0) \
+            or ctx_counts != whisper_expected(cfg, 0):
+        fail(f"whisper transcribe: launch counts {counts} (prefill {prefill_counts}, context "
+             f"{ctx_counts}) differ from what the path implies {want}")
+    if syncs:
+        fail(f"whisper transcribe: a decode step synchronised with the host: {syncs}")
+    return rec
+
+
+def whisper_cross_decode() -> dict:
+    """The cross attention of one decode step at its real shape (B8 H20 Sq1,
+    the encoder's 1500 rows, D64, bf16, the cache's (B, T, H, D) layout) three
+    ways: K2 with every row valid (the path's route), K1 with one query row
+    (the route before), and SDPA; each held against the plain version, with
+    its time, device time and the bytes bound."""
+    from repro_torch.kernels import decode_attention, decode_attention_plain, flash_attention
+    rng = np.random.default_rng(SEED + 5)
+    B, H, T, D, dt = WHISPER_B, 20, 1500, 64, torch.bfloat16
+    q, k, v, _ = decode_inputs(rng, B=B, H=H, Hkv=H, T=T, D=D, valid=None, dtype=dt, bthd=True)
+    want = decode_attention_plain(q, k, v)
+    nbytes, flops = decode_work(q, k, None)
+    bound_ms, bound_by = bound(nbytes, flops, dt)
+    ways = {"K2_full_valid": lambda: decode_attention(q, k, v),
+            "K1_one_query_row": lambda: flash_attention(q[:, :, None, :], k, v, causal=False),
+            "sdpa": sdpa_decode(q, k, v, None)}
+    rec = {"part": "cross_decode", "case": f"B{B} H{H} Sq1 Sk{T} D{D} bf16 bthd",
+           "bound_ms": bound_ms, "bound_by": bound_by, "ways": {}}
+    for name, fn in ways.items():
+        got = fn().reshape(want.shape)
+        rec["ways"][name] = {"max_abs_err": max_err(got, want), "ms": time_ms(fn),
+                             "device_ms": device_ms(fn)}
+    rec["k1_over_k2_device"] = (rec["ways"]["K1_one_query_row"]["device_ms"]
+                                / rec["ways"]["K2_full_valid"]["device_ms"])
+    rec["gpu"] = gpu_name_and_power()
+    emit({"phase": "whisper", **rec})
+    bad = {n: w for n, w in rec["ways"].items() if not w["max_abs_err"] <= TOL[dt]}
+    if bad:
+        fail(f"whisper cross_decode: over tolerance {TOL[dt]}: {bad}")
+    return rec
+
+
+def attention_f64(q, k, v, *, causal=True, window=0, scale=None):
+    """``flash_attention_plain``'s function computed in float64 and rounded
+    once to q's type: a third rounding of the same attention."""
+    B, H, Sq, D = q.shape
+    G = H // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kf, vf = (t.double().repeat_interleave(G, 1) for t in (k, v))
+    s = (q.double() @ kf.transpose(-1, -2)) * scale
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(k.shape[2], device=q.device)[None, :]
+    seen = torch.ones_like(s[0, 0], dtype=torch.bool)
+    if causal:
+        seen &= kp <= qp
+    if window > 0:
+        seen &= kp > qp - window
+    return (torch.softmax(s.masked_fill(~seen, float("-inf")), -1) @ vf).to(q.dtype)
+
+
+def whisper_parity(cfg, params) -> dict:
+    """The transcription's 8 requests (its frames and prompts) prefilled at
+    full depth through the kernels and through their plain versions: the
+    first-token logits within 0.1 and the first tokens equal or a near-tie of
+    the plain run's two best logits (with its margin).  Where bf16 rounding
+    alone moves them by more, as the xlstm phase holds it: in float32 within
+    0.1, and in bf16 within twice what a float64 rounding of the plain
+    attention moves the plain run by (LayerNorm is plain torch in both runs;
+    attention is what differs)."""
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.training.optimizer import tree_map
+    rng = np.random.default_rng(SEED)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (WHISPER_B, WHISPER_PROMPT)),
+                          device="cuda")
+    fe = whisper_frames(cfg, WHISPER_B, SEED + 2)
+    tol = 1e-1
+
+    def first(c, p, plain):
+        m = Model(c, plain_kernels=plain)
+        return m.prefill(p, {"tokens": prompt, "frame_embeds": fe},
+                         cache_len=WHISPER_CACHE)[0][:, -1].float()
+
+    kb, qb = first(cfg, params, False), first(cfg, params, True)
+    db = (kb - qb).abs().amax(dim=-1)
+    eqb, tieb = first_token_rule(kb, qb, db)
+    top2 = qb.topk(2, dim=-1).values
+    rec = {"part": "parity", "arch": cfg.name, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers, "requests": WHISPER_B, "tol": tol,
+           "bfloat16": {"first_logits_max_abs_diff": float(db.max()),
+                        "per_request": [float(x) for x in db],
+                        "plain_top2_margin": [float(x) for x in top2[:, 0] - top2[:, 1]],
+                        "first_token_equal": eqb, "first_token_near_tie": tieb}}
+    held = "bfloat16 within tol"
+    if not float(db.max()) <= tol:
+        c32 = cfg.replace(dtype="float32", param_dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        k32, q32 = first(c32, p32, False), first(c32, p32, True)
+        del p32
+        d32 = (k32 - q32).abs().amax(dim=-1)
+        eq32, tie32 = first_token_rule(k32, q32, d32)
+        saved = L.flash_attention_plain
+        L.flash_attention_plain = attention_f64
+        try:
+            q64 = first(cfg, params, True)
+        finally:
+            L.flash_attention_plain = saved
+        floor = (q64 - qb).abs().amax(dim=-1)
+        rec["float32"] = {"first_logits_max_abs_diff": float(d32.max()), "tol": tol,
+                          "first_token_equal": eq32, "first_token_near_tie": tie32}
+        rec["bfloat16"].update(first_logits_max_abs_diff_float64_attention=float(floor.max()),
+                               tol=2 * float(floor.max()))
+        held = "float32 within tol, bfloat16 within twice the float64-attention rounding"
+        if not (float(d32.max()) <= tol and float(db.max()) <= 2 * float(floor.max())
+                and eq32 + tie32 == WHISPER_B):
+            rec["held"] = "no"
+            emit({"phase": "whisper", **rec})
+            fail(f"whisper parity: first-token logits differ beyond both rules: {rec}")
+    rec["held"] = held
+    rec["gpu"] = gpu_name_and_power()
+    emit({"phase": "whisper", **rec})
+    if eqb + tieb != WHISPER_B:
+        fail("whisper parity: a first token differs between kernels and plain versions beyond a "
+             "near-tie of the two best logits")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_whisper() -> dict:
+    """The Whisper family on the card (whisper-large-v3 at full width and
+    depth: 32 encoder and 32 decoder layers, d_model 1280, 20 heads of 64,
+    vocab 51,866; random bf16 weights from the seed), a line a part:
+    transcribe (``whisper_transcribe``), the cross decode's three routes
+    (``whisper_cross_decode``), parity (``whisper_parity``), simulate
+    (``moe_simulate`` at prefill B1 S224 and decode B8 at cache 448, then
+    the encoder's predicted time against the measured ``Model.encode``), and
+    train (``phase_train``: one timed AdamW step of the launcher, B8 S448,
+    remat "block", the batch cut only if the simulator says the step does
+    not fit) against the simulator's train prediction.  Returns the launches
+    of each part."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import Simulator
+    from repro_torch.api import Cluster, PrefillWorkload, SimSpec
+    from repro_torch.models import Model, count_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    parts = {"init_s": time.perf_counter() - t0}
+    transcribe = whisper_transcribe(cfg, model, params)
+    parts["transcribe_s"] = time.perf_counter() - t0 - sum(parts.values())
+    whisper_cross_decode()
+    parts["cross_decode_s"] = time.perf_counter() - t0 - sum(parts.values())
+    whisper_parity(cfg, params)
+    parts["parity_s"] = time.perf_counter() - t0 - sum(parts.values())
+    sim = moe_simulate(cfg, params, name="whisper", prefill_seq=WHISPER_CONTEXT,
+                       decode_cache=WHISPER_CACHE, frames=whisper_frames(cfg, 1, SEED + 3),
+                       prefill_calls=3)
+    for mode in ("prefill", "decode"):
+        emit({"phase": "whisper", **sim[mode]})
+    # the encoder apart: its block's price times its 32 layers, each engine, against
+    # Model.encode of one segment measured alone
+    spec = SimSpec(cfg, cluster=Cluster("h100_sxm", chips=1),
+                   workload=PrefillWorkload(global_batch=1, seq_len=WHISPER_CONTEXT))
+    from repro_torch.core.backend import profiling as P
+    db = P.ProfileDB(os.path.join(HERE, "build", "whisper", "profile_db_torch.json"))
+    enc_pred = {eng: sim_.run(spec).detail["t_fwd"]["enc"] * cfg.encoder_layers
+                for eng, sim_ in (("analytical", Simulator("h100_sxm")),
+                                  ("profiling", Simulator("h100_sxm", engine="profiling", db=db)))}
+    enc = transcribe["encoder_b1"]
+    encoder = {"part": "simulate_encoder", "layers": cfg.encoder_layers,
+               "frames": cfg.encoder_seq, "predicted_us": enc_pred,
+               "measured_wall_us": enc["wall_us"], "measured_device_busy_us": enc["device_busy_us"],
+               "signed_error": {f"{p}_vs_{m}": v / enc[k] - 1.0 for p, v in enc_pred.items()
+                                for m, k in (("wall", "wall_us"),
+                                             ("device_busy", "device_busy_us"))}}
+    emit({"phase": "whisper", **encoder})
+    parts["simulate_s"] = time.perf_counter() - t0 - sum(parts.values())
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S = WHISPER_TRAIN
+    train = phase_train(WHISPER_ARCH, phase="whisper_train", timed_steps=1, seq=S, batch=B,
+                        cut="batch")
+    train_versus(cfg, train, "whisper")
+    parts["train_s"] = time.perf_counter() - t0 - sum(parts.values())
+    emit({"phase": "whisper", "part": "done", "arch": cfg.name, "params": count_params(cfg),
+          "seconds": time.perf_counter() - t0, "parts_s": parts,
+          "profile_db_entries": sim["profile_db_entries"], "gpu": gpu_name_and_power()})
+    return {"transcribe": transcribe["launches"],
+            "simulate": {k: sim["prefill"]["profiling_launches"][k]
+                         + sim["decode"]["profiling_launches"][k] for k in transcribe["launches"]},
+            "train": train["launches_per_step"]}
+
+
 
 
 MLA_ARCH = "deepseek-v3-671b"
@@ -3516,13 +3974,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,serve,parity,train,train_parity,simulate,"
-                            "serve_sim,sweep,moe,griffin,xlstm,mla",
+                            "serve_sim,sweep,moe,griffin,xlstm,whisper,mla",
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
-                         "train_parity,simulate,serve_sim,sweep,moe,griffin,xlstm,mla (and "
-                         "times, the serving-shape timings alone; serve_measure, the measured "
-                         "side of serve_sim alone; mla_layout, the mla phase's first part "
-                         "alone); the closing lines are printed only when the fourteen of the "
-                         "default ran")
+                         "train_parity,simulate,serve_sim,sweep,moe,griffin,xlstm,whisper,mla "
+                         "(and times, the serving-shape timings alone; serve_measure, the "
+                         "measured side of serve_sim alone; mla_layout, the mla phase's first "
+                         "part alone); the closing lines are printed only when the fifteen of "
+                         "the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -3587,12 +4045,14 @@ def main(argv=None) -> int:
     moe = phase_moe() if "moe" in phases else None
     griffin = phase_griffin() if "griffin" in phases else None
     xlstm = phase_xlstm() if "xlstm" in phases else None
+    whisper = phase_whisper() if "whisper" in phases else None
     if "mla_layout" in phases:
         mla_layout()
     mla = phase_mla() if "mla" in phases else None
     if (main_recs is None or counts is None or "parity" not in phases or train is None
             or train_parity is None or sim is None or serve_sim is None or swept is None
-            or moe is None or griffin is None or xlstm is None or mla is None):
+            or moe is None or griffin is None or xlstm is None or whisper is None
+            or mla is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
@@ -3635,6 +4095,11 @@ def main(argv=None) -> int:
                # engine's measurements, and the launcher's train step (a step)
                "xlstm_launches": {part: xlstm[part][name]
                                   for part in ("serve", "simulate", "train")},
+               # whisper-large-v3 at full width and depth: the transcription (one B8
+               # prefill and 123 decode steps), the profiling engine's measurements, and
+               # the launcher's train step (a step)
+               "whisper_launches": {part: whisper[part][name]
+                                    for part in ("transcribe", "simulate", "train")},
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3681,6 +4146,15 @@ def main(argv=None) -> int:
                     k: xlstm_rec.get(k) for k in (
                         "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "library_device_ms")}
+        for part in ("enc", "cross", "self"):
+            whisper_rec = main_recs.get(f"whisper_{part}_{name}")
+            if whisper_rec is not None:
+                # the same kernel at whisper-large-v3's shapes (D 64, G 1): K1 at the
+                # encoder's 1500 x 1500 and the cross attention's 224 x 1500, K2 at the
+                # self ring of 448 and the encoder's 1500 rows, K1's backward at B8
+                rec[f"whisper_shape_{part}"] = {k: whisper_rec.get(k) for k in (
+                    "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_device_ms")}
         if name in TRAIN_ONLY:
             rec["note"] = TRAIN_ONLY[name]
         kernels.append(rec)

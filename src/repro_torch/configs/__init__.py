@@ -4,9 +4,10 @@
 (block kind ``attn_ffn``), the MoE decoder with GQA attention (olmoe, block
 kind ``moe_attn_ffn``), the MoE decoder with MLA attention (deepseek, block
 kind ``mla_moe``), the RG-LRU hybrid (recurrentgemma, block kinds
-``griffin_rec`` and ``griffin_attn``) and the xLSTM stack (xlstm, block kinds
-``mlstm`` and ``slstm``).  The reference's other families (audio, VLM) arrive
-with their layers in later slices.
+``griffin_rec`` and ``griffin_attn``), the xLSTM stack (xlstm, block kinds
+``mlstm`` and ``slstm``) and the Whisper encoder-decoder (block kinds
+``xattn`` in the decoder and ``enc`` in the encoder).  The reference's VLM
+family (Qwen2-VL) arrives with its layers in a later slice.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ _ARCH_MODULES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "xlstm-125m": "xlstm_125m",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -9,7 +9,10 @@ they want) and return the port's trees on a device;
 :func:`to_reference_params` is the inverse.  :func:`reference_layout` and
 :func:`port_layout` restack a tree of tensors (parameters, gradients, moments)
 between the two layouts; the optimizer and the checkpoints use them where the
-reference's numbers or files depend on its layout.
+reference's numbers or files depend on its layout.  An encoder-decoder's
+encoder (``encoder.blocks.cycle[0]`` stacked over its layers in the
+reference, one dict a layer in the port, beside ``encoder.final_norm``) is
+carried the same way.
 """
 from __future__ import annotations
 
@@ -44,11 +47,14 @@ def _map_keyed(tree, fn, keys=()):
     return fn(tree, keys)
 
 
-def _unstack_blocks(cfg: ModelConfig, blocks, convert):
+def _unstack_blocks(cfg: ModelConfig, blocks, convert, *, encoder: bool = False):
     """``{"cycle": [stacked tree a kind], "tail": [tree a kind]}`` -> one tree
-    a layer, in layer order; ``convert(array, keys)`` makes each leaf."""
-    cycle, n, tail = block_cycle(cfg)
-    if len(blocks["cycle"]) != len(cycle) or len(blocks["tail"]) != len(tail):
+    a layer, in layer order; ``convert(array, keys)`` makes each leaf.
+    ``encoder``: the blocks of ``cfg``'s encoder, one ``enc`` stacked over its
+    layers."""
+    cycle, n, tail = (("enc",), cfg.encoder_layers, ()) if encoder else block_cycle(cfg)
+    if (len(blocks["cycle"]) != len(cycle) or len(blocks["tail"]) != len(tail)
+            or any(np.shape(a)[:1] != (n,) for c in blocks["cycle"] for a in _leaves(c))):
         raise ValueError("reference tree does not match the config's block cycle")
     layers = []
     for i in range(n):
@@ -69,7 +75,9 @@ def from_reference_params(np_tree: dict, cfg: ModelConfig, device, dtype=None) -
     shared expert's ``moe.shared.{gate,up,down}``, MLA's ``attn.{dq, q_norm,
     uq, dkv, kv_norm, uk, uv, kr, o}``, the RG-LRU block's ``ln``, ``in_gate``,
     ``in_rec``, ``conv.{w, b}``, ``rglru.{wa, ba, wx, bx, lam}``, ``out``,
-    ``final_norm.w``, optional ``lm_head.w``) as numpy arrays -> the port's
+    Whisper's ``ln1..3``, ``self_attn``, ``cross_attn`` and biased ``mlp``,
+    ``final_norm.w``, optional ``lm_head.w``, Whisper's ``encoder.blocks``
+    and ``encoder.final_norm``) as numpy arrays -> the port's
     tree on ``device``, every leaf in ``dtype`` but ``rglru.lam``, which stays
     float32 as the reference's init makes it.  A tree of another config
     (names or shapes) raises."""
@@ -86,6 +94,10 @@ def from_reference_params(np_tree: dict, cfg: ModelConfig, device, dtype=None) -
     }
     if "lm_head" in np_tree:
         tree["lm_head"] = _map(np_tree["lm_head"], convert)
+    if "encoder" in np_tree:
+        enc = np_tree["encoder"]
+        tree["encoder"] = {"blocks": _unstack_blocks(cfg, enc["blocks"], convert, encoder=True),
+                           "final_norm": _map(enc["final_norm"], convert)}
 
     # hold the result to the port's own build_params: same names, same shapes
     want = build_params(cfg, lambda path, shape, fan_in: tuple(shape))
@@ -123,10 +135,14 @@ def _zip(trees: list, fn):
 
 def reference_layout(tree: dict, cfg: ModelConfig | None = None, stack=torch.stack) -> dict:
     """The port's parameter-shaped tree (parameters, gradients, moments) in
-    the reference's layout: ``blocks`` stacked over depth by ``stack``, the
-    other entries as they are (the same objects)."""
-    out = {k: v for k, v in tree.items() if k != "blocks"}
+    the reference's layout: ``blocks`` (and an encoder's, one cycle
+    position) stacked over depth by ``stack``, the other entries as they are
+    (the same objects)."""
+    out = {k: v for k, v in tree.items() if k not in ("blocks", "encoder")}
     out["blocks"] = _stack_blocks(cfg, tree["blocks"], stack)
+    if "encoder" in tree:
+        out["encoder"] = dict(tree["encoder"],
+                              blocks=_stack_blocks(None, tree["encoder"]["blocks"], stack))
     return out
 
 
@@ -140,8 +156,11 @@ def port_layout(tree: dict, cfg: ModelConfig | None = None) -> dict:
         cycle, n, _ = block_cycle(cfg)
     layers = [_map(blocks["cycle"][j], lambda a, i=i: a[i])
               for i in range(n) for j in range(len(cycle))]
-    out = {k: v for k, v in tree.items() if k != "blocks"}
+    out = {k: v for k, v in tree.items() if k not in ("blocks", "encoder")}
     out["blocks"] = layers + list(blocks["tail"])
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = dict(enc, blocks=port_layout({"blocks": enc["blocks"]})["blocks"])
     return out
 
 
@@ -177,10 +196,12 @@ def from_reference_cache(np_cache: dict, cfg: ModelConfig, device, dtype=None) -
     MLA's ``blocks.cycle[0].ckv (L,B,T,kv_lora_rank)`` and ``.kr
     (L,B,T,qk_rope_head_dim)``, or the RG-LRU's ``.h (L,B,W)`` and ``.conv
     (L,B,K-1,W)``, or the mLSTM's ``.conv``, ``.C (L,B,H,D,D)``, ``.n``,
-    ``.m`` and the sLSTM's ``.c``, ``.n``, ``.h``, ``.m (L,B,W)``; ``pos
-    (B,)``) as numpy arrays -> the port's cache on ``device``, every leaf in
-    ``dtype`` but the xLSTM's states, which stay float32 as the reference
-    keeps them.  A cache of another config (names or shapes) raises."""
+    ``.m`` and the sLSTM's ``.c``, ``.n``, ``.h``, ``.m (L,B,W)``, or
+    Whisper's ``.{k,v} (L,B,T,Hkv,D)`` and ``.{ck,cv} (L,B,encoder_seq,Hkv,D)``;
+    ``pos (B,)``) as numpy arrays -> the port's cache on ``device``, every
+    leaf in ``dtype`` but the xLSTM's states, which stay float32 as the
+    reference keeps them, each layer's leaves in the port's order (``k, v,
+    ck, cv``).  A cache of another config (names or shapes) raises."""
     dt = dtype or torch_dtype(cfg.dtype)
     device = torch.device(device)
     blocks = []
@@ -188,8 +209,10 @@ def from_reference_cache(np_cache: dict, cfg: ModelConfig, device, dtype=None) -
                                                              lambda a, keys: a)):
         # a leaf the port keeps in float32 (the xLSTM states) stays float32
         own = _kind_cache(cfg, kind, lambda shape, d: d, 1, 1)
-        blocks.append({name: _leaf(a, device, torch.float32 if own.get(name) == torch.float32
-                                   else dt) for name, a in layer.items()})
+        names = list(own) if set(own) == set(layer) else list(layer)    # else raises below
+        blocks.append({name: _leaf(layer[name], device,
+                                   torch.float32 if own.get(name) == torch.float32 else dt)
+                       for name in names})
     cache = {"blocks": blocks, "pos": _leaf(np_cache["pos"], device, torch.int32)}
     # hold the result to the port's own build_cache at the cache's batch and its
     # attention rings' rows (a windowed ring's min(cache_len, window) rows are what a

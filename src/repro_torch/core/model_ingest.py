@@ -301,9 +301,13 @@ def _fake_layer_params(cfg: ModelConfig, kind: str):
                               ("blocks", "0", kind))
 
 
-def _full_fn(cfg: ModelConfig, kind: str):
-    def fwd_fn(p, x, pend, positions):
+def _full_fn(cfg: ModelConfig, kind: str, with_enc: bool = False):
+    """The block as a traced function of (params, h, pending, positions[,
+    the encoder's output, which Whisper's decoder block reads])."""
+    def fwd_fn(p, x, pend, positions, *enc):
         aux = {"positions": positions, "cache_len": 0, "plain": True}
+        if with_enc:
+            aux["enc_out"] = enc[0]
         h, f, _, _ = apply_block_full(cfg, kind, p, x, pend, aux, False)
         return h, f
     return fwd_fn
@@ -319,14 +323,21 @@ def _decode_fn(cfg: ModelConfig, kind: str):
 
 def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
                  *, cache_len: int = 0) -> ModelGraphs:
-    """Trace one graph per distinct block kind (+ embed/head).  The dense
-    decoders, the MoE decoders (GQA and MLA), the RG-LRU hybrid and the
-    xLSTM stack are ported (``block_cycle`` rejects the other families), so
-    there is no encoder graph.  A decode graph reads the cache of its own
-    kind, as the reference builds it: a ring of ``cache_len`` rows,
-    ``min(cache_len, window)`` for ``griffin_attn``, ``griffin_rec``'s state,
-    the mLSTM's conv state and float32 matrix memory, the sLSTM's four
-    float32 states.  The xLSTM cells' loops are traced once, their nodes at
+    """Trace one graph per distinct block kind (+ embed/head, + Whisper's
+    encoder).  The dense decoders, the MoE decoders (GQA and MLA), the
+    RG-LRU hybrid, the xLSTM stack and the Whisper encoder-decoder are
+    ported (``block_cycle`` rejects the VLM family).  An encoder-decoder's
+    decoder block is traced with the encoder's output ``(B, encoder_seq,
+    D)`` as an argument (differentiated in the joint graph, as the
+    reference's ``vjp`` is), and its encoder is one ``enc`` block repeated
+    ``encoder_layers`` times: a forward graph in prefill and train, a joint
+    graph in train, none in decode (the cache holds the encoder's keys and
+    values).  A decode graph reads the cache of its own kind, as the
+    reference builds it: a ring of ``cache_len`` rows, ``min(cache_len,
+    window)`` for ``griffin_attn``, ``griffin_rec``'s state, the mLSTM's conv
+    state and float32 matrix memory, the sLSTM's four float32 states,
+    Whisper's ring beside its ``ck``/``cv`` of ``encoder_seq`` rows (read,
+    never written).  The xLSTM cells' loops are traced once, their nodes at
     the loop's length (the mLSTM's chunks, the sLSTM's steps).  The MoE
     block's expert products are tagged ``moe_expert`` by ``_tag_moe``, as in
     the reference."""
@@ -371,15 +382,32 @@ def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
                     x = torch.empty((B_local, S, D), dtype=dt)
                     pend = torch.empty((B_local, S, D), dtype=dt)
                     positions = torch.empty((B_local, S), dtype=torch.long)
+                    enc = (torch.empty((B_local, cfg.encoder_seq, D), dtype=dt),) \
+                        if cfg.cross_attention else ()
 
-                fwd_fn = _full_fn(cfg, kind)
-                args = (p, x, pend, positions)
+                fwd_fn = _full_fn(cfg, kind, with_enc=bool(enc))
+                args = (p, x, pend, positions, *enc)
                 fwd = _tag_moe(tracer.trace(fwd_fn, *args, name=f"{kind}.fwd"), cfg)
                 joint = _tag_moe(tracer.trace_grad(fwd_fn, *args, name=f"{kind}.joint"),
                                  cfg) if mode == "train" else None
                 bg = BlockGraphs(kind, counts[j], fwd, joint)
             seen_kinds[kind] = bg
             blocks.append(bg)
+
+        # encoder (whisper): one layer traced, repeated encoder_layers times
+        encoder = None
+        if cfg.encoder_layers > 0 and mode != "decode":
+            E = cfg.encoder_seq
+            with fake:
+                p = _fake_layer_params(cfg, "enc")
+                xe = torch.empty((B_local, E, D), dtype=dt)
+                pend = torch.empty((B_local, E, D), dtype=dt)
+                pe = torch.empty((B_local, E), dtype=torch.long)
+            enc_fn = _full_fn(cfg, "enc")
+            efwd = tracer.trace(enc_fn, p, xe, pend, pe, name="enc.fwd")
+            ejoint = tracer.trace_grad(enc_fn, p, xe, pend, pe, name="enc.joint") \
+                if mode == "train" else None
+            encoder = BlockGraphs("enc", cfg.encoder_layers, efwd, ejoint)
 
         # embed + head (+ CE loss for train), the reference's operations
         S_head = 1 if mode == "decode" else S
@@ -408,4 +436,4 @@ def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
                                name="head.joint") if mode == "train" else None
         head = BlockGraphs("head", 1, hf, hj)
 
-    return ModelGraphs(cfg, mode, blocks, head, None)
+    return ModelGraphs(cfg, mode, blocks, head, encoder)

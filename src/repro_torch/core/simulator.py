@@ -526,14 +526,15 @@ def _param_leaves(cfg: ModelConfig) -> int:
     """Parameter leaves as the reference counts them: its tree stacks a
     block's parameters over the layers at one cycle position, so a cycle
     position is one set of leaves, however many layers share it (the port's
-    tree has one set a layer)."""
+    tree has one set a layer), and so is an encoder's stack."""
     cycle, _, tail = block_cycle(cfg)
     leaves = [0]
 
     def c(path, shape, fan_in):
         leaves[0] += 1
 
-    build_params(cfg.replace(num_layers=len(cycle) + len(tail)), c)
+    build_params(cfg.replace(num_layers=len(cycle) + len(tail),
+                             encoder_layers=min(cfg.encoder_layers, 1)), c)
     return leaves[0]
 
 

@@ -12,7 +12,10 @@ qk_rope_head_dim)}``, MLA's compressed latent and its rotary key, for
 state and the causal conv's last inputs, for ``griffin_rec``; ``{"conv": (B,
 conv_width - 1, Di), "C": (B, H, D, D), "n": (B, H, D), "m": (B, H)}``, the
 conv's last inputs and the matrix memory in float32, for ``mlstm``; ``{"c",
-"n", "h", "m"}``, each (B, W) in float32, for ``slstm``.  Plus
+"n", "h", "m"}``, each (B, W) in float32, for ``slstm``; ``{"k", "v", "ck",
+"cv"}`` for Whisper's ``xattn``: the self attention's ring of ``cache_len``
+rows and the cross attention's keys and values of the ``encoder_seq``
+encoder rows, each ``(B, rows, Hkv, D)``, in that order.  Plus
 ``cache["pos"]``, the per-slot absolute position, ``(B,) int32``.
 """
 from __future__ import annotations
@@ -44,6 +47,11 @@ def _kind_cache(cfg: ModelConfig, kind: str, c: CacheCreator, batch: int, cache_
     if kind == "griffin_attn":
         shape = (batch, ring_rows(cache_len, cfg.window), cfg.num_kv_heads, cfg.head_dim)
         return {"k": c(shape, dt), "v": c(shape, dt)}
+    if kind == "xattn":
+        # the self ring first: the ring's T is read from "k", never from "ck"
+        ring = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+        cross = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": c(ring, dt), "v": c(ring, dt), "ck": c(cross, dt), "cv": c(cross, dt)}
     if kind == "mla_moe":
         return {"ckv": c((batch, cache_len, cfg.kv_lora_rank), dt),
                 "kr": c((batch, cache_len, cfg.qk_rope_head_dim), dt)}
@@ -68,7 +76,9 @@ RING_LEAVES = ("k", "ckv")     # the first leaf of an attention ring, (B, T, ...
 def cache_len_of(cache: dict) -> int | None:
     """The rows T of the attention rings of a cache built here (the first
     layer that has one: a recurrent layer's state has no T), or None for a
-    stack with no ring (the xLSTM family's), whose decode writes no slot."""
+    stack with no ring (the xLSTM family's), whose decode writes no slot.
+    An ``xattn`` layer's ring is its ``k``; its ``ck`` holds the encoder's
+    rows, which no decode step writes."""
     for layer in cache["blocks"]:
         for name in RING_LEAVES:
             if name in layer:

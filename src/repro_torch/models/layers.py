@@ -130,6 +130,17 @@ def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor, *, tables=None) ->
     return torch.cat([out, x[..., rot:]], dim=-1) if rot < d else out
 
 
+def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embedding; positions (B, S) -> (B, S, D)
+    float32: sines then cosines of ``half`` frequencies spaced by
+    ``log(10000) / (half - 1)``."""
+    half = d_model // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=positions.device)
+                      * (math.log(10_000.0) / max(half - 1, 1)))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # --------------------------------------------------------------------------
 # Softmax attention over GQA layouts
 # --------------------------------------------------------------------------
@@ -173,23 +184,31 @@ def attend_dense(q, k, v, *, q_offset, causal: bool, window: int = 0,
 
 
 def _attend_kernel(q, k, v, *, q_offset, causal, window, kv_valid_len, soft_cap, scale, plain):
-    """Route one attention call to the kernel that computes it.  The output
-    takes v's head dim, which MLA's prefill has apart from q's and k's."""
+    """Route one attention call to the kernel that computes it: one unmasked
+    query token a sequence (decode; Whisper's cross decode has no valid
+    length, every key row counts) to the split-KV decode kernel, the rest to
+    flash attention.  A call with no valid length that autograd records
+    stays on flash attention, whose backward the decode kernel lacks.  The
+    output takes v's head dim, which MLA's prefill has apart from q's and
+    k's."""
     B, Sq, Hkv, G, D = q.shape
     Dv = v.shape[-1]
     if soft_cap != 0.0 or q_offset != 0:
         raise ValueError("attention(strategy='kernel'): soft_cap and q_offset are not "
                          "taken by the kernels")
-    if kv_valid_len is None:
+    records = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    decode = Sq == 1 and not causal and window == 0 and (kv_valid_len is not None or not records)
+    if kv_valid_len is None and not decode:
         if plain:
             qh = q.reshape(B, Sq, Hkv * G, D).permute(0, 2, 1, 3)
             o = flash_attention_plain(qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
                                       causal=causal, window=window, scale=scale)
             return o.permute(0, 2, 1, 3).reshape(B, Sq, Hkv, G, Dv)
         return ops.flash_attention_bshd(q, k, v, causal=causal, window=window, scale=scale)
-    if Sq == 1 and not causal and window == 0:
-        vl = kv_valid_len
-        if not (torch.is_tensor(vl) and vl.dtype == torch.int32 and vl.shape == (B,)):
+    if decode:
+        vl = kv_valid_len       # None: all T rows valid
+        if vl is not None and not (torch.is_tensor(vl) and vl.dtype == torch.int32
+                                   and vl.shape == (B,)):
             vl = torch.as_tensor(vl, device=q.device).to(torch.int32).expand(B).contiguous()
         if plain:
             o = decode_attention_plain(q.reshape(B, Hkv * G, D), k.permute(0, 2, 1, 3),

@@ -1,12 +1,13 @@
 """Model assembly for the dense decoders, the MoE decoders, with GQA or with
-MLA attention, the RG-LRU hybrid and the xLSTM stack (counterpart of
-``repro/models/model.py``).
+MLA attention, the RG-LRU hybrid, the xLSTM stack and the Whisper
+encoder-decoder (counterpart of ``repro/models/model.py``).
 
 ``Model`` exposes:
   * ``init(generator)``                    — concrete params on the model's device
   * ``forward(params, batch)``             — full-sequence logits, differentiable
   * ``prefill(params, batch, cache_len)``  — logits + populated KV cache
   * ``decode_step(params, cache, batch)``  — one token against the cache
+  * ``encode(params, frame_embeds)``       — Whisper's encoder over its frames
 
 The reference scans over depth-stacked parameters under ``jit``; here the
 stack is a Python loop over per-layer dicts and everything runs eagerly.
@@ -55,17 +56,19 @@ def resolve_device(device) -> torch.device:
 # Attention blocks
 # ==========================================================================
 
-def _qkv(cfg, p, x, positions, *, rope=True, rope_tables=None):
+def _proj(p, name, x, dtype):
+    """(B, S, H, Dh): ``x`` through the head projection ``p[name]`` (its
+    bias added where it has one), in ``dtype``."""
     B, S, D = x.shape
+    w = p[name]["w"].to(dtype)                            # (D, H, Dh)
+    y = (x @ w.reshape(D, -1)).reshape(B, S, w.shape[1], w.shape[2])
+    if "b" in p[name]:
+        y = y + p[name]["b"].to(dtype)
+    return y
 
-    def proj(name):
-        w = p[name]["w"].to(x.dtype)                      # (D, H, Dh)
-        y = (x @ w.reshape(D, -1)).reshape(B, S, w.shape[1], w.shape[2])
-        if "b" in p[name]:
-            y = y + p[name]["b"].to(x.dtype)
-        return y
 
-    q, k, v = proj("q"), proj("k"), proj("v")
+def _qkv(cfg, p, x, positions, *, rope=True, rope_tables=None):
+    q, k, v = (_proj(p, name, x, x.dtype) for name in ("q", "k", "v"))
     if rope:
         # one pass over q and k together; the two results are views of it
         qk = L.apply_rope(cfg, torch.cat([q, k], dim=2), positions, tables=rope_tables)
@@ -126,6 +129,31 @@ def gqa_decode(cfg, p, x, pos, cache, *, rope=True, positions=None, rope_tables=
     o = L.attention(q, k, v, q_offset=0, causal=False, kv_valid_len=valid, plain=plain)
     o = o.reshape(B, 1, cfg.num_heads, Dh)
     return _attn_out(p, o, x.dtype), {"k": k, "v": v}
+
+
+def cross_full(cfg, p, x, enc_out, *, plain=False):
+    """Cross attention (Whisper's decoder): q from ``x``, k and v from the
+    encoder's output, every query seeing every encoder row.  On the card this
+    is K1 with Sq the prompt's length and Sk the encoder's rows, not causal.
+    Returns the output and ``(k, v)``, which the decode cache keeps as
+    ``ck``/``cv``."""
+    B, S, _ = x.shape
+    Hkv, G, Dh = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
+    q = _proj(p, "q", x, x.dtype).reshape(B, S, Hkv, G, Dh)
+    k, v = _proj(p, "k", enc_out, x.dtype), _proj(p, "v", enc_out, x.dtype)
+    o = L.attention(q, k, v, q_offset=0, causal=False, plain=plain)
+    return _attn_out(p, o.reshape(B, S, cfg.num_heads, Dh), x.dtype), (k, v)
+
+
+def cross_decode(cfg, p, x, cache, *, plain=False):
+    """One token's cross attention against the cache's ``ck``/``cv`` (the
+    encoder's rows, every one valid), read where they lie and never written.
+    On the card this is K2 with the full valid length a row."""
+    B = x.shape[0]
+    Hkv, G, Dh = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
+    q = _proj(p, "q", x, x.dtype).reshape(B, 1, Hkv, G, Dh)
+    o = L.attention(q, cache["ck"], cache["cv"], q_offset=0, causal=False, plain=plain)
+    return _attn_out(p, o.reshape(B, 1, cfg.num_heads, Dh), x.dtype)
 
 
 # --- MLA (deepseek) -------------------------------------------------------
@@ -300,6 +328,25 @@ def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
         cache = {"h": h_last.to(h.dtype), "conv": conv_state} if collect_cache else None
         return h, L.ffn(cfg, p["mlp"], x), cache, None
 
+    if kind == "xattn":
+        # LayerNorm: add_norm's add is a plain add, the reference's h = h + a
+        h, x = L.add_norm(cfg, p["ln1"], h, pending, plain=plain)
+        a, (k, v) = gqa_full(cfg, p["self_attn"], x, positions, rope=False, plain=plain)
+        h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
+        ca, (ck, cv) = cross_full(cfg, p["cross_attn"], x, aux["enc_out"], plain=plain)
+        h, x = L.add_norm(cfg, p["ln3"], h, ca, plain=plain)
+        cache = None
+        if collect_cache:
+            cache = ring({"k": k, "v": v})
+            cache["ck"], cache["cv"] = ck, cv
+        return h, L.ffn(cfg, p["mlp"], x), cache, None
+
+    if kind == "enc":
+        h, x = L.add_norm(cfg, p["ln1"], h, pending, plain=plain)
+        a, _ = gqa_full(cfg, p["attn"], x, positions, causal=False, rope=False, plain=plain)
+        h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
+        return h, L.ffn(cfg, p["mlp"], x), None, None
+
     if kind == "mlstm":
         h, y = L.add_norm(cfg, p["ln"], h, pending, plain=plain)
         q, k, v, i_g, f_g, conv_state = _mlstm_in(cfg, p, y, None)
@@ -383,6 +430,16 @@ def apply_block_decode(cfg, kind, p, h, pending, cache, aux):
             cache[name].copy_(t)             # in place
         return h, _slstm_out(cfg, p, hs, plain), cache
 
+    if kind == "xattn":
+        h, x = L.add_norm(cfg, p["ln1"], h, pending, plain=plain)
+        a, _ = gqa_decode(cfg, p["self_attn"], x, pos, cache, rope=False, positions=positions,
+                          indices=aux.get("indices"), plain=plain)
+        h, x = L.add_norm(cfg, p["ln2"], h, a, plain=plain)
+        h, x = L.add_norm(cfg, p["ln3"], h, cross_decode(cfg, p["cross_attn"], x, cache,
+                                                         plain=plain), plain=plain)
+        # k and v written in place, ck and cv as they were
+        return h, L.ffn(cfg, p["mlp"], x), cache
+
     if kind in ("attn_ffn", "moe_attn_ffn", "mla_moe", "griffin_attn"):
         # griffin_attn's window needs no mask here: its ring holds the window
         # (the reference's gqa_decode takes no window either)
@@ -456,7 +513,7 @@ class Model:
         return init_params(self.cfg, generator, self.device)
 
     # ---- embedding / head ----
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens, positions):
         cfg = self.cfg
         h = params["embed"]["w"][tokens].to(torch_dtype(cfg.dtype))
         if cfg.scale_embedding:
@@ -464,6 +521,9 @@ class Model:
             # as the reference's weakly typed scalar is; filled on the device
             # (a tensor made from a host scalar would copy, and wait, a call)
             h = h * torch.full((), math.sqrt(cfg.d_model), dtype=h.dtype, device=h.device)
+        if cfg.rope_style == "none":
+            # Whisper: sinusoidal positions, rounded to the activation type and then added
+            h = h + L.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
         return h
 
     def _logits(self, params, h):
@@ -487,18 +547,36 @@ class Model:
                 "rope_tables": L.rope_tables(self.cfg, positions, L.rope_head_dim(self.cfg)),
                 **kw}
 
+    # ---- encoder (whisper) ----
+    def encode(self, params, frame_embeds):
+        """Whisper's encoder: the frame embeddings (B, encoder_seq, d_model)
+        in the activation type plus sinusoidal positions, the encoder's
+        layers (under remat as the decoder's), its final norm."""
+        cfg = self.cfg
+        h = torch.as_tensor(frame_embeds).to(self.device, torch_dtype(cfg.dtype))
+        B, S, _ = h.shape
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        h = h + L.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
+        aux = {"positions": positions, "plain": self.plain_kernels}
+        enc = params["encoder"]
+        h, f, _, _ = self._run_stack(("enc",) * len(enc["blocks"]), enc["blocks"], h, aux,
+                                     collect_cache=False)
+        return L.apply_norm(cfg, enc["final_norm"], h, residual=f, plain=self.plain_kernels)
+
     # ---- full-sequence stack ----
     def _block(self, kind, p, aux, h, pending):
         h, f, _, aux_loss = apply_block_full(self.cfg, kind, p, h, pending, aux, False)
         return h, f, aux_loss
 
-    def _run_stack(self, params, h, aux, collect_cache):
-        """Returns (h, f, aux_loss, caches): the stack's output is ``h + f``;
-        ``aux_loss`` is the sum of the blocks' router losses, in layer order,
-        as the reference's scan carries it (None where no block has one)."""
+    def _run_stack(self, kinds, blocks, h, aux, collect_cache):
+        """The layers ``blocks`` of kinds ``kinds`` (the decoder's, or the
+        encoder's) over ``h``.  Returns (h, f, aux_loss, caches): the stack's
+        output is ``h + f``; ``aux_loss`` is the sum of the blocks' router
+        losses, in layer order, as the reference's scan carries it (None where
+        no block has one)."""
         caches, f, aux_loss = [], None, None
         remat = (self.remat_policy != "none" and not collect_cache and torch.is_grad_enabled())
-        for kind, p in zip(self.kinds, params["blocks"]):
+        for kind, p in zip(kinds, blocks):
             if remat:
                 kw = {}
                 if self.remat_policy == "dots":
@@ -518,9 +596,17 @@ class Model:
         return L.apply_norm(self.cfg, params["final_norm"], h, residual=f,
                             plain=self.plain_kernels)
 
+    def _encoder_aux(self, params, batch, aux: dict) -> dict:
+        """``aux`` with the encoder's output under ``enc_out`` for an
+        encoder-decoder (``batch["frame_embeds"]``), as it is otherwise."""
+        if self.cfg.encoder_layers > 0:
+            aux["enc_out"] = self.encode(params, batch["frame_embeds"])
+        return aux
+
     # ---- public entry points ----
     def forward(self, params, batch):
-        """Full-sequence forward.  batch: tokens (B,S)[, positions].  Returns
+        """Full-sequence forward.  batch: tokens (B,S)[, positions,
+        frame_embeds (B, encoder_seq, d_model) for Whisper].  Returns
         (logits, aux_loss): the MoE router's load-balancing loss summed over
         the layers, 0 for the dense families.
         Recorded by autograd where grad mode is on and a parameter requires
@@ -528,9 +614,10 @@ class Model:
         tokens = self._tokens(batch)
         B, S = tokens.shape
         positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))
-        aux = self._aux(positions)
-        h = self._embed(params, tokens)
-        h, f, aux_loss, _ = self._run_stack(params, h, aux, collect_cache=False)
+        aux = self._encoder_aux(params, batch, self._aux(positions))
+        h = self._embed(params, tokens, positions)
+        h, f, aux_loss, _ = self._run_stack(self.kinds, params["blocks"], h, aux,
+                                            collect_cache=False)
         h = self._final_norm(params, h, f)
         if aux_loss is None:
             aux_loss = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -538,13 +625,15 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, batch, cache_len: int):
-        """Full-sequence forward that also populates a decode cache."""
+        """Full-sequence forward that also populates a decode cache (batch as
+        :meth:`forward`'s)."""
         tokens = self._tokens(batch)
         B, S = tokens.shape
         positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))
-        aux = self._aux(positions, cache_len=cache_len)
-        h = self._embed(params, tokens)
-        h, f, _, caches = self._run_stack(params, h, aux, collect_cache=True)
+        aux = self._encoder_aux(params, batch, self._aux(positions, cache_len=cache_len))
+        h = self._embed(params, tokens, positions)
+        h, f, _, caches = self._run_stack(self.kinds, params["blocks"], h, aux,
+                                          collect_cache=True)
         h = self._final_norm(params, h, f)
         logits = self._logits(params, h[:, -1:])
         cache = {"blocks": caches,
@@ -564,7 +653,7 @@ class Model:
         T = cache_len_of(cache)               # the attention rings' rows (one T for all)
         aux = self._aux(positions, pos=pos, decode_positions=positions,
                         indices=decode_indices(pos, T) if T is not None else None)
-        h = self._embed(params, tokens)
+        h = self._embed(params, tokens, positions)
         new_blocks, f = [], None
         for kind, p, c in zip(self.kinds, params["blocks"], cache["blocks"]):
             h, f, cj = apply_block_decode(self.cfg, kind, p, h, f, c, aux)

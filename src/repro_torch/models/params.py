@@ -1,16 +1,18 @@
 """Parameter-tree construction (counterpart of ``repro/models/params.py``), for the
 ``attn_ffn`` block of the dense decoders, the ``moe_attn_ffn`` block of the
 MoE decoders with GQA attention, the ``mla_moe`` block of those with MLA,
-the ``griffin_rec`` / ``griffin_attn`` blocks of the RG-LRU hybrid and the
-``mlstm`` / ``slstm`` blocks of the xLSTM stack.
+the ``griffin_rec`` / ``griffin_attn`` blocks of the RG-LRU hybrid, the
+``mlstm`` / ``slstm`` blocks of the xLSTM stack and Whisper's ``xattn``
+decoder block and ``enc`` encoder block.
 
 One function (``build_params``) drives its consumers through a creator
 callback: concrete init (``init_params``) and parameter counts
 (``count_params``).  The reference stacks block parameters over depth so that
 it can ``lax.scan`` over them; torch loops over layers, so here
 ``tree["blocks"]`` is a plain list with one dict a layer, each leaf with the
-reference's per-layer shape.  ``repro_torch.convert`` unstacks a reference
-tree into this form.
+reference's per-layer shape; an encoder-decoder's ``tree["encoder"]`` is
+``{"blocks": [one dict an encoder layer], "final_norm"}`` likewise.
+``repro_torch.convert`` unstacks a reference tree into this form.
 """
 from __future__ import annotations
 
@@ -36,11 +38,13 @@ def block_cycle(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
     elif cfg.family == "ssm":
         cycle = cfg.block_pattern
     elif cfg.family == "audio":
-        raise ValueError("family 'audio' (block kind 'xattn') is not ported yet: "
-                         "it comes with the Whisper slice")
+        cycle = ("xattn",)
+    elif cfg.family == "vlm":
+        raise ValueError("family 'vlm' (M-RoPE, vision patches) is not ported yet: "
+                         "it comes with the Qwen2-VL slice")
     else:
         raise ValueError(f"family {cfg.family!r} is not ported yet "
-                         "(dense, MoE, hybrid and ssm only)")
+                         "(dense, MoE, hybrid, ssm and audio only)")
     n = cfg.num_layers // len(cycle)
     tail_len = cfg.num_layers - n * len(cycle)
     return cycle, n, cycle[:tail_len]
@@ -89,7 +93,7 @@ def _mla_attn(cfg, c: Creator, path):
     }
 
 
-def _mlp(cfg, c: Creator, path, d_ff=None):
+def _mlp(cfg, c: Creator, path, d_ff=None, *, bias=False):
     D = cfg.d_model
     F = d_ff if d_ff is not None else cfg.d_ff
     p = {}
@@ -97,6 +101,11 @@ def _mlp(cfg, c: Creator, path, d_ff=None):
         p["gate"] = {"w": c(path + ("gate", "w"), (D, F), D)}
     p["up"] = {"w": c(path + ("up", "w"), (D, F), D)}
     p["down"] = {"w": c(path + ("down", "w"), (F, D), F)}
+    if bias:
+        p["up"]["b"] = c(path + ("up", "b"), (F,), 0)
+        p["down"]["b"] = c(path + ("down", "b"), (D,), 0)
+        if "gate" in p:
+            p["gate"]["b"] = c(path + ("gate", "b"), (F,), 0)
     return p
 
 
@@ -214,9 +223,32 @@ def _slstm_block(cfg, c: Creator, path):
     }
 
 
+def _xattn_block(cfg, c: Creator, path):
+    """Whisper decoder block: self-attn + cross-attn + FFN (LayerNorm, biases)."""
+    return {
+        "ln1": _norm(cfg, c, path + ("ln1",)),
+        "self_attn": _gqa_attn(cfg, c, path + ("self_attn",)),
+        "ln2": _norm(cfg, c, path + ("ln2",)),
+        "cross_attn": _gqa_attn(cfg, c, path + ("cross_attn",)),
+        "ln3": _norm(cfg, c, path + ("ln3",)),
+        "mlp": _mlp(cfg, c, path + ("mlp",), bias=True),
+    }
+
+
+def _enc_block(cfg, c: Creator, path):
+    """Whisper encoder block: bidirectional self-attn + FFN (LayerNorm, biases)."""
+    return {
+        "ln1": _norm(cfg, c, path + ("ln1",)),
+        "attn": _gqa_attn(cfg, c, path + ("attn",)),
+        "ln2": _norm(cfg, c, path + ("ln2",)),
+        "mlp": _mlp(cfg, c, path + ("mlp",), bias=True),
+    }
+
+
 BLOCK_PARAMS = {"attn_ffn": _attn_ffn, "moe_attn_ffn": _moe_attn_ffn, "mla_moe": _mla_moe,
                 "griffin_rec": _griffin_rec, "griffin_attn": _griffin_attn,
-                "mlstm": _mlstm_block, "slstm": _slstm_block}
+                "mlstm": _mlstm_block, "slstm": _slstm_block, "xattn": _xattn_block,
+                "enc": _enc_block}
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -235,6 +267,12 @@ def build_params(cfg: ModelConfig, creator: Creator) -> dict:
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": creator(("lm_head", "w"), (cfg.d_model, cfg.vocab_size),
                                         cfg.d_model)}
+    if cfg.encoder_layers > 0:
+        tree["encoder"] = {
+            "blocks": [_enc_block(cfg, creator, ("encoder", "blocks", str(i), "enc"))
+                       for i in range(cfg.encoder_layers)],
+            "final_norm": _norm(cfg, creator, ("encoder", "final_norm")),
+        }
     return tree
 
 

@@ -42,12 +42,20 @@ class Request:
 
 class ServingEngine:
     """``device=None`` is the card (raises where there is none); ``params``
-    must lie on the engine's device.  ``plain_kernels`` as in :class:`Model`."""
+    must lie on the engine's device.  ``plain_kernels`` as in :class:`Model`.
+    An encoder-decoder config (Whisper) raises, as the reference's engine
+    cannot serve one either."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  cache_len: int = 512, greedy: bool = True,
                  clock: Callable[[], float] = time.perf_counter,
                  device=None, plain_kernels: bool = False):
+        if cfg.encoder_layers > 0:
+            # the reference's engine prefills {"tokens": prompt} alone, and its
+            # encoder then fails on the missing frame embeddings
+            raise ValueError(f"ServingEngine: {cfg.name} is an encoder-decoder; the reference's "
+                             "engine takes no frame embeddings, so neither does this one "
+                             "(drive Model.prefill and decode_step with frame_embeds)")
         self.cfg = cfg
         self.clock = clock
         self.model = Model(cfg, device, plain_kernels=plain_kernels)

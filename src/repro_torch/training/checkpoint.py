@@ -68,6 +68,8 @@ def _from_reference(ref, target, cfg):
     if _is_params(target):
         layers = port_layout(ref, cfg)
         layers["blocks"] = [_clone(b) for b in layers["blocks"]]
+        if "encoder" in layers:
+            layers["encoder"]["blocks"] = [_clone(b) for b in layers["encoder"]["blocks"]]
         return layers
     if isinstance(target, dict):
         return {k: _from_reference(ref[k], v, cfg) for k, v in target.items()}

@@ -6,6 +6,10 @@ models run on the same tree.
 
 float32 logits agree to 1e-4: the two frameworks sum the matrix products and
 the softmax in another order, and the error grows through the layers.
+
+An encoder-decoder (whisper) takes frame embeddings beside its prompt
+(``frames``: numpy from a seed, times 0.1, as ``tests/test_archs.py`` draws
+them); its decode steps take tokens only.
 """
 import functools
 
@@ -20,6 +24,7 @@ from repro.configs import get_config as j_config, get_tiny_config as j_tiny
 from repro.models import Model as JModel, count_params as j_count
 from repro.models.kvcache import cache_bytes as j_cache_bytes
 from repro_torch.configs import ARCH_IDS, get_config as t_config, get_tiny_config as t_tiny
+from repro_torch.configs import torch_dtype
 from repro_torch.convert import from_reference_cache, from_reference_params, to_reference_params
 from repro_torch import kernels as K
 from repro_torch.models import Model as TModel, cache_bytes as t_cache_bytes, count_params as t_count
@@ -28,7 +33,8 @@ from repro_torch.models.kvcache import cache_len_of
 
 TOL = 1e-4
 FULL_COUNTS = {"phi4-mini-3.8b": 3_836_021_760, "gemma-7b": 8_537_680_896,
-               "olmoe-1b-7b": 6_919_096_320, "deepseek-v3-671b": 703_797_812_224}
+               "olmoe-1b-7b": 6_919_096_320, "deepseek-v3-671b": 703_797_812_224,
+               "whisper-large-v3": 1_535_587_840}
 ACTIVE_COUNTS = {"olmoe-1b-7b": 1_281_951_744, "deepseek-v3-671b": 37_557_787_648}
 
 
@@ -59,6 +65,25 @@ def tokens(cfg, B, S, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
+def frames(cfg, B, seed=2):
+    """(B, encoder_seq, d_model) float32 frame embeddings, or None for a
+    decoder-only config."""
+    if not cfg.encoder_layers:
+        return None
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)) * 0.1).astype(np.float32)
+
+
+def batch(cfg, toks, seed=2, *, jax_arrays=False):
+    """``{"tokens"}`` plus, for an encoder-decoder, ``frame_embeds`` of the
+    same batch; as jax arrays for the reference."""
+    b = {"tokens": toks}
+    fe = frames(cfg, toks.shape[0], seed)
+    if fe is not None:
+        b["frame_embeds"] = fe
+    return {k: jnp.asarray(v) for k, v in b.items()} if jax_arrays else b
+
+
 def close(got: torch.Tensor, want, tol=TOL):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, dtype=np.float32),
                                atol=tol, rtol=tol)
@@ -78,8 +103,8 @@ def test_forward_matches_reference(arch):
     cj, ct, pj, pn = perturbed_reference_params(arch)
     pt = from_reference_params(pn, ct, "cpu")
     toks = tokens(cj, 2, 24)
-    want, want_aux = JModel(cj).forward(pj, {"tokens": jnp.asarray(toks)})
-    got, aux = TModel(ct, "cpu").forward(pt, {"tokens": toks})
+    want, want_aux = JModel(cj).forward(pj, batch(cj, toks, jax_arrays=True))
+    got, aux = TModel(ct, "cpu").forward(pt, batch(ct, toks))
     assert got.shape == (2, 24, ct.vocab_size) and got.dtype == torch.float32
     assert aux.shape == () and aux.dtype == torch.float32
     if ct.is_moe:     # the router's load-balancing loss, summed over the layers
@@ -97,8 +122,8 @@ def test_prefill_and_three_decode_steps_match_reference(arch):
     B, S, T = 2, 12, 14      # T = 14: the third decode step wraps the ring (pos % T)
     toks = tokens(cj, B, S + 3)
     jm, tm = JModel(cj), TModel(ct, "cpu")
-    lj, cache_j = jm.prefill(pj, {"tokens": jnp.asarray(toks[:, :S])}, cache_len=T)
-    lt, cache_t = tm.prefill(pt, {"tokens": toks[:, :S]}, cache_len=T)
+    lj, cache_j = jm.prefill(pj, batch(cj, toks[:, :S], jax_arrays=True), cache_len=T)
+    lt, cache_t = tm.prefill(pt, batch(ct, toks[:, :S]), cache_len=T)
     assert lt.shape == (B, 1, ct.vocab_size)
     close(lt, lj)
     cache_close(ct, cache_t, cache_j)
@@ -118,7 +143,7 @@ def test_decode_from_a_carried_over_cache(arch):
     pt = from_reference_params(pn, ct, "cpu")
     toks = tokens(cj, 2, 9, seed=4)
     jm, tm = JModel(cj), TModel(ct, "cpu")
-    _, cache_j = jm.prefill(pj, {"tokens": jnp.asarray(toks[:, :8])}, cache_len=16)
+    _, cache_j = jm.prefill(pj, batch(cj, toks[:, :8], jax_arrays=True), cache_len=16)
     cache_t = from_reference_cache(to_np(cache_j), ct, "cpu")
     lj, _ = jm.decode_step(pj, cache_j, {"tokens": jnp.asarray(toks[:, 8:])})
     lt, _ = tm.decode_step(pt, cache_t, {"tokens": toks[:, 8:]})
@@ -138,8 +163,8 @@ def test_prefill_decode_match_forward_inside_the_port(arch):
     params = m.init(torch.Generator().manual_seed(0))
     B, S = 2, 12
     toks = tokens(cfg, B, S + 1)
-    lf, _ = m.forward(params, {"tokens": toks})
-    lp, cache = m.prefill(params, {"tokens": toks[:, :S]}, cache_len=S + 4)
+    lf, _ = m.forward(params, batch(cfg, toks))
+    lp, cache = m.prefill(params, batch(cfg, toks[:, :S]), cache_len=S + 4)
     ld, cache2 = m.decode_step(params, cache, {"tokens": toks[:, S:S + 1]})
     tol = 0.08
     assert bool(torch.isfinite(lf).all())
@@ -234,9 +259,11 @@ def test_mla_moe_is_left_to_its_own_slice():
     builds ``mla_moe`` blocks and their compressed caches.  So did the
     hybrid (RG-LRU): a tiny hybrid config builds its (rec, rec, attn) cycle,
     its recurrent state and its windowed ring.  So did the xLSTM stack: a
-    tiny xLSTM builds its (m, m, m, s) cycle and its float32 states.  The
-    next family (audio, Whisper) still raises, naming its slice, and so do
-    the others."""
+    tiny xLSTM builds its (m, m, m, s) cycle and its float32 states.  So did
+    the audio family (Whisper): a tiny audio config builds its ``xattn``
+    cycle, its encoder tree and its ``{k, v, ck, cv}`` cache.  The next
+    family (VLM, Qwen2-VL) still raises, naming its slice, and so do the
+    others."""
     cfg = t_tiny("olmoe-1b-7b").replace(attention="mla", q_lora_rank=32, kv_lora_rank=16,
                                         qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
     m = TModel(cfg, "cpu")
@@ -272,10 +299,27 @@ def test_mla_moe_is_left_to_its_own_slice():
          "C": ((1, H, Dh, Dh), torch.float32), "n": ((1, H, Dh), torch.float32),
          "m": ((1, H), torch.float32)},
         {k: ((1, xl.d_model), torch.float32) for k in ("c", "n", "h", "m")}]
-    with pytest.raises(ValueError, match="Whisper"):
-        TModel(cfg.replace(family="audio"), "cpu")
-    with pytest.raises(ValueError, match="not ported"):
+    wh = t_tiny("whisper-large-v3")
+    m = TModel(wh, "cpu")
+    assert m.kinds == ("xattn",) * wh.num_layers
+    params = m.init(torch.Generator().manual_seed(0))
+    D, H, Dh, E = wh.d_model, wh.num_heads, wh.head_dim, wh.encoder_seq
+    assert len(params["encoder"]["blocks"]) == wh.encoder_layers
+    assert set(params["encoder"]) == {"blocks", "final_norm"}
+    assert set(params["encoder"]["final_norm"]) == {"w", "b"}                  # LayerNorm
+    assert set(params["encoder"]["blocks"][0]) == {"ln1", "attn", "ln2", "mlp"}
+    assert params["encoder"]["blocks"][0]["mlp"]["up"]["b"].shape == (wh.d_ff,)
+    assert set(params["blocks"][0]) == {"ln1", "self_attn", "ln2", "cross_attn", "ln3", "mlp"}
+    assert params["blocks"][0]["cross_attn"]["k"]["b"].shape == (H, Dh)
+    assert params["blocks"][0]["mlp"]["down"]["b"].shape == (D,)
+    _, cache = m.prefill(params, {"tokens": tokens(wh, 1, 5), "frame_embeds": frames(wh, 1)},
+                         cache_len=8)
+    assert [(k, tuple(v.shape)) for k, v in cache["blocks"][0].items()] == [
+        ("k", (1, 8, H, Dh)), ("v", (1, 8, H, Dh)), ("ck", (1, E, H, Dh)), ("cv", (1, E, H, Dh))]
+    with pytest.raises(ValueError, match="not ported.*Qwen2-VL"):
         TModel(cfg.replace(family="vlm"), "cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        TModel(cfg.replace(family="speech"), "cpu")
 
 
 def test_init_params_shapes_dtypes_and_statistics():
@@ -299,16 +343,23 @@ def test_init_params_shapes_dtypes_and_statistics():
 # The residual adds carried into the norms
 # --------------------------------------------------------------------------
 
-def _unfused(m, params, tokens, attend, recur=None):
+def _unfused(m, params, tokens, positions, attend, recur=None, cross=None):
     """The block as it reads in the reference: ``h = h + a``, then ``h = h +
     ffn(norm(h))`` (the MoE block's ``moe_ffn``), each add a pass of its own,
     and the norm of ``h``.  ``a`` is the attention (``attend``) or, in an
     RG-LRU block, the recurrent branch (``recur``).  An xLSTM block has one
-    add: its branch (``recur``) holds the cell and its projections."""
+    add: its branch (``recur``) holds the cell and its projections.  A
+    whisper block adds its self attention, its cross attention (``cross``)
+    and its FFN, each after its own norm."""
     cfg = m.cfg
-    h = m._embed(params, tokens)
+    h = m._embed(params, tokens, positions)
     for i, p in enumerate(params["blocks"]):
         x = TL.apply_norm(cfg, p["ln" if "ln" in p else "ln1"], h)
+        if "cross_attn" in p:
+            h = h + attend(i, p["self_attn"], x)
+            h = h + cross(i, p["cross_attn"], TL.apply_norm(cfg, p["ln2"], h))
+            h = h + TL.ffn(cfg, p["mlp"], TL.apply_norm(cfg, p["ln3"], h))
+            continue
         h = h + (attend(i, p["attn"], x) if "attn" in p else recur(i, p, x))
         if "ln2" not in p:
             continue
@@ -343,11 +394,28 @@ def _recur_full(cfg, p, y):
     return TL.linear(p["out"], g * r), {"h": h_last.to(y.dtype), "conv": conv}
 
 
-def unfused_forward(m, params, toks, cache_len=None):
-    """Logits (and, with ``cache_len``, the prefill cache) of the unfused composition."""
+def unfused_encode(m, params, fe):
+    """The encoder (whisper) as the reference reads it, each add a pass of its own."""
+    cfg = m.cfg
+    h = torch.as_tensor(fe).to(torch_dtype(cfg.dtype))
+    B, S, _ = h.shape
+    positions = torch.arange(S).expand(B, S)
+    h = h + TL.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
+    for p in params["encoder"]["blocks"]:
+        a, _ = TM.gqa_full(cfg, p["attn"], TL.apply_norm(cfg, p["ln1"], h), positions,
+                           causal=False, rope=False)
+        h = h + a
+        h = h + TL.ffn(cfg, p["mlp"], TL.apply_norm(cfg, p["ln2"], h))
+    return TL.apply_norm(cfg, params["encoder"]["final_norm"], h)
+
+
+def unfused_forward(m, params, toks, cache_len=None, fe=None):
+    """Logits (and, with ``cache_len``, the prefill cache) of the unfused
+    composition; ``fe`` the frame embeddings of an encoder-decoder."""
     tokens = torch.as_tensor(toks).long()
     B, S = tokens.shape
     positions = torch.arange(S).expand(B, S)
+    enc_out = unfused_encode(m, params, fe) if fe is not None else None
     tables = TL.rope_tables(m.cfg, positions, TL.rope_head_dim(m.cfg))
     mla = m.cfg.attention == "mla"
     window = m.cfg.window if m.cfg.family == "hybrid" else 0
@@ -373,7 +441,13 @@ def unfused_forward(m, params, toks, cache_len=None):
         caches.append(state)
         return out
 
-    h = _unfused(m, params, tokens, attend, recur)
+    def cross(i, p, x):
+        a, (ck, cv) = TM.cross_full(m.cfg, p, x, enc_out)
+        if cache_len:
+            caches[-1].update(ck=ck, cv=cv)      # beside the self attention's ring
+        return a
+
+    h = _unfused(m, params, tokens, positions, attend, recur, cross)
     return m._logits(params, h), {"blocks": caches, "pos": torch.full((B,), S, dtype=torch.int32)}
 
 
@@ -402,7 +476,10 @@ def unfused_decode_step(m, params, cache, toks):
         c["h"], c["conv"] = h_state.to(y.dtype), conv
         return TL.linear(p["out"], g * r_t[:, None, :])
 
-    h = _unfused(m, params, tokens, attend, recur)
+    def cross(i, p, x):
+        return TM.cross_decode(m.cfg, p, x, cache["blocks"][i])
+
+    h = _unfused(m, params, tokens, positions, attend, recur, cross)
     return m._logits(params, h[:, -1:]), {"blocks": cache["blocks"], "pos": pos + 1}
 
 
@@ -421,11 +498,12 @@ def test_fused_residual_adds_are_bit_identical_to_the_unfused_block(arch):
     m = TModel(ct, "cpu")
     B, S, T = 2, 10, 12     # the second decode step wraps the ring
     toks = tokens(ct, B, S + 3)
-    got, _ = m.forward(pt, {"tokens": toks[:, :S]})
-    want, _ = unfused_forward(m, pt, toks[:, :S])
+    fe = frames(ct, B)
+    got, _ = m.forward(pt, batch(ct, toks[:, :S]))
+    want, _ = unfused_forward(m, pt, toks[:, :S], fe=fe)
     assert got.dtype == torch.float32 and torch.equal(got, want)
-    lf, cf = m.prefill(pt, {"tokens": toks[:, :S]}, cache_len=T)
-    lu, cu = unfused_forward(m, pt, toks[:, :S], cache_len=T)
+    lf, cf = m.prefill(pt, batch(ct, toks[:, :S]), cache_len=T)
+    lu, cu = unfused_forward(m, pt, toks[:, :S], cache_len=T, fe=fe)
     assert torch.equal(lf, lu[:, -1:])
     caches_equal(cf, cu)
     for i in range(3):

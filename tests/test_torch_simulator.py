@@ -73,6 +73,16 @@ SILU_TRAIN_MEMORY_TOL = {"xlstm-125m": 0.08}
 # all-batch (N, 1, 1), are multiplies in the port (tests/test_torch_ingest.py,
 # ``ALL_BATCH``), so its matmul time is the reference's less theirs.
 ALL_BATCH_ARCHS = ("xlstm-125m",)
+# whisper-large-v3's FFN is a plain GELU (its xattn and enc blocks): the
+# reference prices lax's four elementwise passes over (B, S, d_ff) beside the
+# up projection's bias add, where the port prices ATen's one gelu, the kernel
+# it runs (tests/test_torch_ingest.py, ``PLAIN_GELU``).  With the encoder's 32
+# blocks at 1500 frames in train and prefill, that is the gap (the port's
+# elementwise time is about half the reference's there).  Its forward,
+# backward and step are then below
+# the reference's, never above: measured step -21.3 % in train and -23.0 % in
+# prefill.  Decode (no encoder) is within ``STEP_TOL`` (-9.0 %).
+PLAIN_GELU_TOL = {"whisper-large-v3": 0.30}
 
 
 def _matmul_share_without_all_batch(arch, mode) -> float:
@@ -118,8 +128,11 @@ def check_report(arch, mode, r, t):
     assert (t.chips, t.tokens_per_step, t.model_flops) == (r.chips, r.tokens_per_step,
                                                            r.model_flops)
     moe_train = t_config(arch).is_moe and mode == "train"
+    gelu = PLAIN_GELU_TOL.get(arch) if mode in ("train", "prefill") else None
     if moe_train:
         _below_by_at_most(t.step_time_us, r.step_time_us, MOE_TRAIN_TOL["step"])
+    elif gelu is not None:
+        _below_by_at_most(t.step_time_us, r.step_time_us, gelu)
     else:
         assert t.step_time_us == pytest.approx(r.step_time_us, rel=STEP_TOL)
     assert t.mfu * t.step_time_us == pytest.approx(r.mfu * r.step_time_us, rel=1e-12)
@@ -127,6 +140,8 @@ def check_report(arch, mode, r, t):
     for k, v in r.breakdown_us.items():
         if moe_train and k == "bwd":
             _below_by_at_most(t.breakdown_us[k], v, MOE_TRAIN_TOL["bwd"])
+        elif gelu is not None and k in ("fwd", "bwd"):
+            _below_by_at_most(t.breakdown_us[k], v, gelu)
         else:
             # a zero entry (pp_bubble at pp 1) is a difference of sums of the
             # step's size: rounding leaves up to an ulp of it either way

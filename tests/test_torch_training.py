@@ -70,8 +70,15 @@ def reference_params(arch, seed=0):
 
 
 def token_batch(cfg, B=4, S=16, seed=1):
-    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+    """Tokens and next-token labels; for an encoder-decoder (whisper) also
+    frame embeddings (B, encoder_seq, d_model) from the same seed, times 0.1."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
+    if cfg.encoder_layers:
+        batch["frame_embeds"] = (rng.standard_normal((B, cfg.encoder_seq, cfg.d_model))
+                                 * 0.1).astype(np.float32)
+    return batch
 
 
 def port_leaves(np_tree, ct, dtype=None):
@@ -179,7 +186,8 @@ def test_loss_and_gradients_match_reference(arch):
 
 
 # every (microbatches, compression) pair under each optimizer, spread over the four dense
-# configs; then the MoE decoders (GQA and MLA) and the RG-LRU hybrid under AdamW
+# configs; then the MoE decoders (GQA and MLA), the RG-LRU hybrid and the xLSTM stack under
+# AdamW; whisper (its encoder tree stacked as the reference's) under both optimizers
 STEP_CASES = [
     ("phi4-mini-3.8b", "adamw", 1, "none"), ("phi4-mini-3.8b", "adafactor", 2, "int8"),
     ("gemma-7b", "adamw", 2, "int8"), ("gemma-7b", "adafactor", 1, "none"),
@@ -187,12 +195,46 @@ STEP_CASES = [
     ("yi-34b", "adamw", 2, "none"), ("yi-34b", "adafactor", 1, "int8"),
     ("olmoe-1b-7b", "adamw", 1, "none"), ("deepseek-v3-671b", "adamw", 1, "none"),
     ("recurrentgemma-9b", "adamw", 1, "none"), ("xlstm-125m", "adamw", 1, "none"),
+    ("whisper-large-v3", "adamw", 1, "none"), ("whisper-large-v3", "adafactor", 2, "int8"),
 ]
 
 
-def params_close(got, want, *, step):
+# whisper's key projections have biases (the reference's ``qkv_bias``), whose
+# gradient is 0 in exact arithmetic: the softmax over keys is invariant to the
+# score q.b that a key bias adds to every key alike.  What either framework
+# computes there is rounding noise (about 1e-9), and AdamW's first steps
+# divide it by its own square root, so each element moves by up to lr a step
+# with the sign of its noise, and after one step most elements of those leaves
+# differ by more than TOL between the packages.  Those leaves are held to the
+# lr x steps bound only.
+ZERO_GRADIENT_LEAVES = {"whisper-large-v3": ("k", "b")}
+
+
+def exempt_leaves(arch, tree) -> list[bool]:
+    """For each leaf of the port's tree (``tree_leaves`` order), whether it
+    ends in the config's zero-gradient leaf name (``ZERO_GRADIENT_LEAVES``)."""
+    tail = ZERO_GRADIENT_LEAVES.get(arch)
+    out = []
+
+    def walk(t, keys):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], keys + (k,))
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v, keys)
+        else:
+            out.append(tail is not None and keys[-len(tail):] == tail)
+    walk(tree, ())
+    return out
+
+
+def params_close(got, want, *, step, exempt=None):
+    exempt = exempt or [False] * len(got)
     err = torch.cat([(a.detach() - b).abs().reshape(-1) for a, b in zip(got, want)])
-    assert float((err > TOL).float().mean()) <= 1e-4, f"step {step}: {int((err > TOL).sum())} off"
+    held = torch.cat([torch.full((a.numel(),), not e) for a, e in zip(got, exempt)])
+    off = (err > TOL) & held
+    assert float(off.sum()) <= 1e-4 * err.numel(), f"step {step}: {int(off.sum())} off"
     assert float(err.max()) <= LR * STEPS, f"step {step}: {float(err.max())}"
 
 
@@ -220,7 +262,7 @@ def test_train_steps_match_reference(arch, opt, microbatches, compression):
         assert int(ts["step"]) == int(js["step"]) == i + 1
         params_close(tree_leaves(ts["params"]), port_leaves(jax.tree.map(np.asarray,
                                                                           js["params"]), ct),
-                     step=i + 1)
+                     step=i + 1, exempt=exempt_leaves(arch, ts["params"]))
     if opt == "adamw":       # the moments too, in the port's layout
         for name in ("m", "v"):
             want = port_leaves(jax.tree.map(np.asarray, js["opt"][name]), ct, torch.float32)
