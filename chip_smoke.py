@@ -17,7 +17,8 @@ Phases, each printing one JSON object on a line of its own:
   kernels  every kernel against its plain PyTorch version on the card, at the
            shapes the serving path gives it (K1 also at MLA's (192, 128)
            and at recurrentgemma's 16 q heads on one kv head, D 256, with a
-           window; K2 at its group of 16) and at edge shapes, in float32
+           window; K2 at its group of 16; K1, K2, K3 and the backward kernels
+           at qwen2-vl's G 7 and D 3584) and at edge shapes, in float32
            (tolerance 2e-5: another order of summation) and bfloat16 (2e-2);
            the backward kernels of K1 and K3 at the train path's shapes and
            at edge shapes, on the same tolerances, against autograd in
@@ -158,6 +159,26 @@ Phases, each printing one JSON object on a line of its own:
            launcher at B8 S448 with the 1500-frame encoder, remat "block" (K1
            forward and backward at the encoder's, the decoder's and the cross
            attention's shapes) against the simulator's train prediction
+  vlm      the VLM family (qwen2-vl-7b at full width and depth: 28 layers,
+           d_model 3584, 28 q heads on 4 kv heads (G 7) of 128, M-RoPE over
+           (t, h, w) positions, vocab 152,064 untied), random bf16 weights from
+           the seed, a line a part: (1) serve as moe's, text only (the
+           reference's engine takes no image); (2) multimodal: Model driven
+           with a B2 prefill of S512, 256 patch embeddings (normal from the
+           seed times 0.02) over rows 0-255 at (0, i // 16, i % 16), text after
+           them at t = h = w from 16, then 32 greedy decode steps at (B, 1, 3)
+           positions that continue the text's: TTFT, tokens/s, the prefill and
+           a decode step measured, launches (K1 28 a prefill, K2 28 a step, K3
+           57 a call), no host sync in a decode step, and the first-token
+           logits moved by dropping the positions or the patches; (3) parity
+           at full depth: the first-token logits of serve's 12 prompts and of
+           the multimodal prefill within 0.1, first tokens equal or near-tied,
+           both engines' tokens; (4) simulate as moe's at prefill B1 S512 with
+           the image's positions and patches and decode B8 at 2048; (5) one
+           timed AdamW step of the launcher at B1 S2048 with the pipeline's
+           positions and patches, remat "block", depth cut 28 -> 12 layers
+           (AdamW's 12 bytes a parameter: 91.4 GB whole), against the
+           simulator's train prediction and its memory
   mla      the MLA family (deepseek-v3-671b at full width: 128 heads, q/k
            head dim 192 and v head dim 128 in the prefill's K1, 256 experts,
            top 8, one shared expert), depth cut to 2 layers (what one card
@@ -181,8 +202,9 @@ Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
 (the train phase for a backward kernel), in the train phase, by the
 profiling engine in the simulate, serve_sim and sweep phases and in the moe,
-griffin, xlstm, whisper and mla phases' parts, its timings at olmoe's,
-recurrentgemma's, xlstm's, whisper's and deepseek's shapes where it has them, error, time,
+griffin, xlstm, whisper, vlm and mla phases' parts, its timings at olmoe's,
+recurrentgemma's, xlstm's, whisper's, qwen2-vl's and deepseek's shapes where it has them,
+error, time,
 device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
 computes the same function; then the
@@ -435,6 +457,14 @@ def check_flash(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, bshd
     if lse:
         rec["lse_err"] = float(((row_lse - want_lse).abs() / want_lse.abs().clamp_min(1)).max())
         rec["max_abs_err"] = max(rec["max_abs_err"], rec["lse_err"])
+    if dtype is torch.bfloat16:
+        # the tensor-core kernel's grid, one block a (q tile, head, batch), in waves
+        # of the blocks the card holds at once
+        from repro_torch.kernels.flash_attention import tile_plan
+        plan = tile_plan(D, Dv)
+        rec["grid_blocks"] = B * H * -(-Sq // plan["q_rows"])
+        rec["waves"] = rec["grid_blocks"] / (
+            torch.cuda.get_device_properties(0).multi_processor_count * plan["blocks_per_sm"])
     del want, want_lse
     if timed:
         nbytes, flops = flash_work(q, k, causal, window, v)
@@ -1096,6 +1126,15 @@ def phase_kernels():
                                     window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
             if dtype is bf16:
                 main[name] = recs[-1]
+    # ... at qwen2-vl-7b's (28 q heads on 4 kv heads, G 7, D 128): the serving shape, and
+    # the multimodal prefill's B2 S512
+    for dtype in (bf16, f32):
+        recs.append(check_flash(rng, B=1, H=28, Hkv=4, Sq=1000, Sk=1000, D=128, causal=True,
+                                window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+        if dtype is bf16:
+            main["vlm_flash_attention"] = recs[-1]
+        recs.append(check_flash(rng, B=2, H=28, Hkv=4, Sq=512, Sk=512, D=128, causal=True,
+                                window=0, dtype=dtype, timed=False, bshd=True))
     # ... and at edge shapes
     for dtype in (bf16, f32):
         edge = [dict(B=2, H=24, Hkv=8, Sq=777, Sk=777, D=128, causal=True, window=0, bshd=True),  # batch, ragged
@@ -1148,6 +1187,12 @@ def phase_kernels():
                                  timed=dtype is bf16, bthd=True))
         if dtype is bf16:
             main["whisper_cross_decode_attention"] = recs[-1]
+    # ... at qwen2-vl-7b's (G 7 at D 128: 28 heads on 4), the serving mix of valid lengths ...
+    for dtype in (bf16, f32):
+        recs.append(check_decode(rng, B=8, H=28, Hkv=4, T=2048, D=128, valid=mixed, dtype=dtype,
+                                 timed=dtype is bf16, bthd=True))
+        if dtype is bf16:
+            main["vlm_decode_attention"] = recs[-1]
     # ... at qwen2.5-32b's group (G=5) and with a long cache (many splits) ...
     for dtype in (bf16, f32):
         recs.append(check_decode(rng, B=4, H=40, Hkv=8, T=1500, D=128, valid=None, dtype=dtype,
@@ -1216,6 +1261,13 @@ def phase_kernels():
                                           timed=dtype is bf16 and R == 1000))
                 if R == 1000 and dtype is bf16:
                     main["xlstm_add_rmsnorm" if fused else "xlstm_rmsnorm"] = recs[-1]
+    # ... at qwen2-vl-7b's (D 3584, the sum written), its decode and prefill rows ...
+    for R in (8, 1000):
+        for dtype in (bf16, f32):
+            recs.append(check_rmsnorm(rng, R=R, D=3584, dtype=dtype, w_dtype=dtype, offset=False,
+                                      residual=True, fused=True, timed=dtype is bf16 and R == 1000))
+            if R == 1000 and dtype is bf16:
+                main["vlm_rmsnorm"] = recs[-1]
     # ... with the residual inside the kernel, the 1 + w form, fp32 w beside bf16 x, odd rows,
     # D not a multiple of the 16-byte vector, a base off 16 bytes, and D above the 12288 that a
     # shared-memory row allowed
@@ -1279,6 +1331,11 @@ def phase_kernels():
                                         timed=dtype is bf16, bshd=True))
             if dtype is bf16:
                 main[name] = recs[-1]
+        # qwen2-vl-7b's train shape (B1 S2048, G 7: the group sum over 7 heads)
+        recs.append(check_flash_bwd(rng, B=1, H=28, Hkv=4, Sq=2048, Sk=2048, D=128, causal=True,
+                                    window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+        if dtype is bf16:
+            main["vlm_flash_attention_bwd"] = recs[-1]
 
     # --- K3 backward at the train path's rows (B1 S2048, D 3072: add_rmsnorm in 63 of a
     # step's 65 norms) and the serving path's, with and without the residual, the sum's
@@ -1303,6 +1360,12 @@ def phase_kernels():
                                           timed=dtype is bf16))
             if dtype is bf16 and fused:
                 main["xlstm_rmsnorm_bwd"] = recs[-1]
+    for dtype in (bf16, f32):      # qwen2-vl-7b's rows at B1 S2048, D 3584, the sum's gradient
+        recs.append(check_rmsnorm_bwd(rng, R=2048, D=3584, dtype=dtype, w_dtype=dtype,
+                                      offset=False, residual=True, fused=True,
+                                      timed=dtype is bf16))
+        if dtype is bf16:
+            main["vlm_rmsnorm_bwd"] = recs[-1]
     # --- the fused AdamW update: phi4-mini's leaves (a layer's up projection, the
     # embedding), bf16 parameters and gradients, fp32 moments; fp32 beside PyTorch's
     # fused AdamW; a length that is no multiple of 4 and a base off 16 bytes
@@ -1766,7 +1829,8 @@ def train_shape(cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
 
 
 def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN_STEPS,
-                perturb=None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH, cut: str = "seq"):
+                perturb=None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH, cut: str = "seq",
+                layers: int | None = None):
     """phi4-mini-3.8b (or ``arch``) at full width and depth through
     repro_torch.launch.train's pieces (its Trainer: config, synthetic data,
     AdamW, remat "block", the train step): one warm-up step, ``timed_steps``
@@ -1775,16 +1839,19 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
     counter advancing by one.  ``perturb(params)``: changes the initial
     parameters in place (leaves the reference's init leaves at 0); ``seq``
     and ``batch``: the shape to start from, ``cut`` what ``train_shape``
-    halves if it does not fit."""
+    halves if it does not fit; ``layers``: the depth, cut from the config's
+    (width never cut)."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.launch import train as T
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     B, S, predicted_bytes = train_shape(cfg, seq, batch, cut)
     trainer = T.Trainer(T.parse_args(["--arch", arch, "--batch", str(B), "--seq", str(S),
                                       "--remat", "block", "--optimizer", "adamw",
                                       "--steps", str(timed_steps + 2), "--ckpt-every", "0",
-                                      "--seed", str(SEED)]))
+                                      "--seed", str(SEED)]), cfg=cfg)
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state()
     if perturb is not None:
@@ -3083,14 +3150,15 @@ def moe_parity(cfg, params=None) -> dict:
 def moe_simulate(cfg, params=None, name: str = "moe",
                  attention_kernels=(("prefill", "flash_attention"), ("decode", "decode_attention")),
                  prefill_calls: int = 5, prefill_seq: int = 512, decode_cache: int = 2048,
-                 frames=None) -> dict:
+                 extra=None) -> dict:
     """Simulator.run for olmoe (or ``cfg``, whose ``params`` the caller made)
     on h100_sxm, prefill B1 S``prefill_seq`` and decode B8 at cache
     ``decode_cache``, analytical and profiling (a fresh DB under
     ``build/<name>``; each mode's attention kernel of ``attention_kernels``
     counted), then the port's own Model.prefill / decode_step at those shapes
-    (``frames``: an encoder-decoder's frame embeddings for the prefill's one
-    request); the signed errors, also by op kind: the
+    (``extra``: more of the prefill's one request, an encoder-decoder's frame
+    embeddings or a VLM's (t, h, w) positions and patch embeddings); the
+    signed errors, also by op kind: the
     experts' products (the matmul nodes tagged ``moe_expert``) against the
     device time of the ``aten::bmm`` calls over the experts, the other
     products against the rest of cuBLAS, attention against K1 + K2, and the
@@ -3160,9 +3228,8 @@ def moe_simulate(cfg, params=None, name: str = "moe",
     if params is None:
         params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
     rng = np.random.default_rng(SEED)
-    prompt = {"tokens": rng.integers(0, cfg.vocab_size, (1, prefill_seq)).tolist()}
-    if frames is not None:
-        prompt["frame_embeds"] = frames
+    prompt = {"tokens": rng.integers(0, cfg.vocab_size, (1, prefill_seq)).tolist(),
+              **(extra or {})}
     cache = zero_cache(cfg, 8, decode_cache, model.device)
     cache["pos"].fill_(decode_cache - 1)      # every slot holds a full ring of valid rows
     step = {"tokens": rng.integers(0, cfg.vocab_size, (8, 1)).tolist()}
@@ -3777,7 +3844,8 @@ def phase_whisper() -> dict:
     whisper_parity(cfg, params)
     parts["parity_s"] = time.perf_counter() - t0 - sum(parts.values())
     sim = moe_simulate(cfg, params, name="whisper", prefill_seq=WHISPER_CONTEXT,
-                       decode_cache=WHISPER_CACHE, frames=whisper_frames(cfg, 1, SEED + 3),
+                       decode_cache=WHISPER_CACHE,
+                       extra={"frame_embeds": whisper_frames(cfg, 1, SEED + 3)},
                        prefill_calls=3)
     for mode in ("prefill", "decode"):
         emit({"phase": "whisper", **sim[mode]})
@@ -3816,6 +3884,258 @@ def phase_whisper() -> dict:
             "train": train["launches_per_step"]}
 
 
+
+
+VLM_ARCH = "qwen2-vl-7b"
+VLM_GRID = 16            # one image of 16 x 16 merged patches: launch.specs.N_PATCH_STUB rows
+VLM_B, VLM_S = 2, 512    # the multimodal prefill: the image's 256 rows, then 256 text tokens
+VLM_NEW = 32             # greedy decode steps after it
+VLM_CACHE = 2048         # the serving ring
+# The train part's depth: AdamW at 12 bytes a parameter is 91.4 GB at the full 28
+# layers against the card's 80 GB; 12 layers are 3,886,691,840 parameters, 46.6 GB.
+VLM_TRAIN_LAYERS = 12
+
+
+def vlm_positions(B: int, S: int, grid: int = VLM_GRID) -> torch.Tensor:
+    """(B, S, 3) int64 on the card, Qwen2-VL's layout (arXiv:2409.12191) built as
+    input data: an image of ``grid`` x ``grid`` merged patches on rows 0..grid^2-1
+    at (t, h, w) = (0, i // grid, i % grid), then text at t = h = w from ``grid``
+    (one past the image's largest position) on."""
+    n = grid * grid
+    i = torch.arange(S, device="cuda")
+    image = torch.stack([torch.zeros_like(i), i // grid, i % grid], dim=-1)
+    text = (grid + i - n)[:, None].expand(S, 3)
+    return torch.where((i < n)[:, None], image, text).expand(B, S, 3).contiguous()
+
+
+def vlm_inputs(cfg, B: int = VLM_B) -> dict:
+    """The multimodal prefill's batch: B x VLM_S tokens from the seed, 256 patch
+    embeddings a row (normal from the seed times 0.02, as training/data.py draws
+    them; float32, the model casts them) over rows 0-255, ``vlm_positions``."""
+    from repro_torch.launch.specs import N_PATCH_STUB
+    if VLM_GRID ** 2 != N_PATCH_STUB:
+        fail(f"the image grid {VLM_GRID}^2 is not the {N_PATCH_STUB} patches of the stub")
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    pe = torch.randn((VLM_B, N_PATCH_STUB, cfg.d_model), generator=gen, device="cuda") * 0.02
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (VLM_B, VLM_S)), device="cuda")
+    return {"tokens": toks[:B], "positions": vlm_positions(B, VLM_S), "patch_embeds": pe[:B]}
+
+
+def vlm_expected(cfg, prefills: int, decode_steps: int) -> dict:
+    """K1 an attention layer a prefill, K2 one a decode step, K3 2L + 1 a call."""
+    L = cfg.num_layers
+    return {"flash_attention": L * prefills, "decode_attention": L * decode_steps,
+            "rmsnorm": (2 * L + 1) * (prefills + decode_steps), "flash_attention_bwd": 0,
+            "rmsnorm_bwd": 0, "adamw": 0}
+
+
+def vlm_multimodal(cfg, model, params) -> dict:
+    """``Model`` driven with an image (the engine takes none, as the reference's):
+    a B2 prefill of S512, 256 patch embeddings over rows 0-255 at distinct (t, h, w)
+    positions and 256 text tokens after them, then ``VLM_NEW`` greedy decode steps at
+    explicit (B, 1, 3) positions that continue the text's.  Time to the first
+    token, tokens/s, peak memory, launches against ``vlm_expected``, the prefill
+    and one decode step measured (busy, wall, launches), no host sync in a
+    decode step; and what the first-token logits move by when the positions are
+    the default equal sections, or the patches are left out (both must move
+    them: the path read its 3-D positions and its patches)."""
+    import warnings
+    from repro_torch import kernels as K
+    batch = vlm_inputs(cfg)
+    first_text = VLM_GRID + VLM_S - VLM_GRID ** 2
+    dec_pos = (first_text + torch.arange(VLM_NEW + 16, device="cuda"))[None, :, None] \
+        .expand(VLM_B, VLM_NEW + 16, 3)
+
+    def prefill(b=batch):
+        return model.prefill(params, b, cache_len=VLM_CACHE)
+
+    logits, cache = prefill()                # warm-up
+    model.decode_step(params, cache, {"tokens": logits[:, -1].argmax(-1, keepdim=True),
+                                      "positions": dec_pos[:, :1]})
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    ttft_s = time.perf_counter() - t0
+    prefill_counts = K.launch_counts()
+    first = logits[:, -1].float()
+    out, finite = [tok], [torch.isfinite(logits).all()]
+    for j in range(VLM_NEW):
+        logits, cache = model.decode_step(params, cache, {"tokens": tok,
+                                                          "positions": dec_pos[:, j:j + 1]})
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        out.append(tok)
+        finite.append(torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = torch.cat(out, dim=1).cpu()
+    finite = bool(torch.stack(finite).all())
+    want = vlm_expected(cfg, 1, VLM_NEW)
+    step_batch = {"tokens": tok, "positions": dec_pos[:, VLM_NEW:VLM_NEW + 1]}
+    step = measure_step(lambda: model.decode_step(params, cache, step_batch), 3)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.decode_step(params, cache, step_batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:160] for w in caught if "called a synchronizing" in str(w.message)]
+    pos_after = int(cache["pos"][0])
+    del cache
+    pre = measure_step(prefill, 2)
+    moved = {}
+    for name, b in (("equal_sections", {k: v for k, v in batch.items() if k != "positions"}),
+                    ("no_patches", {k: v for k, v in batch.items() if k != "patch_embeds"})):
+        moved[name] = float((prefill(b)[0][:, -1].float() - first).abs().max())
+    rec = {"part": "multimodal", "arch": cfg.name, "layers": cfg.num_layers, "batch": VLM_B,
+           "seq": VLM_S, "patches": VLM_GRID ** 2, "image_grid": [VLM_GRID, VLM_GRID],
+           "first_text_position": first_text, "cache_len": VLM_CACHE, "new_tokens": VLM_NEW,
+           "seconds": seconds, "ttft_ms": ttft_s * 1e3,
+           "tokens_per_s": VLM_B * (VLM_NEW + 1) / seconds,
+           "decode_ms_per_step": (seconds - ttft_s) * 1e3 / VLM_NEW, "peak_bytes": peak,
+           "logits_finite": finite, "first_tokens": tokens[:, 0].tolist(),
+           "launches": counts, "launches_expected": want, "prefill_launches": prefill_counts,
+           "prefill": pre, "decode_step": step, "decode_step_host_syncs": syncs,
+           "pos_after": pos_after, "first_logits_moved_by": moved, "gpu": gpu_name_and_power()}
+    emit({"phase": "vlm", **rec})
+    if tokens.shape != (VLM_B, VLM_NEW + 1) or not ((tokens >= 0)
+                                                    & (tokens < cfg.vocab_size)).all():
+        fail(f"vlm multimodal: tokens of shape {tuple(tokens.shape)} or outside the vocabulary")
+    if not finite:
+        fail("vlm multimodal: non-finite logits")
+    if counts != want or prefill_counts != vlm_expected(cfg, 1, 0):
+        fail(f"vlm multimodal: launch counts {counts} (prefill {prefill_counts}) differ from "
+             f"what the path implies {want}")
+    if syncs:
+        fail(f"vlm multimodal: a decode step synchronised with the host: {syncs}")
+    if not min(moved.values()) > 0.0:
+        fail(f"vlm multimodal: the first-token logits did not move without the 3-D positions "
+             f"or the patches: {moved}")
+    return rec
+
+
+def vlm_parity(cfg, params) -> tuple[dict, list]:
+    """qwen2-vl-7b at full depth, kernels against their plain versions: the
+    first-token logits of serve's 12 text prompts and of the multimodal
+    prefill (B2, patches, 3-D positions) within 0.1, every first token equal
+    or a near-tie of the plain run's two best logits; beside them, what a
+    float64 rounding of the plain norms and attention moves the plain run by,
+    and the logits' largest magnitude (the head rounds them to bf16); then
+    both engines' tokens on serve's requests.  Returns (the record, the
+    checks that failed), so that the phase's later parts still run and
+    print."""
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    tol = 1e-1
+    batch = vlm_inputs(cfg)
+
+    def first(plain):
+        return (first_token_logits(cfg, params, plain=plain),
+                Model(cfg, plain_kernels=plain).prefill(params, batch, cache_len=VLM_CACHE)[0]
+                [:, -1].float())
+
+    (text_k, image_k), (text_p, image_p) = first(False), first(True)
+    text, image = {False: text_k, True: text_p}, {False: image_k, True: image_p}
+    # what a third rounding of the same functions moves the plain run by (K3's norms
+    # and K1's attention in float64, rounded once): information beside the limit,
+    # which stays 0.1
+    saved = L.flash_attention_plain
+    L.flash_attention_plain = attention_f64
+    try:
+        with float64_norms():
+            text_64, image_64 = first(True)
+    finally:
+        L.flash_attention_plain = saved
+    runs = {plain: run_engine(cfg, params, plain=plain)[0] for plain in (False, True)}
+    equal = sum(x == y for a, b in zip(runs[False], runs[True]) for x, y in zip(a.tokens, b.tokens))
+    total = sum(len(a.tokens) for a in runs[False])
+    rec = {"part": "parity", "arch": cfg.name, "layers": cfg.num_layers, "tol": tol,
+           "tokens_equal_share": equal / total, "gpu": gpu_name_and_power()}
+    problems = []
+    for name, got, third in (("text", text, text_64), ("multimodal", image, image_64)):
+        diff = (got[False] - got[True]).abs().amax(dim=-1)
+        eq, tie = first_token_rule(got[False], got[True], diff)
+        top2 = got[True].topk(2, dim=-1).values
+        rec[name] = {"requests": len(diff), "first_logits_max_abs_diff": float(diff.max()),
+                     "per_request": [float(x) for x in diff],
+                     "first_logits_max_abs_diff_float64_plain":
+                         float((third - got[True]).abs().max()),
+                     "first_logits_abs_max": float(got[True].abs().max()),
+                     "plain_top2_margin_min": float((top2[:, 0] - top2[:, 1]).min()),
+                     "first_token_equal": eq, "first_token_near_tie": tie}
+        if not float(diff.max()) <= tol:
+            problems.append(f"{name} first-token logits differ by {float(diff.max())} > {tol}")
+        if eq + tie != len(diff):
+            problems.append(f"{name}: a first token differs beyond a near-tie")
+    torch.cuda.empty_cache()
+    return rec, problems
+
+
+def phase_vlm() -> dict:
+    """The VLM family on the card (qwen2-vl-7b at full width and depth: 28
+    layers, d_model 3584, 28 heads on 4 kv heads (G 7) of 128, M-RoPE, vocab
+    152,064 untied; random bf16 weights from the seed, made once and shared by
+    the parts), a line a part: serve (``moe_serve``, text only, as the
+    reference's engine serves it: K1 a layer a prefill, K2 a layer a decode
+    step, K3 2L+1 a call, no host sync in a decode step), multimodal
+    (``vlm_multimodal``), parity (``vlm_parity``), simulate (``moe_simulate``
+    at prefill B1 S512 with the image's (t, h, w) positions and patches, and
+    decode B8 at 2048), and train (``phase_train``: one timed AdamW step of the
+    launcher at B1 S2048 with the pipeline's positions and patches, remat
+    "block", depth cut to ``VLM_TRAIN_LAYERS``) against the simulator's train
+    prediction.  Returns the launches of each part."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, count_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(VLM_ARCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init = {"allocated_bytes": torch.cuda.memory_allocated(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    parts = {"init_s": time.perf_counter() - t0}
+    serve = moe_serve(cfg, params, phase="vlm")
+    parts["serve_s"] = time.perf_counter() - t0 - sum(parts.values())
+    multimodal = vlm_multimodal(cfg, model, params)
+    parts["multimodal_s"] = time.perf_counter() - t0 - sum(parts.values())
+    parity, problems = vlm_parity(cfg, params)
+    emit({"phase": "vlm", **parity})
+    parts["parity_s"] = time.perf_counter() - t0 - sum(parts.values())
+    one = vlm_inputs(cfg, B=1)
+    sim = moe_simulate(cfg, params, name="vlm", prefill_seq=VLM_S, prefill_calls=3,
+                       extra={"positions": one["positions"], "patch_embeds": one["patch_embeds"]})
+    for mode in ("prefill", "decode"):
+        emit({"phase": "vlm", **sim[mode]})
+    parts["simulate_s"] = time.perf_counter() - t0 - sum(parts.values())
+    del params, model, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(VLM_ARCH, phase="vlm_train", timed_steps=1, layers=VLM_TRAIN_LAYERS)
+    train_versus(cfg.replace(num_layers=VLM_TRAIN_LAYERS), train, "vlm")
+    parts["train_s"] = time.perf_counter() - t0 - sum(parts.values())
+    emit({"phase": "vlm", "part": "done", "arch": cfg.name, "params": count_params(cfg),
+          "train_layers": VLM_TRAIN_LAYERS, "seconds": time.perf_counter() - t0,
+          "parts_s": parts, "init": init, "profile_db_entries": sim["profile_db_entries"],
+          "gpu": gpu_name_and_power()})
+    if problems:
+        fail(f"vlm parity: {problems}")
+    return {"serve": serve["launches"], "multimodal": multimodal["launches"],
+            "simulate": {k: sim["prefill"]["profiling_launches"][k]
+                         + sim["decode"]["profiling_launches"][k] for k in serve["launches"]},
+            "train": train["launches_per_step"]}
 
 
 MLA_ARCH = "deepseek-v3-671b"
@@ -3974,12 +4294,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,serve,parity,train,train_parity,simulate,"
-                            "serve_sim,sweep,moe,griffin,xlstm,whisper,mla",
+                            "serve_sim,sweep,moe,griffin,xlstm,whisper,vlm,mla",
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
-                         "train_parity,simulate,serve_sim,sweep,moe,griffin,xlstm,whisper,mla "
+                         "train_parity,simulate,serve_sim,sweep,moe,griffin,xlstm,whisper,vlm,mla "
                          "(and times, the serving-shape timings alone; serve_measure, the "
                          "measured side of serve_sim alone; mla_layout, the mla phase's first "
-                         "part alone); the closing lines are printed only when the fifteen of "
+                         "part alone); the closing lines are printed only when the sixteen of "
                          "the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
@@ -4046,13 +4366,14 @@ def main(argv=None) -> int:
     griffin = phase_griffin() if "griffin" in phases else None
     xlstm = phase_xlstm() if "xlstm" in phases else None
     whisper = phase_whisper() if "whisper" in phases else None
+    vlm = phase_vlm() if "vlm" in phases else None
     if "mla_layout" in phases:
         mla_layout()
     mla = phase_mla() if "mla" in phases else None
     if (main_recs is None or counts is None or "parity" not in phases or train is None
             or train_parity is None or sim is None or serve_sim is None or swept is None
             or moe is None or griffin is None or xlstm is None or whisper is None
-            or mla is None):
+            or vlm is None or mla is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
@@ -4100,6 +4421,11 @@ def main(argv=None) -> int:
                # the launcher's train step (a step)
                "whisper_launches": {part: whisper[part][name]
                                     for part in ("transcribe", "simulate", "train")},
+               # qwen2-vl-7b at full width and depth: serving (text only), the multimodal
+               # prefill and its 32 decode steps, the profiling engine's measurements,
+               # and the launcher's train step at 12 layers (a step)
+               "vlm_launches": {part: vlm[part][name]
+                                for part in ("serve", "multimodal", "simulate", "train")},
                "max_abs_err": r["max_abs_err"],
                "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4155,6 +4481,14 @@ def main(argv=None) -> int:
                 rec[f"whisper_shape_{part}"] = {k: whisper_rec.get(k) for k in (
                     "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "library_device_ms")}
+        vlm_rec = main_recs.get(f"vlm_{name}")
+        if vlm_rec is not None:
+            # the same kernel at qwen2-vl-7b's shapes (G 7 at D 128, K3 at D 3584 with
+            # the sum): K1 at the serving prefill, K2 at the serving ring, the
+            # backward kernels at the train shape B1 S2048
+            rec["vlm_shape"] = {k: vlm_rec.get(k) for k in (
+                "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")}
         if name in TRAIN_ONLY:
             rec["note"] = TRAIN_ONLY[name]
         kernels.append(rec)

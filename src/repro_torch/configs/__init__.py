@@ -1,13 +1,14 @@
 """Architecture registry: ``--arch <id>`` resolves through here.
 
-``ARCH_IDS`` lists only what the port can run today: the four dense decoders
-(block kind ``attn_ffn``), the MoE decoder with GQA attention (olmoe, block
-kind ``moe_attn_ffn``), the MoE decoder with MLA attention (deepseek, block
-kind ``mla_moe``), the RG-LRU hybrid (recurrentgemma, block kinds
-``griffin_rec`` and ``griffin_attn``), the xLSTM stack (xlstm, block kinds
-``mlstm`` and ``slstm``) and the Whisper encoder-decoder (block kinds
-``xattn`` in the decoder and ``enc`` in the encoder).  The reference's VLM
-family (Qwen2-VL) arrives with its layers in a later slice.
+``ARCH_IDS`` lists the reference's ten architectures: the four dense
+decoders (block kind ``attn_ffn``), the MoE decoder with GQA attention
+(olmoe, block kind ``moe_attn_ffn``), the MoE decoder with MLA attention
+(deepseek, block kind ``mla_moe``), the RG-LRU hybrid (recurrentgemma, block
+kinds ``griffin_rec`` and ``griffin_attn``), the xLSTM stack (xlstm, block
+kinds ``mlstm`` and ``slstm``), the Whisper encoder-decoder (block kinds
+``xattn`` in the decoder and ``enc`` in the encoder) and the VLM backbone
+(qwen2-vl: the dense ``attn_ffn`` block with M-RoPE over (t, h, w)
+positions and patch embeddings overlaid on the first rows).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ _ARCH_MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "xlstm-125m": "xlstm_125m",
     "whisper-large-v3": "whisper_large_v3",
+    "qwen2-vl-7b": "qwen2_vl_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -325,8 +325,11 @@ def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
                  *, cache_len: int = 0) -> ModelGraphs:
     """Trace one graph per distinct block kind (+ embed/head, + Whisper's
     encoder).  The dense decoders, the MoE decoders (GQA and MLA), the
-    RG-LRU hybrid, the xLSTM stack and the Whisper encoder-decoder are
-    ported (``block_cycle`` rejects the VLM family).  An encoder-decoder's
+    RG-LRU hybrid, the xLSTM stack, the Whisper encoder-decoder and the VLM
+    backbone are ported; a full-sequence block of M-RoPE takes positions
+    (B_local, S, 3), as the reference's does, and gathers each frequency's
+    section in one node; a decode block takes ``pos[:, None]``, broadcast to
+    the three sections as the reference broadcasts it.  An encoder-decoder's
     decoder block is traced with the encoder's output ``(B, encoder_seq,
     D)`` as an argument (differentiated in the joint graph, as the
     reference's ``vjp`` is), and its encoder is one ``enc`` block repeated
@@ -381,7 +384,10 @@ def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
                     p = _fake_layer_params(cfg, kind)
                     x = torch.empty((B_local, S, D), dtype=dt)
                     pend = torch.empty((B_local, S, D), dtype=dt)
-                    positions = torch.empty((B_local, S), dtype=torch.long)
+                    # M-RoPE takes a (t, h, w) triple a token, as the reference's
+                    # traced block does
+                    positions = torch.empty((B_local, S, 3) if cfg.rope_style == "mrope"
+                                            else (B_local, S), dtype=torch.long)
                     enc = (torch.empty((B_local, cfg.encoder_seq, D), dtype=dt),) \
                         if cfg.cross_attention else ()
 

@@ -56,9 +56,13 @@ class Trainer:
     """The launcher's pieces, which ``chip_smoke.py`` drives step by step:
     config, run config, optimizer, train step, checkpoints, monitor."""
 
-    def __init__(self, args: argparse.Namespace):
+    def __init__(self, args: argparse.Namespace, cfg=None):
+        """``cfg``: the model config to train in place of ``--arch``'s (a
+        config of that arch cut in depth, where the whole does not fit)."""
         self.args = args
-        self.cfg = get_tiny_config(args.arch) if args.tiny else get_config(args.arch)
+        if cfg is None:
+            cfg = get_tiny_config(args.arch) if args.tiny else get_config(args.arch)
+        self.cfg = cfg
         shape = ShapeConfig("cli", args.seq, args.batch, "train")
         self.run = RunConfig(model=self.cfg, shape=shape, optimizer=args.optimizer,
                              microbatches=args.microbatches, remat_policy=args.remat)

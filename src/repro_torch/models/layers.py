@@ -80,11 +80,16 @@ def add_norm(cfg, p: dict, h: torch.Tensor, pending: torch.Tensor | None, *,
 
 
 # --------------------------------------------------------------------------
-# Rotary position embeddings (standard / partial; M-RoPE is not ported yet)
+# Rotary position embeddings (standard / partial / M-RoPE)
 # --------------------------------------------------------------------------
 
 def _rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+    """(dim/2,) float32 ``1 / theta^(2i/dim)``, bit for bit the reference's:
+    the exponent in float32, its power in float64 rounded once to float32
+    (as XLA's float32 power gives it; torch's float32 power misses the last
+    bit of some), the reciprocal in float32."""
+    e = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (theta ** e.double()).float()
 
 
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -104,23 +109,52 @@ def rope_head_dim(cfg) -> int:
     return cfg.qk_rope_head_dim if cfg.attention == "mla" else cfg.head_dim
 
 
+def mrope_sections(half: int, device) -> torch.Tensor:
+    """(half,) int64: the section, 0 (t), 1 (h) or 2 (w), whose position
+    each rotary frequency takes: a quarter, three eighths and the rest of
+    the ``half`` frequencies (Qwen2-VL's ``mrope_section``, [16, 24, 24] at
+    half = 64)."""
+    s0 = half // 4
+    s1 = s0 + (3 * half) // 8
+    return torch.cat([torch.zeros((s0,), dtype=torch.long, device=device),
+                      torch.ones((s1 - s0,), dtype=torch.long, device=device),
+                      torch.full((half - s1,), 2, dtype=torch.long, device=device)])
+
+
+def rope_angles(cfg, positions: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """(B, S, 1, rot/2) float32: the float32 positions times the
+    frequencies, the reference's product.
+
+    M-RoPE (``rope_style="mrope"``) takes positions (B, S, 3), one (t, h, w)
+    triple a token, or (B, S), broadcast to three equal sections (then the
+    angles are standard RoPE's).  Each frequency takes the position of its
+    section (``mrope_sections``) by one gather, as the reference's
+    ``take_along_axis`` does."""
+    inv = _rope_freqs(_rot_dim(cfg, head_dim), cfg.rope_theta, positions.device)   # (half,)
+    if cfg.rope_style != "mrope":
+        return positions.float()[..., None, None] * inv
+    if positions.ndim == 2:
+        positions = positions[..., None].expand(*positions.shape, 3)
+    half = inv.shape[0]
+    sec = mrope_sections(half, positions.device).expand(*positions.shape[:2], half)
+    return torch.gather(positions.float(), -1, sec)[..., None, :] * inv
+
+
 def rope_tables(cfg, positions: torch.Tensor, head_dim: int):
-    """(cos, sin), each (B, S, 1, rot/2) float32, for ``apply_rope``.  They
-    depend on the positions only, so a model call computes them once and
-    hands them to every layer (eager torch has no compiler to share them)."""
+    """(cos, sin) of :func:`rope_angles`, each (B, S, 1, rot/2) float32, for
+    ``apply_rope``.  They depend on the positions only, so a model call
+    computes them once and hands them to every layer (eager torch has no
+    compiler to share them)."""
     if cfg.rope_style == "none":
         return None
-    if cfg.rope_style not in ("standard", "partial"):
-        raise NotImplementedError(f"rope_style {cfg.rope_style!r} is not ported yet")
-    inv = _rope_freqs(_rot_dim(cfg, head_dim), cfg.rope_theta, positions.device)   # (half,)
-    angles = positions.float()[..., None, None] * inv                              # (B, S, 1, half)
+    angles = rope_angles(cfg, positions, head_dim)
     return torch.cos(angles), torch.sin(angles)
 
 
 def apply_rope(cfg, x: torch.Tensor, positions: torch.Tensor, *, tables=None) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) integer.  ``tables``: what
-    :func:`rope_tables` gave for these positions and this D, if the caller
-    has it already."""
+    """x: (B, S, H, D); positions: (B, S) integer, or (B, S, 3) for M-RoPE.
+    ``tables``: what :func:`rope_tables` gave for these positions and this
+    D, if the caller has it already."""
     if cfg.rope_style == "none":
         return x
     d = x.shape[-1]

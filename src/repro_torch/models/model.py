@@ -1,6 +1,7 @@
 """Model assembly for the dense decoders, the MoE decoders, with GQA or with
-MLA attention, the RG-LRU hybrid, the xLSTM stack and the Whisper
-encoder-decoder (counterpart of ``repro/models/model.py``).
+MLA attention, the RG-LRU hybrid, the xLSTM stack, the Whisper
+encoder-decoder and the VLM backbone (M-RoPE, patch embeddings overlaid on
+the first rows) (counterpart of ``repro/models/model.py``).
 
 ``Model`` exposes:
   * ``init(generator)``                    — concrete params on the model's device
@@ -513,7 +514,13 @@ class Model:
         return init_params(self.cfg, generator, self.device)
 
     # ---- embedding / head ----
-    def _embed(self, params, tokens, positions):
+    def _embed(self, params, tokens, positions, patch_embeds=None):
+        """Token embeddings (B, S, D) in the activation type; with the vision
+        frontend, ``patch_embeds`` (B, N, D; given by ``forward`` and
+        ``prefill``, never by ``decode_step``) takes rows 0..N-1, as the
+        reference's ``dynamic_update_slice`` at (0, 0, 0): written as a
+        concatenation, so the overwritten rows' token embeddings get a zero
+        gradient.  N > S raises (the reference fails at trace time)."""
         cfg = self.cfg
         h = params["embed"]["w"][tokens].to(torch_dtype(cfg.dtype))
         if cfg.scale_embedding:
@@ -524,6 +531,12 @@ class Model:
         if cfg.rope_style == "none":
             # Whisper: sinusoidal positions, rounded to the activation type and then added
             h = h + L.sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
+        if patch_embeds is not None and cfg.frontend == "vision_patches":
+            pe = torch.as_tensor(patch_embeds).to(self.device, h.dtype)
+            if pe.shape[1] > h.shape[1]:
+                raise ValueError(f"{pe.shape[1]} patch embeddings do not fit a sequence of "
+                                 f"{h.shape[1]} tokens")
+            h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
         return h
 
     def _logits(self, params, h):
@@ -605,8 +618,10 @@ class Model:
 
     # ---- public entry points ----
     def forward(self, params, batch):
-        """Full-sequence forward.  batch: tokens (B,S)[, positions,
-        frame_embeds (B, encoder_seq, d_model) for Whisper].  Returns
+        """Full-sequence forward.  batch: tokens (B,S)[, positions (B,S), or
+        (B,S,3) (t, h, w) for M-RoPE; frame_embeds (B, encoder_seq, d_model)
+        for Whisper; patch_embeds (B, N, d_model) for the vision frontend,
+        overlaid on rows 0..N-1].  Returns
         (logits, aux_loss): the MoE router's load-balancing loss summed over
         the layers, 0 for the dense families.
         Recorded by autograd where grad mode is on and a parameter requires
@@ -615,7 +630,7 @@ class Model:
         B, S = tokens.shape
         positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))
         aux = self._encoder_aux(params, batch, self._aux(positions))
-        h = self._embed(params, tokens, positions)
+        h = self._embed(params, tokens, positions, batch.get("patch_embeds"))
         h, f, aux_loss, _ = self._run_stack(self.kinds, params["blocks"], h, aux,
                                             collect_cache=False)
         h = self._final_norm(params, h, f)
@@ -631,7 +646,7 @@ class Model:
         B, S = tokens.shape
         positions = self._positions(batch, torch.arange(S, device=self.device).expand(B, S))
         aux = self._encoder_aux(params, batch, self._aux(positions, cache_len=cache_len))
-        h = self._embed(params, tokens, positions)
+        h = self._embed(params, tokens, positions, batch.get("patch_embeds"))
         h, f, _, caches = self._run_stack(self.kinds, params["blocks"], h, aux,
                                           collect_cache=True)
         h = self._final_norm(params, h, f)
@@ -642,7 +657,8 @@ class Model:
 
     @torch.no_grad()
     def decode_step(self, params, cache, batch):
-        """One-token decode.  batch: tokens (B,1)[, positions (B,1)].  Returns
+        """One-token decode.  batch: tokens (B,1)[, positions (B,1), or
+        (B,1,3) for M-RoPE; the ring row comes from ``cache["pos"]``].  Returns
         (logits, cache).  The tensors of ``cache`` (K/V rings, recurrent
         state) are updated **in place** and returned in a new dict beside a
         new ``pos``; the reference returns fresh arrays and leaves its

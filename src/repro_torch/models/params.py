@@ -1,9 +1,9 @@
 """Parameter-tree construction (counterpart of ``repro/models/params.py``), for the
-``attn_ffn`` block of the dense decoders, the ``moe_attn_ffn`` block of the
-MoE decoders with GQA attention, the ``mla_moe`` block of those with MLA,
-the ``griffin_rec`` / ``griffin_attn`` blocks of the RG-LRU hybrid, the
-``mlstm`` / ``slstm`` blocks of the xLSTM stack and Whisper's ``xattn``
-decoder block and ``enc`` encoder block.
+``attn_ffn`` block of the dense decoders and of the VLM backbone, the
+``moe_attn_ffn`` block of the MoE decoders with GQA attention, the
+``mla_moe`` block of those with MLA, the ``griffin_rec`` / ``griffin_attn``
+blocks of the RG-LRU hybrid, the ``mlstm`` / ``slstm`` blocks of the xLSTM
+stack and Whisper's ``xattn`` decoder block and ``enc`` encoder block.
 
 One function (``build_params``) drives its consumers through a creator
 callback: concrete init (``init_params``) and parameter counts
@@ -29,7 +29,7 @@ Creator = Callable[..., object]  # creator(path, shape, fan_in) -> leaf
 
 def block_cycle(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]]:
     """Return (cycle_kinds, n_cycles, tail_kinds) for the decoder stack."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         cycle = ("attn_ffn",)
     elif cfg.family == "moe":
         cycle = ("moe_attn_ffn" if cfg.attention != "mla" else "mla_moe",)
@@ -39,12 +39,9 @@ def block_cycle(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
         cycle = cfg.block_pattern
     elif cfg.family == "audio":
         cycle = ("xattn",)
-    elif cfg.family == "vlm":
-        raise ValueError("family 'vlm' (M-RoPE, vision patches) is not ported yet: "
-                         "it comes with the Qwen2-VL slice")
     else:
-        raise ValueError(f"family {cfg.family!r} is not ported yet "
-                         "(dense, MoE, hybrid, ssm and audio only)")
+        raise ValueError(f"family {cfg.family!r} is not ported "
+                         "(dense, MoE, hybrid, ssm, audio and vlm only)")
     n = cfg.num_layers // len(cycle)
     tail_len = cfg.num_layers - n * len(cycle)
     return cycle, n, cycle[:tail_len]

@@ -26,7 +26,8 @@ def f32(cfg):
     return cfg.replace(dtype="float32", param_dtype="float32")
 
 
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma-7b", "qwen2.5-32b", "yi-34b"])
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma-7b", "qwen2.5-32b", "yi-34b",
+                                  "qwen2-vl-7b"])
 def test_configs_carry_over_field_for_field(arch):
     import dataclasses
     a, b = j_tiny(arch), t_tiny(arch)
@@ -34,6 +35,22 @@ def test_configs_carry_over_field_for_field(arch):
     from repro.configs import get_config as j_full
     from repro_torch.configs import get_config as t_full
     assert dataclasses.asdict(j_full(arch)) == dataclasses.asdict(t_full(arch))
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma-7b", "qwen2.5-32b", "yi-34b",
+                                  "olmoe-1b-7b", "deepseek-v3-671b", "recurrentgemma-9b",
+                                  "qwen2-vl-7b"])
+def test_rope_frequencies_are_the_references_bit_for_bit(arch):
+    """``1 / theta^(2i/dim)`` at each rotary config's full width: the power
+    in float64 rounded once gives XLA's float32 result (torch's float32
+    power misses the last bit of one of qwen2-vl's 64 frequencies)."""
+    from repro.configs import get_config as j_full
+    from repro_torch.configs import get_config as t_full
+    cfg = t_full(arch)
+    rot = TL._rot_dim(cfg, TL.rope_head_dim(cfg))
+    want = np.asarray(JL._rope_freqs(rot, j_full(arch).rope_theta))
+    got = TL._rope_freqs(rot, cfg.rope_theta, "cpu")
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("arch,head_dim", [("yi-34b", 16), ("phi4-mini-3.8b", 16),

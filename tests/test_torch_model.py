@@ -261,9 +261,11 @@ def test_mla_moe_is_left_to_its_own_slice():
     its recurrent state and its windowed ring.  So did the xLSTM stack: a
     tiny xLSTM builds its (m, m, m, s) cycle and its float32 states.  So did
     the audio family (Whisper): a tiny audio config builds its ``xattn``
-    cycle, its encoder tree and its ``{k, v, ck, cv}`` cache.  The next
-    family (VLM, Qwen2-VL) still raises, naming its slice, and so do the
-    others."""
+    cycle, its encoder tree and its ``{k, v, ck, cv}`` cache.  So did the
+    VLM backbone (Qwen2-VL): a tiny VLM config builds its ``attn_ffn``
+    cycle with QKV biases and an untied head, and prefills patch embeddings
+    at (t, h, w) positions into the dense ``{k, v}`` ring.  A family the
+    reference lacks still raises."""
     cfg = t_tiny("olmoe-1b-7b").replace(attention="mla", q_lora_rank=32, kv_lora_rank=16,
                                         qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
     m = TModel(cfg, "cpu")
@@ -316,8 +318,18 @@ def test_mla_moe_is_left_to_its_own_slice():
                          cache_len=8)
     assert [(k, tuple(v.shape)) for k, v in cache["blocks"][0].items()] == [
         ("k", (1, 8, H, Dh)), ("v", (1, 8, H, Dh)), ("ck", (1, E, H, Dh)), ("cv", (1, E, H, Dh))]
-    with pytest.raises(ValueError, match="not ported.*Qwen2-VL"):
-        TModel(cfg.replace(family="vlm"), "cpu")
+    vl = t_tiny("qwen2-vl-7b")
+    m = TModel(vl, "cpu")
+    assert m.kinds == ("attn_ffn",) * vl.num_layers
+    params = m.init(torch.Generator().manual_seed(0))
+    assert set(params) == {"embed", "blocks", "final_norm", "lm_head"}      # untied head
+    assert params["blocks"][0]["attn"]["q"]["b"].shape == (vl.num_heads, vl.head_dim)
+    pe = np.zeros((1, 3, vl.d_model), np.float32)
+    pos = np.zeros((1, 5, 3), np.int32)
+    _, cache = m.prefill(params, {"tokens": tokens(vl, 1, 5), "positions": pos,
+                                  "patch_embeds": pe}, cache_len=8)
+    assert [(k, tuple(v.shape)) for k, v in cache["blocks"][0].items()] == [
+        ("k", (1, 8, vl.num_kv_heads, vl.head_dim)), ("v", (1, 8, vl.num_kv_heads, vl.head_dim))]
     with pytest.raises(ValueError, match="not ported"):
         TModel(cfg.replace(family="speech"), "cpu")
 
