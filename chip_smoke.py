@@ -135,9 +135,10 @@ Phases, each printing one JSON object on a line of its own:
            plain norms moves the plain run by; (3) simulate as moe's, no
            attention; (4) the chunk body's all-batch (2097152, 1, 1) and
            outer (8192, 1, 192) products as bmm beside a multiply; (5) one
-           timed AdamW step of the launcher (B1 S512, remat "block": K3 and
-           its backward at D 768, the AdamW kernel) against the simulator's
-           train prediction and its memory
+           timed AdamW step of the launcher (B1 S512, remat "block", depth
+           cut to one cycle of 4 layers: K3 and its backward at D 768, the
+           AdamW kernel) against the simulator's train prediction and its
+           memory
   whisper  the Whisper family (whisper-large-v3 at full width and depth: 32
            encoder and 32 decoder layers, d_model 1280, 20 heads of 64, vocab
            51,866), random bf16 weights from the seed, frame embeddings drawn
@@ -190,6 +191,29 @@ Phases, each printing one JSON object on a line of its own:
            call; the expert products apart from the absorbed attention's in
            the profiled step); (2) parity as moe's on these 2 layers; (3)
            simulate as moe's, K1 at (192, 128) counted in the prefill
+  dryrun   sharding and the dry-run launcher (run right after griffin, whose
+           model it reuses), a line a part: (1) trace: full-size cells traced
+           over DTensors on a fake process group by the host
+           (repro_torch.launch.dryrun.lower_cell: gemma-7b and olmoe-1b-7b
+           train_4k on the 16x16 mesh, gemma-7b decode_32k on 2x16x16), each
+           record's per-device FLOPs, HBM bytes, collective traffic by kind,
+           temp bytes and trace seconds, and its roofline row with the
+           H100's constants (launch/roofline.py); (2) cell: recurrentgemma-9b
+           long_500k (decode, B1, S 524,288) traced on a (1, 1) mesh of a
+           fake world of 1, then its decode step run on the card at full
+           width and depth (the ring of 2048 rows all valid, pos 524,287):
+           wall and device-busy time, launches of K2 and K3 in one step (12
+           and 77), host syncs, and the roofline bound over busy time; the
+           same step once more under a sharding env over a (1, 1) mesh of a
+           real world of one rank (NCCL): logits bit-equal, launches equal;
+           each of the step's 12 K2 calls against the plain version on its
+           own inputs (2e-2, and under a quarter of what one split of 16
+           rows left out moves the plain version by), and the logits
+           against the same step through the plain versions: in bfloat16
+           the first token equal or a near-tie; in float32 (the weights
+           widened) within 1e-3, which a K2 one split short must exceed; the
+           kernels phase checks K2 at this cell's B1 shape (128 splits) in
+           both types
 
 `--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) and the
 train-shape backward of K1 and K3 of the tree at DIR (e.g. the parent
@@ -202,7 +226,8 @@ Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
 (the train phase for a backward kernel), in the train phase, by the
 profiling engine in the simulate, serve_sim and sweep phases and in the moe,
-griffin, xlstm, whisper, vlm and mla phases' parts, its timings at olmoe's,
+griffin, xlstm, whisper, vlm and mla phases' parts and the dryrun phase's
+decode step, its timings at olmoe's,
 recurrentgemma's, xlstm's, whisper's, qwen2-vl's and deepseek's shapes where it has them,
 error, time,
 device time, plain version's
@@ -1174,6 +1199,13 @@ def phase_kernels():
                                  dtype=dtype, timed=False, bthd=True))
     recs.append(check_decode(rng, B=8, H=16, Hkv=1, T=2048, D=256, valid=[2048] * 8, dtype=bf16,
                              timed=True, bthd=True))
+    # ... at the dryrun phase's recurrentgemma-9b long_500k decode (B1, the
+    # full ring valid: 128 splits of 16 rows and a 128-way combine) ...
+    for dtype in (bf16, f32):
+        recs.append(check_decode(rng, B=1, H=16, Hkv=1, T=2048, D=256, valid=[2048],
+                                 dtype=dtype, timed=dtype is bf16, bthd=True))
+        if dtype is bf16:
+            main["dryrun_decode_attention"] = recs[-1]
     # ... at whisper-large-v3's (G = 1 at D 64): the self attention's ring of 448 with
     # mixed valid lengths, and the cross attention over the encoder's 1500 rows, every
     # row valid (the kernel's wrapper holds that valid length) ...
@@ -3309,7 +3341,7 @@ GRIFFIN_ARCH = "recurrentgemma-9b"
 GRIFFIN_PARITY_LAYERS = 6       # two whole (rec, rec, attn) cycles
 
 
-def phase_griffin() -> dict:
+def phase_griffin(keep: bool = False) -> dict:
     """The RG-LRU family on the card (recurrentgemma-9b at full width and
     depth: 38 layers, 26 ``griffin_rec`` and 12 ``griffin_attn`` with MQA
     over 16 heads at D 256 and a window of 2048), random bf16 weights from
@@ -3321,7 +3353,8 @@ def phase_griffin() -> dict:
     K2 counted in the profiling engine's prefill and decode).  The
     reference's init leaves the conv filters 0, so the recurrence would
     carry nothing; here they are drawn from the seed too (normal, std
-    1/sqrt(conv_width)).  Returns the launches of each part."""
+    1/sqrt(conv_width)).  Returns the launches of each part (and, with
+    ``keep``, the parameters under ``params``, for the dryrun phase)."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.models import Model
@@ -3350,13 +3383,337 @@ def phase_griffin() -> dict:
     emit({"phase": "griffin", "part": "done", "arch": cfg.name,
           "seconds": time.perf_counter() - t0, "init": init, "parity_layers": parity["layers"],
           "profile_db_entries": sim["profile_db_entries"], "gpu": gpu_name_and_power()})
+    out = {"serve": serve["launches"],
+           "simulate": {k: sim["prefill"]["profiling_launches"][k]
+                        + sim["decode"]["profiling_launches"][k] for k in serve["launches"]},
+           "serve_rec": serve}
+    if keep:
+        out["params"] = params
     del params, model
     gc.collect()
     torch.cuda.empty_cache()
-    return {"serve": serve["launches"],
-            "simulate": {k: sim["prefill"]["profiling_launches"][k]
-                         + sim["decode"]["profiling_launches"][k] for k in serve["launches"]},
-            "serve_rec": serve}
+    return out
+
+
+# the dryrun phase's full-size traces: (arch, shape, multi-pod mesh), timed
+# on the host (each under a minute), and its cell on one card
+DRYRUN_TRACES = (("gemma-7b", "train_4k", False), ("olmoe-1b-7b", "train_4k", False),
+                 ("gemma-7b", "decode_32k", True))
+DRYRUN_CELL = ("recurrentgemma-9b", "long_500k")
+DRYRUN_STEPS = 20
+
+
+def dryrun_row(rec: dict) -> dict:
+    """What a trace line prints of a dry-run record, with its roofline row."""
+    from repro_torch.launch.roofline import cell_terms
+    if rec.get("status") != "ok":
+        fail(f"dryrun: {rec.get('arch')} {rec.get('shape')}: {rec.get('status')} "
+             f"{rec.get('error', '')}")
+    terms = cell_terms(rec)
+    coll = rec["collectives"]
+    row = {"arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+           "n_devices": rec["n_devices"], "flops_per_device": rec["flops_per_device"],
+           "hbm_bytes_per_device": rec["hbm_bytes_per_device"],
+           "collective_traffic_bytes": coll["traffic_bytes"],
+           "collectives_by_kind": {k: {"count": v["count"], "traffic_bytes": v["traffic_bytes"]}
+                                   for k, v in coll["by_kind"].items()},
+           "while_loops": len(rec["while_loops"]),
+           "memory_analysis": rec["memory_analysis"], "trace_s": rec["lower_s"],
+           "graph_nodes": rec["graph_nodes"], "roofline": terms,
+           "bound_s": max(terms["compute_s"], terms["memory_s"], terms["collective_s"])}
+    if not (rec["flops_per_device"] > 0 and rec["hbm_bytes_per_device"] > 0
+            and rec["memory_analysis"]["temp_bytes"] > 0):
+        fail(f"dryrun: an empty record {row}")
+    return row
+
+
+def dryrun_cache(cfg, gen):
+    """recurrentgemma-9b's long_500k cache on the card: B1, every local
+    attention ring's 2048 rows filled (normal, bf16) and valid, the RG-LRU
+    states and conv inputs drawn, ``pos`` 524,287 (the reference's cell: a
+    ring of min(S, window) rows)."""
+    from repro_torch.models.kvcache import zero_cache
+    S = 524_288
+    cache = zero_cache(cfg, 1, S, "cuda")
+    for layer in cache["blocks"]:
+        for t in layer.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype))
+    cache["pos"].fill_(S - 1)
+    return cache
+
+
+@contextlib.contextmanager
+def k2_plain_one_split_short():
+    """While open, the plain version of K2 that the model calls leaves out
+    the last 16 valid rows of each sequence: what a K2 whose combine lost
+    one split of the dryrun cell's plan (128 splits of 16 rows) computes."""
+    from repro_torch.models import layers as L
+    orig = L.decode_attention_plain
+
+    def short(q, k, v, *, kv_valid_len=None, scale=None):
+        if kv_valid_len is None:
+            kv_valid_len = torch.full((q.shape[0],), k.shape[2], dtype=torch.int32,
+                                      device=q.device)
+        return orig(q, k, v, kv_valid_len=(kv_valid_len - 16).clamp_min(0), scale=scale)
+
+    L.decode_attention_plain = short
+    try:
+        yield
+    finally:
+        L.decode_attention_plain = orig
+
+
+DRYRUN_F32_LOGITS_TOL = 1e-3
+
+
+def dryrun_float32_logits(cfg, params, snapshot, pos, batch) -> dict:
+    """The dryrun cell's step in float32 (the bf16 weights and the cache's
+    snapshot widened; K2's and K3's float32 builds): its logits through the
+    kernels against the plain versions' (``DRYRUN_F32_LOGITS_TOL``), and
+    what a K2 one split short moves the plain versions' by, which must lie
+    above that tolerance.  In bfloat16 the logits (about 12 here, an ulp
+    of 0.0625) round the two apart as far as that K2 moves them."""
+    import gc
+    from repro_torch.models import Model
+    from repro_torch.models.kvcache import zero_cache
+    from repro_torch.training.optimizer import tree_map
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    cache = zero_cache(c32, 1, 524_288, "cuda")
+    cache["pos"].copy_(pos)
+
+    def run(plain: bool):
+        for layer, saved in zip(cache["blocks"], snapshot):
+            for t, s_ in zip(layer.values(), saved):
+                t.copy_(s_)
+        return Model(c32, plain_kernels=plain).decode_step(p32, cache, batch)[0]
+    kern, plain = run(False), run(True)
+    with k2_plain_one_split_short():
+        short = run(True)
+    out = {"logits_max_abs_diff_plain": max_err(kern, plain),
+           "logits_max_abs_diff_one_split_short": max_err(short, plain),
+           "tol": DRYRUN_F32_LOGITS_TOL, "first_token_equal": bool(
+               torch.equal(kern.reshape(-1, kern.shape[-1]).argmax(-1),
+                           plain.reshape(-1, plain.shape[-1]).argmax(-1)))}
+    del p32, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_k2_calls(step, restore) -> dict:
+    """K2 held against its plain version at the dryrun cell's own inputs:
+    one step from the snapshot with each K2 call's inputs and output kept,
+    then the plain version on each.  Beside it, what a K2 that dropped one
+    split of 16 rows (a 128-way combine short of one) would be off by: the
+    plain version told 16 valid rows fewer.  The kernel's error must lie
+    under the kernel tolerance and under a quarter of the least of those."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    calls = []
+    orig = ops.decode_attention_bthd
+
+    def keep(q, k, v, kv_valid_len=None, *, scale=None):
+        o = orig(q, k, v, kv_valid_len, scale=scale)
+        vl = kv_valid_len if kv_valid_len is not None else \
+            torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
+        calls.append((q.clone(), k.clone(), v.clone(), vl.clone(), scale, o.clone()))
+        return o
+
+    restore()
+    ops.decode_attention_bthd = keep
+    try:
+        step()
+    finally:
+        ops.decode_attention_bthd = orig
+    errs, short = [], []
+    for q, k, v, vl, scale, o in calls:
+        B, _, Hkv, G, D = q.shape
+
+        def plain(valid):
+            return decode_attention_plain(q.reshape(B, Hkv * G, D), k.permute(0, 2, 1, 3),
+                                          v.permute(0, 2, 1, 3), kv_valid_len=valid,
+                                          scale=scale).reshape(o.shape)
+        want = plain(vl)
+        errs.append(max_err(o, want))
+        short.append(max_err(plain(vl - 16), want))
+    return {"calls": len(calls), "valid": [int(c[3][0]) for c in calls][:1],
+            "max_abs_err": max(errs), "one_split_short_min_err": min(short),
+            "tol": TOL[torch.bfloat16]}
+
+
+def dryrun_step_syncs(step) -> list:
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message)[:160] for w in caught if "called a synchronizing" in str(w.message)]
+
+
+def dryrun_trace_cell(spec: str) -> None:
+    """One full-size cell of ``DRYRUN_TRACES`` (``arch,shape,multi``) traced
+    by ``lower_cell`` in this process: its trace line."""
+    from repro_torch.launch.dryrun import lower_cell
+    arch, shape, multi = spec.split(",")
+    t = time.perf_counter()
+    rec, _, _ = lower_cell(arch, shape, multi == "1")
+    emit({"phase": "dryrun", "part": "trace", **dryrun_row(rec),
+          "seconds": time.perf_counter() - t})
+
+
+def phase_dryrun(params=None) -> dict:
+    """Sharding and the dry-run launcher on the card (see the module's
+    docstring), a line a part: trace (the full-size cells of
+    ``DRYRUN_TRACES``, host work only, each in a process of its own, the
+    three at once), then cell (recurrentgemma-9b long_500k traced on a (1,
+    1) mesh and its decode step run here, with ``params``: the griffin
+    phase's weights, else random ones from the seed).  Returns the step's
+    launches."""
+    import gc
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.distributed.sharding import ShardingEnv, activate
+    from repro_torch.launch.dryrun import cell_record
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    gpu = gpu_name_and_power()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--trace-cell",
+                               f"{arch},{shape},{int(multi)}"],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for arch, shape, multi in DRYRUN_TRACES]
+    try:
+        outs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for cell, p, (out, err) in zip(DRYRUN_TRACES, procs, outs):
+        line = next((ln for ln in out.splitlines() if ln.startswith('{"phase": "dryrun"')), None)
+        if p.returncode != 0 or line is None:
+            fail(f"dryrun trace {cell}: exit {p.returncode}\n{out[-2000:]}\n{err[-4000:]}")
+        emit({**json.loads(line), "gpu": gpu})
+    trace_s = time.perf_counter() - t0
+    arch, shape_name = DRYRUN_CELL
+    cfg = get_config(arch)
+    with fake_world(1):
+        rec, gm = cell_record(cfg, arch, SHAPES[shape_name], make_mesh((1, 1), ("data", "model")))
+        del gm
+    row = dryrun_row(rec)
+    emit({"phase": "dryrun", "part": "cell_trace", **row, "gpu": gpu})
+
+    model = Model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if params is None:
+        params = model.init(gen)
+        for p in params["blocks"]:
+            if "conv" in p:
+                w = p["conv"]["w"]
+                w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
+                        / math.sqrt(w.shape[0]))
+    # the cache and the token from a generator of their own: the same cell
+    # whether the weights are the griffin phase's or made here
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cache = dryrun_cache(cfg, gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 1), generator=gen, device="cuda")}
+    snapshot = [[t.clone() for t in layer.values()] for layer in cache["blocks"]]
+
+    def restore():
+        for layer, saved in zip(cache["blocks"], snapshot):
+            for t, s in zip(layer.values(), saved):
+                t.copy_(s)
+
+    def step():
+        return model.decode_step(params, cache, batch)[0]
+
+    # the step's launches (the ring's write is idempotent, the recurrent
+    # states move on: each measured run starts from the snapshot)
+    restore()
+    K.reset_launch_counts()
+    logits = step()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    from repro_torch.models.params import layer_kinds
+    want = {"flash_attention": 0,
+            "decode_attention": sum(k == "griffin_attn" for k in layer_kinds(cfg)),
+            "rmsnorm": 2 * cfg.num_layers + 1,
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "adamw": 0}
+    measured = measure_step(step, DRYRUN_STEPS, annotate=FAMILY_OPS.get(cfg.family))
+    syncs = dryrun_step_syncs(step)
+
+    # the same step under a sharding env over a (1, 1) mesh of a real world
+    # of one rank: plain tensors, so every hook is the identity
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            restore()
+            K.reset_launch_counts()
+            with activate(ShardingEnv(make_mesh((1, 1), ("data", "model")))):
+                logits_env = step()
+            torch.cuda.synchronize()
+            launches_env = K.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    restore()
+    again = step()
+    k2 = dryrun_k2_calls(step, restore)
+    # the same step through the kernels' plain versions, from the snapshot
+    restore()
+    logits_plain = Model(cfg, plain_kernels=True).decode_step(params, cache, batch)[0]
+    plain_diff = max_err(logits, logits_plain)
+    f32 = dryrun_float32_logits(cfg, params, snapshot, cache["pos"], batch)
+    rows_k, rows_p = (t.float().reshape(-1, t.shape[-1]) for t in (logits, logits_plain))
+    same_first, near_tie = first_token_rule(rows_k, rows_p, (rows_k - rows_p).abs().amax(dim=-1))
+    busy_s = measured["device_busy_us"] * 1e-6
+    out = {"phase": "dryrun", "part": "cell", "arch": arch, "shape": shape_name,
+           "batch": 1, "seq": SHAPES[shape_name].seq_len, "ring_rows": cfg.window,
+           "layers": cfg.num_layers, "launches": launches, "launches_expected": want,
+           "launches_under_env": launches_env,
+           "logits_bit_equal_under_env": bool(torch.equal(logits, logits_env)),
+           "logits_bit_equal_rerun": bool(torch.equal(logits, again)),
+           "logits_finite": bool(torch.isfinite(logits).all()),
+           "logits_max_abs": float(logits_plain.float().abs().max()),
+           "logits_max_abs_diff_plain": plain_diff,
+           "first_token_equal_plain": same_first, "first_token_near_tie_plain": near_tie,
+           "k2_calls": k2, "float32": f32,
+           "wall_us": measured["wall_us"], "device_busy_us": measured["device_busy_us"],
+           "device_idle_share": max(0.0, 1.0 - measured["device_busy_us"] / measured["wall_us"]),
+           "device_us": measured["device_us"], "device_launches": measured["device_launches"],
+           "host_syncs": syncs,
+           "roofline_bound_s": row["bound_s"], "roofline_terms": row["roofline"],
+           "measured_roofline_fraction": row["bound_s"] / busy_s,
+           "trace_cells_s": trace_s, "seconds": time.perf_counter() - t0, "gpu": gpu}
+    emit(out)
+    if launches != want:
+        fail(f"dryrun cell: launches {launches} differ from what the path implies {want}")
+    if launches_env != launches or not out["logits_bit_equal_under_env"]:
+        fail(f"dryrun cell: the sharding env changed the step: {out}")
+    if not out["logits_finite"]:
+        fail(f"dryrun cell: non-finite logits: {out}")
+    if same_first + near_tie != rows_k.shape[0]:
+        fail("dryrun cell: the first token differs from the plain versions' step beyond a "
+             "near-tie of the two best logits")
+    if not f32["logits_max_abs_diff_plain"] <= f32["tol"] < f32["logits_max_abs_diff_one_split_short"]:
+        fail(f"dryrun cell: float32 logits against the plain versions' step: {f32}")
+    if not (k2["max_abs_err"] <= TOL[torch.bfloat16]
+            and 4 * k2["max_abs_err"] < k2["one_split_short_min_err"]):
+        fail(f"dryrun cell: K2 against its plain version at the cell's inputs: {k2}")
+    if syncs:
+        fail(f"dryrun cell: the decode step synchronised with the host: {syncs}")
+    del params, cache, snapshot, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cell": launches}
 
 
 XLSTM_ARCH = "xlstm-125m"
@@ -3365,6 +3722,10 @@ XLSTM_ARCH = "xlstm-125m"
 # profiled step took about 360 s of the profiler's processing; at 512 a step
 # makes about a quarter of them (two chunks of the mLSTM, 512 sLSTM steps).
 XLSTM_TRAIN_SEQ = 512
+# The train part's depth: one (m, m, m, s) cycle of the 12 layers.  The whole
+# stack's step took about 120 s of the phase on an H100; the dryrun phase's
+# host-bound traces take that time back within the default command's limit.
+XLSTM_TRAIN_LAYERS = 4
 
 
 def xlstm_draw(params, gen) -> None:
@@ -3531,8 +3892,9 @@ def phase_xlstm() -> dict:
     parity (``xlstm_parity`` at full depth), simulate (``moe_simulate``, no
     attention), the chunk body's degenerate products timed as bmm and as a
     multiply, then train (``phase_train``: one timed AdamW step of the
-    launcher at full width and depth, B1 S``XLSTM_TRAIN_SEQ``) against the
-    simulator's train prediction and its memory.  Returns the launches of
+    launcher at full width, depth cut to ``XLSTM_TRAIN_LAYERS``, B1
+    S``XLSTM_TRAIN_SEQ``) against the simulator's train prediction and its
+    memory.  Returns the launches of
     each part."""
     import gc
     from repro_torch.configs import get_config
@@ -3563,9 +3925,10 @@ def phase_xlstm() -> dict:
     torch.cuda.empty_cache()
     tgen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     train = phase_train(XLSTM_ARCH, phase="xlstm_train", timed_steps=1,
-                        perturb=lambda p: xlstm_draw(p, tgen), seq=XLSTM_TRAIN_SEQ)
+                        perturb=lambda p: xlstm_draw(p, tgen), seq=XLSTM_TRAIN_SEQ,
+                        layers=XLSTM_TRAIN_LAYERS)
     parts["train_s"] = time.perf_counter() - t0 - sum(parts.values())
-    train_versus(cfg, train, "xlstm")
+    train_versus(cfg.replace(num_layers=XLSTM_TRAIN_LAYERS), train, "xlstm")
     emit({"phase": "xlstm", "part": "done", "arch": cfg.name,
           "seconds": time.perf_counter() - t0, "parts_s": parts,
           "parity_layers": parity["layers"], "profile_db_entries": sim["profile_db_entries"],
@@ -4171,7 +4534,7 @@ def mla_layout() -> dict:
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def c(path, shape, fan_in):
+    def c(path, shape, logical, fan_in):
         w = torch.randn(shape, generator=gen, device="cuda")
         return (w if fan_in <= 0 else w / math.sqrt(fan_in)).to(bf16)
 
@@ -4294,13 +4657,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,serve,parity,train,train_parity,simulate,"
-                            "serve_sim,sweep,moe,griffin,xlstm,whisper,vlm,mla",
+                            "serve_sim,sweep,moe,griffin,dryrun,xlstm,whisper,vlm,mla",
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
-                         "train_parity,simulate,serve_sim,sweep,moe,griffin,xlstm,whisper,vlm,mla "
-                         "(and times, the serving-shape timings alone; serve_measure, the "
-                         "measured side of serve_sim alone; mla_layout, the mla phase's first "
-                         "part alone); the closing lines are printed only when the sixteen of "
-                         "the default ran")
+                         "train_parity,simulate,serve_sim,sweep,moe,griffin,dryrun,xlstm,"
+                         "whisper,vlm,mla (and times, the serving-shape timings alone; "
+                         "serve_measure, the measured side of serve_sim alone; mla_layout, the "
+                         "mla phase's first part alone); the closing lines are printed only "
+                         "when the seventeen of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -4309,6 +4672,8 @@ def main(argv=None) -> int:
                          "torch.profiler; the tables by kernel are written to DIR")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register and shared-memory report to stderr")
+    ap.add_argument("--trace-cell", metavar="ARCH,SHAPE,MULTI", default=None,
+                    help="the dryrun phase's worker: trace one full-size cell, print its line")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -4316,6 +4681,9 @@ def main(argv=None) -> int:
         fail("torch.cuda.is_available() is False: this script measures on a CUDA device only")
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"src/repro_torch is missing ({SRC})")
+    if args.trace_cell:
+        dryrun_trace_cell(args.trace_cell)
+        return 0
     from repro_torch.kernels import _build
 
     smi = gpu_name_and_power()
@@ -4363,7 +4731,9 @@ def main(argv=None) -> int:
     serve_sim = phase_serve_sim() if "serve_sim" in phases else None
     swept = phase_sweep() if "sweep" in phases else None
     moe = phase_moe() if "moe" in phases else None
-    griffin = phase_griffin() if "griffin" in phases else None
+    griffin = phase_griffin(keep="dryrun" in phases) if "griffin" in phases else None
+    dryrun = phase_dryrun(griffin.pop("params", None) if griffin else None) \
+        if "dryrun" in phases else None
     xlstm = phase_xlstm() if "xlstm" in phases else None
     whisper = phase_whisper() if "whisper" in phases else None
     vlm = phase_vlm() if "vlm" in phases else None
@@ -4372,8 +4742,8 @@ def main(argv=None) -> int:
     mla = phase_mla() if "mla" in phases else None
     if (main_recs is None or counts is None or "parity" not in phases or train is None
             or train_parity is None or sim is None or serve_sim is None or swept is None
-            or moe is None or griffin is None or xlstm is None or whisper is None
-            or vlm is None or mla is None):
+            or moe is None or griffin is None or dryrun is None or xlstm is None
+            or whisper is None or vlm is None or mla is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
@@ -4412,6 +4782,9 @@ def main(argv=None) -> int:
                # recurrentgemma-9b at full width and depth: serving, and the profiling
                # engine's measurements (K1 in its prefill, K2 at G = 16 in its decode)
                "griffin_launches": {part: griffin[part][name] for part in ("serve", "simulate")},
+               # recurrentgemma-9b long_500k: the dryrun phase's decode step at full
+               # width and depth (K2 and K3), the cell its roofline bounds
+               "dryrun_launches": {"cell": dryrun["cell"][name]},
                # xlstm-125m at full width and depth: serving (K3 only), the profiling
                # engine's measurements, and the launcher's train step (a step)
                "xlstm_launches": {part: xlstm[part][name]
@@ -4455,6 +4828,13 @@ def main(argv=None) -> int:
             rec["mla_shape"] = {k: mla_rec.get(k) for k in (
                 "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms", "library_kernels")}
+        dryrun_rec = main_recs.get(f"dryrun_{name}")
+        if dryrun_rec is not None:
+            # the same kernel at the dryrun cell's decode (K2 at B1, G 16, the
+            # full ring of 2048 rows)
+            rec["dryrun_shape"] = {k: dryrun_rec.get(k) for k in (
+                "case", "splits", "chunk", "max_abs_err", "ms", "device_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_device_ms")}
         griffin_rec = main_recs.get(f"griffin_{name}")
         if griffin_rec is not None:
             # the same kernel at recurrentgemma-9b's serving shapes (K1 at H16 Hkv1 D256

@@ -100,7 +100,7 @@ def from_reference_params(np_tree: dict, cfg: ModelConfig, device, dtype=None) -
                            "final_norm": _map(enc["final_norm"], convert)}
 
     # hold the result to the port's own build_params: same names, same shapes
-    want = build_params(cfg, lambda path, shape, fan_in: tuple(shape))
+    want = build_params(cfg, lambda path, shape, logical, fan_in: tuple(shape))
     _check_same(want, _map(tree, lambda t: tuple(t.shape)), "params")
     return tree
 
@@ -208,7 +208,7 @@ def from_reference_cache(np_cache: dict, cfg: ModelConfig, device, dtype=None) -
     for kind, layer in zip(layer_kinds(cfg), _unstack_blocks(cfg, np_cache["blocks"],
                                                              lambda a, keys: a)):
         # a leaf the port keeps in float32 (the xLSTM states) stays float32
-        own = _kind_cache(cfg, kind, lambda shape, d: d, 1, 1)
+        own = _kind_cache(cfg, kind, lambda shape, logical, d: d, 1, 1)
         names = list(own) if set(own) == set(layer) else list(layer)    # else raises below
         blocks.append({name: _leaf(layer[name], device,
                                    torch.float32 if own.get(name) == torch.float32 else dt)
@@ -218,7 +218,7 @@ def from_reference_cache(np_cache: dict, cfg: ModelConfig, device, dtype=None) -
     # attention rings' rows (a windowed ring's min(cache_len, window) rows are what a
     # cache of that many rows builds too; a stack with no ring has no T)
     B, T = cache["pos"].shape[0], cache_len_of(cache) or 0
-    want = build_cache(cfg, lambda shape, d: tuple(shape), B, T)
+    want = build_cache(cfg, lambda shape, logical, d: tuple(shape), B, T)
     _check_same(want, _map(cache, lambda t: tuple(t.shape)), "cache")
     return cache
 

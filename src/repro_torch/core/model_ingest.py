@@ -297,8 +297,8 @@ def _fake_layer_params(cfg: ModelConfig, kind: str):
     """One layer's parameters of block ``kind`` as FakeTensors (call inside
     a FakeTensorMode)."""
     dt = torch_dtype(cfg.param_dtype)
-    return BLOCK_PARAMS[kind](cfg, lambda path, shape, fan_in: torch.empty(shape, dtype=dt),
-                              ("blocks", "0", kind))
+    return BLOCK_PARAMS[kind](cfg, lambda path, shape, logical, fan_in:
+                              torch.empty(shape, dtype=dt), ("blocks", "0", kind))
 
 
 def _full_fn(cfg: ModelConfig, kind: str, with_enc: bool = False):
@@ -370,7 +370,7 @@ def block_graphs(cfg: ModelConfig, B_local: int, S: int, mode: str,
             if mode == "decode":
                 with fake:
                     p = _fake_layer_params(cfg, kind)
-                    cache = _kind_cache(cfg, kind, lambda s, d: torch.empty(s, dtype=d),
+                    cache = _kind_cache(cfg, kind, lambda s, logical, d: torch.empty(s, dtype=d),
                                         B_local, cache_len or S)
                     x1 = torch.empty((B_local, 1, D), dtype=dt)
                     pend = torch.empty((B_local, 1, D), dtype=dt)

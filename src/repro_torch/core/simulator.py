@@ -530,7 +530,7 @@ def _param_leaves(cfg: ModelConfig) -> int:
     cycle, _, tail = block_cycle(cfg)
     leaves = [0]
 
-    def c(path, shape, fan_in):
+    def c(path, shape, logical, fan_in):
         leaves[0] += 1
 
     build_params(cfg.replace(num_layers=len(cycle) + len(tail),

@@ -110,26 +110,9 @@ scan_exit.register_autograd(_scan_exit_bwd, setup_context=_scan_setup)
 SCAN_MARKS = ("scan_enter", "scan_exit")
 
 
-def scan_stub(step, carry, xs, length=None):
-    """Signature-compatible replacement for layers.scan: one step traced
-    between the loop's marks."""
-    from repro_torch.models.layers import tree_leaves_of, tree_of
-    c_leaves, c_spec = tree_leaves_of(carry)
-    x_leaves, x_spec = tree_leaves_of(xs)
-    if length is None:
-        length = x_leaves[0].shape[0]
-    nc = len(c_leaves)
-    ins = scan_enter(c_leaves + x_leaves, int(length), nc)
-    carry, y = step(tree_of(ins[:nc], c_spec), tree_of(ins[nc:], x_spec))
-    c_leaves, c_spec = tree_leaves_of(carry)
-    y_leaves, y_spec = tree_leaves_of(y)
-    nc = len(c_leaves)
-    outs = scan_exit(c_leaves + y_leaves, int(length), nc)
-    return tree_of(outs[:nc], c_spec), tree_of(outs[nc:], y_spec)
-
-
 def attention_stub(q, k, v, *, q_offset=0, causal=True, window=0, kv_valid_len=None,
-                   soft_cap=0.0, strategy="auto", scale=None, plain=False):
+                   soft_cap=0.0, strategy="auto", scale=None, q_block=2048, kv_block=512,
+                   score_dtype=torch.float32, plain=False):
     """Signature-compatible replacement for layers.attention."""
     return charon_attention(q, k, v, bool(causal), int(window))
 
@@ -148,14 +131,11 @@ def ingest_attention():
 
 @contextlib.contextmanager
 def ingest_scan():
-    """Swap layers.scan for the traced loop while tracing."""
+    """While tracing, each ``layers.scan`` is one step traced between the
+    loop's marks (``layers.marked_loops``)."""
     from repro_torch.models import layers as L
-    orig = L.scan
-    L.scan = scan_stub
-    try:
+    with L.marked_loops():
         yield
-    finally:
-        L.scan = orig
 
 
 def attention_flops(q_shape, v_shape, *, causal: bool, window: int) -> float:

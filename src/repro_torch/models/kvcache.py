@@ -17,6 +17,12 @@ conv's last inputs and the matrix memory in float32, for ``mlstm``; ``{"c",
 rows and the cross attention's keys and values of the ``encoder_seq``
 encoder rows, each ``(B, rows, Hkv, D)``, in that order.  Plus
 ``cache["pos"]``, the per-slot absolute position, ``(B,) int32``.
+
+The creator is ``creator(shape, logical, dtype)``: ``logical`` names each
+dim's logical axis, as the reference's does.  KV sharding policy
+(divisibility-aware, the reference's): the kv heads are sharded where they
+divide the active mesh's model axis (Megatron TP decode), else the KV
+sequence (flash-decode style).  With no active mesh the heads divide.
 """
 from __future__ import annotations
 
@@ -27,9 +33,10 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.distributed.sharding import axis_size
 from repro_torch.models.params import layer_kinds
 
-CacheCreator = Callable[..., object]  # creator(shape, dtype) -> leaf
+CacheCreator = Callable[..., object]  # creator(shape, logical, dtype) -> leaf
 SLSTM_STATE = ("c", "n", "h", "m")    # the sLSTM cell's state, in its scan's carry order
 
 
@@ -41,32 +48,41 @@ def ring_rows(cache_len: int, window: int) -> int:
 
 def _kind_cache(cfg: ModelConfig, kind: str, c: CacheCreator, batch: int, cache_len: int):
     dt = torch_dtype(cfg.dtype)
+    Hkv, Dh = cfg.num_kv_heads, cfg.head_dim
+    heads_ok = Hkv % axis_size("model") == 0
+    kv_ax = ("batch", None, "kv_heads", "head_dim") if heads_ok else \
+        ("batch", "kv_seq", None, "head_dim")
+
+    def kv(T):
+        return {"k": c((batch, T, Hkv, Dh), kv_ax, dt), "v": c((batch, T, Hkv, Dh), kv_ax, dt)}
+
     if kind in ("attn_ffn", "moe_attn_ffn"):
-        shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": c(shape, dt), "v": c(shape, dt)}
+        return kv(cache_len)
     if kind == "griffin_attn":
-        shape = (batch, ring_rows(cache_len, cfg.window), cfg.num_kv_heads, cfg.head_dim)
-        return {"k": c(shape, dt), "v": c(shape, dt)}
+        return kv(ring_rows(cache_len, cfg.window))
     if kind == "xattn":
         # the self ring first: the ring's T is read from "k", never from "ck"
-        ring = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
-        cross = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": c(ring, dt), "v": c(ring, dt), "ck": c(cross, dt), "cv": c(cross, dt)}
+        d = kv(cache_len)
+        cross = (batch, cfg.encoder_seq, Hkv, Dh)
+        d["ck"], d["cv"] = c(cross, kv_ax, dt), c(cross, kv_ax, dt)
+        return d
     if kind == "mla_moe":
-        return {"ckv": c((batch, cache_len, cfg.kv_lora_rank), dt),
-                "kr": c((batch, cache_len, cfg.qk_rope_head_dim), dt)}
+        return {"ckv": c((batch, cache_len, cfg.kv_lora_rank), ("batch", "kv_seq", None), dt),
+                "kr": c((batch, cache_len, cfg.qk_rope_head_dim), ("batch", "kv_seq", None), dt)}
     if kind == "griffin_rec":
         W = cfg.lru_width or cfg.d_model
-        return {"h": c((batch, W), dt), "conv": c((batch, cfg.conv_width - 1, W), dt)}
+        return {"h": c((batch, W), ("batch", "lru_width"), dt),
+                "conv": c((batch, cfg.conv_width - 1, W), ("batch", None, "lru_width"), dt)}
     f32 = torch.float32
     if kind == "mlstm":
         H, D = cfg.num_heads, cfg.head_dim
         Di = int(cfg.mlstm_proj_factor * cfg.d_model)
-        return {"conv": c((batch, cfg.conv_width - 1, Di), dt),
-                "C": c((batch, H, D, D), f32), "n": c((batch, H, D), f32),
-                "m": c((batch, H), f32)}
+        return {"conv": c((batch, cfg.conv_width - 1, Di), ("batch", None, "ffn"), dt),
+                "C": c((batch, H, D, D), ("batch", None, None, None), f32),
+                "n": c((batch, H, D), ("batch", None, None), f32),
+                "m": c((batch, H), ("batch", None), f32)}
     if kind == "slstm":
-        return {k: c((batch, cfg.d_model), f32) for k in SLSTM_STATE}
+        return {k: c((batch, cfg.d_model), ("batch", None), f32) for k in SLSTM_STATE}
     raise ValueError(kind)
 
 
@@ -89,13 +105,13 @@ def cache_len_of(cache: dict) -> int | None:
 def build_cache(cfg: ModelConfig, creator: CacheCreator, batch: int, cache_len: int):
     return {
         "blocks": [_kind_cache(cfg, k, creator, batch, cache_len) for k in layer_kinds(cfg)],
-        "pos": creator((batch,), torch.int32),
+        "pos": creator((batch,), ("batch",), torch.int32),
     }
 
 
 def zero_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     device = torch.device(device)
-    cache = build_cache(cfg, lambda s, d: torch.zeros(s, dtype=d, device=device),
+    cache = build_cache(cfg, lambda s, logical, d: torch.zeros(s, dtype=d, device=device),
                         batch, cache_len)
     # cache "full" semantics, as in the reference; the serving engine
     # overwrites it with zeros right after
@@ -108,7 +124,7 @@ def cache_bytes(cfg: ModelConfig, batch: int, cache_len: int) -> int:
     """Total cache bytes; pure in (cfg, batch, cache_len)."""
     total = [0]
 
-    def c(s, d):
+    def c(s, logical, d):
         total[0] += math.prod(s) * d.itemsize
         return None
 

@@ -1,8 +1,11 @@
 """Core neural layers: the dense, MoE, RG-LRU and xLSTM subset (counterpart
 of ``repro/models/layers.py``).
 
-Everything is functional: ``apply(params, x, ...) -> y``.  The reference's
-logical sharding constraints are dropped: this slice runs on one device.
+Everything is functional: ``apply(params, x, ...) -> y``.  Layers insert
+the reference's logical sharding constraints (``distributed.sharding``):
+each is the identity on a plain tensor, so the model on one card pays
+nothing for them, and redistributes a DTensor (the dry run,
+``launch/dryrun.py``) to the placements its logical axes resolve to.
 
 RMSNorm and attention go through the kernel wrappers of
 ``repro_torch.kernels``: on a CUDA tensor those launch the Hopper kernels, on
@@ -11,21 +14,29 @@ a CPU tensor they compute the same function in plain torch.  ``plain=True``
 calls the plain versions whatever the device.
 
 Attention strategies:
-  * ``dense``  — plain einsum softmax attention (the CPU path, tests)
-  * ``kernel`` — flash-attention kernel for a full sequence, split-KV decode
-                 kernel for one token against a ring cache
-  * ``auto``   — ``kernel`` for CUDA tensors, ``dense`` for CPU tensors
-The reference's ``blockwise`` strategy is not ported: the flash kernel takes
-its place on the card and ``dense`` on the CPU.
+  * ``dense``     — plain einsum softmax attention (small sequences, tests)
+  * ``blockwise`` — online-softmax attention over kv blocks in a
+                    ``layers.scan`` (the reference's ``lax.scan``), in plain torch
+  * ``kernel``    — flash-attention kernel for a full sequence, split-KV decode
+                    kernel for one token against a ring cache
+  * ``auto``      — ``kernel`` for CUDA tensors; elsewhere the reference's
+                    rule: ``blockwise`` when ``Sq*T > 2048^2`` or ``T > 1024``,
+                    else ``dense``
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch.distributed.sharding import (
+    active_env, axis_size, contiguous_stride, is_dtensor, logical_constraint as shard,
+    placements, redistribute, resolve_spec,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -34,6 +45,9 @@ from repro_torch.kernels.rmsnorm import add_rmsnorm_plain, rmsnorm_plain
 # --------------------------------------------------------------------------
 # Norms
 # --------------------------------------------------------------------------
+
+STREAM = ("batch", "seq_sp", "embed")   # the residual stream's logical axes (Megatron-SP)
+
 
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-6, offset: bool = False,
@@ -57,6 +71,8 @@ def layernorm(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *, eps: float =
 def apply_norm(cfg, p: dict, x: torch.Tensor, *, residual: torch.Tensor | None = None,
                plain: bool = False) -> torch.Tensor:
     """Norm of ``x``, or of ``x + residual`` (the sum is not returned)."""
+    if residual is not None:
+        x, residual = shard(x, STREAM), shard(residual, STREAM)
     if cfg.norm == "layernorm":
         if residual is not None:
             x = x + residual
@@ -69,9 +85,13 @@ def add_norm(cfg, p: dict, h: torch.Tensor, pending: torch.Tensor | None, *,
              plain: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """``(s, norm(s))`` with ``s = h + pending``: a residual add left pending
     by the block before, carried into the norm that reads its sum (one kernel
-    launch for both on the card).  ``pending`` None: ``(h, norm(h))``."""
+    launch for both on the card).  ``pending`` None: ``(h, norm(h))``.
+    The sum is the residual stream: under a sharding env both of its terms
+    take the stream's placements first (a row-parallel product's partial
+    sums reduced where GSPMD reduces them, before the add)."""
     if pending is None:
         return h, apply_norm(cfg, p, h, plain=plain)
+    h, pending = shard(h, STREAM), shard(pending, STREAM)
     if cfg.norm == "layernorm":
         s = h + pending
         return s, layernorm(p["w"], p["b"], s, eps=cfg.norm_eps)
@@ -253,27 +273,255 @@ def _attend_kernel(q, k, v, *, q_offset, causal, window, kv_valid_len, soft_cap,
                      "unmasked query token a sequence (decode)")
 
 
+def attend_blockwise(q, k, v, *, q_offset, causal: bool, window: int = 0,
+                     kv_valid_len=None, soft_cap: float = 0.0,
+                     q_block: int = 512, kv_block: int = 1024,
+                     scale: float | None = None, skip_masked_blocks: bool = True,
+                     score_dtype=torch.float32):
+    """Online-softmax (flash-style) attention in plain torch; shapes as in
+    :func:`attend_dense`.
+
+    Outer Python loop over q blocks (static trip count) so causal runs can
+    statically truncate the KV range per q block (``skip_masked_blocks``);
+    inner :func:`scan` over kv blocks carries the running (m, l, acc).  The
+    scan walks the kv blocks as a leading dim of views of k and v, so a step
+    slices nothing.
+
+    ``score_dtype=torch.bfloat16`` keeps the probability tensor in bf16 for
+    the PV product while the running max/sum statistics stay fp32.
+    """
+    B, Sq, Hkv, G, Dq = q.shape
+    T, Dv = k.shape[1], v.shape[-1]
+    dev = q.device
+    scale = scale if scale is not None else 1.0 / math.sqrt(Dq)
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, T)
+    # pad to block multiples
+    Sq_p = -(-Sq // q_block) * q_block
+    T_p = -(-T // kv_block) * kv_block
+    qp = F.pad(q, (0, 0, 0, 0, 0, 0, 0, Sq_p - Sq)) if Sq_p > Sq else q
+    kp = F.pad(k, (0, 0, 0, 0, 0, T_p - T)) if T_p > T else k
+    vp = F.pad(v, (0, 0, 0, 0, 0, T_p - T)) if T_p > T else v
+    n_kv = T_p // kv_block
+    # (n_kv, B, kv_block, Hkv, D): the loop's blocks along dim 0, as views
+    k_blocks = kp.view(B, n_kv, kv_block, Hkv, Dq).transpose(0, 1)
+    v_blocks = vp.view(B, n_kv, kv_block, Hkv, Dv).transpose(0, 1)
+
+    vl_b = None
+    if kv_valid_len is not None:
+        vl = torch.as_tensor(kv_valid_len, device=dev)
+        vl_b = vl.reshape(-1, 1, 1, 1, 1) if vl.ndim else vl
+    outs = []
+    for qi in range(Sq_p // q_block):
+        q_blk = qp[:, qi * q_block:(qi + 1) * q_block].float()
+        q_pos = q_offset + qi * q_block + torch.arange(q_block, device=dev)
+        # static causal truncation: kv blocks strictly after this q block's
+        # last row are fully masked -> skip (saves ~2x flops at scale)
+        hi = n_kv
+        if causal and skip_masked_blocks and isinstance(q_offset, int):
+            last = q_offset + (qi + 1) * q_block - 1
+            hi = min(n_kv, last // kv_block + 1)
+        lo = 0
+        if window > 0 and skip_masked_blocks and isinstance(q_offset, int):
+            first = max(q_offset + qi * q_block - window + 1, 0)
+            lo = min(first // kv_block, hi)
+
+        def step(carry, xs, q_blk=q_blk, q_pos=q_pos):
+            m, l, acc = carry
+            ti, kb, vb = xs
+            s = torch.einsum("bskgd,btkd->bkgst", q_blk, kb.float()) * scale
+            s = _soft_cap(s, soft_cap)
+            t_pos = ti * kv_block + torch.arange(kv_block, device=dev)
+            msk = t_pos[None, :] < T  # padding
+            if causal:
+                msk = msk & (t_pos[None, :] <= q_pos[:, None])
+            if window > 0:
+                msk = msk & (t_pos[None, :] > q_pos[:, None] - window)
+            msk = msk.expand(B, 1, 1, q_block, kv_block)
+            if vl_b is not None:
+                msk = msk & (t_pos[None, None, None, None, :] < vl_b)
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l_new = l * corr + p.sum(-1)
+            acc_new = acc * corr[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", p.to(score_dtype), vb.to(score_dtype)).float()
+            return (m_new, l_new, acc_new), None
+
+        m0 = torch.full((B, Hkv, G, q_block), NEG_INF, dtype=torch.float32, device=dev)
+        l0 = torch.zeros((B, Hkv, G, q_block), dtype=torch.float32, device=dev)
+        a0 = torch.zeros((B, Hkv, G, q_block, Dv), dtype=torch.float32, device=dev)
+        if hi > lo:
+            (m, l, acc), _ = scan(step, (m0, l0, a0), (torch.arange(lo, hi, device=dev),
+                                                       k_blocks[lo:hi], v_blocks[lo:hi]))
+        else:
+            m, l, acc = m0, l0, a0
+        o = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(o.permute(0, 3, 1, 2, 4))                    # bkgsd -> bskgd
+    o = torch.cat(outs, dim=1)[:, :Sq]
+    return o.to(q.dtype)
+
+
+def _auto_strategy(q, k) -> str:
+    """The reference's rule off the card (``kernel`` on it)."""
+    if q.device.type == "cuda":
+        return "kernel"
+    T = k.shape[1]
+    return "blockwise" if (q.shape[1] * T > 2048 * 2048 or T > 1024) else "dense"
+
+
 def attention(q, k, v, *, q_offset=0, causal=True, window=0, kv_valid_len=None,
-              soft_cap=0.0, strategy="auto", scale=None, plain=False):
-    """Dispatch over attention strategies.  Shapes as in :func:`attend_dense`."""
+              soft_cap=0.0, strategy="auto", scale=None, q_block=2048, kv_block=512,
+              score_dtype=torch.float32, plain=False):
+    """Dispatch over attention strategies.  Shapes as in :func:`attend_dense`.
+    ``q_block``, ``kv_block`` and ``score_dtype`` are the blockwise
+    strategy's; the kernels take none of them.  DTensor inputs (the dry
+    run) go through :func:`_sharded_attention`."""
     if strategy == "auto":
-        strategy = "kernel" if q.device.type == "cuda" else "dense"
+        strategy = _auto_strategy(q, k)
+    kw = dict(q_offset=q_offset, causal=causal, window=window, kv_valid_len=kv_valid_len,
+              soft_cap=soft_cap, scale=scale)
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, strategy=strategy, q_block=q_block,
+                                  kv_block=kv_block, score_dtype=score_dtype, **kw)
     if strategy == "kernel":
-        return _attend_kernel(q, k, v, q_offset=q_offset, causal=causal, window=window,
-                              kv_valid_len=kv_valid_len, soft_cap=soft_cap, scale=scale,
-                              plain=plain)
+        return _attend_kernel(q, k, v, plain=plain, **kw)
+    if strategy == "blockwise":
+        return attend_blockwise(q, k, v, q_block=q_block, kv_block=kv_block,
+                                score_dtype=score_dtype, **kw)
     if strategy != "dense":
         raise ValueError(f"unknown attention strategy {strategy!r}")
-    return attend_dense(q, k, v, q_offset=q_offset, causal=causal, window=window,
-                        kv_valid_len=kv_valid_len, soft_cap=soft_cap, scale=scale)
+    return attend_dense(q, k, v, **kw)
+
+
+def _sharded_attention(q, k, v, *, strategy, q_block, kv_block, score_dtype, q_offset,
+                       kv_valid_len, **kw):
+    """Attention over DTensors.  Where k and v keep every kv row on each rank
+    (batch and heads sharded, or the q sequence: context parallelism), the
+    attention is local, as GSPMD partitions it, and runs on each rank's
+    shards (``local_map``); a q-sequence shard then starts at its rank's
+    offset and takes every kv block (the reference's single q block, which
+    truncates nothing).  Else (the KV sequence sharded: a decode over
+    ``kv_seq``) the ops run on the DTensors and DTensor places the
+    collectives.  Off the card only: a CUDA DTensor raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if q.device.type == "cuda":
+        # the card's attention is K1 and K2, which would run here on each
+        # rank's shards under local_map; never a plain stand-in
+        raise NotImplementedError("sharded attention on the card: K1 and K2 under local_map "
+                                  "are not wired; DTensor attention runs off the card only")
+    if strategy not in ("blockwise", "dense"):
+        raise ValueError(f"unknown attention strategy {strategy!r} for DTensor inputs")
+    fn = {"blockwise": attend_blockwise, "dense": attend_dense}[strategy]
+    extra = dict(q_block=q_block, kv_block=kv_block, score_dtype=score_dtype) \
+        if strategy == "blockwise" else {}
+    if any(p.is_shard(1) for p in (*k.placements, *v.placements)):
+        return fn(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len, **extra, **kw)
+    mesh = q.device_mesh
+    # q, v and the valid lengths sharded as k on batch and kv heads; q keeps
+    # its sequence shards (context parallelism)
+    kv_pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in k.placements)
+    q_pl = tuple(kp if not isinstance(kp, Replicate) else Shard(1) if qp.is_shard(1)
+                 else Replicate() for kp, qp in zip(kv_pl, q.placements))
+    q, k, v = (redistribute(t, mesh, pl) for t, pl in ((q, q_pl), (k, kv_pl), (v, kv_pl)))
+    if is_dtensor(kv_valid_len):
+        kv_valid_len = redistribute(kv_valid_len, mesh,
+                                    tuple(p if p.is_shard(0) else Replicate() for p in kv_pl))
+    seq_dims = [i for i, p in enumerate(q.placements) if p.is_shard(1)]
+    if seq_dims:
+        coord = mesh.get_coordinate()
+        idx = 0
+        for i in seq_dims:
+            idx = idx * mesh.size(i) + coord[i]
+        q_offset = q_offset + idx * (q.shape[1] // math.prod(mesh.size(i) for i in seq_dims))
+        if strategy == "blockwise":
+            extra["skip_masked_blocks"] = False
+    vl_dt = is_dtensor(kv_valid_len)
+
+    def local(ql, kl, vl_, valid):
+        return fn(ql, kl, vl_, q_offset=q_offset, kv_valid_len=valid, **extra, **kw)
+
+    in_pl = (q.placements, k.placements, v.placements,
+             kv_valid_len.placements if vl_dt else None)
+    return local_map(local, out_placements=list(q.placements), in_placements=in_pl,
+                     device_mesh=mesh)(q, k, v, kv_valid_len)
 
 
 # --------------------------------------------------------------------------
 # Dense projections / FFN
 # --------------------------------------------------------------------------
 
+def flat_ready(x: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    """``x`` ready to have its dims ``start`` to ``end - 1`` flattened: a
+    DTensor sharded on more than one of them keeps the first shard and
+    gathers the later ones (the sequence of a Megatron-SP stream, a weight's
+    FSDP shard), as GSPMD gathers before such a product (DTensor would
+    otherwise re-shard the flattened dim through index arithmetic traced op
+    by op).  Any other tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dims = sorted({p.dim for p in x.placements if p.is_shard() and start <= p.dim < end})
+    if len(dims) <= 1:
+        return x
+    pl = [Replicate() if p.is_shard() and dims[0] < p.dim < end else p for p in x.placements]
+    return redistribute(x, x.device_mesh, pl)
+
+
+def rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` ready for a product that flattens its leading dims."""
+    return flat_ready(x, 0, x.ndim - 1)
+
+
+class _RowsGrad(torch.autograd.Function):
+    """The identity whose backward hands on :func:`rows` of the gradient: a
+    product's output gradient, sharded as the stream after it, made ready
+    for the product's backward, which flattens its leading dims too."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return rows(g)
+
+
+class _GradPlaced(torch.autograd.Function):
+    """The identity whose backward gives the gradient the input's own
+    placements."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.mesh, ctx.placements = w.device_mesh, tuple(w.placements)
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return redistribute(g, ctx.mesh, ctx.placements)
+
+
+def grad_placed(w: torch.Tensor) -> torch.Tensor:
+    """A use of ``w`` whose gradient comes back in ``w``'s placements (on a
+    DTensor: a tied embedding's two uses then add their gradients as they
+    lie, where DTensor would move one into the other's placements by a step
+    some torch releases lack).  Any other tensor as it is."""
+    return _GradPlaced.apply(w) if is_dtensor(w) else w
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., D) and w (D, N).  On DTensors (the dry run) the
+    leading dims of x, and of the output's gradient, keep one shard
+    (:func:`rows`)."""
+    if not is_dtensor(x):
+        return x @ w
+    return _RowsGrad.apply(rows(x) @ w)
+
+
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = matmul(x, p["w"].to(x.dtype))
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -288,6 +536,7 @@ def ffn(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = g * u
     else:
         h = F.gelu(linear(p["up"], x), approximate="tanh")
+    h = shard(h, ("batch", "seq", "ffn"))
     return linear(p["down"], h)
 
 
@@ -363,21 +612,90 @@ def moe_capacity(cfg, tokens: int) -> int:
 
 
 def moe_ffn(cfg, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k routed experts on one device.  Returns (output, router_aux_loss).
+    """Top-k routed experts.  Returns (output, router_aux_loss).
 
-    This is the reference's single-device path: every token is dispatched
-    locally and every expert runs here.  Its ``shard_map``/``all_to_all``
-    expert-parallel path needs a device mesh, which the port does not have yet
-    (it comes with the sharding rule table)."""
-    B, S, D = x.shape
-    K = cfg.top_k
-    xf = x.reshape(B * S, D)
-    buf, meta, aux = _moe_dispatch(cfg, xf, p["router"]["w"], moe_capacity(cfg, B * S))
-    eo = _expert_mlp(p["experts"], buf, x.dtype)
-    out = _moe_combine(eo, meta, B * S, K, x.dtype).reshape(B, S, D)
+    With no active env, or a model axis of 1, every token is dispatched
+    locally and every expert runs here (the reference's single-device path).
+    Under an env whose model axis is wider (``x`` and the weights DTensors),
+    the interior runs on each rank's shards, as the reference's
+    ``shard_map``: :func:`_moe_expert_parallel`."""
+    env = active_env()
+    if env is not None and axis_size("model", env) > 1 and is_dtensor(x):
+        out, aux = _moe_expert_parallel(cfg, p, x, env)
+    else:
+        B, S, D = x.shape
+        buf, meta, aux = _moe_dispatch(cfg, x.reshape(B * S, D), p["router"]["w"],
+                                       moe_capacity(cfg, B * S))
+        eo = _expert_mlp(p["experts"], buf, x.dtype)
+        out = _moe_combine(eo, meta, B * S, cfg.top_k, x.dtype).reshape(B, S, D)
     if cfg.num_shared_experts > 0:
         out = out + ffn(cfg, p["shared"], x)
     return out, aux
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Tiled all-to-all over dim 0 (``jax.lax.all_to_all(..., tiled=True)``):
+    chunk j of ``m`` goes to rank j of ``group``, the chunks received are
+    concatenated in rank order.  Differentiable."""
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+    return all_to_all_single_autograd(t.contiguous(), None, None, group)
+
+
+def _moe_expert_parallel(cfg, p: dict, x: torch.Tensor, env):
+    """The reference's expert-parallel path (``layers.py`` ``shard_map``):
+    each rank dispatches its local tokens, an all-to-all over the model axis
+    moves capacity rows to the expert owners (Megatron-EP dataflow), expert
+    products run on the local expert shards, and a second all-to-all brings
+    the outputs back.  The body runs on local tensors (``local_map``); the
+    router loss leaves it as a mean over every rank (the reference's
+    ``pmean`` over all axes): each rank's share of the mean, placed
+    ``Partial("sum")``, which DTensor reduces where it is read."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    mesh = env.mesh
+    m = axis_size("model", env)
+    if E % m != 0:
+        m = 1  # experts unshardable -> local compute, replicated weights
+    group = mesh.get_group("model") if m > 1 else None
+    x_spec = resolve_spec(env, ("batch", "seq_sp", None), tuple(x.shape))
+    ew_spec = resolve_spec(env, ("expert", None, None), tuple(p["experts"]["gate"].shape))
+    x_pl, ew_pl = placements(mesh, x_spec), placements(mesh, ew_spec)
+    rep = (Replicate(),) * mesh.ndim
+    n_ranks = mesh.size()
+
+    # local token count per rank (static)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+    def _sh(entry):
+        axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        return math.prod(sizes[a] for a in axes)
+    xs_full = list(x_spec) + [None] * (3 - len(x_spec))
+    T_loc = (B // _sh(xs_full[0])) * (S // _sh(xs_full[1]))
+    cap = max(int(math.ceil(T_loc * K / E * cfg.capacity_factor)), 4)
+
+    def body(x_loc, router_w, gate_w, up_w, down_w):
+        b, s, _ = x_loc.shape
+        xf = x_loc.reshape(b * s, D)
+        buf, meta, aux = _moe_dispatch(cfg, xf, router_w, cap)       # (E, cap, D)
+        if m > 1:
+            # EP all-to-all: (E, cap, D) -> (E/m, cap*m, D) on expert owners
+            buf = _all_to_all(buf, group).view(m, E // m, cap, D)
+            buf = buf.transpose(0, 1).reshape(E // m, m * cap, D)
+        eo = _expert_mlp({"gate": gate_w, "up": up_w, "down": down_w}, buf, x_loc.dtype)
+        if m > 1:
+            eo = eo.view(E // m, m, cap, D).transpose(0, 1)
+            eo = _all_to_all(eo, group).view(E, cap, D)
+        out = _moe_combine(eo, meta, b * s, K, x_loc.dtype).reshape(b, s, D)
+        return out, aux / n_ranks
+
+    w = p["experts"]
+    args = [redistribute(x, mesh, x_pl), redistribute(p["router"]["w"], mesh, rep),
+            *(redistribute(w[n], mesh, ew_pl) for n in ("gate", "up", "down"))]
+    return local_map(body, out_placements=(x_pl, (Partial("sum"),) * mesh.ndim),
+                     in_placements=(x_pl, rep, ew_pl, ew_pl, ew_pl),
+                     device_mesh=mesh)(*args)
 
 
 # --------------------------------------------------------------------------
@@ -403,7 +721,8 @@ def _rglru_gate_matmul(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     wf = w.float()
     if w.ndim == 3:
         nb, Wb, _ = w.shape
-        xs = x.reshape(-1, nb, Wb).transpose(0, 1)             # (nb, N, Wb), a view
+        xs = shard(x.reshape(-1, nb, Wb), (None, "lru_width", None))
+        xs = xs.transpose(0, 1)                                 # (nb, N, Wb), a view
         return torch.bmm(xs, wf).transpose(0, 1).reshape(x.shape)
     return x @ wf
 
@@ -508,13 +827,32 @@ def tree_of(leaves, spec):
     return None if spec is None else tree_unflatten(list(leaves), spec)
 
 
+_MARKED_LOOPS = contextvars.ContextVar("marked_loops", default=False)
+
+
+@contextlib.contextmanager
+def marked_loops():
+    """While open (in this thread), :func:`scan` traces its step once
+    between ``core.stubs``' loop marks, DTensor operands on their local
+    shards: the dry run's trace, whose analysis multiplies the step by the
+    loop's length as the reference's does a ``lax.scan``'s while loop."""
+    token = _MARKED_LOOPS.set(True)
+    try:
+        yield
+    finally:
+        _MARKED_LOOPS.reset(token)
+
+
 def scan(step, carry, xs, length=None):
     """``jax.lax.scan``'s contract: ``step(carry, x) -> (carry, y)`` over dim 0
     of every leaf of ``xs`` (or ``length`` times where ``xs`` is None);
     returns the last carry and the ``y`` leaves stacked along dim 0.  It runs
-    as a Python loop.  The ingest swaps it for ``core.stubs.scan_stub``, which
-    traces one step and gives its nodes the length as ``repeat``, as the
-    reference's tracer does for a ``lax.scan`` body."""
+    as a Python loop; inside :func:`marked_loops` (the ingest and the dry
+    run), as :func:`_marked_scan`, one step traced between marks whose
+    nodes the tracers take at the loop's length, as the reference's do a
+    ``lax.scan`` body."""
+    if _MARKED_LOOPS.get():
+        return _marked_scan(step, carry, xs, length)
     x_leaves, x_spec = tree_leaves_of(xs)
     n = length if length is not None else x_leaves[0].shape[0]
     if n < 1:
@@ -526,6 +864,61 @@ def scan(step, carry, xs, length=None):
     y_spec = ys[0][1]
     stacked = [torch.stack([leaves[i] for leaves, _ in ys]) for i in range(len(ys[0][0]))]
     return carry, tree_of(stacked, y_spec)
+
+
+def _marked_scan(step, carry, xs, length=None):
+    """One step of ``step`` traced between ``core.stubs.scan_enter`` and
+    ``scan_exit``, which give the loop's carry and one step's slice of
+    ``xs``, then the last carry and the stacked ``y``.  DTensor operands
+    pass the marks as their local shards (the marks are custom ops, which
+    DTensor has no rule for), each re-wrapped with its placements."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.core.stubs import scan_enter, scan_exit
+
+    def unwrap(leaves, drop_lead):
+        info = []
+        for t in leaves:
+            if isinstance(t, DTensor):
+                pl = tuple(Shard(p.dim - 1) if drop_lead and p.is_shard() else p
+                           for p in t.placements)
+                if drop_lead and any(p.is_shard(0) for p in t.placements):
+                    raise ValueError("scan over a sharded leading dim")
+                info.append((t.device_mesh, pl, t.shape[1:] if drop_lead else t.shape))
+            else:
+                info.append(None)
+        return [t.to_local() if isinstance(t, DTensor) else t for t in leaves], info
+
+    def wrap(leaves, info, lead=None):
+        out = []
+        for t, i in zip(leaves, info):
+            if i is None:
+                out.append(t)
+                continue
+            mesh, pl, shape = i
+            if lead is not None:
+                pl = tuple(Shard(p.dim + 1) if p.is_shard() else p for p in pl)
+                shape = (lead, *shape)
+            shape = torch.Size(shape)
+            out.append(DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                                          stride=contiguous_stride(shape)))
+        return out
+
+    c_leaves, c_spec = tree_leaves_of(carry)
+    x_leaves, x_spec = tree_leaves_of(xs)
+    if length is None:
+        length = x_leaves[0].shape[0]
+    cl, ci = unwrap(c_leaves, False)
+    xl, xi = unwrap(x_leaves, True)
+    ins = scan_enter(cl + xl, int(length), len(cl))
+    ins = wrap(ins[:len(cl)], ci) + wrap(ins[len(cl):], xi)
+    carry, y = step(tree_of(ins[:len(cl)], c_spec), tree_of(ins[len(cl):], x_spec))
+    c_leaves, c_spec = tree_leaves_of(carry)
+    y_leaves, y_spec = tree_leaves_of(y)
+    cl, ci = unwrap(c_leaves, False)
+    yl, yi = unwrap(y_leaves, False)
+    outs = scan_exit(cl + yl, int(length), len(cl))
+    outs = wrap(outs[:len(cl)], ci) + wrap(outs[len(cl):], yi, lead=int(length))
+    return tree_of(outs[:len(cl)], c_spec), tree_of(outs[len(cl):], y_spec)
 
 
 # --------------------------------------------------------------------------
@@ -699,7 +1092,7 @@ def slstm_scan(p: dict, x: torch.Tensor, state=None):
         z = torch.zeros((B, W), dtype=torch.float32, device=x.device)
         state = (z, z + 1e-6, z, z - 1e9)  # c, n, h, m
 
-    # R rides in the carry, unchanged: a traced step (``core.stubs.scan_stub``)
+    # R rides in the carry, unchanged: a traced step (``_marked_scan``)
     # then adds its gradient into the carried one at every step, as the loop's
     # backward accumulates it (and JAX's transposed scan carries it)
     def step(carry, x_t):

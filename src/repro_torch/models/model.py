@@ -13,10 +13,12 @@ the first rows) (counterpart of ``repro/models/model.py``).
 The reference scans over depth-stacked parameters under ``jit``; here the
 stack is a Python loop over per-layer dicts and everything runs eagerly.
 Where the reference rebuilds an array (``cache.at[...].set``), the port
-writes in place and says so.  ``forward`` records for autograd (the loss of
-``training.train_step`` differentiates it, as the reference's ``forward`` is
-what ``make_loss_fn`` differentiates); ``prefill`` and ``decode_step`` never
-do.
+writes in place and says so.  The reference's logical sharding constraints
+sit at its places (``shard``): the identity on plain tensors, a
+redistribution of a DTensor under an active env (the dry run).  ``forward``
+records for autograd (the loss of ``training.train_step`` differentiates it,
+as the reference's ``forward`` is what ``make_loss_fn`` differentiates);
+``prefill`` and ``decode_step`` never do.
 """
 from __future__ import annotations
 
@@ -31,6 +33,9 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.distributed.sharding import (
+    axis_size, is_dtensor, logical_constraint as shard, redistribute,
+)
 from repro_torch.models import layers as L
 from repro_torch.models.kvcache import SLSTM_STATE, cache_len_of, ring_rows
 from repro_torch.models.params import init_params, layer_kinds
@@ -53,6 +58,10 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _heads_shardable(cfg: ModelConfig) -> bool:
+    return cfg.num_kv_heads % axis_size("model") == 0
+
+
 # ==========================================================================
 # Attention blocks
 # ==========================================================================
@@ -61,8 +70,8 @@ def _proj(p, name, x, dtype):
     """(B, S, H, Dh): ``x`` through the head projection ``p[name]`` (its
     bias added where it has one), in ``dtype``."""
     B, S, D = x.shape
-    w = p[name]["w"].to(dtype)                            # (D, H, Dh)
-    y = (x @ w.reshape(D, -1)).reshape(B, S, w.shape[1], w.shape[2])
+    w = L.flat_ready(p[name]["w"].to(dtype), 1, 3)        # (D, H, Dh)
+    y = L.matmul(x, w.reshape(D, -1)).reshape(B, S, w.shape[1], w.shape[2])
     if "b" in p[name]:
         y = y + p[name]["b"].to(dtype)
     return y
@@ -70,6 +79,11 @@ def _proj(p, name, x, dtype):
 
 def _qkv(cfg, p, x, positions, *, rope=True, rope_tables=None):
     q, k, v = (_proj(p, name, x, x.dtype) for name in ("q", "k", "v"))
+    if rope and is_dtensor(q):
+        # each on its own, as the reference: a concatenation along the
+        # sharded heads would gather them
+        return (L.apply_rope(cfg, q, positions, tables=rope_tables),
+                L.apply_rope(cfg, k, positions, tables=rope_tables), v)
     if rope:
         # one pass over q and k together; the two results are views of it
         qk = L.apply_rope(cfg, torch.cat([q, k], dim=2), positions, tables=rope_tables)
@@ -79,20 +93,41 @@ def _qkv(cfg, p, x, positions, *, rope=True, rope_tables=None):
 
 def _attn_out(p, o, x_dtype):
     B, S, H, Dh = o.shape
-    w = p["o"]["w"].to(x_dtype)                           # (H, Dh, D)
-    return o.reshape(B, S, H * Dh) @ w.reshape(H * Dh, -1)
+    w = L.rows(p["o"]["w"].to(x_dtype))                   # (H, Dh, D)
+    return L.matmul(o.reshape(B, S, H * Dh), w.reshape(H * Dh, -1))
+
+
+def _attn_shardings(cfg):
+    """Megatron head-TP when kv heads divide the model axis; otherwise
+    Ulysses-style context parallelism (q-sequence sharded, kv replicated)."""
+    if _heads_shardable(cfg):
+        q_ax = ("batch", "seq", "kv_heads", "q_per_kv", "head_dim")
+        kv_ax = ("batch", "seq", "kv_heads", "head_dim")
+    else:
+        q_ax = ("batch", "seq_cp", "kv_heads", "q_per_kv", "head_dim")
+        kv_ax = ("batch", None, "kv_heads", "head_dim")
+    return q_ax, kv_ax
 
 
 def gqa_full(cfg, p, x, positions, *, causal=True, window=0, rope=True, rope_tables=None,
              plain=False):
     """Full-sequence GQA/MQA/MHA attention.  On the card this is the
     flash-attention kernel, reading q, k and v where the projections left
-    them."""
+    them; elsewhere the reference's strategies, with its q and kv blocks."""
     B, S, _ = x.shape
     Hkv, G, Dh = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
     q, k, v = _qkv(cfg, p, x, positions, rope=rope, rope_tables=rope_tables)
     q = q.reshape(B, S, Hkv, G, Dh)
-    o = L.attention(q, k, v, q_offset=0, causal=causal, window=window, plain=plain)
+    q_ax, kv_ax = _attn_shardings(cfg)
+    q = shard(q, q_ax)
+    k = shard(k, kv_ax)
+    v = shard(v, kv_ax)
+    # context-parallel runs keep q sequence-sharded -> single q block; TP
+    # runs use q blocks with static causal truncation
+    q_block = S if not _heads_shardable(cfg) else 2048
+    o = L.attention(q, k, v, q_offset=0, causal=causal, window=window, q_block=q_block,
+                    kv_block=cfg.attn_kv_block, score_dtype=torch_dtype(cfg.attn_score_dtype),
+                    plain=plain)
     o = o.reshape(B, S, cfg.num_heads, Dh)
     return _attn_out(p, o, x.dtype), (k, v)
 
@@ -104,6 +139,50 @@ def decode_indices(pos: torch.Tensor, T: int):
     slot = (pos % T).long()
     valid = torch.clamp(pos + 1, max=T).to(torch.int32)
     return b_idx, slot, valid
+
+
+def write_rows(t: torch.Tensor, b_idx: torch.Tensor, slot: torch.Tensor, rows: torch.Tensor):
+    """``t[b_idx, slot] = rows`` in place (row ``slot[b]`` of sequence ``b``
+    of a ring cache); returns ``t``.  On a DTensor (the dry run) the write
+    is local to each rank's shard: a batch shard writes its own sequences,
+    and where the ring's rows are sharded only the rank holding the slot
+    writes (the others write back what they hold)."""
+    if not is_dtensor(t):
+        t[b_idx, slot] = rows
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = t.device_mesh
+    row_pl = tuple(Replicate() if p.is_shard(1) else Shard(p.dim - 1) if p.is_shard() and p.dim > 1
+                   else p for p in t.placements)
+    slot_pl = tuple(p if p.is_shard(0) else Replicate() for p in t.placements)
+    t_dims = [i for i, p in enumerate(t.placements) if p.is_shard(1)]
+    off = 0
+    if t_dims:
+        coord = mesh.get_coordinate()
+        for i in t_dims:
+            off = off * mesh.size(i) + coord[i]
+
+    def body(tl, sl, rl):
+        bl = torch.arange(tl.shape[0], device=tl.device)
+        if t_dims:
+            Tl = tl.shape[1]
+            local = sl - off * Tl
+            own = (local >= 0) & (local < Tl)
+            local = local.clamp(0, Tl - 1)
+            rl = torch.where(own.view(-1, *([1] * (rl.ndim - 1))), rl, tl[bl, local])
+            sl = local
+        tl[bl, sl] = rl
+        return tl
+
+    return local_map(body, out_placements=list(t.placements),
+                     in_placements=(t.placements, slot_pl, row_pl), device_mesh=mesh)(
+        t, redistribute(slot, mesh, slot_pl), redistribute(rows, mesh, row_pl))
+
+
+def _decode_strategy(x: torch.Tensor) -> str:
+    """The reference's decode attention is ``dense``; on the card the kernel."""
+    return "auto" if x.device.type == "cuda" else "dense"
 
 
 def gqa_decode(cfg, p, x, pos, cache, *, rope=True, positions=None, rope_tables=None,
@@ -124,10 +203,15 @@ def gqa_decode(cfg, p, x, pos, cache, *, rope=True, positions=None, rope_tables=
     q, k_new, v_new = _qkv(cfg, p, x, positions, rope=rope, rope_tables=rope_tables)
     q = q.reshape(B, 1, Hkv, G, Dh)
     b_idx, slot, valid = indices if indices is not None else decode_indices(pos, T)
-    k, v = cache["k"], cache["v"]
-    k[b_idx, slot] = k_new[:, 0]      # in place
-    v[b_idx, slot] = v_new[:, 0]
-    o = L.attention(q, k, v, q_offset=0, causal=False, kv_valid_len=valid, plain=plain)
+    k = write_rows(cache["k"], b_idx, slot, k_new[:, 0])      # in place
+    v = write_rows(cache["v"], b_idx, slot, v_new[:, 0])
+    if _heads_shardable(cfg):
+        kv_ax = ("batch", None, "kv_heads", "head_dim")
+    else:
+        kv_ax = ("batch", "kv_seq", None, "head_dim")
+    k, v = shard(k, kv_ax), shard(v, kv_ax)
+    o = L.attention(q, k, v, q_offset=0, causal=False, kv_valid_len=valid,
+                    strategy=_decode_strategy(x), plain=plain)
     o = o.reshape(B, 1, cfg.num_heads, Dh)
     return _attn_out(p, o, x.dtype), {"k": k, "v": v}
 
@@ -153,7 +237,8 @@ def cross_decode(cfg, p, x, cache, *, plain=False):
     B = x.shape[0]
     Hkv, G, Dh = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim
     q = _proj(p, "q", x, x.dtype).reshape(B, 1, Hkv, G, Dh)
-    o = L.attention(q, cache["ck"], cache["cv"], q_offset=0, causal=False, plain=plain)
+    o = L.attention(q, cache["ck"], cache["cv"], q_offset=0, causal=False,
+                    strategy=_decode_strategy(x), plain=plain)
     return _attn_out(p, o.reshape(B, 1, cfg.num_heads, Dh), x.dtype)
 
 
@@ -163,18 +248,19 @@ def _mla_q(cfg, p, x, plain):
     """(B,S,H,dn+dr): the query's down projection, its K3 norm (``q_norm``,
     no residual) and its up projection, RoPE not applied yet."""
     B, S, _ = x.shape
-    cq = L.rmsnorm(p["q_norm"]["w"], x @ p["dq"]["w"].to(x.dtype), eps=cfg.norm_eps, plain=plain)
-    w = p["uq"]["w"].to(x.dtype)                          # (qr, H, dn+dr)
-    return (cq @ w.reshape(w.shape[0], -1)).reshape(B, S, w.shape[1], w.shape[2])
+    cq = L.rmsnorm(p["q_norm"]["w"], L.matmul(x, p["dq"]["w"].to(x.dtype)), eps=cfg.norm_eps,
+                   plain=plain)
+    w = L.flat_ready(p["uq"]["w"].to(x.dtype), 1, 3)      # (qr, H, dn+dr)
+    return L.matmul(cq, w.reshape(w.shape[0], -1)).reshape(B, S, w.shape[1], w.shape[2])
 
 
 def _mla_latent(cfg, p, x, positions, rope_tables, plain):
     """(ckv (B,S,kv_lora_rank), k_rope (B,S,1,dr)): the compressed latent
     (down projection and its K3 norm ``kv_norm``) and the rotary key that
     every head shares, which is what the cache keeps."""
-    ckv = L.rmsnorm(p["kv_norm"]["w"], x @ p["dkv"]["w"].to(x.dtype), eps=cfg.norm_eps,
+    ckv = L.rmsnorm(p["kv_norm"]["w"], L.matmul(x, p["dkv"]["w"].to(x.dtype)), eps=cfg.norm_eps,
                     plain=plain)
-    kr = L.apply_rope(cfg, (x @ p["kr"]["w"].to(x.dtype))[:, :, None, :], positions,
+    kr = L.apply_rope(cfg, L.matmul(x, p["kr"]["w"].to(x.dtype))[:, :, None, :], positions,
                       tables=rope_tables)
     return ckv, kr
 
@@ -193,12 +279,16 @@ def mla_full(cfg, p, x, positions, *, rope_tables=None, plain=False):
     q_rope = L.apply_rope(cfg, q_rope, positions, tables=rope_tables)
     ckv, k_rope = _mla_latent(cfg, p, x, positions, rope_tables, plain)
     r = ckv.shape[-1]
-    k_nope = (ckv @ p["uk"]["w"].to(x.dtype).reshape(r, H * dn)).reshape(B, S, H, dn)
-    v = (ckv @ p["uv"]["w"].to(x.dtype).reshape(r, H * dv)).reshape(B, S, H, dv)
+    uk, uv = (L.flat_ready(p[n]["w"].to(x.dtype), 1, 3) for n in ("uk", "uv"))
+    k_nope = L.matmul(ckv, uk.reshape(r, H * dn)).reshape(B, S, H, dn)
+    v = L.matmul(ckv, uv.reshape(r, H * dv)).reshape(B, S, H, dv)
     q_all = torch.cat([q_nope, q_rope], -1).reshape(B, S, H, 1, dn + dr)
     k_all = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
+    q_all = shard(q_all, ("batch", "seq", "heads", None, "head_dim"))
+    k_all = shard(k_all, ("batch", "seq", "heads", "head_dim"))
+    v = shard(v, ("batch", "seq", "heads", "head_dim"))
     o = L.attention(q_all, k_all, v, q_offset=0, causal=True, scale=1.0 / math.sqrt(dn + dr),
-                    plain=plain)
+                    score_dtype=torch_dtype(cfg.attn_score_dtype), plain=plain)
     o = o.reshape(B, S, H, dv)
     return _attn_out(p, o, x.dtype), (ckv, k_rope[:, :, 0, :])
 
@@ -236,9 +326,10 @@ def mla_decode(cfg, p, x, pos, cache, *, positions=None, rope_tables=None, indic
     q_lat = q_lat.permute(2, 0, 1).to(torch.float32, memory_format=torch.contiguous_format)
     ckv_new, kr_new = _mla_latent(cfg, p, x, positions, rope_tables, plain)
     b_idx, slot, valid = indices if indices is not None else decode_indices(pos, T)
-    ckv, kr = cache["ckv"], cache["kr"]
-    ckv[b_idx, slot] = ckv_new[:, 0]      # in place
-    kr[b_idx, slot] = kr_new[:, 0, 0]
+    ckv = write_rows(cache["ckv"], b_idx, slot, ckv_new[:, 0])      # in place
+    kr = write_rows(cache["kr"], b_idx, slot, kr_new[:, 0, 0])
+    ckv = shard(ckv, ("batch", "kv_seq", None))
+    kr = shard(kr, ("batch", "kv_seq", None))
     scale = 1.0 / math.sqrt(dn + dr)
     ckv_f = ckv.float()                                   # (B, T, r)
     s_lat = torch.bmm(ckv_f, q_lat.transpose(1, 2))                             # (B, T, H)
@@ -276,6 +367,9 @@ def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
     """Returns (h, f, cache_out_or_None, aux_loss): ``aux_loss`` is the MoE
     router's load-balancing loss, None for the dense block (the reference's
     zero, left out so that the dense path launches nothing for it)."""
+    # Megatron-SP residual stream (the reference shards the block's input,
+    # which is h + pending here: add_norm shards both terms)
+    h = shard(h, L.STREAM)
     positions = aux["positions"]
     plain = aux.get("plain", False)
     cache_len = aux.get("cache_len", 0)
@@ -296,9 +390,8 @@ def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
             S = t.shape[1]
             if S > T:
                 raise ValueError(f"prompt of {S} tokens does not fit a cache of {T}")
-            out[name] = torch.zeros((t.shape[0], T, *t.shape[2:]), dtype=t.dtype,
-                                    device=t.device)
-            out[name][:, :S] = t
+            # the rows padded with zeros to T (a new tensor, sharded as the rows)
+            out[name] = F.pad(t, (0, 0) * (t.ndim - 2) + (0, T - S))
         return out
 
     if kind in ("attn_ffn", "moe_attn_ffn", "mla_moe"):
@@ -323,7 +416,8 @@ def apply_block_full(cfg, kind, p, h, pending, aux, collect_cache):
     if kind == "griffin_rec":
         h, y = L.add_norm(cfg, p["ln"], h, pending, plain=plain)
         g = F.gelu(L.linear(p["in_gate"], y), approximate="tanh")
-        r, conv_state = L.causal_conv1d(p["conv"], L.linear(p["in_rec"], y), None)
+        r = shard(L.linear(p["in_rec"], y), ("batch", "seq", "lru_width"))
+        r, conv_state = L.causal_conv1d(p["conv"], r, None)
         r, h_last = L.rglru_scan(p["rglru"], r, None)
         h, x = L.add_norm(cfg, p["ln2"], h, L.linear(p["out"], g * r), plain=plain)
         cache = {"h": h_last.to(h.dtype), "conv": conv_state} if collect_cache else None
@@ -522,7 +616,11 @@ class Model:
         concatenation, so the overwritten rows' token embeddings get a zero
         gradient.  N > S raises (the reference fails at trace time)."""
         cfg = self.cfg
-        h = params["embed"]["w"][tokens].to(torch_dtype(cfg.dtype))
+        w = L.grad_placed(params["embed"]["w"])
+        # a DTensor table (the dry run) takes DTensor's embedding rule (a
+        # vocabulary shard masks what it does not hold)
+        h = F.embedding(tokens, w)
+        h = h.to(torch_dtype(cfg.dtype))
         if cfg.scale_embedding:
             # the factor is rounded to the activation type before the product,
             # as the reference's weakly typed scalar is; filled on the device
@@ -537,12 +635,16 @@ class Model:
                 raise ValueError(f"{pe.shape[1]} patch embeddings do not fit a sequence of "
                                  f"{h.shape[1]} tokens")
             h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
-        return h
+        return shard(h, L.STREAM)
 
     def _logits(self, params, h):
         cfg = self.cfg
-        w = params["embed"]["w"].t() if cfg.tie_embeddings else params["lm_head"]["w"]
-        return (h @ w.to(h.dtype)).float()
+        w = L.grad_placed(params["embed"]["w"]).t() if cfg.tie_embeddings \
+            else params["lm_head"]["w"]
+        logits = L.matmul(h, w.to(h.dtype)).float()
+        # seq-sharded logits (full local vocab) -> local per-token CE; decode
+        # (S=1) falls through to vocab sharding via divisibility resolution
+        return shard(logits, ("batch", "seq_sp", "vocab"))
 
     def _tokens(self, batch) -> torch.Tensor:
         tokens = torch.as_tensor(batch["tokens"])

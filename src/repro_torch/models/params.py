@@ -6,11 +6,15 @@ blocks of the RG-LRU hybrid, the ``mlstm`` / ``slstm`` blocks of the xLSTM
 stack and Whisper's ``xattn`` decoder block and ``enc`` encoder block.
 
 One function (``build_params``) drives its consumers through a creator
-callback: concrete init (``init_params``) and parameter counts
-(``count_params``).  The reference stacks block parameters over depth so that
-it can ``lax.scan`` over them; torch loops over layers, so here
+callback ``creator(path, shape, logical, fan_in)``: abstract shapes
+(``abstract_params``, meta tensors), concrete init (``init_params``), logical
+axes (``param_logical_axes``, which ``training.train_step.param_pspecs``
+resolves against a mesh) and parameter counts (``count_params``).  The
+reference stacks block parameters over depth so that it can ``lax.scan``
+over them; torch loops over layers, so here
 ``tree["blocks"]`` is a plain list with one dict a layer, each leaf with the
-reference's per-layer shape; an encoder-decoder's ``tree["encoder"]`` is
+reference's per-layer shape and its logical axes with the reference's leading
+``"layer"`` dropped; an encoder-decoder's ``tree["encoder"]`` is
 ``{"blocks": [one dict an encoder layer], "final_norm"}`` likewise.
 ``repro_torch.convert`` unstacks a reference tree into this form.
 """
@@ -24,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 
-Creator = Callable[..., object]  # creator(path, shape, fan_in) -> leaf
+Creator = Callable[..., object]  # creator(path, shape, logical, fan_in) -> leaf
 
 
 def block_cycle(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]]:
@@ -48,28 +52,28 @@ def block_cycle(cfg: ModelConfig) -> tuple[tuple[str, ...], int, tuple[str, ...]
 
 
 def _norm(cfg, c: Creator, path):
-    p = {"w": c(path + ("w",), (cfg.d_model,), 0)}
+    p = {"w": c(path + ("w",), (cfg.d_model,), ("embed",), 0)}
     if cfg.norm == "layernorm":
-        p["b"] = c(path + ("b",), (cfg.d_model,), 0)
+        p["b"] = c(path + ("b",), (cfg.d_model,), ("embed",), 0)
     return p
 
 
 def _vec_norm(cfg, c: Creator, path, dim):
-    return {"w": c(path + ("w",), (dim,), 0)}
+    return {"w": c(path + ("w",), (dim,), (None,), 0)}
 
 
 def _gqa_attn(cfg, c: Creator, path):
     D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
-        "q": {"w": c(path + ("q", "w"), (D, H, Dh), D)},
-        "k": {"w": c(path + ("k", "w"), (D, Hkv, Dh), D)},
-        "v": {"w": c(path + ("v", "w"), (D, Hkv, Dh), D)},
-        "o": {"w": c(path + ("o", "w"), (H, Dh, D), H * Dh)},
+        "q": {"w": c(path + ("q", "w"), (D, H, Dh), ("embed", "heads", "head_dim"), D)},
+        "k": {"w": c(path + ("k", "w"), (D, Hkv, Dh), ("embed", "kv_heads", "head_dim"), D)},
+        "v": {"w": c(path + ("v", "w"), (D, Hkv, Dh), ("embed", "kv_heads", "head_dim"), D)},
+        "o": {"w": c(path + ("o", "w"), (H, Dh, D), ("heads", "head_dim", "embed"), H * Dh)},
     }
     if cfg.qkv_bias:
-        p["q"]["b"] = c(path + ("q", "b"), (H, Dh), 0)
-        p["k"]["b"] = c(path + ("k", "b"), (Hkv, Dh), 0)
-        p["v"]["b"] = c(path + ("v", "b"), (Hkv, Dh), 0)
+        p["q"]["b"] = c(path + ("q", "b"), (H, Dh), ("heads", "head_dim"), 0)
+        p["k"]["b"] = c(path + ("k", "b"), (Hkv, Dh), ("kv_heads", "head_dim"), 0)
+        p["v"]["b"] = c(path + ("v", "b"), (Hkv, Dh), ("kv_heads", "head_dim"), 0)
     return p
 
 
@@ -78,15 +82,15 @@ def _mla_attn(cfg, c: Creator, path):
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     return {
-        "dq": {"w": c(path + ("dq", "w"), (D, qr), D)},
+        "dq": {"w": c(path + ("dq", "w"), (D, qr), ("embed", None), D)},
         "q_norm": _vec_norm(cfg, c, path + ("q_norm",), qr),
-        "uq": {"w": c(path + ("uq", "w"), (qr, H, dn + dr), qr)},
-        "dkv": {"w": c(path + ("dkv", "w"), (D, kvr), D)},
+        "uq": {"w": c(path + ("uq", "w"), (qr, H, dn + dr), (None, "heads", "head_dim"), qr)},
+        "dkv": {"w": c(path + ("dkv", "w"), (D, kvr), ("embed", None), D)},
         "kv_norm": _vec_norm(cfg, c, path + ("kv_norm",), kvr),
-        "uk": {"w": c(path + ("uk", "w"), (kvr, H, dn), kvr)},
-        "uv": {"w": c(path + ("uv", "w"), (kvr, H, dv), kvr)},
-        "kr": {"w": c(path + ("kr", "w"), (D, dr), D)},
-        "o": {"w": c(path + ("o", "w"), (H, dv, D), H * dv)},
+        "uk": {"w": c(path + ("uk", "w"), (kvr, H, dn), (None, "heads", "head_dim"), kvr)},
+        "uv": {"w": c(path + ("uv", "w"), (kvr, H, dv), (None, "heads", "head_dim"), kvr)},
+        "kr": {"w": c(path + ("kr", "w"), (D, dr), ("embed", None), D)},
+        "o": {"w": c(path + ("o", "w"), (H, dv, D), ("heads", "head_dim", "embed"), H * dv)},
     }
 
 
@@ -95,25 +99,25 @@ def _mlp(cfg, c: Creator, path, d_ff=None, *, bias=False):
     F = d_ff if d_ff is not None else cfg.d_ff
     p = {}
     if cfg.act in ("swiglu", "geglu"):
-        p["gate"] = {"w": c(path + ("gate", "w"), (D, F), D)}
-    p["up"] = {"w": c(path + ("up", "w"), (D, F), D)}
-    p["down"] = {"w": c(path + ("down", "w"), (F, D), F)}
+        p["gate"] = {"w": c(path + ("gate", "w"), (D, F), ("embed", "ffn"), D)}
+    p["up"] = {"w": c(path + ("up", "w"), (D, F), ("embed", "ffn"), D)}
+    p["down"] = {"w": c(path + ("down", "w"), (F, D), ("ffn", "embed"), F)}
     if bias:
-        p["up"]["b"] = c(path + ("up", "b"), (F,), 0)
-        p["down"]["b"] = c(path + ("down", "b"), (D,), 0)
+        p["up"]["b"] = c(path + ("up", "b"), (F,), ("ffn",), 0)
+        p["down"]["b"] = c(path + ("down", "b"), (D,), ("embed",), 0)
         if "gate" in p:
-            p["gate"]["b"] = c(path + ("gate", "b"), (F,), 0)
+            p["gate"]["b"] = c(path + ("gate", "b"), (F,), ("ffn",), 0)
     return p
 
 
 def _moe(cfg, c: Creator, path):
     D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     p = {
-        "router": {"w": c(path + ("router", "w"), (D, E), D)},
+        "router": {"w": c(path + ("router", "w"), (D, E), ("embed", None), D)},
         "experts": {
-            "gate": c(path + ("experts", "gate"), (E, D, F), D),
-            "up": c(path + ("experts", "up"), (E, D, F), D),
-            "down": c(path + ("experts", "down"), (E, F, D), F),
+            "gate": c(path + ("experts", "gate"), (E, D, F), ("expert", "embed", "expert_ffn"), D),
+            "up": c(path + ("experts", "up"), (E, D, F), ("expert", "embed", "expert_ffn"), D),
+            "down": c(path + ("experts", "down"), (E, F, D), ("expert", "expert_ffn", "embed"), F),
         },
     }
     if cfg.num_shared_experts > 0:
@@ -123,14 +127,18 @@ def _moe(cfg, c: Creator, path):
 
 def _rglru_gates(cfg, c: Creator, path, W: int):
     nb = max(cfg.lru_gate_blocks, 1)
-    # Griffin's appendix: block-diagonal recurrence and input gates, (nb, Wb, Wb)
-    shp = (nb, W // nb, W // nb) if nb > 1 else (W, W)
+    if nb > 1:
+        # Griffin's appendix: block-diagonal recurrence and input gates, (nb, Wb, Wb),
+        # which keep the gate products local under width sharding
+        shp, ax = (nb, W // nb, W // nb), ("lru_width", None, None)
+    else:
+        shp, ax = (W, W), ("lru_width", None)
     return {
-        "wa": c(path + ("rglru", "wa"), shp, shp[-1]),
-        "ba": c(path + ("rglru", "ba"), (W,), 0),
-        "wx": c(path + ("rglru", "wx"), shp, shp[-1]),
-        "bx": c(path + ("rglru", "bx"), (W,), 0),
-        "lam": c(path + ("rglru", "lam"), (W,), 0),
+        "wa": c(path + ("rglru", "wa"), shp, ax, shp[-1]),
+        "ba": c(path + ("rglru", "ba"), (W,), (None,), 0),
+        "wx": c(path + ("rglru", "wx"), shp, ax, shp[-1]),
+        "bx": c(path + ("rglru", "bx"), (W,), (None,), 0),
+        "lam": c(path + ("rglru", "lam"), (W,), (None,), 0),
     }
 
 
@@ -138,12 +146,12 @@ def _griffin_rec(cfg, c: Creator, path):
     D, W, K = cfg.d_model, cfg.lru_width or cfg.d_model, cfg.conv_width
     return {
         "ln": _norm(cfg, c, path + ("ln",)),
-        "in_gate": {"w": c(path + ("in_gate", "w"), (D, W), D)},
-        "in_rec": {"w": c(path + ("in_rec", "w"), (D, W), D)},
-        "conv": {"w": c(path + ("conv", "w"), (K, W), 0),
-                 "b": c(path + ("conv", "b"), (W,), 0)},
+        "in_gate": {"w": c(path + ("in_gate", "w"), (D, W), ("embed", "lru_width"), D)},
+        "in_rec": {"w": c(path + ("in_rec", "w"), (D, W), ("embed", "lru_width"), D)},
+        "conv": {"w": c(path + ("conv", "w"), (K, W), (None, "lru_width"), 0),
+                 "b": c(path + ("conv", "b"), (W,), ("lru_width",), 0)},
         "rglru": _rglru_gates(cfg, c, path, W),
-        "out": {"w": c(path + ("out", "w"), (W, D), W)},
+        "out": {"w": c(path + ("out", "w"), (W, D), ("lru_width", "embed"), W)},
         "ln2": _norm(cfg, c, path + ("ln2",)),
         "mlp": _mlp(cfg, c, path + ("mlp",)),
     }
@@ -192,17 +200,17 @@ def _mlstm_block(cfg, c: Creator, path):
     DQ = H * Dh
     return {
         "ln": _norm(cfg, c, path + ("ln",)),
-        "up": {"w": c(path + ("up", "w"), (D, Di), D)},
-        "conv": {"w": c(path + ("conv", "w"), (cfg.conv_width, Di), 0),
-                 "b": c(path + ("conv", "b"), (Di,), 0)},
-        "q": {"w": c(path + ("q", "w"), (Di, DQ), Di)},
-        "k": {"w": c(path + ("k", "w"), (Di, DQ), Di)},
-        "v": {"w": c(path + ("v", "w"), (Di, DQ), Di)},
-        "gates": {"w": c(path + ("gates", "w"), (Di, 2 * H), Di),
-                  "b": c(path + ("gates", "b"), (2 * H,), 0)},
+        "up": {"w": c(path + ("up", "w"), (D, Di), ("embed", "ffn"), D)},
+        "conv": {"w": c(path + ("conv", "w"), (cfg.conv_width, Di), (None, "ffn"), 0),
+                 "b": c(path + ("conv", "b"), (Di,), ("ffn",), 0)},
+        "q": {"w": c(path + ("q", "w"), (Di, DQ), ("ffn", None), Di)},
+        "k": {"w": c(path + ("k", "w"), (Di, DQ), ("ffn", None), Di)},
+        "v": {"w": c(path + ("v", "w"), (Di, DQ), ("ffn", None), Di)},
+        "gates": {"w": c(path + ("gates", "w"), (Di, 2 * H), ("ffn", None), Di),
+                  "b": c(path + ("gates", "b"), (2 * H,), (None,), 0)},
         "out_norm": _vec_norm(cfg, c, path + ("out_norm",), DQ),
-        "z": {"w": c(path + ("z", "w"), (D, DQ), D)},
-        "o": {"w": c(path + ("o", "w"), (DQ, D), DQ)},
+        "z": {"w": c(path + ("z", "w"), (D, DQ), ("embed", None), D)},
+        "o": {"w": c(path + ("o", "w"), (DQ, D), (None, "embed"), DQ)},
     }
 
 
@@ -212,11 +220,11 @@ def _slstm_block(cfg, c: Creator, path):
     F = int(cfg.slstm_proj_factor * D)
     return {
         "ln": _norm(cfg, c, path + ("ln",)),
-        "gates_in": {"w": c(path + ("gates_in", "w"), (D, 4 * W), D)},
-        "r": c(path + ("r",), (W, 4 * W), W),
+        "gates_in": {"w": c(path + ("gates_in", "w"), (D, 4 * W), ("embed", None), D)},
+        "r": c(path + ("r",), (W, 4 * W), (None, None), W),
         "out_norm": _vec_norm(cfg, c, path + ("out_norm",), W),
-        "ffn_up": {"w": c(path + ("ffn_up", "w"), (W, F), W)},
-        "ffn_down": {"w": c(path + ("ffn_down", "w"), (F, D), F)},
+        "ffn_up": {"w": c(path + ("ffn_up", "w"), (W, F), ("embed", "ffn"), W)},
+        "ffn_down": {"w": c(path + ("ffn_down", "w"), (F, D), ("ffn", "embed"), F)},
     }
 
 
@@ -256,14 +264,15 @@ def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
 
 def build_params(cfg: ModelConfig, creator: Creator) -> dict:
     tree: dict = {
-        "embed": {"w": creator(("embed", "w"), (cfg.vocab_size, cfg.d_model), cfg.d_model)},
+        "embed": {"w": creator(("embed", "w"), (cfg.vocab_size, cfg.d_model),
+                               ("vocab", "embed"), cfg.d_model)},
         "final_norm": _norm(cfg, creator, ("final_norm",)),
     }
     tree["blocks"] = [BLOCK_PARAMS[kind](cfg, creator, ("blocks", str(i), kind))
                       for i, kind in enumerate(layer_kinds(cfg))]
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": creator(("lm_head", "w"), (cfg.d_model, cfg.vocab_size),
-                                        cfg.d_model)}
+                                        ("embed", "vocab"), cfg.d_model)}
     if cfg.encoder_layers > 0:
         tree["encoder"] = {
             "blocks": [_enc_block(cfg, creator, ("encoder", "blocks", str(i), "enc"))
@@ -271,6 +280,26 @@ def build_params(cfg: ModelConfig, creator: Creator) -> dict:
             "final_norm": _norm(cfg, creator, ("encoder", "final_norm")),
         }
     return tree
+
+
+def abstract_params(cfg: ModelConfig, dtype=None) -> dict:
+    """The tree as tensors on the ``meta`` device: each leaf has its shape and
+    dtype and allocates nothing (the reference's ``ShapeDtypeStruct``s, as
+    ``launch/specs.input_specs`` gives the inputs)."""
+    dt = dtype or torch_dtype(cfg.param_dtype)
+
+    def c(path, shape, logical, fan_in):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    return build_params(cfg, c)
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict:
+    """The tree with each leaf's logical axes (a tuple, one entry a dim)."""
+    def c(path, shape, logical, fan_in):
+        return tuple(logical)
+
+    return build_params(cfg, c)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device, dtype=None):
@@ -286,7 +315,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device, dtype=None
     dt = dtype or torch_dtype(cfg.param_dtype)
     device = torch.device(device)
 
-    def c(path, shape, fan_in):
+    def c(path, shape, logical, fan_in):
         if fan_in <= 0:  # biases / norm scales / gates
             name, parent = path[-1], path[-2] if len(path) > 1 else ""
             is_norm = parent.startswith("ln") or "norm" in parent
@@ -312,7 +341,7 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     The dense families count the same either way."""
     total = [0]
 
-    def c(path, shape, fan_in):
+    def c(path, shape, logical, fan_in):
         n = math.prod(shape)
         if active_only and "experts" in path:
             n = n * (cfg.top_k / cfg.num_experts)

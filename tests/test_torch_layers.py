@@ -101,8 +101,11 @@ def test_attention_kernel_strategy_matches_dense(causal, valid):
         close(got, want.numpy())
     with pytest.raises(ValueError):
         TL.attention(q, k, v, causal=causal, kv_valid_len=vl, strategy="kernel", soft_cap=30.0)
+    # the blockwise strategy: the same numbers; an unknown strategy raises
+    close(TL.attention(q, k, v, causal=causal, kv_valid_len=vl, strategy="blockwise"),
+          want.numpy())
     with pytest.raises(ValueError):
-        TL.attention(q, k, v, strategy="blockwise")
+        TL.attention(q, k, v, strategy="flash")
 
 
 @pytest.mark.parametrize("arch,act", [("phi4-mini-3.8b", "swiglu"), ("gemma-7b", "geglu"),

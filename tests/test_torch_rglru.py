@@ -298,10 +298,10 @@ def test_cache_len_of_reads_the_attention_ring():
     so T comes from the first attention ring; a stack with no ring (the
     xLSTM family's) has no T."""
     ct = t_tiny(ARCH)
-    cache = build_cache(ct, lambda s, d: torch.zeros(s, dtype=d), 2, 20)
+    cache = build_cache(ct, lambda s, logical, d: torch.zeros(s, dtype=d), 2, 20)
     assert "h" in cache["blocks"][0] and cache["blocks"][0]["h"].shape == (2, ct.lru_width)
     assert cache_len_of(cache) == 20
-    cache = build_cache(ct, lambda s, d: torch.zeros(s, dtype=d), 2, 100)
+    cache = build_cache(ct, lambda s, logical, d: torch.zeros(s, dtype=d), 2, 100)
     assert cache_len_of(cache) == ct.window == 32           # min(cache_len, window)
     rec_only = {"blocks": [b for b in cache["blocks"] if "h" in b], "pos": cache["pos"]}
     assert cache_len_of(rec_only) is None

@@ -347,7 +347,7 @@ def test_decode_from_a_carried_over_cache():
 
 def test_cache_len_of_reads_the_self_ring_and_not_the_encoder_rows():
     ct = t_tiny(ARCH)
-    cache = build_cache(ct, lambda s, d: torch.zeros(s, dtype=d), 2, 10)
+    cache = build_cache(ct, lambda s, logical, d: torch.zeros(s, dtype=d), 2, 10)
     assert [list(c) for c in cache["blocks"]] == [["k", "v", "ck", "cv"]] * ct.num_layers
     assert cache["blocks"][0]["ck"].shape[1] == ct.encoder_seq == 32
     assert cache_len_of(cache) == 10
