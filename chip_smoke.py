@@ -20,8 +20,10 @@ Phases, each printing one JSON object on a line of its own:
            window; K2 at its group of 16; K1, K2, K3 and the backward kernels
            at qwen2-vl's G 7 and D 3584) and at edge shapes, in float32
            (tolerance 2e-5: another order of summation) and bfloat16 (2e-2);
-           the backward kernels of K1 and K3 at the train path's shapes and
-           at edge shapes, on the same tolerances, against autograd in
+           the backward kernels of K1 and K3 at the train path's shapes (K1's
+           also at deepseek's B1 H128 S2048 with q/k 192 and v 128, and at
+           recurrentgemma's 16 q heads on one kv head at D 256; K3's at D
+           4096 in the 1 + w form with the sum) and at edge shapes, on the same tolerances, against autograd in
            float32 of the plain forwards (each gradient's largest error over
            the larger of 1 and its largest magnitude) and against the plain
            backward in float32 from the same inputs, bfloat16 ones too (the
@@ -135,10 +137,9 @@ Phases, each printing one JSON object on a line of its own:
            plain norms moves the plain run by; (3) simulate as moe's, no
            attention; (4) the chunk body's all-batch (2097152, 1, 1) and
            outer (8192, 1, 192) products as bmm beside a multiply; (5) one
-           timed AdamW step of the launcher (B1 S512, remat "block", depth
-           cut to one cycle of 4 layers: K3 and its backward at D 768, the
-           AdamW kernel) against the simulator's train prediction and its
-           memory
+           timed AdamW step of the launcher (B1 S512, remat "block", all 12
+           layers: K3 and its backward at D 768, the AdamW kernel) against the
+           simulator's train prediction and its memory
   whisper  the Whisper family (whisper-large-v3 at full width and depth: 32
            encoder and 32 decoder layers, d_model 1280, 20 heads of 64, vocab
            51,866), random bf16 weights from the seed, frame embeddings drawn
@@ -190,17 +191,24 @@ Phases, each printing one JSON object on a line of its own:
            serve as moe's (launches: K1 a layer a prefill, no K2, K3 4L+1 a
            call; the expert products apart from the absorbed attention's in
            the profiled step); (2) parity as moe's on these 2 layers; (3)
-           simulate as moe's, K1 at (192, 128) counted in the prefill
+           simulate as moe's, K1 at (192, 128) counted in the prefill; (4)
+           train: depth cut to 1 layer (13.36e9 parameters, 26.7 GB, and as
+           much of gradients), the trainer's loss and gradients at B1 S2048,
+           remat "block", no optimizer update: K1's backward at (192, 128)
+           launched once and that call held against its plain version on its
+           own inputs, the loss against the plain versions' forward on the
+           same routes, and the profiling engine timing the traced backward
+           attention node through K1's backward
   dryrun   sharding and the dry-run launcher (run right after griffin, whose
-           model it reuses), a line a part: (1) trace: full-size cells traced
-           over DTensors on a fake process group by the host
-           (repro_torch.launch.dryrun.lower_cell: gemma-7b and olmoe-1b-7b
-           train_4k on the 16x16 mesh, gemma-7b decode_32k on 2x16x16), each
-           record's per-device FLOPs, HBM bytes, collective traffic by kind,
-           temp bytes and trace seconds, and its roofline row with the
-           H100's constants (launch/roofline.py); (2) cell: recurrentgemma-9b
-           long_500k (decode, B1, S 524,288) traced on a (1, 1) mesh of a
-           fake world of 1, then its decode step run on the card at full
+           model it reuses), a line a part: (1) cell_trace: recurrentgemma-9b
+           long_500k (decode, B1, S 524,288) traced over DTensors on a (1, 1)
+           mesh of a fake world of 1 (repro_torch.launch.dryrun.cell_record),
+           its per-device FLOPs, HBM bytes and roofline row with the H100's
+           constants (launch/roofline.py); the full-size cells of the
+           launcher's production meshes are host work, run by `python -m
+           repro_torch.launch.dryrun --arch A --shape S` (gemma-7b
+           decode_32k on 2x16x16 in tests/test_torch_dryrun.py); (2) cell:
+           then its decode step run on the card at full
            width and depth (the ring of 2048 rows all valid, pos 524,287):
            wall and device-busy time, launches of K2 and K3 in one step (12
            and 77), host syncs, and the roofline bound over busy time; the
@@ -214,6 +222,18 @@ Phases, each printing one JSON object on a line of its own:
            widened) within 1e-3, which a K2 one split short must exceed; the
            kernels phase checks K2 at this cell's B1 shape (128 splits) in
            both types
+  griffin_train recurrentgemma-9b trained at full width and depth (after
+           dryrun frees the griffin weights), a line a part: (1) the launcher's
+           Trainer with --optimizer adafactor (AdamW's 12 bytes a parameter
+           would be 113 GB), B1 S2048, remat "block", conv filters drawn: a
+           warm-up step, 3 timed, one profiled (busy by kernel group), peak
+           memory, launches a step (K1 24, its backward 12, K3 153 and its
+           backward 77), then one step with int8 gradient compression
+           through make_train_step; (2) the analytical and profiling engines'
+           train step (a fresh DB; K1 and its backward at G 16, D 256
+           counted) against the measured busy, wall and peak; (3) the train
+           step on 6 layers, kernels against plain versions as train_parity
+           holds phi4-mini, under Adafactor and under Adafactor with int8
 
 `--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) and the
 train-shape backward of K1 and K3 of the tree at DIR (e.g. the parent
@@ -226,8 +246,8 @@ Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
 (the train phase for a backward kernel), in the train phase, by the
 profiling engine in the simulate, serve_sim and sweep phases and in the moe,
-griffin, xlstm, whisper, vlm and mla phases' parts and the dryrun phase's
-decode step, its timings at olmoe's,
+griffin, griffin_train, xlstm, whisper, vlm and mla phases' parts and the
+dryrun phase's decode step, its timings at olmoe's,
 recurrentgemma's, xlstm's, whisper's, qwen2-vl's and deepseek's shapes where it has them,
 error, time,
 device time, plain version's
@@ -577,13 +597,15 @@ def attention_dropping_tile(q, k, v, *, causal, q0, k0, tile=64):
     return torch.softmax(s.masked_fill(~seen, float("-inf")), -1) @ v.repeat_interleave(G, 1)
 
 
-def flash_bwd_work(q, k, causal, window) -> tuple[float, float]:
+def flash_bwd_work(q, k, causal, window, v=None) -> tuple[float, float]:
     """(bytes, operations) of the backward: q, k, v, o, dO and lse read once,
     dq, dk, dv written once; 2.5 times the forward's operations (the
-    tracer's factor for a backward attention node)."""
+    tracer's factor for a backward attention node).  ``v``: a head dim of
+    its own (MLA's), which o, dO and dv share; default k's."""
     B, H, Sq, D = q.shape
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * B * H * Sq
-    return nbytes, 2.5 * 4.0 * B * H * D * visible_pairs(Sq, k.shape[2], causal, window)
+    Dv = D if v is None else v.shape[-1]
+    nbytes = 2 * (q.numel() + k.numel()) * (D + Dv) // D * q.element_size() + 4 * B * H * Sq
+    return nbytes, 2.5 * 2.0 * B * H * (D + Dv) * visible_pairs(Sq, k.shape[2], causal, window)
 
 
 def off_by_4(t):
@@ -597,13 +619,16 @@ def off_by_4(t):
 
 
 def check_flash_bwd(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, bshd=False,
-                    misaligned=False):
+                    misaligned=False, Dv=None):
     """K1's backward (after its LSE forward) against autograd of the plain
-    forward on the same inputs and dO."""
+    forward on the same inputs and dO; ``Dv``: v's head dim apart from q's
+    and k's (MLA's 128 beside 192), which o and dO share."""
     from repro_torch.kernels import (flash_attention, flash_attention_bwd,
                                      flash_attention_bwd_plain, flash_attention_plain)
-    q, k, v = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, dtype=dtype, bshd=bshd)
-    do = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, dtype=dtype, bshd=bshd)[0]
+    Dv = D if Dv is None else Dv
+    q, k, v = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D, dtype=dtype, bshd=bshd,
+                           Dv=Dv)
+    do = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=Dv, dtype=dtype, bshd=bshd)[0]
     o = torch.empty_like(do)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
     flash_attention(q, k, v, causal=causal, window=window, out=o, lse=lse)
@@ -620,7 +645,8 @@ def check_flash_bwd(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, 
     one_key = torch.from_numpy(visible_per_row(Sq, Sk, causal, window) <= 1)
     zero = [one_key.expand(B, H, Sq).reshape(-1), None, None]
     rec = {"kernel": "flash_attention_bwd", "dtype": dt_name(dtype),
-           "case": f"B{B} H{H} Hkv{Hkv} Sq{Sq} Sk{Sk} D{D} causal{int(causal)} window{window}"
+           "case": f"B{B} H{H} Hkv{Hkv} Sq{Sq} Sk{Sk} D{D}" + (f" Dv{Dv}" if Dv != D else "")
+                   + f" causal{int(causal)} window{window}"
                    + (" bshd" if bshd else "") + (" misaligned" if misaligned else ""),
            "max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
            "scaled_err": scaled_err(got, want), "row_err": row_err(got, exact, zero),
@@ -642,7 +668,7 @@ def check_flash_bwd(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, 
         del dropped
     del want_o, want
     if timed:
-        nbytes, flops = flash_bwd_work(q, k, causal, window)
+        nbytes, flops = flash_bwd_work(q, k, causal, window, v)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, dtype)
         call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,  # noqa: E731
                                            window=window)
@@ -1013,6 +1039,18 @@ def determinism_checks(rng) -> list:
         runs = [flash_attention_bwd(q, k, v, o, lse, do, causal=True) for _ in range(2)]
         out.append({"kernel": "flash_attention_bwd", "case": f"B{B} H{H} Hkv{Hkv} S{S} D128 "
                     "causal bshd", "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))})
+    # deepseek-v3-671b's train shape at MLA's (192, 128)
+    q, k, v = flash_inputs(rng, B=1, H=128, Hkv=128, Sq=2048, Sk=2048, D=192, Dv=128, dtype=bf16,
+                           bshd=True)
+    do = flash_inputs(rng, B=1, H=128, Hkv=128, Sq=2048, Sk=2048, D=128, dtype=bf16,
+                      bshd=True)[0]
+    o = torch.empty_like(do)
+    lse = torch.empty((1, 128, 2048), dtype=torch.float32, device="cuda")
+    flash_attention(q, k, v, causal=True, out=o, lse=lse)
+    runs = [flash_attention_bwd(q, k, v, o, lse, do, causal=True) for _ in range(2)]
+    out.append({"kernel": "flash_attention_bwd", "case": "B1 H128 Hkv128 S2048 D192 Dv128 "
+                "causal bshd", "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))})
+    del q, k, v, o, do, lse, runs
     x, w, r = rms_inputs(rng, 2048, 3072, bf16, bf16, False, True)
     dy, ds = randn(rng, (2048, 3072), bf16), randn(rng, (2048, 3072), bf16)
     runs = [rmsnorm_bwd(x + r, w, dy, ds=ds) for _ in range(2)]
@@ -1053,18 +1091,25 @@ def check_plans(recs_plans: dict) -> None:
         recs_plans[f"flash_bwd D{D}"] = theirs
         if mine != theirs:
             fail(f"flash_attention_bwd plan D={D}: wrapper {mine}, kernel {theirs}")
+    for dims in [(D, D) for D in fa.SUPPORTED_D] + [fa.MLA_D]:
+        mine, theirs = fa.bwd_fma_plan(*dims), fa.kernel_bwd_fma_plan(*dims)
+        recs_plans[f"flash_bwd fma D{dims[0]} Dv{dims[1]}"] = theirs
+        if mine != theirs:
+            fail(f"flash_attention_bwd FMA plan {dims}: wrapper {mine}, kernel {theirs}")
     for shape in ((1, 24, 8, 2048, 2048, 128), (2, 40, 8, 333, 333, 128), (1, 8, 8, 200, 200, 128),
                   (1, 16, 16, 300, 300, 256), (2, 8, 1, 192, 192, 64), (1, 4, 2, 300, 100, 64),
-                  (8, 20, 20, 448, 1500, 64), (8, 20, 20, 1500, 1500, 64)):     # whisper
+                  (8, 20, 20, 448, 1500, 64), (8, 20, 20, 1500, 1500, 64),      # whisper
+                  (1, 128, 128, 2048, 2048, 192, 128), (2, 16, 4, 333, 333, 192, 128)):  # MLA
         for dtype in (torch.bfloat16, torch.float32):
             for aligned in (True, False):
-                mine = fa.bwd_workspace_bytes(*shape, dtype, aligned)
-                theirs = fa.kernel_bwd_workspace_bytes(*shape, dtype, aligned)
+                mine = fa.bwd_workspace_bytes(*shape[:6], dtype, aligned, *shape[6:])
+                theirs = fa.kernel_bwd_workspace_bytes(*shape[:6], dtype, aligned, *shape[6:])
                 if mine != theirs:
                     fail(f"flash_attention_bwd workspace {shape} {dt_name(dtype)} aligned={aligned}: "
                          f"wrapper {mine}, kernel {theirs}")
         recs_plans[f"flash_bwd workspace B{shape[0]} H{shape[1]} Hkv{shape[2]} S{shape[3]} "
-                   f"D{shape[5]} bf16"] = fa.kernel_bwd_workspace_bytes(*shape, torch.bfloat16, True)
+                   f"D{shape[5]} bf16"] = fa.kernel_bwd_workspace_bytes(
+                       *shape[:6], torch.bfloat16, True, *shape[6:])
     for dtype in (torch.bfloat16, torch.float32):
         for D in (64, 100, 256, 3072, 5120, 16384):
             for aligned in (True, False):
@@ -1368,6 +1413,25 @@ def phase_kernels():
                                     window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
         if dtype is bf16:
             main["vlm_flash_attention_bwd"] = recs[-1]
+    # ... at deepseek-v3-671b's train shape (MLA: q/k head dim 192, v 128, 128 heads, G 1,
+    # B1 S2048; the FMA kernels at those dims), timed beside SDPA's backward, then a group
+    # of 4 with ragged rows, Sq != Sk unmasked, and a window ...
+    for dtype in (bf16, f32):
+        recs.append(check_flash_bwd(rng, **MLA_K1, Sq=2048, Sk=2048, dtype=dtype,
+                                    timed=dtype is bf16))
+        if dtype is bf16:
+            main["mla_flash_attention_bwd"] = recs[-1]
+        for e in (dict(B=2, H=16, Hkv=4, Sq=333, Sk=333, causal=True, window=0, bshd=True),
+                  dict(B=1, H=8, Hkv=8, Sq=100, Sk=300, causal=False, window=0, bshd=False),
+                  dict(B=1, H=8, Hkv=2, Sq=200, Sk=200, causal=True, window=64, bshd=False)):
+            recs.append(check_flash_bwd(rng, **e, D=192, Dv=128, dtype=dtype, timed=False))
+    # ... and at recurrentgemma-9b's train shape (16 q heads on one kv head, D 256, its
+    # window of 2048 covering S: the FMA kernels at G 16), timed beside SDPA's backward
+    for dtype in (bf16, f32):
+        recs.append(check_flash_bwd(rng, B=1, H=16, Hkv=1, Sq=2048, Sk=2048, D=256, causal=True,
+                                    window=2048, dtype=dtype, timed=dtype is bf16, bshd=True))
+        if dtype is bf16:
+            main["griffin_flash_attention_bwd"] = recs[-1]
 
     # --- K3 backward at the train path's rows (B1 S2048, D 3072: add_rmsnorm in 63 of a
     # step's 65 norms) and the serving path's, with and without the residual, the sum's
@@ -1398,6 +1462,12 @@ def phase_kernels():
                                       timed=dtype is bf16))
         if dtype is bf16:
             main["vlm_rmsnorm_bwd"] = recs[-1]
+    for dtype in (bf16, f32):      # recurrentgemma-9b's rows at B1 S2048, D 4096, 1 + w, the sum
+        recs.append(check_rmsnorm_bwd(rng, R=2048, D=4096, dtype=dtype, w_dtype=dtype,
+                                      offset=True, residual=True, fused=True,
+                                      timed=dtype is bf16))
+        if dtype is bf16:
+            main["griffin_rmsnorm_bwd"] = recs[-1]
     # --- the fused AdamW update: phi4-mini's leaves (a layer's up projection, the
     # embedding), bf16 parameters and gradients, fp32 moments; fp32 beside PyTorch's
     # fused AdamW; a length that is no multiple of 4 and a base off 16 bytes
@@ -1835,23 +1905,24 @@ def k1_calls_by_shape():
         ops._flash_attention, ops._flash_attention_bwd = saved
 
 
-def train_spec(cfg, *, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH):
+def train_spec(cfg, *, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH, optimizer: str = "adamw"):
     from repro_torch.api import Cluster, SimSpec, TrainWorkload
     return SimSpec(cfg, cluster=Cluster("h100_sxm", chips=1),
                    workload=TrainWorkload(global_batch=batch, seq_len=seq, remat="block",
-                                          optimizer="adamw"))
+                                          optimizer=optimizer))
 
 
 def train_shape(cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
-                cut: str = "seq") -> tuple[int, int, float]:
+                cut: str = "seq", optimizer: str = "adamw") -> tuple[int, int, float]:
     """(batch, sequence, predicted bytes): B``batch`` S``seq`` if the port's
-    simulator says its step fits the card's memory, else the sequence (or,
-    ``cut="batch"``, the batch) halved until it does (depth and width are
-    never cut)."""
+    simulator says its step under ``optimizer`` fits the card's memory, else
+    the sequence (or, ``cut="batch"``, the batch) halved until it does (depth
+    and width are never cut)."""
     from repro_torch.core import Simulator
     total = torch.cuda.get_device_properties(0).total_memory
     while True:
-        need = Simulator("h100_sxm").run(train_spec(cfg, seq=seq, batch=batch)).memory.total
+        need = Simulator("h100_sxm").run(train_spec(cfg, seq=seq, batch=batch,
+                                                    optimizer=optimizer)).memory.total
         if need <= total or (seq <= 128 if cut == "seq" else batch <= 1):
             return batch, seq, need
         if cut == "seq":
@@ -1862,26 +1933,28 @@ def train_shape(cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
 
 def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN_STEPS,
                 perturb=None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH, cut: str = "seq",
-                layers: int | None = None):
+                layers: int | None = None, optimizer: str = "adamw", then=None):
     """phi4-mini-3.8b (or ``arch``) at full width and depth through
     repro_torch.launch.train's pieces (its Trainer: config, synthetic data,
-    AdamW, remat "block", the train step): one warm-up step, ``timed_steps``
-    steps timed with CUDA events and counted by the kernel wrappers, one step
-    under the profiler; loss and grad norm finite at every step, the step
-    counter advancing by one.  ``perturb(params)``: changes the initial
-    parameters in place (leaves the reference's init leaves at 0); ``seq``
-    and ``batch``: the shape to start from, ``cut`` what ``train_shape``
-    halves if it does not fit; ``layers``: the depth, cut from the config's
-    (width never cut)."""
+    ``optimizer`` (``--optimizer``), remat "block", the train step): one
+    warm-up step, ``timed_steps`` steps timed with CUDA events and counted by
+    the kernel wrappers, one step under the profiler; loss and grad norm
+    finite at every step, the step counter advancing by one.
+    ``perturb(params)``: changes the initial parameters in place (leaves the
+    reference's init leaves at 0); ``seq`` and ``batch``: the shape to start
+    from, ``cut`` what ``train_shape`` halves if it does not fit; ``layers``:
+    the depth, cut from the config's (width never cut); ``then(trainer,
+    state, batch)``: run on the state after the profiled step, before it is
+    freed, its result under the record's ``"then"``."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.launch import train as T
     cfg = get_config(arch)
     if layers is not None:
         cfg = cfg.replace(num_layers=layers)
-    B, S, predicted_bytes = train_shape(cfg, seq, batch, cut)
+    B, S, predicted_bytes = train_shape(cfg, seq, batch, cut, optimizer)
     trainer = T.Trainer(T.parse_args(["--arch", arch, "--batch", str(B), "--seq", str(S),
-                                      "--remat", "block", "--optimizer", "adamw",
+                                      "--remat", "block", "--optimizer", optimizer,
                                       "--steps", str(timed_steps + 2), "--ckpt-every", "0",
                                       "--seed", str(SEED)]), cfg=cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -1921,17 +1994,25 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
                 end.synchronize()
                 wall_ms.append(start.elapsed_time(end))
         counts = K.launch_counts()
+        parts = {"warmup_s": warm_s, "timed_s": time.perf_counter() - t0 - warm_s}
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        # the device's activity alone: the record reads kernels only, and the
+        # host's operator events of an eager step (the sLSTM's loop makes
+        # about 190,000 launches a step) took minutes to read back
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             state = one(state)
             torch.cuda.synchronize()
+        parts["profiled_step_s"] = time.perf_counter() - t1
         avgs = prof.key_averages()
+        t2 = time.perf_counter()
+        parts["profile_read_s"] = t2 - t1 - parts["profiled_step_s"]
         groups = device_groups(avgs)
         launches = sum(e.count for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA)
         top_other = top_kernels(avgs, "other")
         k1_bwd = top_kernels(avgs, "K1_bwd")
         peak = torch.cuda.max_memory_allocated()
-        # the optimizer's share of the step: one more AdamW update, alone, on
+        # the optimizer's share of the step: one more update, alone, on
         # gradients of the parameters' shapes (its arithmetic does not depend
         # on their values); after the peak is read
         from repro_torch.training.optimizer import tree_map
@@ -1939,7 +2020,9 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
         update = lambda: trainer.optimizer.update(grads, state["opt"], state["params"])  # noqa: E731
         optimizer_ms = time_ms(update, iters=2, warmup=1)
         optimizer_device_ms = device_ms(update, iters=2, cold=False)
-        del grads
+        del grads, update
+        parts["optimizer_s"] = time.perf_counter() - t2
+        after = then(trainer, state, next(pipe)) if then is not None else None
     finally:
         pipe.close()
     per_step = {k: v / timed_steps for k, v in counts.items()}
@@ -1953,10 +2036,10 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
     rms = cfg.norm != "layernorm"
     want = {"flash_attention": 2 * La, "flash_attention_bwd": La,
             "rmsnorm": (4 * L + 1) * rms, "rmsnorm_bwd": (2 * L + 1) * rms,
-            "decode_attention": 0, "adamw": n_leaves}
+            "decode_attention": 0, "adamw": n_leaves if optimizer == "adamw" else 0}
     rec = {"phase": phase, "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
            "params": cfg.param_count(), "batch": B, "seq": S, "remat": "block",
-           "optimizer": "adamw", "predicted_bytes": predicted_bytes,
+           "optimizer": optimizer, "predicted_bytes": predicted_bytes,
            "steps": steps, "warmup_s": warm_s, "wall_ms": wall_ms,
            "wall_ms_median": float(np.median(wall_ms)),
            "device_busy_ms": sum(groups.values()) / 1e3,
@@ -1966,7 +2049,9 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
            "optimizer_ms": optimizer_ms, "optimizer_device_ms": optimizer_device_ms,
            "launches": counts, "launches_per_step": per_step, "launches_per_step_want": want,
            "k1_launches_by_shape": {k: v / timed_steps for k, v in sorted(k1_shapes.items())},
-           "gpu": gpu_name_and_power()}
+           "parts_s": parts, "gpu": gpu_name_and_power()}
+    if after is not None:
+        rec["then"] = after
     emit(rec)
     if any(per_step[k] != v for k, v in want.items()):
         fail(f"{phase}: kernel launches a step {per_step}, the path implies {want}")
@@ -2120,28 +2205,38 @@ def route_agreement(a: list, b: list) -> list:
     return out
 
 
-def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times: bool = True):
-    """The train step of ``arch`` cut to 4 layers, once through the kernels
-    (the model's and AdamW's) and once through their plain versions, from the
-    same parameters and batch, at lr PARITY_LR from the first step (warm-up
-    1), so that the step moves bf16 parameters by several of their last
-    places: loss (and its cross-entropy and router parts), every gradient
-    leaf, and each parameter leaf's change.  A MoE model's plain run takes
+def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times: bool = True,
+                       layers: int = 4, optimizer: str = "adamw", compression: str = "none",
+                       perturb=None):
+    """The train step of ``arch`` cut to ``layers`` layers, once through the
+    kernels (the model's and AdamW's) and once through their plain versions,
+    from the same parameters and batch, at lr PARITY_LR from the first step
+    (warm-up 1), so that the step moves bf16 parameters by several of their
+    last places: loss (and its cross-entropy and router parts), every
+    gradient leaf, and each parameter leaf's change under ``optimizer``
+    (``"adamw"`` or ``"adafactor"``, over the config's block cycle) with
+    ``compression`` (``"none"`` or ``"int8"``).  ``perturb(params, gen)``
+    changes the initial parameters in place.  A MoE model's plain run takes
     the kernel run's routes (``RoutePin``); the share of choices an unpinned
     plain forward makes alike is reported beside.  Then, with
-    ``tree_times``, ``adamw_tree_times`` on that tree."""
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import RunConfig, ShapeConfig
+    ``tree_times`` (AdamW), ``adamw_tree_times`` on that tree."""
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
     from repro_torch.models import Model
     from repro_torch.training import SyntheticTokenPipeline, init_state, make_loss_fn
     from repro_torch.training import make_train_step
-    from repro_torch.training.optimizer import adamw, cosine_schedule, tree_leaves, tree_map
-    cfg = get_config(arch).replace(num_layers=4)
-    run = RunConfig(model=cfg, shape=ShapeConfig("parity", 512, 2, "train"), remat_policy="block")
+    from repro_torch.training.optimizer import (adafactor, adamw, cosine_schedule, tree_leaves,
+                                                tree_map)
+    cfg = get_config(arch).replace(num_layers=layers)
+    run = RunConfig(model=cfg, shape=ShapeConfig("parity", 512, 2, "train"), remat_policy="block",
+                    optimizer=optimizer, grad_compression=compression)
     pipe = SyntheticTokenPipeline(cfg, global_batch=2, seq_len=512, seed=SEED)
     batch = next(pipe)
     pipe.close()
-    base = Model(cfg).init(torch.Generator(device="cuda").manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    base = Model(cfg).init(gen)
+    if perturb is not None:
+        with torch.no_grad():
+            perturb(base, gen)
     pin = RoutePin() if cfg.is_moe else None
     out, parts = {}, {}
 
@@ -2150,7 +2245,8 @@ def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times
         model = Model(cfg, remat_policy="block", plain_kernels=plain)
         loss, m = make_loss_fn(model)(tree, batch)
         grads = [g.detach() for g in torch.autograd.grad(loss, tree_leaves(tree))]
-        opt = adamw(cosine_schedule(PARITY_LR, warmup=1), plain_kernels=plain)
+        lr = cosine_schedule(PARITY_LR, warmup=1)
+        opt = adamw(lr, plain_kernels=plain) if optimizer == "adamw" else adafactor(lr, cfg=cfg)
         state = init_state(tree, opt)
         state, metrics = make_train_step(cfg, run, opt, plain_kernels=plain)(state, batch)
         delta = [p.detach().float() - b.float()
@@ -2187,6 +2283,7 @@ def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times
     # side; no update at all reads 1, an update of unrelated gradients about 1.4
     tol = {"loss": 1e-2, "grad_rel_l2": 5e-2, "update_rel_l2": UPDATE_TOL}
     rec = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "batch": 2, "seq": 512,
+           "optimizer": optimizer, "grad_compression": compression,
            "lr": PARITY_LR, "loss_kernels": lk, "loss_plain": lp, "loss_abs_diff": abs(lk - lp),
            "step_loss_abs_diff": abs(mk - mp), "loss_parts_kernels": parts[False],
            "loss_parts_plain": parts[True], "grad_leaves": len(gk),
@@ -3341,6 +3438,18 @@ GRIFFIN_ARCH = "recurrentgemma-9b"
 GRIFFIN_PARITY_LAYERS = 6       # two whole (rec, rec, attn) cycles
 
 
+def griffin_draw(params, gen) -> None:
+    """The RG-LRU blocks' conv filters, which the reference's init leaves 0
+    (the recurrence would then carry nothing), drawn in place from ``gen``:
+    normal, std 1/sqrt(conv_width)."""
+    with torch.no_grad():
+        for p in params["blocks"]:
+            if "conv" in p:
+                w = p["conv"]["w"]
+                w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
+                        / math.sqrt(w.shape[0]))
+
+
 def phase_griffin(keep: bool = False) -> dict:
     """The RG-LRU family on the card (recurrentgemma-9b at full width and
     depth: 38 layers, 26 ``griffin_rec`` and 12 ``griffin_attn`` with MQA
@@ -3366,10 +3475,7 @@ def phase_griffin(keep: bool = False) -> dict:
     model = Model(cfg)
     gen = torch.Generator(device=model.device).manual_seed(SEED)
     params = model.init(gen)
-    for p in params["blocks"]:
-        if "conv" in p:
-            w = p["conv"]["w"]
-            w.copy_(torch.randn(w.shape, generator=gen, device=w.device) / math.sqrt(w.shape[0]))
+    griffin_draw(params, gen)
     torch.cuda.synchronize()
     init = {"seconds": time.perf_counter() - t0, "allocated_bytes": torch.cuda.memory_allocated(),
             "peak_bytes": torch.cuda.max_memory_allocated()}
@@ -3395,10 +3501,8 @@ def phase_griffin(keep: bool = False) -> dict:
     return out
 
 
-# the dryrun phase's full-size traces: (arch, shape, multi-pod mesh), timed
-# on the host (each under a minute), and its cell on one card
-DRYRUN_TRACES = (("gemma-7b", "train_4k", False), ("olmoe-1b-7b", "train_4k", False),
-                 ("gemma-7b", "decode_32k", True))
+# the dryrun phase's cell on one card (the full-size traces of the launcher's
+# meshes are host work: `python -m repro_torch.launch.dryrun --arch A --shape S`)
 DRYRUN_CELL = ("recurrentgemma-9b", "long_500k")
 DRYRUN_STEPS = 20
 
@@ -3555,54 +3659,23 @@ def dryrun_step_syncs(step) -> list:
     return [str(w.message)[:160] for w in caught if "called a synchronizing" in str(w.message)]
 
 
-def dryrun_trace_cell(spec: str) -> None:
-    """One full-size cell of ``DRYRUN_TRACES`` (``arch,shape,multi``) traced
-    by ``lower_cell`` in this process: its trace line."""
-    from repro_torch.launch.dryrun import lower_cell
-    arch, shape, multi = spec.split(",")
-    t = time.perf_counter()
-    rec, _, _ = lower_cell(arch, shape, multi == "1")
-    emit({"phase": "dryrun", "part": "trace", **dryrun_row(rec),
-          "seconds": time.perf_counter() - t})
-
-
 def phase_dryrun(params=None) -> dict:
     """Sharding and the dry-run launcher on the card (see the module's
-    docstring), a line a part: trace (the full-size cells of
-    ``DRYRUN_TRACES``, host work only, each in a process of its own, the
-    three at once), then cell (recurrentgemma-9b long_500k traced on a (1,
-    1) mesh and its decode step run here, with ``params``: the griffin
-    phase's weights, else random ones from the seed).  Returns the step's
-    launches."""
+    docstring), a line a part: cell_trace (recurrentgemma-9b long_500k
+    traced on a (1, 1) mesh), then cell (its decode step run here, with
+    ``params``: the griffin phase's weights, else random ones from the
+    seed).  Returns the step's launches."""
     import gc
     import tempfile
     import torch.distributed as dist
     from repro_torch import kernels as K
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs import SHAPES, get_config
     from repro_torch.distributed.sharding import ShardingEnv, activate
     from repro_torch.launch.dryrun import cell_record
     from repro_torch.launch.mesh import fake_world, make_mesh
     from repro_torch.models import Model
     t0 = time.perf_counter()
     gpu = gpu_name_and_power()
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--trace-cell",
-                               f"{arch},{shape},{int(multi)}"],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for arch, shape, multi in DRYRUN_TRACES]
-    try:
-        outs = [p.communicate(timeout=900) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for cell, p, (out, err) in zip(DRYRUN_TRACES, procs, outs):
-        line = next((ln for ln in out.splitlines() if ln.startswith('{"phase": "dryrun"')), None)
-        if p.returncode != 0 or line is None:
-            fail(f"dryrun trace {cell}: exit {p.returncode}\n{out[-2000:]}\n{err[-4000:]}")
-        emit({**json.loads(line), "gpu": gpu})
-    trace_s = time.perf_counter() - t0
     arch, shape_name = DRYRUN_CELL
     cfg = get_config(arch)
     with fake_world(1):
@@ -3615,11 +3688,7 @@ def phase_dryrun(params=None) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if params is None:
         params = model.init(gen)
-        for p in params["blocks"]:
-            if "conv" in p:
-                w = p["conv"]["w"]
-                w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
-                        / math.sqrt(w.shape[0]))
+        griffin_draw(params, gen)
     # the cache and the token from a generator of their own: the same cell
     # whether the weights are the griffin phase's or made here
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -3692,7 +3761,7 @@ def phase_dryrun(params=None) -> dict:
            "host_syncs": syncs,
            "roofline_bound_s": row["bound_s"], "roofline_terms": row["roofline"],
            "measured_roofline_fraction": row["bound_s"] / busy_s,
-           "trace_cells_s": trace_s, "seconds": time.perf_counter() - t0, "gpu": gpu}
+           "seconds": time.perf_counter() - t0, "gpu": gpu}
     emit(out)
     if launches != want:
         fail(f"dryrun cell: launches {launches} differ from what the path implies {want}")
@@ -3716,16 +3785,83 @@ def phase_dryrun(params=None) -> dict:
     return {"cell": launches}
 
 
+def int8_step(trainer, state, batch) -> dict:
+    """One more step of ``trainer``'s state through ``make_train_step`` with
+    ``RunConfig.grad_compression="int8"`` (the reference's CLI has no flag
+    for it): loss and grad norm finite, the step counter advancing, its wall
+    time, peak memory and launches."""
+    from repro_torch import kernels as K
+    from repro_torch.training import make_train_step
+    step = make_train_step(trainer.cfg, dataclasses.replace(trainer.run, grad_compression="int8"),
+                           trainer.optimizer)
+    before = int(state["step"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+    torch.cuda.synchronize()
+    out = {"grad_compression": "int8", "step": before, "loss": loss, "grad_norm": gn,
+           "wall_ms": (time.perf_counter() - t0) * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "launches": K.launch_counts(),
+           "step_counter_after": int(state["step"])}
+    if not (math.isfinite(loss) and math.isfinite(gn)) or out["step_counter_after"] != before + 1:
+        fail(f"int8 train step: {out}")
+    return out
+
+
+def phase_griffin_train() -> dict:
+    """recurrentgemma-9b trained on the card at full width and depth (after
+    the dryrun phase has freed the griffin phase's weights), a line a part:
+    train (``phase_train``: the launcher's Trainer with ``--optimizer
+    adafactor``, which factors its second moments, at B1 S2048, remat
+    "block"; AdamW's 12 bytes a parameter would be 113 GB; the conv filters
+    drawn; then one step with int8 gradient compression through
+    ``make_train_step``), train_vs_simulate (the analytical and profiling
+    engines' train step against the measured one and the peak), and the
+    train step on the first ``GRIFFIN_PARITY_LAYERS`` layers, kernels
+    against plain versions, under Adafactor and under Adafactor with int8.
+    Returns the launches a step of each part."""
+    import gc
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(GRIFFIN_ARCH)
+    t0 = time.perf_counter()
+    tgen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    train = phase_train(GRIFFIN_ARCH, phase="griffin_train", perturb=lambda p: griffin_draw(p, tgen),
+                        optimizer="adafactor", then=int8_step)
+    parts = {"train_s": time.perf_counter() - t0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    versus = train_versus(cfg, train, "griffin_train", profiling=True)
+    parts["simulate_s"] = time.perf_counter() - t0 - sum(parts.values())
+    parity = {}
+    for compression in ("none", "int8"):
+        parity[compression] = phase_train_parity(
+            GRIFFIN_ARCH, phase="griffin_train_parity", tree_times=False,
+            layers=GRIFFIN_PARITY_LAYERS, optimizer="adafactor", compression=compression,
+            perturb=griffin_draw)
+    parts["parity_s"] = time.perf_counter() - t0 - sum(parts.values())
+    emit({"phase": "griffin_train", "part": "done", "arch": cfg.name,
+          "seconds": time.perf_counter() - t0, "parts_s": parts,
+          "launches_per_step": train["launches_per_step"],
+          "int8_step_launches": train["then"]["launches"],
+          "profiling_launches": versus["profiling_launches"],
+          "parity_layers": GRIFFIN_PARITY_LAYERS, "gpu": gpu_name_and_power()})
+    return {"train": train["launches_per_step"], "train_int8": train["then"]["launches"],
+            "simulate": versus["profiling_launches"], "train_rec": train}
+
+
 XLSTM_ARCH = "xlstm-125m"
 # The train part's sequence: at S2048 the sLSTM's eager loop makes a step of
 # 764,208 launches (17.1 s wall, 1.43 s busy on an H100 at 700 W), and the
 # profiled step took about 360 s of the profiler's processing; at 512 a step
 # makes about a quarter of them (two chunks of the mLSTM, 512 sLSTM steps).
 XLSTM_TRAIN_SEQ = 512
-# The train part's depth: one (m, m, m, s) cycle of the 12 layers.  The whole
-# stack's step took about 120 s of the phase on an H100; the dryrun phase's
-# host-bound traces take that time back within the default command's limit.
-XLSTM_TRAIN_LAYERS = 4
+# The train part's depth: the whole stack of 12 layers.
+XLSTM_TRAIN_LAYERS = 12
 
 
 def xlstm_draw(params, gen) -> None:
@@ -3858,15 +3994,21 @@ def xlstm_parity(cfg, params) -> dict:
     return rec
 
 
-def train_versus(cfg, train: dict, phase: str) -> dict:
+def train_versus(cfg, train: dict, phase: str, profiling: bool = False) -> dict:
     """The analytical simulator's train step at the train part's shape (B, S,
-    remat "block", AdamW) against its measured step (wall and device busy)
-    and its peak memory: one JSON line, returned."""
+    remat "block", its optimizer) against its measured step (wall and device
+    busy) and its peak memory: one JSON line, returned.  With ``profiling``
+    the profiling engine's too, measuring every operator on this card into a
+    fresh profile DB (K1's forward and backward counted)."""
+    from repro_torch import kernels as K
     from repro_torch.core import Simulator
-    pred = Simulator("h100_sxm").run(train_spec(cfg, seq=train["seq"], batch=train["batch"]))
+    from repro_torch.core.backend import profiling as P
+    spec = train_spec(cfg, seq=train["seq"], batch=train["batch"], optimizer=train["optimizer"])
+    pred = Simulator("h100_sxm").run(spec)
     wall_us, busy_us = train["wall_ms_median"] * 1e3, train["device_busy_ms"] * 1e3
     versus = {"part": "train_vs_simulate", "arch": cfg.name, "batch": train["batch"],
-              "seq": train["seq"], "analytical_us": pred.step_time_us,
+              "seq": train["seq"], "optimizer": train["optimizer"],
+              "analytical_us": pred.step_time_us,
               "analytical_breakdown_us": pred.breakdown_us,
               "analytical_t_fwd_us": pred.detail["t_fwd"],
               "measured_wall_us": wall_us, "measured_device_busy_us": busy_us,
@@ -3876,8 +4018,32 @@ def train_versus(cfg, train: dict, phase: str) -> dict:
               "memory": {"analytical_bytes": pred.memory.total,
                          "measured_peak_bytes": train["peak_bytes"],
                          "signed_error": pred.memory.total / train["peak_bytes"] - 1.0}}
+    preds = [pred]
+    if profiling:
+        db_path = os.path.join(HERE, "build", phase, "profile_db_torch.json")
+        if os.path.exists(db_path):
+            os.remove(db_path)
+        db = P.ProfileDB(db_path)
+        t0 = time.perf_counter()
+        K.reset_launch_counts()
+        prof = Simulator("h100_sxm", engine="profiling", db=db, measure_on_miss=True).run(spec)
+        launches = K.launch_counts()
+        preds.append(prof)
+        versus.update(
+            profiling_us=prof.step_time_us, profiling_breakdown_us=prof.breakdown_us,
+            profiling_s=time.perf_counter() - t0, profiling_launches=launches,
+            profile_db_entries=len(db.data),
+            profiling_attention_entries_us={k: v["us"] for k, v in db.data.items()
+                                            if "|attention|" in k})
+        versus["signed_error"].update(
+            profiling_vs_wall=prof.step_time_us / wall_us - 1.0,
+            profiling_vs_device_busy=prof.step_time_us / busy_us - 1.0)
+        versus["memory"]["profiling_bytes"] = prof.memory.total
+        if min(launches["flash_attention"], launches["flash_attention_bwd"]) <= 0:
+            fail(f"{phase} train: the profiling engine did not launch K1 forward and backward: "
+                 f"{launches}")
     emit({"phase": phase, **versus})
-    if not (math.isfinite(pred.step_time_us) and pred.step_time_us > 0):
+    if not all(math.isfinite(p.step_time_us) and p.step_time_us > 0 for p in preds):
         fail(f"{phase} train: a non-positive or non-finite predicted step time {versus}")
     return versus
 
@@ -4573,10 +4739,11 @@ def phase_mla() -> dict:
     """The MLA family on the card (deepseek-v3-671b at full width, depth cut
     to ``MLA_LAYERS``, random bf16 weights from the seed, made once and
     shared by the parts), a line a part: serve (``moe_serve``), parity
-    (``moe_parity``, the plain run on the kernel run's routes) and simulate
+    (``moe_parity``, the plain run on the kernel run's routes), simulate
     (``moe_simulate``: K1 at (192, 128) counted in the profiling engine's
-    prefill; the absorbed decode has no attention node).  Returns the
-    launches of each part."""
+    prefill; the absorbed decode has no attention node), then, those
+    weights freed, train (``mla_train`` at ``MLA_TRAIN_LAYERS``).  Returns
+    the launches of each part."""
     import gc
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
@@ -4608,9 +4775,6 @@ def phase_mla() -> dict:
     sim = moe_simulate(cfg, params, name="mla", attention_kernels=(("prefill", "flash_attention"),))
     for mode in ("prefill", "decode"):
         emit({"phase": "mla", **sim[mode]})
-    emit({"phase": "mla", "part": "done", "arch": cfg.name, "seconds": time.perf_counter() - t0,
-          "init": init, "reduced": reduced, "profile_db_entries": sim["profile_db_entries"],
-          "gpu": gpu_name_and_power()})
     if not parity["first_logits_max_abs_diff_pinned"] <= parity["tol"]:
         fail(f"mla parity: first-token logits differ by "
              f"{parity['first_logits_max_abs_diff_pinned']} > {parity['tol']} on the same routes")
@@ -4620,10 +4784,146 @@ def phase_mla() -> dict:
     del params, model
     gc.collect()
     torch.cuda.empty_cache()
+    train = mla_train(full)
+    reduced["train_layers"] = [full.num_layers, MLA_TRAIN_LAYERS]
+    emit({"phase": "mla", "part": "done", "arch": cfg.name, "seconds": time.perf_counter() - t0,
+          "init": init, "reduced": reduced, "profile_db_entries": sim["profile_db_entries"],
+          "gpu": gpu_name_and_power()})
     return {"serve": serve["launches"],
             "simulate": {k: sim["prefill"]["profiling_launches"][k]
                          + sim["decode"]["profiling_launches"][k] for k in serve["launches"]},
-            "serve_rec": serve}
+            "train": train["launches"], "serve_rec": serve}
+
+
+def loss_and_grads(loss_fn, params, batch):
+    """``(loss, gradients of every parameter leaf)``."""
+    from repro_torch.training.optimizer import tree_leaves
+    loss, _ = loss_fn(params, batch)
+    return loss, torch.autograd.grad(loss, tree_leaves(params))
+
+
+MLA_TRAIN_LAYERS = 1     # 13.36e9 parameters: 26.7 GB of bf16 weights and as much of gradients
+MLA_TRAIN_SEQ = 2048
+
+
+def mla_train(full) -> dict:
+    """deepseek-v3-671b at full width and ``MLA_TRAIN_LAYERS`` layer through
+    the trainer's loss and gradients (``make_loss_fn``, remat "block", B1
+    S``MLA_TRAIN_SEQ``, no optimizer update: two layers would be 99 GB with
+    their gradients): the forward's K1 and its backward at (192, 128), the
+    backward's one call held against ``flash_attention_bwd_plain`` on its own
+    inputs (fp32), the loss against a forward through the plain versions on
+    the same routes (``RoutePin``), every gradient finite; then the profiling
+    engine times the traced backward attention node through K1's backward.
+    One JSON line, returned."""
+    import gc
+    from repro_torch import kernels as K
+    from repro_torch.core.backend import profiling as P
+    from repro_torch.core.model_ingest import ingest_graphs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+    from repro_torch.models import Model, count_params
+    from repro_torch.training import SyntheticTokenPipeline, make_loss_fn
+    from repro_torch.training.optimizer import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = full.replace(num_layers=MLA_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, remat_policy="block")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    pipe = SyntheticTokenPipeline(cfg, global_batch=1, seq_len=MLA_TRAIN_SEQ, seed=SEED)
+    batch = next(pipe)
+    pipe.close()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    calls = []
+    orig = ops._flash_attention_bwd
+
+    def keep(q, k, v, o, lse, do, *, causal, window, scale, **out):
+        got = orig(q, k, v, o, lse, do, causal=causal, window=window, scale=scale, **out)
+        calls.append(([t.detach().clone() for t in (q, k, v, o, lse, do)],
+                      dict(causal=causal, window=window, scale=scale), [g.clone() for g in got]))
+        return got
+
+    pin = RoutePin()
+    K.reset_launch_counts()
+    ops._flash_attention_bwd = keep
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        # the routes recorded through the backward too: remat "block" routes each
+        # layer again as it recomputes it, and must save what the forward saved
+        loss, grads = pin.run("record", loss_and_grads, make_loss_fn(model), params, batch)
+        end.record()
+        end.synchronize()
+    finally:
+        ops._flash_attention_bwd = orig
+    launches = K.launch_counts()
+    step_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    loss_k = float(loss.detach())
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    grad_norm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads])))
+    del grads, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        loss_p = float(pin.run("replay", make_loss_fn(Model(cfg, plain_kernels=True)), params,
+                               batch)[0])
+    if 2 * pin.next != len(pin.calls):
+        fail(f"mla train: the plain forward made {pin.next} dispatches, the kernels' forward "
+             f"and recomputation {len(pin.calls)}")
+    bwd = []
+    for ins, kw, got in calls:
+        want = flash_attention_bwd_plain(*(t.float() for t in ins[:4]), ins[4], ins[5].float(),
+                                         **kw)
+        B, H, Sq, _ = ins[0].shape
+        # dQ of a query that sees one key is 0 by the arithmetic (as check_flash_bwd holds it)
+        one_key = torch.from_numpy(visible_per_row(Sq, ins[1].shape[2], kw["causal"],
+                                                   kw["window"]) <= 1)
+        bwd.append({"shapes": [list(t.shape) for t in ins[:3]],
+                    "max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
+                    "scaled_err": scaled_err(got, want),
+                    "row_err": row_err(got, want, [one_key.expand(B, H, Sq).reshape(-1)])})
+        del want
+    del calls
+    # the profiling engine: the traced backward attention node at these dims
+    node = next(n for b in ingest_graphs(cfg, 1, MLA_TRAIN_SEQ, "train").all_blocks()
+                for n in (b.joint if b.joint is not None else b.fwd)
+                if n.kind == "attention" and n.attrs.get("backward"))
+    K.reset_launch_counts()
+    price_us = P.synthesize_and_measure(node)
+    price_launches = K.launch_counts()["flash_attention_bwd"]
+    rec = {"phase": "mla", "part": "train", "arch": cfg.name, "layers": MLA_TRAIN_LAYERS,
+           "params": count_params(cfg), "batch": 1, "seq": MLA_TRAIN_SEQ, "remat": "block",
+           "optimizer": None, "init_s": init_s, "loss_and_grad_ms": step_ms, "peak_bytes": peak,
+           "loss_kernels": loss_k, "loss_plain_same_routes": loss_p,
+           "loss_abs_diff": abs(loss_k - loss_p), "loss_tol": 1e-2, "grads_finite": finite,
+           "grad_norm": grad_norm, "launches": launches, "k1_bwd_calls": bwd,
+           "k1_bwd_tol": {"scaled_err": TOL[torch.bfloat16], "row_err": ROW_TOL[torch.bfloat16]},
+           "profiling_bwd_node": {"key": P.node_key(node, "h100_sxm"), "us": price_us,
+                                  "flash_attention_bwd_launches": price_launches},
+           "seconds": time.perf_counter() - t0, "gpu": gpu_name_and_power()}
+    emit(rec)
+    if launches["flash_attention_bwd"] != MLA_TRAIN_LAYERS or len(bwd) != MLA_TRAIN_LAYERS:
+        fail(f"mla train: K1's backward launched {launches['flash_attention_bwd']} times, "
+             f"{MLA_TRAIN_LAYERS} expected")
+    if not all(b["scaled_err"] <= TOL[torch.bfloat16] and b["row_err"] <= ROW_TOL[torch.bfloat16]
+               for b in bwd):
+        fail(f"mla train: K1's backward against its plain version: {bwd}")
+    if not (finite and math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-2):
+        fail(f"mla train: loss {loss_k} (kernels) against {loss_p} (plain), grads finite {finite}")
+    if not (price_us is not None and price_us > 0 and price_launches > 0):
+        fail(f"mla train: the profiling engine did not time the backward node: {price_us}")
+    del params, leaves, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 KERNEL_INFO = {
@@ -4657,13 +4957,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,serve,parity,train,train_parity,simulate,"
-                            "serve_sim,sweep,moe,griffin,dryrun,xlstm,whisper,vlm,mla",
+                            "serve_sim,sweep,moe,griffin,dryrun,griffin_train,xlstm,whisper,"
+                            "vlm,mla",
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
-                         "train_parity,simulate,serve_sim,sweep,moe,griffin,dryrun,xlstm,"
-                         "whisper,vlm,mla (and times, the serving-shape timings alone; "
-                         "serve_measure, the measured side of serve_sim alone; mla_layout, the "
-                         "mla phase's first part alone); the closing lines are printed only "
-                         "when the seventeen of the default ran")
+                         "train_parity,simulate,serve_sim,sweep,moe,griffin,dryrun,"
+                         "griffin_train,xlstm,whisper,vlm,mla (and times, the serving-shape "
+                         "timings alone; serve_measure, the measured side of serve_sim alone; "
+                         "mla_layout, the mla phase's first part alone); the closing lines are "
+                         "printed only when the eighteen of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -4672,8 +4973,6 @@ def main(argv=None) -> int:
                          "torch.profiler; the tables by kernel are written to DIR")
     ap.add_argument("--ptxas", action="store_true",
                     help="print the compiler's register and shared-memory report to stderr")
-    ap.add_argument("--trace-cell", metavar="ARCH,SHAPE,MULTI", default=None,
-                    help="the dryrun phase's worker: trace one full-size cell, print its line")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -4681,9 +4980,6 @@ def main(argv=None) -> int:
         fail("torch.cuda.is_available() is False: this script measures on a CUDA device only")
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"src/repro_torch is missing ({SRC})")
-    if args.trace_cell:
-        dryrun_trace_cell(args.trace_cell)
-        return 0
     from repro_torch.kernels import _build
 
     smi = gpu_name_and_power()
@@ -4734,6 +5030,7 @@ def main(argv=None) -> int:
     griffin = phase_griffin(keep="dryrun" in phases) if "griffin" in phases else None
     dryrun = phase_dryrun(griffin.pop("params", None) if griffin else None) \
         if "dryrun" in phases else None
+    griffin_train = phase_griffin_train() if "griffin_train" in phases else None
     xlstm = phase_xlstm() if "xlstm" in phases else None
     whisper = phase_whisper() if "whisper" in phases else None
     vlm = phase_vlm() if "vlm" in phases else None
@@ -4742,7 +5039,8 @@ def main(argv=None) -> int:
     mla = phase_mla() if "mla" in phases else None
     if (main_recs is None or counts is None or "parity" not in phases or train is None
             or train_parity is None or sim is None or serve_sim is None or swept is None
-            or moe is None or griffin is None or dryrun is None or xlstm is None
+            or moe is None or griffin is None or dryrun is None or griffin_train is None
+            or xlstm is None
             or whisper is None or vlm is None or mla is None):
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
@@ -4777,11 +5075,19 @@ def main(argv=None) -> int:
                "moe_launches": {part: moe[part][name]
                                 for part in ("serve", "simulate", "train_parity")},
                # deepseek-v3-671b cut to 2 layers: serving, and the profiling
-               # engine's measurements (K1 at (192, 128) in its prefill)
-               "mla_launches": {part: mla[part][name] for part in ("serve", "simulate")},
+               # engine's measurements (K1 at (192, 128) in its prefill); cut to 1
+               # layer: the loss and gradients (K1's backward at (192, 128))
+               "mla_launches": {part: mla[part][name]
+                                for part in ("serve", "simulate", "train")},
                # recurrentgemma-9b at full width and depth: serving, and the profiling
-               # engine's measurements (K1 in its prefill, K2 at G = 16 in its decode)
-               "griffin_launches": {part: griffin[part][name] for part in ("serve", "simulate")},
+               # engine's measurements (K1 in its prefill, K2 at G = 16 in its decode);
+               # the Adafactor train step (a step), the int8 step, and the profiling
+               # engine's train measurements (K1 and its backward at G 16, D 256)
+               "griffin_launches": {
+                   **{part: griffin[part][name] for part in ("serve", "simulate")},
+                   "train": griffin_train["train"][name],
+                   "train_int8": griffin_train["train_int8"][name],
+                   "simulate_train": griffin_train["simulate"][name]},
                # recurrentgemma-9b long_500k: the dryrun phase's decode step at full
                # width and depth (K2 and K3), the cell its roofline bounds
                "dryrun_launches": {"cell": dryrun["cell"][name]},

@@ -14,7 +14,9 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, torch_dtype
+from repro_torch.configs.base import (
+    SHAPES, ModelConfig, RunConfig, ShapeConfig, supports_shape, torch_dtype,
+)
 
 _ARCH_MODULES = {
     "qwen2.5-32b": "qwen2_5_32b",
@@ -48,4 +50,21 @@ def get_tiny_config(arch: str) -> ModelConfig:
     return _module(arch).tiny()
 
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "get_tiny_config", "torch_dtype"]
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def all_cells(include_skipped: bool = False):
+    """Yield every assigned (arch, shape) cell; skips sub-quadratic-only
+    shapes for full-attention archs unless ``include_skipped``."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if include_skipped or supports_shape(cfg, shape):
+                yield arch, shape.name
+
+
+__all__ = [
+    "ModelConfig", "RunConfig", "ShapeConfig", "SHAPES", "ARCH_IDS",
+    "get_config", "get_tiny_config", "get_shape", "all_cells", "supports_shape", "torch_dtype",
+]

@@ -138,18 +138,19 @@ class RunConfig:
 
     ``pod``, ``data``, ``model_axis`` and ``zero_stage`` are the reference's
     mesh and ZeRO settings, carried as fields so that a run of either package
-    reads the same config; the port trains on one device, where they change
-    nothing (the sharding they select is ROADMAP queue A item 6).
+    reads the same config.  A train step on one device reads none of them;
+    the train step's specs (``training.state_pspecs``) and the dry run
+    (``launch/dryrun.py``) resolve the sharding they select.
     """
 
     model: ModelConfig
     shape: ShapeConfig
-    # mesh logical sizes (products must equal device count); unused on one device
+    # mesh logical sizes (products must equal device count)
     pod: int = 1
     data: int = 16
     model_axis: int = 16
     # distribution features
-    zero_stage: int = 1              # 0 off, 1 opt-state, 2 +grads, 3 +params (FSDP); unused on one device
+    zero_stage: int = 1              # 0 off, 1 opt-state, 2 +grads, 3 +params (FSDP)
     remat_policy: str = "block"      # none | block | dots
     optimizer: str = "adamw"         # adamw | adafactor
     microbatches: int = 1            # grad-accumulation microbatches

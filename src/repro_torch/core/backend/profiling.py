@@ -215,17 +215,17 @@ def _nbytes(*tensors) -> float:
     return float(sum(t.numel() * t.element_size() for t in tensors))
 
 
-def _flash_bwd_inputs(randn, bsz, sq, skv, hkv, g, d, causal, window):
+def _flash_bwd_inputs(randn, bsz, sq, skv, hkv, g, d, dv, causal, window):
     """What K1's backward reads, in the (B, heads, S, D) views of the model's
-    layout: q, k, v, the forward's output and log-sum-exp (one forward
-    launch, outside the timing), and dO."""
+    layout: q, k at head dim ``d``, v at ``dv``, the forward's output and
+    log-sum-exp (one forward launch, outside the timing), and dO."""
     q = randn((bsz, sq, hkv * g, d)).permute(0, 2, 1, 3)
     k = randn((bsz, skv, hkv, d)).permute(0, 2, 1, 3)
-    v = randn((bsz, skv, hkv, d)).permute(0, 2, 1, 3)
-    o = torch.empty((bsz, sq, hkv * g, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    v = randn((bsz, skv, hkv, dv)).permute(0, 2, 1, 3)
+    o = torch.empty((bsz, sq, hkv * g, dv), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     lse = torch.empty((bsz, hkv * g, sq), dtype=torch.float32, device=q.device)
     flash_attention(q, k, v, causal=causal, window=window, out=o, lse=lse)
-    do = randn((bsz, sq, hkv * g, d)).permute(0, 2, 1, 3)
+    do = randn((bsz, sq, hkv * g, dv)).permute(0, 2, 1, 3)
     return q, k, v, o, lse, do
 
 
@@ -277,12 +277,10 @@ def synthesize_and_measure(node: OpNode, device="cuda") -> float | None:
             causal = bool(node.attrs.get("causal", True))
             window = int(node.attrs.get("window", 0))
             if node.attrs.get("backward"):
-                if dv != d:
-                    return None      # K1's backward takes one head dim (ROADMAP queue B)
                 return _time_fn(lambda *a: flash_attention_bwd(*a, causal=causal,
                                                                window=window),
                                 sets(lambda: _flash_bwd_inputs(randn, bsz, sq, skv, hkv, g, d,
-                                                               causal, window)), dev)
+                                                               dv, causal, window)), dev)
             args = sets(lambda: (randn((bsz, sq, hkv, g, d)), randn((bsz, skv, hkv, d)),
                                  randn((bsz, skv, hkv, dv))))
             return _time_fn(lambda q, kk_, v: ops.flash_attention_bshd(

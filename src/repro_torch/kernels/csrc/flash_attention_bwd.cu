@@ -53,21 +53,28 @@
 //       causal mask first (the first kv tiles, the last q tiles), over every
 //       head, so the last wave holds the lightest blocks.  A tile pair that
 //       no mask and no end of Q or K cuts takes no mask arithmetic.
-//   * otherwise (fp32, D = 256, unaligned views): fp32 FMAs over tiles
-//     widened to fp32 in shared memory, the forward's FMA kernel's thread
-//     layout (16 x 16 threads, 4 rows x D/16 columns a thread).  TF32 tensor
-//     cores would keep about three decimal digits and miss the fp32
-//     tolerance; at D = 256 a warpgroup's dK and dV of 64 rows would need 256
-//     registers a thread.
+//   * otherwise (fp32, D = 256, unaligned views, MLA's q/k head dim 192
+//     beside v's 128): fp32 FMAs over tiles widened to fp32 in shared
+//     memory, the forward's FMA kernel's thread layout (16 x 16 threads, 4
+//     rows x D/16 columns a thread).  TF32 tensor cores would keep about
+//     three decimal digits and miss the fp32 tolerance; at D = 256 a
+//     warpgroup's dK and dV of 64 rows would need 256 registers a thread.
+//     At MLA's dims (deepseek-v3's training) S^T, dS^T, dK and dQ run over
+//     192 and delta, dP^T and dV over 128; a dK/dV block of 32 kv rows holds
+//     K and Q at 192 and V and dO at 128 as fp32 tiles (91 KB of shared
+//     memory, two blocks an SM), a dQ block of 64 q rows 132 KB (one).  It
+//     is a correct first kernel, far from the 0.43 ms its operations bound
+//     it by at deepseek's train shape: wgmma and TMA at these dims are later
+//     work.
 //
 // P and dS are rounded to bf16 before their products (the forward rounds P
 // before P V in the same way); dS is formed from P in fp32.  A fully masked
 // row keeps the forward's convention: its output is 0, and so is every
 // gradient it sends.
 //
-// Layout: every tensor (B, heads, S, D) with free strides over its first
-// three dims (multiples of 4 elements; of 8 for the tensor-core path) and
-// stride 1 over D; lse (B, H, Sq) contiguous fp32.  The wrapper allocates the
+// Layout: every tensor (B, heads, S, head dim) with free strides over its
+// first three dims (multiples of 4 elements; of 8 for the tensor-core path)
+// and stride 1 over the head dim; lse (B, H, Sq) contiguous fp32.  The wrapper allocates the
 // workspace (`flash_attention_bwd_workspace`); the kernels allocate nothing.
 #include "common.cuh"
 #include "hopper.cuh"
@@ -112,9 +119,9 @@ __device__ __forceinline__ void load_tile(float* dst, const BwdParams& p, int wh
 }
 
 // ---------------------------------------------------------------------------
-// delta = rowsum(dO * O): one warp a row.
+// delta = rowsum(dO * O): one warp a row, over v's head dim DV.
 
-template <typename T, int D>
+template <typename T, int DV>
 __global__ void __launch_bounds__(FB_THREADS) flash_bwd_delta_kernel(const BwdParams p, int B) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * (FB_THREADS / 32) + warp;
@@ -125,34 +132,40 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_delta_kernel(const BwdPa
   const T* op = row_ptr<T>(p, T_O, b, h, s);
   const T* gp = row_ptr<T>(p, T_DO, b, h, s);
   float acc = 0.f;
-  for (int d = lane * 4; d < D; d += 128) acc += dot4(load4<T>(op + d), load4<T>(gp + d));
+  for (int d = lane * 4; d < DV; d += 128) acc += dot4(load4<T>(op + d), load4<T>(gp + d));
   acc = warp_sum(acc);
   if (lane == 0) p.delta[row] = acc;
 }
 
 // ---------------------------------------------------------------------------
+// The FMA kernels take q and k at head dim DQ and v, o and dO at DV: one
+// head dim (DQ = DV), or MLA's (192, 128).  S^T and dS^T sum over DQ, dP^T
+// over DV.
+//
 // dK, dV of one kv tile of BKV rows.  Thread (ty, tx) owns kv rows ty + 16 i
 // (i < BKV / 16) and, of a q tile of BQ = 32 rows, columns tx + 16 j (j < 2)
-// of S^T and dP^T, and columns tx + 16 j (j < D / 16) of dK and dV.
+// of S^T and dP^T, columns tx + 16 j (j < DQ / 16) of dK and (j < DV / 16)
+// of dV.
 
-template <int D, int BKV> struct DkdvSmem {
+template <int DQ, int DV, int BKV> struct DkdvSmem {
   static constexpr int BQ = 32;
-  static constexpr int RS = D + 4;    // row stride of the K, V, Q, dO tiles: (RS / 4) odd
+  static constexpr int RQ = DQ + 4;   // row stride of the K and Q tiles: (RQ / 4) odd
+  static constexpr int RV = DV + 4;   // row stride of the V and dO tiles: (RV / 4) odd
   static constexpr int PS = BQ + 4;   // row stride of P^T and dS^T
-  static constexpr int FLOATS = 2 * BKV * RS + 2 * BQ * RS + 2 * BKV * PS + 2 * BQ;
+  static constexpr int FLOATS = BKV * (RQ + RV) + BQ * (RQ + RV) + 2 * BKV * PS + 2 * BQ;
 };
 
-template <typename T, int D, int BKV>
+template <typename T, int DQ, int DV, int BKV>
 __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dkdv_kernel(const BwdParams p) {
-  using Sm = DkdvSmem<D, BKV>;
-  constexpr int BQ = Sm::BQ, RS = Sm::RS, PS = Sm::PS;
-  constexpr int RI = BKV / 16, DC = D / 16;
+  using Sm = DkdvSmem<DQ, DV, BKV>;
+  constexpr int BQ = Sm::BQ, RQ = Sm::RQ, RV = Sm::RV, PS = Sm::PS;
+  constexpr int RI = BKV / 16, CQ = DQ / 16, CV = DV / 16;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BKV * RS;
-  float* Qs = Vs + BKV * RS;
-  float* Gs = Qs + BQ * RS;        // dO
-  float* Ps = Gs + BQ * RS;        // P^T
+  float* Vs = Ks + BKV * RQ;
+  float* Qs = Vs + BKV * RV;
+  float* Gs = Qs + BQ * RQ;        // dO
+  float* Ps = Gs + BQ * RV;        // P^T
   float* Ss = Ps + BKV * PS;       // dS^T
   float* Ls = Ss + BKV * PS;       // lse of the q tile's rows
   float* Dl = Ls + BQ;             // delta of the q tile's rows
@@ -162,14 +175,17 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dkdv_kernel(const BwdPar
   const int k0 = blockIdx.x * BKV;   // the first kv tiles see the most q rows under a causal mask
   const int G = p.H / p.Hkv;
 
-  load_tile<T, D, BKV, RS>(Ks, p, T_K, b, hk, k0, p.Sk);
-  load_tile<T, D, BKV, RS>(Vs, p, T_V, b, hk, k0, p.Sk);
+  load_tile<T, DQ, BKV, RQ>(Ks, p, T_K, b, hk, k0, p.Sk);
+  load_tile<T, DV, BKV, RV>(Vs, p, T_V, b, hk, k0, p.Sk);
 
-  float dk[RI][DC], dv[RI][DC];
+  float dk[RI][CQ], dv[RI][CV];
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
-    for (int j = 0; j < DC; ++j) { dk[i][j] = 0.f; dv[i][j] = 0.f; }
+    for (int j = 0; j < CQ; ++j) dk[i][j] = 0.f;
+#pragma unroll
+    for (int j = 0; j < CV; ++j) dv[i][j] = 0.f;
+  }
 
   // q rows that can see some row of this kv tile
   const int q_lo = p.causal ? (k0 / BQ) * BQ : 0;
@@ -182,8 +198,8 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dkdv_kernel(const BwdPar
     const float* delta = p.delta + ((long long)b * p.H + h) * p.Sq;
     for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
       __syncthreads();   // the tile before is read to its end
-      load_tile<T, D, BQ, RS>(Qs, p, T_Q, b, h, q0, p.Sq);
-      load_tile<T, D, BQ, RS>(Gs, p, T_DO, b, h, q0, p.Sq);
+      load_tile<T, DQ, BQ, RQ>(Qs, p, T_Q, b, h, q0, p.Sq);
+      load_tile<T, DV, BQ, RV>(Gs, p, T_DO, b, h, q0, p.Sq);
       if (threadIdx.x < BQ) {
         const int q = q0 + threadIdx.x;
         Ls[threadIdx.x] = q < p.Sq ? lse[q] : 0.f;
@@ -191,27 +207,32 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dkdv_kernel(const BwdPar
       }
       __syncthreads();
 
-      // S^T = K Q^T and dP^T = V dO^T
+      // S^T = K Q^T (over DQ) and dP^T = V dO^T (over DV)
       float s[RI][2], dp[RI][2];
 #pragma unroll
       for (int i = 0; i < RI; ++i) { s[i][0] = s[i][1] = 0.f; dp[i][0] = dp[i][1] = 0.f; }
 #pragma unroll 2
-      for (int d = 0; d < D; d += 4) {
-        float4 qv[2], gv[2];
+      for (int d = 0; d < DQ; d += 4) {
+        float4 qv[2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          qv[j] = *reinterpret_cast<const float4*>(&Qs[(tx + 16 * j) * RS + d]);
-          gv[j] = *reinterpret_cast<const float4*>(&Gs[(tx + 16 * j) * RS + d]);
-        }
+        for (int j = 0; j < 2; ++j) qv[j] = *reinterpret_cast<const float4*>(&Qs[(tx + 16 * j) * RQ + d]);
 #pragma unroll
         for (int i = 0; i < RI; ++i) {
-          const float4 kv = *reinterpret_cast<const float4*>(&Ks[(ty + 16 * i) * RS + d]);
-          const float4 vv = *reinterpret_cast<const float4*>(&Vs[(ty + 16 * i) * RS + d]);
+          const float4 kv = *reinterpret_cast<const float4*>(&Ks[(ty + 16 * i) * RQ + d]);
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            s[i][j] += dot4(kv, qv[j]);
-            dp[i][j] += dot4(vv, gv[j]);
-          }
+          for (int j = 0; j < 2; ++j) s[i][j] += dot4(kv, qv[j]);
+        }
+      }
+#pragma unroll 2
+      for (int d = 0; d < DV; d += 4) {
+        float4 gv[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) gv[j] = *reinterpret_cast<const float4*>(&Gs[(tx + 16 * j) * RV + d]);
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          const float4 vv = *reinterpret_cast<const float4*>(&Vs[(ty + 16 * i) * RV + d]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) dp[i][j] += dot4(vv, gv[j]);
         }
       }
 #pragma unroll
@@ -237,17 +258,20 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dkdv_kernel(const BwdPar
           sr[i][0] = s4.x; sr[i][1] = s4.y; sr[i][2] = s4.z; sr[i][3] = s4.w;
         }
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
+        for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
-          for (int j = 0; j < DC; ++j) {
-            const float gq = Gs[(c + cc) * RS + tx + 16 * j];
-            const float qq = Qs[(c + cc) * RS + tx + 16 * j];
+          for (int j = 0; j < CV; ++j) {
+            const float gq = Gs[(c + cc) * RV + tx + 16 * j];
 #pragma unroll
-            for (int i = 0; i < RI; ++i) {
-              dv[i][j] = fmaf(pr[i][cc], gq, dv[i][j]);
-              dk[i][j] = fmaf(sr[i][cc], qq, dk[i][j]);
-            }
+            for (int i = 0; i < RI; ++i) dv[i][j] = fmaf(pr[i][cc], gq, dv[i][j]);
           }
+#pragma unroll
+          for (int j = 0; j < CQ; ++j) {
+            const float qq = Qs[(c + cc) * RQ + tx + 16 * j];
+#pragma unroll
+            for (int i = 0; i < RI; ++i) dk[i][j] = fmaf(sr[i][cc], qq, dk[i][j]);
+          }
+        }
       }
     }
   }
@@ -259,10 +283,9 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dkdv_kernel(const BwdPar
       T* dkp = (T*)row_ptr<T>(p, T_DK, b, hk, k);
       T* dvp = (T*)row_ptr<T>(p, T_DV, b, hk, k);
 #pragma unroll
-      for (int j = 0; j < DC; ++j) {
-        dkp[tx + 16 * j] = from_float<T>(dk[i][j] * p.scale);
-        dvp[tx + 16 * j] = from_float<T>(dv[i][j]);
-      }
+      for (int j = 0; j < CQ; ++j) dkp[tx + 16 * j] = from_float<T>(dk[i][j] * p.scale);
+#pragma unroll
+      for (int j = 0; j < CV; ++j) dvp[tx + 16 * j] = from_float<T>(dv[i][j]);
     }
   }
 }
@@ -270,26 +293,27 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dkdv_kernel(const BwdPar
 // ---------------------------------------------------------------------------
 // dQ of one q tile of BQ = 64 rows.  Thread (ty, tx) owns q rows ty + 16 i
 // (i < 4) and, of a kv tile of BKV = 32 rows, columns tx + 16 j (j < 2) of S
-// and dP, and columns tx + 16 j (j < D / 16) of dQ.
+// and dP, and columns tx + 16 j (j < DQ / 16) of dQ.
 
-template <int D> struct DqSmem {
+template <int DQ, int DV> struct DqSmem {
   static constexpr int BQ = 64, BKV = 32;
-  static constexpr int RS = D + 4;
+  static constexpr int RQ = DQ + 4;
+  static constexpr int RV = DV + 4;
   static constexpr int PS = BKV + 4;
-  static constexpr int FLOATS = 2 * BQ * RS + 2 * BKV * RS + BQ * PS;
+  static constexpr int FLOATS = BQ * (RQ + RV) + BKV * (RQ + RV) + BQ * PS;
 };
 
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dq_kernel(const BwdParams p) {
-  using Sm = DqSmem<D>;
-  constexpr int BQ = Sm::BQ, BKV = Sm::BKV, RS = Sm::RS, PS = Sm::PS;
-  constexpr int DC = D / 16;
+  using Sm = DqSmem<DQ, DV>;
+  constexpr int BQ = Sm::BQ, BKV = Sm::BKV, RQ = Sm::RQ, RV = Sm::RV, PS = Sm::PS;
+  constexpr int CQ = DQ / 16;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Gs = Qs + BQ * RS;        // dO
-  float* Ks = Gs + BQ * RS;
-  float* Vs = Ks + BKV * RS;
-  float* Ss = Vs + BKV * RS;       // dS
+  float* Gs = Qs + BQ * RQ;        // dO
+  float* Ks = Gs + BQ * RV;
+  float* Vs = Ks + BKV * RQ;
+  float* Ss = Vs + BKV * RV;       // dS
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int qt = gridDim.x - 1 - blockIdx.x;   // last (heaviest under causal) q tiles first
@@ -297,8 +321,8 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dq_kernel(const BwdParam
   const int hk = h / (p.H / p.Hkv);
   const int q0 = qt * BQ;
 
-  load_tile<T, D, BQ, RS>(Qs, p, T_Q, b, h, q0, p.Sq);
-  load_tile<T, D, BQ, RS>(Gs, p, T_DO, b, h, q0, p.Sq);
+  load_tile<T, DQ, BQ, RQ>(Qs, p, T_Q, b, h, q0, p.Sq);
+  load_tile<T, DV, BQ, RV>(Gs, p, T_DO, b, h, q0, p.Sq);
   float lse[4], delta[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -307,11 +331,11 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dq_kernel(const BwdParam
     lse[i] = q < p.Sq ? p.lse[at] : 0.f;
     delta[i] = q < p.Sq ? p.delta[at] : 0.f;
   }
-  float dq[4][DC];
+  float dq[4][CQ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < DC; ++j) dq[i][j] = 0.f;
+    for (int j = 0; j < CQ; ++j) dq[i][j] = 0.f;
 
   // kv rows that some row of this q tile can see
   const int q_last = min(q0 + BQ, p.Sq) - 1;
@@ -325,31 +349,36 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dq_kernel(const BwdParam
 
   for (int k0 = kv_lo; k0 < kv_hi; k0 += BKV) {
     __syncthreads();   // the tile before is read to its end (and Q, dO stored)
-    load_tile<T, D, BKV, RS>(Ks, p, T_K, b, hk, k0, p.Sk);
-    load_tile<T, D, BKV, RS>(Vs, p, T_V, b, hk, k0, p.Sk);
+    load_tile<T, DQ, BKV, RQ>(Ks, p, T_K, b, hk, k0, p.Sk);
+    load_tile<T, DV, BKV, RV>(Vs, p, T_V, b, hk, k0, p.Sk);
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T
+    // S = Q K^T (over DQ) and dP = dO V^T (over DV)
     float s[4][2], dp[4][2];
 #pragma unroll
     for (int i = 0; i < 4; ++i) { s[i][0] = s[i][1] = 0.f; dp[i][0] = dp[i][1] = 0.f; }
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 kv[2], vv[2];
+    for (int d = 0; d < DQ; d += 4) {
+      float4 kv[2];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * RS + d]);
-        vv[j] = *reinterpret_cast<const float4*>(&Vs[(tx + 16 * j) * RS + d]);
-      }
+      for (int j = 0; j < 2; ++j) kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * RQ + d]);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float4 qv = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * RS + d]);
-        const float4 gv = *reinterpret_cast<const float4*>(&Gs[(ty + 16 * i) * RS + d]);
+        const float4 qv = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * RQ + d]);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          s[i][j] += dot4(qv, kv[j]);
-          dp[i][j] += dot4(gv, vv[j]);
-        }
+        for (int j = 0; j < 2; ++j) s[i][j] += dot4(qv, kv[j]);
+      }
+    }
+#pragma unroll 2
+    for (int d = 0; d < DV; d += 4) {
+      float4 vv[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) vv[j] = *reinterpret_cast<const float4*>(&Vs[(tx + 16 * j) * RV + d]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 gv = *reinterpret_cast<const float4*>(&Gs[(ty + 16 * i) * RV + d]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) dp[i][j] += dot4(gv, vv[j]);
       }
     }
 #pragma unroll
@@ -374,8 +403,8 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dq_kernel(const BwdParam
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc)
 #pragma unroll
-        for (int j = 0; j < DC; ++j) {
-          const float kk = Ks[(c + cc) * RS + tx + 16 * j];
+        for (int j = 0; j < CQ; ++j) {
+          const float kk = Ks[(c + cc) * RQ + tx + 16 * j];
 #pragma unroll
           for (int i = 0; i < 4; ++i) dq[i][j] = fmaf(sr[i][cc], kk, dq[i][j]);
         }
@@ -388,7 +417,7 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dq_kernel(const BwdParam
     if (q < p.Sq) {
       T* dqp = (T*)row_ptr<T>(p, T_DQ, b, h, q);
 #pragma unroll
-      for (int j = 0; j < DC; ++j) dqp[tx + 16 * j] = from_float<T>(dq[i][j] * p.scale);
+      for (int j = 0; j < CQ; ++j) dqp[tx + 16 * j] = from_float<T>(dq[i][j] * p.scale);
     }
   }
 }
@@ -834,42 +863,50 @@ static BwdWs bwd_workspace(int B, int H, int Hkv, int Sq, int Sk, int D, bool wg
   return BwdWs{rows, 2 * rows, 2 * rows + part};
 }
 
-// kv rows a dK/dV block: 64, or 32 at D = 256 so that dK and dV stay at 64
-// registers a thread
-template <int D> struct DkdvRows { static constexpr int value = D < 256 ? 64 : 32; };
+// kv rows a dK/dV block of the FMA kernels: 64 up to a q/k head dim of 128,
+// else 32, so that dK and dV stay at 64 registers a thread at D = 256 (40 at
+// MLA's (192, 128)); kernels/flash_attention.py `bwd_fma_plan` mirrors it
+template <int DQ> struct DkdvRows { static constexpr int value = DQ <= 128 ? 64 : 32; };
 
-template <typename T, int D>
+template <int DQ, int DV> struct FmaPlan {
+  static constexpr int BKV = DkdvRows<DQ>::value;
+  static constexpr size_t DKDV_BYTES = (size_t)DkdvSmem<DQ, DV, BKV>::FLOATS * sizeof(float);
+  static constexpr size_t DQ_BYTES = (size_t)DqSmem<DQ, DV>::FLOATS * sizeof(float);
+};
+
+template <typename T, int DQ, int DV>
 static cudaError_t run_bwd(const BwdParams& p, int B, cudaStream_t s) {
-  constexpr int BKV = DkdvRows<D>::value;
-  constexpr size_t dkdv_bytes = (size_t)DkdvSmem<D, BKV>::FLOATS * sizeof(float);
-  constexpr size_t dq_bytes = (size_t)DqSmem<D>::FLOATS * sizeof(float);
+  using F = FmaPlan<DQ, DV>;
+  constexpr int BKV = F::BKV;
   static bool attr_set = false;
   cudaError_t e;
   if (!attr_set) {
-    if ((e = allow_smem(flash_bwd_dkdv_kernel<T, D, BKV>, dkdv_bytes)) != cudaSuccess) return e;
-    if ((e = allow_smem(flash_bwd_dq_kernel<T, D>, dq_bytes)) != cudaSuccess) return e;
+    if ((e = allow_smem(flash_bwd_dkdv_kernel<T, DQ, DV, BKV>, F::DKDV_BYTES)) != cudaSuccess) return e;
+    if ((e = allow_smem(flash_bwd_dq_kernel<T, DQ, DV>, F::DQ_BYTES)) != cudaSuccess) return e;
     attr_set = true;
   }
   const long long rows = (long long)B * p.H * p.Sq;
   const int per_block = FB_THREADS / 32;
-  flash_bwd_delta_kernel<T, D><<<(unsigned)((rows + per_block - 1) / per_block), FB_THREADS, 0, s>>>(p, B);
+  flash_bwd_delta_kernel<T, DV><<<(unsigned)((rows + per_block - 1) / per_block), FB_THREADS, 0, s>>>(p, B);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const dim3 g_kv((p.Sk + BKV - 1) / BKV, p.Hkv, B);
-  flash_bwd_dkdv_kernel<T, D, BKV><<<g_kv, FB_THREADS, dkdv_bytes, s>>>(p);
+  flash_bwd_dkdv_kernel<T, DQ, DV, BKV><<<g_kv, FB_THREADS, F::DKDV_BYTES, s>>>(p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  const dim3 g_q((p.Sq + DqSmem<D>::BQ - 1) / DqSmem<D>::BQ, p.H, B);
-  flash_bwd_dq_kernel<T, D><<<g_q, FB_THREADS, dq_bytes, s>>>(p);
+  constexpr int BQ = DqSmem<DQ, DV>::BQ;
+  const dim3 g_q((p.Sq + BQ - 1) / BQ, p.H, B);
+  flash_bwd_dq_kernel<T, DQ, DV><<<g_q, FB_THREADS, F::DQ_BYTES, s>>>(p);
   return cudaGetLastError();
 }
 
+// the (q/k, v) head dims of the FMA kernels: one head dim, or MLA's
+#define FMA_DIMS(X) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
+
 template <typename T>
-static cudaError_t run_bwd_d(const BwdParams& p, int B, int D, cudaStream_t s) {
-  switch (D) {
-    case 64: return run_bwd<T, 64>(p, B, s);
-    case 128: return run_bwd<T, 128>(p, B, s);
-    case 256: return run_bwd<T, 256>(p, B, s);
-    default: return cudaErrorInvalidValue;
-  }
+static cudaError_t run_bwd_d(const BwdParams& p, int B, int D, int Dv, cudaStream_t s) {
+#define RUN(dq, dv) if (D == dq && Dv == dv) return run_bwd<T, dq, dv>(p, B, s);
+  FMA_DIMS(RUN)
+#undef RUN
+  return cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -940,29 +977,30 @@ static bool tc_aligned(const BwdParams& p) {
   return true;
 }
 
-static bool takes_wg(int D, int dtype, bool aligned) {
-  return dtype == DT_BF16 && (D == 64 || D == 128) && aligned;
+static bool takes_wg(int D, int Dv, int dtype, bool aligned) {
+  return dtype == DT_BF16 && D == Dv && (D == 64 || D == 128) && aligned;
 }
 
 // Bytes of workspace a launch of these shapes needs (`aligned`: what
 // tc_aligned finds for its operands).  The wrapper allocates it.
 extern "C" long long flash_attention_bwd_workspace(int B, int H, int Hkv, int Sq, int Sk, int D,
-                                                   int dtype, int aligned) {
+                                                   int Dv, int dtype, int aligned) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0) return 0;
-  return bwd_workspace(B, H, Hkv, Sq, Sk, D, takes_wg(D, dtype, aligned != 0)).total;
+  return bwd_workspace(B, H, Hkv, Sq, Sk, D, takes_wg(D, Dv, dtype, aligned != 0)).total;
 }
 
-// ptrs[8]: q, k, v, o, dO, dq, dk, dv, each (B, heads, S, D) of dtype;
-// strides[24]: their element strides over (batch, head, seq), each a
-// multiple of 4, stride 1 over D; lse: (B, H, Sq) fp32 from the forward's LSE
-// variant; ws: `ws_bytes` of scratch, at least what
-// flash_attention_bwd_workspace gives.  Launches the delta, dK/dV, (for the
-// tensor-core path with G > 1) sum and dQ kernels in that order on `stream`.
-// Returns cudaGetLastError().
+// ptrs[8]: q, k, v, o, dO, dq, dk, dv, each (B, heads, S, head dim) of
+// dtype, q, k, dq and dk at D, v, o, dO and dv at Dv; strides[24]: their
+// element strides over (batch, head, seq), each a multiple of 4, stride 1
+// over the head dim; lse: (B, H, Sq) fp32 from the forward's LSE variant;
+// ws: `ws_bytes` of scratch, at least what flash_attention_bwd_workspace
+// gives.  Launches the delta, dK/dV, (for the tensor-core path with G > 1)
+// sum and dQ kernels in that order on `stream`.  Returns cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(void* const* ptrs, const long long* strides,
                                           const float* lse, void* ws, long long ws_bytes, int B,
-                                          int H, int Hkv, int Sq, int Sk, int D, int causal,
-                                          int window, float scale, int dtype, void* stream) {
+                                          int H, int Hkv, int Sq, int Sk, int D, int Dv,
+                                          int causal, int window, float scale, int dtype,
+                                          void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return 0;
   if (Hkv <= 0 || H % Hkv) return (int)cudaErrorInvalidValue;
   BwdParams p;
@@ -974,7 +1012,7 @@ extern "C" int flash_attention_bwd_launch(void* const* ptrs, const long long* st
   p.delta = reinterpret_cast<float*>(ws);
   p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
   p.causal = causal; p.window = window; p.scale = scale;
-  const bool wg = takes_wg(D, dtype, tc_aligned(p));
+  const bool wg = takes_wg(D, Dv, dtype, tc_aligned(p));
   if (ws == nullptr || ws_bytes < bwd_workspace(B, H, Hkv, Sq, Sk, D, wg).total)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -982,9 +1020,25 @@ extern "C" int flash_attention_bwd_launch(void* const* ptrs, const long long* st
     if (D == 64) return (int)run_bwd_wg<64>(p, B, reinterpret_cast<uint8_t*>(ws), s);
     return (int)run_bwd_wg<128>(p, B, reinterpret_cast<uint8_t*>(ws), s);
   }
-  if (dtype == DT_F32) return (int)run_bwd_d<float>(p, B, D, s);
-  if (dtype == DT_BF16) return (int)run_bwd_d<__nv_bfloat16>(p, B, D, s);
+  if (dtype == DT_F32) return (int)run_bwd_d<float>(p, B, D, Dv, s);
+  if (dtype == DT_BF16) return (int)run_bwd_d<__nv_bfloat16>(p, B, D, Dv, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The FMA kernels' plan for (D, Dv): {kv rows a dK/dV block, dK/dV
+// shared-memory bytes, dQ shared-memory bytes} into out[3].  Returns 0, or
+// -1 for dims the FMA kernels do not take.
+extern "C" int flash_attention_bwd_fma_plan(int D, int Dv, int* out) {
+#define PLAN(dq, dv)                                                         \
+  if (D == dq && Dv == dv) {                                                 \
+    out[0] = FmaPlan<dq, dv>::BKV;                                           \
+    out[1] = (int)FmaPlan<dq, dv>::DKDV_BYTES;                               \
+    out[2] = (int)FmaPlan<dq, dv>::DQ_BYTES;                                 \
+    return 0;                                                                \
+  }
+  FMA_DIMS(PLAN)
+#undef PLAN
+  return -1;
 }
 
 // The tensor-core kernels' plan for D: {q rows, kv rows, stages, threads,

@@ -11,17 +11,16 @@ have): a delta kernel, a dK/dV kernel of one block a (batch, q head, kv
 tile) that walks the q tiles seeing it, a sum of the group's partial dK/dV in
 head order, and a dQ kernel that walks the kv tiles; for bf16 at D 64/128
 TMA loads and ``wgmma`` products (:func:`bwd_tile_plan`, the walks
-:func:`bwd_q_tiles` / :func:`bwd_kv_tiles`), otherwise fp32 FMAs.  They take
+:func:`bwd_q_tiles` / :func:`bwd_kv_tiles`), otherwise fp32 FMAs
+(:func:`bwd_fma_plan`).  They take
 strides, so the model's ``(B,S,H,D)`` tensors are passed as permuted views
 and never copied.  For a CUDA tensor a wrapper launches its kernels or
 raises; only a tensor on the CPU takes the plain version.  The autograd glue
 is ``ops.flash_attention_bshd``.
 
-The forward takes one head dim for q, k and v (``SUPPORTED_D``), or MLA's
-prefill dims (``MLA_D``): q and k at 192, v at 128, the output at v's.  The
-backward takes one head dim; at MLA's dims it raises on the card (its
-kernels come with the MLA training slice) and the CPU's plain version
-computes it.
+Both take one head dim for q, k and v (``SUPPORTED_D``), or MLA's dims
+(``MLA_D``): q and k at 192, v at 128, the output and its gradient at v's;
+the backward at MLA's dims on the FMA kernels.  Any other pair raises.
 """
 from __future__ import annotations
 
@@ -82,6 +81,21 @@ def bwd_tile_plan(D: int) -> dict[str, int]:
             "smem_dq": (2 + 2 * stages) * tile + 64}
 
 
+def bwd_fma_plan(D: int, Dv: int | None = None) -> dict[str, int]:
+    """The FMA backward's plan for q/k head dim ``D`` and v head dim ``Dv``
+    (``FmaPlan`` in the source): kv rows a dK/dV block (64 up to D 128, else
+    32) and the dK/dV and dQ kernels' shared-memory bytes (fp32 tiles of K,
+    V, Q and dO with rows padded by 4, P^T and dS^T of 32 q columns and 32
+    rows of lse and delta; Q and dO of 64 rows, K and V of 32, dS)."""
+    Dv = D if Dv is None else Dv
+    if not supported(D, Dv):
+        raise ValueError(f"flash_attention_bwd: no kernel for D={D}, Dv={Dv}")
+    rows, width = (64 if D <= 128 else 32), D + Dv + 8
+    return {"kv_rows": rows,
+            "smem_dkdv": 4 * (rows * width + 32 * width + 2 * rows * 36 + 64),
+            "smem_dq": 4 * (64 * width + 32 * width + 64 * 36)}
+
+
 def bwd_q_tiles(kt: int, Sq: int, Sk: int, causal: bool, window: int) -> range:
     """The q tiles whose rows can see some row of kv tile ``kt``: what the
     tensor-core dK/dV block of that tile walks (``dkdv_q_tiles`` in the
@@ -120,15 +134,16 @@ def bwd_block_order(kind: str, B: int, H: int, S: int) -> list[tuple[int, int, i
 
 
 def bwd_workspace_bytes(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
-                        dtype: torch.dtype, aligned: bool) -> int:
+                        dtype: torch.dtype, aligned: bool, Dv: int | None = None) -> int:
     """Bytes of scratch the backward needs (``bwd_workspace`` in the
     source): the FMA path's delta, (B,H,Sq) fp32; the tensor-core path's
     delta and log2-unit lse over q rows padded to whole tiles, and for G > 1
     each q head's partial dK and dV, (B,H,Sk,D) fp32 each.  The tensor-core
-    path takes bf16 at D 64 or 128 with every operand's base on 16 bytes and
-    its strides multiples of 8 elements (``aligned``; ``takes_wg`` in the
-    source)."""
-    if not (dtype == torch.bfloat16 and D in BWD_TC_D and aligned):
+    path takes bf16 at one head dim (``Dv`` None or D) of 64 or 128 with
+    every operand's base on 16 bytes and its strides multiples of 8 elements
+    (``aligned``; ``takes_wg`` in the source)."""
+    Dv = D if Dv is None else Dv
+    if not (dtype == torch.bfloat16 and D == Dv and D in BWD_TC_D and aligned):
         return B * H * Sq * 4
     rows = B * H * -(-Sq // BWD_TILE) * BWD_TILE * 4
     return 2 * rows + (2 * B * H * Sk * D * 4 if H > Hkv else 0)
@@ -300,11 +315,13 @@ def _bwd_lib():
     if lib.flash_attention_bwd_launch.argtypes is None:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_bwd_launch.argtypes = (
-            [vp, vp, vp, vp, ll] + [ci] * 8 + [ctypes.c_float, ci, vp])
+            [vp, vp, vp, vp, ll] + [ci] * 9 + [ctypes.c_float, ci, vp])
         lib.flash_attention_bwd_launch.restype = ci
         lib.flash_attention_bwd_plan.argtypes = [ci, ctypes.POINTER(ci)]
         lib.flash_attention_bwd_plan.restype = ci
-        lib.flash_attention_bwd_workspace.argtypes = [ci] * 8
+        lib.flash_attention_bwd_fma_plan.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.flash_attention_bwd_fma_plan.restype = ci
+        lib.flash_attention_bwd_workspace.argtypes = [ci] * 9
         lib.flash_attention_bwd_workspace.restype = ll
     return lib
 
@@ -318,10 +335,20 @@ def kernel_bwd_plan(D: int) -> dict[str, int]:
                      "smem_dq"), out))
 
 
+def kernel_bwd_fma_plan(D: int, Dv: int | None = None) -> dict[str, int]:
+    """:func:`bwd_fma_plan` as the compiled kernels report it (needs the library)."""
+    Dv = D if Dv is None else Dv
+    out = (ctypes.c_int * 3)()
+    if _bwd_lib().flash_attention_bwd_fma_plan(D, Dv, out) != 0:
+        raise ValueError(f"flash_attention_bwd: no kernel for D={D}, Dv={Dv}")
+    return dict(zip(("kv_rows", "smem_dkdv", "smem_dq"), out))
+
+
 def kernel_bwd_workspace_bytes(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
-                               dtype: torch.dtype, aligned: bool) -> int:
+                               dtype: torch.dtype, aligned: bool, Dv: int | None = None) -> int:
     """:func:`bwd_workspace_bytes` as the compiled library computes it."""
-    return int(_bwd_lib().flash_attention_bwd_workspace(B, H, Hkv, Sq, Sk, D,
+    Dv = D if Dv is None else Dv
+    return int(_bwd_lib().flash_attention_bwd_workspace(B, H, Hkv, Sq, Sk, D, Dv,
                                                         _build.DTYPE_CODES[dtype], int(aligned)))
 
 
@@ -340,8 +367,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     (B,H,Sq,Dv); k, dk: (B,Hkv,Sk,D); v, dv: (B,Hkv,Sk,Dv), all of one dtype,
     with strides as the forward's; lse: the forward's contiguous (B,H,Sq) fp32
     log-sum-exp.  ``dq``/``dk``/``dv``, if given, are tensors (views) that
-    receive the gradients.  The kernels take one head dim (D = Dv); MLA's
-    dims are computed on the CPU only."""
+    receive the gradients.  The kernels take the forward's dims
+    (:func:`supported`): one head dim, or MLA's (192, 128)."""
     B, H, Sq, D = q.shape
     Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     if (H % Hkv or k.shape != (B, Hkv, Sk, D) or v.shape != (B, Hkv, Sk, Dv)
@@ -368,14 +395,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
         raise ValueError("flash_attention_bwd: q, k, v, o and do must share dtype and device")
     if lse.dtype != torch.float32 or lse.device != q.device or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be contiguous float32 on q's device")
-    if D != Dv:
-        raise NotImplementedError(
-            f"flash_attention_bwd: no kernel for a q/k head dim {D} apart from the v head dim "
-            f"{Dv} (MLA): K1's backward at those dims comes with the MLA training slice "
-            "(ROADMAP queue B)")
-    if D not in SUPPORTED_D:
-        raise ValueError(f"flash_attention_bwd: head dim {D} not supported by the kernels "
-                         f"(supported: {SUPPORTED_D})")
+    if not supported(D, Dv):
+        raise ValueError(f"flash_attention_bwd: head dims {D} (q, k) and {Dv} (v) not supported "
+                         f"by the kernels (supported: one of {SUPPORTED_D}, or {MLA_D})")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format) if dq is None else dq
     dk = torch.empty_like(k, memory_format=torch.contiguous_format) if dk is None else dk
     dv = torch.empty_like(v, memory_format=torch.contiguous_format) if dv is None else dv
@@ -389,13 +411,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     aligned = all(t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
                   for t in tensors)
-    nbytes = bwd_workspace_bytes(B, H, Hkv, Sq, Sk, D, q.dtype, aligned)
+    nbytes = bwd_workspace_bytes(B, H, Hkv, Sq, Sk, D, q.dtype, aligned, Dv)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
     ptrs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in tensors))
     strides = (ctypes.c_longlong * 24)(*(s for t in tensors for s in t.stride()[:3]))
     _build.launch(_bwd_lib().flash_attention_bwd_launch, q.device, "flash_attention_bwd",
                   ptrs, strides, lse.data_ptr(), ws.data_ptr(), nbytes, B, H, Hkv, Sq, Sk, D,
-                  int(bool(causal)), int(window), float(scale), code)
+                  Dv, int(bool(causal)), int(window), float(scale), code)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

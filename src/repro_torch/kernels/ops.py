@@ -74,8 +74,7 @@ class _FlashAttentionBSHD(torch.autograd.Function):
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0, scale=None):
     """Model layout: q (B,S,Hkv,G,D); k (B,T,Hkv,D); v (B,T,Hkv,Dv) ->
     (B,S,Hkv,G,Dv).  Differentiable through K1's backward kernels where
-    autograd records (one head dim only: at MLA's dims they raise on the
-    card)."""
+    autograd records (at MLA's (192, 128) too)."""
     if _records(q, k, v):
         return _FlashAttentionBSHD.apply(q, k, v, causal, window, scale)
     B, S, Hkv, G, D = q.shape

@@ -35,15 +35,15 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.configs.base import SHAPES, ModelConfig, RunConfig, ShapeConfig, supports_shape
+from repro_torch.configs import (
+    ARCH_IDS, SHAPES, ModelConfig, RunConfig, ShapeConfig, get_config, get_shape, supports_shape,
+)
 from repro_torch.distributed.sharding import ShardingEnv, activate, contiguous_stride, resolve_spec
 from repro_torch.launch.hlo_analysis import analyze_module, memory_analysis
 from repro_torch.launch.mesh import fake_world, make_mesh, production_shape
 from repro_torch.launch.specs import input_specs
-from repro_torch.models import Model, count_params
+from repro_torch.models import Model, abstract_cache, cache_logical_axes, count_params
 from repro_torch.models import layers as L
-from repro_torch.models.kvcache import build_cache
 from repro_torch.models.params import abstract_params
 from repro_torch.training.optimizer import make_optimizer
 from repro_torch.training.train_step import (
@@ -79,9 +79,8 @@ def default_run(cfg: ModelConfig, shape: ShapeConfig, multi_pod: bool,
 
 def _cache_pspecs(cfg: ModelConfig, env: ShardingEnv, B: int, S: int):
     """Resolve decode-cache logical axes against the active mesh."""
-    def creator(shp, logical, dtype):
-        return resolve_spec(env, tuple(logical), shp)
-    return build_cache(cfg, creator, B, S)
+    return _zip_leaves(abstract_cache(cfg, B, S), cache_logical_axes(cfg, B, S),
+                       lambda t, logical: resolve_spec(env, logical, tuple(t.shape)))
 
 
 class Leaf:
@@ -196,7 +195,7 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, run: RunConfig, mesh):
         if shape.kind == "train":
             s_pl = to_named(env, state_pspecs(cfg, env, run))
             kw = {"plain_kernels": True} if run.optimizer == "adamw" else {}
-            optimizer = make_optimizer(run.optimizer, **kw)
+            optimizer = make_optimizer(run.optimizer, cfg=cfg, **kw)
             with torch.device("meta"):
                 opt_abs = optimizer.init(params_abs)
             leaves["state"] = {
@@ -219,8 +218,7 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, run: RunConfig, mesh):
                 def fn(params, batch):
                     return list(model.prefill(params, batch, cache_len=S))
             else:
-                cache_abs = build_cache(cfg, lambda s, l, d: torch.empty(s, dtype=d,
-                                                                         device="meta"), B, S)
+                cache_abs = abstract_cache(cfg, B, S)
                 c_pl = to_named(env, _cache_pspecs(cfg, env, B, S))
                 leaves["cache"] = _zip_leaves(cache_abs, c_pl,
                                               lambda t, pl: Leaf(t.shape, t.dtype, pl))
@@ -312,7 +310,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     cfg = get_config(arch)
     if model_overrides:
         cfg = cfg.replace(**model_overrides)
-    shape = SHAPES[shape_name]
+    shape = get_shape(shape_name)
     mesh_tag = "2x16x16" if multi_pod else "16x16"
     if not supports_shape(cfg, shape):
         return ({"arch": arch, "shape": shape_name, "mesh": "multi" if multi_pod else "single",

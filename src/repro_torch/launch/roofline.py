@@ -23,8 +23,7 @@ import argparse
 import json
 from pathlib import Path
 
-from repro_torch.configs import ARCH_IDS
-from repro_torch.configs.base import SHAPES
+from repro_torch.configs import ARCH_IDS, SHAPES
 from repro_torch.core.backend.hardware import HARDWARE
 
 _H100 = HARDWARE["h100_sxm"]

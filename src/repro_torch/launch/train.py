@@ -21,8 +21,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config, get_tiny_config
-from repro_torch.configs.base import RunConfig, ShapeConfig
+from repro_torch.configs import ARCH_IDS, RunConfig, ShapeConfig, get_config, get_tiny_config
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.data import SyntheticTokenPipeline
 from repro_torch.training.fault_tolerance import StepMonitor, run_with_restarts
@@ -66,7 +65,7 @@ class Trainer:
         shape = ShapeConfig("cli", args.seq, args.batch, "train")
         self.run = RunConfig(model=self.cfg, shape=shape, optimizer=args.optimizer,
                              microbatches=args.microbatches, remat_policy=args.remat)
-        self.optimizer = make_optimizer(args.optimizer)
+        self.optimizer = make_optimizer(args.optimizer, cfg=self.cfg)
         self.step_fn = make_train_step(self.cfg, self.run, self.optimizer, args.device)
         self.device = self.step_fn.model.device
         self.ckpt = CheckpointManager(args.ckpt_dir, keep=2, cfg=self.cfg)

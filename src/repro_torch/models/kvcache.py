@@ -109,6 +109,18 @@ def build_cache(cfg: ModelConfig, creator: CacheCreator, batch: int, cache_len: 
     }
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, cache_len: int):
+    """The cache as tensors on the ``meta`` device: each leaf's shape and
+    dtype, no storage (the reference's ``jax.ShapeDtypeStruct``s)."""
+    return build_cache(cfg, lambda s, logical, d: torch.empty(s, dtype=d, device="meta"),
+                       batch, cache_len)
+
+
+def cache_logical_axes(cfg: ModelConfig, batch: int, cache_len: int):
+    """Each leaf's logical axes, a tuple a dim."""
+    return build_cache(cfg, lambda s, logical, d: tuple(logical), batch, cache_len)
+
+
 def zero_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     device = torch.device(device)
     cache = build_cache(cfg, lambda s, logical, d: torch.zeros(s, dtype=d, device=device),

@@ -21,10 +21,14 @@ gives the reference's numbers for the same tree.  Two things differ in form:
   that layout: the reference stacks each block parameter over depth
   (``convert.reference_layout``), so int8 compression takes one scale per
   stacked leaf, and Adafactor factors and clips each stacked leaf (a norm
-  weight of L layers is an (L, D) matrix there).  Adafactor's state is kept
-  in the reference's layout, a flat list aligned with the reference's
-  leaves; the stacking makes a temporary fp32 copy of one stacked leaf at a
-  time.
+  weight of L layers is an (L, D) matrix there).  The stacking is the
+  config's block cycle (``models.block_cycle``): recurrentgemma's layers
+  are stacked by (rec, rec, attn) position plus a tail, xlstm's by (m, m,
+  m, s) position, so Adafactor and int8 compression take the model's
+  ``cfg`` (without one every layer is one cycle position, the dense
+  decoders' stacking).  Adafactor's state is kept in the reference's
+  layout, a flat list aligned with the reference's leaves; the stacking
+  makes a temporary fp32 copy of one stacked leaf at a time.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import _leaves, reference_layout
 from repro_torch.kernels.adamw import adamw_update, adamw_update_plain
 
@@ -76,15 +81,16 @@ class _Group(list):
     stacked = True
 
 
-def _groups(tree) -> list:
+def _groups(tree, cfg: ModelConfig | None = None) -> list:
     """The tree's leaves grouped as the reference holds them, in its leaf
     order: a block parameter's group (a ``_Group``) holds its tensor of every
-    layer, in layer order; any other leaf is a group of one."""
+    layer of one position of ``cfg``'s block cycle (or of the tail), in layer
+    order; any other leaf is a group of one."""
     def one(x):
         return x if isinstance(x, _Group) else [x]
     if not (isinstance(tree, dict) and isinstance(tree.get("blocks"), list)):
         return [[t] for t in tree_leaves(tree)]
-    ref = reference_layout(tree, stack=_Group)
+    ref = reference_layout(tree, cfg, stack=_Group)
     return [one(x) for x in _leaves(ref, is_leaf=lambda x: isinstance(x, _Group))]
 
 
@@ -113,7 +119,8 @@ def _int8_group(group: list[torch.Tensor]) -> list[torch.Tensor]:
     g0 = group[0]
     if g0.dtype == torch.int32 or (not _is_stacked(group) and g0.ndim == 0):
         return group
-    absmax = torch.stack([g.float().abs().max() for g in group]).max()
+    # |g| and its maximum are exact in g's dtype, so only the maximum is widened
+    absmax = torch.stack([g.abs().amax().float() for g in group]).max()
     scale = torch.clamp(absmax, min=1e-12) / 127.0
     return [(torch.clamp(torch.round(g.float() / scale), -127, 127).to(torch.int8).float()
              * scale).to(g.dtype) for g in group]
@@ -123,13 +130,14 @@ def int8_compress_decompress(g: torch.Tensor) -> torch.Tensor:
     return _int8_group([g])[0]
 
 
-def maybe_compress(grads, mode: str):
+def maybe_compress(grads, mode: str, cfg: ModelConfig | None = None):
     """``grads`` with int8 quant-dequant applied per reference leaf (mode
-    "int8"), else ``grads`` itself."""
+    "int8"; ``cfg`` the model's config, for its block cycle), else ``grads``
+    itself."""
     if mode != "int8":
         return grads
     out = {}
-    for group in _groups(grads):
+    for group in _groups(grads, cfg):
         for g, q in zip(group, _int8_group(group)):
             out[id(g)] = q
     return tree_map(lambda g: out[id(g)], grads)
@@ -183,9 +191,10 @@ def _factored(shape) -> bool:
 
 
 def adafactor(lr_fn, eps1: float = 1e-30, eps2: float = 1e-3,
-              clip_threshold: float = 1.0, weight_decay: float = 0.0) -> Optimizer:
+              clip_threshold: float = 1.0, weight_decay: float = 0.0,
+              cfg: ModelConfig | None = None) -> Optimizer:
     """Factored state is kept as a flat list aligned with the reference's
-    leaves (its stacked layout)."""
+    leaves (its stacked layout, by ``cfg``'s block cycle)."""
 
     def init(params):
         def st(group):
@@ -197,7 +206,7 @@ def adafactor(lr_fn, eps1: float = 1e-30, eps2: float = 1e-3,
                                           device=dev)}
             return {"v": torch.zeros(shape, dtype=torch.float32, device=dev)}
         first = tree_leaves(params)[0]
-        return {"f": [st(g) for g in _groups(params)],
+        return {"f": [st(g) for g in _groups(params, cfg)],
                 "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
     @torch.no_grad()
@@ -207,27 +216,35 @@ def adafactor(lr_fn, eps1: float = 1e-30, eps2: float = 1e-3,
         beta2 = 1.0 - step.to(torch.float32) ** -0.8
 
         def upd(g, s, p):
+            # the reference's arithmetic, with each full-size fp32 temporary
+            # reused in place and dropped once read: at most three such
+            # copies of a leaf live at once (recurrentgemma's tied embedding
+            # is 4.2 GB a copy), where the expression form holds six
             g = g.to(torch.float32)
-            g2 = torch.square(g) + eps1
+            g2 = torch.square(g).add_(eps1)
             if _factored(g.shape):
                 vr = beta2 * s["vr"] + (1 - beta2) * g2.mean(-1)
                 vc = beta2 * s["vc"] + (1 - beta2) * g2.mean(-2)
+                del g2
                 denom = (vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps1))[..., None] \
                     * vc[..., None, :]
-                u = g * torch.rsqrt(torch.clamp(denom, min=eps1))
+                u = denom.clamp_(min=eps1).rsqrt_().mul_(g)      # g * rsqrt(max(denom, eps1))
                 new_s = {"vr": vr, "vc": vc}
             else:
                 v = beta2 * s["v"] + (1 - beta2) * g2
+                del g2
                 u = g * torch.rsqrt(torch.clamp(v, min=eps1))
                 new_s = {"v": v}
+            del g
             rms_u = torch.sqrt(torch.mean(torch.square(u)) + eps1)
-            u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
-            pf = p.to(torch.float32)
+            u.div_(torch.clamp(rms_u / clip_threshold, min=1.0))
+            pf = p.to(torch.float32, copy=True)
             scale = torch.clamp(torch.sqrt(torch.mean(torch.square(pf))), min=eps2)
-            new_p = pf - lr * scale * u - lr * weight_decay * pf
+            decay = lr * weight_decay * pf
+            new_p = pf.sub_(u.mul_(lr * scale)).sub_(decay)   # pf - lr scale u - lr wd pf
             return new_p.to(p.dtype), new_s
 
-        g_groups, p_groups = _groups(grads), _groups(params)
+        g_groups, p_groups = _groups(grads, cfg), _groups(params, cfg)
         new_f = []
         for gg, s, pg in zip(g_groups, state["f"], p_groups):
             new_p, new_s = upd(_stack(gg), s, _stack(pg))
@@ -247,12 +264,15 @@ def _stack_shape(group) -> tuple:
     return shape if len(group) == 1 and not _is_stacked(group) else (len(group), *shape)
 
 
-def make_optimizer(name: str, peak_lr: float = 3e-4, **kw) -> Optimizer:
+def make_optimizer(name: str, peak_lr: float = 3e-4, cfg: ModelConfig | None = None,
+                   **kw) -> Optimizer:
+    """``cfg``: the model's config, whose block cycle Adafactor stacks by
+    (AdamW works leaf by leaf and needs none)."""
     lr_fn = cosine_schedule(peak_lr)
     if name == "adamw":
         return adamw(lr_fn, **kw)
     if name == "adafactor":
-        return adafactor(lr_fn, **kw)
+        return adafactor(lr_fn, cfg=cfg, **kw)
     raise ValueError(name)
 
 

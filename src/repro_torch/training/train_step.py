@@ -233,7 +233,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, optimizer: Optimizer, devi
                 metrics = {name: metrics[name] + m[name].detach() / k for name in metrics}
                 del loss, m, g
         by_leaf = dict(zip(map(id, leaves), grads))
-        grads = maybe_compress(tree_map(lambda p: by_leaf[id(p)], params), run.grad_compression)
+        grads = tree_map(lambda p: by_leaf[id(p)], params)
+        del by_leaf     # int8: the raw gradients go as their quantised copies are made
+        grads = maybe_compress(grads, run.grad_compression, cfg)
         with torch.no_grad():
             # sqrt of the sum of squares over every element, as the reference
             # (one fp32 reduction a leaf, not a widened copy, a square and a sum)

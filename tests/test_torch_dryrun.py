@@ -368,3 +368,29 @@ if __name__ == "__main__":
             r = ref[arch]["by_kind"].get(k, {"count": 0, "traffic_bytes": 0})
             print(f"  {k:18s} port {p['count']:4d} x {p['traffic_bytes']:12.0f} B   "
                   f"reference {r['count']:4d} x {r['traffic_bytes']:12.0f} B")
+
+
+def test_full_size_decode_cell_on_the_multi_pod_mesh():
+    """gemma-7b decode_32k traced at full size on the 2x16x16 production mesh
+    (a fake world of 512 ranks; about 10 s here), held as the card's smoke
+    run held its record: status ok, a non-empty record, and its roofline row.
+    Its per-device operations are the weights' products (2 a parameter a
+    token) and the attention over the 32k cache (4 B H T D a layer), split
+    over the 512 devices."""
+    from repro_torch.configs import get_config
+    rec, gm, _ = dryrun.lower_cell("gemma-7b", "decode_32k", True)
+    assert gm is not None
+    assert (rec["status"], rec["mesh"], rec["n_devices"], rec["kind"]) == \
+        ("ok", "2x16x16", 512, "decode")
+    cfg, shape = get_config("gemma-7b"), SHAPES["decode_32k"]
+    B, T = shape.global_batch, shape.seq_len
+    want = (2 * rec["active_params"] * B
+            + 4 * B * cfg.num_heads * T * cfg.head_dim * cfg.num_layers) / 512
+    assert rec["flops_per_device"] == pytest.approx(want, rel=1e-2)
+    assert rec["hbm_bytes_per_device"] > 0 and rec["memory_analysis"]["temp_bytes"] > 0
+    coll = rec["collectives"]
+    assert coll["traffic_bytes"] > 0 and coll["count"] > 0
+    assert {"all-gather", "reduce-scatter", "all-reduce"} <= set(coll["by_kind"])
+    terms = roofline.cell_terms(rec)
+    assert max(terms["compute_s"], terms["memory_s"], terms["collective_s"]) > 0
+    assert terms["dominant"] == "memory"          # a decode step reads more than it computes

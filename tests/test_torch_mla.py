@@ -189,10 +189,37 @@ def test_flash_attention_plain_at_mla_dims_matches_attend_dense(case):
     close(lse, want_lse.reshape(B, Hkv * G, Sq), 1e-5)
 
 
+@pytest.mark.parametrize("case", MLA_CASES, ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_flash_attention_bwd_plain_at_mla_dims_matches_jax_grad(case):
+    """``flash_attention_bwd_plain`` (the backward kernels' arithmetic) at
+    q/k 192, v 128 against ``jax.grad`` of the reference's ``attend_dense``
+    with the same dO, in float32 to 2e-6 (a few sums over 20-odd keys), from
+    the plain forward's output and log-sum-exp."""
+    c = dict(case)
+    causal, window = c.pop("causal"), c.pop("window")
+    q, k, v = mla_inputs(**c)
+    B, Sq, Hkv, G, Dqk = q.shape
+    do = np.random.default_rng(5).standard_normal((B, Sq, Hkv, G, 128)).astype(np.float32)
+    fn = lambda q_, k_, v_: JL.attend_dense(q_, k_, v_, q_offset=0, causal=causal,  # noqa: E731
+                                            window=window)
+    _, vjp = jax.vjp(fn, *(jnp.asarray(t) for t in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    qh = torch.from_numpy(q).reshape(B, Sq, Hkv * G, Dqk).permute(0, 2, 1, 3)
+    kh, vh = (torch.from_numpy(t).permute(0, 2, 1, 3) for t in (k, v))
+    doh = torch.from_numpy(do).reshape(B, Sq, Hkv * G, 128).permute(0, 2, 1, 3)
+    o, lse = FA.flash_attention_lse_plain(qh, kh, vh, causal=causal, window=window)
+    dq, dk, dv = FA.flash_attention_bwd_plain(qh, kh, vh, o, lse, doh, causal=causal,
+                                              window=window)
+    assert (dq.shape, dk.shape, dv.shape) == (qh.shape, kh.shape, vh.shape)
+    close(dq.permute(0, 2, 1, 3).reshape(q.shape), want[0], 2e-6)
+    close(dk.permute(0, 2, 1, 3), want[1], 2e-6)
+    close(dv.permute(0, 2, 1, 3), want[2], 2e-6)
+
+
 def test_attention_backward_at_mla_dims_on_the_cpu():
     """The plain backward at Dqk != Dv equals autograd of the plain forward;
-    ``ops.flash_attention_bshd`` records through it on the CPU (the card's
-    kernels raise there: they come with the MLA training slice)."""
+    ``ops.flash_attention_bshd`` records through it on the CPU (on the card
+    through the backward's FMA kernels at those dims)."""
     q, k, v = (torch.from_numpy(t) for t in mla_inputs(B=1, H=4, Hkv=2, Sq=19, Sk=19))
     do = torch.from_numpy(np.random.default_rng(9).standard_normal((1, 19, 2, 2, 128),
                                                                    dtype=np.float32))
@@ -247,12 +274,14 @@ def test_profiling_engine_synthesises_an_mla_attention_node():
     us = P.synthesize_and_measure(mla, device="cpu")
     assert us is not None and us > 0
     assert P.synthesize_and_measure(square, device="cpu") is None     # no kernel at (192, 192)
-    # a backward node's output is dq: the tracer records v's dim, and K1's
-    # backward takes one head dim, so the engine leaves it to the next one
+    # a backward node's output is dq: the tracer records v's dim, and the
+    # engine times K1's backward at (192, 128) (its plain version here)
     bwd = mla_attention_node(128, backward=True)
     assert P.attn_v_dim(bwd) == 128
     assert P.node_key(bwd, "h100_sxm").endswith("|G1|Dv128|bwd")
-    assert P.synthesize_and_measure(bwd, device="cpu") is None
+    us_bwd = P.synthesize_and_measure(bwd, device="cpu")
+    assert us_bwd is not None and us_bwd > 0
+    assert P.synthesize_and_measure(mla_attention_node(192, backward=True), device="cpu") is None
 
 
 def test_traced_prefill_attention_carries_both_head_dims():

@@ -160,6 +160,41 @@ def test_flash_bwd_workspace_is_what_each_path_needs(G):
     assert all(part % 256 == 0 for part in (2 * 40 * 384 * 4, 2 * 40 * 333 * 128 * 4))
 
 
+@pytest.mark.parametrize("dims", [(64, 64), (128, 128), (256, 256), (192, 128)])
+def test_flash_bwd_fma_plan_fits_shared_memory(dims):
+    """The FMA backward's tiles: fp32 rows padded by 4 (a stride of an odd
+    number of 16-byte words), 32 kv rows a dK/dV block above a q/k head dim
+    of 128, every block within the 227 KB a block may take.  At MLA's (192,
+    128) a dK/dV block takes 91 KB (two an SM) and a dQ block 132 KB."""
+    D, Dv = dims
+    plan = fa.bwd_fma_plan(D, Dv)
+    assert plan["kv_rows"] == (64 if D <= 128 else 32)
+    assert ((D + 4) // 4) % 2 == 1 and ((Dv + 4) // 4) % 2 == 1
+    assert max(plan["smem_dkdv"], plan["smem_dq"]) <= fa.SMEM_LIMIT
+    if dims == (192, 128):
+        assert plan == {"kv_rows": 32, "smem_dkdv": 93_440, "smem_dq": 135_168}
+        assert 2 * (plan["smem_dkdv"] + 1024) <= fa.SM_SMEM
+    if dims == (256, 256):     # what the kernels took before MLA's dims
+        assert plan == {"kv_rows": 32, "smem_dkdv": 142_592, "smem_dq": 208_896}
+
+
+@pytest.mark.parametrize("dims", [(192, 192), (128, 192), (128, 64), (96, 96)])
+def test_flash_bwd_takes_no_other_pair_of_head_dims(dims):
+    with pytest.raises(ValueError):
+        fa.bwd_fma_plan(*dims)
+
+
+def test_flash_bwd_workspace_at_mla_dims_is_the_fma_paths():
+    """(192, 128) takes the FMA kernels in every dtype and alignment: delta alone."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for aligned in (True, False):
+            assert fa.bwd_workspace_bytes(1, 128, 128, 2048, 2048, 192, dtype, aligned,
+                                          128) == 128 * 2048 * 4
+    # one head dim of 128 named twice is the tensor-core path's
+    assert fa.bwd_workspace_bytes(1, 24, 8, 2048, 2048, 128, torch.bfloat16, True, 128) == \
+        fa.bwd_workspace_bytes(1, 24, 8, 2048, 2048, 128, torch.bfloat16, True)
+
+
 @pytest.mark.parametrize("rows", [1, 8, 255, 256, 527, 528, 2048])
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -37,7 +37,7 @@ from repro.training.train_step import make_loss_fn as j_loss, make_train_step as
 from repro_torch.configs import ARCH_IDS, get_tiny_config as t_tiny
 from repro_torch.configs import base as t_base
 from repro_torch.configs.base import RunConfig, ShapeConfig
-from repro_torch.convert import from_reference_params, to_reference_params
+from repro_torch.convert import from_reference_params, reference_layout, to_reference_params
 from repro_torch.core.backend import profiling as t_prof
 from repro_torch.core.model_ingest import ingest_graphs
 from repro_torch.launch import train as launch_train
@@ -162,6 +162,21 @@ def test_int8_compression_equals_the_reference_per_stacked_leaf():
     assert maybe_compress(got, "none") is got
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m", "whisper-large-v3",
+                                  "deepseek-v3-671b"])
+def test_int8_compression_scales_by_the_block_cycle_as_the_reference(arch):
+    """The hybrid's and the xLSTM's layers (and whisper's two stacks) take one
+    scale per position of the block cycle, bit for bit the reference's."""
+    cj, ct, pj, pn = reference_params(arch)
+    rng = np.random.default_rng(6)
+    gn = jax.tree.map(lambda a: (rng.standard_normal(a.shape) * rng.uniform(0.01, 3)).astype(
+        np.float32), pn)
+    want = JO.maybe_compress(jax.tree.map(jnp.asarray, gn), "int8")
+    got = maybe_compress(from_reference_params(gn, ct, "cpu"), "int8", ct)
+    for a, b in zip(tree_leaves(got), port_leaves(jax.tree.map(np.asarray, want), ct)):
+        assert torch.equal(a, b)
+
+
 # ---------------- the loss step of each decoder against the reference ----------------
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -187,16 +202,29 @@ def test_loss_and_gradients_match_reference(arch):
 
 # every (microbatches, compression) pair under each optimizer, spread over the four dense
 # configs; then the MoE decoders (GQA and MLA), the RG-LRU hybrid and the xLSTM stack under
-# AdamW; whisper (its encoder tree stacked as the reference's) under both optimizers
+# both optimizers and int8 (the hybrid's and the xLSTM's layers are stacked by their block
+# cycle's positions, which Adafactor factors and int8 scales by); whisper (its encoder tree
+# stacked as the reference's) under both optimizers
 STEP_CASES = [
     ("phi4-mini-3.8b", "adamw", 1, "none"), ("phi4-mini-3.8b", "adafactor", 2, "int8"),
     ("gemma-7b", "adamw", 2, "int8"), ("gemma-7b", "adafactor", 1, "none"),
     ("qwen2.5-32b", "adamw", 1, "int8"), ("qwen2.5-32b", "adafactor", 2, "none"),
     ("yi-34b", "adamw", 2, "none"), ("yi-34b", "adafactor", 1, "int8"),
     ("olmoe-1b-7b", "adamw", 1, "none"), ("deepseek-v3-671b", "adamw", 1, "none"),
+    ("olmoe-1b-7b", "adafactor", 1, "int8"), ("deepseek-v3-671b", "adafactor", 1, "int8"),
     ("recurrentgemma-9b", "adamw", 1, "none"), ("xlstm-125m", "adamw", 1, "none"),
+    ("recurrentgemma-9b", "adafactor", 1, "int8"), ("recurrentgemma-9b", "adafactor", 2, "none"),
+    ("xlstm-125m", "adafactor", 1, "int8"),
     ("whisper-large-v3", "adamw", 1, "none"), ("whisper-large-v3", "adafactor", 2, "int8"),
 ]
+# held for one step only: on the same parameters and batch the two frameworks'
+# float32 gradients put 6 to 9 of the xLSTM's 236,108 elements on the other side
+# of an int8 level (test_int8_levels_differ_only_at_rounding_boundaries), and
+# AdamW's early update, near sign(g), turns each into a move of up to lr, which
+# the recurrent cells spread: 5 elements off after two steps, 66 after three,
+# against the 1e-4 share (23) that the comparison holds.  Adafactor's update,
+# clipped over the whole leaf, keeps the same flips within it for three steps.
+ONE_STEP_CASES = [("xlstm-125m", "adamw", 2, "int8")]
 
 
 # whisper's key projections have biases (the reference's ``qkv_bias``), whose
@@ -241,9 +269,54 @@ def params_close(got, want, *, step, exempt=None):
 @pytest.mark.parametrize("arch,opt,microbatches,compression", STEP_CASES,
                          ids=["-".join(map(str, c)) for c in STEP_CASES])
 def test_train_steps_match_reference(arch, opt, microbatches, compression):
+    steps_match_reference(arch, opt, microbatches, compression, STEPS)
+
+
+@pytest.mark.parametrize("arch,opt,microbatches,compression", ONE_STEP_CASES,
+                         ids=["-".join(map(str, c)) for c in ONE_STEP_CASES])
+def test_one_train_step_matches_reference(arch, opt, microbatches, compression):
+    # the moments of an element whose int8 level differs differ by (1 - b) of a
+    # level: held as params_close holds the parameters, 1e-4 of the elements
+    steps_match_reference(arch, opt, microbatches, compression, 1, moments_off_share=1e-4)
+
+
+def test_int8_levels_differ_only_at_rounding_boundaries():
+    """The xLSTM's gradients from the same parameters and batch, int8
+    quant-dequantised by each package: a handful of elements (under 1e-4 of
+    them) land one level apart, where the float32 gradients of the two
+    frameworks straddle a rounding boundary; every other element is the same
+    level."""
+    cj, ct, pj, pn = reference_params("xlstm-125m")
+    batch = token_batch(cj, seed=10)
+    _, gj = jax.jit(jax.value_and_grad(j_loss(JModel(cj)), has_aux=True))(
+        pj, jax.tree.map(jnp.asarray, batch))
+    pt = from_reference_params(pn, ct, "cpu")
+    for p in tree_leaves(pt):
+        p.requires_grad_()
+    loss, _ = make_loss_fn(Model(ct, "cpu"))(pt, batch)
+    by_leaf = dict(zip(map(id, tree_leaves(pt)), torch.autograd.grad(loss, tree_leaves(pt))))
+    got = tree_leaves(maybe_compress(TO.tree_map(lambda p: by_leaf[id(p)], pt), "int8", ct))
+    want = port_leaves(jax.tree.map(np.asarray, JO.maybe_compress(gj, "int8")), ct)
+    n = sum(a.numel() for a in got)
+    apart = 0
+    for a, b in zip(got, want):
+        level = float(b.abs().max()) / 127          # the scale of the leaf's group, near enough
+        d = (a - b).abs()
+        assert float(d.max()) <= 1.01 * level       # at most one level apart
+        apart += int((d > 0.25 * level).sum())
+    assert 0 < apart <= 1e-4 * n
+
+
+def steps_match_reference(arch, opt, microbatches, compression, steps, moments_off_share=0.0):
+    """``steps`` steps of ``make_train_step`` against the reference's jitted
+    step from the same parameters and batches: loss, tokens, grad norm, the
+    step counter, every parameter (``params_close``), and AdamW's moments
+    (all but ``moments_off_share`` of their elements within 1e-4) or
+    Adafactor's state shapes."""
     cj, ct, pj, pn = reference_params(arch)
     jo = getattr(JO, opt)(JO.cosine_schedule(LR, warmup=1))
-    to = getattr(TO, opt)(TO.cosine_schedule(LR, warmup=1))
+    to = getattr(TO, opt)(TO.cosine_schedule(LR, warmup=1),
+                          **({"cfg": ct} if opt == "adafactor" else {}))
     kw = dict(optimizer=opt, microbatches=microbatches, grad_compression=compression,
               remat_policy="none")
     jstep = jax.jit(j_step(cj, j_base.RunConfig(model=cj, shape=j_base.ShapeConfig(
@@ -252,7 +325,7 @@ def test_train_steps_match_reference(arch, opt, microbatches, compression):
                             to, "cpu")
     js = {"params": pj, "opt": jo.init(pj), "step": jnp.zeros((), jnp.int32)}
     ts = init_state(from_reference_params(pn, ct, "cpu"), to)
-    for i in range(STEPS):
+    for i in range(steps):
         batch = token_batch(cj, seed=10 + i)
         js, jm = jstep(js, jax.tree.map(jnp.asarray, batch))
         ts, tm = tstep(ts, batch)
@@ -266,6 +339,12 @@ def test_train_steps_match_reference(arch, opt, microbatches, compression):
     if opt == "adamw":       # the moments too, in the port's layout
         for name in ("m", "v"):
             want = port_leaves(jax.tree.map(np.asarray, js["opt"][name]), ct, torch.float32)
+            if moments_off_share:
+                got = tree_leaves(ts["opt"][name])
+                off = sum(int(((a - b).abs() > 1e-4 * (1 + b.abs())).sum())
+                          for a, b in zip(got, want))
+                assert off <= moments_off_share * sum(a.numel() for a in got), (name, off)
+                continue
             for a, b in zip(tree_leaves(ts["opt"][name]), want):
                 close(a.numpy(), b.numpy(), 1e-4)
     else:                    # Adafactor's state is the reference's flat list
@@ -274,6 +353,42 @@ def test_train_steps_match_reference(arch, opt, microbatches, compression):
             assert set(a) == set(b)
             for k in a:
                 assert tuple(a[k].shape) == b[k].shape
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_adafactor_state_is_the_references_leaf_by_leaf(arch):
+    """Adafactor's state for each tiny config: one entry a reference leaf, in
+    its order, with the reference's keys, shapes and dtypes (the stacking by
+    the config's block cycle: recurrentgemma's (rec, rec, attn) positions and
+    tail, xlstm's (m, m, m, s) positions, whisper's decoder and encoder)."""
+    cj, ct, pj, pn = reference_params(arch)
+    js = JO.adafactor(JO.cosine_schedule(LR))
+    ts = TO.adafactor(TO.cosine_schedule(LR), cfg=ct)
+    want = js.init(pj)["f"]
+    got = ts.init(from_reference_params(pn, ct, "cpu"))["f"]
+    assert len(got) == len(want) == len(jax.tree.leaves(pj))
+    for a, b in zip(got, want):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert (tuple(a[k].shape), str(a[k].dtype).split(".")[-1]) == \
+                (b[k].shape, str(b[k].dtype))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-125m"])
+def test_groups_need_the_config_where_layers_differ_in_kind(arch):
+    """Without the config every layer is one cycle position, which a stack of
+    two kinds of layer cannot be: the optimizer raises rather than stack
+    the wrong layers together."""
+    ct = f32(t_tiny(arch))
+    params = Model(ct, "cpu").init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="cannot be stacked"):
+        TO.adafactor(TO.cosine_schedule(LR)).init(params)
+    with pytest.raises(ValueError, match="cannot be stacked"):
+        maybe_compress(params, "int8")
+    stacked = reference_layout(params, ct, stack=lambda layers: layers[0])   # a leaf a group
+    assert len(TO.adafactor(TO.cosine_schedule(LR), cfg=ct).init(params)["f"]) == \
+        len(tree_leaves(stacked))
+    assert len(tree_leaves(maybe_compress(params, "int8", ct))) == len(tree_leaves(params))
 
 
 @pytest.mark.parametrize("policy", ["block", "dots"])
