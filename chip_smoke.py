@@ -21,9 +21,11 @@ Phases, each printing one JSON object on a line of its own:
            at qwen2-vl's G 7 and D 3584) and at edge shapes, in float32
            (tolerance 2e-5: another order of summation) and bfloat16 (2e-2);
            the backward kernels of K1 and K3 at the train path's shapes (K1's
-           also at deepseek's B1 H128 S2048 with q/k 192 and v 128, and at
-           recurrentgemma's 16 q heads on one kv head at D 256; K3's at D
-           4096 in the 1 + w form with the sum) and at edge shapes, on the same tolerances, against autograd in
+           also at deepseek's B1 H128 S2048 with q/k 192 and v 128, at
+           recurrentgemma's 16 q heads on one kv head at D 256 and at
+           gemma-7b's 16 heads of 256, each on the tensor cores in bf16 and
+           on the FMA kernels in fp32 or off 16 bytes; K3's at D 4096 in the
+           1 + w form with the sum) and at edge shapes, on the same tolerances, against autograd in
            float32 of the plain forwards (each gradient's largest error over
            the larger of 1 and its largest magnitude) and against the plain
            backward in float32 from the same inputs, bfloat16 ones too (the
@@ -40,7 +42,9 @@ Phases, each printing one JSON object on a line of its own:
            blocks); each backward run twice from the same inputs at its
            train shape must give the same bits; the kernels' host-side
            plans (K1 backward's tiles and workspace too) against what the
-           compiled kernels report
+           compiled kernels report; a DTensor prefill and decode through
+           layers.attention on a one-rank NCCL (1, 1) mesh, through K1 and
+           K2 under local_map, the plain-tensor call's bits
   serve    phi4-mini-3.8b at full width and depth, random weights from a
            seed, ServingEngine(slots=8, cache_len=2048), 12 requests of 16 to
            1024 prompt tokens and 32 new tokens each; checks the tokens, the
@@ -1025,8 +1029,8 @@ def rms_bwd_parts_times(rng) -> list:
 
 def determinism_checks(rng) -> list:
     """Each backward twice from the same inputs at its train shape (K1 also
-    at a group of 5 and of 1, whose partial sums differ): every output must
-    be the same bits."""
+    at a group of 5 and of 1, whose partial sums differ, at MLA's (192, 128)
+    and at a group of 16 at D 256): every output must be the same bits."""
     from repro_torch.kernels import flash_attention, flash_attention_bwd, rmsnorm_bwd
     bf16 = torch.bfloat16
     out = []
@@ -1050,12 +1054,75 @@ def determinism_checks(rng) -> list:
     runs = [flash_attention_bwd(q, k, v, o, lse, do, causal=True) for _ in range(2)]
     out.append({"kernel": "flash_attention_bwd", "case": "B1 H128 Hkv128 S2048 D192 Dv128 "
                 "causal bshd", "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))})
+    # recurrentgemma-9b's: 16 q heads on one kv head at D 256, the partials of 16 summed
+    q, k, v = flash_inputs(rng, B=1, H=16, Hkv=1, Sq=2048, Sk=2048, D=256, dtype=bf16, bshd=True)
+    do = flash_inputs(rng, B=1, H=16, Hkv=1, Sq=2048, Sk=2048, D=256, dtype=bf16, bshd=True)[0]
+    o = torch.empty_like(do)
+    lse = torch.empty((1, 16, 2048), dtype=torch.float32, device="cuda")
+    flash_attention(q, k, v, causal=True, window=2048, out=o, lse=lse)
+    runs = [flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=2048) for _ in range(2)]
+    out.append({"kernel": "flash_attention_bwd", "case": "B1 H16 Hkv1 S2048 D256 causal "
+                "window2048 bshd", "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))})
     del q, k, v, o, do, lse, runs
     x, w, r = rms_inputs(rng, 2048, 3072, bf16, bf16, False, True)
     dy, ds = randn(rng, (2048, 3072), bf16), randn(rng, (2048, 3072), bf16)
     runs = [rmsnorm_bwd(x + r, w, dy, ds=ds) for _ in range(2)]
     out.append({"kernel": "rmsnorm_bwd", "case": "R2048 D3072 with sum",
                 "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))})
+    return out
+
+
+def sharded_attention_check(rng) -> dict:
+    """A DTensor prefill (K1) and decode with ragged valid lengths (K2) in
+    bf16 through ``layers.attention(strategy="kernel")`` on a (1, 1) mesh of a
+    real NCCL world of one rank, sharded over batch and kv heads: the local
+    case, which runs the kernels on each rank's shards under ``local_map``.
+    Each result must be the plain-tensor call's bits, and its kernel's launch
+    count must move (no plain stand-in)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch import kernels as K
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    bf16 = torch.bfloat16
+    B, S, T, Hkv, G, D = 2, 512, 2048, 8, 3, 128          # phi4-mini's heads
+    q, k, v = (randn(rng, (B, S, Hkv, G, D), bf16), randn(rng, (B, S, Hkv, D), bf16),
+               randn(rng, (B, S, Hkv, D), bf16))
+    qd, kc, vc = (randn(rng, (B, 1, Hkv, G, D), bf16), randn(rng, (B, T, Hkv, D), bf16),
+                  randn(rng, (B, T, Hkv, D), bf16))
+    valid = torch.tensor([T, 700], dtype=torch.int32, device="cuda")
+    calls = {"prefill": ((q, k, v), dict(causal=True), "flash_attention"),
+             "decode": ((qd, kc, vc), dict(causal=False, kv_valid_len=valid), "decode_attention")}
+    out = {}
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            for kind, (args, kw, kernel) in calls.items():
+                dts = [distribute_tensor(a, mesh, [Shard(0), Shard(2)]) for a in args]
+                kw_d = dict(kw)
+                if "kv_valid_len" in kw:
+                    kw_d["kv_valid_len"] = distribute_tensor(valid, mesh, [Shard(0), Replicate()])
+                with torch.no_grad():
+                    want = L.attention(*args, strategy="kernel", **kw)
+                    K.reset_launch_counts()
+                    got = L.attention(*dts, strategy="kernel", **kw_d)
+                    torch.cuda.synchronize()
+                    launches = K.launch_counts()
+                out[kind] = {"kernel": kernel, "launches": launches[kernel],
+                             "other_launches": sum(launches.values()) - launches[kernel],
+                             "placements": [str(p) for p in got.placements],
+                             "bit_equal": torch.equal(got.full_tensor(), want)}
+        finally:
+            dist.destroy_process_group()
+    bad = {kind: r for kind, r in out.items()
+           if not r["bit_equal"] or r["launches"] != 1 or r["other_launches"] != 0}
+    if bad:
+        fail(f"sharded attention on the card: {bad}")
     return out
 
 
@@ -1086,11 +1153,11 @@ def check_plans(recs_plans: dict) -> None:
     recs_plans[f"flash D{fa.MLA_D[0]} Dv{fa.MLA_D[1]}"] = theirs
     if mine != theirs:
         fail(f"flash_attention plan {fa.MLA_D}: wrapper {mine}, kernel {theirs}")
-    for D in fa.BWD_TC_D:
-        mine, theirs = fa.bwd_tile_plan(D), fa.kernel_bwd_plan(D)
-        recs_plans[f"flash_bwd D{D}"] = theirs
+    for dims in fa.BWD_TC_DIMS:
+        mine, theirs = fa.bwd_tile_plan(*dims), fa.kernel_bwd_plan(*dims)
+        recs_plans[f"flash_bwd D{dims[0]} Dv{dims[1]}"] = theirs
         if mine != theirs:
-            fail(f"flash_attention_bwd plan D={D}: wrapper {mine}, kernel {theirs}")
+            fail(f"flash_attention_bwd plan {dims}: wrapper {mine}, kernel {theirs}")
     for dims in [(D, D) for D in fa.SUPPORTED_D] + [fa.MLA_D]:
         mine, theirs = fa.bwd_fma_plan(*dims), fa.kernel_bwd_fma_plan(*dims)
         recs_plans[f"flash_bwd fma D{dims[0]} Dv{dims[1]}"] = theirs
@@ -1099,7 +1166,8 @@ def check_plans(recs_plans: dict) -> None:
     for shape in ((1, 24, 8, 2048, 2048, 128), (2, 40, 8, 333, 333, 128), (1, 8, 8, 200, 200, 128),
                   (1, 16, 16, 300, 300, 256), (2, 8, 1, 192, 192, 64), (1, 4, 2, 300, 100, 64),
                   (8, 20, 20, 448, 1500, 64), (8, 20, 20, 1500, 1500, 64),      # whisper
-                  (1, 128, 128, 2048, 2048, 192, 128), (2, 16, 4, 333, 333, 192, 128)):  # MLA
+                  (1, 128, 128, 2048, 2048, 192, 128), (2, 16, 4, 333, 333, 192, 128),  # MLA
+                  (1, 16, 1, 2048, 2048, 256), (1, 16, 16, 2048, 2048, 256)):  # D 256, G 16 / 1
         for dtype in (torch.bfloat16, torch.float32):
             for aligned in (True, False):
                 mine = fa.bwd_workspace_bytes(*shape[:6], dtype, aligned, *shape[6:])
@@ -1414,8 +1482,9 @@ def phase_kernels():
         if dtype is bf16:
             main["vlm_flash_attention_bwd"] = recs[-1]
     # ... at deepseek-v3-671b's train shape (MLA: q/k head dim 192, v 128, 128 heads, G 1,
-    # B1 S2048; the FMA kernels at those dims), timed beside SDPA's backward, then a group
-    # of 4 with ragged rows, Sq != Sk unmasked, and a window ...
+    # B1 S2048; bf16 on the tensor-core kernels of two dK/dV warpgroups, fp32 and a view
+    # off 16 bytes on the FMA ones), timed beside SDPA's backward, then a group of 4 with
+    # ragged rows, Sq != Sk unmasked, and a window ...
     for dtype in (bf16, f32):
         recs.append(check_flash_bwd(rng, **MLA_K1, Sq=2048, Sk=2048, dtype=dtype,
                                     timed=dtype is bf16))
@@ -1423,15 +1492,31 @@ def phase_kernels():
             main["mla_flash_attention_bwd"] = recs[-1]
         for e in (dict(B=2, H=16, Hkv=4, Sq=333, Sk=333, causal=True, window=0, bshd=True),
                   dict(B=1, H=8, Hkv=8, Sq=100, Sk=300, causal=False, window=0, bshd=False),
-                  dict(B=1, H=8, Hkv=2, Sq=200, Sk=200, causal=True, window=64, bshd=False)):
+                  dict(B=1, H=8, Hkv=2, Sq=200, Sk=200, causal=True, window=64, bshd=False),
+                  dict(B=1, H=4, Hkv=2, Sq=130, Sk=130, causal=True, window=0, bshd=False,
+                       misaligned=True)):                                 # FMA kernels
             recs.append(check_flash_bwd(rng, **e, D=192, Dv=128, dtype=dtype, timed=False))
-    # ... and at recurrentgemma-9b's train shape (16 q heads on one kv head, D 256, its
-    # window of 2048 covering S: the FMA kernels at G 16), timed beside SDPA's backward
+    # ... at recurrentgemma-9b's train shape (16 q heads on one kv head, D 256, its
+    # window of 2048 covering S: the group's 16 partials summed) and gemma-7b's (16 heads
+    # of 256, G 1), timed beside SDPA's backward, then at D 256 a group of 8 on strided
+    # views, Sq != Sk, a window cutting tiles at a group of 8 and rows that see no key,
+    # and a view off 16 bytes (the FMA kernels) ...
     for dtype in (bf16, f32):
         recs.append(check_flash_bwd(rng, B=1, H=16, Hkv=1, Sq=2048, Sk=2048, D=256, causal=True,
                                     window=2048, dtype=dtype, timed=dtype is bf16, bshd=True))
         if dtype is bf16:
             main["griffin_flash_attention_bwd"] = recs[-1]
+        recs.append(check_flash_bwd(rng, B=1, H=16, Hkv=16, Sq=2048, Sk=2048, D=256, causal=True,
+                                    window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+        if dtype is bf16:
+            main["gemma_flash_attention_bwd"] = recs[-1]
+        for e in (dict(B=2, H=16, Hkv=2, Sq=300, Sk=300, causal=True, window=0, bshd=True),
+                  dict(B=1, H=4, Hkv=1, Sq=128, Sk=320, causal=False, window=0),
+                  dict(B=1, H=8, Hkv=1, Sq=333, Sk=333, causal=True, window=100, bshd=True),
+                  dict(B=1, H=4, Hkv=2, Sq=300, Sk=100, causal=False, window=64),
+                  dict(B=1, H=4, Hkv=2, Sq=130, Sk=130, causal=True, window=0,
+                       misaligned=True)):                                 # FMA kernels
+            recs.append(check_flash_bwd(rng, **e, D=256, dtype=dtype, timed=False))
 
     # --- K3 backward at the train path's rows (B1 S2048, D 3072: add_rmsnorm in 63 of a
     # step's 65 norms) and the serving path's, with and without the residual, the sum's
@@ -1488,13 +1573,15 @@ def phase_kernels():
                                       offset=False, residual=False, timed=False))
     rms_bwd_parts = rms_bwd_parts_times(rng)
     determinism = determinism_checks(rng)
+    sharded = sharded_attention_check(rng)
 
     K.reset_launch_counts()
     bad = [r for r in recs if not (bwd_errs_ok(r) if "row_err" in r               # a NaN is
                                    else r["max_abs_err"] <= r["tol"])]            # bad too
     emit({"phase": "kernels", "plans": plans, "floor_device_ms": launch_floor_ms(),
           "rmsnorm_plans": rms_plans, "rmsnorm_bwd_parts": rms_bwd_parts,
-          "determinism": determinism, "checks": recs, "failed": len(bad)})
+          "determinism": determinism, "sharded_attention": sharded, "checks": recs,
+          "failed": len(bad)})
     if bad:
         fail(f"{len(bad)} kernel check(s) over tolerance: {bad}")
     if not all(d["bit_equal"] for d in determinism):
@@ -1512,13 +1599,18 @@ SASS_WANTED = {"flash_attention": (r"HGMMA", r"UTMALDG"),
 # the bf16 forward's instantiations at MLA's dims (mangled: flash_fwd_tc_kernel<192, 128,
 # lse>), each of which must hold the flash library's wanted instructions too
 MLA_TC_FUNCTION = re.compile(r"flash_fwd_tc_kernelILi192ELi128ELb(\d)E")
+# the bf16 backward's dK/dV and dQ instantiations at (256, 256) and (192, 128) (mangled:
+# flash_bwd_dkdv_wg_kernel<256, 256>), which must each hold them
+BWD_TC_FUNCTION = re.compile(r"flash_bwd_(dkdv|dq)_wg_kernelILi(256|192)ELi(256|128)EE")
 
 
 def sass_check() -> dict:
-    """Counts of the ``SASS_WANTED`` instructions in each library, and in each
-    of K1's instantiations at MLA's dims on its own; fails if one is missing,
-    so a K1 that quietly stopped using the tensor cores or TMA, or a K3 that
-    stopped moving 16 bytes a load, does not pass."""
+    """Counts of the ``SASS_WANTED`` instructions in each library, in each of
+    K1's instantiations at MLA's dims on its own, and in each of its
+    backward's dK/dV and dQ instantiations at (256, 256) and (192, 128); fails
+    if one is missing, so a K1 (or its backward at those widths) that quietly
+    stopped using the tensor cores or TMA, or a K3 that stopped moving 16
+    bytes a load, does not pass."""
     from repro_torch.kernels import _build
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     counts = {}
@@ -1537,6 +1629,15 @@ def sass_check() -> dict:
             if sum(k.startswith("flash_fwd_tc_kernel<192") for k in counts) != 2:
                 fail(f"the flash library lacks K1's two instantiations at (192, 128): "
                      f"{sorted(counts)}")
+        if name == "flash_attention_bwd":
+            for part in sass.split("Function : ")[1:]:
+                m = BWD_TC_FUNCTION.search(part.split("\n", 1)[0])
+                if m:
+                    counts[f"flash_bwd_{m[1]}_wg_kernel<{m[2]}, {m[3]}>"] = {
+                        op: len(re.findall(rf"\b{op}\b", part)) for op in ops}
+            if sum(k.startswith("flash_bwd_") for k in counts) != 4:
+                fail(f"the flash backward library lacks its dK/dV and dQ instantiations at "
+                     f"(256, 256) and (192, 128): {sorted(counts)}")
     emit({"phase": "sass", "counts": counts})
     missing = [(name, op) for name, c in counts.items() for op, n in c.items() if n == 0]
     if missing:
@@ -1556,8 +1657,10 @@ def digest(out) -> str:
 
 def phase_times():
     """The serving shapes of K1, K2 and K3 in bf16 and the train path's
-    shapes of their backward, through the wrappers' plain signatures, which
-    every tree of the port since its training slice has (K3's
+    shapes of their backward (K1's also at D 256, G 16 and at MLA's (192,
+    128), which need a tree with the MLA backward), through the wrappers'
+    plain signatures, which every tree of the port since its training slice
+    has (K3's
     ``rmsnorm(x, w, eps=, offset=, residual=)``, K1's ``flash_attention(...,
     lse=)`` then ``flash_attention_bwd(q, k, v, o, lse, do, causal=,
     window=)``, K3's ``rmsnorm_bwd(x, w, dy, eps=, offset=, ds=)``): ms and
@@ -1640,6 +1743,23 @@ def phase_times():
         out.append({"kernel": "flash_attention_bwd", "case": f"B1 H24 Hkv8 S{S} D128 causal bshd",
                     "ms": time_ms(call), "device_ms": device_ms(call),
                     "out_sha": digest((o, lse, *call()))})
+    # ... at recurrentgemma-9b's and deepseek-v3-671b's train shapes (D 256 at G 16 with its
+    # window; MLA's (192, 128), which trees before the MLA backward's do not take)
+    for B, H, Hkv, D, Dv, window in ((1, 16, 1, 256, 256, 2048), (1, 128, 128, 192, 128, 0)):
+        q, k, v = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=2048, Sk=2048, D=D, dtype=bf16,
+                               bshd=True, Dv=Dv)
+        do = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=2048, Sk=2048, D=Dv, dtype=bf16,
+                          bshd=True)[0]
+        o = torch.empty_like(do)
+        lse = torch.empty((B, H, 2048), dtype=torch.float32, device="cuda")
+        flash_attention(q, k, v, causal=True, window=window, out=o, lse=lse)
+        call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True,  # noqa: E731
+                                           window=window)
+        out.append({"kernel": "flash_attention_bwd",
+                    "case": f"B{B} H{H} Hkv{Hkv} S2048 D{D} Dv{Dv} causal window{window} bshd",
+                    "ms": time_ms(call), "device_ms_by_kernel": device_ms_by_kernel(call),
+                    "out_sha": digest((o, lse, *call()))})
+        out[-1]["device_ms"] = sum(out[-1]["device_ms_by_kernel"].values())
     for with_sum in (False, True):
         x, w, _ = rms_inputs(rng, 2048, 3072, bf16, bf16, False, False)
         dy = randn(rng, (2048, 3072), bf16)
@@ -5146,6 +5266,12 @@ def main(argv=None) -> int:
             # the same kernel at recurrentgemma-9b's serving shapes (K1 at H16 Hkv1 D256
             # with its window, K2 at G = 16, K3 at D 4096 in the 1 + w form)
             rec["griffin_shape"] = {k: griffin_rec.get(k) for k in (
+                "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")}
+        gemma_rec = main_recs.get(f"gemma_{name}")
+        if gemma_rec is not None:
+            # K1's backward at gemma-7b's train shape (16 heads of 256, G 1, B1 S2048)
+            rec["gemma_shape"] = {k: gemma_rec.get(k) for k in (
                 "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")}
         for key, label in ((f"xlstm_{name}", "xlstm_shape"),

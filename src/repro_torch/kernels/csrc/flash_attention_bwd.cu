@@ -24,14 +24,21 @@
 // the tensor cores and device memory balance), so the train path's case is
 // built around the tensor cores:
 //
-//   * bf16 with D = 64 or 128 and 16-byte aligned operands (the train
-//     path's): TMA loads and wgmma products, every tile in shared memory as
-//     rows of 128 bytes with the 128-byte swizzle (hopper.cuh).  A block is
-//     one warpgroup (128 threads, two blocks an SM, so that a thread may hold
+//   * bf16 with 16-byte aligned operands (the train path's) at one head dim
+//     of 64, 128 or 256, or MLA's (192, 128): TMA loads and wgmma products,
+//     every tile in shared memory as rows of 128 bytes with the 128-byte
+//     swizzle (hopper.cuh); a row of 192 or 256 arrives as 3 or 4 boxes of 64
+//     columns.  Every kernel is a template over (DQ, DV), q's and k's head
+//     dim and v's; one head dim is (D, D).  Up to D = 128 a block is one
+//     warpgroup (128 threads, two blocks an SM, so that a thread may hold
 //     255 registers: dK and dV of 64 rows x 128 in fp32, S^T and dP^T, and
 //     their bf16 halves take about 230); its first thread issues the TMA
 //     loads one ring stage ahead.  A producer warp of its own would put the
-//     block at 160 threads and cap a thread at 200 registers.
+//     block at 160 threads and cap a thread at 200 registers.  Above D = 128
+//     (BwdPlan::SPLIT) a dK/dV block is two warpgroups, one block an SM: one
+//     owns dV and P^T, the other dK and dP^T, dS^T (the kernel's note says
+//     why that split); a dQ block stays one warpgroup (BwdPlan says how
+//     many share an SM).
 //       - dK/dV kernel, one block a (batch, q head, kv tile of 64): K and V
 //         loaded once; Q, dO and their rows of lse and delta through a ring
 //         of STAGES stages of 64 q rows.  S^T = K Q^T and dP^T = V dO^T with
@@ -53,19 +60,14 @@
 //       causal mask first (the first kv tiles, the last q tiles), over every
 //       head, so the last wave holds the lightest blocks.  A tile pair that
 //       no mask and no end of Q or K cuts takes no mask arithmetic.
-//   * otherwise (fp32, D = 256, unaligned views, MLA's q/k head dim 192
-//     beside v's 128): fp32 FMAs over tiles widened to fp32 in shared
-//     memory, the forward's FMA kernel's thread layout (16 x 16 threads, 4
-//     rows x D/16 columns a thread).  TF32 tensor cores would keep about
-//     three decimal digits and miss the fp32 tolerance; at D = 256 a
-//     warpgroup's dK and dV of 64 rows would need 256 registers a thread.
-//     At MLA's dims (deepseek-v3's training) S^T, dS^T, dK and dQ run over
+//   * otherwise (fp32, or views off 16 bytes, at any of those dims): fp32
+//     FMAs over tiles widened to fp32 in shared memory, the forward's FMA
+//     kernel's thread layout (16 x 16 threads, 4 rows x D/16 columns a
+//     thread).  TF32 tensor cores would keep about three decimal digits and
+//     miss the fp32 tolerance.  At MLA's dims S^T, dS^T, dK and dQ run over
 //     192 and delta, dP^T and dV over 128; a dK/dV block of 32 kv rows holds
 //     K and Q at 192 and V and dO at 128 as fp32 tiles (91 KB of shared
-//     memory, two blocks an SM), a dQ block of 64 q rows 132 KB (one).  It
-//     is a correct first kernel, far from the 0.43 ms its operations bound
-//     it by at deepseek's train shape: wgmma and TMA at these dims are later
-//     work.
+//     memory, two blocks an SM), a dQ block of 64 q rows 132 KB (one).
 //
 // P and dS are rounded to bf16 before their products (the forward rounds P
 // before P V in the same way); dS is formed from P in fp32.  A fully masked
@@ -422,37 +424,56 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dq_kernel(const BwdParam
   }
 }
 
+
 // ===========================================================================
-// bf16, D = 64 or 128: TMA + wgmma
+// bf16 at (64, 64), (128, 128), (256, 256) or (192, 128): TMA + wgmma
 // ===========================================================================
 
-// Tile plan of the tensor-core kernels; kernels/flash_attention.py
-// `bwd_tile_plan` mirrors it (and chip_smoke.py holds the two against each
-// other).
-template <int D> struct BwdPlan {
+// Tile plan of the tensor-core kernels for q/k head dim DQ and v head dim DV;
+// kernels/flash_attention.py `bwd_tile_plan` mirrors it (and chip_smoke.py
+// holds the two against each other).  Up to a head dim of 128 a dK/dV block
+// is one warpgroup, two blocks an SM; above it (SPLIT) two warpgroups, one
+// block an SM, so that each thread may hold 255 registers (two such blocks
+// would cap a thread at 128, and the block needs 171 at (192, 128), 205 at
+// 256).  A dQ block is one warpgroup: two an SM up to 128; one at D 256 (its
+// shared memory); two at (192, 128) with a ring of one stage, which on an
+// H100 ran its dQ kernel 1.42x as fast as one block with two stages.
+template <int DQ, int DV> struct BwdPlan {
   static constexpr int BQ = 64;          // q rows a tile (a dQ block's rows)
   static constexpr int BKV = 64;         // kv rows a tile (a dK/dV block's rows)
   static constexpr int STAGES = 2;       // depth of each kernel's ring
-  static constexpr int CH = D / 64;      // 128-byte column chunks of a row
-  static constexpr int THREADS = 128;    // one warpgroup
-  static constexpr int MIN_BLOCKS = 2;   // 2 x 128 threads: up to 255 registers a thread
-  static constexpr int TILE = 64 * D * 2;     // one 64-row bf16 tile
+  static constexpr int CH_Q = DQ / 64;   // 128-byte column chunks of a q or k row
+  static constexpr int CH_V = DV / 64;   // and of a v or dO row
+  static constexpr bool SPLIT = DQ > 128;
+  static constexpr int DKDV_THREADS = SPLIT ? 256 : 128;
+  static constexpr int DKDV_BLOCKS = SPLIT ? 1 : 2;
+  static constexpr int DQ_THREADS = 128;
+  static constexpr int DQ_STAGES = DQ == DV ? STAGES : 1;   // the dQ block's ring
+  static constexpr int DQ_BLOCKS = DQ == DV && DQ > 128 ? 1 : 2;
+  static constexpr int TQ = 64 * DQ * 2;      // one 64-row bf16 tile of q or k
+  static constexpr int TV = 64 * DV * 2;      // of v or dO
   static constexpr int ROWS = 64 * 4;         // lse or delta of a q tile, fp32
+  static constexpr int XCHG = SPLIT ? 64 * 64 * 4 : 0;   // P^T in fp32 between the warpgroups
   static constexpr int BAR_BYTES = 64;
-  // dK/dV: K and V of the block, a ring of (Q, dO, lse, delta)
-  static constexpr int SMEM_DKDV = (2 + 2 * STAGES) * TILE + 2 * STAGES * ROWS + BAR_BYTES;
+  // dK/dV: K and V of the block, a ring of (Q, dO, lse, delta), the exchange
+  static constexpr int SMEM_DKDV = (1 + STAGES) * (TQ + TV) + XCHG + 2 * STAGES * ROWS + BAR_BYTES;
   // dQ: Q and dO of the block, a ring of (K, V)
-  static constexpr int SMEM_DQ = (2 + 2 * STAGES) * TILE + BAR_BYTES;
+  static constexpr int SMEM_DQ = (1 + DQ_STAGES) * (TQ + TV) + BAR_BYTES;
+  // the group sum's threads a kv row: 8 columns each, of dK and dV both
+  // where they share a width, else of one of them
+  static constexpr int SUM_C8 = DQ == DV ? DQ / 8 : (DQ + DV) / 8;
   static_assert(BQ == 64 && BKV == 64, "tiles are m64n64 products");
-  static_assert(MIN_BLOCKS * (SMEM_DKDV + 1024) <= 233472, "shared memory of an sm_90 SM");
-  static_assert(MIN_BLOCKS * (SMEM_DQ + 1024) <= 233472, "shared memory of an sm_90 SM");
-  static_assert((STAGES + 1) * 8 <= BAR_BYTES, "barriers");
+  static_assert(DQ % 64 == 0 && DV % 64 == 0 && DQ >= DV, "128-byte column chunks");
+  static_assert(DQ == DV || SPLIT, "two head dims take the split dK/dV block");
+  static_assert(DKDV_BLOCKS * (SMEM_DKDV + 1024) <= 233472, "shared memory of an sm_90 SM");
+  static_assert(DQ_BLOCKS * (SMEM_DQ + 1024) <= 233472, "shared memory of an sm_90 SM");
+  static_assert((STAGES + 1) * 8 <= BAR_BYTES && DQ_STAGES <= STAGES, "barriers");
 };
 
 struct WgParams {
   __nv_bfloat16 *dq, *dk, *dv;
   long long dq_st[3], dk_st[3], dv_st[3];   // element strides over (batch, head, seq)
-  float *part_dk, *part_dv;   // (B, H, Sk, D) fp32: each q head's dK, dV (G > 1 only)
+  float *part_dk, *part_dv;   // (B, H, Sk, DQ) and (B, H, Sk, DV) fp32: each q head's dK, dV (G > 1)
   const float* lse2;          // (B, H, Sq_pad): the forward's lse * log2(e), 0 past Sq
   const float* delta;         // (B, H, Sq_pad): rowsum(dO * O), 0 past Sq
   int B, H, Hkv, Sq, Sk, Sq_pad, causal, window;
@@ -497,13 +518,64 @@ __device__ __forceinline__ void frag_to_a(uint32_t* a, const float* f) {
   }
 }
 
-// delta and the lse in log2 units of the (B, H, Sq_pad) rows: D/8 threads a
+// S^T of one tile pair (kv rows from k0: this thread's rl and rl + 8; q
+// columns from q0: cq, cq + 1 of every 8) into P^T = exp2(S^T * scale log2(e)
+// - lse log2(e)) in place, 0 where masked; `ls`: the q tile's lse in log2 units.
+__device__ __forceinline__ void p_transposed(float* sc, const float* ls, int q0, int k0, int rl,
+                                             int cq, const WgParams& p) {
+  const bool edge = tile_edge(q0, k0, p);
+#pragma unroll
+  for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 8 * jb + cq + e;
+      const float l2 = ls[c];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = 4 * jb + 2 * hh + e;
+        float pt = fast_exp2(fmaf(sc[i], p.scale_log2, -l2));
+        if (edge && !seen_wg(q0 + c, k0 + rl + 8 * hh, p)) pt = 0.f;
+        sc[i] = pt;
+      }
+    }
+}
+
+// Rows rl and rl + 8 of the kv tile at k0 of one gradient (N columns, the
+// accumulator fragment `acc`, times `mul`): bf16 into `out` (strides `st`,
+// kv head hk) where the block's sums are the gradient (G = 1), else fp32
+// into q head h's partial `part` (B, H, Sk, N).
+template <int N>
+__device__ __forceinline__ void store_grad(const float* acc, float mul, __nv_bfloat16* out,
+                                           const long long* st, float* part, int b, int h,
+                                           int hk, int k0, int rl, int cq, const WgParams& p) {
+  const bool whole = p.H == p.Hkv;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int k = k0 + rl + 8 * hh;
+    if (k >= p.Sk) continue;
+    if (whole) {
+      __nv_bfloat16* op = out + b * st[0] + hk * st[1] + k * st[2];
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+        *reinterpret_cast<uint32_t*>(op + 8 * i + cq) =
+            pack_bf16(acc[4 * i + 2 * hh] * mul, acc[4 * i + 2 * hh + 1] * mul);
+    } else {
+      float* pp = part + (((long long)b * p.H + h) * p.Sk + k) * N;
+#pragma unroll
+      for (int i = 0; i < N / 8; ++i)
+        *reinterpret_cast<float2*>(pp + 8 * i + cq) =
+            make_float2(acc[4 * i + 2 * hh] * mul, acc[4 * i + 2 * hh + 1] * mul);
+    }
+  }
+}
+
+// delta and the lse in log2 units of the (B, H, Sq_pad) rows: DV/8 threads a
 // row, 16-byte loads of O and dO; rows past Sq get 0 in both, so that a q
 // tile's 64 values of either are one aligned bulk copy.
-template <int D>
+template <int DV>
 __global__ void __launch_bounds__(256)
     flash_bwd_delta_wg_kernel(const BwdParams f, const WgParams p, float* delta, float* lse2) {
-  constexpr int LANES = D / 8;   // threads a row: 16 or 8, within one warp
+  constexpr int LANES = DV / 8;   // threads a row: 32, 16 or 8, within one warp
   const long long gt = (long long)blockIdx.x * 256 + threadIdx.x;
   const long long row = gt / LANES;
   const int part = (int)(gt % LANES);
@@ -532,25 +604,43 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// Named barriers of the split dK/dV block (0 is __syncthreads).
+#define BAR_P 1      // warpgroup 0 has written P^T of the tile
+#define BAR_TILE 2   // both warpgroups are done with the tile's ring stage
+
 // One block a (batch, q head, kv tile): dK and dV of the tile from this q
-// head alone.  Thread (warp w, lane l) holds kv rows 16w + l/4 (+ 8) of the
-// tile and q columns 8j + 2(l%4) (+ 1) of S^T and dP^T, and the same rows of
-// dK and dV in columns 8i + 2(l%4) (+ 1).
-template <int D>
-__global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
+// head alone.  Thread (warp w, lane l) of a warpgroup holds kv rows
+// 16w + l/4 (+ 8) of the tile and q columns 8j + 2(l%4) (+ 1) of S^T and
+// dP^T, and the same rows of dK and dV in columns 8i + 2(l%4) (+ 1).
+//
+// One warpgroup (up to a head dim of 128) runs all four products.  Above it
+// dK and dV of 64 rows alone are 2 x 64 x 256 fp32 / 128 threads = 256
+// registers a thread at D 256, so the block has two warpgroups, split by
+// gradient: warpgroup 0 owns dV, computes S^T = K Q^T and P^T, hands P^T in
+// fp32 to warpgroup 1 through shared memory behind a named barrier and runs
+// dV += P^T dO; warpgroup 1 owns dK, computes dP^T = V dO^T, forms dS^T from
+// that P^T and runs dK += dS^T Q.  The split keeps every product whole-width
+// (a split by columns would cut (192, 128)'s dK in halves of 96, inside a
+// 64-column swizzle chunk), passes one tile in one direction, and balances the
+// tensor-core work for any widths: S^T + dV and dP^T + dK are both 64 (DQ +
+// DV) multiply-adds a q row.  Registers a thread: dV or dK (128 at D 256,
+// 64 or 96 at (192, 128)), S^T or dP^T (32) and its bf16 half (16).
+template <int DQ, int DV>
+__global__ void __launch_bounds__(BwdPlan<DQ, DV>::DKDV_THREADS, BwdPlan<DQ, DV>::DKDV_BLOCKS)
     flash_bwd_dkdv_wg_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const __grid_constant__ CUtensorMap tdo, const WgParams p) {
-  using P = BwdPlan<D>;
-  constexpr int ST = P::STAGES, CH = P::CH, TILE = P::TILE;
+  using P = BwdPlan<DQ, DV>;
+  constexpr int ST = P::STAGES, TQ = P::TQ, TV = P::TV;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   if (smem_u32(smem_raw) & 1023) __trap();
-  uint8_t* k_s = smem_raw;                 // [CH][64 rows][128 B]
-  uint8_t* v_s = k_s + TILE;
-  uint8_t* q_s = v_s + TILE;               // [ST] tiles
-  uint8_t* g_s = q_s + ST * TILE;          // dO, [ST] tiles
-  float* lse_s = reinterpret_cast<float*>(g_s + ST * TILE);   // [ST][64]
+  uint8_t* k_s = smem_raw;                 // [CH_Q][64 rows][128 B]
+  uint8_t* v_s = k_s + TQ;                 // [CH_V][64 rows][128 B]
+  uint8_t* q_s = v_s + TV;                 // [ST] tiles of TQ
+  uint8_t* g_s = q_s + ST * TQ;            // dO, [ST] tiles of TV
+  float* x_s = reinterpret_cast<float*>(g_s + ST * TV);       // P^T, [32][128 threads] (SPLIT)
+  float* lse_s = x_s + P::XCHG / 4;                            // [ST][64]
   float* dl_s = lse_s + ST * 64;                               // [ST][64]
   uint64_t* full = reinterpret_cast<uint64_t*>(dl_s + ST * 64);
   uint64_t* kv_full = full + ST;
@@ -568,12 +658,13 @@ __global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
   // thread 0: q tile j of the walk into stage j % ST
   auto load_q = [&](int j) {
     const int s = j % ST, q0 = q_first + j * 64;
-    mbar_arrive_expect_tx(&full[s], 2 * TILE + 2 * P::ROWS);
+    mbar_arrive_expect_tx(&full[s], TQ + TV + 2 * P::ROWS);
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      tma_load_4d(q_s + s * TILE + c * 64 * 128, &tq, &full[s], c * 64, q0, h, b);
-      tma_load_4d(g_s + s * TILE + c * 64 * 128, &tdo, &full[s], c * 64, q0, h, b);
-    }
+    for (int c = 0; c < P::CH_Q; ++c)
+      tma_load_4d(q_s + s * TQ + c * 64 * 128, &tq, &full[s], c * 64, q0, h, b);
+#pragma unroll
+    for (int c = 0; c < P::CH_V; ++c)
+      tma_load_4d(g_s + s * TV + c * 64 * 128, &tdo, &full[s], c * 64, q0, h, b);
     bulk_load(lse_s + s * 64, p.lse2 + row0 + q0, P::ROWS, &full[s]);
     bulk_load(dl_s + s * 64, p.delta + row0 + q0, P::ROWS, &full[s]);
   };
@@ -585,113 +676,136 @@ __global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
   }
   __syncthreads();
   if (t == 0 && n > 0) {
-    mbar_arrive_expect_tx(kv_full, 2 * TILE);
+    mbar_arrive_expect_tx(kv_full, TQ + TV);
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      tma_load_4d(k_s + c * 64 * 128, &tk, kv_full, c * 64, k0, hk, b);
-      tma_load_4d(v_s + c * 64 * 128, &tv, kv_full, c * 64, k0, hk, b);
-    }
+    for (int c = 0; c < P::CH_Q; ++c) tma_load_4d(k_s + c * 64 * 128, &tk, kv_full, c * 64, k0, hk, b);
+#pragma unroll
+    for (int c = 0; c < P::CH_V; ++c) tma_load_4d(v_s + c * 64 * 128, &tv, kv_full, c * 64, k0, hk, b);
     for (int j = 0; j < n && j < ST; ++j) load_q(j);
   }
 
-  const int warp = t >> 5, lane = t & 31;
+  // warp-uniform by construction (a broadcast): the warpgroup's role
+  const int wg = P::SPLIT ? __shfl_sync(0xffffffffu, t / 128, 0) : 0;
+  const int tw = t & 127, warp = tw >> 5, lane = tw & 31;
   const int rl = warp * 16 + (lane >> 2);   // this thread's kv rows in the tile: rl, rl + 8
   const int cq = 2 * (lane & 3);            // and columns cq, cq + 1 of every 8
-  float dk[D / 2], dv[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
-    dk[i] = 0.f;
-    dv[i] = 0.f;
-  }
   const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
   if (n > 0) mbar_wait(kv_full, 0);
 
-  for (int j = 0; j < n; ++j) {
-    const int s = j % ST, q0 = q_first + j * 64;
-    const uint32_t q_addr = smem_u32(q_s + s * TILE), g_addr = smem_u32(g_s + s * TILE);
-    const float* ls = lse_s + s * 64;
-    const float* dls = dl_s + s * 64;
-    float sc[32], dp[32];
-    uint32_t pa[16], sa[16];
-    mbar_wait(&full[s], (j / ST) & 1);
-    issue_qk<D, 64>(sc, k_addr, q_addr);    // S^T = K Q^T
-    issue_qk<D, 64>(dp, v_addr, g_addr);    // dP^T = V dO^T
-    wgmma_wait<0>();
-    fence_all<32>(sc);
-    fence_all<32>(dp);
-    const bool edge = tile_edge(q0, k0, p);
-    // P^T = exp2(S^T * scale log2(e) - lse log2(e)), 0 where masked
+  if constexpr (!P::SPLIT) {
+    float dk[DQ / 2], dv[DV / 2];
 #pragma unroll
-    for (int jb = 0; jb < 8; ++jb)
+    for (int i = 0; i < DQ / 2; ++i) dk[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * jb + cq + e;
-        const float l2 = ls[c];
+    for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const int s = j % ST, q0 = q_first + j * 64;
+      const uint32_t q_addr = smem_u32(q_s + s * TQ), g_addr = smem_u32(g_s + s * TV);
+      const float* dls = dl_s + s * 64;
+      float sc[32], dp[32];
+      uint32_t pa[16], sa[16];
+      mbar_wait(&full[s], (j / ST) & 1);
+      issue_qk<DQ, 64>(sc, k_addr, q_addr);   // S^T = K Q^T
+      issue_qk<DV, 64>(dp, v_addr, g_addr);   // dP^T = V dO^T
+      wgmma_wait<0>();
+      fence_all<32>(sc);
+      fence_all<32>(dp);
+      p_transposed(sc, lse_s + s * 64, q0, k0, rl, cq, p);
+      frag_to_a(pa, sc);
+      issue_pv<DV, 64>(dv, pa, g_addr);       // dV += P^T dO, dO read MN-major
+      // dS^T = P^T (dP^T - delta), while that product runs
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int i = 4 * jb + 2 * hh + e;
-          float pt = fast_exp2(fmaf(sc[i], p.scale_log2, -l2));
-          if (edge && !seen_wg(q0 + c, k0 + rl + 8 * hh, p)) pt = 0.f;
-          sc[i] = pt;
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dl = dls[8 * jb + cq + e];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int i = 4 * jb + 2 * hh + e;
+            dp[i] = sc[i] * (dp[i] - dl);
+          }
         }
-      }
-    frag_to_a(pa, sc);
-    issue_pv<D, 64>(dv, pa, g_addr);        // dV += P^T dO, dO read MN-major
-    // dS^T = P^T (dP^T - delta), while that product runs
-#pragma unroll
-    for (int jb = 0; jb < 8; ++jb)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float dl = dls[8 * jb + cq + e];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int i = 4 * jb + 2 * hh + e;
-          dp[i] = sc[i] * (dp[i] - dl);
-        }
-      }
-    frag_to_a(sa, dp);
-    issue_pv<D, 64>(dk, sa, q_addr);        // dK += dS^T Q, Q read MN-major
-    wgmma_wait<0>();
-    fence_all<D / 2>(dv);
-    fence_all<D / 2>(dk);
-    __syncthreads();                        // every warp is done with stage s
-    if (t == 0 && j + ST < n) load_q(j + ST);
-  }
-
-  const bool whole = p.H == p.Hkv;          // G = 1: this block's sums are dK and dV
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int k = k0 + rl + 8 * hh;
-    if (k >= p.Sk) continue;
-    if (whole) {
-      __nv_bfloat16* dkp = p.dk + b * p.dk_st[0] + hk * p.dk_st[1] + k * p.dk_st[2];
-      __nv_bfloat16* dvp = p.dv + b * p.dv_st[0] + hk * p.dv_st[1] + k * p.dv_st[2];
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const int col = 8 * i + cq;
-        *reinterpret_cast<uint32_t*>(dkp + col) =
-            pack_bf16(dk[4 * i + 2 * hh] * p.scale, dk[4 * i + 2 * hh + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvp + col) = pack_bf16(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
-      }
-    } else {
-      const long long at = (((long long)b * p.H + h) * p.Sk + k) * D;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        const int col = 8 * i + cq;
-        *reinterpret_cast<float2*>(p.part_dk + at + col) =
-            make_float2(dk[4 * i + 2 * hh] * p.scale, dk[4 * i + 2 * hh + 1] * p.scale);
-        *reinterpret_cast<float2*>(p.part_dv + at + col) =
-            make_float2(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
-      }
+      frag_to_a(sa, dp);
+      issue_pv<DQ, 64>(dk, sa, q_addr);       // dK += dS^T Q, Q read MN-major
+      wgmma_wait<0>();
+      fence_all<DV / 2>(dv);
+      fence_all<DQ / 2>(dk);
+      __syncthreads();                        // every warp is done with stage s
+      if (t == 0 && j + ST < n) load_q(j + ST);
     }
+    store_grad<DQ>(dk, p.scale, p.dk, p.dk_st, p.part_dk, b, h, hk, k0, rl, cq, p);
+    store_grad<DV>(dv, 1.f, p.dv, p.dv_st, p.part_dv, b, h, hk, k0, rl, cq, p);
+  } else if (wg == 0) {
+    // ---- P^T and dV ----
+    float dv[DV / 2];
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const int s = j % ST, q0 = q_first + j * 64;
+      const uint32_t q_addr = smem_u32(q_s + s * TQ), g_addr = smem_u32(g_s + s * TV);
+      float sc[32];
+      uint32_t pa[16];
+      mbar_wait(&full[s], (j / ST) & 1);
+      issue_qk<DQ, 64>(sc, k_addr, q_addr);   // S^T = K Q^T
+      wgmma_wait<0>();
+      fence_all<32>(sc);
+      p_transposed(sc, lse_s + s * 64, q0, k0, rl, cq, p);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) x_s[i * 128 + tw] = sc[i];
+      named_bar_arrive(BAR_P, 256);           // P^T to warpgroup 1
+      frag_to_a(pa, sc);
+      issue_pv<DV, 64>(dv, pa, g_addr);       // dV += P^T dO, dO read MN-major
+      wgmma_wait<0>();
+      fence_all<DV / 2>(dv);
+      named_bar_sync(BAR_TILE, 256);          // stage s and x_s are read to their end
+      if (t == 0 && j + ST < n) load_q(j + ST);
+    }
+    store_grad<DV>(dv, 1.f, p.dv, p.dv_st, p.part_dv, b, h, hk, k0, rl, cq, p);
+  } else {
+    // ---- dP^T, dS^T and dK ----
+    float dk[DQ / 2];
+#pragma unroll
+    for (int i = 0; i < DQ / 2; ++i) dk[i] = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const int s = j % ST;
+      const uint32_t q_addr = smem_u32(q_s + s * TQ), g_addr = smem_u32(g_s + s * TV);
+      const float* dls = dl_s + s * 64;
+      float dp[32];
+      uint32_t sa[16];
+      mbar_wait(&full[s], (j / ST) & 1);
+      issue_qk<DV, 64>(dp, v_addr, g_addr);   // dP^T = V dO^T
+      wgmma_wait<0>();
+      fence_all<32>(dp);
+      named_bar_sync(BAR_P, 256);             // P^T from warpgroup 0
+      // dS^T = P^T (dP^T - delta), P^T in fp32 as warpgroup 0 formed it
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dl = dls[8 * jb + cq + e];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int i = 4 * jb + 2 * hh + e;
+            dp[i] = x_s[i * 128 + tw] * (dp[i] - dl);
+          }
+        }
+      frag_to_a(sa, dp);
+      issue_pv<DQ, 64>(dk, sa, q_addr);       // dK += dS^T Q, Q read MN-major
+      wgmma_wait<0>();
+      fence_all<DQ / 2>(dk);
+      named_bar_sync(BAR_TILE, 256);
+    }
+    store_grad<DQ>(dk, p.scale, p.dk, p.dk_st, p.part_dk, b, h, hk, k0, rl, cq, p);
   }
 }
 
 // dK, dV of each kv head: the G q heads' fp32 partials summed in head order
-// (the same order on every run) and rounded to bf16; 8 columns a thread.
-template <int D>
+// (the same order on every run) and rounded to bf16; 8 columns a thread, of
+// dK and dV both where they share a width, else of one of them.
+template <int DQ, int DV>
 __global__ void __launch_bounds__(256) flash_bwd_sum_kernel(const WgParams p) {
-  constexpr int C8 = D / 8;
+  constexpr bool BOTH = DQ == DV;
+  constexpr int C8 = BwdPlan<DQ, DV>::SUM_C8;
   const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
   if (idx >= (long long)p.B * p.Hkv * p.Sk * C8) return;
   const int d8 = (int)(idx % C8) * 8;
@@ -699,6 +813,8 @@ __global__ void __launch_bounds__(256) flash_bwd_sum_kernel(const WgParams p) {
   const int hk = (int)((idx / ((long long)C8 * p.Sk)) % p.Hkv);
   const int b = (int)(idx / ((long long)C8 * p.Sk * p.Hkv));
   const int G = p.H / p.Hkv;
+  const bool of_k = BOTH || d8 < DQ, of_v = BOTH || d8 >= DQ;
+  const int v8 = BOTH ? d8 : d8 - DQ;
   float sk[8], sv[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
@@ -706,42 +822,51 @@ __global__ void __launch_bounds__(256) flash_bwd_sum_kernel(const WgParams p) {
     sv[e] = 0.f;
   }
   for (int g = 0; g < G; ++g) {
-    const long long at = (((long long)b * p.H + hk * G + g) * p.Sk + k) * D + d8;
-    const float4 k0 = *reinterpret_cast<const float4*>(p.part_dk + at);
-    const float4 k1 = *reinterpret_cast<const float4*>(p.part_dk + at + 4);
-    const float4 v0 = *reinterpret_cast<const float4*>(p.part_dv + at);
-    const float4 v1 = *reinterpret_cast<const float4*>(p.part_dv + at + 4);
-    sk[0] += k0.x; sk[1] += k0.y; sk[2] += k0.z; sk[3] += k0.w;
-    sk[4] += k1.x; sk[5] += k1.y; sk[6] += k1.z; sk[7] += k1.w;
-    sv[0] += v0.x; sv[1] += v0.y; sv[2] += v0.z; sv[3] += v0.w;
-    sv[4] += v1.x; sv[5] += v1.y; sv[6] += v1.z; sv[7] += v1.w;
+    const long long row = ((long long)b * p.H + hk * G + g) * p.Sk + k;
+    if (of_k) {
+      const float4 k0 = *reinterpret_cast<const float4*>(p.part_dk + row * DQ + d8);
+      const float4 k1 = *reinterpret_cast<const float4*>(p.part_dk + row * DQ + d8 + 4);
+      sk[0] += k0.x; sk[1] += k0.y; sk[2] += k0.z; sk[3] += k0.w;
+      sk[4] += k1.x; sk[5] += k1.y; sk[6] += k1.z; sk[7] += k1.w;
+    }
+    if (of_v) {
+      const float4 v0 = *reinterpret_cast<const float4*>(p.part_dv + row * DV + v8);
+      const float4 v1 = *reinterpret_cast<const float4*>(p.part_dv + row * DV + v8 + 4);
+      sv[0] += v0.x; sv[1] += v0.y; sv[2] += v0.z; sv[3] += v0.w;
+      sv[4] += v1.x; sv[5] += v1.y; sv[6] += v1.z; sv[7] += v1.w;
+    }
   }
-  const uint4 ok = make_uint4(pack_bf16(sk[0], sk[1]), pack_bf16(sk[2], sk[3]),
-                              pack_bf16(sk[4], sk[5]), pack_bf16(sk[6], sk[7]));
-  const uint4 ov = make_uint4(pack_bf16(sv[0], sv[1]), pack_bf16(sv[2], sv[3]),
-                              pack_bf16(sv[4], sv[5]), pack_bf16(sv[6], sv[7]));
-  *reinterpret_cast<uint4*>(p.dk + b * p.dk_st[0] + hk * p.dk_st[1] + k * p.dk_st[2] + d8) = ok;
-  *reinterpret_cast<uint4*>(p.dv + b * p.dv_st[0] + hk * p.dv_st[1] + k * p.dv_st[2] + d8) = ov;
+  if (of_k)
+    *reinterpret_cast<uint4*>(p.dk + b * p.dk_st[0] + hk * p.dk_st[1] + k * p.dk_st[2] + d8) =
+        make_uint4(pack_bf16(sk[0], sk[1]), pack_bf16(sk[2], sk[3]), pack_bf16(sk[4], sk[5]),
+                   pack_bf16(sk[6], sk[7]));
+  if (of_v)
+    *reinterpret_cast<uint4*>(p.dv + b * p.dv_st[0] + hk * p.dv_st[1] + k * p.dv_st[2] + v8) =
+        make_uint4(pack_bf16(sv[0], sv[1]), pack_bf16(sv[2], sv[3]), pack_bf16(sv[4], sv[5]),
+                   pack_bf16(sv[6], sv[7]));
 }
 
 // One block a (batch, q head, q tile): dQ of the tile.  Thread (warp w, lane
 // l) holds q rows 16w + l/4 (+ 8) of the tile, kv columns 8j + 2(l%4) (+ 1)
-// of S and dP, and the same rows of dQ.
-template <int D>
-__global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
+// of S and dP, and the same rows of dQ.  One warpgroup at every width: at D
+// 256 dQ (128), S and dP (64) and dS's bf16 half (16) fit a thread's 255
+// registers, with one block an SM; at (192, 128) two blocks of a one-stage
+// ring share an SM.
+template <int DQ, int DV>
+__global__ void __launch_bounds__(BwdPlan<DQ, DV>::DQ_THREADS, BwdPlan<DQ, DV>::DQ_BLOCKS)
     flash_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tdo, const WgParams p) {
-  using P = BwdPlan<D>;
-  constexpr int ST = P::STAGES, CH = P::CH, TILE = P::TILE;
+  using P = BwdPlan<DQ, DV>;
+  constexpr int ST = P::DQ_STAGES, TQ = P::TQ, TV = P::TV;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   if (smem_u32(smem_raw) & 1023) __trap();
-  uint8_t* q_s = smem_raw;                 // [CH][64 rows][128 B]
-  uint8_t* g_s = q_s + TILE;               // dO
-  uint8_t* k_s = g_s + TILE;               // [ST] tiles
-  uint8_t* v_s = k_s + ST * TILE;          // [ST] tiles
-  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + ST * TILE);
+  uint8_t* q_s = smem_raw;                 // [CH_Q][64 rows][128 B]
+  uint8_t* g_s = q_s + TQ;                 // dO, [CH_V][64 rows][128 B]
+  uint8_t* k_s = g_s + TV;                 // [ST] tiles of TQ
+  uint8_t* v_s = k_s + ST * TQ;            // [ST] tiles of TV
+  uint64_t* full = reinterpret_cast<uint64_t*>(v_s + ST * TV);
   uint64_t* qg_full = full + ST;
 
   // every head's last q tile first: under a causal mask the last q tiles see the most keys
@@ -757,12 +882,13 @@ __global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
   // thread 0: kv tile j of the walk into stage j % ST
   auto load_kv = [&](int j) {
     const int s = j % ST, k0 = k_first + j * 64;
-    mbar_arrive_expect_tx(&full[s], 2 * TILE);
+    mbar_arrive_expect_tx(&full[s], TQ + TV);
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      tma_load_4d(k_s + s * TILE + c * 64 * 128, &tk, &full[s], c * 64, k0, hk, b);
-      tma_load_4d(v_s + s * TILE + c * 64 * 128, &tv, &full[s], c * 64, k0, hk, b);
-    }
+    for (int c = 0; c < P::CH_Q; ++c)
+      tma_load_4d(k_s + s * TQ + c * 64 * 128, &tk, &full[s], c * 64, k0, hk, b);
+#pragma unroll
+    for (int c = 0; c < P::CH_V; ++c)
+      tma_load_4d(v_s + s * TV + c * 64 * 128, &tv, &full[s], c * 64, k0, hk, b);
   };
   if (t == 0) {
 #pragma unroll
@@ -772,12 +898,11 @@ __global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
   }
   __syncthreads();
   if (t == 0 && n > 0) {
-    mbar_arrive_expect_tx(qg_full, 2 * TILE);
+    mbar_arrive_expect_tx(qg_full, TQ + TV);
 #pragma unroll
-    for (int c = 0; c < CH; ++c) {
-      tma_load_4d(q_s + c * 64 * 128, &tq, qg_full, c * 64, q0, h, b);
-      tma_load_4d(g_s + c * 64 * 128, &tdo, qg_full, c * 64, q0, h, b);
-    }
+    for (int c = 0; c < P::CH_Q; ++c) tma_load_4d(q_s + c * 64 * 128, &tq, qg_full, c * 64, q0, h, b);
+#pragma unroll
+    for (int c = 0; c < P::CH_V; ++c) tma_load_4d(g_s + c * 64 * 128, &tdo, qg_full, c * 64, q0, h, b);
     for (int j = 0; j < n && j < ST; ++j) load_kv(j);
   }
 
@@ -791,20 +916,20 @@ __global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
     l2[hh] = p.lse2[row0 + r0 + 8 * hh];
     dl[hh] = p.delta[row0 + r0 + 8 * hh];
   }
-  float dq[D / 2];
+  float dq[DQ / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < DQ / 2; ++i) dq[i] = 0.f;
   const uint32_t q_addr = smem_u32(q_s), g_addr = smem_u32(g_s);
   if (n > 0) mbar_wait(qg_full, 0);
 
   for (int j = 0; j < n; ++j) {
     const int s = j % ST, k0 = k_first + j * 64;
-    const uint32_t k_addr = smem_u32(k_s + s * TILE), v_addr = smem_u32(v_s + s * TILE);
+    const uint32_t k_addr = smem_u32(k_s + s * TQ), v_addr = smem_u32(v_s + s * TV);
     float sc[32], dp[32];
     uint32_t sa[16];
     mbar_wait(&full[s], (j / ST) & 1);
-    issue_qk<D, 64>(sc, q_addr, k_addr);    // S = Q K^T
-    issue_qk<D, 64>(dp, g_addr, v_addr);    // dP = dO V^T
+    issue_qk<DQ, 64>(sc, q_addr, k_addr);   // S = Q K^T
+    issue_qk<DV, 64>(dp, g_addr, v_addr);   // dP = dO V^T
     wgmma_wait<0>();
     fence_all<32>(sc);
     fence_all<32>(dp);
@@ -822,9 +947,9 @@ __global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
           dp[i] = pt * (dp[i] - dl[hh]);
         }
     frag_to_a(sa, dp);
-    issue_pv<D, 64>(dq, sa, k_addr);        // dQ += dS K, K read MN-major
+    issue_pv<DQ, 64>(dq, sa, k_addr);       // dQ += dS K, K read MN-major
     wgmma_wait<0>();
-    fence_all<D / 2>(dq);
+    fence_all<DQ / 2>(dq);
     __syncthreads();                        // every warp is done with stage s
     if (t == 0 && j + ST < n) load_kv(j + ST);
   }
@@ -835,7 +960,7 @@ __global__ void __launch_bounds__(BwdPlan<D>::THREADS, BwdPlan<D>::MIN_BLOCKS)
     if (q >= p.Sq) continue;
     __nv_bfloat16* dqp = p.dq + b * p.dq_st[0] + h * p.dq_st[1] + q * p.dq_st[2];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
+    for (int i = 0; i < DQ / 8; ++i)
       *reinterpret_cast<uint32_t*>(dqp + 8 * i + cq) =
           pack_bf16(dq[4 * i + 2 * hh] * p.scale, dq[4 * i + 2 * hh + 1] * p.scale);
   }
@@ -850,16 +975,16 @@ static cudaError_t allow_smem(K kernel, size_t bytes) {
 
 // The workspace of a launch, carved in this order: the FMA path's delta of
 // (B, H, Sq) rows; or the tensor-core path's delta and lse (log2 units) of
-// (B, H, Sq_pad) rows, then for G > 1 each q head's partial dK and dV, (B, H,
-// Sk, D) fp32 each.  Every part starts on 256 bytes.
+// (B, H, Sq_pad) rows, then for G > 1 each q head's partial dK (B, H, Sk, D)
+// and dV (B, H, Sk, Dv), fp32.  Every part starts on 256 bytes.
 // kernels/flash_attention.py `bwd_workspace_bytes` mirrors the total.
 struct BwdWs {
   long long lse2, part, total;
 };
-static BwdWs bwd_workspace(int B, int H, int Hkv, int Sq, int Sk, int D, bool wg) {
+static BwdWs bwd_workspace(int B, int H, int Hkv, int Sq, int Sk, int D, int Dv, bool wg) {
   if (!wg) return BwdWs{0, 0, (long long)B * H * Sq * 4};
   const long long rows = (long long)B * H * ((Sq + 63) / 64 * 64) * 4;
-  const long long part = H > Hkv ? 2LL * B * H * Sk * D * 4 : 0;
+  const long long part = H > Hkv ? (long long)B * H * Sk * (D + Dv) * 4 : 0;
   return BwdWs{rows, 2 * rows, 2 * rows + part};
 }
 
@@ -898,28 +1023,28 @@ static cudaError_t run_bwd(const BwdParams& p, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// the (q/k, v) head dims of the FMA kernels: one head dim, or MLA's
-#define FMA_DIMS(X) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
+// the (q/k, v) head dims of both paths: one head dim, or MLA's
+#define BWD_DIMS(X) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
 
 template <typename T>
 static cudaError_t run_bwd_d(const BwdParams& p, int B, int D, int Dv, cudaStream_t s) {
 #define RUN(dq, dv) if (D == dq && Dv == dv) return run_bwd<T, dq, dv>(p, B, s);
-  FMA_DIMS(RUN)
+  BWD_DIMS(RUN)
 #undef RUN
   return cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int DQ, int DV>
 static cudaError_t run_bwd_wg(const BwdParams& f, int B, uint8_t* ws, cudaStream_t s) {
-  using P = BwdPlan<D>;
+  using P = BwdPlan<DQ, DV>;
   static bool attr_set = false;
   cudaError_t e;
   if (!attr_set) {
-    if ((e = allow_smem(flash_bwd_dkdv_wg_kernel<D>, P::SMEM_DKDV)) != cudaSuccess) return e;
-    if ((e = allow_smem(flash_bwd_dq_wg_kernel<D>, P::SMEM_DQ)) != cudaSuccess) return e;
+    if ((e = allow_smem(flash_bwd_dkdv_wg_kernel<DQ, DV>, P::SMEM_DKDV)) != cudaSuccess) return e;
+    if ((e = allow_smem(flash_bwd_dq_wg_kernel<DQ, DV>, P::SMEM_DQ)) != cudaSuccess) return e;
     attr_set = true;
   }
-  const BwdWs w = bwd_workspace(B, f.H, f.Hkv, f.Sq, f.Sk, D, true);
+  const BwdWs w = bwd_workspace(B, f.H, f.Hkv, f.Sq, f.Sk, DQ, DV, true);
   WgParams p;
   p.dq = (__nv_bfloat16*)f.t[T_DQ];
   p.dk = (__nv_bfloat16*)f.t[T_DK];
@@ -940,29 +1065,29 @@ static cudaError_t run_bwd_wg(const BwdParams& f, int B, uint8_t* ws, cudaStream
   p.lse2 = lse2;
   const bool grouped = f.H > f.Hkv;
   p.part_dk = grouped ? reinterpret_cast<float*>(ws + w.part) : nullptr;
-  p.part_dv = grouped ? p.part_dk + (long long)B * f.H * f.Sk * D : nullptr;
+  p.part_dv = grouped ? p.part_dk + (long long)B * f.H * f.Sk * DQ : nullptr;
   CUtensorMap tq, tk, tv, tdo;
   const long long* st = &f.st[0][0];
-  if (!make_map(&tq, f.t[T_Q], B, f.H, f.Sq, D, st[3 * T_Q], st[3 * T_Q + 1], st[3 * T_Q + 2], 64) ||
-      !make_map(&tk, f.t[T_K], B, f.Hkv, f.Sk, D, st[3 * T_K], st[3 * T_K + 1], st[3 * T_K + 2], 64) ||
-      !make_map(&tv, f.t[T_V], B, f.Hkv, f.Sk, D, st[3 * T_V], st[3 * T_V + 1], st[3 * T_V + 2], 64) ||
-      !make_map(&tdo, f.t[T_DO], B, f.H, f.Sq, D, st[3 * T_DO], st[3 * T_DO + 1], st[3 * T_DO + 2], 64))
+  if (!make_map(&tq, f.t[T_Q], B, f.H, f.Sq, DQ, st[3 * T_Q], st[3 * T_Q + 1], st[3 * T_Q + 2], 64) ||
+      !make_map(&tk, f.t[T_K], B, f.Hkv, f.Sk, DQ, st[3 * T_K], st[3 * T_K + 1], st[3 * T_K + 2], 64) ||
+      !make_map(&tv, f.t[T_V], B, f.Hkv, f.Sk, DV, st[3 * T_V], st[3 * T_V + 1], st[3 * T_V + 2], 64) ||
+      !make_map(&tdo, f.t[T_DO], B, f.H, f.Sq, DV, st[3 * T_DO], st[3 * T_DO + 1], st[3 * T_DO + 2], 64))
     return cudaErrorInvalidValue;
 
-  const long long lanes = (long long)B * f.H * p.Sq_pad * (D / 8);
-  flash_bwd_delta_wg_kernel<D><<<(unsigned)((lanes + 255) / 256), 256, 0, s>>>(f, p, delta, lse2);
+  const long long lanes = (long long)B * f.H * p.Sq_pad * (DV / 8);
+  flash_bwd_delta_wg_kernel<DV><<<(unsigned)((lanes + 255) / 256), 256, 0, s>>>(f, p, delta, lse2);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const int hb = f.H * B;
-  flash_bwd_dkdv_wg_kernel<D>
-      <<<((f.Sk + 63) / 64) * hb, P::THREADS, P::SMEM_DKDV, s>>>(tq, tk, tv, tdo, p);
+  flash_bwd_dkdv_wg_kernel<DQ, DV>
+      <<<((f.Sk + 63) / 64) * hb, P::DKDV_THREADS, P::SMEM_DKDV, s>>>(tq, tk, tv, tdo, p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if (grouped) {
-    const long long threads = (long long)B * f.Hkv * f.Sk * (D / 8);
-    flash_bwd_sum_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(p);
+    const long long threads = (long long)B * f.Hkv * f.Sk * P::SUM_C8;
+    flash_bwd_sum_kernel<DQ, DV><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
-  flash_bwd_dq_wg_kernel<D>
-      <<<((f.Sq + 63) / 64) * hb, P::THREADS, P::SMEM_DQ, s>>>(tq, tk, tv, tdo, p);
+  flash_bwd_dq_wg_kernel<DQ, DV>
+      <<<((f.Sq + 63) / 64) * hb, P::DQ_THREADS, P::SMEM_DQ, s>>>(tq, tk, tv, tdo, p);
   return cudaGetLastError();
 }
 
@@ -977,8 +1102,13 @@ static bool tc_aligned(const BwdParams& p) {
   return true;
 }
 
+// bf16 at every pair of head dims the kernels take, with aligned views
 static bool takes_wg(int D, int Dv, int dtype, bool aligned) {
-  return dtype == DT_BF16 && D == Dv && (D == 64 || D == 128) && aligned;
+  bool dims = false;
+#define ONE(dq, dv) dims = dims || (D == dq && Dv == dv);
+  BWD_DIMS(ONE)
+#undef ONE
+  return dtype == DT_BF16 && dims && aligned;
 }
 
 // Bytes of workspace a launch of these shapes needs (`aligned`: what
@@ -986,7 +1116,7 @@ static bool takes_wg(int D, int Dv, int dtype, bool aligned) {
 extern "C" long long flash_attention_bwd_workspace(int B, int H, int Hkv, int Sq, int Sk, int D,
                                                    int Dv, int dtype, int aligned) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0) return 0;
-  return bwd_workspace(B, H, Hkv, Sq, Sk, D, takes_wg(D, Dv, dtype, aligned != 0)).total;
+  return bwd_workspace(B, H, Hkv, Sq, Sk, D, Dv, takes_wg(D, Dv, dtype, aligned != 0)).total;
 }
 
 // ptrs[8]: q, k, v, o, dO, dq, dk, dv, each (B, heads, S, head dim) of
@@ -1013,12 +1143,14 @@ extern "C" int flash_attention_bwd_launch(void* const* ptrs, const long long* st
   p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
   p.causal = causal; p.window = window; p.scale = scale;
   const bool wg = takes_wg(D, Dv, dtype, tc_aligned(p));
-  if (ws == nullptr || ws_bytes < bwd_workspace(B, H, Hkv, Sq, Sk, D, wg).total)
+  if (ws == nullptr || ws_bytes < bwd_workspace(B, H, Hkv, Sq, Sk, D, Dv, wg).total)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (wg) {
-    if (D == 64) return (int)run_bwd_wg<64>(p, B, reinterpret_cast<uint8_t*>(ws), s);
-    return (int)run_bwd_wg<128>(p, B, reinterpret_cast<uint8_t*>(ws), s);
+    uint8_t* w = reinterpret_cast<uint8_t*>(ws);
+#define RUN(dq, dv) if (D == dq && Dv == dv) return (int)run_bwd_wg<dq, dv>(p, B, w, s);
+    BWD_DIMS(RUN)
+#undef RUN
   }
   if (dtype == DT_F32) return (int)run_bwd_d<float>(p, B, D, Dv, s);
   if (dtype == DT_BF16) return (int)run_bwd_d<__nv_bfloat16>(p, B, D, Dv, s);
@@ -1036,23 +1168,26 @@ extern "C" int flash_attention_bwd_fma_plan(int D, int Dv, int* out) {
     out[2] = (int)FmaPlan<dq, dv>::DQ_BYTES;                                 \
     return 0;                                                                \
   }
-  FMA_DIMS(PLAN)
+  BWD_DIMS(PLAN)
 #undef PLAN
   return -1;
 }
 
-// The tensor-core kernels' plan for D: {q rows, kv rows, stages, threads,
+// The tensor-core kernels' plan for (D, Dv): {q rows, kv rows, dK/dV ring
+// stages, dK/dV threads, dK/dV blocks an SM, dQ ring stages, dQ threads, dQ
 // blocks an SM, dK/dV shared-memory bytes, dQ shared-memory bytes} into
-// out[7].  Returns 0, or -1 for a D the tensor-core path does not take.
-template <int D> static void bwd_plan_of(int* out) {
-  using P = BwdPlan<D>;
-  out[0] = P::BQ; out[1] = P::BKV; out[2] = P::STAGES; out[3] = P::THREADS;
-  out[4] = P::MIN_BLOCKS; out[5] = P::SMEM_DKDV; out[6] = P::SMEM_DQ;
-}
-extern "C" int flash_attention_bwd_plan(int D, int* out) {
-  switch (D) {
-    case 64: bwd_plan_of<64>(out); return 0;
-    case 128: bwd_plan_of<128>(out); return 0;
-    default: return -1;
+// out[10].  Returns 0, or -1 for dims the tensor-core path does not take.
+extern "C" int flash_attention_bwd_plan(int D, int Dv, int* out) {
+#define PLAN(dq, dv)                                                         \
+  if (D == dq && Dv == dv) {                                                 \
+    using P = BwdPlan<dq, dv>;                                               \
+    out[0] = P::BQ; out[1] = P::BKV; out[2] = P::STAGES;                     \
+    out[3] = P::DKDV_THREADS; out[4] = P::DKDV_BLOCKS;                       \
+    out[5] = P::DQ_STAGES; out[6] = P::DQ_THREADS; out[7] = P::DQ_BLOCKS;    \
+    out[8] = P::SMEM_DKDV; out[9] = P::SMEM_DQ;                              \
+    return 0;                                                                \
   }
+  BWD_DIMS(PLAN)
+#undef PLAN
+  return -1;
 }

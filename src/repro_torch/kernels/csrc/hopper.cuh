@@ -91,6 +91,18 @@ __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// ---- named barriers between warpgroups -------------------------------------
+
+// Barrier `id` (1-15; 0 is __syncthreads) of `threads` threads: sync waits for
+// all of them, arrive counts this thread in and goes on.  What a thread wrote
+// to shared memory before it arrived is seen by a thread after its sync.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- register rebalancing between warpgroups ------------------------------
 
 template <int N> __device__ __forceinline__ void reg_dealloc() {
@@ -192,6 +204,26 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 192] (+)= A[64 x 16] * B[16 x 192]; A from registers (bf16 pairs), B from
+// shared memory, MN-major (transposed): the backward's dK += dS^T Q and dQ += dS K
+// at MLA's q/k head dim.
+__device__ __forceinline__ void wgmma_rs_n192(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : WG_F64(0), WG_F32(64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 256] (+)= A[64 x 16] * B[16 x 256]; A from registers (bf16 pairs), B from
 // shared memory, MN-major (transposed).
 __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t db, int accumulate) {
@@ -223,8 +255,10 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint6
 
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int acc) {
+  static_assert(N == 64 || N == 128 || N == 192 || N == 256, "wgmma_rs widths");
   if constexpr (N == 64) wgmma_rs_n64(d, a, db, acc);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, db, acc);
+  else if constexpr (N == 192) wgmma_rs_n192(d, a, db, acc);
   else wgmma_rs_n256(d, a, db, acc);
 }
 

@@ -9,8 +9,8 @@ given ``lse`` it launches the variant that also writes the row log-sum-exp.
 The backward (``csrc/flash_attention_bwd.cu``, which the reference does not
 have): a delta kernel, a dK/dV kernel of one block a (batch, q head, kv
 tile) that walks the q tiles seeing it, a sum of the group's partial dK/dV in
-head order, and a dQ kernel that walks the kv tiles; for bf16 at D 64/128
-TMA loads and ``wgmma`` products (:func:`bwd_tile_plan`, the walks
+head order, and a dQ kernel that walks the kv tiles; for bf16 with aligned
+views TMA loads and ``wgmma`` products (:func:`bwd_tile_plan`, the walks
 :func:`bwd_q_tiles` / :func:`bwd_kv_tiles`), otherwise fp32 FMAs
 (:func:`bwd_fma_plan`).  They take
 strides, so the model's ``(B,S,H,D)`` tensors are passed as permuted views
@@ -19,8 +19,8 @@ raises; only a tensor on the CPU takes the plain version.  The autograd glue
 is ``ops.flash_attention_bshd``.
 
 Both take one head dim for q, k and v (``SUPPORTED_D``), or MLA's dims
-(``MLA_D``): q and k at 192, v at 128, the output and its gradient at v's;
-the backward at MLA's dims on the FMA kernels.  Any other pair raises.
+(``MLA_D``): q and k at 192, v at 128, the output and its gradient at v's.
+Any other pair raises.
 """
 from __future__ import annotations
 
@@ -61,24 +61,36 @@ def tile_plan(D: int, Dv: int | None = None) -> dict[str, int]:
             "blocks_per_sm": 2 if 2 * (smem + 1024) <= SM_SMEM else 1, "smem_bytes": smem}
 
 
-BWD_TC_D = (64, 128)     # head dims of the backward's tensor-core path (bf16, aligned views)
+# (q/k, v) head dims of the backward's tensor-core path (bf16, aligned views)
+BWD_TC_DIMS = ((64, 64), (128, 128), (256, 256), MLA_D)
 BWD_TILE = 64            # q rows and kv rows of the tensor-core backward's tiles
 
 
-def bwd_tile_plan(D: int) -> dict[str, int]:
-    """The tensor-core backward's plan for head dim ``D`` (``BwdPlan`` in
-    the source): q rows and kv rows a tile, stages of each kernel's ring,
-    threads (one warpgroup), blocks an SM it is built for, and the dK/dV and
-    dQ kernels' shared-memory bytes (K and V, a ring of Q, dO and their 64
-    rows of lse and delta, 64 of barriers; Q and dO, a ring of K and V, 64 of
+def bwd_tile_plan(D: int, Dv: int | None = None) -> dict[str, int]:
+    """The tensor-core backward's plan for q/k head dim ``D`` and v head dim
+    ``Dv`` (default ``D``; ``BwdPlan`` in the source): q rows and kv rows a
+    tile; the dK/dV kernel's ring stages, threads and blocks an SM (one
+    warpgroup, two an SM, up to a head dim of 128; above it two warpgroups,
+    one owning dV and P^T, the other dK and dS^T, one block an SM); the dQ
+    kernel's (one warpgroup; two stages and two blocks an SM up to 128, one
+    block at D 256, one stage and two blocks at ``MLA_D``); and the two
+    kernels' shared-memory bytes (K and V, a ring of Q, dO and their 64 rows
+    of lse and delta, above 128 a 64 x 64 fp32 P^T handed between the
+    warpgroups, 64 of barriers; Q and dO, a ring of K and V, 64 of
     barriers)."""
-    if D not in BWD_TC_D:
-        raise ValueError(f"flash_attention_bwd: no tensor-core plan for D={D}")
-    tile, stages = BWD_TILE * D * 2, 2
-    return {"q_rows": BWD_TILE, "kv_rows": BWD_TILE, "stages": stages, "threads": 128,
-            "blocks_per_sm": 2,
-            "smem_dkdv": (2 + 2 * stages) * tile + 2 * stages * BWD_TILE * 4 + 64,
-            "smem_dq": (2 + 2 * stages) * tile + 64}
+    Dv = D if Dv is None else Dv
+    if (D, Dv) not in BWD_TC_DIMS:
+        raise ValueError(f"flash_attention_bwd: no tensor-core plan for D={D}, Dv={Dv}")
+    split, stages = D > 128, 2
+    dq_stages = stages if D == Dv else 1
+    tile = BWD_TILE * (D + Dv) * 2          # a 64-row tile of Q and of dO (or of K and V)
+    return {"q_rows": BWD_TILE, "kv_rows": BWD_TILE, "stages": stages,
+            "dkdv_threads": 256 if split else 128, "dkdv_blocks_per_sm": 1 if split else 2,
+            "dq_stages": dq_stages, "dq_threads": 128,
+            "dq_blocks_per_sm": 1 if D == Dv and D > 128 else 2,
+            "smem_dkdv": (1 + stages) * tile + (BWD_TILE * BWD_TILE * 4 if split else 0)
+                         + 2 * stages * BWD_TILE * 4 + 64,
+            "smem_dq": (1 + dq_stages) * tile + 64}
 
 
 def bwd_fma_plan(D: int, Dv: int | None = None) -> dict[str, int]:
@@ -138,15 +150,15 @@ def bwd_workspace_bytes(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
     """Bytes of scratch the backward needs (``bwd_workspace`` in the
     source): the FMA path's delta, (B,H,Sq) fp32; the tensor-core path's
     delta and log2-unit lse over q rows padded to whole tiles, and for G > 1
-    each q head's partial dK and dV, (B,H,Sk,D) fp32 each.  The tensor-core
-    path takes bf16 at one head dim (``Dv`` None or D) of 64 or 128 with
-    every operand's base on 16 bytes and its strides multiples of 8 elements
-    (``aligned``; ``takes_wg`` in the source)."""
+    each q head's partial dK (B,H,Sk,D) and dV (B,H,Sk,Dv) in fp32.  The
+    tensor-core path takes bf16 at the dims of ``BWD_TC_DIMS`` (``Dv`` None
+    for one head dim) with every operand's base on 16 bytes and its strides
+    multiples of 8 elements (``aligned``; ``takes_wg`` in the source)."""
     Dv = D if Dv is None else Dv
-    if not (dtype == torch.bfloat16 and D == Dv and D in BWD_TC_D and aligned):
+    if not (dtype == torch.bfloat16 and (D, Dv) in BWD_TC_DIMS and aligned):
         return B * H * Sq * 4
     rows = B * H * -(-Sq // BWD_TILE) * BWD_TILE * 4
-    return 2 * rows + (2 * B * H * Sk * D * 4 if H > Hkv else 0)
+    return 2 * rows + (B * H * Sk * (D + Dv) * 4 if H > Hkv else 0)
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -317,7 +329,7 @@ def _bwd_lib():
         lib.flash_attention_bwd_launch.argtypes = (
             [vp, vp, vp, vp, ll] + [ci] * 9 + [ctypes.c_float, ci, vp])
         lib.flash_attention_bwd_launch.restype = ci
-        lib.flash_attention_bwd_plan.argtypes = [ci, ctypes.POINTER(ci)]
+        lib.flash_attention_bwd_plan.argtypes = [ci, ci, ctypes.POINTER(ci)]
         lib.flash_attention_bwd_plan.restype = ci
         lib.flash_attention_bwd_fma_plan.argtypes = [ci, ci, ctypes.POINTER(ci)]
         lib.flash_attention_bwd_fma_plan.restype = ci
@@ -326,13 +338,15 @@ def _bwd_lib():
     return lib
 
 
-def kernel_bwd_plan(D: int) -> dict[str, int]:
+def kernel_bwd_plan(D: int, Dv: int | None = None) -> dict[str, int]:
     """:func:`bwd_tile_plan` as the compiled kernels report it (needs the library)."""
-    out = (ctypes.c_int * 7)()
-    if _bwd_lib().flash_attention_bwd_plan(D, out) != 0:
-        raise ValueError(f"flash_attention_bwd: no tensor-core plan for D={D}")
-    return dict(zip(("q_rows", "kv_rows", "stages", "threads", "blocks_per_sm", "smem_dkdv",
-                     "smem_dq"), out))
+    Dv = D if Dv is None else Dv
+    out = (ctypes.c_int * 10)()
+    if _bwd_lib().flash_attention_bwd_plan(D, Dv, out) != 0:
+        raise ValueError(f"flash_attention_bwd: no tensor-core plan for D={D}, Dv={Dv}")
+    return dict(zip(("q_rows", "kv_rows", "stages", "dkdv_threads", "dkdv_blocks_per_sm",
+                     "dq_stages", "dq_threads", "dq_blocks_per_sm", "smem_dkdv", "smem_dq"),
+                    out))
 
 
 def kernel_bwd_fma_plan(D: int, Dv: int | None = None) -> dict[str, int]:

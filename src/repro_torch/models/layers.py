@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 
 import torch
@@ -384,7 +385,7 @@ def attention(q, k, v, *, q_offset=0, causal=True, window=0, kv_valid_len=None,
               soft_cap=soft_cap, scale=scale)
     if is_dtensor(q):
         return _sharded_attention(q, k, v, strategy=strategy, q_block=q_block,
-                                  kv_block=kv_block, score_dtype=score_dtype, **kw)
+                                  kv_block=kv_block, score_dtype=score_dtype, plain=plain, **kw)
     if strategy == "kernel":
         return _attend_kernel(q, k, v, plain=plain, **kw)
     if strategy == "blockwise":
@@ -396,28 +397,33 @@ def attention(q, k, v, *, q_offset=0, causal=True, window=0, kv_valid_len=None,
 
 
 def _sharded_attention(q, k, v, *, strategy, q_block, kv_block, score_dtype, q_offset,
-                       kv_valid_len, **kw):
+                       kv_valid_len, plain, **kw):
     """Attention over DTensors.  Where k and v keep every kv row on each rank
     (batch and heads sharded, or the q sequence: context parallelism), the
     attention is local, as GSPMD partitions it, and runs on each rank's
-    shards (``local_map``); a q-sequence shard then starts at its rank's
-    offset and takes every kv block (the reference's single q block, which
-    truncates nothing).  Else (the KV sequence sharded: a decode over
-    ``kv_seq``) the ops run on the DTensors and DTensor places the
-    collectives.  Off the card only: a CUDA DTensor raises."""
+    shards (``local_map``): through K1 or K2 for ``strategy="kernel"`` (the
+    card's; their plain versions on the CPU, as for a plain tensor); a
+    q-sequence shard then starts at its rank's offset and takes every kv
+    block (the reference's single q block, which truncates nothing).  Else
+    (the KV sequence sharded: a decode over ``kv_seq``) the ops run on the
+    DTensors and DTensor places the collectives.  The kernels take neither
+    a sharded KV sequence nor a q-sequence shard: those raise."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    if q.device.type == "cuda":
-        # the card's attention is K1 and K2, which would run here on each
-        # rank's shards under local_map; never a plain stand-in
-        raise NotImplementedError("sharded attention on the card: K1 and K2 under local_map "
-                                  "are not wired; DTensor attention runs off the card only")
-    if strategy not in ("blockwise", "dense"):
+    if strategy == "kernel":
+        fn = functools.partial(_attend_kernel, plain=plain)
+    elif strategy in ("blockwise", "dense"):
+        fn = {"blockwise": attend_blockwise, "dense": attend_dense}[strategy]
+    else:
         raise ValueError(f"unknown attention strategy {strategy!r} for DTensor inputs")
-    fn = {"blockwise": attend_blockwise, "dense": attend_dense}[strategy]
     extra = dict(q_block=q_block, kv_block=kv_block, score_dtype=score_dtype) \
         if strategy == "blockwise" else {}
     if any(p.is_shard(1) for p in (*k.placements, *v.placements)):
+        if strategy == "kernel":
+            raise NotImplementedError(
+                "attention(strategy='kernel') with the KV sequence sharded across ranks: each "
+                "rank's split-KV partials (acc, m, l) of K2 would need a combine across ranks, "
+                "which is not written")
         return fn(q, k, v, q_offset=q_offset, kv_valid_len=kv_valid_len, **extra, **kw)
     mesh = q.device_mesh
     # q, v and the valid lengths sharded as k on batch and kv heads; q keeps
@@ -425,11 +431,16 @@ def _sharded_attention(q, k, v, *, strategy, q_block, kv_block, score_dtype, q_o
     kv_pl = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in k.placements)
     q_pl = tuple(kp if not isinstance(kp, Replicate) else Shard(1) if qp.is_shard(1)
                  else Replicate() for kp, qp in zip(kv_pl, q.placements))
+    seq_dims = [i for i, p in enumerate(q_pl) if p.is_shard(1)]
+    if strategy == "kernel" and (q_offset != 0 or math.prod(mesh.size(i) for i in seq_dims) > 1):
+        raise NotImplementedError(
+            "attention(strategy='kernel') with the q sequence sharded across ranks (context "
+            "parallelism) or a nonzero q_offset: a shard's queries would start at a nonzero "
+            "q_offset, which K1 and K2 do not take")
     q, k, v = (redistribute(t, mesh, pl) for t, pl in ((q, q_pl), (k, kv_pl), (v, kv_pl)))
     if is_dtensor(kv_valid_len):
         kv_valid_len = redistribute(kv_valid_len, mesh,
                                     tuple(p if p.is_shard(0) else Replicate() for p in kv_pl))
-    seq_dims = [i for i, p in enumerate(q.placements) if p.is_shard(1)]
     if seq_dims:
         coord = mesh.get_coordinate()
         idx = 0

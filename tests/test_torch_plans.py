@@ -123,23 +123,68 @@ def test_operand_check_wants_16_byte_strides():
 def test_flash_bwd_tile_plan_fits_shared_memory_and_registers(D):
     plan = fa.bwd_tile_plan(D)
     assert plan["q_rows"] == plan["kv_rows"] == 64 and plan["stages"] >= 2   # wgmma's m64 tiles
-    assert plan["threads"] == 128                                          # one warpgroup
-    for kernel in ("smem_dkdv", "smem_dq"):
-        assert plan[kernel] <= fa.SMEM_LIMIT
-        assert plan["blocks_per_sm"] * (plan[kernel] + 1024) <= fa.SM_SMEM
+    assert plan["dkdv_threads"] == plan["dq_threads"] == 128               # one warpgroup
+    for kernel in ("dkdv", "dq"):
+        assert plan[f"smem_{kernel}"] <= fa.SMEM_LIMIT
+        assert plan[f"{kernel}_blocks_per_sm"] * (plan[f"smem_{kernel}"] + 1024) <= fa.SM_SMEM
     tile = 64 * D * 2
     assert plan["smem_dkdv"] == (2 + 2 * plan["stages"]) * tile + 2 * plan["stages"] * 256 + 64
     assert plan["smem_dq"] == (2 + 2 * plan["stages"]) * tile + 64
     # registers: a thread of the dK/dV warpgroup holds dK and dV of its 2 rows x D/4 columns,
     # S^T and dP^T (32 each) and P^T, dS^T as bf16 pairs (16 each); the launch leaves it 255
-    cap = min(255, 65536 // (plan["threads"] * plan["blocks_per_sm"]))
+    cap = min(255, 65536 // (plan["dkdv_threads"] * plan["dkdv_blocks_per_sm"]))
     assert cap == 255 and 2 * (D // 2) + 2 * 32 + 2 * 16 <= cap - 15
 
 
-@pytest.mark.parametrize("D", [32, 96, 256, 512])
+@pytest.mark.parametrize("D", [32, 96, 160, 512])
 def test_flash_bwd_tile_plan_rejects_what_the_tensor_cores_lack(D):
     with pytest.raises(ValueError):
         fa.bwd_tile_plan(D)
+
+
+@pytest.mark.parametrize("dims", [(256, 256), (192, 128)])
+def test_flash_bwd_split_plan_fits_shared_memory_and_registers(dims):
+    """Above a head dim of 128 the dK/dV block is two warpgroups (one owns dV
+    and P^T, the other dK and dS^T), one block an SM; the dQ block one
+    warpgroup, one block an SM at D 256 and, with a ring of one stage, two
+    at (192, 128).  Shared memory: K and V, two ring stages of Q and dO with
+    their lse and delta rows, the 16 KB of P^T handed between the
+    warpgroups; registers under a thread's 255 less a margin."""
+    D, Dv = dims
+    plan = fa.bwd_tile_plan(D, Dv)
+    assert plan["q_rows"] == plan["kv_rows"] == 64 and plan["stages"] == 2
+    assert (plan["dkdv_threads"], plan["dkdv_blocks_per_sm"]) == (256, 1)
+    assert (plan["dq_threads"], plan["dq_stages"], plan["dq_blocks_per_sm"]) == \
+        ((128, 2, 1) if D == Dv else (128, 1, 2))
+    for kernel in ("dkdv", "dq"):
+        assert plan[f"smem_{kernel}"] <= fa.SMEM_LIMIT
+        assert plan[f"{kernel}_blocks_per_sm"] * (plan[f"smem_{kernel}"] + 1024) <= fa.SM_SMEM
+    assert 2 * (plan["smem_dq"] + 64 * (D + Dv) * 2 + 1024) > fa.SM_SMEM   # two blocks of two
+    tile = 64 * (D + Dv) * 2                                             # stages do not fit
+    assert plan["smem_dkdv"] == 3 * tile + 64 * 64 * 4 + 2 * 2 * 256 + 64
+    assert plan["smem_dq"] == (1 + plan["dq_stages"]) * tile + 64
+    if dims == (256, 256):     # the sizes reckoned for recurrentgemma's and gemma-7b's D
+        assert (plan["smem_dkdv"], plan["smem_dq"]) == (214_080, 196_672)
+    # registers: a dK/dV warpgroup holds one gradient of its 2 rows x D/4 columns (dV or dK),
+    # S^T or dP^T (32) and its bf16 half (16); the dQ warpgroup dQ, S and dP, dS's half
+    for threads, blocks, regs in ((plan["dkdv_threads"], plan["dkdv_blocks_per_sm"],
+                                   max(D, Dv) // 2 + 32 + 16),
+                                  (plan["dq_threads"], plan["dq_blocks_per_sm"],
+                                   D // 2 + 2 * 32 + 16)):
+        cap = min(255, 65536 // (threads * blocks))
+        assert cap == 255 and regs <= cap - 15
+
+
+def test_flash_bwd_block_order_at_a_group_of_16():
+    """recurrentgemma's MQA (16 q heads on one kv head, S 2048): the dK/dV
+    grid has a block a (kv tile, q head), 32 x 16 = 512, where the FMA path's
+    (kv tile, kv head) grid had 64; every head's first kv tile leads."""
+    order = fa.bwd_block_order("dkdv", 1, 16, 2048)
+    assert len(order) == 512 == len(set(order))
+    assert order[:16] == [(0, h, 0) for h in range(16)]
+    assert fa.bwd_fma_plan(256)["kv_rows"] * 64 == 2048      # the FMA path's 64 blocks
+    assert len(fa.bwd_block_order("dq", 1, 16, 2048)) == 512
+    assert fa.bwd_block_order("dq", 1, 16, 2048)[0] == (31, 0, 0)
 
 
 @pytest.mark.parametrize("G", [1, 3, 8])
@@ -151,10 +196,13 @@ def test_flash_bwd_workspace_is_what_each_path_needs(G):
     assert fa.bwd_workspace_bytes(B, H, Hkv, Sq, Sk, D, torch.bfloat16, True) == want
     if G == 3:
         assert want == 50_724_864                                # phi4-mini's train shape
-    # the FMA path (fp32, unaligned views, D = 256) needs delta alone
+    # the FMA path (fp32, unaligned views) needs delta alone; bf16 aligned D = 256 is the
+    # tensor-core path's at its width
     for dtype, aligned, d in ((torch.float32, True, 128), (torch.bfloat16, False, 128),
-                              (torch.bfloat16, True, 256)):
+                              (torch.float32, True, 256), (torch.bfloat16, False, 256)):
         assert fa.bwd_workspace_bytes(B, H, Hkv, Sq, Sk, d, dtype, aligned) == B * H * Sq * 4
+    assert fa.bwd_workspace_bytes(B, H, Hkv, Sq, Sk, 256, torch.bfloat16, True) == \
+        2 * rows + (2 * B * H * Sk * 256 * 4 if G > 1 else 0)
     ragged = fa.bwd_workspace_bytes(2, 40, 8, 333, 333, 128, torch.bfloat16, True)
     assert ragged == 2 * (2 * 40 * 384 * 4) + 2 * (2 * 40 * 333 * 128 * 4)   # rows padded to 384
     assert all(part % 256 == 0 for part in (2 * 40 * 384 * 4, 2 * 40 * 333 * 128 * 4))
@@ -185,11 +233,18 @@ def test_flash_bwd_takes_no_other_pair_of_head_dims(dims):
 
 
 def test_flash_bwd_workspace_at_mla_dims_is_the_fma_paths():
-    """(192, 128) takes the FMA kernels in every dtype and alignment: delta alone."""
-    for dtype in (torch.bfloat16, torch.float32):
-        for aligned in (True, False):
-            assert fa.bwd_workspace_bytes(1, 128, 128, 2048, 2048, 192, dtype, aligned,
-                                          128) == 128 * 2048 * 4
+    """(192, 128) takes the FMA kernels in fp32 or with views off 16 bytes
+    (delta alone), the tensor-core kernels in bf16 with aligned views: delta
+    and lse rows, and for G > 1 the partial dK at 192 and dV at 128."""
+    rows = 128 * 2048 * 4
+    for dtype, aligned in ((torch.float32, True), (torch.float32, False),
+                           (torch.bfloat16, False)):
+        assert fa.bwd_workspace_bytes(1, 128, 128, 2048, 2048, 192, dtype, aligned,
+                                      128) == rows
+    assert fa.bwd_workspace_bytes(1, 128, 128, 2048, 2048, 192, torch.bfloat16, True,
+                                  128) == 2 * rows                     # G = 1: no partials
+    assert fa.bwd_workspace_bytes(2, 16, 4, 333, 333, 192, torch.bfloat16, True, 128) == \
+        2 * (2 * 16 * 384 * 4) + 2 * 16 * 333 * (192 + 128) * 4
     # one head dim of 128 named twice is the tensor-core path's
     assert fa.bwd_workspace_bytes(1, 24, 8, 2048, 2048, 128, torch.bfloat16, True, 128) == \
         fa.bwd_workspace_bytes(1, 24, 8, 2048, 2048, 128, torch.bfloat16, True)
