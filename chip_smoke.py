@@ -17,7 +17,8 @@ Phases, each printing one JSON object on a line of its own:
   kernels  every kernel against its plain PyTorch version on the card, at the
            shapes the serving path gives it (K1 also at MLA's (192, 128)
            and at recurrentgemma's 16 q heads on one kv head, D 256, with a
-           window; K2 at its group of 16; K1, K2, K3 and the backward kernels
+           window; K2 at its group of 16, on the tensor cores in bf16, and at
+           one sequence of G 16, 7 and 3; K1, K2, K3 and the backward kernels
            at qwen2-vl's G 7 and D 3584) and at edge shapes, in float32
            (tolerance 2e-5: another order of summation) and bfloat16 (2e-2);
            the backward kernels of K1 and K3 at the train path's shapes (K1's
@@ -44,7 +45,10 @@ Phases, each printing one JSON object on a line of its own:
            plans (K1 backward's tiles and workspace too) against what the
            compiled kernels report; a DTensor prefill and decode through
            layers.attention on a one-rank NCCL (1, 1) mesh, through K1 and
-           K2 under local_map, the plain-tensor call's bits
+           K2 under local_map, the plain-tensor call's bits; K2's partial
+           pass and merge timed apart over 16-2048 rows a split (k2_parts,
+           also a phase of its own), and K2 twice from the same inputs at a
+           single sequence of G 16 and at G 7 (the same bits)
   serve    phi4-mini-3.8b at full width and depth, random weights from a
            seed, ServingEngine(slots=8, cache_len=2048), 12 requests of 16 to
            1024 prompt tokens and 32 new tokens each; checks the tokens, the
@@ -219,13 +223,13 @@ Phases, each printing one JSON object on a line of its own:
            same step once more under a sharding env over a (1, 1) mesh of a
            real world of one rank (NCCL): logits bit-equal, launches equal;
            each of the step's 12 K2 calls against the plain version on its
-           own inputs (2e-2, and under a quarter of what one split of 16
-           rows left out moves the plain version by), and the logits
+           own inputs (2e-2, and under a quarter of what 16 rows left out
+           move the plain version by), and the logits
            against the same step through the plain versions: in bfloat16
            the first token equal or a near-tie; in float32 (the weights
-           widened) within 1e-3, which a K2 one split short must exceed; the
-           kernels phase checks K2 at this cell's B1 shape (128 splits) in
-           both types
+           widened) within 1e-3, which a K2 16 rows short must exceed; the
+           kernels phase checks K2 at this cell's B1 shape (16 splits of 128
+           rows) in both types
   griffin_train recurrentgemma-9b trained at full width and depth (after
            dryrun frees the griffin weights), a line a part: (1) the launcher's
            Trainer with --optimizer adafactor (AdamW's 12 bytes a parameter
@@ -736,14 +740,14 @@ def check_decode(rng, *, B, H, Hkv, T, D, valid, dtype, timed, bthd=False):
     got = decode_attention(q, k, v, kv_valid_len=vl)
     torch.cuda.synchronize()
     want = decode_attention_plain(q, k, v, kv_valid_len=vl)
-    sm_count, per_sm, rows = dec.kernel_plan(q.device, H // Hkv, D, dtype)
-    head_blocks = dec.head_blocks(Hkv, H // Hkv)
+    sm_count, per_sm, rows, path = dec.kernel_plan(q.device, H // Hkv, D, dtype)
+    head_blocks = dec.head_blocks(Hkv, H // Hkv, dtype)
     ns, chunk = dec.split_plan(B, head_blocks, T, sm_count=sm_count, blocks_per_sm=per_sm,
                                rows_per_iter=rows)
     rec = {"kernel": "decode_attention", "dtype": dt_name(dtype),
            "case": f"B{B} H{H} Hkv{Hkv} T{T} D{D} valid{valid}" + (" bthd" if bthd else ""),
-           "splits": ns, "chunk": chunk, "blocks_per_sm": per_sm, "head_blocks": head_blocks,
-           "max_abs_err": max_err(got, want), "tol": TOL[dtype]}
+           "path": path, "splits": ns, "chunk": chunk, "blocks_per_sm": per_sm,
+           "head_blocks": head_blocks, "max_abs_err": max_err(got, want), "tol": TOL[dtype]}
     if valid is not None and 0 in valid:   # the pinned semantics: a dead row gives 0
         rec["zero_rows_max_abs"] = float(got[[i for i, n in enumerate(valid) if n == 0]]
                                          .float().abs().max())
@@ -759,6 +763,74 @@ def check_decode(rng, *, B, H, Hkv, T, D, valid, dtype, timed, bthd=False):
         rec["library_ms"] = time_ms(sdpa_decode(q, k, v, vl))
         rec["library_device_ms"] = device_ms(sdpa_decode(q, k, v, vl))
     return rec
+
+
+def k2_forced_call(q, k, v, vl, ns: int, chunk: int, merge: bool):
+    """A call of K2's library with a forced split plan (``ns`` splits of
+    ``chunk`` rows), on scratch of its own.  ``merge`` False starts the
+    splits' counters far below 0, so no block finds itself the last one and
+    the call is the partial pass alone (the C entry keeps its arguments
+    across trees of the port, so another tree's K2 runs here too)."""
+    import importlib
+    from repro_torch.kernels import _build
+    dec = importlib.import_module("repro_torch.kernels.decode_attention")
+    B, H, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    acc = torch.empty(B * H * ns * D, dtype=torch.float32, device="cuda")
+    ml = torch.empty(2 * B * H * ns, dtype=torch.float32, device="cuda")
+    counter = torch.full((B * H,), 0 if merge else -(1 << 30), dtype=torch.int32, device="cuda")
+    if vl is None:
+        vl = torch.full((B,), T, dtype=torch.int32, device="cuda")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), vl.data_ptr(), torch.empty_like(q).data_ptr(),
+            acc.data_ptr(), ml.data_ptr(), ml.data_ptr() + 4 * B * H * ns, counter.data_ptr(),
+            B, H, Hkv, T, D, ns, chunk, *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(D),
+            _build.DTYPE_CODES[q.dtype])
+    keep = (acc, ml, counter, vl)
+    return lambda: (_build.launch(dec._lib().decode_attention_launch, q.device, "k2", *args), keep)
+
+
+K2_PARTS_SHAPES = (
+    # (name, B, H, Hkv, T, D, valid): the long_500k cell's decode, recurrentgemma's and
+    # qwen2-vl's serving decode, and phi4-mini's G 3 at B1 (the FMA path in every tree)
+    ("long_500k B1 G16 D256", 1, 16, 1, 2048, 256, [2048]),
+    ("griffin B8 G16 D256 mixed", 8, 16, 1, 2048, 256, [1, 2048, 17, 1024, 300, 2047, 64, 1500]),
+    ("vlm B8 G7 D128 mixed", 8, 28, 4, 2048, 128, [1, 2048, 17, 1024, 300, 2047, 64, 1500]),
+    ("vlm B1 G7 D128", 1, 28, 4, 2048, 128, [2048]),
+    ("phi4 B1 G3 D128", 1, 24, 8, 2048, 128, [2048]),
+)
+
+
+def k2_parts(rng) -> list:
+    """K2's partial pass and its merge measured apart, in bf16 at the shapes
+    of ``K2_PARTS_SHAPES``: for each number of rows a split from 16 to 2048
+    that the kernel's rows an iteration (or a ring stage) divide, the call's
+    device time with the merge and without it (:func:`k2_forced_call`), the
+    difference being the merge's; and the plan's own choice beside SDPA +
+    mask.  Another tree's K2 is measured by running this with
+    ``CHIP_SMOKE_SRC``."""
+    import importlib
+    from repro_torch.kernels import decode_attention
+    dec = importlib.import_module("repro_torch.kernels.decode_attention")
+    out = []
+    for name, B, H, Hkv, T, D, valid in K2_PARTS_SHAPES:
+        q, k, v, vl = decode_inputs(rng, B=B, H=H, Hkv=Hkv, T=T, D=D, valid=valid,
+                                    dtype=torch.bfloat16, bthd=True)
+        rows = dec.kernel_plan(q.device, H // Hkv, D, q.dtype)[2]
+        rec = {"shape": name, "case": f"B{B} H{H} Hkv{Hkv} T{T} D{D} valid{valid}",
+               "rows_per_iter": rows, "sweep": []}
+        for chunk in (16, 32, 64, 128, 256, 512, 1024, 2048):
+            if chunk % rows:
+                continue
+            ns = -(-T // chunk)
+            full = device_ms(k2_forced_call(q, k, v, vl, ns, chunk, merge=True))
+            part = device_ms(k2_forced_call(q, k, v, vl, ns, chunk, merge=False)) \
+                if ns > 1 else full
+            rec["sweep"].append({"chunk": chunk, "splits": ns, "device_ms": full,
+                                 "partial_ms": part, "merge_ms": full - part})
+        rec["plan_device_ms"] = device_ms(lambda: decode_attention(q, k, v, kv_valid_len=vl))
+        rec["sdpa_device_ms"] = device_ms(sdpa_decode(q, k, v, vl))
+        out.append(rec)
+    return out
 
 
 _floor_ms = None
@@ -1030,8 +1102,11 @@ def rms_bwd_parts_times(rng) -> list:
 def determinism_checks(rng) -> list:
     """Each backward twice from the same inputs at its train shape (K1 also
     at a group of 5 and of 1, whose partial sums differ, at MLA's (192, 128)
-    and at a group of 16 at D 256): every output must be the same bits."""
-    from repro_torch.kernels import flash_attention, flash_attention_bwd, rmsnorm_bwd
+    and at a group of 16 at D 256), and K2 twice at a single sequence of a
+    group of 16 and at a batch of a group of 7: every output must be the
+    same bits."""
+    from repro_torch.kernels import (decode_attention, flash_attention, flash_attention_bwd,
+                                     rmsnorm_bwd)
     bf16 = torch.bfloat16
     out = []
     for B, H, Hkv, S in ((1, 24, 8, 2048), (2, 40, 8, 333), (1, 8, 8, 200)):
@@ -1069,6 +1144,15 @@ def determinism_checks(rng) -> list:
     runs = [rmsnorm_bwd(x + r, w, dy, ds=ds) for _ in range(2)]
     out.append({"kernel": "rmsnorm_bwd", "case": "R2048 D3072 with sum",
                 "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))})
+    # K2's merge sums the splits in split order: the long_500k cell's B1 G 16 at D 256
+    # (32 splits) and qwen2-vl's B8 G 7 serving mix, each on the tensor-core kernel
+    for B, H, Hkv, D, valid in ((1, 16, 1, 256, [2048]),
+                                (8, 28, 4, 128, [1, 2048, 17, 1024, 300, 2047, 64, 1500])):
+        q, k, v, vl = decode_inputs(rng, B=B, H=H, Hkv=Hkv, T=2048, D=D, valid=valid,
+                                    dtype=bf16, bthd=True)
+        runs = [decode_attention(q, k, v, kv_valid_len=vl) for _ in range(2)]
+        out.append({"kernel": "decode_attention", "case": f"B{B} H{H} Hkv{Hkv} T2048 D{D} "
+                    f"valid{valid} bthd", "bit_equal": torch.equal(*runs)})
     return out
 
 
@@ -1192,18 +1276,35 @@ def check_plans(recs_plans: dict) -> None:
     for dtype in (torch.bfloat16, torch.float32):
         for D in dec.SUPPORTED_D:
             for G in dec.SUPPORTED_G:
-                sm_count, per_sm, rows = dec.kernel_plan(dev, G, D, dtype)
+                sm_count, per_sm, rows, path = dec.kernel_plan(dev, G, D, dtype)
                 recs_plans[f"decode {dt_name(dtype)} D{D} G{G}"] = {
-                    "sm_count": sm_count, "blocks_per_sm": per_sm, "rows_per_iter": rows}
-                want = dec.rows_per_iter(D, torch.tensor([], dtype=dtype).element_size())
-                if rows != want or per_sm < 1:
+                    "sm_count": sm_count, "blocks_per_sm": per_sm, "rows": rows, "path": path}
+                want = (dec.plan_rows(G, D, dtype), dec.kernel_path(G, dtype))
+                if (rows, path) != want or per_sm < 1:
                     fail(f"decode_attention plan {dt_name(dtype)} D={D} G={G}: kernel "
-                         f"{(per_sm, rows)}, wrapper rows {want}")
-    for G in dec.SUPPORTED_G:
-        mine, theirs = dec.heads_a_block(G), dec.kernel_heads_a_block(G)
-        recs_plans[f"decode heads_a_block G{G}"] = theirs
-        if mine != theirs:
-            fail(f"decode_attention heads a block for G={G}: wrapper {mine}, kernel {theirs}")
+                         f"{(per_sm, rows, path)}, wrapper {want}")
+                if path == "tensor_cores" and D <= 128 and per_sm < 2:
+                    fail(f"decode_attention: the tensor-core kernel at D {D} G {G} holds "
+                         f"{per_sm} block an SM (2 wanted)")
+        for G in dec.SUPPORTED_G:
+            mine, theirs = dec.heads_a_block(G, dtype), dec.kernel_heads_a_block(G, dtype)
+            recs_plans[f"decode heads_a_block {dt_name(dtype)} G{G}"] = theirs
+            if mine != theirs:
+                fail(f"decode_attention heads a block for {dt_name(dtype)} G={G}: wrapper "
+                     f"{mine}, kernel {theirs}")
+    for B in (1, 2, 3, 8, 32, 128):
+        for HB in (1, 2, 4, 8, 16, 20):
+            for T in (1, 63, 64, 300, 448, 1500, 2048, 16384, 524288):
+                for per_sm in (1, 2, 4, 5):
+                    for rows in (8, 16, 32, 64):
+                        mine = dec.split_plan(B, HB, T, sm_count=132, blocks_per_sm=per_sm,
+                                              rows_per_iter=rows)
+                        theirs = dec.kernel_split_plan(B, HB, T, 132, per_sm, rows)
+                        if mine != theirs:
+                            fail(f"decode_attention split plan B{B} HB{HB} T{T} per_sm{per_sm}"
+                                 f" rows{rows}: wrapper {mine}, kernel {theirs}")
+    recs_plans["decode split_plan B1 HB1 T2048 2/SM rows32"] = dec.kernel_split_plan(
+        1, 1, 2048, 132, 2, 32)
 
 
 def phase_kernels():
@@ -1301,8 +1402,9 @@ def phase_kernels():
                                  timed=dtype is bf16, bthd=True))
         if dtype is bf16:
             main["moe_decode_attention"] = recs[-1]
-    # ... at recurrentgemma-9b's (G=16 at D 256: two blocks of 8 heads a kv head), the
-    # serving shape and a ragged ring ...
+    # ... at recurrentgemma-9b's (G=16 at D 256: in bf16 the group in one block on the
+    # tensor cores, in fp32 two blocks of 8 heads a kv head), the serving shape and a
+    # ragged ring ...
     for dtype in (bf16, f32):
         recs.append(check_decode(rng, B=8, H=16, Hkv=1, T=2048, D=256, valid=mixed, dtype=dtype,
                                  timed=dtype is bf16, bthd=True))
@@ -1313,7 +1415,7 @@ def phase_kernels():
     recs.append(check_decode(rng, B=8, H=16, Hkv=1, T=2048, D=256, valid=[2048] * 8, dtype=bf16,
                              timed=True, bthd=True))
     # ... at the dryrun phase's recurrentgemma-9b long_500k decode (B1, the
-    # full ring valid: 128 splits of 16 rows and a 128-way combine) ...
+    # full ring valid: the split floor's 16 splits of 128 rows) ...
     for dtype in (bf16, f32):
         recs.append(check_decode(rng, B=1, H=16, Hkv=1, T=2048, D=256, valid=[2048],
                                  dtype=dtype, timed=dtype is bf16, bthd=True))
@@ -1356,8 +1458,19 @@ def phase_kernels():
                                  dtype=dtype, timed=False))                      # G=2
         recs.append(check_decode(rng, B=128, H=24, Hkv=8, T=256, D=128, valid=None, dtype=dtype,
                                  timed=False, bthd=True))                        # one split
+    # ... at a single sequence with the small groups, which the split floor must cost
+    # nothing: phi4-mini's G 3 (the CUDA-core kernel) and qwen2-vl's G 7 at B1 over the ring
+    for name, H, Hkv in (("b1_g3", 24, 8), ("b1_g7", 28, 4)):
+        for dtype in (bf16, f32):
+            recs.append(check_decode(rng, B=1, H=H, Hkv=Hkv, T=2048, D=128, valid=[2048],
+                                     dtype=dtype, timed=dtype is bf16, bthd=True))
+            if dtype is bf16:
+                main[f"{name}_decode_attention"] = recs[-1]
     if not any(r["splits"] == 1 for r in recs if r["kernel"] == "decode_attention"):
         fail("no decode case ran with a single split")
+    if not {r["path"] for r in recs if r["kernel"] == "decode_attention"} >= {"tensor_cores",
+                                                                               "cuda_cores"}:
+        fail("the decode cases did not run both kernels")
 
     # --- K3 at the serving path's shapes (R = slots or prompt length, D = 3072) ...
     for R in (8, 1000):
@@ -1572,6 +1685,7 @@ def phase_kernels():
         recs.append(check_rmsnorm_bwd(rng, R=64, D=16384, dtype=dtype, w_dtype=dtype,
                                       offset=False, residual=False, timed=False))
     rms_bwd_parts = rms_bwd_parts_times(rng)
+    k2 = k2_parts(np.random.default_rng(SEED + 2))
     determinism = determinism_checks(rng)
     sharded = sharded_attention_check(rng)
 
@@ -1579,21 +1693,23 @@ def phase_kernels():
     bad = [r for r in recs if not (bwd_errs_ok(r) if "row_err" in r               # a NaN is
                                    else r["max_abs_err"] <= r["tol"])]            # bad too
     emit({"phase": "kernels", "plans": plans, "floor_device_ms": launch_floor_ms(),
-          "rmsnorm_plans": rms_plans, "rmsnorm_bwd_parts": rms_bwd_parts,
+          "rmsnorm_plans": rms_plans, "rmsnorm_bwd_parts": rms_bwd_parts, "k2_parts": k2,
           "determinism": determinism, "sharded_attention": sharded, "checks": recs,
           "failed": len(bad)})
     if bad:
         fail(f"{len(bad)} kernel check(s) over tolerance: {bad}")
     if not all(d["bit_equal"] for d in determinism):
-        fail(f"a backward kernel gave other bits on a second run: {determinism}")
+        fail(f"a kernel gave other bits on a second run: {determinism}")
     return recs, main
 
 
 # instructions each library must hold: K1's and its backward's wgmma (HGMMA)
-# and TMA loads (UTMALDG), K3's 16-byte loads and stores
+# and TMA loads (UTMALDG), K3's 16-byte loads and stores, K2's mma.sync (HMMA)
+# and cp.async (LDGSTS)
 SASS_WANTED = {"flash_attention": (r"HGMMA", r"UTMALDG"),
                "flash_attention_bwd": (r"HGMMA", r"UTMALDG"),
-               "rmsnorm": (r"LDG\.E\.128", r"STG\.E\.128")}
+               "rmsnorm": (r"LDG\.E\.128", r"STG\.E\.128"),
+               "decode_attention": (r"HMMA", r"LDGSTS")}
 
 
 # the bf16 forward's instantiations at MLA's dims (mangled: flash_fwd_tc_kernel<192, 128,
@@ -1602,6 +1718,8 @@ MLA_TC_FUNCTION = re.compile(r"flash_fwd_tc_kernelILi192ELi128ELb(\d)E")
 # the bf16 backward's dK/dV and dQ instantiations at (256, 256) and (192, 128) (mangled:
 # flash_bwd_dkdv_wg_kernel<256, 256>), which must each hold them
 BWD_TC_FUNCTION = re.compile(r"flash_bwd_(dkdv|dq)_wg_kernelILi(256|192)ELi(256|128)EE")
+# K2's tensor-core instantiations (decode_tc_kernel<G, D>), each of which must hold them
+DEC_TC_FUNCTION = re.compile(r"decode_tc_kernelILi(\d+)ELi(\d+)EE")
 
 
 def sass_check() -> dict:
@@ -1610,7 +1728,8 @@ def sass_check() -> dict:
     backward's dK/dV and dQ instantiations at (256, 256) and (192, 128); fails
     if one is missing, so a K1 (or its backward at those widths) that quietly
     stopped using the tensor cores or TMA, or a K3 that stopped moving 16
-    bytes a load, does not pass."""
+    bytes a load, does not pass; likewise each of K2's twelve tensor-core
+    instantiations (groups 5, 7, 8, 16 at D 64, 128, 256) on its own."""
     from repro_torch.kernels import _build
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     counts = {}
@@ -1638,11 +1757,44 @@ def sass_check() -> dict:
             if sum(k.startswith("flash_bwd_") for k in counts) != 4:
                 fail(f"the flash backward library lacks its dK/dV and dQ instantiations at "
                      f"(256, 256) and (192, 128): {sorted(counts)}")
+        if name == "decode_attention":
+            for part in sass.split("Function : ")[1:]:
+                m = DEC_TC_FUNCTION.search(part.split("\n", 1)[0])
+                if m:
+                    counts[f"decode_tc_kernel<{m[1]}, {m[2]}>"] = {
+                        op: len(re.findall(rf"\b{op}\b", part)) for op in ops}
+            if sum(k.startswith("decode_tc_kernel") for k in counts) != 12:
+                fail(f"the decode library lacks its twelve tensor-core instantiations: "
+                     f"{sorted(counts)}")
     emit({"phase": "sass", "counts": counts})
     missing = [(name, op) for name, c in counts.items() for op, n in c.items() if n == 0]
     if missing:
         fail(f"instructions missing from the kernel libraries: {missing}")
     return counts
+
+
+def ptxas_report(log: str, function: re.Pattern, label: str) -> dict:
+    """Registers and spill bytes of each instantiation whose mangled name
+    ``function`` matches, from ptxas's ``-v`` report in ``log``:
+    {"label<args>": {"registers", "spill_stores", "spill_loads"}}."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            f = function.search(m[1])
+            name = f"{label}<{', '.join(f.groups())}>" if f else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {})["spill_stores"] = int(m[1])
+            out[name]["spill_loads"] = int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m[1])
+            name = None
+    return out
 
 
 def digest(out) -> str:
@@ -1665,9 +1817,12 @@ def phase_times():
     lse=)`` then ``flash_attention_bwd(q, k, v, o, lse, do, causal=,
     window=)``, K3's ``rmsnorm_bwd(x, w, dy, eps=, offset=, ds=)``): ms and
     device_ms, for K3 the host time of a call, and a digest of every output
-    (K1 in fp32 too), so that two trees' kernels are held bit for bit."""
-    from repro_torch.kernels import (decode_attention, flash_attention, flash_attention_bwd,
-                                     rmsnorm, rmsnorm_bwd)
+    (K1 in fp32 too), so that two trees' kernels are held bit for bit; K2's
+    records also carry their error against the plain version, which holds
+    two trees whose K2 splits or sums otherwise.  K2 at a single sequence
+    and at qwen2-vl's group of 7 come last, from a stream of their own."""
+    from repro_torch.kernels import (decode_attention, decode_attention_plain, flash_attention,
+                                     flash_attention_bwd, rmsnorm, rmsnorm_bwd)
     rng = np.random.default_rng(SEED)
     bf16 = torch.bfloat16
     out = []
@@ -1702,12 +1857,23 @@ def phase_times():
                                                              f"{dt_name(dtype)}",
                         "ms": time_ms(call), "device_ms": device_ms(call),
                         "out_sha": digest(call())})
-    for valid in ([2048] * 8, [1, 2048, 17, 1024, 300, 2047, 64, 1500]):
+    def k2(case, q, k, v, vl, timed=True):
+        # K2's output bits, and its error against the plain version, which holds
+        # two trees whose K2 sums in another order
+        got = decode_attention(q, k, v, kv_valid_len=vl)
+        rec = {"kernel": "decode_attention", "case": case, "out_sha": digest(got),
+               "max_abs_err": max_err(got, decode_attention_plain(q, k, v, kv_valid_len=vl)),
+               "tol": TOL[q.dtype]}
+        if timed:
+            call = lambda: decode_attention(q, k, v, kv_valid_len=vl)  # noqa: E731
+            rec["ms"], rec["device_ms"] = time_ms(call), device_ms(call)
+        return rec
+
+    mixed = [1, 2048, 17, 1024, 300, 2047, 64, 1500]
+    for valid in ([2048] * 8, mixed):
         q, k, v, vl = decode_inputs(rng, B=8, H=24, Hkv=8, T=2048, D=128, valid=valid,
                                     dtype=bf16, bthd=True)
-        call = lambda: decode_attention(q, k, v, kv_valid_len=vl)  # noqa: E731
-        out.append({"kernel": "decode_attention", "case": f"B8 H24 Hkv8 T2048 D128 valid{valid}",
-                    "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call())})
+        out.append(k2(f"B8 H24 Hkv8 T2048 D128 valid{valid}", q, k, v, vl))
     # every group a kernel takes, each head dim, both dtypes, split: the output bits alone
     # (inputs from streams of their own, so that a tree that takes more groups draws the
     # cases after these as every other tree does)
@@ -1719,17 +1885,13 @@ def phase_times():
             for dtype in (bf16, torch.float32):
                 q, k, v, vl = decode_inputs(sweep_rng, B=2, H=2 * G, Hkv=2, T=700, D=D,
                                             valid=[700, 333], dtype=dtype, bthd=True)
-                out.append({"kernel": "decode_attention",
-                            "case": f"B2 H{2 * G} Hkv2 T700 D{D} {dt_name(dtype)}",
-                            "out_sha": digest(decode_attention(q, k, v, kv_valid_len=vl))})
+                out.append(k2(f"B2 H{2 * G} Hkv2 T700 D{D} {dt_name(dtype)}", q, k, v, vl,
+                              timed=False))
     if 16 in dec.SUPPORTED_G:      # recurrentgemma's decode, where the tree takes it
-        for valid in ([2048] * 8, [1, 2048, 17, 1024, 300, 2047, 64, 1500]):
+        for valid in ([2048] * 8, mixed):
             q, k, v, vl = decode_inputs(sweep_rng, B=8, H=16, Hkv=1, T=2048, D=256,
                                         valid=valid, dtype=bf16, bthd=True)
-            call = lambda: decode_attention(q, k, v, kv_valid_len=vl)  # noqa: E731
-            out.append({"kernel": "decode_attention",
-                        "case": f"B8 H16 Hkv1 T2048 D256 valid{valid}", "ms": time_ms(call),
-                        "device_ms": device_ms(call), "out_sha": digest(call())})
+            out.append(k2(f"B8 H16 Hkv1 T2048 D256 valid{valid}", q, k, v, vl))
     for rec, call in k3:
         out.append({**rec, "ms": time_ms(call), "device_ms": device_ms(call),
                     "out_sha": digest(call())})
@@ -1767,6 +1929,18 @@ def phase_times():
         call = lambda: rmsnorm_bwd(x, w, dy, eps=1e-6, offset=False, ds=ds)  # noqa: E731
         out.append({"kernel": "rmsnorm_bwd", "case": "R2048 D3072" + (" with sum" if with_sum else ""),
                     "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call())})
+    # K2 at a single sequence (the long_500k cell's G 16 at D 256, qwen2-vl's G 7 and
+    # phi4-mini's G 3 at D 128), at qwen2-vl's B8 serving mix, and at the serving shapes of
+    # the groups of 1 (olmoe's; whisper's self and cross attention), on a stream of their own
+    k2_rng = np.random.default_rng(SEED + 3)
+    for B, H, Hkv, T, D, valid in ((1, 16, 1, 2048, 256, [2048]), (1, 28, 4, 2048, 128, [2048]),
+                                   (1, 24, 8, 2048, 128, [2048]), (8, 28, 4, 2048, 128, mixed),
+                                   (8, 16, 16, 2048, 128, mixed),
+                                   (8, 20, 20, 448, 64, [1, 448, 17, 200, 127, 447, 64, 300]),
+                                   (8, 20, 20, 1500, 64, None)):
+        q, k, v, vl = decode_inputs(k2_rng, B=B, H=H, Hkv=Hkv, T=T, D=D, valid=valid,
+                                    dtype=bf16, bthd=True)
+        out.append(k2(f"B{B} H{H} Hkv{Hkv} T{T} D{D} valid{valid}", q, k, v, vl))
     emit({"phase": "times", "src": SRC, "records": out, "host_pieces_us": host_pieces_us})
 
 
@@ -1787,16 +1961,24 @@ def phase_baseline(other: str) -> None:
         if res.returncode != 0 or not lines:
             fail(f"baseline run of {src} failed (exit {res.returncode}):\n{res.stderr[-4000:]}")
         runs.append({"tree": label, **json.loads(lines[0])})
-    # every kernel's output bits, this tree's against the other's, case by case (the
-    # cases both trees run: a shape the other tree's kernels do not take is this one's alone)
-    shas = [{(r["kernel"], r["case"]): r.get("out_sha") for r in run["records"]} for run in runs]
+    # every kernel's output bits but K2's, this tree's against the other's, case by case
+    # (the cases both trees run: a shape the other tree's kernels do not take is this
+    # one's alone); K2, whose splits and sums may differ between trees, is held in each
+    # run to its plain version at the kernel tolerance
+    shas = [{(r["kernel"], r["case"]): r.get("out_sha") for r in run["records"]
+             if r["kernel"] != "decode_attention"} for run in runs]
     common = set.intersection(*(set(s_) for s_ in shas))
     differ = [f"{k} {c}" for (k, c) in sorted(common) if len({s_[(k, c)] for s_ in shas}) != 1]
+    k2_over = [f"{run['tree']} {r['case']}: {r['max_abs_err']}" for run in runs
+               for r in run["records"]
+               if r["kernel"] == "decode_attention" and not r["max_abs_err"] <= r["tol"]]
     emit({"phase": "baseline", "runs": runs, "outputs_bit_equal": not differ, "differ": differ,
-          "cases_compared": len(common),
+          "cases_compared": len(common), "k2_over_tolerance": k2_over,
           "this_tree_only": sorted(f"{k} {c}" for (k, c) in set(shas[1]) - common)})
     if differ:
         fail(f"--baseline-src: outputs differ from the other tree's: {differ}")
+    if k2_over:
+        fail(f"--baseline-src: K2 over its tolerance against the plain version: {k2_over}")
 
 
 # --------------------------------------------------------------------------
@@ -2442,7 +2624,7 @@ def kernel_group(name: str) -> str:
         return "K1"
     if "flash_bwd" in name:
         return "K1_bwd"
-    if "decode_kernel" in name:
+    if "decode_kernel" in name or "decode_tc_kernel" in name:
         return "K2"
     if "rmsnorm_kernel" in name:
         return "K3"
@@ -3670,7 +3852,8 @@ def dryrun_cache(cfg, gen):
 def k2_plain_one_split_short():
     """While open, the plain version of K2 that the model calls leaves out
     the last 16 valid rows of each sequence: what a K2 whose combine lost
-    one split of the dryrun cell's plan (128 splits of 16 rows) computes."""
+    one split of 16 rows computes (the dryrun cell's plan now has 16 splits
+    of 128 rows, so losing a whole one moves the output further)."""
     from repro_torch.models import layers as L
     orig = L.decode_attention_plain
 
@@ -3728,9 +3911,9 @@ def dryrun_float32_logits(cfg, params, snapshot, pos, batch) -> dict:
 def dryrun_k2_calls(step, restore) -> dict:
     """K2 held against its plain version at the dryrun cell's own inputs:
     one step from the snapshot with each K2 call's inputs and output kept,
-    then the plain version on each.  Beside it, what a K2 that dropped one
-    split of 16 rows (a 128-way combine short of one) would be off by: the
-    plain version told 16 valid rows fewer.  The kernel's error must lie
+    then the plain version on each.  Beside it, what a K2 that dropped 16
+    rows (an eighth of one of the plan's 16 splits of 128) would be off by:
+    the plain version told 16 valid rows fewer.  The kernel's error must lie
     under the kernel tolerance and under a quarter of the least of those."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import decode_attention_plain
@@ -5120,14 +5303,23 @@ def main(argv=None) -> int:
 
     if "build" in phases:
         logs = _build.build_all(verbose=args.ptxas)
+        rec = {}
         if args.ptxas:
             for name, log in logs.items():
                 print(f"--- nvcc {name}.cu ---\n{log}", file=sys.stderr)
+            rec["decode_tc_ptxas"] = ptxas_report(logs.get("decode_attention", ""),
+                                                  DEC_TC_FUNCTION, "decode_tc_kernel")
         emit({"phase": "build", "seconds": _build.build_seconds, "sources": list(_build.SOURCES),
-              "build_dir": os.path.relpath(_build.build_dir(), HERE)})
+              "build_dir": os.path.relpath(_build.build_dir(), HERE), **rec})
+        spilled = {k: r for k, r in rec.get("decode_tc_ptxas", {}).items()
+                   if r["spill_stores"] or r["spill_loads"]}
+        if spilled:
+            fail(f"K2's tensor-core kernels spill: {spilled}")
         sass_check()
     if "times" in phases:
         phase_times()
+    if "k2_parts" in phases:
+        emit({"phase": "k2_parts", "src": SRC, "k2_parts": k2_parts(np.random.default_rng(SEED + 2))})
     if "serve_measure" in phases:
         phase_serve_measure()
     if args.baseline_src:

@@ -1,13 +1,17 @@
 """Split-KV single-token attention: wrapper, plain versions, launch count.
 
-Counterpart of ``repro/kernels/decode_attention.py``.  One CUDA C++ kernel
+Counterpart of ``repro/kernels/decode_attention.py``.  One CUDA C++ launch
 (``csrc/decode_attention.cu``) computes a partial ``(acc, m, l)`` for each
 (batch, head block, split) and, in the last block of a (batch, head block)
-to finish, combines the splits: one launch a call.  A head block is a kv
-head's group of q heads, or half of a group of 16 (:func:`heads_a_block`).  K and V are read through
-strides, so the model's ``(B,T,Hkv,D)`` cache is passed as a permuted view
-and never copied.  For a CUDA tensor the wrapper launches the kernel or
-raises; only a tensor on the CPU takes the plain versions.
+to finish, combines the splits.  Two kernels take the calls
+(:func:`kernel_path`): bf16 at a group of 5, 7, 8 or 16 runs the group on
+the tensor cores (``mma.sync``) with K and V staged through a ring of
+asynchronous copies; fp32, and bf16 at a group of 1-3, run on the CUDA
+cores.  A head block is a kv head's group of q heads, or half of an fp32
+group of 16 (:func:`heads_a_block`).  K and V are read through strides, so
+the model's ``(B,T,Hkv,D)`` cache is passed as a permuted view and never
+copied.  For a CUDA tensor the wrapper launches the kernel or raises; only
+a tensor on the CPU takes the plain versions.
 """
 from __future__ import annotations
 
@@ -20,33 +24,55 @@ from repro_torch.kernels import _build
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 SUPPORTED_D = (64, 128, 256)
-SUPPORTED_G = (1, 2, 3, 5, 7, 8, 16)   # group sizes the kernel takes
+SUPPORTED_G = (1, 2, 3, 5, 7, 8, 16)   # group sizes the kernels take
+TC_G = (5, 7, 8, 16)               # bf16 groups on the tensor-core kernel
 WARPS = 4                          # warps a block (DEC_WARPS in the source)
+STAGE_ROWS = 32                    # rows a ring stage of the tensor-core kernel (TcPlan::ROWS)
+SPLIT_FLOOR = 128                  # least rows a split (SPLIT_FLOOR in the source)
+MAX_SPLITS = 256                   # most splits a (batch, head block) (MAX_SPLITS)
 DEFAULT_SM_COUNT = 132             # used where no CUDA device is asked (plain version on the CPU)
 DEFAULT_BLOCKS_PER_SM = 4          # likewise; on the card the kernel's measured occupancy
 
 
+def kernel_path(G: int, dtype: torch.dtype) -> str:
+    """Which kernel a group of G in ``dtype`` takes (``tc_path`` in the
+    source): ``"tensor_cores"`` for bf16 at a group of 5, 7, 8 or 16, else
+    ``"cuda_cores"``."""
+    return "tensor_cores" if dtype == torch.bfloat16 and G in TC_G else "cuda_cores"
+
+
 def rows_per_iter(D: int, itemsize: int) -> int:
-    """Rows a block reads an iteration (``DecPlan::ROWS_ITER`` in the
-    source): a row is read in 16-byte loads by ``min(32, D*itemsize/16)``
-    lanes, and each lane keeps 4 loads of K (and 4 of V) in flight."""
+    """Rows a block of the CUDA-core kernel reads an iteration
+    (``DecPlan::ROWS_ITER`` in the source): a row is read in 16-byte loads
+    by ``min(32, D*itemsize/16)`` lanes, and each lane keeps 4 loads of K
+    (and 4 of V) in flight."""
     vec = 16 // itemsize
     lanes_a_row = min(32, D // vec)
     loads_a_row = D // (vec * lanes_a_row)
     return (4 // loads_a_row) * (32 // lanes_a_row) * WARPS
 
 
-def heads_a_block(G: int) -> int:
-    """Q heads a block for a group of G (``heads_a_block`` in the source): a
-    group of 16 is split over two blocks of 8, whose registers and shared
-    memory the 8-head kernel fits; a smaller group is one block's."""
-    return 8 if G == 16 else G
+def plan_rows(G: int, D: int, dtype: torch.dtype) -> int:
+    """Rows a split is a whole number of: a ring stage of the tensor-core
+    kernel (32 at every head dim: 16 KB of K and 16 KB of V at D 256), an
+    iteration of the CUDA-core one."""
+    if kernel_path(G, dtype) == "tensor_cores":
+        return STAGE_ROWS
+    return rows_per_iter(D, torch.tensor([], dtype=dtype).element_size())
 
 
-def head_blocks(Hkv: int, G: int) -> int:
-    """Blocks over the heads of one sequence: one a kv head, two where its
-    group is split."""
-    return Hkv * (G // heads_a_block(G))
+def heads_a_block(G: int, dtype: torch.dtype) -> int:
+    """Q heads a block for a group of G in ``dtype`` (``heads_a_block`` in
+    the source): the whole group, but an fp32 group of 16 is split over two
+    blocks of 8, whose registers and shared memory the 8-head CUDA-core
+    kernel fits."""
+    return 8 if G == 16 and kernel_path(G, dtype) == "cuda_cores" else G
+
+
+def head_blocks(Hkv: int, G: int, dtype: torch.dtype) -> int:
+    """Blocks over the heads of one sequence: one a kv head, two where an
+    fp32 group of 16 is split."""
+    return Hkv * (G // heads_a_block(G, dtype))
 
 
 def split_plan(B: int, Hkv: int, T: int, *, sm_count: int = DEFAULT_SM_COUNT,
@@ -55,12 +81,23 @@ def split_plan(B: int, Hkv: int, T: int, *, sm_count: int = DEFAULT_SM_COUNT,
     """(number of splits, rows a split) for a (B, T, D) cache read by
     ``Hkv`` head blocks a sequence (:func:`head_blocks`).  The splits are as
     many as let B*Hkv*ns blocks fill the card once (``sm_count *
-    blocks_per_sm`` resident blocks), at least one, and each split is a
-    whole number of the block's iterations of ``rows_per_iter`` rows."""
+    blocks_per_sm`` resident blocks), but no split is under ``SPLIT_FLOOR``
+    = 128 rows, there are at most ``MAX_SPLITS`` = 256 and at least one,
+    and each split is a whole number of the kernel's ``rows_per_iter`` rows
+    (an iteration, or a ring stage).  ``split_plan`` in the source is the
+    same rule.  The floor was chosen on an H100 80GB HBM3 by
+    ``chip_smoke.py``'s ``k2_parts``, which times 16 to 2048 rows a split:
+    128 rows was the fastest for both kernels at a single sequence
+    (recurrentgemma's G 16 at D 256, qwen2-vl's G 7 and phi4-mini's G 3 at
+    D 128) and at recurrentgemma's B8 mix, and within 3 % of the fastest
+    (256) at qwen2-vl's B8 mix.  Filling the card alone had given a single
+    sequence 128 splits of 16 rows, whose fp32 partials were as many bytes
+    as the cache.  ``n_splits`` forces a count (still at most
+    ``MAX_SPLITS`` and one a ``rows_per_iter``)."""
     T = max(T, 1)
     if n_splits is None:
-        n_splits = (sm_count * blocks_per_sm) // max(B * Hkv, 1)
-    n_splits = max(1, min(n_splits, -(-T // rows_per_iter)))
+        n_splits = min((sm_count * blocks_per_sm) // max(B * Hkv, 1), T // SPLIT_FLOOR)
+    n_splits = max(1, min(n_splits, MAX_SPLITS, -(-T // rows_per_iter)))
     chunk = -(-T // n_splits)
     chunk = -(-chunk // rows_per_iter) * rows_per_iter
     return -(-T // chunk), chunk
@@ -107,8 +144,9 @@ def decode_attention_plain(q, k, v, *, kv_valid_len=None, scale: float | None = 
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if kv_valid_len is None:
         kv_valid_len = torch.full((B,), T, dtype=torch.int32, device=q.device)
-    ns, chunk = split_plan(B, head_blocks(Hkv, H // Hkv), T,
-                           rows_per_iter=rows_per_iter(D, q.element_size()), n_splits=n_splits)
+    G = H // Hkv
+    ns, chunk = split_plan(B, head_blocks(Hkv, G, q.dtype), T,
+                           rows_per_iter=plan_rows(G, D, q.dtype), n_splits=n_splits)
     o, m, l = decode_partials_plain(q, k, v, kv_valid_len, scale, ns, chunk)
     return combine_splits_plain(o, m, l, q.dtype)
 
@@ -122,33 +160,47 @@ def _lib():
         lib.decode_attention_launch.restype = ci
         lib.decode_attention_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ctypes.c_int)]
         lib.decode_attention_plan.restype = ci
-        lib.decode_attention_heads_a_block.argtypes = [ci]
+        lib.decode_attention_heads_a_block.argtypes = [ci, ci]
         lib.decode_attention_heads_a_block.restype = ci
+        lib.decode_attention_split_plan.argtypes = [ci] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        lib.decode_attention_split_plan.restype = None
     return lib
 
 
-_plans: dict[tuple, tuple[int, int, int]] = {}   # (device, G, D, dtype) -> plan
+_plans: dict[tuple, tuple] = {}                   # (device, G, D, dtype) -> plan
 _scratch: dict[tuple, torch.Tensor] = {}          # (device, B, head blocks, ns, G, D) -> buffer
 
 
-def kernel_heads_a_block(G: int) -> int:
-    """Q heads a block for a group of G, as the compiled library has it (0
-    where it takes no such group)."""
-    return _lib().decode_attention_heads_a_block(G)
+def kernel_heads_a_block(G: int, dtype: torch.dtype) -> int:
+    """Q heads a block for a group of G in ``dtype``, as the compiled
+    library has it (0 where it takes no such group)."""
+    return _lib().decode_attention_heads_a_block(G, _build.DTYPE_CODES[dtype])
 
 
-def kernel_plan(device: torch.device, G: int, D: int, dtype: torch.dtype) -> tuple[int, int, int]:
-    """(SM count, resident blocks an SM, rows a block an iteration) of the
-    kernel for (G, D, dtype) on ``device``, asked of the card once and kept."""
+def kernel_split_plan(B: int, HB: int, T: int, sm_count: int, blocks_per_sm: int,
+                      rows: int) -> tuple[int, int]:
+    """(splits, rows a split) as the compiled library's ``split_plan``
+    has them."""
+    out = (ctypes.c_int * 2)()
+    _lib().decode_attention_split_plan(B, HB, T, sm_count, blocks_per_sm, rows, out)
+    return out[0], out[1]
+
+
+def kernel_plan(device: torch.device, G: int, D: int, dtype: torch.dtype) -> tuple:
+    """(SM count, resident blocks an SM, rows a split is a whole number of,
+    path) of the kernel for (G, D, dtype) on ``device``, asked of the card
+    once and kept; the path is :func:`kernel_path`'s word for the kernel
+    the library chose."""
     key = (device.index, G, D, dtype)
     plan = _plans.get(key)
     if plan is None:
-        out = (ctypes.c_int * 3)()
+        out = (ctypes.c_int * 6)()
         with torch.cuda.device(device):
             _build.check(_lib().decode_attention_plan(G, D, _build.DTYPE_CODES[dtype], out),
                          "decode_attention_plan")
         sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-        plan = _plans[key] = (sm_count, out[0], out[1])
+        plan = _plans[key] = (sm_count, out[0], out[1],
+                              "tensor_cores" if out[3] else "cuda_cores")
     return plan
 
 
@@ -206,8 +258,8 @@ def decode_attention(q, k, v, *, kv_valid_len=None, scale: float | None = None) 
     if B == 0 or T == 0:
         return torch.zeros((B, H, D), dtype=q.dtype, device=q.device)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    sm_count, blocks_per_sm, rows = kernel_plan(q.device, G, D, q.dtype)
-    HB = head_blocks(Hkv, G)
+    sm_count, blocks_per_sm, rows, _ = kernel_plan(q.device, G, D, q.dtype)
+    HB = head_blocks(Hkv, G, q.dtype)
     ns, chunk = split_plan(B, HB, T, sm_count=sm_count, blocks_per_sm=blocks_per_sm,
                            rows_per_iter=rows)
     acc, m, l, counter = _scratch_for(q.device, B, HB, ns, H // HB, D)

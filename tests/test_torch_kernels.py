@@ -18,6 +18,9 @@ from repro_torch.kernels import _build, ops, ref
 
 F32, BF16 = "float32", "bfloat16"
 TOL = {F32: 1e-5, BF16: 2e-2}
+# the plain decode at the split floor's plans against the reference's kernel: float32 at the
+# reference's own 2e-6 (both split and combine in float32, over a few splits)
+DEC_SPLIT_TOL = {F32: 2e-6, BF16: 2e-2}
 JDT = {F32: jnp.float32, BF16: jnp.bfloat16}
 TDT = {F32: torch.float32, BF16: torch.bfloat16}
 
@@ -294,12 +297,53 @@ def test_wrappers_raise_on_a_device_without_a_kernel():
 
 
 def test_split_plan_covers_the_cache():
-    from repro_torch.kernels.decode_attention import split_plan
-    for B, Hkv, T in [(8, 8, 2048), (1, 1, 300), (1, 8, 64), (32, 8, 2048), (2, 2, 1)]:
+    from repro_torch.kernels.decode_attention import SPLIT_FLOOR, split_plan
+    for B, Hkv, T in [(8, 8, 2048), (1, 1, 300), (1, 8, 64), (32, 8, 2048), (2, 2, 1),
+                      (1, 1, 2048), (8, 1, 2048)]:
         ns, chunk = split_plan(B, Hkv, T)
         assert ns >= 1 and (ns - 1) * chunk < T <= ns * chunk
+        assert ns == 1 or chunk >= SPLIT_FLOOR
     assert split_plan(8, 8, 2048)[0] == 8              # 8*8*8 = 512 blocks <= 4 * 132
-    assert split_plan(1, 1, 300)[0] == 10              # no split under one iteration of 32 rows
+    assert split_plan(1, 1, 300)[0] == 2               # no split under the floor of 128 rows
+    assert split_plan(1, 1, 2048) == (16, 128)         # one sequence: the floor, not the card
+
+
+DEC_SPLIT_CASES = [
+    # (B, H, Hkv, T, D, valid, dtype): the groups of the tensor-core kernel (16: recurrentgemma's
+    # MQA; 7: qwen2-vl's and yi-34b's) at one sequence, where the floor sets the splits, and with
+    # ragged valid lengths, 0 included
+    (1, 16, 1, 640, 64, [640], F32),
+    (1, 16, 1, 640, 64, [640], BF16),
+    (3, 16, 1, 640, 64, [640, 0, 333], F32),
+    (3, 16, 1, 512, 128, [0, 512, 129], BF16),
+    (1, 14, 2, 640, 128, [640], F32),
+    (1, 14, 2, 640, 64, [640], BF16),
+    (3, 14, 2, 512, 64, [0, 512, 257], F32),
+    (3, 14, 2, 640, 64, [128, 0, 639], BF16),
+]
+
+
+@pytest.mark.parametrize("case", DEC_SPLIT_CASES)
+def test_decode_attention_plain_at_the_floors_splits_vs_pallas(case):
+    """The plain version at the new split plan (several splits of at least
+    SPLIT_FLOOR rows, some of them past a row's valid length or empty)
+    against the reference's decode_attention in interpret mode."""
+    from repro_torch.kernels.decode_attention import SPLIT_FLOOR, head_blocks, plan_rows, split_plan
+    B, H, Hkv, T, D, valid, dtype = case
+    rng = np.random.default_rng(11)
+    (qj, qt), (kj, kt), (vj, vt) = (both(rng.standard_normal(shape, dtype=np.float32), dtype)
+                                    for shape in ((B, H, D), (B, Hkv, T, D), (B, Hkv, T, D)))
+    vl = np.asarray(valid, np.int32)
+    ns, chunk = split_plan(B, head_blocks(Hkv, H // Hkv, TDT[dtype]), T,
+                           rows_per_iter=plan_rows(H // Hkv, D, TDT[dtype]))
+    assert ns > 1 and chunk >= SPLIT_FLOOR
+    got = K.decode_attention_plain(qt, kt, vt, kv_valid_len=torch.from_numpy(vl))
+    want = jops.decode_attention(qj, kj, vj, jnp.asarray(vl))
+    assert got.dtype == TDT[dtype] and got.shape == qt.shape
+    close(t2n(got), j2n(want), DEC_SPLIT_TOL[dtype])
+    dead = [i for i, n in enumerate(valid) if n == 0]
+    if dead:
+        assert float(got[dead].float().abs().max()) == 0.0
 
 
 # ---------------- backward: K1 and K3 (the reference's kernels are forward only) ----------------

@@ -23,6 +23,11 @@ rms = importlib.import_module("repro_torch.kernels.rmsnorm")
     (32, 8, 2048, 5),    # more (b, kv head) pairs than resident blocks: one split
     (1, 1, 1, 4),
     (2, 2, 33, 16),
+    (1, 1, 2048, 2),     # the long_500k cell's decode: one sequence, one kv head of 16 q heads
+    (8, 1, 2048, 2),     # recurrentgemma's serving decode on the tensor-core kernel
+    (8, 4, 2048, 3),     # qwen2-vl's
+    (1, 4, 2048, 3),     # qwen2-vl's at one sequence
+    (1, 1, 524288, 2),   # a cache past MAX_SPLITS floors
 ])
 @pytest.mark.parametrize("rows", [8, 32, 64])
 def test_split_plan_covers_the_cache_in_one_wave(B, Hkv, T, blocks_per_sm, rows):
@@ -32,8 +37,56 @@ def test_split_plan_covers_the_cache_in_one_wave(B, Hkv, T, blocks_per_sm, rows)
     assert chunk % rows == 0                                       # whole iterations
     slots = 132 * blocks_per_sm
     assert B * Hkv * ns <= max(slots, B * Hkv)                     # one wave at most,
-    want = max(1, min(slots // (B * Hkv), -(-T // rows)))          # and as many splits as fill it
-    assert chunk - rows < T / want <= chunk                        # up to the rounding of chunks
+    assert ns == 1 or chunk >= dec.SPLIT_FLOOR                     # no split under the floor,
+    assert ns <= dec.MAX_SPLITS
+    want = max(1, min(slots // (B * Hkv), T // dec.SPLIT_FLOOR, dec.MAX_SPLITS,
+                      -(-T // rows)))                              # and as many splits as fill
+    assert chunk - rows < T / want <= chunk                        # it, up to the rounding of chunks
+
+
+@pytest.mark.parametrize("T", [1, 127, 128, 129, 300, 448, 1500, 2047, 2048, 9000, 16384])
+@pytest.mark.parametrize("pairs,blocks_per_sm", [(1, 2), (1, 5), (3, 2), (8, 3), (64, 2)])
+def test_split_plan_floor_and_no_empty_split(T, pairs, blocks_per_sm):
+    """The floor: a split under ``SPLIT_FLOOR`` rows only where the cache is
+    one split; every split holds a row of the cache (so every block of the
+    launch reads); each kernel's rows."""
+    for rows in (16, 32, 64):
+        ns, chunk = dec.split_plan(pairs, 1, T, sm_count=132, blocks_per_sm=blocks_per_sm,
+                                   rows_per_iter=rows)
+        assert (ns - 1) * chunk < T <= ns * chunk
+        assert ns == 1 or chunk >= dec.SPLIT_FLOOR
+        assert ns <= min(dec.MAX_SPLITS, max(1, 132 * blocks_per_sm // pairs))
+
+
+def test_split_plan_at_one_sequence_takes_the_floor():
+    # recurrentgemma's long_500k decode (B1, one kv head, T 2048, two blocks an SM):
+    # filling the card gave 128 splits of 16 rows; the floor gives 16 of 128
+    assert dec.split_plan(1, 1, 2048, sm_count=132, blocks_per_sm=2, rows_per_iter=32) == (16, 128)
+    # recurrentgemma's B8 serving decode: 16 splits of 128 rows, 128 blocks
+    assert dec.split_plan(8, 1, 2048, sm_count=132, blocks_per_sm=2, rows_per_iter=32) == (16, 128)
+    # qwen2-vl's B8 serving decode (4 kv heads, three blocks an SM): the card fills first,
+    # 12 splits' worth that whole stages of 32 rows round to 11 of 192
+    assert dec.split_plan(8, 4, 2048, sm_count=132, blocks_per_sm=3, rows_per_iter=32) == (11, 192)
+    # a forced count stays under MAX_SPLITS and one split a row group
+    assert dec.split_plan(1, 1, 1 << 20, n_splits=10 ** 4, rows_per_iter=32)[0] == dec.MAX_SPLITS
+    assert dec.split_plan(1, 1, 64, n_splits=8, rows_per_iter=32) == (2, 32)
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 5, 7, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_path_heads_and_rows_by_group_and_dtype(G, dtype):
+    """bf16 at a group of 5, 7, 8 or 16 takes the tensor-core kernel: the
+    whole group in a block (16 heads at G 16), splits in ring stages of 32
+    rows at every head dim.  fp32, and bf16 at a group of 1-3, take the
+    CUDA-core kernel, an fp32 group of 16 as two blocks of 8."""
+    tc = dtype == torch.bfloat16 and G in (5, 7, 8, 16)
+    assert dec.kernel_path(G, dtype) == ("tensor_cores" if tc else "cuda_cores")
+    assert dec.heads_a_block(G, dtype) == (8 if G == 16 and not tc else G)
+    assert dec.head_blocks(4, G, dtype) == (8 if G == 16 and not tc else 4)
+    item = torch.tensor([], dtype=dtype).element_size()
+    for D in dec.SUPPORTED_D:
+        want = dec.STAGE_ROWS if tc else dec.rows_per_iter(D, item)
+        assert dec.plan_rows(G, D, dtype) == want
 
 
 def test_rows_per_iter_follows_the_16_byte_loads():
