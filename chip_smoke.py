@@ -48,7 +48,13 @@ Phases, each printing one JSON object on a line of its own:
            K2 under local_map, the plain-tensor call's bits; K2's partial
            pass and merge timed apart over 16-2048 rows a split (k2_parts,
            also a phase of its own), and K2 twice from the same inputs at a
-           single sequence of G 16 and at G 7 (the same bits)
+           single sequence of G 16 and at G 7 (the same bits); K1's backward
+           at D 64 at whisper's three train shapes timed by kernel (delta,
+           dK/dV, dQ) and its forward at D 256 at recurrentgemma's S1000 and
+           S2048 and gemma-7b's S2048, each beside SDPA (these checks alone
+           are the k1_parts phase, which CHIP_SMOKE_SRC points at another
+           tree), each twice for the same bits (the backward at the encoder's
+           shape, the forward at S1000 and gemma-7b's)
   serve    phi4-mini-3.8b at full width and depth, random weights from a
            seed, ServingEngine(slots=8, cache_len=2048), 12 requests of 16 to
            1024 prompt tokens and 32 new tokens each; checks the tokens, the
@@ -248,7 +254,12 @@ train-shape backward of K1 and K3 of the tree at DIR (e.g. the parent
 commit, unpacked) beside this tree's, in turns (DIR, here, here, DIR), each
 in a process of its own, through the wrappers' common signatures (the
 `times` phase; for K3 also `host_us`, the host time of a wrapper call, taken
-before the process profiles anything).
+before the process profiles anything).  `--variant PATCH` (repeatable, with
+`--baseline-src`) adds the tree at DIR with the unified diff PATCH applied
+(a copy under build/variants/) to those turns (DIR, each variant, here, here,
+each variant in reverse, DIR): the kernel designs that were tried and not
+shipped, kept as patches against the tree they were written for under
+src/repro_torch/kernels/variants/, so that they can be timed again beside it.
 
 Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
@@ -833,6 +844,41 @@ def k2_parts(rng) -> list:
     return out
 
 
+# K1's backward at D 64 at whisper-large-v3's three train shapes (B8, 20 heads, G 1), and
+# its forward at D 256 at recurrentgemma-9b's serving and train shapes (16 q heads on one kv
+# head, its window of 2048 covering S) and gemma-7b's (16 heads of 256, G 1), each causal
+K1_PARTS_BWD = (("whisper_enc", 8, 20, 20, 1500, 1500, False),
+                ("whisper_cross", 8, 20, 20, 448, 1500, False),
+                ("whisper_self", 8, 20, 20, 448, 448, True))
+K1_PARTS_FWD = (("griffin_s1000", 1, 16, 1, 1000, 2048),
+                ("griffin_s2048", 1, 16, 1, 2048, 2048),
+                ("gemma_s2048", 1, 16, 16, 2048, 0))
+
+
+def k1_parts(rng) -> list:
+    """The kernels phase's checks at the part shapes, alone: K1's backward at
+    D 64 at ``K1_PARTS_BWD``'s shapes (:func:`check_flash_bwd`, its device
+    time by kernel: delta, dK/dV, dQ) and its forward at D 256 at
+    ``K1_PARTS_FWD``'s (:func:`check_flash`), in bf16 on the model's layout,
+    each timed beside SDPA.  CHIP_SMOKE_SRC points it at another tree."""
+    bf16 = torch.bfloat16
+    out = []
+    for name, B, H, Hkv, Sq, Sk, causal in K1_PARTS_BWD:
+        out.append({"shape": name, **check_flash_bwd(rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=64,
+                                                     causal=causal, window=0, dtype=bf16,
+                                                     timed=True, bshd=True)})
+    for name, B, H, Hkv, S, window in K1_PARTS_FWD:
+        out.append({"shape": name, **check_flash(rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=256,
+                                                 causal=True, window=window, dtype=bf16,
+                                                 timed=True, bshd=True)})
+    return out
+
+
+def check_ok(r) -> bool:
+    """A kernel check's record within its limits (a NaN is not)."""
+    return bwd_errs_ok(r) if "row_err" in r else r["max_abs_err"] <= r["tol"]
+
+
 _floor_ms = None
 
 
@@ -1101,10 +1147,11 @@ def rms_bwd_parts_times(rng) -> list:
 
 def determinism_checks(rng) -> list:
     """Each backward twice from the same inputs at its train shape (K1 also
-    at a group of 5 and of 1, whose partial sums differ, at MLA's (192, 128)
-    and at a group of 16 at D 256), and K2 twice at a single sequence of a
-    group of 16 and at a batch of a group of 7: every output must be the
-    same bits."""
+    at a group of 5 and of 1, whose partial sums differ, at MLA's (192, 128),
+    at a group of 16 at D 256 and at whisper's encoder at D 64), K1's forward
+    twice at D 256 (recurrentgemma's and gemma-7b's shapes), and K2 twice at
+    a single sequence of a group of 16 and at a batch of a group of 7: every
+    output must be the same bits."""
     from repro_torch.kernels import (decode_attention, flash_attention, flash_attention_bwd,
                                      rmsnorm_bwd)
     bf16 = torch.bfloat16
@@ -1138,6 +1185,22 @@ def determinism_checks(rng) -> list:
     runs = [flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=2048) for _ in range(2)]
     out.append({"kernel": "flash_attention_bwd", "case": "B1 H16 Hkv1 S2048 D256 causal "
                 "window2048 bshd", "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))})
+    # whisper-large-v3's encoder at D 64 (B8 H20 S1500, not causal): three dK/dV blocks an SM
+    q, k, v = flash_inputs(rng, B=8, H=20, Hkv=20, Sq=1500, Sk=1500, D=64, dtype=bf16, bshd=True)
+    do = flash_inputs(rng, B=8, H=20, Hkv=20, Sq=1500, Sk=1500, D=64, dtype=bf16, bshd=True)[0]
+    o = torch.empty_like(do)
+    lse = torch.empty((8, 20, 1500), dtype=torch.float32, device="cuda")
+    flash_attention(q, k, v, causal=False, out=o, lse=lse)
+    runs = [flash_attention_bwd(q, k, v, o, lse, do, causal=False) for _ in range(2)]
+    out.append({"kernel": "flash_attention_bwd", "case": "B8 H20 Hkv20 S1500 D64 bshd",
+                "bit_equal": all(torch.equal(a, b) for a, b in zip(*runs))})
+    # K1's forward at D 256 (its flat grid): recurrentgemma's S1000 with its window,
+    # gemma-7b's S2048
+    for H, Hkv, S, window in ((16, 1, 1000, 2048), (16, 16, 2048, 0)):
+        q, k, v = flash_inputs(rng, B=1, H=H, Hkv=Hkv, Sq=S, Sk=S, D=256, dtype=bf16, bshd=True)
+        runs = [flash_attention(q, k, v, causal=True, window=window) for _ in range(2)]
+        out.append({"kernel": "flash_attention", "case": f"B1 H{H} Hkv{Hkv} S{S} D256 causal "
+                    f"window{window} bshd", "bit_equal": torch.equal(*runs)})
     del q, k, v, o, do, lse, runs
     x, w, r = rms_inputs(rng, 2048, 3072, bf16, bf16, False, True)
     dy, ds = randn(rng, (2048, 3072), bf16), randn(rng, (2048, 3072), bf16)
@@ -1355,6 +1418,15 @@ def phase_kernels():
             main["griffin_flash_attention"] = recs[-1]
         recs.append(check_flash(rng, B=2, H=16, Hkv=1, Sq=300, Sk=300, D=256, causal=True,
                                 window=64, dtype=dtype, timed=False, bshd=True))
+    # ... and at its train length S2048
+    recs.append(check_flash(rng, B=1, H=16, Hkv=1, Sq=2048, Sk=2048, D=256, causal=True,
+                            window=2048, dtype=bf16, timed=True, bshd=True))
+    # ... at gemma-7b's (16 heads of 256, G 1, causal) at its train length S2048
+    for dtype in (bf16, f32):
+        recs.append(check_flash(rng, B=1, H=16, Hkv=16, Sq=2048, Sk=2048, D=256, causal=True,
+                                window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+        if dtype is bf16:
+            main["gemma_flash_attention"] = recs[-1]
     # ... at whisper-large-v3's (20 heads, G = 1, D 64, not causal): the encoder's self
     # attention over its 1500 frames, and the cross attention of the B1 context prefill
     # (Sq 224 against the 1500 encoder rows)
@@ -1589,6 +1661,11 @@ def phase_kernels():
                                         timed=dtype is bf16, bshd=True))
             if dtype is bf16:
                 main[name] = recs[-1]
+        # ... and the decoder's self attention (448 x 448, causal)
+        recs.append(check_flash_bwd(rng, B=8, H=20, Hkv=20, Sq=448, Sk=448, D=64, causal=True,
+                                    window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+        if dtype is bf16:
+            main["whisper_self_flash_attention_bwd"] = recs[-1]
         # qwen2-vl-7b's train shape (B1 S2048, G 7: the group sum over 7 heads)
         recs.append(check_flash_bwd(rng, B=1, H=28, Hkv=4, Sq=2048, Sk=2048, D=128, causal=True,
                                     window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
@@ -1690,12 +1767,11 @@ def phase_kernels():
     sharded = sharded_attention_check(rng)
 
     K.reset_launch_counts()
-    bad = [r for r in recs if not (bwd_errs_ok(r) if "row_err" in r               # a NaN is
-                                   else r["max_abs_err"] <= r["tol"])]            # bad too
+    bad = [r for r in recs if not check_ok(r)]
     emit({"phase": "kernels", "plans": plans, "floor_device_ms": launch_floor_ms(),
           "rmsnorm_plans": rms_plans, "rmsnorm_bwd_parts": rms_bwd_parts, "k2_parts": k2,
-          "determinism": determinism, "sharded_attention": sharded, "checks": recs,
-          "failed": len(bad)})
+          "determinism": determinism, "sharded_attention": sharded,
+          "checks": recs, "failed": len(bad)})
     if bad:
         fail(f"{len(bad)} kernel check(s) over tolerance: {bad}")
     if not all(d["bit_equal"] for d in determinism):
@@ -1712,20 +1788,26 @@ SASS_WANTED = {"flash_attention": (r"HGMMA", r"UTMALDG"),
                "decode_attention": (r"HMMA", r"LDGSTS")}
 
 
-# the bf16 forward's instantiations at MLA's dims (mangled: flash_fwd_tc_kernel<192, 128,
-# lse>), each of which must hold the flash library's wanted instructions too
-MLA_TC_FUNCTION = re.compile(r"flash_fwd_tc_kernelILi192ELi128ELb(\d)E")
-# the bf16 backward's dK/dV and dQ instantiations at (256, 256) and (192, 128) (mangled:
-# flash_bwd_dkdv_wg_kernel<256, 256>), which must each hold them
-BWD_TC_FUNCTION = re.compile(r"flash_bwd_(dkdv|dq)_wg_kernelILi(256|192)ELi(256|128)EE")
+# the bf16 forward's instantiations at MLA's dims and at D 256 (mangled:
+# flash_fwd_tc_kernel<192, 128, lse>), each of which must hold the flash library's wanted
+# instructions too
+FWD_TC_FUNCTION = re.compile(r"flash_fwd_tc_kernelILi(192|256)ELi(128|256)ELb(\d)E")
+# the bf16 backward's dK/dV and dQ instantiations at (256, 256), (192, 128) and (64, 64)
+# (mangled: flash_bwd_dkdv_wg_kernel<256, 256>), which must each hold them
+BWD_TC_FUNCTION = re.compile(r"flash_bwd_(dkdv|dq)_wg_kernelILi(256|192|64)ELi(256|128|64)EE")
 # K2's tensor-core instantiations (decode_tc_kernel<G, D>), each of which must hold them
 DEC_TC_FUNCTION = re.compile(r"decode_tc_kernelILi(\d+)ELi(\d+)EE")
+# every instantiation of K1's bf16 forward and of its backward's dK/dV and dQ kernels, for
+# the --ptxas report (registers and spills of each)
+FWD_TC_ANY = re.compile(r"flash_fwd_tc_kernelILi(\d+)ELi(\d+)ELb(\d)E")
+BWD_WG_ANY = re.compile(r"flash_bwd_(dkdv|dq)_wg_kernelILi(\d+)ELi(\d+)EE")
 
 
 def sass_check() -> dict:
     """Counts of the ``SASS_WANTED`` instructions in each library, in each of
-    K1's instantiations at MLA's dims on its own, and in each of its
-    backward's dK/dV and dQ instantiations at (256, 256) and (192, 128); fails
+    K1's instantiations at MLA's dims and at D 256 on its own, and in each of
+    its backward's dK/dV and dQ instantiations at (256, 256), (192, 128) and
+    (64, 64); fails
     if one is missing, so a K1 (or its backward at those widths) that quietly
     stopped using the tensor cores or TMA, or a K3 that stopped moving 16
     bytes a load, does not pass; likewise each of K2's twelve tensor-core
@@ -1741,22 +1823,23 @@ def sass_check() -> dict:
         counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
         if name == "flash_attention":
             for part in sass.split("Function : ")[1:]:
-                m = MLA_TC_FUNCTION.search(part.split("\n", 1)[0])
+                m = FWD_TC_FUNCTION.search(part.split("\n", 1)[0])
                 if m:
-                    counts[f"flash_fwd_tc_kernel<192, 128, lse {m[1]}>"] = {
+                    counts[f"flash_fwd_tc_kernel<{m[1]}, {m[2]}, lse {m[3]}>"] = {
                         op: len(re.findall(rf"\b{op}\b", part)) for op in ops}
-            if sum(k.startswith("flash_fwd_tc_kernel<192") for k in counts) != 2:
-                fail(f"the flash library lacks K1's two instantiations at (192, 128): "
-                     f"{sorted(counts)}")
+            for dims in ("192", "256"):
+                if sum(k.startswith(f"flash_fwd_tc_kernel<{dims}") for k in counts) != 2:
+                    fail(f"the flash library lacks K1's two instantiations at {dims}: "
+                         f"{sorted(counts)}")
         if name == "flash_attention_bwd":
             for part in sass.split("Function : ")[1:]:
                 m = BWD_TC_FUNCTION.search(part.split("\n", 1)[0])
                 if m:
                     counts[f"flash_bwd_{m[1]}_wg_kernel<{m[2]}, {m[3]}>"] = {
                         op: len(re.findall(rf"\b{op}\b", part)) for op in ops}
-            if sum(k.startswith("flash_bwd_") for k in counts) != 4:
+            if sum(k.startswith("flash_bwd_") for k in counts) != 6:
                 fail(f"the flash backward library lacks its dK/dV and dQ instantiations at "
-                     f"(256, 256) and (192, 128): {sorted(counts)}")
+                     f"(256, 256), (192, 128) and (64, 64): {sorted(counts)}")
         if name == "decode_attention":
             for part in sass.split("Function : ")[1:]:
                 m = DEC_TC_FUNCTION.search(part.split("\n", 1)[0])
@@ -1819,8 +1902,11 @@ def phase_times():
     device_ms, for K3 the host time of a call, and a digest of every output
     (K1 in fp32 too), so that two trees' kernels are held bit for bit; K2's
     records also carry their error against the plain version, which holds
-    two trees whose K2 splits or sums otherwise.  K2 at a single sequence
-    and at qwen2-vl's group of 7 come last, from a stream of their own."""
+    two trees whose K2 splits or sums otherwise.  K1's backward at D 64 at
+    whisper's three train shapes (by kernel) and its forward at D 256 at
+    ``K1_PARTS_FWD``'s shapes and at MLA's (192, 128) come from a stream of
+    their own, as do K2 at a single sequence and at qwen2-vl's group of 7,
+    last."""
     from repro_torch.kernels import (decode_attention, decode_attention_plain, flash_attention,
                                      flash_attention_bwd, rmsnorm, rmsnorm_bwd)
     rng = np.random.default_rng(SEED)
@@ -1922,6 +2008,37 @@ def phase_times():
                     "ms": time_ms(call), "device_ms_by_kernel": device_ms_by_kernel(call),
                     "out_sha": digest((o, lse, *call()))})
         out[-1]["device_ms"] = sum(out[-1]["device_ms_by_kernel"].values())
+    # K1's backward at D 64 at whisper-large-v3's three train shapes and its forward at D 256
+    # at recurrentgemma-9b's and gemma-7b's, from a stream of their own
+    k1_rng = np.random.default_rng(SEED + 5)
+    for name, B, H, Hkv, Sq, Sk, causal in K1_PARTS_BWD:
+        q, k, v = flash_inputs(k1_rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=64, dtype=bf16,
+                               bshd=True)
+        do = flash_inputs(k1_rng, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=64, dtype=bf16,
+                          bshd=True)[0]
+        o = torch.empty_like(do)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device="cuda")
+        flash_attention(q, k, v, causal=causal, out=o, lse=lse)
+        call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal,  # noqa: E731
+                                           window=0)
+        out.append({"kernel": "flash_attention_bwd",
+                    "case": f"B{B} H{H} Hkv{Hkv} Sq{Sq} Sk{Sk} D64 causal{int(causal)} bshd",
+                    "ms": time_ms(call), "device_ms_by_kernel": device_ms_by_kernel(call),
+                    "out_sha": digest((o, lse, *call()))})
+        out[-1]["device_ms"] = sum(out[-1]["device_ms_by_kernel"].values())
+    for name, B, H, Hkv, S, window in K1_PARTS_FWD:
+        q, k, v = flash_inputs(k1_rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=256, dtype=bf16,
+                               bshd=True)
+        call = lambda: flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
+        out.append({"kernel": "flash_attention",
+                    "case": f"B{B} H{H} Hkv{Hkv} S{S} D256 causal window{window} bshd",
+                    "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call())})
+    # ... and K1 at deepseek-v3-671b's prefill, MLA's (192, 128)
+    q, k, v = flash_inputs(k1_rng, B=1, H=128, Hkv=128, Sq=1000, Sk=1000, D=192, Dv=128,
+                           dtype=bf16, bshd=True)
+    call = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+    out.append({"kernel": "flash_attention", "case": "B1 H128 Hkv128 S1000 D192 Dv128 causal bshd",
+                "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call())})
     for with_sum in (False, True):
         x, w, _ = rms_inputs(rng, 2048, 3072, bf16, bf16, False, False)
         dy = randn(rng, (2048, 3072), bf16)
@@ -1944,37 +2061,116 @@ def phase_times():
     emit({"phase": "times", "src": SRC, "records": out, "host_pieces_us": host_pieces_us})
 
 
-def phase_baseline(other: str) -> None:
-    """phase_times for the tree at ``other`` and for this one, in turns
-    (other, this, this, other), each in a process of its own."""
+def apply_patch(root: str, patch: str) -> None:
+    """Apply the unified diff ``patch`` to the files under ``root`` (paths
+    after ``+++ b/``).  Every hunk must match its file exactly where its
+    header says; otherwise fail."""
+    lines = open(patch).read().split("\n")
+    hunks, i = {}, 0
+    while i < len(lines):
+        if lines[i].startswith("+++ "):
+            path = lines[i][4:].split("\t")[0].removeprefix("b/")
+            hunks[path] = []
+        m = re.match(r"@@ -(\d+)(?:,(\d+))? \+\d+(?:,(\d+))? @@", lines[i])
+        if m:
+            n_old, n_new = int(m[2] or 1), int(m[3] or 1)
+            old, new = [], []
+            while len(old) < n_old or len(new) < n_new:
+                i += 1
+                tag, text = lines[i][:1], lines[i][1:]
+                if tag in (" ", "-"):
+                    old.append(text)
+                if tag in (" ", "+"):
+                    new.append(text)
+            start = int(m[1]) - (1 if n_old else 0)
+            hunks[path].append((start, old, new))
+        i += 1
+    for path, edits in hunks.items():
+        fp = os.path.join(root, path)
+        text = open(fp).read().split("\n")
+        for start, old, new in reversed(edits):
+            if text[start:start + len(old)] != old:
+                fail(f"{patch}: a hunk at {path}:{start + 1} does not match")
+            text[start:start + len(old)] = new
+        with open(fp, "w") as f:
+            f.write("\n".join(text))
+
+
+def variant_src(base_src: str, patch: str) -> str:
+    """A copy of ``base_src``/repro_torch under build/variants/<patch's
+    name>/src with ``patch`` applied; returns that src."""
+    import shutil
+    name = os.path.splitext(os.path.basename(patch))[0]
+    root = os.path.join(HERE, "build", "variants", name)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(base_src, "repro_torch"),
+                    os.path.join(root, "src", "repro_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    apply_patch(root, patch)
+    return os.path.join(root, "src")
+
+
+def phase_baseline(other: str, variants: list[str] = ()) -> None:
+    """phase_times for the tree at ``other``, for that tree with each patch of
+    ``variants`` applied, and for this one, in turns (other, each variant,
+    this, this, each variant in reverse, other), each in a process of its
+    own.  This tree must give the other's bits; a variant's other bits, or a
+    variant that fails to build or run, is reported, not fatal."""
     other_src = os.path.join(os.path.abspath(other), "src")
     if not os.path.isdir(os.path.join(other_src, "repro_torch")):
         fail(f"--baseline-src: no src/repro_torch under {other}")
-    runs = []
-    for label, src in (("baseline", other_src), ("this", SRC), ("this", SRC),
-                       ("baseline", other_src)):
+    trees = [("baseline", other_src)]
+    trees += [(os.path.splitext(os.path.basename(p))[0], variant_src(other_src, p))
+              for p in variants]
+    runs, broken = [], {}
+    for label, src in [*trees, ("this", SRC), ("this", SRC), *reversed(trees)]:
+        if label in broken:
+            continue
         env = dict(os.environ, CHIP_SMOKE_SRC=src)
         env.pop("REPRO_TORCH_BUILD_DIR", None)     # each tree builds into its own build/
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--phases", "times"],
                              capture_output=True, text=True, timeout=900, env=env)
         lines = [ln for ln in res.stdout.splitlines() if ln.startswith('{"phase": "times"')]
         if res.returncode != 0 or not lines:
-            fail(f"baseline run of {src} failed (exit {res.returncode}):\n{res.stderr[-4000:]}")
+            if label in ("baseline", "this"):
+                fail(f"baseline run of {src} failed (exit {res.returncode}):\n"
+                     f"{res.stderr[-4000:]}")
+            broken[label] = f"exit {res.returncode}: {res.stderr[-2000:]}"
+            continue
         runs.append({"tree": label, **json.loads(lines[0])})
     # every kernel's output bits but K2's, this tree's against the other's, case by case
     # (the cases both trees run: a shape the other tree's kernels do not take is this
     # one's alone); K2, whose splits and sums may differ between trees, is held in each
     # run to its plain version at the kernel tolerance
-    shas = [{(r["kernel"], r["case"]): r.get("out_sha") for r in run["records"]
-             if r["kernel"] != "decode_attention"} for run in runs]
-    common = set.intersection(*(set(s_) for s_ in shas))
-    differ = [f"{k} {c}" for (k, c) in sorted(common) if len({s_[(k, c)] for s_ in shas}) != 1]
+    def sha_map(run):
+        return {(r["kernel"], r["case"]): r.get("out_sha") for r in run["records"]
+                if r["kernel"] != "decode_attention"}
+
+    def differing(rs):
+        shas = [sha_map(run) for run in rs]
+        common = set.intersection(*(set(s_) for s_ in shas))
+        return common, [f"{k} {c}" for (k, c) in sorted(common)
+                        if len({s_[(k, c)] for s_ in shas}) != 1]
+
+    main_runs = [run for run in runs if run["tree"] in ("baseline", "this")]
+    common, differ = differing(main_runs)
+    variant_differ = {label: differing([r for r in runs if r["tree"] in ("baseline", label)])[1]
+                      for label, _ in trees[1:] if label not in broken}
     k2_over = [f"{run['tree']} {r['case']}: {r['max_abs_err']}" for run in runs
                for r in run["records"]
                if r["kernel"] == "decode_attention" and not r["max_abs_err"] <= r["tol"]]
+    # K1's and its backward's device ms by tree, one entry a run, in the order run
+    k1_ms = {}
+    for run in runs:
+        for r in run["records"]:
+            if r["kernel"].startswith("flash_attention"):
+                k1_ms.setdefault(f"{r['kernel']} {r['case']}", {}).setdefault(
+                    run["tree"], []).append(r["device_ms"])
     emit({"phase": "baseline", "runs": runs, "outputs_bit_equal": not differ, "differ": differ,
           "cases_compared": len(common), "k2_over_tolerance": k2_over,
-          "this_tree_only": sorted(f"{k} {c}" for (k, c) in set(shas[1]) - common)})
+          "this_tree_only": sorted(f"{k} {c}" for (k, c) in
+                                   set(sha_map(main_runs[1])) - common),
+          "variant_differ": variant_differ, "variant_broken": broken, "k1_device_ms": k1_ms})
     if differ:
         fail(f"--baseline-src: outputs differ from the other tree's: {differ}")
     if k2_over:
@@ -5265,12 +5461,17 @@ def main(argv=None) -> int:
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
                          "train_parity,simulate,serve_sim,sweep,moe,griffin,dryrun,"
                          "griffin_train,xlstm,whisper,vlm,mla (and times, the serving-shape "
-                         "timings alone; serve_measure, the measured side of serve_sim alone; "
+                         "timings alone; k2_parts and k1_parts, the kernels phase's part "
+                         "times alone; serve_measure, the measured side of serve_sim alone; "
                          "mla_layout, the mla phase's first part alone); the closing lines are "
                          "printed only when the eighteen of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
+    ap.add_argument("--variant", metavar="PATCH", action="append", default=[],
+                    help="with --baseline-src: also time the tree at DIR with this unified "
+                         "diff applied, in the same turns (repeatable; e.g. a patch under "
+                         "src/repro_torch/kernels/variants/)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile 10 decode steps and a prefill of the full model with "
                          "torch.profiler; the tables by kernel are written to DIR")
@@ -5309,21 +5510,39 @@ def main(argv=None) -> int:
                 print(f"--- nvcc {name}.cu ---\n{log}", file=sys.stderr)
             rec["decode_tc_ptxas"] = ptxas_report(logs.get("decode_attention", ""),
                                                   DEC_TC_FUNCTION, "decode_tc_kernel")
+            rec["flash_tc_ptxas"] = ptxas_report(logs.get("flash_attention", ""), FWD_TC_ANY,
+                                                 "flash_fwd_tc_kernel")
+            rec["flash_bwd_wg_ptxas"] = ptxas_report(logs.get("flash_attention_bwd", ""),
+                                                     BWD_WG_ANY, "flash_bwd_wg_kernel")
+            # ptxas's notes that it issues a kernel's wgmma groups one after another
+            # (C75xx "Potential Performance Loss"), by mangled name: no spill, but on record
+            rec["wgmma_serialized"] = {
+                m[2]: m[1] for log in logs.values()
+                for m in re.finditer(r"\((C75\d\d)\) Potential Performance Loss.*?function '(\S+)'",
+                                     log)}
         emit({"phase": "build", "seconds": _build.build_seconds, "sources": list(_build.SOURCES),
               "build_dir": os.path.relpath(_build.build_dir(), HERE), **rec})
-        spilled = {k: r for k, r in rec.get("decode_tc_ptxas", {}).items()
-                   if r["spill_stores"] or r["spill_loads"]}
+        spilled = {k: r for key in ("decode_tc_ptxas", "flash_tc_ptxas", "flash_bwd_wg_ptxas")
+                   for k, r in rec.get(key, {}).items()
+                   if r.get("spill_stores") or r.get("spill_loads")}
         if spilled:
-            fail(f"K2's tensor-core kernels spill: {spilled}")
+            fail(f"tensor-core kernels spill: {spilled}")
         sass_check()
     if "times" in phases:
         phase_times()
     if "k2_parts" in phases:
         emit({"phase": "k2_parts", "src": SRC, "k2_parts": k2_parts(np.random.default_rng(SEED + 2))})
+    if "k1_parts" in phases:
+        parts = k1_parts(np.random.default_rng(SEED + 4))
+        emit({"phase": "k1_parts", "src": SRC, "gpu": smi, "k1_parts": parts})
+        if not all(check_ok(r) for r in parts):
+            fail(f"K1 at the part shapes: off its plain version: {parts}")
     if "serve_measure" in phases:
         phase_serve_measure()
+    if args.variant and not args.baseline_src:
+        fail("--variant needs --baseline-src: a patch applies to the tree there")
     if args.baseline_src:
-        phase_baseline(args.baseline_src)
+        phase_baseline(args.baseline_src, args.variant)
     main_recs = counts = None
     if "kernels" in phases:
         _, main_recs = phase_kernels()

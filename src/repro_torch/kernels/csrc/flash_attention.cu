@@ -30,7 +30,8 @@
 //     this path stays on the CUDA cores.
 //
 // Both paths skip KV tiles that the causal or window mask kills entirely and
-// schedule the heaviest q tiles (the last ones under a causal mask) first.
+// schedule the heaviest q tiles (the last ones under a causal mask) first:
+// of each head, or at D 256 on the tensor cores of all heads (TcPlan).
 //
 // Each kernel has a compile-time variant (LSE = true) that also writes the
 // row log-sum-exp of the scaled scores, (B, H, Sq) in fp32, for the backward
@@ -259,7 +260,21 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
 // (D <= 128), which beat one block of two consumer warpgroups (128 q rows)
 // by 8-12 % at the serving shapes on an H100, and at D = 256 the block of
 // two ran out of registers.
+//
+// At D = 256 (FLAT) the grid is one-dimensional, every head's last q tile
+// first, then every head's tile before it, and so on: one block fills an SM
+// there, and under a causal mask the grid of (q tile, head) put the heavy
+// last tiles of the later heads behind the light tiles of the first ones, so
+// that a heavy tile started late and ran alone at the end (heaviest first
+// over the whole grid ran recurrentgemma's S1000 prefill in 0.79 of the time
+// on an H100).  A block of two consumers of 64 q rows sharing each K/V stage
+// (128 q rows, their products issued in turns), and one consumer issuing the
+// next tile's S = Q K^T before this tile's P V to compute the next softmax
+// under it, both ran slower at D 256 on an H100 and were dropped; they are
+// kept as patches against the tree they were written for (kernels/variants/
+// k1_fwd256_{pingpong,overlap}.patch, timed by chip_smoke.py --variant).
 template <int DQK, int DV> struct TcPlan {
+  static constexpr bool FLAT = DQK == 256 && DV == 256;   // heaviest q tiles first, all heads
   static constexpr int BQ = 64;          // q rows a block
   static constexpr int BK = 64;          // kv rows a tile
   static constexpr int STAGES = DQK != DV ? 2 : 3;  // K/V ring depth
@@ -379,8 +394,11 @@ __global__ void __launch_bounds__(TcPlan<DQK, DV>::THREADS, TcPlan<DQK, DV>::MIN
   uint64_t* empty = full_v + ST;
   uint64_t* q_full = empty + ST;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;   // last (heaviest under causal) q tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  // last (heaviest under causal) q tiles first: of each head, or (FLAT) of all heads
+  const int nq = (p.Sq + P::BQ - 1) / P::BQ, hb = P::FLAT ? gridDim.x / nq : 1;
+  const int qt = P::FLAT ? nq - 1 - (int)(blockIdx.x / hb) : gridDim.x - 1 - blockIdx.x;
+  const int h = P::FLAT ? blockIdx.x % hb % p.H : blockIdx.y;
+  const int b = P::FLAT ? blockIdx.x % hb / p.H : blockIdx.z;
   const int hk = h / (p.H / p.Hkv);
   const int q0 = qt * P::BQ;
 
@@ -526,7 +544,8 @@ static cudaError_t launch_tc(const FlashParams& f, int B, cudaStream_t stream) {
   p.H = f.H; p.Hkv = f.Hkv; p.Sq = f.Sq; p.Sk = f.Sk;
   p.causal = f.causal; p.window = f.window;
   p.scale_log2 = f.scale * 1.4426950408889634f;
-  const dim3 grid((f.Sq + P::BQ - 1) / P::BQ, f.H, B);
+  const int nq = (f.Sq + P::BQ - 1) / P::BQ;
+  const dim3 grid = P::FLAT ? dim3(nq * f.H * B) : dim3(nq, f.H, B);
   flash_fwd_tc_kernel<DQK, DV, LSE><<<grid, P::THREADS, P::SMEM, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
@@ -598,12 +617,12 @@ extern "C" int flash_attention_launch(
 }
 
 // The bf16 kernel's plan for (Dqk, Dv): {q rows, kv rows, stages, threads,
-// blocks an SM, shared-memory bytes} into out[6].  Returns 0, or -1 for dims
-// the kernel does not take.
+// blocks an SM, shared-memory bytes, flat grid} into out[7].  Returns 0, or
+// -1 for dims the kernel does not take.
 template <int DQK, int DV> static void plan_of(int* out) {
   using P = TcPlan<DQK, DV>;
   out[0] = P::BQ; out[1] = P::BK; out[2] = P::STAGES; out[3] = P::THREADS;
-  out[4] = P::MIN_BLOCKS; out[5] = P::SMEM;
+  out[4] = P::MIN_BLOCKS; out[5] = P::SMEM; out[6] = P::FLAT;
 }
 extern "C" int flash_attention_plan(int Dqk, int Dv, int* out) {
   if (Dqk == 192 && Dv == 128) { plan_of<192, 128>(out); return 0; }

@@ -32,7 +32,8 @@
 //     dim and v's; one head dim is (D, D).  Up to D = 128 a block is one
 //     warpgroup (128 threads, two blocks an SM, so that a thread may hold
 //     255 registers: dK and dV of 64 rows x 128 in fp32, S^T and dP^T, and
-//     their bf16 halves take about 230); its first thread issues the TMA
+//     their bf16 halves take about 230; at D 64 three dK/dV blocks an SM,
+//     BwdPlan says why); its first thread issues the TMA
 //     loads one ring stage ahead.  A producer warp of its own would put the
 //     block at 160 threads and cap a thread at 200 registers.  Above D = 128
 //     (BwdPlan::SPLIT) a dK/dV block is two warpgroups, one block an SM: one
@@ -438,7 +439,28 @@ __global__ void __launch_bounds__(FB_THREADS) flash_bwd_dq_kernel(const BwdParam
 // 256).  A dQ block is one warpgroup: two an SM up to 128; one at D 256 (its
 // shared memory); two at (192, 128) with a ring of one stage, which on an
 // H100 ran its dQ kernel 1.42x as fast as one block with two stages.
+//
+// At D 64 (LEAN) three dK/dV blocks share an SM.  A tile pair's four
+// products are short there (2 MFLOP), and a warpgroup's exponentials and
+// elementwise work, which none of its own products covers, took as long as
+// they did; a third warpgroup an SM covers more of it.  Three blocks cap a
+// thread at 168 registers, where the loop in D 128's order spilled (dK, dV,
+// S^T, dP^T and P^T's bf16 half live at once), so at D 64 the same loop (at
+// its `if constexpr (P::LEAN)` points) takes S^T first, turns it into P^T,
+// keeps P^T's bf16 half in registers and its fp32 values in 16 KB of shared
+// memory (each thread its own 32), and only then takes dP^T into the
+// registers S^T held: 167 registers, no spill, and 66 KB of shared memory,
+// three times in an SM.  dS^T is formed from the same fp32 P^T, so dK and dV
+// are the same bits.  A dK/dV block of two warpgroups sharing its ring (128 kv
+// rows, the products issued in turns), dK/dV split by gradient over two
+// warpgroups at two blocks an SM, a warpgroup keeping the next stage's
+// products in flight under this stage's elementwise work, deeper rings, a
+// dQ stage of 128 kv rows and a dQ block of two warpgroups all ran slower on
+// an H100, and were dropped; the first and the third are kept as patches
+// against the tree they were written for (kernels/variants/
+// k1_bwd64_{pair,pipe}.patch, timed by chip_smoke.py --variant).
 template <int DQ, int DV> struct BwdPlan {
+  static constexpr bool LEAN = DQ == 64 && DV == 64;   // three dK/dV blocks an SM, P^T staged
   static constexpr int BQ = 64;          // q rows a tile (a dQ block's rows)
   static constexpr int BKV = 64;         // kv rows a tile (a dK/dV block's rows)
   static constexpr int STAGES = 2;       // depth of each kernel's ring
@@ -446,14 +468,14 @@ template <int DQ, int DV> struct BwdPlan {
   static constexpr int CH_V = DV / 64;   // and of a v or dO row
   static constexpr bool SPLIT = DQ > 128;
   static constexpr int DKDV_THREADS = SPLIT ? 256 : 128;
-  static constexpr int DKDV_BLOCKS = SPLIT ? 1 : 2;
+  static constexpr int DKDV_BLOCKS = SPLIT ? 1 : LEAN ? 3 : 2;
   static constexpr int DQ_THREADS = 128;
   static constexpr int DQ_STAGES = DQ == DV ? STAGES : 1;   // the dQ block's ring
   static constexpr int DQ_BLOCKS = DQ == DV && DQ > 128 ? 1 : 2;
   static constexpr int TQ = 64 * DQ * 2;      // one 64-row bf16 tile of q or k
   static constexpr int TV = 64 * DV * 2;      // of v or dO
   static constexpr int ROWS = 64 * 4;         // lse or delta of a q tile, fp32
-  static constexpr int XCHG = SPLIT ? 64 * 64 * 4 : 0;   // P^T in fp32 between the warpgroups
+  static constexpr int XCHG = SPLIT || LEAN ? 64 * 64 * 4 : 0;   // P^T in fp32 (SPLIT: between WGs)
   static constexpr int BAR_BYTES = 64;
   // dK/dV: K and V of the block, a ring of (Q, dO, lse, delta), the exchange
   static constexpr int SMEM_DKDV = (1 + STAGES) * (TQ + TV) + XCHG + 2 * STAGES * ROWS + BAR_BYTES;
@@ -639,7 +661,7 @@ __global__ void __launch_bounds__(BwdPlan<DQ, DV>::DKDV_THREADS, BwdPlan<DQ, DV>
   uint8_t* v_s = k_s + TQ;                 // [CH_V][64 rows][128 B]
   uint8_t* q_s = v_s + TV;                 // [ST] tiles of TQ
   uint8_t* g_s = q_s + ST * TQ;            // dO, [ST] tiles of TV
-  float* x_s = reinterpret_cast<float*>(g_s + ST * TV);       // P^T, [32][128 threads] (SPLIT)
+  float* x_s = reinterpret_cast<float*>(g_s + ST * TV);       // P^T, [32][128 threads] (SPLIT, LEAN)
   float* lse_s = x_s + P::XCHG / 4;                            // [ST][64]
   float* dl_s = lse_s + ST * 64;                               // [ST][64]
   uint64_t* full = reinterpret_cast<uint64_t*>(dl_s + ST * 64);
@@ -706,14 +728,23 @@ __global__ void __launch_bounds__(BwdPlan<DQ, DV>::DKDV_THREADS, BwdPlan<DQ, DV>
       uint32_t pa[16], sa[16];
       mbar_wait(&full[s], (j / ST) & 1);
       issue_qk<DQ, 64>(sc, k_addr, q_addr);   // S^T = K Q^T
-      issue_qk<DV, 64>(dp, v_addr, g_addr);   // dP^T = V dO^T
+      if constexpr (!P::LEAN) issue_qk<DV, 64>(dp, v_addr, g_addr);   // dP^T = V dO^T
       wgmma_wait<0>();
       fence_all<32>(sc);
-      fence_all<32>(dp);
+      if constexpr (!P::LEAN) fence_all<32>(dp);
       p_transposed(sc, lse_s + s * 64, q0, k0, rl, cq, p);
       frag_to_a(pa, sc);
-      issue_pv<DV, 64>(dv, pa, g_addr);       // dV += P^T dO, dO read MN-major
-      // dS^T = P^T (dP^T - delta), while that product runs
+      if constexpr (P::LEAN) {
+        // P^T's fp32 values wait in shared memory, and dP^T takes S^T's registers (BwdPlan)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) x_s[i * 128 + t] = sc[i];
+        issue_qk<DV, 64>(dp, v_addr, g_addr);   // dP^T = V dO^T
+        wgmma_wait<0>();
+        fence_all<32>(dp);
+      } else {
+        issue_pv<DV, 64>(dv, pa, g_addr);     // dV += P^T dO, dO read MN-major
+      }
+      // dS^T = P^T (dP^T - delta), while that product runs (LEAN: P^T read back in fp32)
 #pragma unroll
       for (int jb = 0; jb < 8; ++jb)
 #pragma unroll
@@ -722,10 +753,11 @@ __global__ void __launch_bounds__(BwdPlan<DQ, DV>::DKDV_THREADS, BwdPlan<DQ, DV>
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int i = 4 * jb + 2 * hh + e;
-            dp[i] = sc[i] * (dp[i] - dl);
+            dp[i] = (P::LEAN ? x_s[i * 128 + t] : sc[i]) * (dp[i] - dl);
           }
         }
       frag_to_a(sa, dp);
+      if constexpr (P::LEAN) issue_pv<DV, 64>(dv, pa, g_addr);   // dV += P^T dO
       issue_pv<DQ, 64>(dk, sa, q_addr);       // dK += dS^T Q, Q read MN-major
       wgmma_wait<0>();
       fence_all<DV / 2>(dv);

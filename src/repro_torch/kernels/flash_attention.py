@@ -48,9 +48,12 @@ def tile_plan(D: int, Dv: int | None = None) -> dict[str, int]:
     (default ``D``), ``TcPlan`` in the source: q rows a block (one consumer
     warpgroup), kv rows a tile, stages of the K/V ring, threads (a producer
     warpgroup beside the consumer), blocks an SM it is built for (two where
-    two fit an SM's shared memory), and shared-memory bytes (Q, the K and V
-    ring, 256 of barriers).  The ring is three stages deep for one head dim
-    and two at ``MLA_D``, where two blocks then share an SM."""
+    two fit an SM's shared memory), shared-memory bytes (Q, the K and V ring,
+    256 of barriers), and whether the grid is one-dimensional, every head's
+    heaviest q tile first (``flat_grid``, ``FLAT``: at D 256, where one block
+    fills an SM), rather than (q tile, head, batch) with each head's heaviest
+    first.  The ring is three stages deep for one head dim and two at
+    ``MLA_D``, where two blocks then share an SM."""
     Dv = D if Dv is None else Dv
     if not supported(D, Dv):
         raise ValueError(f"flash_attention: no bf16 plan for D={D}, Dv={Dv}")
@@ -58,7 +61,8 @@ def tile_plan(D: int, Dv: int | None = None) -> dict[str, int]:
     stages = 2 if D != Dv else 3
     smem = bq * D * 2 + stages * bk * (D + Dv) * 2 + 256
     return {"q_rows": bq, "kv_rows": bk, "stages": stages, "threads": 256,
-            "blocks_per_sm": 2 if 2 * (smem + 1024) <= SM_SMEM else 1, "smem_bytes": smem}
+            "blocks_per_sm": 2 if 2 * (smem + 1024) <= SM_SMEM else 1, "smem_bytes": smem,
+            "flat_grid": int((D, Dv) == (256, 256))}
 
 
 # (q/k, v) head dims of the backward's tensor-core path (bf16, aligned views)
@@ -70,25 +74,26 @@ def bwd_tile_plan(D: int, Dv: int | None = None) -> dict[str, int]:
     """The tensor-core backward's plan for q/k head dim ``D`` and v head dim
     ``Dv`` (default ``D``; ``BwdPlan`` in the source): q rows and kv rows a
     tile; the dK/dV kernel's ring stages, threads and blocks an SM (one
-    warpgroup, two an SM, up to a head dim of 128; above it two warpgroups,
-    one owning dV and P^T, the other dK and dS^T, one block an SM); the dQ
+    warpgroup, three an SM at D 64, whose P^T waits in shared memory while
+    dP^T is formed, and two at 128; above it two warpgroups, one owning dV
+    and P^T, the other dK and dS^T, one block an SM); the dQ
     kernel's (one warpgroup; two stages and two blocks an SM up to 128, one
     block at D 256, one stage and two blocks at ``MLA_D``); and the two
     kernels' shared-memory bytes (K and V, a ring of Q, dO and their 64 rows
-    of lse and delta, above 128 a 64 x 64 fp32 P^T handed between the
-    warpgroups, 64 of barriers; Q and dO, a ring of K and V, 64 of
-    barriers)."""
+    of lse and delta, at D 64 and above 128 a 64 x 64 fp32 P^T, 64 of
+    barriers; Q and dO, a ring of K and V, 64 of barriers)."""
     Dv = D if Dv is None else Dv
     if (D, Dv) not in BWD_TC_DIMS:
         raise ValueError(f"flash_attention_bwd: no tensor-core plan for D={D}, Dv={Dv}")
-    split, stages = D > 128, 2
+    split, stages, lean = D > 128, 2, (D, Dv) == (64, 64)
     dq_stages = stages if D == Dv else 1
     tile = BWD_TILE * (D + Dv) * 2          # a 64-row tile of Q and of dO (or of K and V)
     return {"q_rows": BWD_TILE, "kv_rows": BWD_TILE, "stages": stages,
-            "dkdv_threads": 256 if split else 128, "dkdv_blocks_per_sm": 1 if split else 2,
+            "dkdv_threads": 256 if split else 128,
+            "dkdv_blocks_per_sm": 1 if split else 3 if lean else 2,
             "dq_stages": dq_stages, "dq_threads": 128,
             "dq_blocks_per_sm": 1 if D == Dv and D > 128 else 2,
-            "smem_dkdv": (1 + stages) * tile + (BWD_TILE * BWD_TILE * 4 if split else 0)
+            "smem_dkdv": (1 + stages) * tile + (BWD_TILE * BWD_TILE * 4 if split or lean else 0)
                          + 2 * stages * BWD_TILE * 4 + 64,
             "smem_dq": (1 + dq_stages) * tile + 64}
 
@@ -247,11 +252,11 @@ def _lib():
 def kernel_plan(D: int, Dv: int | None = None) -> dict[str, int]:
     """:func:`tile_plan` as the compiled kernel reports it (needs the library)."""
     Dv = D if Dv is None else Dv
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     if _lib().flash_attention_plan(D, Dv, out) != 0:
         raise ValueError(f"flash_attention: no bf16 plan for D={D}, Dv={Dv}")
-    return dict(zip(("q_rows", "kv_rows", "stages", "threads", "blocks_per_sm", "smem_bytes"),
-                    out))
+    return dict(zip(("q_rows", "kv_rows", "stages", "threads", "blocks_per_sm", "smem_bytes",
+                     "flat_grid"), out))
 
 
 def check_operand(name: str, t: torch.Tensor) -> None:

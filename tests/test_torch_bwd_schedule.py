@@ -10,8 +10,10 @@ dK/dV summed over the group in head order as the sum kernel does, must equal
 the plain backward (``flash_attention_bwd_plain``, its arithmetic carried out
 in float64) to 1e-10: a loop bound that drops or repeats a tile shows here,
 before any time on the card.  The shapes are the ``kernels`` phase's edge
-shapes of ``chip_smoke.py``; the emulation cuts the head dim to 8, which no
-loop bound depends on."""
+shapes of ``chip_smoke.py`` and whisper-large-v3's three train shapes; the
+emulation cuts the head dim to 8, which no loop bound depends on, and runs
+whisper's shapes with their batch and heads cut to B1 H2 and their lengths
+cut by 5 (1500 -> 300, 448 -> 90), which keeps the tiles ragged."""
 import importlib
 import math
 from pathlib import Path
@@ -39,8 +41,13 @@ SHAPES = [
     (1, 8, 8, 200, 200, True, 0),        # G = 1, ragged
     (1, 6, 2, 70, 33, True, 0),          # causal, Sq > Sk
     (1, 6, 2, 100, 100, True, 0),
+    (8, 20, 20, 1500, 1500, False, 0),   # whisper-large-v3: the encoder's self attention,
+    (8, 20, 20, 448, 1500, False, 0),    # the decoder's cross attention
+    (8, 20, 20, 448, 448, True, 0),      # and its causal self attention
 ]
-SMALL = [s for s in SHAPES if s[3] <= 512]    # the emulation walks tiles in Python
+# the emulation walks tiles in Python: the small shapes, and whisper's three cut
+SMALL = [s for s in SHAPES if s[3] <= 512 and s[0] * s[1] <= 80] + [
+    (1, 2, 2, 300, 300, False, 0), (1, 2, 2, 90, 300, False, 0), (1, 2, 2, 90, 90, True, 0)]
 
 
 def visible(Sq, Sk, causal, window) -> np.ndarray:

@@ -51,6 +51,7 @@ FA_CASES = [
     (1, 2, 2, 128, 128, 128, True, 0, BF16),
     (1, 8, 4, 96, 96, 64, True, 0, BF16),
     (1, 6, 2, 80, 80, 128, True, 0, F32),    # G = 3, the group of phi4-mini
+    (1, 16, 1, 160, 160, 256, True, 64, BF16),   # G = 16 at D 256 with a window (recurrentgemma)
 ]
 
 
@@ -378,6 +379,7 @@ BWD_CASES = [
     (1, 4, 2, 48, 48, 32, True, 16, F32),     # causal window
     (1, 4, 2, 30, 30, 32, False, 8, F32),     # window alone
     (1, 4, 1, 16, 32, 32, False, 0, F32),     # Sq != Sk
+    (1, 4, 4, 24, 40, 64, False, 0, F32),     # D 64, G 1, Sq != Sk unmasked (whisper's cross)
     (1, 6, 2, 32, 32, 64, True, 0, BF16),
 ]
 

@@ -239,7 +239,7 @@ def test_k1_plans_at_mla_dims():
     KB and leave one block an SM (the slower plan on the card).  The
     single-D plans are what they were."""
     assert FA.tile_plan(192, 128) == {"q_rows": 64, "kv_rows": 64, "stages": 2, "threads": 256,
-                                      "blocks_per_sm": 2, "smem_bytes": 106_752}
+                                      "blocks_per_sm": 2, "smem_bytes": 106_752, "flat_grid": 0}
     three = 64 * 192 * 2 + 3 * 64 * (192 + 128) * 2 + 256
     assert three == 147_712 and 2 * (three + 1024) > FA.SM_SMEM
     assert [(FA.tile_plan(D)["blocks_per_sm"], FA.tile_plan(D)["smem_bytes"])

@@ -116,6 +116,8 @@ def test_flash_tile_plan_fits_shared_memory(D):
     assert plan["q_rows"] == 64 and plan["threads"] == 256 and plan["stages"] >= 2
     tiles = plan["q_rows"] * D * 2 + 2 * plan["stages"] * plan["kv_rows"] * D * 2
     assert tiles + 256 == plan["smem_bytes"]
+    # one block an SM at D 256: its grid goes heaviest q tile first over every head
+    assert plan["flat_grid"] == (D == 256)
 
 
 @pytest.mark.parametrize("D", [32, 96, 512])
@@ -177,16 +179,23 @@ def test_flash_bwd_tile_plan_fits_shared_memory_and_registers(D):
     plan = fa.bwd_tile_plan(D)
     assert plan["q_rows"] == plan["kv_rows"] == 64 and plan["stages"] >= 2   # wgmma's m64 tiles
     assert plan["dkdv_threads"] == plan["dq_threads"] == 128               # one warpgroup
+    assert plan["dq_blocks_per_sm"] == 2
+    assert plan["dkdv_blocks_per_sm"] == (3 if D == 64 else 2)   # D 64: a third warpgroup an SM
     for kernel in ("dkdv", "dq"):
         assert plan[f"smem_{kernel}"] <= fa.SMEM_LIMIT
         assert plan[f"{kernel}_blocks_per_sm"] * (plan[f"smem_{kernel}"] + 1024) <= fa.SM_SMEM
     tile = 64 * D * 2
-    assert plan["smem_dkdv"] == (2 + 2 * plan["stages"]) * tile + 2 * plan["stages"] * 256 + 64
+    staged = 64 * 64 * 4 if D == 64 else 0      # P^T in fp32 while dP^T is formed (D 64)
+    assert plan["smem_dkdv"] == ((2 + 2 * plan["stages"]) * tile + staged
+                                 + 2 * plan["stages"] * 256 + 64)
     assert plan["smem_dq"] == (2 + 2 * plan["stages"]) * tile + 64
-    # registers: a thread of the dK/dV warpgroup holds dK and dV of its 2 rows x D/4 columns,
-    # S^T and dP^T (32 each) and P^T, dS^T as bf16 pairs (16 each); the launch leaves it 255
-    cap = min(255, 65536 // (plan["dkdv_threads"] * plan["dkdv_blocks_per_sm"]))
-    assert cap == 255 and 2 * (D // 2) + 2 * 32 + 2 * 16 <= cap - 15
+    # registers: a thread of the dK/dV warpgroup holds dK and dV of its 2 rows x D/4 columns
+    # and P^T, dS^T as bf16 pairs (16 each), and S^T and dP^T (32 each) at once, or at D 64 one
+    # of them at a time.  Two blocks an SM leave it 255, three (D 64) 168 (65536 over 384
+    # threads, in units of 8)
+    cap = min(255, 65536 // (plan["dkdv_threads"] * plan["dkdv_blocks_per_sm"]) // 8 * 8)
+    need = 2 * (D // 2) + (1 if D == 64 else 2) * 32 + 2 * 16
+    assert cap == (168 if D == 64 else 255) and need <= cap - 15
 
 
 @pytest.mark.parametrize("D", [32, 96, 160, 512])
