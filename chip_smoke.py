@@ -15,9 +15,10 @@ Phases, each printing one JSON object on a line of its own:
            flash-attention libraries, forward and backward, 16-byte loads and
            stores in the rmsnorm one
   kernels  every kernel against its plain PyTorch version on the card, at the
-           shapes the serving path gives it (K1 also at MLA's (192, 128)
-           and at recurrentgemma's 16 q heads on one kv head, D 256, with a
-           window; K2 at its group of 16, on the tensor cores in bf16, and at
+           shapes the serving path gives it (K1 also at MLA's (192, 128),
+           at recurrentgemma's 16 q heads on one kv head, D 256, with a
+           window, and at D 64 at whisper's B1 prefill and B8 train shapes;
+           K2 at its group of 16, on the tensor cores in bf16, and at
            one sequence of G 16, 7 and 3; K1, K2, K3 and the backward kernels
            at qwen2-vl's G 7 and D 3584) and at edge shapes, in float32
            (tolerance 2e-5: another order of summation) and bfloat16 (2e-2);
@@ -50,11 +51,14 @@ Phases, each printing one JSON object on a line of its own:
            also a phase of its own), and K2 twice from the same inputs at a
            single sequence of G 16 and at G 7 (the same bits); K1's backward
            at D 64 at whisper's three train shapes timed by kernel (delta,
-           dK/dV, dQ) and its forward at D 256 at recurrentgemma's S1000 and
-           S2048 and gemma-7b's S2048, each beside SDPA (these checks alone
-           are the k1_parts phase, which CHIP_SMOKE_SRC points at another
-           tree), each twice for the same bits (the backward at the encoder's
-           shape, the forward at S1000 and gemma-7b's)
+           dK/dV, dQ), its forward at D 256 at recurrentgemma's S1000 and
+           S2048 and gemma-7b's S2048 and at D 64 at whisper's five shapes
+           (the encoder at B1 and B8, the cross attention at B1 Sq224 and B8
+           Sq448, the decoder's causal self attention at B8 S448; grid blocks
+           and waves too), each beside SDPA (these checks alone are the
+           k1_parts phase, which CHIP_SMOKE_SRC points at another tree), each
+           twice for the same bits (the backward at the encoder's shape, the
+           forward at S1000, gemma-7b's and whisper's B8 encoder)
   serve    phi4-mini-3.8b at full width and depth, random weights from a
            seed, ServingEngine(slots=8, cache_len=2048), 12 requests of 16 to
            1024 prompt tokens and 32 new tokens each; checks the tokens, the
@@ -254,12 +258,18 @@ train-shape backward of K1 and K3 of the tree at DIR (e.g. the parent
 commit, unpacked) beside this tree's, in turns (DIR, here, here, DIR), each
 in a process of its own, through the wrappers' common signatures (the
 `times` phase; for K3 also `host_us`, the host time of a wrapper call, taken
-before the process profiles anything).  `--variant PATCH` (repeatable, with
-`--baseline-src`) adds the tree at DIR with the unified diff PATCH applied
-(a copy under build/variants/) to those turns (DIR, each variant, here, here,
-each variant in reverse, DIR): the kernel designs that were tried and not
-shipped, kept as patches against the tree they were written for under
-src/repro_torch/kernels/variants/, so that they can be timed again beside it.
+before the process profiles anything).  Every output must be the other
+tree's bits, but K2's and those that come from K1's bf16 forward at D 64
+(its cases, and its backward's at whisper's three train shapes, which start
+from that forward's output and log-sum-exp): a plan's kv tiles set those
+bits, so each tree's are held to their plain versions at the kernel
+tolerance, and the cases so held are named in the line.  `--variant PATCH`
+(repeatable, with `--baseline-src`) adds the tree at DIR with the unified
+diff PATCH applied (a copy under build/variants/) to those turns (DIR, each
+variant, here, here, each variant in reverse, DIR): the kernel designs that
+were tried and not shipped, kept as patches against the tree they were
+written for under src/repro_torch/kernels/variants/, so that they can be
+timed again beside it.
 
 Then one line {"kernels": [...]} with, for each kernel of the serving path
 and the backward kernels of the train path, its launches in the serve phase
@@ -853,13 +863,22 @@ K1_PARTS_BWD = (("whisper_enc", 8, 20, 20, 1500, 1500, False),
 K1_PARTS_FWD = (("griffin_s1000", 1, 16, 1, 1000, 2048),
                 ("griffin_s2048", 1, 16, 1, 2048, 2048),
                 ("gemma_s2048", 1, 16, 16, 2048, 0))
+# K1's forward at D 64 at whisper-large-v3's five shapes (20 heads, G 1): the encoder's self
+# attention at the B1 prefill and the B8 train step, the cross attention of the B1 context
+# prefill (224 rows) and of the train step (448), and the decoder's causal self attention
+K1_PARTS_FWD64 = (("whisper_enc_b1", 1, 1500, 1500, False),
+                  ("whisper_enc_b8", 8, 1500, 1500, False),
+                  ("whisper_cross_b1", 1, 224, 1500, False),
+                  ("whisper_cross_b8", 8, 448, 1500, False),
+                  ("whisper_self_b8", 8, 448, 448, True))
 
 
 def k1_parts(rng) -> list:
     """The kernels phase's checks at the part shapes, alone: K1's backward at
     D 64 at ``K1_PARTS_BWD``'s shapes (:func:`check_flash_bwd`, its device
-    time by kernel: delta, dK/dV, dQ) and its forward at D 256 at
-    ``K1_PARTS_FWD``'s (:func:`check_flash`), in bf16 on the model's layout,
+    time by kernel: delta, dK/dV, dQ), its forward at D 256 at
+    ``K1_PARTS_FWD``'s and at D 64 at ``K1_PARTS_FWD64``'s
+    (:func:`check_flash`: grid and waves too), in bf16 on the model's layout,
     each timed beside SDPA.  CHIP_SMOKE_SRC points it at another tree."""
     bf16 = torch.bfloat16
     out = []
@@ -870,6 +889,10 @@ def k1_parts(rng) -> list:
     for name, B, H, Hkv, S, window in K1_PARTS_FWD:
         out.append({"shape": name, **check_flash(rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=256,
                                                  causal=True, window=window, dtype=bf16,
+                                                 timed=True, bshd=True)})
+    for name, B, Sq, Sk, causal in K1_PARTS_FWD64:
+        out.append({"shape": name, **check_flash(rng, B=B, H=20, Hkv=20, Sq=Sq, Sk=Sk, D=64,
+                                                 causal=causal, window=0, dtype=bf16,
                                                  timed=True, bshd=True)})
     return out
 
@@ -1149,9 +1172,10 @@ def determinism_checks(rng) -> list:
     """Each backward twice from the same inputs at its train shape (K1 also
     at a group of 5 and of 1, whose partial sums differ, at MLA's (192, 128),
     at a group of 16 at D 256 and at whisper's encoder at D 64), K1's forward
-    twice at D 256 (recurrentgemma's and gemma-7b's shapes), and K2 twice at
-    a single sequence of a group of 16 and at a batch of a group of 7: every
-    output must be the same bits."""
+    twice at D 256 (recurrentgemma's and gemma-7b's shapes) and at D 64
+    (whisper's encoder at B8), and K2 twice at a single sequence of a group
+    of 16 and at a batch of a group of 7: every output must be the same
+    bits."""
     from repro_torch.kernels import (decode_attention, flash_attention, flash_attention_bwd,
                                      rmsnorm_bwd)
     bf16 = torch.bfloat16
@@ -1201,6 +1225,11 @@ def determinism_checks(rng) -> list:
         runs = [flash_attention(q, k, v, causal=True, window=window) for _ in range(2)]
         out.append({"kernel": "flash_attention", "case": f"B1 H{H} Hkv{Hkv} S{S} D256 causal "
                     f"window{window} bshd", "bit_equal": torch.equal(*runs)})
+    # ... and at D 64 (kv tiles of 128 rows, three blocks an SM): whisper's encoder at B8
+    q, k, v = flash_inputs(rng, B=8, H=20, Hkv=20, Sq=1500, Sk=1500, D=64, dtype=bf16, bshd=True)
+    runs = [flash_attention(q, k, v, causal=False) for _ in range(2)]
+    out.append({"kernel": "flash_attention", "case": "B8 H20 Hkv20 S1500 D64 bshd",
+                "bit_equal": torch.equal(*runs)})
     del q, k, v, o, do, lse, runs
     x, w, r = rms_inputs(rng, 2048, 3072, bf16, bf16, False, True)
     dy, ds = randn(rng, (2048, 3072), bf16), randn(rng, (2048, 3072), bf16)
@@ -1434,6 +1463,16 @@ def phase_kernels():
         for name, Sq in (("whisper_enc_flash_attention", 1500),
                          ("whisper_cross_flash_attention", 224)):
             recs.append(check_flash(rng, B=1, H=20, Hkv=20, Sq=Sq, Sk=1500, D=64, causal=False,
+                                    window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+            if dtype is bf16:
+                main[name] = recs[-1]
+    # ... and at its B8 train step's three: the encoder, the cross attention (Sq 448) and
+    # the decoder's causal self attention (448 x 448)
+    for dtype in (bf16, f32):
+        for name, Sq, Sk, causal in (("whisper_enc_b8_flash_attention", 1500, 1500, False),
+                                     ("whisper_cross_b8_flash_attention", 448, 1500, False),
+                                     ("whisper_self_flash_attention", 448, 448, True)):
+            recs.append(check_flash(rng, B=8, H=20, Hkv=20, Sq=Sq, Sk=Sk, D=64, causal=causal,
                                     window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
             if dtype is bf16:
                 main[name] = recs[-1]
@@ -1890,6 +1929,31 @@ def digest(out) -> str:
     return h.hexdigest()[:16]
 
 
+def held_to_plain(q, k, v, causal, *, o=None, lse=None, do=None, grads=None) -> dict:
+    """A ``times`` record's error against the plain versions, for a case whose
+    outputs come from K1's bf16 forward at D 64 (whose plan walks kv tiles of
+    128 rows, so its bits are not those of a tree with 64-row tiles): the
+    forward's output against ``flash_attention_plain`` (largest absolute
+    error); given the backward's ``o``, ``lse``, ``do`` and ``grads``, also
+    the log-sum-exp against the plain one (over max(1, |lse|)) and the
+    gradients against ``flash_attention_bwd_plain`` in fp32 from that ``o``
+    and ``lse`` (``row_err``).  ``phase_baseline`` holds such a case in each
+    tree to the kernel tolerance instead of to the other tree's bits."""
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd_plain,
+                                     flash_attention_lse_plain)
+    want_o, want_lse = flash_attention_lse_plain(q, k, v, causal=causal)
+    got_o = flash_attention(q, k, v, causal=causal) if o is None else o
+    err = max_err(got_o, want_o)
+    if grads is not None:
+        B, H, Sq, _ = q.shape
+        one_key = torch.from_numpy(visible_per_row(Sq, k.shape[2], causal, 0) <= 1)
+        want = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o)), lse, do.float(),
+                                         causal=causal)
+        err = max(err, float(((lse - want_lse).abs() / want_lse.abs().clamp_min(1)).max()),
+                  row_err(grads, want, [one_key.expand(B, H, Sq).reshape(-1), None, None]))
+    return {"held_to_plain": True, "plain_err": err, "tol": TOL[q.dtype]}
+
+
 def phase_times():
     """The serving shapes of K1, K2 and K3 in bf16 and the train path's
     shapes of their backward (K1's also at D 256, G 16 and at MLA's (192,
@@ -1903,10 +1967,12 @@ def phase_times():
     (K1 in fp32 too), so that two trees' kernels are held bit for bit; K2's
     records also carry their error against the plain version, which holds
     two trees whose K2 splits or sums otherwise.  K1's backward at D 64 at
-    whisper's three train shapes (by kernel) and its forward at D 256 at
-    ``K1_PARTS_FWD``'s shapes and at MLA's (192, 128) come from a stream of
-    their own, as do K2 at a single sequence and at qwen2-vl's group of 7,
-    last."""
+    whisper's three train shapes (by kernel), its forward at D 256 at
+    ``K1_PARTS_FWD``'s shapes, at MLA's (192, 128) and at D 64 at
+    ``K1_PARTS_FWD64``'s come from a stream of their own, as do K2 at a
+    single sequence and at qwen2-vl's group of 7, last.  The records whose
+    outputs come from K1's bf16 forward at D 64 also carry their error
+    against the plain versions (:func:`held_to_plain`)."""
     from repro_torch.kernels import (decode_attention, decode_attention_plain, flash_attention,
                                      flash_attention_bwd, rmsnorm, rmsnorm_bwd)
     rng = np.random.default_rng(SEED)
@@ -1943,6 +2009,8 @@ def phase_times():
                                                              f"{dt_name(dtype)}",
                         "ms": time_ms(call), "device_ms": device_ms(call),
                         "out_sha": digest(call())})
+            if D == 64 and dtype is bf16:
+                out[-1].update(held_to_plain(q, k, v, True))
     def k2(case, q, k, v, vl, timed=True):
         # K2's output bits, and its error against the plain version, which holds
         # two trees whose K2 sums in another order
@@ -2024,7 +2092,8 @@ def phase_times():
         out.append({"kernel": "flash_attention_bwd",
                     "case": f"B{B} H{H} Hkv{Hkv} Sq{Sq} Sk{Sk} D64 causal{int(causal)} bshd",
                     "ms": time_ms(call), "device_ms_by_kernel": device_ms_by_kernel(call),
-                    "out_sha": digest((o, lse, *call()))})
+                    "out_sha": digest((o, lse, *call())),
+                    **held_to_plain(q, k, v, causal, o=o, lse=lse, do=do, grads=call())})
         out[-1]["device_ms"] = sum(out[-1]["device_ms_by_kernel"].values())
     for name, B, H, Hkv, S, window in K1_PARTS_FWD:
         q, k, v = flash_inputs(k1_rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=256, dtype=bf16,
@@ -2039,6 +2108,15 @@ def phase_times():
     call = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
     out.append({"kernel": "flash_attention", "case": "B1 H128 Hkv128 S1000 D192 Dv128 causal bshd",
                 "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call())})
+    # ... and K1 at D 64 at whisper-large-v3's five shapes
+    for name, B, Sq, Sk, causal in K1_PARTS_FWD64:
+        q, k, v = flash_inputs(k1_rng, B=B, H=20, Hkv=20, Sq=Sq, Sk=Sk, D=64, dtype=bf16,
+                               bshd=True)
+        call = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+        out.append({"kernel": "flash_attention",
+                    "case": f"B{B} H20 Hkv20 Sq{Sq} Sk{Sk} D64 causal{int(causal)} bshd",
+                    "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call()),
+                    **held_to_plain(q, k, v, causal)})
     for with_sum in (False, True):
         x, w, _ = rms_inputs(rng, 2048, 3072, bf16, bf16, False, False)
         dy = randn(rng, (2048, 3072), bf16)
@@ -2138,13 +2216,14 @@ def phase_baseline(other: str, variants: list[str] = ()) -> None:
             broken[label] = f"exit {res.returncode}: {res.stderr[-2000:]}"
             continue
         runs.append({"tree": label, **json.loads(lines[0])})
-    # every kernel's output bits but K2's, this tree's against the other's, case by case
-    # (the cases both trees run: a shape the other tree's kernels do not take is this
-    # one's alone); K2, whose splits and sums may differ between trees, is held in each
-    # run to its plain version at the kernel tolerance
+    # every kernel's output bits but K2's and K1's bf16 forward's at D 64 (and its
+    # backward's from those outputs), this tree's against the other's, case by case (the
+    # cases both trees run: a shape the other tree's kernels do not take is this one's
+    # alone); K2, whose splits and sums may differ between trees, and those K1 cases, whose
+    # kv tiles may, are held in each run to their plain versions at the kernel tolerance
     def sha_map(run):
         return {(r["kernel"], r["case"]): r.get("out_sha") for r in run["records"]
-                if r["kernel"] != "decode_attention"}
+                if r["kernel"] != "decode_attention" and not r.get("held_to_plain")}
 
     def differing(rs):
         shas = [sha_map(run) for run in rs]
@@ -2159,6 +2238,11 @@ def phase_baseline(other: str, variants: list[str] = ()) -> None:
     k2_over = [f"{run['tree']} {r['case']}: {r['max_abs_err']}" for run in runs
                for r in run["records"]
                if r["kernel"] == "decode_attention" and not r["max_abs_err"] <= r["tol"]]
+    held = sorted({f"{r['kernel']} {r['case']}" for run in runs for r in run["records"]
+                   if r.get("held_to_plain")})
+    held_over = [f"{run['tree']} {r['kernel']} {r['case']}: {r['plain_err']}" for run in runs
+                 for r in run["records"]
+                 if r.get("held_to_plain") and not r["plain_err"] <= r["tol"]]
     # K1's and its backward's device ms by tree, one entry a run, in the order run
     k1_ms = {}
     for run in runs:
@@ -2170,11 +2254,16 @@ def phase_baseline(other: str, variants: list[str] = ()) -> None:
           "cases_compared": len(common), "k2_over_tolerance": k2_over,
           "this_tree_only": sorted(f"{k} {c}" for (k, c) in
                                    set(sha_map(main_runs[1])) - common),
-          "variant_differ": variant_differ, "variant_broken": broken, "k1_device_ms": k1_ms})
+          "variant_differ": variant_differ, "variant_broken": broken, "k1_device_ms": k1_ms,
+          "held_to_plain": held, "held_over_tolerance": held_over})
     if differ:
         fail(f"--baseline-src: outputs differ from the other tree's: {differ}")
     if k2_over:
         fail(f"--baseline-src: K2 over its tolerance against the plain version: {k2_over}")
+    main_over = [h for h in held_over if h.split(" ", 1)[0] in ("baseline", "this")]
+    if main_over:
+        fail(f"--baseline-src: K1 at D 64 over its tolerance against the plain version: "
+             f"{main_over}")
 
 
 # --------------------------------------------------------------------------
@@ -5695,12 +5784,14 @@ def main(argv=None) -> int:
                     k: xlstm_rec.get(k) for k in (
                         "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "library_device_ms")}
-        for part in ("enc", "cross", "self"):
+        for part in ("enc", "cross", "self", "enc_b8", "cross_b8"):
             whisper_rec = main_recs.get(f"whisper_{part}_{name}")
             if whisper_rec is not None:
                 # the same kernel at whisper-large-v3's shapes (D 64, G 1): K1 at the
-                # encoder's 1500 x 1500 and the cross attention's 224 x 1500, K2 at the
-                # self ring of 448 and the encoder's 1500 rows, K1's backward at B8
+                # encoder's 1500 x 1500 and the cross attention's 224 x 1500 at B1, and
+                # at the B8 train step's three (the decoder's self attention 448 x 448),
+                # K2 at the self ring of 448 and the encoder's 1500 rows, K1's backward
+                # at B8
                 rec[f"whisper_shape_{part}"] = {k: whisper_rec.get(k) for k in (
                     "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "library_device_ms")}

@@ -12,10 +12,11 @@
 // bf16 path is built around the tensor cores:
 //
 //   * bf16 (`flash_fwd_tc_kernel`): a warp-specialised block.  Warpgroup 0
-//     is the producer: one thread issues TMA loads (Q once; K and V tiles
-//     into a ring of STAGES stages, each with a full barrier for K, one for
-//     V and an empty barrier), and the warpgroup gives registers to the
-//     consumer (setmaxnreg).  The consumer warpgroup owns 64 q rows:
+//     is the producer (at D = 64 one warp after the consumer warpgroup):
+//     one thread issues TMA loads (Q once; K and V tiles into a ring of
+//     STAGES stages, each with a full barrier for K, one for V and an empty
+//     barrier), and the warpgroup gives registers to the consumer
+//     (setmaxnreg).  The consumer warpgroup owns 64 q rows:
 //     S = Q K^T by wgmma with both operands in shared memory (128-byte
 //     swizzle, K-major), the online softmax on the accumulator fragment in
 //     registers (exp2 with scale * log2(e) folded in, a row's max and sum
@@ -273,26 +274,48 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
 // under it, both ran slower at D 256 on an H100 and were dropped; they are
 // kept as patches against the tree they were written for (kernels/variants/
 // k1_fwd256_{pingpong,overlap}.patch, timed by chip_smoke.py --variant).
+//
+// At D = 64 (LEAN) a 64 x 64 tile's softmax (4,096 exponentials on the SM's
+// special-function units) takes as long as its two products on the tensor
+// cores, and the per-tile work around them (the barrier round trips, the
+// waits, the row maxima's shuffles, O's rescaling) is no smaller than at D
+// 128: so the plan there takes kv tiles of 128 rows, which halves that work
+// a key, and three blocks an SM.  S is then 64 registers a thread and P 32,
+// O 32: the producer is one warp after the consumer warpgroup (160 threads),
+// which leaves a consumer thread ptxas's cap of 128 registers at three
+// blocks an SM, where a producer warpgroup leaves it 80 (ptxas keeps a
+// thread under the launch bounds' cap whatever setmaxnreg later moves), and
+// the ring two stages of 32 KB.  A row's maximum now runs over 128 keys a
+// step, so the output is not the 64-row plan's bits.  Tried and slower on an
+// H100 (kernels/variants/k1_fwd64_*.patch): three blocks of 64-row tiles,
+// with a producer warp or with a producer warpgroup and setmaxnreg 24 / 136
+// (which spilled), the consumer computing tile j's softmax under tile j - 1's
+// P V (ptxas serialised its products), and 128-row tiles at two blocks an SM.
 template <int DQK, int DV> struct TcPlan {
   static constexpr bool FLAT = DQK == 256 && DV == 256;   // heaviest q tiles first, all heads
+  static constexpr bool LEAN = DQK == 64 && DV == 64;
   static constexpr int BQ = 64;          // q rows a block
-  static constexpr int BK = 64;          // kv rows a tile
-  static constexpr int STAGES = DQK != DV ? 2 : 3;  // K/V ring depth
+  static constexpr int BK = LEAN ? 128 : 64;        // kv rows a tile
+  static constexpr int STAGES = DQK != DV || LEAN ? 2 : 3;  // K/V ring depth
   static constexpr int CH_QK = DQK / 64; // 128-byte column chunks of Q and K
   static constexpr int CH_V = DV / 64;   // and of V
-  static constexpr int THREADS = 256;    // a producer warpgroup and a consumer warpgroup
+  // A producer warpgroup before the consumer warpgroup, or (LEAN) one
+  // producer warp after it: warpgroup PRODUCER_WG holds the producer.
+  static constexpr int PRODUCER_WARPS = LEAN ? 1 : 4;
+  static constexpr int PRODUCER_WG = PRODUCER_WARPS == 4 ? 0 : 1;
+  static constexpr int THREADS = 128 + 32 * PRODUCER_WARPS;
   static constexpr int Q_BYTES = BQ * DQK * 2;
   static constexpr int K_BYTES = BK * DQK * 2;  // K of one stage
   static constexpr int V_BYTES = BK * DV * 2;   // V of one stage
   static constexpr int BAR_BYTES = 256;
   static constexpr int SMEM = Q_BYTES + STAGES * (K_BYTES + V_BYTES) + BAR_BYTES;
-  // Two blocks an SM where they fit (each with 1 KB reserved, in an SM's
-  // 228 KB); D = 256 takes one, so that ptxas may give a thread up to 255
-  // registers.
-  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
-  // Registers moved from the producer to the consumer with setmaxnreg, where
-  // the launch bounds cap a thread at 128: 40 + 216 = 2 * 128.
-  static constexpr bool REBALANCE = MIN_BLOCKS == 2;
+  // Three blocks an SM at D = 64, else two where they fit (each with 1 KB
+  // reserved, in an SM's 228 KB); D = 256 takes one, so that ptxas may give a
+  // thread up to 255 registers.
+  static constexpr int MIN_BLOCKS = LEAN ? 3 : 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
+  // Registers moved from the producer warpgroup to the consumer with
+  // setmaxnreg, where the launch bounds cap a thread at 128: 40 + 216 = 2 * 128.
+  static constexpr bool REBALANCE = PRODUCER_WARPS == 4 && MIN_BLOCKS == 2;
   static constexpr int PRODUCER_REGS = 40;
   static constexpr int CONSUMER_REGS = 216;
   // MIN_BLOCKS blocks, with 1 KB reserved for each, in an SM's 228 KB.
@@ -428,10 +451,10 @@ __global__ void __launch_bounds__(TcPlan<DQK, DV>::THREADS, TcPlan<DQK, DV>::MIN
   // Warp-uniform by construction (a broadcast), so that ptxas may treat the
   // two roles as regions of their own for setmaxnreg.
   const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
-  if (wg == 0) {
+  if (wg == P::PRODUCER_WG) {
     // ---------------- producer ----------------
     if constexpr (P::REBALANCE) reg_dealloc<P::PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
+    if (threadIdx.x == P::PRODUCER_WG * 128) {
       mbar_arrive_expect_tx(q_full, P::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < P::CH_QK; ++c)

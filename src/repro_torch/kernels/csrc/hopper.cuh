@@ -172,6 +172,22 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128]; A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_F64(0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A from registers (bf16 pairs), B from
 // shared memory, MN-major (transposed).
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db, int accumulate) {
@@ -273,11 +289,11 @@ template <int N, typename R> __device__ __forceinline__ void fence_all(R* r) {
 }
 
 // S = Q K^T of one tile: D/16 products m64 n(BK) k16, both operands K-major
-// (64 rows of D each).  Any A B^T of two such tiles: the backward's
-// S^T = K Q^T, dP^T = V dO^T, dP = dO V^T.
+// (64 rows of Q, BK of K, D each).  Any A B^T of two such tiles: the
+// backward's S^T = K Q^T, dP^T = V dO^T, dP = dO V^T.
 template <int D, int BK>
 __device__ __forceinline__ void issue_qk(float* sc, uint32_t q_addr, uint32_t k_addr) {
-  static_assert(BK == 64, "S tiles are m64n64");
+  static_assert(BK == 64 || BK == 128, "S tiles are m64n64 or m64n128");
   fence_all<BK / 2>(sc);
   wgmma_fence();
 #pragma unroll
@@ -285,7 +301,8 @@ __device__ __forceinline__ void issue_qk(float* sc, uint32_t q_addr, uint32_t k_
     const uint32_t off = (kd % 4) * 32;   // 16 values further inside the swizzle atom
     const uint64_t da = gmma_desc(q_addr + (kd / 4) * 64 * 128 + off, 16, 1024);
     const uint64_t db = gmma_desc(k_addr + (kd / 4) * BK * 128 + off, 16, 1024);
-    wgmma_ss_n64(sc, da, db, kd > 0);
+    if constexpr (BK == 64) wgmma_ss_n64(sc, da, db, kd > 0);
+    else wgmma_ss_n128(sc, da, db, kd > 0);
   }
   wgmma_commit();
 }

@@ -4,7 +4,8 @@ counts.
 Counterpart of ``repro/kernels/flash_attention.py``.  The kernels are CUDA
 C++.  The forward (``csrc/flash_attention.cu``): one block for each (batch,
 q head, q tile) with the KV loop inside; for bf16 a warp-specialised block of
-TMA loads and ``wgmma`` products (:func:`tile_plan`), for float32 fp32 FMAs;
+TMA loads and ``wgmma`` products (:func:`tile_plan`, its walk
+:func:`fwd_kv_tiles`), for float32 fp32 FMAs;
 given ``lse`` it launches the variant that also writes the row log-sum-exp.
 The backward (``csrc/flash_attention_bwd.cu``, which the reference does not
 have): a delta kernel, a dK/dV kernel of one block a (batch, q head, kv
@@ -47,22 +48,41 @@ def tile_plan(D: int, Dv: int | None = None) -> dict[str, int]:
     """The bf16 kernel's tiles for q/k head dim ``D`` and v head dim ``Dv``
     (default ``D``), ``TcPlan`` in the source: q rows a block (one consumer
     warpgroup), kv rows a tile, stages of the K/V ring, threads (a producer
-    warpgroup beside the consumer), blocks an SM it is built for (two where
-    two fit an SM's shared memory), shared-memory bytes (Q, the K and V ring,
-    256 of barriers), and whether the grid is one-dimensional, every head's
-    heaviest q tile first (``flat_grid``, ``FLAT``: at D 256, where one block
-    fills an SM), rather than (q tile, head, batch) with each head's heaviest
-    first.  The ring is three stages deep for one head dim and two at
-    ``MLA_D``, where two blocks then share an SM."""
+    warpgroup beside the consumer; at D 64 a producer warp), blocks an SM it
+    is built for (three at D 64, else two where two fit an SM's shared
+    memory), shared-memory bytes (Q, the K and V ring, 256 of barriers), and
+    whether the grid is one-dimensional, every head's heaviest q tile first
+    (``flat_grid``, ``FLAT``: at D 256, where one block fills an SM), rather
+    than (q tile, head, batch) with each head's heaviest first.  The ring is
+    three stages of 64 kv rows deep for one head dim, and two stages at
+    ``MLA_D`` (where two blocks then share an SM) and at D 64, whose tiles
+    are 128 kv rows."""
     Dv = D if Dv is None else Dv
     if not supported(D, Dv):
         raise ValueError(f"flash_attention: no bf16 plan for D={D}, Dv={Dv}")
-    bq = bk = 64
-    stages = 2 if D != Dv else 3
+    lean = (D, Dv) == (64, 64)
+    bq, bk = 64, 128 if lean else 64
+    stages = 2 if D != Dv or lean else 3
     smem = bq * D * 2 + stages * bk * (D + Dv) * 2 + 256
-    return {"q_rows": bq, "kv_rows": bk, "stages": stages, "threads": 256,
-            "blocks_per_sm": 2 if 2 * (smem + 1024) <= SM_SMEM else 1, "smem_bytes": smem,
-            "flat_grid": int((D, Dv) == (256, 256))}
+    return {"q_rows": bq, "kv_rows": bk, "stages": stages, "threads": 160 if lean else 256,
+            "blocks_per_sm": 3 if lean else 2 if 2 * (smem + 1024) <= SM_SMEM else 1,
+            "smem_bytes": smem, "flat_grid": int((D, Dv) == (256, 256))}
+
+
+def fwd_kv_tiles(qt: int, Sq: int, Sk: int, causal: bool, window: int, D: int,
+                 Dv: int | None = None) -> range:
+    """The kv tiles (of :func:`tile_plan`'s ``kv_rows``) that the bf16
+    kernel's block of q tile ``qt`` walks, in order: from the tile holding
+    the first key some row of it sees under the window to the last key any
+    row sees under the causal mask or the end of K (the block's ``kv_lo``
+    and ``kv_hi`` in the source)."""
+    plan = tile_plan(D, Dv)
+    bq, bk = plan["q_rows"], plan["kv_rows"]
+    q0 = qt * bq
+    hi = min(Sk, min(q0 + bq, Sq)) if causal else Sk
+    lo = max(0, q0 - window + 1) // bk if window > 0 else 0
+    n = -(-(hi - lo * bk) // bk) if hi > lo * bk else 0
+    return range(lo, lo + n)
 
 
 # (q/k, v) head dims of the backward's tensor-core path (bf16, aligned views)

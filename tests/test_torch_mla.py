@@ -237,18 +237,19 @@ def test_k1_plans_at_mla_dims():
     """Q (24 KB) and two stages of a K and V ring of 24 + 16 KB a stage: 104
     KB and 256 of barriers, two blocks an SM.  Three stages would take 144
     KB and leave one block an SM (the slower plan on the card).  The
-    single-D plans are what they were."""
+    single-D plans at D 128 and 256 are what they were; D 64's has two
+    stages of 128 kv rows, 72 KB, three blocks an SM."""
     assert FA.tile_plan(192, 128) == {"q_rows": 64, "kv_rows": 64, "stages": 2, "threads": 256,
                                       "blocks_per_sm": 2, "smem_bytes": 106_752, "flat_grid": 0}
     three = 64 * 192 * 2 + 3 * 64 * (192 + 128) * 2 + 256
     assert three == 147_712 and 2 * (three + 1024) > FA.SM_SMEM
     assert [(FA.tile_plan(D)["blocks_per_sm"], FA.tile_plan(D)["smem_bytes"])
-            for D in FA.SUPPORTED_D] == [(2, 57_600), (2, 114_944), (1, 229_632)]
+            for D in FA.SUPPORTED_D] == [(3, 73_984), (2, 114_944), (1, 229_632)]
     for bad in ((192, 192), (128, 64), (64, 128)):
         assert not FA.supported(*bad)
         with pytest.raises(ValueError):
             FA.tile_plan(*bad)
-    assert [FA.tile_plan(D)["stages"] for D in FA.SUPPORTED_D] == [3, 3, 3]
+    assert [FA.tile_plan(D)["stages"] for D in FA.SUPPORTED_D] == [2, 3, 3]
 
 
 # ---------------- the simulator's side ----------------

@@ -112,8 +112,11 @@ def test_flash_tile_plan_fits_shared_memory(D):
     plan = fa.tile_plan(D)
     assert plan["smem_bytes"] <= fa.SMEM_LIMIT
     assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) <= fa.SM_SMEM
-    assert plan["blocks_per_sm"] == (2 if D < 256 else 1)         # two 64-row blocks an SM
-    assert plan["q_rows"] == 64 and plan["threads"] == 256 and plan["stages"] >= 2
+    # two 64-row blocks an SM at D 128, one at D 256; three at D 64, whose producer is a
+    # warp (160 threads) and whose kv tiles are 128 rows in a ring of two stages
+    assert plan["blocks_per_sm"] == {64: 3, 128: 2, 256: 1}[D]
+    assert plan["q_rows"] == 64 and plan["stages"] >= 2
+    assert (plan["threads"], plan["kv_rows"]) == ((160, 128) if D == 64 else (256, 64))
     tiles = plan["q_rows"] * D * 2 + 2 * plan["stages"] * plan["kv_rows"] * D * 2
     assert tiles + 256 == plan["smem_bytes"]
     # one block an SM at D 256: its grid goes heaviest q tile first over every head
