@@ -58,7 +58,16 @@ Phases, each printing one JSON object on a line of its own:
            and waves too), each beside SDPA (these checks alone are the
            k1_parts phase, which CHIP_SMOKE_SRC points at another tree), each
            twice for the same bits (the backward at the encoder's shape, the
-           forward at S1000, gemma-7b's and whisper's B8 encoder)
+           forward at S1000, gemma-7b's and whisper's B8 encoder); Adafactor's
+           kernels against the plain update at recurrentgemma-9b's groups
+           (the tied embedding and the largest 12-layer group timed beside
+           their bytes bound and torch.optim.Adafactor; at 12 x 4096 x 12288
+           also (b) and (c) on (a)'s slabs) and at edge shapes, at an lr
+           that moves p by many ulps (vr, vc and v within 1e-5 relative; a
+           parameter's change within 1e-5 (fp32) or AF_BF16_UPDATE_TOL
+           (bf16) relative L2 of the plain version's, controls above that;
+           a bf16 parameter within one ulp at its operands' magnitude; the
+           same bits twice; these checks alone are the adafactor phase)
   serve    phi4-mini-3.8b at full width and depth, random weights from a
            seed, ServingEngine(slots=8, cache_len=2048), 12 requests of 16 to
            1024 prompt tokens and 32 new tokens each; checks the tokens, the
@@ -69,7 +78,8 @@ Phases, each printing one JSON object on a line of its own:
            launcher's pieces (repro_torch.launch.train.Trainer): AdamW, remat
            "block", B1 S2048 (cut only if the port's simulator says the step
            does not fit the card), a warm-up step, 3 steps timed with CUDA
-           events, one under the profiler (device-busy time by kernel group),
+           events, one under the profiler (device-busy time by kernel group:
+           K1, K1_bwd, K2, K3, K3_bwd, adamw, adafactor, cublas, other),
            peak memory, launches of K1 and K3 forward and backward; loss and
            grad norm finite at every step, the step counter advancing
   train_parity the train step cut to 4 layers, kernels against plain versions
@@ -246,12 +256,14 @@ Phases, each printing one JSON object on a line of its own:
            would be 113 GB), B1 S2048, remat "block", conv filters drawn: a
            warm-up step, 3 timed, one profiled (busy by kernel group), peak
            memory, launches a step (K1 24, its backward 12, K3 153 and its
-           backward 77), then one step with int8 gradient compression
+           backward 77, Adafactor's kernels 306 over its 71 layer groups),
+           then one step with int8 gradient compression
            through make_train_step; (2) the analytical and profiling engines'
            train step (a fresh DB; K1 and its backward at G 16, D 256
            counted) against the measured busy, wall and peak; (3) the train
            step on 6 layers, kernels against plain versions as train_parity
-           holds phi4-mini, under Adafactor and under Adafactor with int8
+           holds phi4-mini (Adafactor's kernels against its plain update),
+           under Adafactor and under Adafactor with int8
 
 `--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) and the
 train-shape backward of K1 and K3 of the tree at DIR (e.g. the parent
@@ -272,8 +284,9 @@ written for under src/repro_torch/kernels/variants/, so that they can be
 timed again beside it.
 
 Then one line {"kernels": [...]} with, for each kernel of the serving path
-and the backward kernels of the train path, its launches in the serve phase
-(the train phase for a backward kernel), in the train phase, by the
+and the backward kernels and optimizers of the train path, its launches in
+the serve phase (the train phase for a backward kernel and AdamW,
+griffin_train's for Adafactor), in the train phase, by the
 profiling engine in the simulate, serve_sim and sweep phases and in the moe,
 griffin, griffin_train, xlstm, whisper, vlm and mla phases' parts and the
 dryrun phase's decode step, its timings at olmoe's,
@@ -899,6 +912,8 @@ def k1_parts(rng) -> list:
 
 def check_ok(r) -> bool:
     """A kernel check's record within its limits (a NaN is not)."""
+    if "ok" in r:       # a check that holds several measures (Adafactor's)
+        return bool(r["ok"])
     return bwd_errs_ok(r) if "row_err" in r else r["max_abs_err"] <= r["tol"]
 
 
@@ -1399,6 +1414,288 @@ def check_plans(recs_plans: dict) -> None:
         1, 1, 2048, 132, 2, 32)
 
 
+# --------------------------------------------------------------------------
+# Adafactor's update of a layer group (csrc/adafactor.cu)
+# --------------------------------------------------------------------------
+
+AF_STATE_TOL = 1e-5     # vr, vc, v: largest elementwise relative error against the plain version
+AF_UPDATE_TOL = 1e-5    # an fp32 parameter's change: relative L2 against the plain version's
+# A bf16 parameter's change: relative L2 against the plain version's.  On an
+# H100 80GB HBM3 at 700 W the sound kernels read 0 to 5.5e-5 over these cases
+# (elements whose fp32 result lies within 1e-7 of a bf16 rounding tie come
+# out one ulp apart), and the controls below 1.1e-2 (the step 1 % off) to 1.0.
+AF_BF16_UPDATE_TOL = 2e-4
+AF_HP = dict(eps1=1e-30, eps2=1e-3, clip_threshold=1.0, weight_decay=0.0)
+# Each case runs at an lr that moves a parameter by many of its last places,
+# so that the change, and not only its rounding, is held to the plain
+# version's.  At the launcher's step-3 lr (9e-6) a step moves a parameter of
+# 0.02 by about 1e-7: a hundred fp32 ulps, but 1/700 of a bf16 ulp, where a
+# bf16 parameter would come out equal to its input whatever the update.  So
+# the fp32 cases run at PARITY_LR (1e-3: about 1e4 fp32 ulps) and the bf16
+# ones at AF_BF16_LR (a step of lr x RMS(p) x u, about 1e-2, some 80 bf16
+# ulps); beta2 keeps the step's value.
+AF_BF16_LR = 0.5
+# Controls: the same relative L2 of the plain version's change against the
+# plain version under an error the kernels could make, which must exceed the
+# case's limit: the step's size 1 % off (lr x 1.01), the clip forced to 1
+# (where the case makes the clip bite), the apply left out (p unchanged).
+AF_CONTROL_LR = 1.01
+
+
+def af_chunks(*lists, n=1 << 25):
+    """Aligned flat chunks of n elements of the layers of each list (so a
+    full-size group's float64 temporaries stay at a few hundred MB)."""
+    for ts in zip(*lists):
+        flat = [t.reshape(-1) for t in ts]
+        for i in range(0, flat[0].numel(), n):
+            yield [f[i:i + n].double() for f in flat]
+
+
+def af_sq_dist(xs, ys) -> float:
+    return sum(float((x - y).square().sum()) for x, y in af_chunks(xs, ys))
+
+
+def af_operand_ulps(mine, plain, before) -> float:
+    """The largest |mine - plain| of a bf16 parameter in bf16 ulps at the
+    larger magnitude of the parameter before and after the plain update.
+    Where the step cancels the parameter (p - lr x scale x u near 0) the
+    result's own last place is far finer than the rounding of the fp32
+    operands, and a 1e-7 relative difference in u shows there as many of
+    its ulps; at the operands' magnitude it is at most one."""
+    worst = 0.0
+    for a, b, p0 in af_chunks(mine, plain, before):
+        mag = torch.maximum(p0.abs(), b.abs())
+        ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+        ulp = ulp.clamp_min(2.0 ** -133)      # bf16's smallest subnormal
+        worst = max(worst, float(((a - b).abs() / ulp).max()))
+    return worst
+
+
+def af_scalars(step: int) -> dict:
+    """lr and beta2 of the launcher's schedule at ``step``, as the optimizer
+    computes them (0-d fp32 tensors on the card)."""
+    from repro_torch.training.optimizer import cosine_schedule
+    s = torch.tensor(step, dtype=torch.int32, device="cuda")
+    return {"lr": cosine_schedule(3e-4)(s), "beta2": 1.0 - s.to(torch.float32) ** -0.8}
+
+
+def af_group(gen, layers, shape, p_dtype, g_dtype, *, g_scale=1.0, misaligned=False):
+    """(g layers, p layers, state) on the card from ``gen``: p ~ 0.02 N(0, 1)
+    as a trained weight, g ~ 1e-3 g_scale N(0, 1), the state a positive
+    second moment of gradients of 1e-3 (step 3's, or zeros for step 1's use
+    as the step sets beta2 = 0).  ``layers`` None: one unstacked tensor.
+    ``misaligned``: every layer's base one element off its allocation."""
+    from repro_torch.kernels import adafactor as AF
+    off = 1 if misaligned else 0
+
+    def one(dtype, scale):
+        n = math.prod(shape)
+        t = torch.randn(n + off, generator=gen, device="cuda", dtype=torch.float32)
+        return t.mul_(scale).to(dtype)[off:].view(shape)
+    n_layers = 1 if layers is None else layers
+    gs = [one(g_dtype, 1e-3 * g_scale) for _ in range(n_layers)]
+    ps = [one(p_dtype, 0.02) for _ in range(n_layers)]
+    full = tuple(shape) if layers is None else (layers, *shape)
+
+    def moment(sh):
+        return torch.rand(sh, generator=gen, device="cuda").add_(0.5).mul_(1e-6)
+    if AF.factored(full):
+        state = {"vr": moment(full[:-1]), "vc": moment((*full[:-2], full[-1]))}
+    else:
+        state = {"v": moment(full)}
+    return gs, ps, state
+
+
+def af_copy(ps, state):
+    return [t.clone() for t in ps], {k: v.clone() for k, v in state.items()}
+
+
+def check_adafactor(gen, name, layers, shape, *, p_dtype, g_dtype, step=3, g_scale=1.0,
+                    misaligned=False, timed=False):
+    """Adafactor's update of one group by the kernels against its plain
+    version on copies of the same g, p and state: vr, vc or v within
+    AF_STATE_TOL (elementwise relative); the parameter's change within
+    AF_UPDATE_TOL (fp32) or AF_BF16_UPDATE_TOL (bf16) relative L2 of the
+    plain version's, with the controls above it; a bf16 parameter within one
+    bf16 ulp at its operands' magnitude (its last-place distance and the
+    share that differs reported); the kernels twice from the same inputs
+    give the same bits.  ``timed``: the kernels' time (CUDA events and device
+    time) beside their bytes bound (g and p read once, p written once, the
+    state read and written once), the exact design's bytes (g read three
+    times, p twice, p written once), the plain version's time and
+    ``torch.optim.Adafactor(foreach=True)`` on the same leaves."""
+    from repro_torch.kernels import adafactor as AF
+    from repro_torch.kernels import adafactor_update, adafactor_update_plain
+    gs, ps, state = af_group(gen, layers, shape, p_dtype, g_dtype, g_scale=g_scale,
+                             misaligned=misaligned)
+    if step == 1:
+        for t in state.values():
+            t.zero_()
+    hp = {**af_scalars(step), **AF_HP}
+    hp["lr"] = torch.tensor(PARITY_LR if p_dtype == torch.float32 else AF_BF16_LR,
+                            dtype=torch.float32, device="cuda")
+    tol = AF_UPDATE_TOL if p_dtype == torch.float32 else AF_BF16_UPDATE_TOL
+    plan = AF.group_plan(gs, ps, state, AF.sms_of(ps[0].device))
+    mine, mine_s = af_copy(ps, state)
+    again, again_s = af_copy(ps, state)
+    plain, plain_s = af_copy(ps, state)
+    before = [t.clone() for t in ps]
+    adafactor_update(gs, mine, mine_s, **hp)
+    adafactor_update(gs, again, again_s, **hp)
+    torch.cuda.synchronize()
+    adafactor_update_plain(gs, plain, plain_s, **hp)
+    state_err = max(float(((mine_s[k].double() - plain_s[k].double()).abs()
+                           / plain_s[k].double().abs()).max()) for k in state)
+
+    def change_rel_l2(got) -> float:
+        """||got - plain|| / ||plain - before||, over the group (the
+        absolute norm where the plain version changes nothing)."""
+        num, den = math.sqrt(af_sq_dist(got, plain)), math.sqrt(af_sq_dist(plain, before))
+        return num / den if den else num
+
+    def plain_control(**over) -> float:
+        ctl, ctl_s = af_copy(ps, state)
+        adafactor_update_plain(gs, ctl, ctl_s, **{**hp, **over})
+        err = change_rel_l2(ctl)
+        del ctl, ctl_s
+        return err
+
+    rec = {"kernel": "adafactor", "case": name, "dtype": dt_name(p_dtype),
+           "layers": layers, "shape": list(shape), "p": dt_name(p_dtype), "g": dt_name(g_dtype),
+           "step": step, "lr": float(hp["lr"]), "misaligned": misaligned,
+           "plan": {k: plan[k] for k in ("factored", "vec", "grid", "kernels") if k in plan}
+           | {k: plan[k] for k in ("slab_rows", "slabs_a_matrix", "slab_rows2", "slabs_a_matrix2",
+                                   "grid2") if k in plan},
+           "state_rel_err": state_err, "state_tol": AF_STATE_TOL,
+           "max_abs_err": max(max_err(a, b) for a, b in zip(mine, plain)),
+           "update_rel_l2": change_rel_l2(mine), "update_tol": tol,
+           "bit_equal_twice": all(torch.equal(a, b) for a, b in zip(mine, again))
+           and all(torch.equal(mine_s[k], again_s[k]) for k in state),
+           "bit_equal_plain": all(torch.equal(a, b) for a, b in zip(mine, plain))}
+    moved = any(not torch.equal(b, p0) for b, p0 in zip(plain, before))
+    if moved:
+        rec["control_lr_x1.01"] = plain_control(lr=hp["lr"] * AF_CONTROL_LR)
+        rec["control_no_apply"] = change_rel_l2(before)
+        controls = [rec["control_lr_x1.01"], rec["control_no_apply"]]
+        if g_scale > 1.0:
+            rec["control_clip_1"] = plain_control(clip_threshold=math.inf)
+            if step > 1:    # at step 1 (beta2 0) u is g over its own RMS: no clip bites
+                controls.append(rec["control_clip_1"])
+        rec["controls_exceed_tol"] = all(c > tol for c in controls)
+    else:   # zero gradients and no decay: nothing moves, and nothing may
+        rec["controls_exceed_tol"] = True
+    ok = rec["update_rel_l2"] <= tol and rec["controls_exceed_tol"]
+    if p_dtype == torch.bfloat16:
+        ulps = max(int((a.view(torch.int16).int() - b.view(torch.int16).int()).abs().max())
+                   for a, b in zip(mine, plain))
+        differ = sum(int((a != b).sum()) for a, b in zip(mine, plain))
+        rec.update(max_ulp=ulps, share_differing=differ / sum(t.numel() for t in mine),
+                   max_operand_ulp=af_operand_ulps(mine, plain, before))
+        ok = ok and rec["max_operand_ulp"] <= 1.0
+    rec["ok"] = bool(ok and state_err <= AF_STATE_TOL and rec["bit_equal_twice"])
+    del before
+    if timed:
+        N = sum(t.numel() for t in ps)
+        pe, ge = ps[0].element_size(), gs[0].element_size()
+        st_bytes = 8 * sum(t.numel() for t in state.values())
+        rec["bound_ms"], rec["bound_by"] = bound(N * (ge + 2 * pe) + st_bytes, 20.0 * N,
+                                                 torch.float32)
+        rec["exact_design_bound_ms"] = (N * (3 * ge + 3 * pe) + st_bytes) / PEAK_BYTES_S * 1e3
+        call = lambda: adafactor_update(gs, mine, mine_s, **hp)  # noqa: E731
+        rec["ms"] = time_ms(call, iters=5, warmup=1)
+        rec["device_ms"] = device_ms(call, iters=3, cold=False)
+        rec["device_ms_by_kernel"] = device_ms_by_kernel(call, iters=3, cold=False)
+        if plan["factored"] and plan["slabs_a_matrix2"] != plan["slabs_a_matrix"]:
+            # the update's two passes on (a)'s slabs instead of their own
+            # finer ones: CUDA events in turns, shipped plan first
+            M, S, C = plan["M"], plan["slabs_a_matrix"], plan["C"]
+            alt = plan | {"slab_rows2": plan["slab_rows"], "slabs_a_matrix2": S,
+                          "grid2": plan["grid"],
+                          "workspace": 4 + M + 2 * M * S + ((M * S + M * S * C) if S > 1 else 0)}
+            turns = {"own_slabs_ms": [], "stats_slabs_ms": []}
+            for _ in range(2):
+                for key, pl in (("own_slabs_ms", plan), ("stats_slabs_ms", alt)):
+                    turns[key].append(time_ms(lambda pl=pl: AF.launch_group(
+                        gs, mine, mine_s, pl, **hp), iters=3, warmup=1))
+            rec["plans_update_passes"] = turns
+        del again, again_s
+        torch.cuda.empty_cache()
+        rec["plain_ms"] = time_ms(lambda: adafactor_update_plain(gs, plain, plain_s, **hp),
+                                  iters=3, warmup=1)
+        del plain, plain_s
+        torch.cuda.empty_cache()
+        # the nearest PyTorch call: torch.optim.Adafactor over the same leaves,
+        # a leaf at a time (no stacking: its factors and clip are per layer),
+        # its own eps (eps1 None: the dtype's smallest), lr 3e-4, no relative step
+        ws = [t.clone().requires_grad_() for t in ps]
+        for w, g in zip(ws, gs):
+            w.grad = g
+        opt = torch.optim.Adafactor(ws, lr=3e-4, foreach=True)
+        rec["library_ms"] = time_ms(opt.step, iters=3, warmup=1)
+        rec["library_device_ms"] = device_ms(opt.step, iters=3, cold=False)
+        del opt, ws
+    else:
+        rec["ms"] = rec["device_ms"] = rec["plain_ms"] = rec["bound_ms"] = None
+        rec["library_ms"] = rec["library_device_ms"] = None
+    del gs, ps, state, mine, mine_s
+    torch.cuda.empty_cache()
+    return rec
+
+
+def adafactor_checks() -> tuple[list, dict]:
+    """The kernels against the plain version at recurrentgemma-9b's shapes
+    and at edge shapes; returns (records, the main records by name)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    recs, main = [], {}
+    # the tied embedding (256000 x 4096, unstacked: 525 slabs of 488 rows) and
+    # the largest 12-layer group (12 x 12288 x 4096), timed
+    recs.append(check_adafactor(gen, "embedding", None, (256000, 4096), p_dtype=bf16,
+                                g_dtype=bf16, timed=True))
+    main["adafactor"] = recs[-1]
+    recs.append(check_adafactor(gen, "stacked_mlp", 12, (12288, 4096), p_dtype=bf16,
+                                g_dtype=bf16, timed=True))
+    main["adafactor_group"] = recs[-1]
+    # its transpose, 12 x 4096 x 12288, where the column workspace caps (a)
+    # at 17 slabs a matrix and (b) and (c) walk 43 of their own (timed
+    # against (b) and (c) on (a)'s slabs)
+    recs.append(check_adafactor(gen, "stacked_mlp_wide", 12, (4096, 12288), p_dtype=bf16,
+                                g_dtype=bf16, timed=True))
+    # the tree's other forms: 12 x (4096, 16, 256) (49,152 matrices of 16 x
+    # 256), 12 x (4096,) (a 12 x 4096 matrix), 12 x (4096, 1, 256) (not
+    # factored), step 1 and 3, the clip active and not, zero gradients
+    for step in (1, 3):
+        for g_scale, label in ((1.0, ""), (100.0, " clip"), (0.0, " zero")):
+            recs.append(check_adafactor(gen, f"heads{label}", 12, (4096, 16, 256), p_dtype=bf16,
+                                        g_dtype=bf16, step=step, g_scale=g_scale,
+                                        timed=step == 3 and not label))
+            recs.append(check_adafactor(gen, f"norms{label}", 12, (4096,), p_dtype=bf16,
+                                        g_dtype=bf16, step=step, g_scale=g_scale))
+            recs.append(check_adafactor(gen, f"conv{label}", 12, (4096, 1, 256), p_dtype=bf16,
+                                        g_dtype=bf16, step=step, g_scale=g_scale))
+    # a 1-D leaf (bf16 and fp32), a last dim of 1, a 0-d leaf; odd and
+    # unaligned; fp32 and mixed (fp32 g, bf16 p: gradient accumulation's)
+    recs.append(check_adafactor(gen, "vector", None, (4096,), p_dtype=bf16, g_dtype=bf16))
+    recs.append(check_adafactor(gen, "last_dim_1", None, (4096, 1), p_dtype=bf16, g_dtype=bf16))
+    recs.append(check_adafactor(gen, "scalar", None, (), p_dtype=f32, g_dtype=f32))
+    recs.append(check_adafactor(gen, "vector", None, (4096,), p_dtype=f32, g_dtype=f32))
+    recs.append(check_adafactor(gen, "odd", None, (1001, 333), p_dtype=bf16, g_dtype=bf16,
+                                misaligned=True))
+    recs.append(check_adafactor(gen, "odd_stacked", 3, (1001, 333), p_dtype=f32, g_dtype=f32,
+                                misaligned=True))
+    recs.append(check_adafactor(gen, "odd_vector", 3, (1001,), p_dtype=bf16, g_dtype=bf16,
+                                misaligned=True))
+    recs.append(check_adafactor(gen, "square", None, (4096, 4096), p_dtype=f32, g_dtype=f32,
+                                step=1))
+    recs.append(check_adafactor(gen, "square", None, (4096, 4096), p_dtype=f32, g_dtype=f32,
+                                g_scale=100.0))
+    recs.append(check_adafactor(gen, "square_mixed", None, (4096, 4096), p_dtype=bf16,
+                                g_dtype=f32))
+    recs.append(check_adafactor(gen, "skinny", None, (100000, 8), p_dtype=f32, g_dtype=f32,
+                                step=1))
+    return recs, main
+
+
 def phase_kernels():
     """Returns (all records, {kernel name: record at the serving path's shape})."""
     from repro_torch import kernels as K
@@ -1792,6 +2089,10 @@ def phase_kernels():
     recs.append(check_adamw(rng, n=3072 * 8192, p_dtype=bf16, g_dtype=f32, timed=False))
     recs.append(check_adamw(rng, n=12345, p_dtype=bf16, g_dtype=bf16, timed=False))
     recs.append(check_adamw(rng, n=3073, p_dtype=f32, g_dtype=f32, timed=False, misaligned=True))
+    # --- Adafactor's update of a layer group: recurrentgemma-9b's groups and edge shapes
+    af_recs, af_main = adafactor_checks()
+    recs.extend(af_recs)
+    main.update(af_main)
 
     for dtype in (bf16, f32):
         recs.append(check_rmsnorm_bwd(rng, R=37, D=100, dtype=dtype, w_dtype=f32, offset=True,
@@ -1820,11 +2121,12 @@ def phase_kernels():
 
 # instructions each library must hold: K1's and its backward's wgmma (HGMMA)
 # and TMA loads (UTMALDG), K3's 16-byte loads and stores, K2's mma.sync (HMMA)
-# and cp.async (LDGSTS)
+# and cp.async (LDGSTS), Adafactor's 16-byte loads and stores and its rsqrtf
 SASS_WANTED = {"flash_attention": (r"HGMMA", r"UTMALDG"),
                "flash_attention_bwd": (r"HGMMA", r"UTMALDG"),
                "rmsnorm": (r"LDG\.E\.128", r"STG\.E\.128"),
-               "decode_attention": (r"HMMA", r"LDGSTS")}
+               "decode_attention": (r"HMMA", r"LDGSTS"),
+               "adafactor": (r"LDG\.E\.128", r"STG\.E\.128", r"MUFU\.RSQ")}
 
 
 # the bf16 forward's instantiations at MLA's dims and at D 256 (mangled:
@@ -2336,7 +2638,7 @@ def phase_serve():
     norms = 2 * L + 1
     want = {"flash_attention": L * len(reqs), "decode_attention": L * steps,
             "rmsnorm": norms * (len(reqs) + steps), "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-            "adamw": 0}
+            "adamw": 0, "adafactor": 0}
     toks = sum(len(r.tokens) for r in reqs)
     ttft = [r.ttft_s * 1e3 for r in reqs]
     rec = {"phase": "serve", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
@@ -2518,6 +2820,17 @@ def train_shape(cfg, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH,
             batch //= 2
 
 
+def adafactor_launches_a_step(cfg, params) -> int:
+    """The kernels one Adafactor update of ``params`` launches: its layer
+    groups' (``adafactor.launch_plan``: 3 a group that is not factored, 4 a
+    factored one, 5 where a matrix has more than one slab)."""
+    from repro_torch.kernels import adafactor as AF
+    from repro_torch.training.optimizer import _groups, _stack_shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sum(AF.launch_plan(_stack_shape(g), len(g), g[0].dtype, g[0].dtype, 8, sms)["kernels"]
+               for g in _groups(params, cfg))
+
+
 def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN_STEPS,
                 perturb=None, seq: int = TRAIN_SEQ, batch: int = TRAIN_BATCH, cut: str = "seq",
                 layers: int | None = None, optimizer: str = "adamw", then=None):
@@ -2551,6 +2864,7 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
             perturb(state["params"])
     from repro_torch.training.optimizer import tree_leaves
     n_leaves = len(tree_leaves(state["params"]))
+    af_launches = adafactor_launches_a_step(cfg, state["params"])
     pipe = trainer.pipeline(0)
     steps = []
 
@@ -2619,11 +2933,13 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
     # (the forward and its recomputation under remat "block"), its backward
     # once; K3 forward 2L + 1 (two norms a block, the final norm outside the
     # checkpoints) plus 2L recomputed, its backward 2L + 1 (none where the
-    # norm is LayerNorm, plain torch); the AdamW update once a parameter tensor
+    # norm is LayerNorm, plain torch); the AdamW update once a parameter
+    # tensor, Adafactor's kernels (3 to 5) once a layer group
     rms = cfg.norm != "layernorm"
     want = {"flash_attention": 2 * La, "flash_attention_bwd": La,
             "rmsnorm": (4 * L + 1) * rms, "rmsnorm_bwd": (2 * L + 1) * rms,
-            "decode_attention": 0, "adamw": n_leaves if optimizer == "adamw" else 0}
+            "decode_attention": 0, "adamw": n_leaves if optimizer == "adamw" else 0,
+            "adafactor": af_launches if optimizer == "adafactor" else 0}
     rec = {"phase": phase, "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
            "params": cfg.param_count(), "batch": B, "seq": S, "remat": "block",
            "optimizer": optimizer, "predicted_bytes": predicted_bytes,
@@ -2833,7 +3149,8 @@ def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times
         loss, m = make_loss_fn(model)(tree, batch)
         grads = [g.detach() for g in torch.autograd.grad(loss, tree_leaves(tree))]
         lr = cosine_schedule(PARITY_LR, warmup=1)
-        opt = adamw(lr, plain_kernels=plain) if optimizer == "adamw" else adafactor(lr, cfg=cfg)
+        opt = adamw(lr, plain_kernels=plain) if optimizer == "adamw" \
+            else adafactor(lr, cfg=cfg, plain_kernels=plain)
         state = init_state(tree, opt)
         state, metrics = make_train_step(cfg, run, opt, plain_kernels=plain)(state, batch)
         delta = [p.detach().float() - b.float()
@@ -2901,10 +3218,18 @@ def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times
 # the simulator against the port's own step
 # --------------------------------------------------------------------------
 
+AF_KERNELS = re.compile(r"\baf_(stats|cols|usq|scalars|apply|v|vapply)_kernel\b")
+
+
 def kernel_group(name: str) -> str:
     """Who wrote a kernel, by its name: K1 (forward or backward), K2, K3
-    (forward or backward), cuBLAS, other."""
+    (forward or backward), the optimizers' kernels (AdamW's, Adafactor's),
+    cuBLAS, other."""
+    if AF_KERNELS.search(name):
+        return "adafactor"
     name = name.lower()
+    if "adamw_kernel" in name:
+        return "adamw"
     if "flash_fwd" in name:
         return "K1"
     if "flash_bwd" in name:
@@ -2931,8 +3256,8 @@ def is_kernel(e) -> bool:
 def device_groups(avgs) -> dict:
     """Self device time (µs, whole window) of the profiler's kernels by who
     wrote them (``kernel_group``)."""
-    out = {"K1": 0.0, "K1_bwd": 0.0, "K2": 0.0, "K3": 0.0, "K3_bwd": 0.0, "cublas": 0.0,
-           "other": 0.0}
+    out = {"K1": 0.0, "K1_bwd": 0.0, "K2": 0.0, "K3": 0.0, "K3_bwd": 0.0, "adamw": 0.0,
+           "adafactor": 0.0, "cublas": 0.0, "other": 0.0}
     for e in avgs:
         if is_kernel(e):
             out[kernel_group(e.key)] += e.self_device_time_total
@@ -3203,7 +3528,9 @@ def phase_simulate(train=None):
                 "attention/K1": [kinds.get("attention", 0.0), dev["K1"]],
                 "attention_bwd/K1_bwd": [bwd_entries[0] * cfg.num_layers, dev["K1_bwd"]],
                 "transpose/none": [kinds.get("transpose", 0.0), 0.0],
-                "rest/K3+K3_bwd+other": [rest, dev["K3"] + dev["K3_bwd"] + dev["other"]]},
+                "rest/K3+K3_bwd+other": [rest, dev["K3"] + dev["K3_bwd"] + dev["other"]],
+                "optimizer/adamw+adafactor": [prof.breakdown_us.get("optimizer", 0.0),
+                                              dev["adamw"] + dev["adafactor"]]},
             memory={"analytical_bytes": ana.memory.total, "profiling_bytes": prof.memory.total,
                     "measured_peak_bytes": train["peak_bytes"],
                     "signed_error": ana.memory.total / train["peak_bytes"] - 1.0,
@@ -3360,7 +3687,7 @@ def phase_serve_sim():
     n_req, steps = meas["requests"], meas["engine_steps"]
     want = {"flash_attention": L * n_req, "decode_attention": L * steps,
             "rmsnorm": (2 * L + 1) * (n_req + steps), "flash_attention_bwd": 0, "rmsnorm_bwd": 0,
-            "adamw": 0}
+            "adamw": 0, "adafactor": 0}
     if not (meas["logits_finite"] and meas["tokens_32"]):
         fail("serve_measure: non-finite logits or a request without 32 tokens")
     if meas["launches"] != want:
@@ -3720,7 +4047,7 @@ def moe_serve(cfg, params=None, phase: str = "moe") -> dict:
     mla = cfg.attention == "mla"
     want = {"flash_attention": La * len(reqs), "decode_attention": 0 if mla else La * steps,
             "rmsnorm": ((4 if mla else 2) * L + 1) * (len(reqs) + steps),
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "adamw": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "adamw": 0, "adafactor": 0}
     toks = sum(len(r.tokens) for r in reqs)
     ttft = [r.ttft_s * 1e3 for r in reqs]
     # a steady decode step: 8 live slots of 512-token prompts
@@ -4303,7 +4630,7 @@ def phase_dryrun(params=None) -> dict:
     want = {"flash_attention": 0,
             "decode_attention": sum(k == "griffin_attn" for k in layer_kinds(cfg)),
             "rmsnorm": 2 * cfg.num_layers + 1,
-            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "adamw": 0}
+            "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "adamw": 0, "adafactor": 0}
     measured = measure_step(step, DRYRUN_STEPS, annotate=FAMILY_OPS.get(cfg.family))
     syncs = dryrun_step_syncs(step)
 
@@ -4716,7 +5043,7 @@ def whisper_expected(cfg, decode_steps: int, prefills: int = 1) -> dict:
     against the encoder's rows: 2L), no K3 (LayerNorm is plain torch)."""
     L, Le = cfg.num_layers, cfg.encoder_layers
     return {"flash_attention": (2 * L + Le) * prefills, "decode_attention": 2 * L * decode_steps,
-            "rmsnorm": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "adamw": 0}
+            "rmsnorm": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "adamw": 0, "adafactor": 0}
 
 
 def whisper_transcribe(cfg, model, params) -> dict:
@@ -5044,7 +5371,7 @@ def vlm_expected(cfg, prefills: int, decode_steps: int) -> dict:
     L = cfg.num_layers
     return {"flash_attention": L * prefills, "decode_attention": L * decode_steps,
             "rmsnorm": (2 * L + 1) * (prefills + decode_steps), "flash_attention_bwd": 0,
-            "rmsnorm_bwd": 0, "adamw": 0}
+            "rmsnorm_bwd": 0, "adamw": 0, "adafactor": 0}
 
 
 def vlm_multimodal(cfg, model, params) -> dict:
@@ -5529,6 +5856,9 @@ KERNEL_INFO = {
                     "src/repro/kernels/rmsnorm.py:45"),
     # no TPU kernel: the reference's AdamW update is array code XLA fuses
     "adamw": ("src/repro_torch/kernels/csrc/adamw.cu", "src/repro/training/optimizer.py:79"),
+    # no TPU kernel: the reference's Adafactor update is array code XLA fuses
+    "adafactor": ("src/repro_torch/kernels/csrc/adafactor.cu",
+                  "src/repro/training/optimizer.py:104"),
 }
 # kernels whose main path is training, with what they stand for
 TRAIN_ONLY = {
@@ -5538,6 +5868,9 @@ TRAIN_ONLY = {
                    "src/repro/models/layers.py:31)",
     "adamw": "the training step's fused AdamW update; it replaces no TPU kernel (the "
              "reference's update is array code at the line named, which XLA fuses)",
+    "adafactor": "Adafactor's update of a layer group in 3-5 passes; it replaces no TPU kernel "
+                 "(the reference's update is array code at the line named, which XLA fuses); "
+                 "its main path is recurrentgemma-9b's train step (griffin_train)",
 }
 
 
@@ -5551,7 +5884,8 @@ def main(argv=None) -> int:
                          "train_parity,simulate,serve_sim,sweep,moe,griffin,dryrun,"
                          "griffin_train,xlstm,whisper,vlm,mla (and times, the serving-shape "
                          "timings alone; k2_parts and k1_parts, the kernels phase's part "
-                         "times alone; serve_measure, the measured side of serve_sim alone; "
+                         "times alone; adafactor, its Adafactor checks alone; serve_measure, "
+                         "the measured side of serve_sim alone; "
                          "mla_layout, the mla phase's first part alone); the closing lines are "
                          "printed only when the eighteen of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
@@ -5626,6 +5960,11 @@ def main(argv=None) -> int:
         emit({"phase": "k1_parts", "src": SRC, "gpu": smi, "k1_parts": parts})
         if not all(check_ok(r) for r in parts):
             fail(f"K1 at the part shapes: off its plain version: {parts}")
+    if "adafactor" in phases:
+        af_recs, _ = adafactor_checks()
+        emit({"phase": "adafactor", "gpu": smi, "checks": af_recs})
+        if not all(check_ok(r) for r in af_recs):
+            fail(f"Adafactor's kernels off their plain version: {af_recs}")
     if "serve_measure" in phases:
         phase_serve_measure()
     if args.variant and not args.baseline_src:
@@ -5676,13 +6015,16 @@ def main(argv=None) -> int:
                         sim["train"]["profiling_launches"]["flash_attention_bwd"],
                     "rmsnorm_bwd": sim["train"]["profiling_launches"]["rmsnorm_bwd"],
                     # the simulator prices the optimizer from its bytes; it times no update
-                    "adamw": sim["train"]["profiling_launches"]["adamw"]}
+                    "adamw": sim["train"]["profiling_launches"]["adamw"],
+                    "adafactor": sim["train"]["profiling_launches"]["adafactor"]}
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         r = main_recs[name]
         # a forward kernel's main path is serving; a backward kernel's, and the
         # optimizer's, training
         launches = train["launches"][name] if name in TRAIN_ONLY else counts[name]
+        if name == "adafactor":     # recurrentgemma-9b's train step, three steps
+            launches = griffin_train["train_rec"]["launches"][name]
         if launches <= 0:
             fail(f"kernel {name} was not launched on its main path")
         rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5803,6 +6145,16 @@ def main(argv=None) -> int:
             rec["vlm_shape"] = {k: vlm_rec.get(k) for k in (
                 "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")}
+        if name == "adafactor":
+            # the largest 12-layer group, the bound of the exact design (g read three
+            # times, p twice), and the update over recurrentgemma-9b's whole tree
+            group = main_recs["adafactor_group"]
+            rec["exact_design_bound_ms"] = r["exact_design_bound_ms"]
+            rec["update_rel_l2"] = r["update_rel_l2"]
+            rec["group_shape"] = {k: group.get(k) for k in (
+                "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "exact_design_bound_ms", "library_ms", "library_device_ms")}
+            rec["tree_update_device_ms"] = griffin_train["train_rec"]["optimizer_device_ms"]
         if name in TRAIN_ONLY:
             rec["note"] = TRAIN_ONLY[name]
         kernels.append(rec)

@@ -24,7 +24,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rmsnorm", "flash_attention", "flash_attention_bwd", "decode_attention", "adamw")
+SOURCES = ("rmsnorm", "flash_attention", "flash_attention_bwd", "decode_attention", "adamw",
+           "adafactor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

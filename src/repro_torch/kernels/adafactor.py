@@ -1,0 +1,264 @@
+"""Adafactor's update of one layer group: wrapper, plain version, plan, launch
+count.
+
+Not the port of a TPU kernel: the reference's Adafactor is array code that
+XLA fuses into a few passes over each stacked leaf, and eager PyTorch would
+run it as some forty fp32 launches a leaf after stacking the group's layers
+into one tensor.  The kernels (``csrc/adafactor.cu``) take the layers where
+they lie and make three passes over g (statistics, the update's sum of
+squares, the apply), in fixed orders, so two runs give the same bits.  Their
+sums run in another order than PyTorch's, so they equal
+:func:`adafactor_update_plain` to rounding, not bit for bit.  For a CUDA
+tensor the wrapper launches them or raises; only a tensor on the CPU takes
+the plain version.
+
+A group is what the reference holds as one array: a block parameter's
+tensors of every layer of one position of the block cycle (stacked: the
+array is ``(L, *shape)``), or one tensor (the array is the tensor).  Its
+state is the reference's: ``{"vr", "vc"}`` where the array is factored (its
+last two dims both above 1), else ``{"v"}``; it says which of the two forms
+the group takes.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+THREADS = 256            # threads a block of the slab and flat walks
+BLOCKS_PER_SM = 8        # the most blocks a grid is given, a SM
+SLABS_PER_SM = 4         # the slabs a SM the plan aims at (all resident at once)
+MIN_SLAB_ROWS = 16
+MAX_SLAB_ROWS = 1024     # AF_MAX_SLAB in the source
+MAX_COLUMN_PARTIALS = 10 * 2**20 // 4   # floats of the column workspace the plan aims under
+MAX_LAYERS = 128         # AF_MAX_LAYERS in the source
+SCALAR_THREADS = 1024    # AF_SCALAR_THREADS in the source
+_SMS: dict[int, int] = {}
+
+
+def factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+
+def group_shape(group_p, state) -> tuple[tuple, bool]:
+    """(the reference's array shape of the group, whether it stacks the
+    layers), read from the state's shapes."""
+    shape = ((*state["vr"].shape, state["vc"].shape[-1]) if "vr" in state
+             else tuple(state["v"].shape))
+    one = tuple(group_p[0].shape)
+    if len(group_p) == 1 and shape == one:
+        return shape, False
+    if shape == (len(group_p), *one):
+        return shape, True
+    raise ValueError(f"adafactor: a state of shape {shape} does not fit {len(group_p)} "
+                     f"layers of {one}")
+
+
+@torch.no_grad()
+def _upd(g, s, p, *, lr, beta2, eps1, eps2, clip_threshold, weight_decay):
+    # the reference's arithmetic, with each full-size fp32 temporary
+    # reused in place and dropped once read: at most three such
+    # copies of a leaf live at once (recurrentgemma's tied embedding
+    # is 4.2 GB a copy), where the expression form holds six
+    g = g.to(torch.float32)
+    g2 = torch.square(g).add_(eps1)
+    if factored(g.shape):
+        vr = beta2 * s["vr"] + (1 - beta2) * g2.mean(-1)
+        vc = beta2 * s["vc"] + (1 - beta2) * g2.mean(-2)
+        del g2
+        denom = (vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps1))[..., None] \
+            * vc[..., None, :]
+        u = denom.clamp_(min=eps1).rsqrt_().mul_(g)      # g * rsqrt(max(denom, eps1))
+        new_s = {"vr": vr, "vc": vc}
+    else:
+        v = beta2 * s["v"] + (1 - beta2) * g2
+        del g2
+        u = g * torch.rsqrt(torch.clamp(v, min=eps1))
+        new_s = {"v": v}
+    del g
+    rms_u = torch.sqrt(torch.mean(torch.square(u)) + eps1)
+    u.div_(torch.clamp(rms_u / clip_threshold, min=1.0))
+    pf = p.to(torch.float32, copy=True)
+    scale = torch.clamp(torch.sqrt(torch.mean(torch.square(pf))), min=eps2)
+    decay = lr * weight_decay * pf
+    new_p = pf.sub_(u.mul_(lr * scale)).sub_(decay)   # pf - lr scale u - lr wd pf
+    return new_p.to(p.dtype), new_s
+
+
+@torch.no_grad()
+def adafactor_update_plain(group_g, group_p, state, *, lr, beta2, eps1: float, eps2: float,
+                           clip_threshold: float, weight_decay: float) -> None:
+    """The update in plain torch, in place: the group's layers stacked (or
+    its one tensor), the reference's Adafactor step on that array
+    (``vr``/``vc`` or ``v`` of ``state`` and the parameters), the result
+    copied back into ``group_p`` and ``state``.  ``lr``, ``beta2``: 0-d
+    fp32 tensors."""
+    _, stacked = group_shape(group_p, state)
+    g = torch.stack(list(group_g)) if stacked else group_g[0]
+    p = torch.stack(list(group_p)) if stacked else group_p[0]
+    new_p, new_s = _upd(g, state, p, lr=lr, beta2=beta2, eps1=eps1, eps2=eps2,
+                        clip_threshold=clip_threshold, weight_decay=weight_decay)
+    for k, v in new_s.items():
+        state[k].copy_(v)
+    if stacked:
+        for i, t in enumerate(group_p):
+            t.copy_(new_p[i])
+    else:
+        group_p[0].copy_(new_p)
+
+
+def slab_rows(M: int, R: int, C: int | None, sms: int) -> int:
+    """Rows a slab (a multiple of 8, from MIN_SLAB_ROWS to MAX_SLAB_ROWS):
+    the matrices cut into about SLABS_PER_SM slabs a SM, at most as many as
+    keep column partials of C floats a slab under MAX_COLUMN_PARTIALS (C
+    None: no column partials); R where a matrix has no more than
+    MIN_SLAB_ROWS rows."""
+    if R <= MIN_SLAB_ROWS:
+        return R
+    per_matrix = SLABS_PER_SM * sms // M
+    if C is not None:
+        per_matrix = min(per_matrix, MAX_COLUMN_PARTIALS // (M * C))
+    sr = -(-R // max(1, per_matrix))
+    return min(R, MAX_SLAB_ROWS, max(MIN_SLAB_ROWS, -(-sr // 8) * 8))
+
+
+def launch_plan(shape, layers: int, g_dtype, p_dtype, aligned: int, sms: int) -> dict:
+    """The kernels' walk of a group whose array has ``shape`` (``layers``
+    layers of equal size): ``aligned`` is the largest of 8, 4 and 1 elements
+    that every layer's g and p base is aligned to (8 counts only where both
+    are bf16 and 16 bytes aligned).  Returns the vector width, the grid (a
+    block's partial sums of u^2 and p^2 where the group is not factored),
+    the kernels a call launches and the workspace in floats; factored: also
+    M, R, C, the rows a slab and slabs a matrix of the statistics pass
+    (which keeps column partials, and p^2 a slab) and of the update's two
+    passes (u^2 a slab), and their grid."""
+    N = math.prod(shape)
+    n = N // layers
+    if factored(shape):
+        R, C = shape[-2], shape[-1]
+        M = N // (R * C)
+        vec = next(v for v in (8, 4, 1) if v <= aligned and C % v == 0
+                   and (v < 8 or g_dtype == p_dtype == torch.bfloat16))
+        sr, sr2 = slab_rows(M, R, C, sms), slab_rows(M, R, None, sms)
+        S, S2 = -(-R // sr), -(-R // sr2)
+        cap = sms * BLOCKS_PER_SM
+        ws = 4 + M + M * S + M * S2 + ((M * S + M * S * C) if S > 1 else 0)
+        return {"factored": True, "vec": vec, "M": M, "R": R, "C": C, "n": n,
+                "slab_rows": sr, "slabs_a_matrix": S, "grid": max(1, min(M * S, cap)),
+                "slab_rows2": sr2, "slabs_a_matrix2": S2, "grid2": max(1, min(M * S2, cap)),
+                "kernels": 5 if S > 1 else 4, "workspace": ws}
+    vec = 4 if aligned >= 4 and n % 4 == 0 else 1
+    grid = max(1, min(-(-N // (vec * THREADS)), sms * BLOCKS_PER_SM))
+    return {"factored": False, "vec": vec, "n": n, "grid": grid, "kernels": 3,
+            "workspace": 4 + 2 * grid}
+
+
+def sms_of(device: torch.device) -> int:
+    sms = _SMS.get(device.index)
+    if sms is None:
+        sms = _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms
+
+
+def _alignment(ts) -> int:
+    """The largest of 8, 4, 1 elements that every tensor's base is aligned to
+    (8 where each base is 16 bytes aligned and the tensors are bf16)."""
+    if all(t.dtype == torch.bfloat16 and t.data_ptr() % 16 == 0 for t in ts):
+        return 8
+    if all(t.data_ptr() % (4 * t.element_size()) == 0 for t in ts):
+        return 4
+    return 1
+
+
+def group_plan(group_g, group_p, state, sms: int) -> dict:
+    """``launch_plan`` for a group as the wrapper sees it."""
+    shape, _ = group_shape(group_p, state)
+    return launch_plan(shape, len(group_p), group_g[0].dtype, group_p[0].dtype,
+                       _alignment([*group_g, *group_p]), sms)
+
+
+def _lib():
+    lib = _build.load("adafactor")
+    if lib.adafactor_launch.argtypes is None:
+        vp, ci, ll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.adafactor_launch.argtypes = [vp, vp, ci] + [ll] * 4 + [ci] * 10 + [vp] * 5 \
+            + [cf] * 4 + [vp]
+        lib.adafactor_launch.restype = ci
+    return lib
+
+
+@torch.no_grad()
+def adafactor_update(group_g, group_p, state, *, lr, beta2, eps1: float, eps2: float,
+                     clip_threshold: float, weight_decay: float) -> None:
+    """:func:`adafactor_update_plain` by the kernels for CUDA tensors, the
+    layers read and written where they lie.  g, p: the group's layers, each
+    contiguous, all of one shape, p of one dtype (fp32 or bf16) and g of
+    p's or fp32; state: fp32, contiguous, on their device; lr, beta2: 0-d fp32
+    tensors there."""
+    p0 = group_p[0]
+    if p0.device.type == "cpu":
+        return adafactor_update_plain(group_g, group_p, state, lr=lr, beta2=beta2, eps1=eps1,
+                                      eps2=eps2, clip_threshold=clip_threshold,
+                                      weight_decay=weight_decay)
+    if p0.device.type != "cuda":
+        raise RuntimeError(f"adafactor_update: no kernel for device {p0.device}")
+    g0 = group_g[0]
+    _build.dtype_code(p0, "adafactor_update p")
+    _build.dtype_code(g0, "adafactor_update g")
+    if g0.dtype != p0.dtype and g0.dtype != torch.float32:
+        raise ValueError(f"adafactor_update: no kernel for {g0.dtype} g with {p0.dtype} p "
+                         "(g takes p's dtype or float32)")
+    L = len(group_p)
+    if len(group_g) != L or not 1 <= L <= MAX_LAYERS:
+        raise ValueError(f"adafactor_update: {len(group_g)} gradients for {L} layers "
+                         f"(at most {MAX_LAYERS})")
+    st = [state[k] for k in ("vr", "vc", "v") if k in state]
+    for name, t in [("g", g) for g in group_g] + [("p", p) for p in group_p] \
+            + [("state", t) for t in st] + [("lr", lr), ("beta2", beta2)]:
+        if t.device != p0.device:
+            raise ValueError(f"adafactor_update: {name} is on {t.device}, p on {p0.device}")
+    if any(g.dtype != g0.dtype or g.shape != p0.shape for g in group_g) \
+            or any(p.dtype != p0.dtype or p.shape != p0.shape for p in group_p):
+        raise ValueError("adafactor_update: the group's layers must share one shape and dtype")
+    if any(t.dtype != torch.float32 for t in st) or not all(t.is_contiguous() for t in st):
+        raise ValueError("adafactor_update: the state must be float32 and contiguous")
+    if any(t.dtype != torch.float32 or t.numel() != 1 for t in (lr, beta2)):
+        raise ValueError("adafactor_update: lr and beta2 must be one float32 each")
+    if not all(t.is_contiguous() for t in (*group_g, *group_p)):
+        raise ValueError("adafactor_update: g and p must be contiguous")
+    if any(t.data_ptr() % 16 for t in st):
+        raise ValueError("adafactor_update: the state must be 16-byte aligned")
+    if p0.numel() == 0:
+        return
+    launch_group(group_g, group_p, state, group_plan(group_g, group_p, state, sms_of(p0.device)),
+                 lr=lr, beta2=beta2, eps1=eps1, eps2=eps2, clip_threshold=clip_threshold,
+                 weight_decay=weight_decay)
+
+
+def launch_group(group_g, group_p, state, plan, *, lr, beta2, eps1, eps2, clip_threshold,
+                 weight_decay) -> None:
+    """The kernels of one group on ``plan`` (``group_plan``'s, or another
+    walk of the same group to time against it), the arguments as
+    :func:`adafactor_update` has checked them."""
+    p0 = group_p[0]
+    L = len(group_p)
+    ws = torch.empty(plan["workspace"], dtype=torch.float32, device=p0.device)
+    gp = (ctypes.c_void_p * L)(*[t.data_ptr() for t in group_g])
+    pp = (ctypes.c_void_p * L)(*[t.data_ptr() for t in group_p])
+    f = plan["factored"]
+    v, vc = (state["vr"], state["vc"]) if f else (state["v"], None)
+    _build.launch(_lib().adafactor_launch, p0.device, "adafactor", gp, pp, L, plan["n"],
+                  plan.get("M", 0), plan.get("R", 0), plan.get("C", 0), int(f),
+                  plan.get("slab_rows", 0), plan.get("slabs_a_matrix", 0), plan["grid"],
+                  plan.get("slab_rows2", 0), plan.get("slabs_a_matrix2", 0),
+                  plan.get("grid2", 0), plan["vec"],
+                  _build.dtype_code(p0, "adafactor p"), _build.dtype_code(group_g[0], "adafactor g"),
+                  v.data_ptr(), vc.data_ptr() if vc is not None else None, ws.data_ptr(),
+                  lr.data_ptr(), beta2.data_ptr(), eps1, eps2, clip_threshold, weight_decay)
+    adafactor_update.launches += plan["kernels"]
+
+
+adafactor_update.launches = 0   # kernel launches made by this wrapper (3 to 5 a group)

@@ -27,8 +27,11 @@ gives the reference's numbers for the same tree.  Two things differ in form:
   m, s) position, so Adafactor and int8 compression take the model's
   ``cfg`` (without one every layer is one cycle position, the dense
   decoders' stacking).  Adafactor's state is kept in the reference's
-  layout, a flat list aligned with the reference's leaves; the stacking
-  makes a temporary fp32 copy of one stacked leaf at a time.
+  layout, a flat list aligned with the reference's leaves, updated in
+  place.  On the card a group's update is one call of
+  ``kernels.adafactor_update``, whose kernels read the layers where they
+  lie; its plain version (the CPU's) stacks them and makes temporary fp32
+  copies of one stacked leaf at a time.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import _leaves, reference_layout
+from repro_torch.kernels.adafactor import adafactor_update, adafactor_update_plain
+from repro_torch.kernels.adafactor import factored as _factored
 from repro_torch.kernels.adamw import adamw_update, adamw_update_plain
 
 
@@ -64,12 +69,6 @@ def tree_map(fn, tree, *rest):
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
-
-
-def _stack(group: list[torch.Tensor]) -> torch.Tensor:
-    """A group as the reference's array: the tensor itself, or its layers
-    stacked."""
-    return group[0] if len(group) == 1 and not _is_stacked(group) else torch.stack(group)
 
 
 def _is_stacked(group) -> bool:
@@ -186,15 +185,14 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 # Adafactor (factored second moment, update clipping)
 # --------------------------------------------------------------------------
 
-def _factored(shape) -> bool:
-    return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
-
-
 def adafactor(lr_fn, eps1: float = 1e-30, eps2: float = 1e-3,
               clip_threshold: float = 1.0, weight_decay: float = 0.0,
-              cfg: ModelConfig | None = None) -> Optimizer:
+              cfg: ModelConfig | None = None, *, plain_kernels: bool = False) -> Optimizer:
     """Factored state is kept as a flat list aligned with the reference's
-    leaves (its stacked layout, by ``cfg``'s block cycle)."""
+    leaves (its stacked layout, by ``cfg``'s block cycle).  ``plain_kernels``
+    updates through the plain version on the card too (the on-card check of
+    the kernels against it)."""
+    group_update = adafactor_update_plain if plain_kernels else adafactor_update
 
     def init(params):
         def st(group):
@@ -214,47 +212,14 @@ def adafactor(lr_fn, eps1: float = 1e-30, eps2: float = 1e-3,
         step = state["step"] + 1
         lr = lr_fn(step)
         beta2 = 1.0 - step.to(torch.float32) ** -0.8
-
-        def upd(g, s, p):
-            # the reference's arithmetic, with each full-size fp32 temporary
-            # reused in place and dropped once read: at most three such
-            # copies of a leaf live at once (recurrentgemma's tied embedding
-            # is 4.2 GB a copy), where the expression form holds six
-            g = g.to(torch.float32)
-            g2 = torch.square(g).add_(eps1)
-            if _factored(g.shape):
-                vr = beta2 * s["vr"] + (1 - beta2) * g2.mean(-1)
-                vc = beta2 * s["vc"] + (1 - beta2) * g2.mean(-2)
-                del g2
-                denom = (vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps1))[..., None] \
-                    * vc[..., None, :]
-                u = denom.clamp_(min=eps1).rsqrt_().mul_(g)      # g * rsqrt(max(denom, eps1))
-                new_s = {"vr": vr, "vc": vc}
-            else:
-                v = beta2 * s["v"] + (1 - beta2) * g2
-                del g2
-                u = g * torch.rsqrt(torch.clamp(v, min=eps1))
-                new_s = {"v": v}
-            del g
-            rms_u = torch.sqrt(torch.mean(torch.square(u)) + eps1)
-            u.div_(torch.clamp(rms_u / clip_threshold, min=1.0))
-            pf = p.to(torch.float32, copy=True)
-            scale = torch.clamp(torch.sqrt(torch.mean(torch.square(pf))), min=eps2)
-            decay = lr * weight_decay * pf
-            new_p = pf.sub_(u.mul_(lr * scale)).sub_(decay)   # pf - lr scale u - lr wd pf
-            return new_p.to(p.dtype), new_s
-
-        g_groups, p_groups = _groups(grads, cfg), _groups(params, cfg)
-        new_f = []
-        for gg, s, pg in zip(g_groups, state["f"], p_groups):
-            new_p, new_s = upd(_stack(gg), s, _stack(pg))
-            new_f.append(new_s)
-            if len(pg) == 1 and not _is_stacked(pg):
-                pg[0].copy_(new_p)
-            else:
-                for i, p in enumerate(pg):
-                    p.copy_(new_p[i])
-        return params, {"f": new_f, "step": step}
+        # a group's update (one array of the reference: a block parameter's
+        # layers of one cycle position, or one tensor) writes its parameters
+        # and its state in place: the kernels on the card, the reference's
+        # arithmetic in plain torch on the CPU (kernels/adafactor.py)
+        for gg, s, pg in zip(_groups(grads, cfg), state["f"], _groups(params, cfg)):
+            group_update([g.contiguous() for g in gg], pg, s, lr=lr, beta2=beta2, eps1=eps1,
+                         eps2=eps2, clip_threshold=clip_threshold, weight_decay=weight_decay)
+        return params, {"f": state["f"], "step": step}
 
     return Optimizer(init, update)
 

@@ -161,7 +161,8 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors_and_launch_nothing():
     assert torch.equal(K.decode_attention(q[:, :, 0], k, k),
                        K.decode_attention_plain(q[:, :, 0], k, k))
     assert K.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
-                                "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "adamw": 0}
+                                "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "adamw": 0,
+                                "adafactor": 0}
 
 
 def test_build_is_keyed_by_source_and_needs_a_compiler(tmp_path, monkeypatch):

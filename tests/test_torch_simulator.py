@@ -421,7 +421,8 @@ def test_synthesize_and_measure_runs_each_kind_on_the_cpu(node):
     us = t_prof.synthesize_and_measure(node, device="cpu")
     assert us is not None and us > 0
     assert K.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
-                                "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "adamw": 0}
+                                "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "adamw": 0,
+                                "adafactor": 0}
 
 
 def test_synthesize_gives_none_only_for_what_it_cannot_build():
