@@ -8,7 +8,7 @@ call (its kernels: K3's row kernel and dw sum, K1's delta, dK/dV and dQ).
 ``adamw_update`` (one launch a parameter tensor) is the training step's
 fused optimizer update, a kernel of the port that replaces no TPU kernel;
 ``adafactor_update`` (one call a layer group) is Adafactor's, and counts the
-kernels it launches (3 to 5 a group: ``adafactor.launch_plan``).
+kernels it launches (2 or 3 a group: ``adafactor.launch_plan``).
 """
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.adafactor import adafactor_update, adafactor_update_plain

@@ -5,9 +5,11 @@ Not the port of a TPU kernel: the reference's Adafactor is array code that
 XLA fuses into a few passes over each stacked leaf, and eager PyTorch would
 run it as some forty fp32 launches a leaf after stacking the group's layers
 into one tensor.  The kernels (``csrc/adafactor.cu``) take the layers where
-they lie and make three passes over g (statistics, the update's sum of
-squares, the apply), in fixed orders, so two runs give the same bits.  Their
-sums run in another order than PyTorch's, so they equal
+they lie and read g twice (statistics, apply) and p twice: the update's sum
+of squares comes out of the statistics pass in factored form, and a third
+pass over g runs only where a guard finds that a clamp could bite on a
+nonzero gradient.  Their sums run in fixed orders, so two runs give the same
+bits, but in other orders than PyTorch's, so they equal
 :func:`adafactor_update_plain` to rounding, not bit for bit.  For a CUDA
 tensor the wrapper launches them or raises; only a tensor on the CPU takes
 the plain version.
@@ -22,20 +24,29 @@ the group takes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from repro_torch.kernels import _build
 
-THREADS = 256            # threads a block of the slab and flat walks
-BLOCKS_PER_SM = 8        # the most blocks a grid is given, a SM
-SLABS_PER_SM = 4         # the slabs a SM the plan aims at (all resident at once)
+THREADS = 256            # threads a block of every walk but af_rows_kernel's
+ROWS_THREADS = 512       # AF_ROWS_THREADS in the source: af_rows_kernel's block, one an SM
+MAX_KC = 4               # AF_MAX_KC: column vectors a thread of af_rows_kernel at most
+MAX_STAGES = 8           # stages of af_rows_kernel's ring the plan takes at most
+MIN_TILE_BYTES = 32 * 1024   # a smaller tile of g and p: the wide walk (a tile's fixed cost)
+BLOCKS_PER_SM = 8        # the most blocks a grid of (b), (c) or the flat walk is given, a SM
+SLABS_PER_SM = 4         # the slabs a SM the walks of (b) and (c) aim at
 MIN_SLAB_ROWS = 16
-MAX_SLAB_ROWS = 1024     # AF_MAX_SLAB in the source
-MAX_COLUMN_PARTIALS = 10 * 2**20 // 4   # floats of the column workspace the plan aims under
+MAX_SLAB_ROWS = 1024     # AF_MAX_SLAB in the source: the wide walk's, (b)'s and (c)'s
+MAX_TILE_ROWS = 256      # AF_MAX_TILE in the source
+MAX_COLUMN_PARTIALS = 16 * 2**20 // 4   # floats of the column workspace the plan aims under
 MAX_LAYERS = 128         # AF_MAX_LAYERS in the source
-SCALAR_THREADS = 1024    # AF_SCALAR_THREADS in the source
+ITEM_COLUMNS = 32        # columns an item of the statistics' column sums
+# shared memory af_rows_kernel may take (the H100's 227 KB a block, less room
+# for the static part)
+ROWS_SMEM = 232448 - 1024
 _SMS: dict[int, int] = {}
 
 
@@ -111,10 +122,10 @@ def adafactor_update_plain(group_g, group_p, state, *, lr, beta2, eps1: float, e
 
 
 def slab_rows(M: int, R: int, C: int | None, sms: int) -> int:
-    """Rows a slab (a multiple of 8, from MIN_SLAB_ROWS to MAX_SLAB_ROWS):
-    the matrices cut into about SLABS_PER_SM slabs a SM, at most as many as
-    keep column partials of C floats a slab under MAX_COLUMN_PARTIALS (C
-    None: no column partials); R where a matrix has no more than
+    """Rows a slab of the wide walk (C given: it keeps column partials of C
+    floats a slab under MAX_COLUMN_PARTIALS) or of (b) and (c) (C None): a
+    multiple of 8 from MIN_SLAB_ROWS to MAX_SLAB_ROWS, the matrices cut into
+    about SLABS_PER_SM slabs a SM; R where a matrix has no more than
     MIN_SLAB_ROWS rows."""
     if R <= MIN_SLAB_ROWS:
         return R
@@ -125,16 +136,95 @@ def slab_rows(M: int, R: int, C: int | None, sms: int) -> int:
     return min(R, MAX_SLAB_ROWS, max(MIN_SLAB_ROWS, -(-sr // 8) * 8))
 
 
-def launch_plan(shape, layers: int, g_dtype, p_dtype, aligned: int, sms: int) -> dict:
+def rows_columns(C: int, vec: int) -> tuple[int, int]:
+    """(lanes, column vectors a thread) of af_rows_kernel: LANES threads
+    across the C / vec column vectors (a power of two up to ROWS_THREADS;
+    ROWS_THREADS / LANES row groups), each taking every LANES-th."""
+    cv = C // vec
+    lanes = min(ROWS_THREADS, 1 << max(0, (cv - 1).bit_length()))
+    return lanes, -(-cv // lanes)
+
+
+def rows_smem(tile_rows: int, stages: int, C: int, sg: int, sp: int, lanes: int,
+              vec: int) -> int:
+    """Bytes of shared memory af_rows_kernel takes (``rows_smem`` in the
+    source): the stages (a tile's rows of g, of p, and their vr, each part
+    padded to 16 bytes), the row groups' column sums at a slab's end (where
+    there is more than one), a tile's row values, the reductions' room and
+    the stages' barriers."""
+    groups = lanes < ROWS_THREADS
+    stage = sum(-(-nbytes // 16) * 16 for nbytes in (
+        tile_rows * C * sg, tile_rows * C * sp, tile_rows * 4))
+    floats = 2 * ROWS_THREADS * vec * groups + 2 * max(tile_rows, ROWS_THREADS // 32) \
+        + tile_rows + 96
+    return stages * stage + 4 * floats + 8 + 8 * stages
+
+
+def _tile_rows_up(rows: int) -> int:
+    """The least tile size of at least ``rows`` rows: a divisor of the block's
+    16 warps (the row pass gives a row 16 / TR of them) or a multiple of 16."""
+    nw = ROWS_THREADS // 32
+    return next((t for t in (1, 2, 4, 8) if rows <= t and t < nw), -(-rows // nw) * nw)
+
+
+def _tile_rows_down(rows: int) -> int:
+    nw = ROWS_THREADS // 32
+    return rows // nw * nw if rows >= nw else next(t for t in (8, 4, 2, 1) if rows >= t)
+
+
+def rows_plan(M: int, R: int, C: int, sg: int, sp: int, vec: int, sms: int) -> dict | None:
+    """af_rows_kernel's walk of M matrices of R x C (g and p of sg and sp
+    bytes an element), or None where a thread would take more than MAX_KC
+    column vectors, two stages of one row do not fit, or a tile would hold
+    under MIN_TILE_BYTES (many small matrices; the wide walk then).
+    One block an SM; about one slab a block (the column workspace, M x S x C
+    x 2 floats, under MAX_COLUMN_PARTIALS); tiles of as many rows as fit
+    two stages (1, 2, 4, 8 or a multiple of 16, at most MAX_TILE_ROWS, no
+    more than a slab needs), then as many stages as fit, up to MAX_STAGES.
+    The tile's size sets the kernel's speed more than the stages' count: a
+    tile costs a fixed time whatever its bytes."""
+    lanes, kc = rows_columns(C, vec)
+    if kc > MAX_KC:
+        return None
+
+    S = min(max(1, sms // M), max(1, MAX_COLUMN_PARTIALS // (2 * M * C)))
+    sr = -(-R // S)
+    sr = R if R <= MIN_SLAB_ROWS else min(R, max(MIN_SLAB_ROWS, -(-sr // 8) * 8))
+    S = -(-R // sr)
+
+    def fits(tr, st):
+        return rows_smem(tr, st, C, sg, sp, lanes, vec) <= ROWS_SMEM
+    if not fits(1, 2):
+        return None
+    fit = 1
+    while fit < MAX_TILE_ROWS and fits(fit + 1, 2):
+        fit += 1
+    tr = min(_tile_rows_down(fit), _tile_rows_up(sr))
+    if min(tr, sr) * C * (sg + sp) < MIN_TILE_BYTES:
+        return None
+    st = 2
+    while st < MAX_STAGES and fits(tr, st + 1):
+        st += 1
+    return {"slab_rows": sr, "slabs_a_matrix": S, "grid": max(1, min(M * S, sms)),
+            "blocks_a_sm": 1, "tile_rows": tr, "stages": st, "lanes": lanes, "kc": kc,
+            "warps_a_row": 1 if tr >= ROWS_THREADS // 32 else ROWS_THREADS // 32 // tr,
+            "smem": rows_smem(tr, st, C, sg, sp, lanes, vec)}
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(shape, layers: int, g_dtype, p_dtype, aligned: int, sms: int,
+                bulk: bool = True) -> dict:
     """The kernels' walk of a group whose array has ``shape`` (``layers``
     layers of equal size): ``aligned`` is the largest of 8, 4 and 1 elements
     that every layer's g and p base is aligned to (8 counts only where both
-    are bf16 and 16 bytes aligned).  Returns the vector width, the grid (a
-    block's partial sums of u^2 and p^2 where the group is not factored),
-    the kernels a call launches and the workspace in floats; factored: also
-    M, R, C, the rows a slab and slabs a matrix of the statistics pass
-    (which keeps column partials, and p^2 a slab) and of the update's two
-    passes (u^2 a slab), and their grid."""
+    are bf16 and 16 bytes aligned), ``bulk`` whether every base is 16 bytes
+    aligned.  Returns the path (``"plain"``; ``"rows"``; or ``"wide"`` where
+    TMA cannot take the rows, a base or a row not 16-byte aligned, or
+    ``rows_plan`` finds none), the vector width, the grid, the kernels a
+    call launches and the workspace in floats; factored: also M, R, C, the
+    statistics' walk (rows a slab, slabs a matrix; rows: tiles, stages,
+    column lanes, shared memory) and that of the update's passes
+    (``slab_rows2``, ``slabs_a_matrix2``, ``grid2``)."""
     N = math.prod(shape)
     n = N // layers
     if factored(shape):
@@ -142,17 +232,28 @@ def launch_plan(shape, layers: int, g_dtype, p_dtype, aligned: int, sms: int) ->
         M = N // (R * C)
         vec = next(v for v in (8, 4, 1) if v <= aligned and C % v == 0
                    and (v < 8 or g_dtype == p_dtype == torch.bfloat16))
-        sr, sr2 = slab_rows(M, R, C, sms), slab_rows(M, R, None, sms)
-        S, S2 = -(-R // sr), -(-R // sr2)
+        sg, sp = torch.finfo(g_dtype).bits // 8, torch.finfo(p_dtype).bits // 8
+        sr2 = slab_rows(M, R, None, sms)
+        S2 = -(-R // sr2)
         cap = sms * BLOCKS_PER_SM
-        ws = 4 + M + M * S + M * S2 + ((M * S + M * S * C) if S > 1 else 0)
-        return {"factored": True, "vec": vec, "M": M, "R": R, "C": C, "n": n,
-                "slab_rows": sr, "slabs_a_matrix": S, "grid": max(1, min(M * S, cap)),
+        plan = {"factored": True, "vec": vec, "M": M, "R": R, "C": C, "n": n,
                 "slab_rows2": sr2, "slabs_a_matrix2": S2, "grid2": max(1, min(M * S2, cap)),
-                "kernels": 5 if S > 1 else 4, "workspace": ws}
+                "kernels": 3}
+        tma = bulk and C * sg % 16 == 0 and C * sp % 16 == 0
+        rows = rows_plan(M, R, C, sg, sp, vec, sms) if tma else None
+        if rows is not None:
+            S = rows["slabs_a_matrix"]
+            nu = M * -(-C // ITEM_COLUMNS) if S > 1 else M
+            ws = 4 + M + M * S + 2 * nu + M * S2 + ((2 * M * S + 2 * M * S * C) if S > 1 else 0)
+            return plan | rows | {"path": "rows", "workspace": ws}
+        sr = slab_rows(M, R, C, sms)
+        S = -(-R // sr)
+        ws = 4 + M + M * S + M * S2 + ((M * S + M * S * C) if S > 1 else 0)
+        return plan | {"path": "wide", "slab_rows": sr, "slabs_a_matrix": S,
+                       "grid": max(1, min(M * S, cap)), "workspace": ws}
     vec = 4 if aligned >= 4 and n % 4 == 0 else 1
     grid = max(1, min(-(-N // (vec * THREADS)), sms * BLOCKS_PER_SM))
-    return {"factored": False, "vec": vec, "n": n, "grid": grid, "kernels": 3,
+    return {"factored": False, "path": "plain", "vec": vec, "n": n, "grid": grid, "kernels": 2,
             "workspace": 4 + 2 * grid}
 
 
@@ -176,15 +277,31 @@ def _alignment(ts) -> int:
 def group_plan(group_g, group_p, state, sms: int) -> dict:
     """``launch_plan`` for a group as the wrapper sees it."""
     shape, _ = group_shape(group_p, state)
-    return launch_plan(shape, len(group_p), group_g[0].dtype, group_p[0].dtype,
-                       _alignment([*group_g, *group_p]), sms)
+    ts = [*group_g, *group_p]
+    return launch_plan(tuple(shape), len(group_p), group_g[0].dtype, group_p[0].dtype,
+                       _alignment(ts), sms, all(t.data_ptr() % 16 == 0 for t in ts))
+
+
+PATHS = {"plain": 0, "rows": 1, "wide": 2}   # AfPath in the source
+GUARD = 3   # the workspace's float that reads 1 where the statistics' sum of u^2 stood
+_counters: dict[int, torch.Tensor] = {}
+
+
+def counters(device: torch.device) -> torch.Tensor:
+    """The kernels' four block counters on ``device`` (a grid-wide barrier's
+    and three last-block tickets), kept a device: they start at 0 and every
+    launch leaves them at 0, so calls on one device must run on one stream."""
+    t = _counters.get(device.index)
+    if t is None:
+        t = _counters[device.index] = torch.zeros(4, dtype=torch.int32, device=device)
+    return t
 
 
 def _lib():
     lib = _build.load("adafactor")
     if lib.adafactor_launch.argtypes is None:
         vp, ci, ll, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.adafactor_launch.argtypes = [vp, vp, ci] + [ll] * 4 + [ci] * 10 + [vp] * 5 \
+        lib.adafactor_launch.argtypes = [vp, vp, ci] + [ll] * 4 + [ci] * 15 + [vp] * 6 \
             + [cf] * 4 + [vp]
         lib.adafactor_launch.restype = ci
     return lib
@@ -192,12 +309,13 @@ def _lib():
 
 @torch.no_grad()
 def adafactor_update(group_g, group_p, state, *, lr, beta2, eps1: float, eps2: float,
-                     clip_threshold: float, weight_decay: float) -> None:
+                     clip_threshold: float, weight_decay: float) -> torch.Tensor | None:
     """:func:`adafactor_update_plain` by the kernels for CUDA tensors, the
     layers read and written where they lie.  g, p: the group's layers, each
     contiguous, all of one shape, p of one dtype (fp32 or bf16) and g of
     p's or fp32; state: fp32, contiguous, on their device; lr, beta2: 0-d fp32
-    tensors there."""
+    tensors there.  Returns the kernels' workspace (``launch_group``), None
+    where nothing launched."""
     p0 = group_p[0]
     if p0.device.type == "cpu":
         return adafactor_update_plain(group_g, group_p, state, lr=lr, beta2=beta2, eps1=eps1,
@@ -232,17 +350,19 @@ def adafactor_update(group_g, group_p, state, *, lr, beta2, eps1: float, eps2: f
     if any(t.data_ptr() % 16 for t in st):
         raise ValueError("adafactor_update: the state must be 16-byte aligned")
     if p0.numel() == 0:
-        return
-    launch_group(group_g, group_p, state, group_plan(group_g, group_p, state, sms_of(p0.device)),
+        return None
+    return launch_group(group_g, group_p, state, group_plan(group_g, group_p, state, sms_of(p0.device)),
                  lr=lr, beta2=beta2, eps1=eps1, eps2=eps2, clip_threshold=clip_threshold,
                  weight_decay=weight_decay)
 
 
 def launch_group(group_g, group_p, state, plan, *, lr, beta2, eps1, eps2, clip_threshold,
-                 weight_decay) -> None:
+                 weight_decay) -> torch.Tensor:
     """The kernels of one group on ``plan`` (``group_plan``'s, or another
     walk of the same group to time against it), the arguments as
-    :func:`adafactor_update` has checked them."""
+    :func:`adafactor_update` has checked them.  Returns the workspace (its
+    float ``GUARD`` says, once the kernels have run, whether the update's
+    sum of squares came from the statistics pass)."""
     p0 = group_p[0]
     L = len(group_p)
     ws = torch.empty(plan["workspace"], dtype=torch.float32, device=p0.device)
@@ -251,14 +371,17 @@ def launch_group(group_g, group_p, state, plan, *, lr, beta2, eps1, eps2, clip_t
     f = plan["factored"]
     v, vc = (state["vr"], state["vc"]) if f else (state["v"], None)
     _build.launch(_lib().adafactor_launch, p0.device, "adafactor", gp, pp, L, plan["n"],
-                  plan.get("M", 0), plan.get("R", 0), plan.get("C", 0), int(f),
+                  plan.get("M", 0), plan.get("R", 0), plan.get("C", 0), PATHS[plan["path"]],
                   plan.get("slab_rows", 0), plan.get("slabs_a_matrix", 0), plan["grid"],
                   plan.get("slab_rows2", 0), plan.get("slabs_a_matrix2", 0),
-                  plan.get("grid2", 0), plan["vec"],
+                  plan.get("grid2", 0), plan["vec"], plan.get("tile_rows", 0),
+                  plan.get("stages", 0), plan.get("lanes", 0), plan.get("kc", 0), sms_of(p0.device),
                   _build.dtype_code(p0, "adafactor p"), _build.dtype_code(group_g[0], "adafactor g"),
                   v.data_ptr(), vc.data_ptr() if vc is not None else None, ws.data_ptr(),
-                  lr.data_ptr(), beta2.data_ptr(), eps1, eps2, clip_threshold, weight_decay)
+                  counters(p0.device).data_ptr(), lr.data_ptr(), beta2.data_ptr(), eps1, eps2,
+                  clip_threshold, weight_decay)
     adafactor_update.launches += plan["kernels"]
+    return ws
 
 
-adafactor_update.launches = 0   # kernel launches made by this wrapper (3 to 5 a group)
+adafactor_update.launches = 0   # kernel launches made by this wrapper (2 or 3 a group)
