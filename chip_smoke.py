@@ -156,22 +156,23 @@ Phases, each printing one JSON object on a line of its own:
            step); (2) parity: the first 6 layers, kernels against plain
            versions as the parity phase holds them; (3) simulate as moe's,
            K1 and K2 (G = 16) counted
-  xlstm    the xLSTM family (xlstm-125m at full width and depth: 12 layers,
-           m, m, m, s three times, 4 heads of 192, chunk 256), random bf16
+  xlstm    the xLSTM family (xlstm-125m at full width: 4 heads of 192, chunk
+           256; its 12 layers, m, m, m, s three times, cut to one such cycle
+           of 4 for the run's time since the dense phase), random bf16
            weights from the seed, the mLSTM's conv filter and bias and gate
            bias drawn too (the reference's init leaves them 0, which makes
            every mLSTM block add 0), a line a part: (1) serve as moe's
            (launches: no K1 or K2, K3 2L+1 a call; the mLSTM's, the sLSTM's
            and the conv's kernels apart in the profiled step; the prompts
-           the padded-chunk fault touches counted); (2) parity at full
+           the padded-chunk fault touches counted); (2) parity at that
            depth: in float32 within the 0.1 limit (and the engines'
            tokens), in bf16 within twice what a float64 rounding of the
            plain norms moves the plain run by; (3) simulate as moe's, no
            attention; (4) the chunk body's all-batch (2097152, 1, 1) and
            outer (8192, 1, 192) products as bmm beside a multiply; (5) one
-           timed AdamW step of the launcher (B1 S512, remat "block", all 12
-           layers: K3 and its backward at D 768, the AdamW kernel) against the
-           simulator's train prediction and its memory
+           timed AdamW step of the launcher (B1 S512, remat "block": K3 and
+           its backward at D 768, the AdamW kernel) against the simulator's
+           train prediction and its memory
   whisper  the Whisper family (whisper-large-v3 at full width and depth: 32
            encoder and 32 decoder layers, d_model 1280, 20 heads of 64, vocab
            51,866), random bf16 weights from the seed, frame embeddings drawn
@@ -268,6 +269,31 @@ Phases, each printing one JSON object on a line of its own:
            step on 6 layers, kernels against plain versions as train_parity
            holds phi4-mini (Adafactor's kernels against its plain update),
            under Adafactor and under Adafactor with int8
+  dense    the main path's dense GQA decoders that no other phase runs, gemma-7b
+           (28 layers, 16 heads of 256, G 1, GeGLU, tied vocab 256,000, 1 + w
+           norms), qwen2.5-32b (64 layers, d_model 5120, 40 heads on 8 (G 5),
+           QKV bias) and yi-34b (60 layers, d_model 7168, 56 heads on 8 (G 7)),
+           in turn, random bf16 weights from the seed, a line a part: (1)
+           serve as moe's at full width and depth; (2) parity at full depth as
+           vlm's (the first-token logits of serve's 12 prompts within 0.1,
+           first tokens equal or near-tied, a float64 rounding of the plain
+           run beside, both engines' tokens); (3) simulate as moe's at prefill
+           B1 S512 and decode B8 at 2048; gemma-7b's part then runs the serve
+           launcher as a user does at its default arch (python -m
+           repro_torch.launch.serve --full with the README's flags: what it
+           printed, its launches against the formula); (4) one timed AdamW
+           step of the train launcher's Trainer (qwen2.5-32b's built at that
+           launcher's default arch, without --arch) at B1 S2048, remat
+           "block", width never cut, depth cut to DENSE_TRAIN_LAYERS (20, 10
+           and 10 layers), against the analytical and profiling engines'
+           train step and the peak; (5) the train step's parity on 2 layers
+           (loss, every gradient leaf, AdamW's change); a closing line a model
+           (parameters, depths served and trained, seconds a part, peak
+           memory at init, serve and train); the kernels phase holds K1, its
+           backward, K2, K3, its backward and AdamW at these models' shapes
+
+Before the closing lines, one line {"phase": "seconds", ...}: the seconds of
+each phase that ran (also in a partial run).
 
 `--baseline-src DIR` times the serving-shape kernels (K1, K2, K3) and the
 train-shape backward of K1 and K3 of the tree at DIR (e.g. the parent
@@ -292,9 +318,10 @@ and the backward kernels and optimizers of the train path, its launches in
 the serve phase (the train phase for a backward kernel and AdamW,
 griffin_train's for Adafactor), in the train phase, by the
 profiling engine in the simulate, serve_sim and sweep phases and in the moe,
-griffin, griffin_train, xlstm, whisper, vlm and mla phases' parts and the
-dryrun phase's decode step, its timings at olmoe's,
-recurrentgemma's, xlstm's, whisper's, qwen2-vl's and deepseek's shapes where it has them,
+griffin, griffin_train, xlstm, whisper, vlm, mla and dense phases' parts and
+the dryrun phase's decode step, its timings at olmoe's,
+recurrentgemma's, xlstm's, whisper's, qwen2-vl's and deepseek's shapes where it has them
+and at gemma-7b's, qwen2.5-32b's and yi-34b's (``dense_shapes``),
 error, time,
 device time, plain version's
 time, bound and the time and device time of the one PyTorch call that
@@ -1767,6 +1794,57 @@ def adafactor_checks() -> tuple[list, dict]:
     return recs, main
 
 
+# the serving mix of valid lengths of K2's mixed cases: 7,001 rows over 8 slots
+MIXED_VALID = [1, 2048, 17, 1024, 300, 2047, 64, 1500]
+
+
+def dense_kernel_cases() -> list:
+    """The kernels at the shapes of the dense phase's three decoders, each
+    record under ``"arch"``: K2 at B8 T2048 with the serving mix of valid
+    lengths (gemma-7b's G 1 at D 256 on the CUDA cores, qwen2.5-32b's G 5,
+    yi-34b's G 7); K1 causal at gemma-7b's serving prefill (S1000, 16 heads of
+    256) and at qwen2.5-32b's and yi-34b's 40 and 56 heads on 8 at S1000 and
+    S2048; K1's backward at those two at S2048; K3 with the sum at qwen2.5-32b's
+    D 5120 and gemma-7b's D 3072 in the 1 + w form, and its backward with the
+    sum at R2048 D5120; AdamW on qwen2.5-32b's up projection, 5120 x 27648.  bf16
+    timed; fp32 beside it where the case is cheap."""
+    rng = np.random.default_rng(SEED + 7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = []
+
+    def add(arch, rec):
+        out.append({"arch": arch, **rec})
+
+    for arch, H, Hkv, D in (("gemma-7b", 16, 16, 256), ("qwen2.5-32b", 40, 8, 128),
+                            ("yi-34b", 56, 8, 128)):
+        for dtype in (bf16, f32):
+            add(arch, check_decode(rng, B=8, H=H, Hkv=Hkv, T=2048, D=D, valid=MIXED_VALID,
+                                   dtype=dtype, timed=dtype is bf16, bthd=True))
+    for dtype in (bf16, f32):
+        add("gemma-7b", check_flash(rng, B=1, H=16, Hkv=16, Sq=1000, Sk=1000, D=256, causal=True,
+                                    window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+    for arch, H in (("qwen2.5-32b", 40), ("yi-34b", 56)):
+        for S in (1000, 2048):
+            for dtype in (bf16, f32) if S == 1000 else (bf16,):
+                add(arch, check_flash(rng, B=1, H=H, Hkv=8, Sq=S, Sk=S, D=128, causal=True,
+                                      window=0, dtype=dtype, timed=dtype is bf16, bshd=True))
+        add(arch, check_flash_bwd(rng, B=1, H=H, Hkv=8, Sq=2048, Sk=2048, D=128, causal=True,
+                                  window=0, dtype=bf16, timed=True, bshd=True))
+    for arch, D, offset in (("qwen2.5-32b", 5120, False), ("gemma-7b", 3072, True)):
+        for dtype in (bf16, f32):
+            add(arch, check_rmsnorm(rng, R=1000, D=D, dtype=dtype, w_dtype=dtype, offset=offset,
+                                    residual=True, fused=True, timed=dtype is bf16))
+    for dtype in (bf16, f32):
+        add("qwen2.5-32b", check_rmsnorm_bwd(rng, R=2048, D=5120, dtype=dtype, w_dtype=dtype,
+                                             offset=False, residual=True, fused=True,
+                                             timed=dtype is bf16))
+    # the path's bf16 leaf; fp32 beside PyTorch's fused AdamW, which has no bf16 form
+    # with fp32 moments
+    add("qwen2.5-32b", check_adamw(rng, n=5120 * 27648, p_dtype=bf16, g_dtype=bf16, timed=True))
+    add("qwen2.5-32b", check_adamw(rng, n=5120 * 27648, p_dtype=f32, g_dtype=f32, timed=True))
+    return out
+
+
 def phase_kernels():
     """Returns (all records, {kernel name: record at the serving path's shape})."""
     from repro_torch import kernels as K
@@ -1867,7 +1945,7 @@ def phase_kernels():
             recs.append(check_flash(rng, **e, dtype=dtype, timed=dtype is bf16 and i < 2))
 
     # --- K2 at the serving path's shape (8 slots, ring cache of 2048, the model's layout) ...
-    mixed = [1, 2048, 17, 1024, 300, 2047, 64, 1500]
+    mixed = MIXED_VALID
     for dtype in (bf16, f32):
         recs.append(check_decode(rng, B=8, H=24, Hkv=8, T=2048, D=128, valid=mixed, dtype=dtype,
                                  timed=dtype is bf16, bthd=True))
@@ -2164,6 +2242,10 @@ def phase_kernels():
     af_recs, af_main = adafactor_checks()
     recs.extend(af_recs)
     main.update(af_main)
+    # --- every kernel at the dense phase's three decoders' shapes
+    dense = dense_kernel_cases()
+    recs.extend(dense)
+    main["dense"] = [r for r in dense if "bound_ms" in r]
 
     for dtype in (bf16, f32):
         recs.append(check_rmsnorm_bwd(rng, R=37, D=100, dtype=dtype, w_dtype=f32, offset=True,
@@ -2213,6 +2295,9 @@ DEC_TC_FUNCTION = re.compile(r"decode_tc_kernelILi(\d+)ELi(\d+)EE")
 # the --ptxas report (registers and spills of each)
 FWD_TC_ANY = re.compile(r"flash_fwd_tc_kernelILi(\d+)ELi(\d+)ELb(\d)E")
 BWD_WG_ANY = re.compile(r"flash_bwd_(dkdv|dq)_wg_kernelILi(\d+)ELi(\d+)EE")
+# K2's CUDA-core instantiations (decode_kernel<T, G, D>: fp32, and bf16 at G 1-3), for the
+# --ptxas report
+DEC_FMA_ANY = re.compile(r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)EE")
 # Adafactor's kernels by name and template arguments (mangled)
 AF_ANY = re.compile(r"\d+(af_[a-z]+_kernel)I(.+?)Ev")
 
@@ -2398,7 +2483,7 @@ def phase_times():
             rec["ms"], rec["device_ms"] = time_ms(call), device_ms(call)
         return rec
 
-    mixed = [1, 2048, 17, 1024, 300, 2047, 64, 1500]
+    mixed = MIXED_VALID
     for valid in ([2048] * 8, mixed):
         q, k, v, vl = decode_inputs(rng, B=8, H=24, Hkv=8, T=2048, D=128, valid=valid,
                                     dtype=bf16, bthd=True)
@@ -2927,10 +3012,13 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
     if layers is not None:
         cfg = cfg.replace(num_layers=layers)
     B, S, predicted_bytes = train_shape(cfg, seq, batch, cut, optimizer)
-    trainer = T.Trainer(T.parse_args(["--arch", arch, "--batch", str(B), "--seq", str(S),
-                                      "--remat", "block", "--optimizer", optimizer,
-                                      "--steps", str(timed_steps + 2), "--ckpt-every", "0",
-                                      "--seed", str(SEED)]), cfg=cfg)
+    argv = ["--batch", str(B), "--seq", str(S), "--remat", "block", "--optimizer", optimizer,
+            "--steps", str(timed_steps + 2), "--ckpt-every", "0", "--seed", str(SEED)]
+    # the launcher's own default arch is taken as a user who names none gets it
+    launcher_default = T.parse_args(argv).arch == arch
+    if not launcher_default:
+        argv = ["--arch", arch, *argv]
+    trainer = T.Trainer(T.parse_args(argv), cfg=cfg)
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state()
     if perturb is not None:
@@ -3026,7 +3114,8 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
            "optimizer_ms": optimizer_ms, "optimizer_device_ms": optimizer_device_ms,
            "launches": counts, "launches_per_step": per_step, "launches_per_step_want": want,
            "k1_launches_by_shape": {k: v / timed_steps for k, v in sorted(k1_shapes.items())},
-           "parts_s": parts, "gpu": gpu_name_and_power()}
+           "parts_s": parts, "launcher_argv": argv, "launcher_default_arch": launcher_default,
+           "gpu": gpu_name_and_power()}
     if after is not None:
         rec["then"] = after
     emit(rec)
@@ -3035,6 +3124,16 @@ def phase_train(arch: str = ARCH, phase: str = "train", timed_steps: int = TRAIN
     del state, trainer
     torch.cuda.empty_cache()
     return rec
+
+
+def leaf_paths(tree, keys: str = "") -> list:
+    """The dotted path of each leaf of ``tree`` in ``tree_leaves`` order
+    (dict keys sorted, lists in order, a list index as a key)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{keys}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{keys}.{i}")]
+    return [keys[1:]]
 
 
 def rel_l2(got, want) -> float:
@@ -3046,6 +3145,15 @@ def rel_l2(got, want) -> float:
 
 PARITY_LR = 1e-3    # the peak lr of the reference's training tests, reached at step 1
 UPDATE_TOL = 0.5    # relative L2 of a parameter's change in one step, kernels against plain
+# Leaves whose change is held to the lr bound (each element within lr and one bf16 rounding)
+# in place of UPDATE_TOL, beside the gradient limit that every leaf keeps, by arch and the
+# end of their path.  qwen2.5-32b's key biases (zero at init): RoPE with theta 1e6 turns about
+# a third of a key's components by under 0.1 rad over 512 positions, and the softmax ignores
+# a score shift common to every key, so the gradient of those components is near 0, about
+# the size of the rounding; AdamW's first step, lr sign(g), then moves 13-14 % of the
+# elements the other way on the other side (their gradients within 0.018 relative L2 of
+# each other, their changes 0.72 apart, on an H100 at 2 layers).
+SIGN_BOUND_LEAVES = {"qwen2.5-32b": ".attn.k.b"}
 
 
 def adamw_foreach(ps, gs, ms, vs, *, lr, c1, c2, b1, b2, eps, weight_decay) -> None:
@@ -3230,7 +3338,10 @@ def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times
         delta = [p.detach().float() - b.float()
                  for p, b in zip(tree_leaves(state["params"]), tree_leaves(base))]
         parts[plain] = {"ce": float(m["ce"].detach()), "aux_loss": float(m["aux_loss"].detach())}
-        return float(loss.detach()), float(metrics["loss"]), grads, delta, state
+        # the state is kept only for the tree's update times: a run holds its parameters
+        # and AdamW's moments (10 bytes a parameter) while the other run takes its own
+        return (float(loss.detach()), float(metrics["loss"]), grads, delta,
+                state if tree_times else None)
 
     for plain in (False, True):
         if pin is None:
@@ -3250,8 +3361,17 @@ def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times
                       "unpinned_route_agreement_by_layer":
                           route_agreement(kernel_calls[:cfg.num_layers], pin.calls)}
     (lk, mk, gk, dk, state), (lp, mp, gp, dp, _) = out.pop(False), out.pop(True)
-    grad_err = max(rel_l2(a, b) for a, b in zip(gk, gp))
-    update_err = max(rel_l2(a, b) for a, b in zip(dk, dp))
+    by_leaf = [{"leaf": name, "shape": list(a.shape), "grad_rel_l2": rel_l2(a, b),
+                "update_rel_l2": rel_l2(c, d),
+                # elements whose gradient takes the other sign on the other side
+                "grad_sign_differs_share": float(((a > 0) != (b > 0)).float().mean())}
+               for name, a, b, c, d in zip(leaf_paths(base), gk, gp, dk, dp)]
+    grad_err = max(r["grad_rel_l2"] for r in by_leaf)
+    tail = SIGN_BOUND_LEAVES.get(arch)
+    bounded = [i for i, r in enumerate(by_leaf) if tail and r["leaf"].endswith(tail)]
+    update_err = max(r["update_rel_l2"] for i, r in enumerate(by_leaf) if i not in bounded)
+    bounded_change = max((float(d.abs().max()) for i in bounded for d in (dk[i], dp[i])),
+                         default=None)
     moved = sum(int((d != 0).sum()) for d in dk) / sum(d.numel() for d in dk)
     del gp, dp
     # bf16 activations through 4 layers forward and back: the kernels and the
@@ -3259,14 +3379,19 @@ def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times
     # as parity's logits do; AdamW's first step is lr (sign(g) + wd p), so an
     # element whose gradient is near 0 may take the other sign on the other
     # side; no update at all reads 1, an update of unrelated gradients about 1.4
-    tol = {"loss": 1e-2, "grad_rel_l2": 5e-2, "update_rel_l2": UPDATE_TOL}
+    tol = {"loss": 1e-2, "grad_rel_l2": 5e-2, "update_rel_l2": UPDATE_TOL,
+           "lr_bound": PARITY_LR * (1 + 2 ** -7)}
     rec = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers, "batch": 2, "seq": 512,
            "optimizer": optimizer, "grad_compression": compression,
            "lr": PARITY_LR, "loss_kernels": lk, "loss_plain": lp, "loss_abs_diff": abs(lk - lp),
            "step_loss_abs_diff": abs(mk - mp), "loss_parts_kernels": parts[False],
            "loss_parts_plain": parts[True], "grad_leaves": len(gk),
            "grad_rel_l2_max": grad_err, "update_rel_l2_max": update_err,
-           "share_of_elements_moved": moved, "tol": tol, **rec_routes}
+           "share_of_elements_moved": moved, "tol": tol,
+           "lr_bound_leaves": [by_leaf[i]["leaf"] for i in bounded],
+           "lr_bound_leaves_max_abs_change": bounded_change,
+           "worst_update_leaves": sorted(by_leaf, key=lambda r: -r["update_rel_l2"])[:4],
+           **rec_routes}
     del dk
     if tree_times:
         rec["adamw_tree"] = adamw_tree_times(state["params"], gk, state["opt"])
@@ -3280,6 +3405,8 @@ def phase_train_parity(arch: str = ARCH, phase: str = "train_parity", tree_times
         fail(f"{phase}: a gradient differs by {grad_err} (relative L2)")
     if not update_err <= tol["update_rel_l2"]:
         fail(f"{phase}: a parameter's change differs by {update_err} (relative L2)")
+    if bounded and not bounded_change <= tol["lr_bound"]:
+        fail(f"{phase}: a leaf of {tail} changed by {bounded_change}, over the lr bound")
     if tree_times and not all(rec["adamw_tree"][w]["bit_equal"]
                               for w in ("plain_per_leaf", "plain_foreach")):
         fail(f"{phase}: the AdamW updates of the tree differ: {rec['adamw_tree']}")
@@ -3412,11 +3539,17 @@ def op_annotations(label: str, ops: dict):
             setattr(L, name, fn)
 
 
+# The most calls ``measure_step`` profiles: the calls repeat the same kernels, and reading back
+# the profiler's host events of ten decode steps of a 64-layer model took seconds a phase.
+PROFILED_CALLS = 3
+
+
 def measure_step(fn, n: int, experts: int | None = None, annotate=None) -> dict:
     """The port's step: wall µs a call from CUDA events around ``n`` calls,
-    then device-busy µs a call and its groups from the profiler over ``n``
-    more (and the ``MOE_OPS`` groups' share of it; ``experts``: the expert
-    products told apart from the other batched products by their batch;
+    then device-busy µs a call and its groups from the profiler over
+    ``min(n, PROFILED_CALLS)`` more (and the ``MOE_OPS`` groups' share of it;
+    ``experts``: the expert products told apart from the other batched
+    products by their batch;
     ``annotate``: a ``FAMILY_OPS`` entry, whose groups' device µs are given
     too, ranges opened in the profiled calls only)."""
     from torch.profiler import ProfilerActivity, profile
@@ -3429,6 +3562,7 @@ def measure_step(fn, n: int, experts: int | None = None, annotate=None) -> dict:
     end.record()
     end.synchronize()
     wall_us = start.elapsed_time(end) * 1e3 / n
+    n = min(n, PROFILED_CALLS)
     for _ in range(3):      # a profile that the tracer delivered no kernel of is taken again
         with (op_annotations(*annotate) if annotate else contextlib.nullcontext()), \
                 profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -3653,7 +3787,9 @@ def phase_serve_measure():
     reqs, steps, seconds, finite = run_engine(cfg, params, plain=False)
     counts = K.launch_counts()
     t_prof = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone: the line reads kernels only, and the host's operator
+    # events of a drained run took over a minute to read back
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         p_reqs, p_steps, p_seconds, p_finite = run_engine(cfg, params, plain=False)
     avgs = prof.key_averages()
     t_prof = time.perf_counter() - t_prof
@@ -4849,8 +4985,11 @@ XLSTM_ARCH = "xlstm-125m"
 # profiled step took about 360 s of the profiler's processing; at 512 a step
 # makes about a quarter of them (two chunks of the mLSTM, 512 sLSTM steps).
 XLSTM_TRAIN_SEQ = 512
-# The train part's depth: the whole stack of 12 layers.
-XLSTM_TRAIN_LAYERS = 12
+# The phase's depth: one whole (m, m, m, s) cycle of the 12 layers, so that the run keeps
+# its time limit beside the dense phase.  Every part is bound by the host (the sLSTM's eager
+# loop, a launch a token and layer): at all 12 layers on an H100 the phase took 222 s, its
+# parity 88 s, its simulate 76 s, its serve 27 s and its train step at 4 layers 31 s.
+XLSTM_LAYERS = 4
 
 
 def xlstm_draw(params, gen) -> None:
@@ -4931,7 +5070,7 @@ def first_token_rule(a, b, diff) -> tuple[int, int]:
 
 
 def xlstm_parity(cfg, params) -> dict:
-    """xlstm-125m at full depth, kernels against their plain versions, two
+    """xlstm-125m at ``cfg``'s depth, kernels against their plain versions, two
     ways.  (1) In float32 (the bf16 weights widened; K3's float32 build):
     first-token logits of serve's 12 prompts within the 0.1 limit the other
     families are held to, every first token equal or a near-tie, then both
@@ -5038,25 +5177,24 @@ def train_versus(cfg, train: dict, phase: str, profiling: bool = False) -> dict:
 
 
 def phase_xlstm() -> dict:
-    """The xLSTM family on the card (xlstm-125m at full width and depth: 12
-    layers, m, m, m, s three times, 4 heads of 192, chunk 256), random bf16
-    weights from the seed (the mLSTM's conv filter and bias and gate bias
-    drawn too, ``xlstm_draw``), a line a part: serve (``moe_serve``: no K1
-    or K2, K3 2L+1 a call, the mLSTM's, sLSTM's and conv's kernels apart in
-    the profiled step, the prompts the padded-chunk fault touches counted),
-    parity (``xlstm_parity`` at full depth), simulate (``moe_simulate``, no
-    attention), the chunk body's degenerate products timed as bmm and as a
-    multiply, then train (``phase_train``: one timed AdamW step of the
-    launcher at full width, depth cut to ``XLSTM_TRAIN_LAYERS``, B1
+    """The xLSTM family on the card (xlstm-125m at full width: 4 heads of
+    192, chunk 256; its 12 layers, m, m, m, s three times, cut to
+    ``XLSTM_LAYERS``, one such cycle), random bf16 weights from the seed (the
+    mLSTM's conv filter and bias and gate bias drawn too, ``xlstm_draw``), a
+    line a part: serve (``moe_serve``: no K1 or K2, K3 2L+1 a call, the
+    mLSTM's, sLSTM's and conv's kernels apart in the profiled step, the
+    prompts the padded-chunk fault touches counted), parity
+    (``xlstm_parity``), simulate (``moe_simulate``, no attention), the chunk
+    body's degenerate products timed as bmm and as a multiply, then train
+    (``phase_train``: one timed AdamW step of the launcher, B1
     S``XLSTM_TRAIN_SEQ``) against the simulator's train prediction and its
-    memory.  Returns the launches of
-    each part."""
+    memory.  Returns the launches of each part."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(XLSTM_ARCH)
+    cfg = get_config(XLSTM_ARCH).replace(num_layers=XLSTM_LAYERS)
     t0 = time.perf_counter()
     model = Model(cfg)
     gen = torch.Generator(device=model.device).manual_seed(SEED)
@@ -5081,9 +5219,9 @@ def phase_xlstm() -> dict:
     tgen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     train = phase_train(XLSTM_ARCH, phase="xlstm_train", timed_steps=1,
                         perturb=lambda p: xlstm_draw(p, tgen), seq=XLSTM_TRAIN_SEQ,
-                        layers=XLSTM_TRAIN_LAYERS)
+                        layers=XLSTM_LAYERS)
     parts["train_s"] = time.perf_counter() - t0 - sum(parts.values())
-    train_versus(cfg.replace(num_layers=XLSTM_TRAIN_LAYERS), train, "xlstm")
+    train_versus(cfg, train, "xlstm")
     emit({"phase": "xlstm", "part": "done", "arch": cfg.name,
           "seconds": time.perf_counter() - t0, "parts_s": parts,
           "parity_layers": parity["layers"], "profile_db_entries": sim["profile_db_entries"],
@@ -5541,28 +5679,33 @@ def vlm_multimodal(cfg, model, params) -> dict:
     return rec
 
 
-def vlm_parity(cfg, params) -> tuple[dict, list]:
-    """qwen2-vl-7b at full depth, kernels against their plain versions: the
-    first-token logits of serve's 12 text prompts and of the multimodal
-    prefill (B2, patches, 3-D positions) within 0.1, every first token equal
-    or a near-tie of the plain run's two best logits; beside them, what a
-    float64 rounding of the plain norms and attention moves the plain run by,
-    and the logits' largest magnitude (the head rounds them to bf16); then
-    both engines' tokens on serve's requests.  Returns (the record, the
-    checks that failed), so that the phase's later parts still run and
-    print."""
+def full_depth_parity(cfg, params, batch=None, float32: bool = False) -> tuple[dict, list]:
+    """A model at full depth, kernels against their plain versions: the
+    first-token logits of serve's 12 prompts (and, with ``batch``, of that
+    prefill: qwen2-vl's multimodal one, B2 with patches and 3-D positions)
+    within 0.1, every first token equal or a near-tie of the plain run's two
+    best logits; beside them, what a float64 rounding of the plain norms and
+    attention moves the plain run by, and the logits' largest magnitude (the
+    head rounds them to bf16); then both engines' tokens on serve's requests.
+    With ``float32``, as ``xlstm_parity`` holds a model whose bf16 rounding
+    alone moves its logits by about the limit: the 0.1 limit is held on the
+    same prompts with float32 activations (the weights stay bf16 and each
+    product widens its own; the kernels' float32 builds), and the bf16 run
+    to twice what the float64 rounding moves the plain run by.  Returns (the
+    record, the checks that failed), so that the phase's later parts still
+    run and print."""
     from repro_torch.models import Model
     from repro_torch.models import layers as L
     tol = 1e-1
-    batch = vlm_inputs(cfg)
 
     def first(plain):
-        return (first_token_logits(cfg, params, plain=plain),
-                Model(cfg, plain_kernels=plain).prefill(params, batch, cache_len=VLM_CACHE)[0]
-                [:, -1].float())
+        out = {"text": first_token_logits(cfg, params, plain=plain)}
+        if batch is not None:
+            out["multimodal"] = Model(cfg, plain_kernels=plain).prefill(
+                params, batch, cache_len=2048)[0][:, -1].float()
+        return out
 
-    (text_k, image_k), (text_p, image_p) = first(False), first(True)
-    text, image = {False: text_k, True: text_p}, {False: image_k, True: image_p}
+    got = {plain: first(plain) for plain in (False, True)}
     # what a third rounding of the same functions moves the plain run by (K3's norms
     # and K1's attention in float64, rounded once): information beside the limit,
     # which stays 0.1
@@ -5570,7 +5713,7 @@ def vlm_parity(cfg, params) -> tuple[dict, list]:
     L.flash_attention_plain = attention_f64
     try:
         with float64_norms():
-            text_64, image_64 = first(True)
+            third = first(True)
     finally:
         L.flash_attention_plain = saved
     runs = {plain: run_engine(cfg, params, plain=plain)[0] for plain in (False, True)}
@@ -5578,22 +5721,41 @@ def vlm_parity(cfg, params) -> tuple[dict, list]:
     total = sum(len(a.tokens) for a in runs[False])
     rec = {"part": "parity", "arch": cfg.name, "layers": cfg.num_layers, "tol": tol,
            "tokens_equal_share": equal / total, "gpu": gpu_name_and_power()}
+    if float32:
+        c32 = cfg.replace(dtype="float32")
+        f32 = {plain: first_token_logits(c32, params, plain=plain) for plain in (False, True)}
     problems = []
-    for name, got, third in (("text", text, text_64), ("multimodal", image, image_64)):
-        diff = (got[False] - got[True]).abs().amax(dim=-1)
-        eq, tie = first_token_rule(got[False], got[True], diff)
-        top2 = got[True].topk(2, dim=-1).values
+    for name in got[True]:
+        mine, plain = got[False][name], got[True][name]
+        diff = (mine - plain).abs().amax(dim=-1)
+        eq, tie = first_token_rule(mine, plain, diff)
+        top2 = plain.topk(2, dim=-1).values
         rec[name] = {"requests": len(diff), "first_logits_max_abs_diff": float(diff.max()),
                      "per_request": [float(x) for x in diff],
                      "first_logits_max_abs_diff_float64_plain":
-                         float((third - got[True]).abs().max()),
-                     "first_logits_abs_max": float(got[True].abs().max()),
+                         float((third[name] - plain).abs().max()),
+                     "first_logits_abs_max": float(plain.abs().max()),
                      "plain_top2_margin_min": float((top2[:, 0] - top2[:, 1]).min()),
-                     "first_token_equal": eq, "first_token_near_tie": tie}
-        if not float(diff.max()) <= tol:
-            problems.append(f"{name} first-token logits differ by {float(diff.max())} > {tol}")
+                     "first_token_equal": eq, "first_token_near_tie": tie, "tol": tol}
+        if float32:
+            rec[name]["tol"] = 2 * rec[name]["first_logits_max_abs_diff_float64_plain"]
+        if not float(diff.max()) <= rec[name]["tol"]:
+            problems.append(f"{cfg.name} {name} first-token logits differ by "
+                            f"{float(diff.max())} > {rec[name]['tol']}")
         if eq + tie != len(diff):
-            problems.append(f"{name}: a first token differs beyond a near-tie")
+            problems.append(f"{cfg.name} {name}: a first token differs beyond a near-tie")
+    if float32:
+        mine, plain = f32[False], f32[True]
+        diff = (mine - plain).abs().amax(dim=-1)
+        eq, tie = first_token_rule(mine, plain, diff)
+        rec["float32"] = {"requests": len(diff), "first_logits_max_abs_diff": float(diff.max()),
+                          "per_request": [float(x) for x in diff], "tol": tol,
+                          "first_token_equal": eq, "first_token_near_tie": tie}
+        if not float(diff.max()) <= tol:
+            problems.append(f"{cfg.name} float32 first-token logits differ by "
+                            f"{float(diff.max())} > {tol}")
+        if eq + tie != len(diff):
+            problems.append(f"{cfg.name} float32: a first token differs beyond a near-tie")
     torch.cuda.empty_cache()
     return rec, problems
 
@@ -5605,7 +5767,7 @@ def phase_vlm() -> dict:
     the parts), a line a part: serve (``moe_serve``, text only, as the
     reference's engine serves it: K1 a layer a prefill, K2 a layer a decode
     step, K3 2L+1 a call, no host sync in a decode step), multimodal
-    (``vlm_multimodal``), parity (``vlm_parity``), simulate (``moe_simulate``
+    (``vlm_multimodal``), parity (``full_depth_parity``), simulate (``moe_simulate``
     at prefill B1 S512 with the image's (t, h, w) positions and patches, and
     decode B8 at 2048), and train (``phase_train``: one timed AdamW step of the
     launcher at B1 S2048 with the pipeline's positions and patches, remat
@@ -5629,7 +5791,7 @@ def phase_vlm() -> dict:
     parts["serve_s"] = time.perf_counter() - t0 - sum(parts.values())
     multimodal = vlm_multimodal(cfg, model, params)
     parts["multimodal_s"] = time.perf_counter() - t0 - sum(parts.values())
-    parity, problems = vlm_parity(cfg, params)
+    parity, problems = full_depth_parity(cfg, params, vlm_inputs(cfg))
     emit({"phase": "vlm", **parity})
     parts["parity_s"] = time.perf_counter() - t0 - sum(parts.values())
     one = vlm_inputs(cfg, B=1)
@@ -5915,6 +6077,176 @@ def mla_train(full) -> dict:
     return rec
 
 
+# The dense GQA decoders of the paper's main path that the other phases do not run, each
+# served at full width and depth and trained at full width.
+DENSE_ARCHS = ("gemma-7b", "qwen2.5-32b", "yi-34b")
+# The train part's depth, the most layers the card holds: AdamW holds 12 bytes a parameter
+# (bf16 p and g, fp32 m and v), and the card 85.0e9 bytes.  At B1 S2048, remat "block", the
+# step's peak on an H100 was 72.5e9 bytes at 18 layers of gemma-7b and 72.0e9 at 9 of
+# qwen2.5-32b and of yi-34b, beside the port's simulator's 72.5e9, 74.9e9 and 74.9e9:
+#   gemma-7b: 3.32 GB a layer, 9.4 GB the tied embedding; all 28 layers 102 GB; 20 layers
+#     are 6,323,039,232 parameters, 79.4 GB (21 would be 82.8)
+#   qwen2.5-32b: 5.85 GB a layer, 18.7 GB the embedding and head; all 64 layers 393 GB; 10
+#     layers are 6,433,192,960 parameters, 78.0 GB (11 would be 83.9)
+#   yi-34b: 6.69 GB a layer, 11.0 GB the embedding and head; all 60 layers 413 GB; 10 layers
+#     are 6,496,078,848 parameters, 78.7 GB (11 would be 85.5)
+DENSE_TRAIN_LAYERS = {"gemma-7b": 20, "qwen2.5-32b": 10, "yi-34b": 10}
+# the train step's parity, kernels against plain versions: two runs of the step side by
+# side hold two trees of gradients and of fp32 changes (6 bytes a parameter each) beside the
+# parameters; at 2 layers qwen2.5-32b is 2,532,384,768 parameters, its embedding and head
+# 1,557,135,360 of them
+DENSE_PARITY_LAYERS = 2
+# the serve launcher at its own default --arch, with the flags the README gives it on the card
+SERVE_LAUNCHER_ARGV = ("--full", "--requests", "12", "--slots", "8", "--cache-len", "2048",
+                       "--max-new", "32", "--prompt-len", "1024")
+
+
+def dense_launcher_serve(cfg) -> dict:
+    """``repro_torch.launch.serve.main`` run as a user runs it, at its default
+    ``--arch`` with ``SERVE_LAUNCHER_ARGV`` (its own weights from its seed, its
+    own requests): what it printed, which must name ``cfg``'s arch (the
+    launcher's default), every request finished with its 32 tokens, the
+    launches against the path's formula (K1 L a prefill, K2 L a decode step,
+    K3 2L + 1 a call; the engine's steps read from K2's count), seconds with
+    the init, peak memory."""
+    import io
+    from repro_torch import kernels as K
+    from repro_torch.launch import serve as launcher
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        finished = launcher.main(list(SERVE_LAUNCHER_ARGV))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = K.launch_counts()
+    L = cfg.num_layers
+    steps = counts["decode_attention"] // L
+    want = {"flash_attention": L * len(finished), "decode_attention": L * steps,
+            "rmsnorm": (2 * L + 1) * (len(finished) + steps), "flash_attention_bwd": 0,
+            "rmsnorm_bwd": 0, "adamw": 0, "adafactor": 0}
+    lines = printed.getvalue().splitlines()
+    rec = {"part": "launcher_serve", "argv": list(SERVE_LAUNCHER_ARGV), "printed": lines,
+           "requests": len(finished), "new_tokens": sum(len(r.tokens) for r in finished),
+           "engine_steps": steps, "seconds_with_init": seconds,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "launches": counts,
+           "launches_expected": want, "gpu": gpu_name_and_power()}
+    emit({"phase": "dense", **rec})
+    if not (lines and lines[0].startswith(f"[{cfg.name} on cuda")):
+        fail(f"dense launcher_serve: the launcher's default arch is not {cfg.name}: {lines}")
+    if len(finished) != 12 or any(len(r.tokens) != 32 or not all(0 <= t < cfg.vocab_size
+                                                                 for t in r.tokens)
+                                  for r in finished):
+        fail(f"dense launcher_serve: not 12 requests of 32 tokens in the vocabulary: {rec}")
+    if counts != want:
+        fail(f"dense launcher_serve: launch counts {counts} differ from what the path implies "
+             f"{want}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dense_model(arch: str, problems: list) -> dict:
+    """One dense decoder on the card, random bf16 weights from the seed made
+    once and shared by the first three parts, a line a part: serve
+    (``moe_serve`` at full width and depth: K1 L a prefill, K2 L a decode
+    step, K3 2L + 1 a call, no host sync in a decode step), parity
+    (``full_depth_parity``: its failed checks go to ``problems``), simulate
+    (``moe_simulate``: prefill B1 S512 and decode B8 at 2048, analytical and
+    profiling, against the port's own steps); then, with those weights freed,
+    the serve launcher where ``arch`` is its default (``dense_launcher_serve``),
+    train (``phase_train``: one timed AdamW step of the train launcher's
+    Trainer at B1 S2048, remat "block", width never cut, depth cut to
+    ``DENSE_TRAIN_LAYERS``) against both engines (``train_versus``), and the
+    train step's parity on ``DENSE_PARITY_LAYERS`` layers
+    (``phase_train_parity``: loss, every gradient leaf, AdamW's change); then
+    a closing line.  Returns the launches of each part."""
+    import gc
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, count_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init = {"allocated_bytes": torch.cuda.memory_allocated(),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    parts = {"init_s": time.perf_counter() - t0}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    serve = moe_serve(cfg, params, phase="dense")
+    part("serve_s")
+    parity, failed = full_depth_parity(cfg, params, float32=True)
+    problems.extend(failed)
+    emit({"phase": "dense", **parity})
+    part("parity_s")
+    sim = moe_simulate(cfg, params, name="dense")
+    for mode in ("prefill", "decode"):
+        emit({"phase": "dense", "arch": cfg.name, **sim[mode]})
+    part("simulate_s")
+    del params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    if arch == DENSE_ARCHS[0]:      # the serve launcher's default (which it checks)
+        out["launcher_serve"] = dense_launcher_serve(cfg)["launches"]
+        part("launcher_serve_s")
+    layers = DENSE_TRAIN_LAYERS[arch]
+    train = phase_train(arch, phase="dense_train", timed_steps=1, layers=layers)
+    versus = train_versus(cfg.replace(num_layers=layers), train, "dense", profiling=True)
+    part("train_s")
+    K.reset_launch_counts()
+    tp = phase_train_parity(arch, phase="dense_train_parity", tree_times=False,
+                            layers=DENSE_PARITY_LAYERS)
+    tp_launches = K.launch_counts()
+    part("train_parity_s")
+    if min(tp_launches["flash_attention_bwd"], tp_launches["rmsnorm_bwd"],
+           tp_launches["adamw"]) <= 0:
+        fail(f"dense train_parity {arch}: a backward kernel or AdamW was not launched: "
+             f"{tp_launches}")
+    emit({"phase": "dense", "part": "done", "arch": cfg.name, "params": count_params(cfg),
+          "layers_served": cfg.num_layers, "layers_trained": layers,
+          "train_params": train["params"], "train_launcher_argv": train["launcher_argv"],
+          "train_launcher_default_arch": train["launcher_default_arch"],
+          "parity_layers": DENSE_PARITY_LAYERS, "seconds": time.perf_counter() - t0,
+          "parts_s": parts, "init": init, "serve_peak_bytes": serve["peak_bytes"],
+          "train_peak_bytes": train["peak_bytes"],
+          "signed_error_vs_device_busy": {
+              "prefill": sim["prefill"]["signed_error"], "decode": sim["decode"]["signed_error"],
+              "train": versus["signed_error"]},
+          "profile_db_entries": sim["profile_db_entries"], "gpu": gpu_name_and_power()})
+    out.update(serve=serve["launches"],
+               simulate={k: sim["prefill"]["profiling_launches"][k]
+                         + sim["decode"]["profiling_launches"][k] for k in serve["launches"]},
+               train=train["launches_per_step"], simulate_train=versus["profiling_launches"],
+               train_parity=tp_launches)
+    return out
+
+
+def phase_dense() -> dict:
+    """gemma-7b, qwen2.5-32b and yi-34b in turn (``dense_model``); the parity
+    checks that failed fail the phase after every model has printed.  The
+    serve launcher's default is gemma-7b and the train launcher's qwen2.5-32b
+    (``phase_train`` builds that Trainer without ``--arch``)."""
+    from repro_torch.launch import train as T
+    if T.parse_args([]).arch not in DENSE_ARCHS:
+        fail(f"dense: the train launcher's default {T.parse_args([]).arch} is not one of "
+             f"{DENSE_ARCHS}")
+    problems: list = []
+    out = {arch: dense_model(arch, problems) for arch in DENSE_ARCHS}
+    if problems:
+        fail(f"dense parity: {problems}")
+    if "launcher_serve" not in out[DENSE_ARCHS[0]]:
+        fail("dense: the serve launcher did not run")
+    return out
+
+
 KERNEL_INFO = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:104"),
@@ -5949,20 +6281,35 @@ TRAIN_ONLY = {
 }
 
 
+# seconds each phase of this run took, by name (``clocked``)
+PHASE_SECONDS: dict = {}
+
+
+def clocked(name: str, fn):
+    """``fn``, which when called adds its seconds to ``PHASE_SECONDS[name]``."""
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+    return call
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,serve,parity,train,train_parity,simulate,"
                             "serve_sim,sweep,moe,griffin,dryrun,griffin_train,xlstm,whisper,"
-                            "vlm,mla",
+                            "vlm,mla,dense",
                     help="comma-separated subset of env,build,kernels,serve,parity,train,"
                          "train_parity,simulate,serve_sim,sweep,moe,griffin,dryrun,"
-                         "griffin_train,xlstm,whisper,vlm,mla (and times, the serving-shape "
+                         "griffin_train,xlstm,whisper,vlm,mla,dense (and times, the serving-shape "
                          "timings alone; k2_parts and k1_parts, the kernels phase's part "
                          "times alone; adafactor, its Adafactor checks alone; serve_measure, "
                          "the measured side of serve_sim alone; "
                          "mla_layout, the mla phase's first part alone); the closing lines are "
-                         "printed only when the eighteen of the default ran")
+                         "printed only when the nineteen of the default ran")
     ap.add_argument("--baseline-src", metavar="DIR", default=None,
                     help="also time the serving-shape kernels of the tree at DIR beside this "
                          "tree's, in turns, on this card")
@@ -6008,6 +6355,8 @@ def main(argv=None) -> int:
                 print(f"--- nvcc {name}.cu ---\n{log}", file=sys.stderr)
             rec["decode_tc_ptxas"] = ptxas_report(logs.get("decode_attention", ""),
                                                   DEC_TC_FUNCTION, "decode_tc_kernel")
+            rec["decode_fma_ptxas"] = ptxas_report(logs.get("decode_attention", ""),
+                                                   DEC_FMA_ANY, "decode_kernel")
             rec["flash_tc_ptxas"] = ptxas_report(logs.get("flash_attention", ""), FWD_TC_ANY,
                                                  "flash_fwd_tc_kernel")
             rec["flash_bwd_wg_ptxas"] = ptxas_report(logs.get("flash_attention_bwd", ""),
@@ -6022,62 +6371,69 @@ def main(argv=None) -> int:
                                      log)}
         emit({"phase": "build", "seconds": _build.build_seconds, "sources": list(_build.SOURCES),
               "build_dir": os.path.relpath(_build.build_dir(), HERE), **rec})
-        spilled = {k: r for key in ("decode_tc_ptxas", "flash_tc_ptxas", "flash_bwd_wg_ptxas")
+        spilled = {k: r for key in ("decode_tc_ptxas", "decode_fma_ptxas", "flash_tc_ptxas",
+                                    "flash_bwd_wg_ptxas")
                    for k, r in rec.get(key, {}).items()
                    if r.get("spill_stores") or r.get("spill_loads")}
         if spilled:
-            fail(f"tensor-core kernels spill: {spilled}")
+            fail(f"kernels spill: {spilled}")
         sass_check()
     if "times" in phases:
-        phase_times()
+        clocked("times", phase_times)()
     if "k2_parts" in phases:
-        emit({"phase": "k2_parts", "src": SRC, "k2_parts": k2_parts(np.random.default_rng(SEED + 2))})
+        emit({"phase": "k2_parts", "src": SRC,
+              "k2_parts": clocked("k2_parts", k2_parts)(np.random.default_rng(SEED + 2))})
     if "k1_parts" in phases:
-        parts = k1_parts(np.random.default_rng(SEED + 4))
+        parts = clocked("k1_parts", k1_parts)(np.random.default_rng(SEED + 4))
         emit({"phase": "k1_parts", "src": SRC, "gpu": smi, "k1_parts": parts})
         if not all(check_ok(r) for r in parts):
             fail(f"K1 at the part shapes: off its plain version: {parts}")
     if "adafactor" in phases:
-        af_recs, _ = adafactor_checks()
+        af_recs, _ = clocked("adafactor_checks", adafactor_checks)()
         emit({"phase": "adafactor", "gpu": smi, "checks": af_recs})
         if not all(check_ok(r) for r in af_recs):
             fail(f"Adafactor's kernels off their plain version: {af_recs}")
     if "serve_measure" in phases:
-        phase_serve_measure()
+        clocked("serve_measure", phase_serve_measure)()
     if args.variant and not args.baseline_src:
         fail("--variant needs --baseline-src: a patch applies to the tree there")
     if args.baseline_src:
-        phase_baseline(args.baseline_src, args.variant)
+        clocked("baseline", phase_baseline)(args.baseline_src, args.variant)
     main_recs = counts = None
     if "kernels" in phases:
-        _, main_recs = phase_kernels()
+        _, main_recs = clocked("kernels", phase_kernels)()
     if "serve" in phases:
-        counts = phase_serve()
+        counts = clocked("serve", phase_serve)()
     if args.profile:
-        phase_profile(args.profile)
+        clocked("profile", phase_profile)(args.profile)
     if "parity" in phases:
-        phase_parity()
-    train = phase_train() if "train" in phases else None
-    train_parity = phase_train_parity() if "train_parity" in phases else None
-    sim = phase_simulate(train) if "simulate" in phases else None
-    serve_sim = phase_serve_sim() if "serve_sim" in phases else None
-    swept = phase_sweep() if "sweep" in phases else None
-    moe = phase_moe() if "moe" in phases else None
-    griffin = phase_griffin(keep="dryrun" in phases) if "griffin" in phases else None
-    dryrun = phase_dryrun(griffin.pop("params", None) if griffin else None) \
+        clocked("parity", phase_parity)()
+    train = clocked("train", phase_train)() if "train" in phases else None
+    train_parity = clocked("train_parity", phase_train_parity)() \
+        if "train_parity" in phases else None
+    sim = clocked("simulate", phase_simulate)(train) if "simulate" in phases else None
+    serve_sim = clocked("serve_sim", phase_serve_sim)() if "serve_sim" in phases else None
+    swept = clocked("sweep", phase_sweep)() if "sweep" in phases else None
+    moe = clocked("moe", phase_moe)() if "moe" in phases else None
+    griffin = clocked("griffin", phase_griffin)(keep="dryrun" in phases) \
+        if "griffin" in phases else None
+    dryrun = clocked("dryrun", phase_dryrun)(griffin.pop("params", None) if griffin else None) \
         if "dryrun" in phases else None
-    griffin_train = phase_griffin_train() if "griffin_train" in phases else None
-    xlstm = phase_xlstm() if "xlstm" in phases else None
-    whisper = phase_whisper() if "whisper" in phases else None
-    vlm = phase_vlm() if "vlm" in phases else None
+    griffin_train = clocked("griffin_train", phase_griffin_train)() \
+        if "griffin_train" in phases else None
+    xlstm = clocked("xlstm", phase_xlstm)() if "xlstm" in phases else None
+    whisper = clocked("whisper", phase_whisper)() if "whisper" in phases else None
+    vlm = clocked("vlm", phase_vlm)() if "vlm" in phases else None
     if "mla_layout" in phases:
-        mla_layout()
-    mla = phase_mla() if "mla" in phases else None
+        clocked("mla_layout", mla_layout)()
+    mla = clocked("mla", phase_mla)() if "mla" in phases else None
+    dense = clocked("dense", phase_dense)() if "dense" in phases else None
     if (main_recs is None or counts is None or "parity" not in phases or train is None
             or train_parity is None or sim is None or serve_sim is None or swept is None
             or moe is None or griffin is None or dryrun is None or griffin_train is None
             or xlstm is None
-            or whisper is None or vlm is None or mla is None):
+            or whisper is None or vlm is None or mla is None or dense is None):
+        emit({"phase": "seconds", **PHASE_SECONDS})
         print("chip_smoke: partial run, no closing lines", file=sys.stderr)
         return 0
 
@@ -6222,6 +6578,16 @@ def main(argv=None) -> int:
             rec["vlm_shape"] = {k: vlm_rec.get(k) for k in (
                 "case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")}
+        # gemma-7b, qwen2.5-32b and yi-34b (the dense phase): serving at full width and
+        # depth, the profiling engine's prefill and decode, the serve launcher at its default
+        # (gemma-7b), the train step at the cut depth (a step), the profiling engine's train
+        # step, and the 2-layer train parity
+        rec["dense_launches"] = {arch: {part: n[name] for part, n in parts.items()}
+                                 for arch, parts in dense.items()}
+        rec["dense_shapes"] = [{k: c.get(k) for k in (
+            "arch", "case", "dtype", "path", "splits", "max_abs_err", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")}
+            for c in main_recs["dense"] if c["kernel"].replace("add_", "") == name]
         if name == "adafactor":
             # the largest 12-layer group, the bounds of five and six passes (g read
             # twice or three times, p twice), and the update over recurrentgemma-9b's
@@ -6237,6 +6603,7 @@ def main(argv=None) -> int:
         if name in TRAIN_ONLY:
             rec["note"] = TRAIN_ONLY[name]
         kernels.append(rec)
+    emit({"phase": "seconds", **PHASE_SECONDS})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
