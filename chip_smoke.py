@@ -55,10 +55,16 @@ Phases, each printing one JSON object on a line of its own:
            S2048 and gemma-7b's S2048 and at D 64 at whisper's five shapes
            (the encoder at B1 and B8, the cross attention at B1 Sq224 and B8
            Sq448, the decoder's causal self attention at B8 S448; grid blocks
-           and waves too), each beside SDPA (these checks alone are the
+           and waves too), and at D 128, causal, its forward at yi-34b's,
+           qwen2.5-32b's and phi4-mini's S2048 and S1000 and olmoe's and
+           qwen2-vl's S1000 and its backward by kernel at yi-34b's (G 7),
+           qwen2.5-32b's (G 5), phi4-mini's (G 3) and qwen2-vl's (G 7) S2048,
+           each beside SDPA (these checks alone are the
            k1_parts phase, which CHIP_SMOKE_SRC points at another tree), each
-           twice for the same bits (the backward at the encoder's shape, the
-           forward at S1000, gemma-7b's and whisper's B8 encoder); Adafactor's
+           twice for the same bits (the backward at the encoder's shape and
+           yi-34b's, the forward at S1000, gemma-7b's, whisper's B8 encoder
+           and yi-34b's S2048); the backward's workspace at D 128 and G > 1
+           (each kv head's running sums, no q head's partials); Adafactor's
            kernels against the plain update at recurrentgemma-9b's groups
            (the tied embedding, each pass of it timed, and the largest
            12-layer groups timed beside their one-read, five-pass and
@@ -301,11 +307,14 @@ commit, unpacked) beside this tree's, in turns (DIR, here, here, DIR), each
 in a process of its own, through the wrappers' common signatures (the
 `times` phase; for K3 also `host_us`, the host time of a wrapper call, taken
 before the process profiles anything).  Every output must be the other
-tree's bits, but K2's and those that come from K1's bf16 forward at D 64
-(its cases, and its backward's at whisper's three train shapes, which start
-from that forward's output and log-sum-exp): a plan's kv tiles set those
-bits, so each tree's are held to their plain versions at the kernel
-tolerance, and the cases so held are named in the line.  `--variant PATCH`
+tree's bits, but K2's and those that come from K1's bf16 forward at D 64 or
+at D 128 over 1536 rows or more (its cases, and its backward's at whisper's
+three train shapes, which start from that forward's output and log-sum-exp;
+`new_k1_bits`): a plan's kv tiles set
+those bits, so each tree's are held to their plain versions at the kernel
+tolerance, and the cases so held are named in the line.  K1's backward at D
+128 starts from the plain forward's output and log-sum-exp, the same in
+every tree, and is held bit for bit.  `--variant PATCH`
 (repeatable, with `--baseline-src`) adds the tree at DIR with the unified
 diff PATCH applied (a copy under build/variants/) to those turns (DIR, each
 variant, here, here, each variant in reverse, DIR): the kernel designs that
@@ -579,7 +588,7 @@ def check_flash(rng, *, B, H, Hkv, Sq, Sk, D, causal, window, dtype, timed, bshd
         # the tensor-core kernel's grid, one block a (q tile, head, batch), in waves
         # of the blocks the card holds at once
         from repro_torch.kernels.flash_attention import tile_plan
-        plan = tile_plan(D, Dv)
+        plan = tile_plan(D, Dv, min(Sq, Sk))
         rec["grid_blocks"] = B * H * -(-Sq // plan["q_rows"])
         rec["waves"] = rec["grid_blocks"] / (
             torch.cuda.get_device_properties(0).multi_processor_count * plan["blocks_per_sm"])
@@ -915,13 +924,25 @@ K1_PARTS_FWD64 = (("whisper_enc_b1", 1, 1500, 1500, False),
                   ("whisper_cross_b1", 1, 224, 1500, False),
                   ("whisper_cross_b8", 8, 448, 1500, False),
                   ("whisper_self_b8", 8, 448, 448, True))
+# K1 at D 128, the main path's head dim, causal: its forward at the train shapes (S2048) of
+# yi-34b (56 q heads on 8), qwen2.5-32b (40 on 8) and phi4-mini (24 on 8) and at the serving
+# prefills (S1000) of those and of olmoe-1b-7b (16 on 16) and qwen2-vl-7b (28 on 4); its
+# backward at the train shapes of yi-34b (G 7), qwen2.5-32b (G 5), phi4-mini (G 3) and
+# qwen2-vl-7b (G 7)
+K1_PARTS_FWD128 = (("yi_s2048", 1, 56, 8, 2048), ("qwen_s2048", 1, 40, 8, 2048),
+                   ("phi4_s2048", 1, 24, 8, 2048), ("yi_s1000", 1, 56, 8, 1000),
+                   ("qwen_s1000", 1, 40, 8, 1000), ("phi4_s1000", 1, 24, 8, 1000),
+                   ("olmoe_s1000", 1, 16, 16, 1000), ("qwen2vl_s1000", 1, 28, 4, 1000))
+K1_PARTS_BWD128 = (("yi_s2048", 1, 56, 8, 2048), ("qwen_s2048", 1, 40, 8, 2048),
+                   ("phi4_s2048", 1, 24, 8, 2048), ("qwen2vl_s2048", 1, 28, 4, 2048))
 
 
 def k1_parts(rng) -> list:
     """The kernels phase's checks at the part shapes, alone: K1's backward at
-    D 64 at ``K1_PARTS_BWD``'s shapes (:func:`check_flash_bwd`, its device
-    time by kernel: delta, dK/dV, dQ), its forward at D 256 at
-    ``K1_PARTS_FWD``'s and at D 64 at ``K1_PARTS_FWD64``'s
+    D 64 at ``K1_PARTS_BWD``'s shapes and at D 128 at ``K1_PARTS_BWD128``'s
+    (:func:`check_flash_bwd`, its device time by kernel: delta, dK/dV, [sum,]
+    dQ), its forward at D 256 at ``K1_PARTS_FWD``'s, at D 64 at
+    ``K1_PARTS_FWD64``'s and at D 128 at ``K1_PARTS_FWD128``'s
     (:func:`check_flash`: grid and waves too), in bf16 on the model's layout,
     each timed beside SDPA.  CHIP_SMOKE_SRC points it at another tree."""
     bf16 = torch.bfloat16
@@ -938,6 +959,14 @@ def k1_parts(rng) -> list:
         out.append({"shape": name, **check_flash(rng, B=B, H=20, Hkv=20, Sq=Sq, Sk=Sk, D=64,
                                                  causal=causal, window=0, dtype=bf16,
                                                  timed=True, bshd=True)})
+    for name, B, H, Hkv, S in K1_PARTS_FWD128:
+        out.append({"shape": name, **check_flash(rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=128,
+                                                 causal=True, window=0, dtype=bf16,
+                                                 timed=True, bshd=True)})
+    for name, B, H, Hkv, S in K1_PARTS_BWD128:
+        out.append({"shape": name, **check_flash_bwd(rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=128,
+                                                     causal=True, window=0, dtype=bf16,
+                                                     timed=True, bshd=True)})
     return out
 
 
@@ -1216,17 +1245,18 @@ def rms_bwd_parts_times(rng) -> list:
 
 def determinism_checks(rng) -> list:
     """Each backward twice from the same inputs at its train shape (K1 also
-    at a group of 5 and of 1, whose partial sums differ, at MLA's (192, 128),
-    at a group of 16 at D 256 and at whisper's encoder at D 64), K1's forward
-    twice at D 256 (recurrentgemma's and gemma-7b's shapes) and at D 64
-    (whisper's encoder at B8), and K2 twice at a single sequence of a group
-    of 16 and at a batch of a group of 7: every output must be the same
-    bits."""
+    at a group of 5 and of 1, whose partial sums differ, at yi-34b's group of
+    7, whose blocks add their dK and dV in turns, at MLA's (192, 128), at a
+    group of 16 at D 256 and at whisper's encoder at D 64), K1's forward
+    twice at D 256 (recurrentgemma's and gemma-7b's shapes), at D 64
+    (whisper's encoder at B8) and at D 128 (yi-34b's train shape), and K2
+    twice at a single sequence of a group of 16 and at a batch of a group of
+    7: every output must be the same bits."""
     from repro_torch.kernels import (decode_attention, flash_attention, flash_attention_bwd,
                                      rmsnorm_bwd)
     bf16 = torch.bfloat16
     out = []
-    for B, H, Hkv, S in ((1, 24, 8, 2048), (2, 40, 8, 333), (1, 8, 8, 200)):
+    for B, H, Hkv, S in ((1, 24, 8, 2048), (2, 40, 8, 333), (1, 8, 8, 200), (1, 56, 8, 2048)):
         q, k, v = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)
         do = flash_inputs(rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)[0]
         o = torch.empty_like(do)
@@ -1275,6 +1305,11 @@ def determinism_checks(rng) -> list:
     q, k, v = flash_inputs(rng, B=8, H=20, Hkv=20, Sq=1500, Sk=1500, D=64, dtype=bf16, bshd=True)
     runs = [flash_attention(q, k, v, causal=False) for _ in range(2)]
     out.append({"kernel": "flash_attention", "case": "B8 H20 Hkv20 S1500 D64 bshd",
+                "bit_equal": torch.equal(*runs)})
+    # ... and at D 128 (two consumer warpgroups in turns): yi-34b's train shape
+    q, k, v = flash_inputs(rng, B=1, H=56, Hkv=8, Sq=2048, Sk=2048, D=128, dtype=bf16, bshd=True)
+    runs = [flash_attention(q, k, v, causal=True) for _ in range(2)]
+    out.append({"kernel": "flash_attention", "case": "B1 H56 Hkv8 S2048 D128 causal bshd",
                 "bit_equal": torch.equal(*runs)})
     del q, k, v, o, do, lse, runs
     x, w, r = rms_inputs(rng, 2048, 3072, bf16, bf16, False, True)
@@ -1367,10 +1402,11 @@ def check_plans(recs_plans: dict) -> None:
                     fail(f"rmsnorm plan {dt_name(dtype)} D={D} aligned={aligned}: "
                          f"wrapper {mine}, kernel {theirs}")
     for D in fa.SUPPORTED_D:
-        mine, theirs = fa.tile_plan(D), fa.kernel_plan(D)
-        recs_plans[f"flash D{D}"] = theirs
-        if mine != theirs:
-            fail(f"flash_attention plan D={D}: wrapper {mine}, kernel {theirs}")
+        for S in (333, 1000, fa.PAIR_MIN_KEYS - 1, fa.PAIR_MIN_KEYS, 2048):
+            mine, theirs = fa.tile_plan(D, None, S), fa.kernel_plan(D, None, S)
+            recs_plans[f"flash D{D} S{S}"] = theirs
+            if mine != theirs:
+                fail(f"flash_attention plan D={D} S={S}: wrapper {mine}, kernel {theirs}")
     mine, theirs = fa.tile_plan(*fa.MLA_D), fa.kernel_plan(*fa.MLA_D)
     recs_plans[f"flash D{fa.MLA_D[0]} Dv{fa.MLA_D[1]}"] = theirs
     if mine != theirs:
@@ -1389,7 +1425,8 @@ def check_plans(recs_plans: dict) -> None:
                   (1, 16, 16, 300, 300, 256), (2, 8, 1, 192, 192, 64), (1, 4, 2, 300, 100, 64),
                   (8, 20, 20, 448, 1500, 64), (8, 20, 20, 1500, 1500, 64),      # whisper
                   (1, 128, 128, 2048, 2048, 192, 128), (2, 16, 4, 333, 333, 192, 128),  # MLA
-                  (1, 16, 1, 2048, 2048, 256), (1, 16, 16, 2048, 2048, 256)):  # D 256, G 16 / 1
+                  (1, 16, 1, 2048, 2048, 256), (1, 16, 16, 2048, 2048, 256),  # D 256, G 16 / 1
+                  (1, 40, 8, 2048, 2048, 128), (1, 56, 8, 2048, 2048, 128)):  # qwen2.5, yi
         for dtype in (torch.bfloat16, torch.float32):
             for aligned in (True, False):
                 mine = fa.bwd_workspace_bytes(*shape[:6], dtype, aligned, *shape[6:])
@@ -1400,6 +1437,12 @@ def check_plans(recs_plans: dict) -> None:
         recs_plans[f"flash_bwd workspace B{shape[0]} H{shape[1]} Hkv{shape[2]} S{shape[3]} "
                    f"D{shape[5]} bf16"] = fa.kernel_bwd_workspace_bytes(
                        *shape[:6], torch.bfloat16, True, *shape[6:])
+        # at D 128 a group's blocks add into one fp32 sum a kv head: no q head's partials
+        B, H, Hkv, _, Sk, D = shape[:6]
+        partials = B * H * Sk * 2 * D * 4
+        if (D, *shape[6:]) == (128,) and H > Hkv and \
+                fa.kernel_bwd_workspace_bytes(*shape[:6], torch.bfloat16, True) >= partials:
+            fail(f"flash_attention_bwd workspace {shape}: the (B, H, Sk, D) partials are back")
     for dtype in (torch.bfloat16, torch.float32):
         for D in (64, 100, 256, 3072, 5120, 16384):
             for aligned in (True, False):
@@ -2282,10 +2325,10 @@ SASS_WANTED = {"flash_attention": (r"HGMMA", r"UTMALDG"),
                "adafactor": (r"LDG\.E\.128", r"STG\.E\.128", r"MUFU\.RSQ", r"UBLKCP")}
 
 
-# the bf16 forward's instantiations at MLA's dims and at D 256 (mangled:
-# flash_fwd_tc_kernel<192, 128, lse>), each of which must hold the flash library's wanted
-# instructions too
-FWD_TC_FUNCTION = re.compile(r"flash_fwd_tc_kernelILi(192|256)ELi(128|256)ELb(\d)E")
+# the bf16 forward's instantiations at MLA's dims, at D 256 and (two consumer warpgroups)
+# at D 128 (mangled: flash_fwd_tc_kernel<192, 128, lse>, flash_fwd_tc2_kernel<128, 128,
+# lse>), each of which must hold the flash library's wanted instructions too
+FWD_TC_FUNCTION = re.compile(r"flash_fwd_(tc2?)_kernelILi(128|192|256)ELi(128|256)ELb(\d)E")
 # the bf16 backward's dK/dV and dQ instantiations at (256, 256), (192, 128) and (64, 64)
 # (mangled: flash_bwd_dkdv_wg_kernel<256, 256>), which must each hold them
 BWD_TC_FUNCTION = re.compile(r"flash_bwd_(dkdv|dq)_wg_kernelILi(256|192|64)ELi(256|128|64)EE")
@@ -2293,7 +2336,7 @@ BWD_TC_FUNCTION = re.compile(r"flash_bwd_(dkdv|dq)_wg_kernelILi(256|192|64)ELi(2
 DEC_TC_FUNCTION = re.compile(r"decode_tc_kernelILi(\d+)ELi(\d+)EE")
 # every instantiation of K1's bf16 forward and of its backward's dK/dV and dQ kernels, for
 # the --ptxas report (registers and spills of each)
-FWD_TC_ANY = re.compile(r"flash_fwd_tc_kernelILi(\d+)ELi(\d+)ELb(\d)E")
+FWD_TC_ANY = re.compile(r"flash_fwd_(tc2?)_kernelILi(\d+)ELi(\d+)ELb(\d)E")
 BWD_WG_ANY = re.compile(r"flash_bwd_(dkdv|dq)_wg_kernelILi(\d+)ELi(\d+)EE")
 # K2's CUDA-core instantiations (decode_kernel<T, G, D>: fp32, and bf16 at G 1-3), for the
 # --ptxas report
@@ -2324,11 +2367,11 @@ def sass_check() -> dict:
             for part in sass.split("Function : ")[1:]:
                 m = FWD_TC_FUNCTION.search(part.split("\n", 1)[0])
                 if m:
-                    counts[f"flash_fwd_tc_kernel<{m[1]}, {m[2]}, lse {m[3]}>"] = {
+                    counts[f"flash_fwd_{m[1]}_kernel<{m[2]}, {m[3]}, lse {m[4]}>"] = {
                         op: len(re.findall(rf"\b{op}\b", part)) for op in ops}
-            for dims in ("192", "256"):
-                if sum(k.startswith(f"flash_fwd_tc_kernel<{dims}") for k in counts) != 2:
-                    fail(f"the flash library lacks K1's two instantiations at {dims}: "
+            for kernel in ("tc_kernel<192", "tc_kernel<256", "tc2_kernel<128"):
+                if sum(k.startswith(f"flash_fwd_{kernel}") for k in counts) != 2:
+                    fail(f"the flash library lacks K1's two instantiations flash_fwd_{kernel}: "
                          f"{sorted(counts)}")
         if name == "flash_attention_bwd":
             for part in sass.split("Function : ")[1:]:
@@ -2389,10 +2432,24 @@ def digest(out) -> str:
     return h.hexdigest()[:16]
 
 
+# this tree's D 128 forward takes its two-consumer plan (kv tiles of 128 rows) where q and
+# k both hold this many rows (kernels/flash_attention.py PAIR_MIN_KEYS); the script times
+# other trees too, whose packages may not say so
+PAIR_MIN_KEYS = 1536
+
+
+def new_k1_bits(D: int, S: int) -> bool:
+    """Whether K1's bf16 forward at head dim ``D`` over ``S`` rows walks kv
+    tiles of 128 rows in this tree (D 64; D 128 from ``PAIR_MIN_KEYS``), so
+    that its bits are not a 64-row plan's."""
+    return D == 64 or (D == 128 and S >= PAIR_MIN_KEYS)
+
+
 def held_to_plain(q, k, v, causal, *, o=None, lse=None, do=None, grads=None) -> dict:
     """A ``times`` record's error against the plain versions, for a case whose
-    outputs come from K1's bf16 forward at D 64 (whose plan walks kv tiles of
-    128 rows, so its bits are not those of a tree with 64-row tiles): the
+    outputs come from K1's bf16 forward where it walks kv tiles of 128 rows
+    (:func:`new_k1_bits`), so that its bits are not those of a tree with
+    64-row tiles: the
     forward's output against ``flash_attention_plain`` (largest absolute
     error); given the backward's ``o``, ``lse``, ``do`` and ``grads``, also
     the log-sum-exp against the plain one (over max(1, |lse|)) and the
@@ -2429,12 +2486,16 @@ def phase_times():
     two trees whose K2 splits or sums otherwise.  K1's backward at D 64 at
     whisper's three train shapes (by kernel), its forward at D 256 at
     ``K1_PARTS_FWD``'s shapes, at MLA's (192, 128) and at D 64 at
-    ``K1_PARTS_FWD64``'s come from a stream of their own, as do K2 at a
+    ``K1_PARTS_FWD64``'s, and at D 128 at ``K1_PARTS_FWD128``'s and its
+    backward at ``K1_PARTS_BWD128``'s (from the plain forward's o and
+    log-sum-exp, by kernel) come from a stream of their own, as do K2 at a
     single sequence and at qwen2-vl's group of 7, last.  The records whose
-    outputs come from K1's bf16 forward at D 64 also carry their error
-    against the plain versions (:func:`held_to_plain`)."""
+    outputs come from K1's bf16 forward on kv tiles of 128 rows
+    (:func:`new_k1_bits`) also carry their error against the plain versions
+    (:func:`held_to_plain`)."""
     from repro_torch.kernels import (decode_attention, decode_attention_plain, flash_attention,
-                                     flash_attention_bwd, rmsnorm, rmsnorm_bwd)
+                                     flash_attention_bwd, flash_attention_lse_plain, rmsnorm,
+                                     rmsnorm_bwd)
     rng = np.random.default_rng(SEED)
     bf16 = torch.bfloat16
     out = []
@@ -2459,7 +2520,8 @@ def phase_times():
         q, k, v = flash_inputs(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)
         call = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
         out.append({"kernel": "flash_attention", "case": f"B1 H24 Hkv8 S{S} D128 causal bshd",
-                    "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call())})
+                    "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call()),
+                    **(held_to_plain(q, k, v, True) if new_k1_bits(128, S) else {})})
     for D in (64, 128, 256):       # the fp32 FMA kernel and the other head dims' instantiations
         for dtype in (bf16, torch.float32):
             q, k, v = flash_inputs(rng, B=1, H=8, Hkv=2, Sq=333, Sk=333, D=D, dtype=dtype,
@@ -2469,7 +2531,7 @@ def phase_times():
                                                              f"{dt_name(dtype)}",
                         "ms": time_ms(call), "device_ms": device_ms(call),
                         "out_sha": digest(call())})
-            if D == 64 and dtype is bf16:
+            if dtype is bf16 and new_k1_bits(D, 333):
                 out[-1].update(held_to_plain(q, k, v, True))
     def k2(case, q, k, v, vl, timed=True):
         # K2's output bits, and its error against the plain version, which holds
@@ -2509,12 +2571,12 @@ def phase_times():
     for rec, call in k3:
         out.append({**rec, "ms": time_ms(call), "device_ms": device_ms(call),
                     "out_sha": digest(call())})
+    # K1's backward at D 128 from the plain forward's o and log-sum-exp (the same inputs in
+    # every tree, whatever its forward's kv tiles), so that its own bits are held
     for S in (1000, 2048):
         q, k, v = flash_inputs(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)
         do = flash_inputs(rng, B=1, H=24, Hkv=8, Sq=S, Sk=S, D=128, dtype=bf16, bshd=True)[0]
-        o = torch.empty_like(do)
-        lse = torch.empty((1, 24, S), dtype=torch.float32, device="cuda")
-        flash_attention(q, k, v, causal=True, out=o, lse=lse)
+        o, lse = flash_attention_lse_plain(q, k, v, causal=True)
         call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=0)  # noqa: E731
         out.append({"kernel": "flash_attention_bwd", "case": f"B1 H24 Hkv8 S{S} D128 causal bshd",
                     "ms": time_ms(call), "device_ms": device_ms(call),
@@ -2577,6 +2639,29 @@ def phase_times():
                     "case": f"B{B} H20 Hkv20 Sq{Sq} Sk{Sk} D64 causal{int(causal)} bshd",
                     "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call()),
                     **held_to_plain(q, k, v, causal)})
+    # ... and K1 at D 128 at K1_PARTS_FWD128's shapes, its backward at K1_PARTS_BWD128's
+    # from the plain forward's o and log-sum-exp, by kernel
+    for name, B, H, Hkv, S in K1_PARTS_FWD128:
+        q, k, v = flash_inputs(k1_rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=128, dtype=bf16,
+                               bshd=True)
+        call = lambda: flash_attention(q, k, v, causal=True)  # noqa: E731
+        out.append({"kernel": "flash_attention",
+                    "case": f"B{B} H{H} Hkv{Hkv} S{S} D128 causal bshd ({name})",
+                    "ms": time_ms(call), "device_ms": device_ms(call), "out_sha": digest(call()),
+                    **(held_to_plain(q, k, v, True) if new_k1_bits(128, S) else {})})
+    for name, B, H, Hkv, S in K1_PARTS_BWD128:
+        q, k, v = flash_inputs(k1_rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=128, dtype=bf16,
+                               bshd=True)
+        do = flash_inputs(k1_rng, B=B, H=H, Hkv=Hkv, Sq=S, Sk=S, D=128, dtype=bf16,
+                          bshd=True)[0]
+        o, lse = flash_attention_lse_plain(q, k, v, causal=True)
+        call = lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True,  # noqa: E731
+                                           window=0)
+        out.append({"kernel": "flash_attention_bwd",
+                    "case": f"B{B} H{H} Hkv{Hkv} S{S} D128 causal bshd ({name})",
+                    "ms": time_ms(call), "device_ms_by_kernel": device_ms_by_kernel(call),
+                    "out_sha": digest((o, lse, *call()))})
+        out[-1]["device_ms"] = sum(out[-1]["device_ms_by_kernel"].values())
     for with_sum in (False, True):
         x, w, _ = rms_inputs(rng, 2048, 3072, bf16, bf16, False, False)
         dy = randn(rng, (2048, 3072), bf16)
@@ -2676,8 +2761,8 @@ def phase_baseline(other: str, variants: list[str] = ()) -> None:
             broken[label] = f"exit {res.returncode}: {res.stderr[-2000:]}"
             continue
         runs.append({"tree": label, **json.loads(lines[0])})
-    # every kernel's output bits but K2's and K1's bf16 forward's at D 64 (and its
-    # backward's from those outputs), this tree's against the other's, case by case (the
+    # every kernel's output bits but K2's and K1's bf16 forward's at D 64 and D 128 (and its
+    # backward's from those outputs at D 64), this tree's against the other's, case by case (the
     # cases both trees run: a shape the other tree's kernels do not take is this one's
     # alone); K2, whose splits and sums may differ between trees, and those K1 cases, whose
     # kv tiles may, are held in each run to their plain versions at the kernel tolerance
@@ -2722,7 +2807,7 @@ def phase_baseline(other: str, variants: list[str] = ()) -> None:
         fail(f"--baseline-src: K2 over its tolerance against the plain version: {k2_over}")
     main_over = [h for h in held_over if h.split(" ", 1)[0] in ("baseline", "this")]
     if main_over:
-        fail(f"--baseline-src: K1 at D 64 over its tolerance against the plain version: "
+        fail(f"--baseline-src: K1 at D 64 or 128 over its tolerance against the plain version: "
              f"{main_over}")
 
 
@@ -6358,7 +6443,7 @@ def main(argv=None) -> int:
             rec["decode_fma_ptxas"] = ptxas_report(logs.get("decode_attention", ""),
                                                    DEC_FMA_ANY, "decode_kernel")
             rec["flash_tc_ptxas"] = ptxas_report(logs.get("flash_attention", ""), FWD_TC_ANY,
-                                                 "flash_fwd_tc_kernel")
+                                                 "flash_fwd_kernel")
             rec["flash_bwd_wg_ptxas"] = ptxas_report(logs.get("flash_attention_bwd", ""),
                                                      BWD_WG_ANY, "flash_bwd_wg_kernel")
             rec["adafactor_ptxas"] = ptxas_report(logs.get("adafactor", ""), AF_ANY,

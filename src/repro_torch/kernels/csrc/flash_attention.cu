@@ -16,7 +16,9 @@
 //     one thread issues TMA loads (Q once; K and V tiles into a ring of
 //     STAGES stages, each with a full barrier for K, one for V and an empty
 //     barrier), and the warpgroup gives registers to the consumer
-//     (setmaxnreg).  The consumer warpgroup owns 64 q rows:
+//     (setmaxnreg).  At D = 128 (`flash_fwd_tc2_kernel`) two consumer
+//     warpgroups share the ring and take turns at the tensor cores (TcPlan
+//     says why).  A consumer warpgroup owns 64 q rows:
 //     S = Q K^T by wgmma with both operands in shared memory (128-byte
 //     swizzle, K-major), the online softmax on the accumulator fragment in
 //     registers (exp2 with scale * log2(e) folded in, a row's max and sum
@@ -32,7 +34,8 @@
 //
 // Both paths skip KV tiles that the causal or window mask kills entirely and
 // schedule the heaviest q tiles (the last ones under a causal mask) first:
-// of each head, or at D 256 on the tensor cores of all heads (TcPlan).
+// of each head, or at D 128 and D 256 on the tensor cores of all heads
+// (TcPlan).
 //
 // Each kernel has a compile-time variant (LSE = true) that also writes the
 // row log-sum-exp of the scaled scores, (B, H, Sq) in fp32, for the backward
@@ -44,11 +47,11 @@
 // q and k have a head dim DQK = 192 (128 of the latent's up projection and
 // 64 rotary) and v a head dim DV = 128.  Every kernel is a template over
 // (DQK, DV); a single-D instantiation is (D, D) and compiles to the kernel
-// it was before MLA.  At (192, 128) the bf16 kernel is the D = 128 one with
-// a longer contraction: S = Q K^T runs 12 wgmma k-steps of 16 where D = 128
-// runs 8, Q and each K tile arrive as three 64-column TMA boxes, V as two,
-// and O += P V keeps N = 128 and its accumulators (64 x 128 fp32 a
-// warpgroup), so the consumer's registers are those of D = 128.  Its K/V
+// it was before MLA.  At (192, 128) the bf16 kernel is the one-consumer one
+// with a longer contraction than D = 128's: S = Q K^T runs 12 wgmma k-steps
+// of 16 where D = 128 runs 8, Q and each K tile arrive as three 64-column TMA
+// boxes, V as two, and O += P V keeps N = 128 and its accumulators (64 x 128
+// fp32 a warpgroup), so the consumer's registers are those of D = 128.  Its K/V
 // ring has two stages (104 KB of shared memory, two blocks an SM): on an
 // H100 that ran 1.5x as fast as three stages (144 KB, one block an SM).
 //
@@ -255,12 +258,37 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
 // bf16: TMA + wgmma kernel
 // ===========================================================================
 
-// Tile plan of the bf16 kernel; kernels/flash_attention.py `tile_plan`
+// Tile plan of the bf16 kernels; kernels/flash_attention.py `tile_plan`
 // mirrors it (and chip_smoke.py holds the two against each other).  One
-// consumer warpgroup of 64 q rows a block: two such blocks share an SM
-// (D <= 128), which beat one block of two consumer warpgroups (128 q rows)
-// by 8-12 % at the serving shapes on an H100, and at D = 256 the block of
-// two ran out of registers.
+// consumer warpgroup of 64 q rows a block (`flash_fwd_tc_kernel`): at D 128
+// and (192, 128) two such blocks share an SM, and at D = 256 a block of two
+// ran out of registers.
+//
+// At D = 128 where q and k both hold PAIR_MIN_KEYS rows or more (PAIR,
+// `flash_fwd_tc2_kernel`) a block is two consumer warpgroups of 64 q rows
+// each (128 q rows) that share each K/V stage and issue their products in
+// turns, ordered by named barriers, so that one warpgroup's softmax runs
+// while the tensor cores work through the other's products: with one
+// consumer warpgroup a block, two blocks an SM, the consumer ran S = Q K^T,
+// waited, ran the softmax with its tensor cores idle, then P V, and only the
+// other block, in no order, could cover that time (a block of two consumers
+// without that order lost to it by 8-12 % at the serving shapes on an H100).
+// The kv tiles are 128 rows, which halves the work around the products a
+// key (barrier round trips, waits, the row maxima's shuffles, O's
+// rescaling), in a ring of three stages of 64 KB; a producer warpgroup loads
+// them and gives registers to the consumers (setmaxnreg 24 / 240): 384
+// threads, one block an SM.  ptxas keeps a thread under the launch bounds'
+// share (168) whatever setmaxnreg later moves, and the consumer fits in it
+// (O is 64 registers, S 64 and P 32).  A row's maximum runs over 128 keys a
+// step, so the output is not the 64-row plan's bits.  Timed in turns against
+// the one-consumer plan of 64-row tiles on an H100 (kernels/variants/
+// k1_fwd128_*.patch, PERF.md), at
+// yi-34b's S2048 prefill: this plan 0.91 of its time; the flat grid alone
+// 0.96; two consumers of 64-row tiles 1.20; two consumers without producer
+// warps (256 threads, a consumer thread refilling the ring) 0.97, and 0.98
+// with each consumer's next S = Q K^T issued before its P V; the producer
+// plan so overlapped 1.19.  Shorter sequences take the one-consumer plan on
+// the flat grid, which keeps the one-consumer plan's bits.
 //
 // At D = 256 (FLAT) the grid is one-dimensional, every head's last q tile
 // first, then every head's tile before it, and so on: one block fills an SM
@@ -291,37 +319,55 @@ __global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(const FlashParams
 // with a producer warp or with a producer warpgroup and setmaxnreg 24 / 136
 // (which spilled), the consumer computing tile j's softmax under tile j - 1's
 // P V (ptxas serialised its products), and 128-row tiles at two blocks an SM.
-template <int DQK, int DV> struct TcPlan {
-  static constexpr bool FLAT = DQK == 256 && DV == 256;   // heaviest q tiles first, all heads
+template <int DQK, int DV, bool PAIRED = false> struct TcPlan {
+  static_assert(!PAIRED || (DQK == 128 && DV == 128), "two consumer warpgroups at D 128 only");
+  static constexpr bool PAIR = PAIRED;   // two consumer warpgroups in turns
+  static constexpr bool FLAT = DQK == DV && (DQK == 128 || DQK == 256);   // heaviest q tiles first, all heads
   static constexpr bool LEAN = DQK == 64 && DV == 64;
-  static constexpr int BQ = 64;          // q rows a block
-  static constexpr int BK = LEAN ? 128 : 64;        // kv rows a tile
-  static constexpr int STAGES = DQK != DV || LEAN ? 2 : 3;  // K/V ring depth
+  static constexpr int BQ = PAIR ? 128 : 64;        // q rows a block
+  static constexpr int BK = LEAN || PAIR ? 128 : 64;        // kv rows a tile
+  static constexpr int STAGES = PAIR ? 3 : DQK != DV || LEAN ? 2 : 3;  // K/V ring depth
   static constexpr int CH_QK = DQK / 64; // 128-byte column chunks of Q and K
   static constexpr int CH_V = DV / 64;   // and of V
-  // A producer warpgroup before the consumer warpgroup, or (LEAN) one
-  // producer warp after it: warpgroup PRODUCER_WG holds the producer.
+  // A producer warpgroup before the consumer warpgroups, or (LEAN) one
+  // producer warp after the consumer: warpgroup PRODUCER_WG holds the producer.
   static constexpr int PRODUCER_WARPS = LEAN ? 1 : 4;
   static constexpr int PRODUCER_WG = PRODUCER_WARPS == 4 ? 0 : 1;
-  static constexpr int THREADS = 128 + 32 * PRODUCER_WARPS;
+  static constexpr int CONSUMERS = PAIR ? 2 : 1;   // warpgroups of 64 q rows
+  static constexpr int THREADS = 128 * CONSUMERS + 32 * PRODUCER_WARPS;
   static constexpr int Q_BYTES = BQ * DQK * 2;
   static constexpr int K_BYTES = BK * DQK * 2;  // K of one stage
   static constexpr int V_BYTES = BK * DV * 2;   // V of one stage
   static constexpr int BAR_BYTES = 256;
   static constexpr int SMEM = Q_BYTES + STAGES * (K_BYTES + V_BYTES) + BAR_BYTES;
   // Three blocks an SM at D = 64, else two where they fit (each with 1 KB
-  // reserved, in an SM's 228 KB); D = 256 takes one, so that ptxas may give a
-  // thread up to 255 registers.
+  // reserved, in an SM's 228 KB); D = 256 and PAIR take one, so that ptxas
+  // may give a thread up to 255 registers.
   static constexpr int MIN_BLOCKS = LEAN ? 3 : 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
-  // Registers moved from the producer warpgroup to the consumer with
-  // setmaxnreg, where the launch bounds cap a thread at 128: 40 + 216 = 2 * 128.
-  static constexpr bool REBALANCE = PRODUCER_WARPS == 4 && MIN_BLOCKS == 2;
-  static constexpr int PRODUCER_REGS = 40;
-  static constexpr int CONSUMER_REGS = 216;
+  // Registers moved from the producer warpgroup to the consumers with
+  // setmaxnreg, where the launch bounds cap a thread at 128 (40 + 216 = 2 *
+  // 128) or, PAIR, at 168 (24 + 2 * 240 = 3 * 168).
+  static constexpr bool REBALANCE = PRODUCER_WARPS == 4 && (MIN_BLOCKS == 2 || PAIR);
+  static constexpr int PRODUCER_REGS = PAIR ? 24 : 40;
+  static constexpr int CONSUMER_REGS = PAIR ? 240 : 216;
   // MIN_BLOCKS blocks, with 1 KB reserved for each, in an SM's 228 KB.
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "shared memory of an sm_90 SM");
   static_assert((3 * STAGES + 1) * 8 <= BAR_BYTES, "barriers");
+  static_assert(!PAIR || MIN_BLOCKS == 1, "the two-consumer block fills an SM");
 };
+
+// D 128 takes the two-consumer plan where q and k both hold at least so many
+// rows (12 kv tiles of 128), else the one-consumer plan of 64-row tiles on the
+// flat grid: on an H100 the two-consumer block ran the dense models' S2048
+// train shapes in 0.80-0.91 of the time of the one-consumer plan on a grid
+// of (q tile, head), and the one-consumer plan on the flat grid in 0.85-0.96,
+// but at S1000 the flat grid won (0.76-0.97 against 0.80-0.99),
+// and at S333 or with fewer blocks than SMs the 128-row blocks left SMs idle
+// (1.28x); kernels/flash_attention.py `PAIR_MIN_KEYS` mirrors it.
+#define PAIR_MIN_KEYS 1536
+static bool pairs(int Dqk, int Dv, int Sq, int Sk) {
+  return Dqk == 128 && Dv == 128 && Sq >= PAIR_MIN_KEYS && Sk >= PAIR_MIN_KEYS;
+}
 
 struct TcParams {
   __nv_bfloat16* o;
@@ -396,6 +442,39 @@ template <int D> __device__ __forceinline__ void scale_rows(float* o, float2 c) 
     o[4 * i + 1] *= c.x;
     o[4 * i + 2] *= c.y;
     o[4 * i + 3] *= c.y;
+  }
+}
+
+// Epilogue of a consumer warpgroup: O / max(l, 1e-30), rounded to bf16, into
+// the strided output at this thread's rows r0 and r0 + 8 (those below Sq),
+// and for LSE the rows' log-sum-exp.
+template <int DV, bool LSE>
+__device__ __forceinline__ void store_rows(const float* o, const Rows& rows, int r0, int cq, int b,
+                                           int h, const TcParams& p) {
+  float l0 = rows.l0, l1 = rows.l1;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
+  __nv_bfloat16* op = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) {
+    const int col = 8 * i + cq;
+    if (r0 < p.Sq)
+      *reinterpret_cast<uint32_t*>(op + (long long)r0 * p.o_ss + col) =
+          pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+    if (r0 + 8 < p.Sq)
+      *reinterpret_cast<uint32_t*>(op + (long long)(r0 + 8) * p.o_ss + col) =
+          pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+  }
+  if constexpr (LSE) {
+    // the rows' max is in log2 units of the scaled score: lse = (m + log2 l) ln 2
+    if ((threadIdx.x & 3) == 0) {
+      float* lp = p.lse + ((long long)b * p.H + h) * p.Sq;
+      if (r0 < p.Sq) lp[r0] = (rows.m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
+      if (r0 + 8 < p.Sq) lp[r0 + 8] = (rows.m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
+    }
   }
 }
 
@@ -513,49 +592,182 @@ __global__ void __launch_bounds__(TcPlan<DQK, DV>::THREADS, TcPlan<DQK, DV>::MIN
       fence_all<DV / 2>(o);
       if (lane == 0) mbar_arrive(&empty[s]);
     }
-    float l0 = rows.l0, l1 = rows.l1;
+    store_rows<DV, LSE>(o, rows, r0, cq, b, h, p);
+  }
+}
 
-    // Epilogue: O / max(l, 1e-30), rounded to bf16, into the strided output.
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const float inv0 = 1.0f / fmaxf(l0, 1e-30f), inv1 = 1.0f / fmaxf(l1, 1e-30f);
-    __nv_bfloat16* op = p.o + b * p.o_sb + h * p.o_sh;
+// Named barriers of the two-consumer kernel (0 is __syncthreads): consumer w
+// waits at FWD_TURN + w for its turn to issue products.
+#define FWD_TURN 1
+
+// PAIR: two consumer warpgroups of 64 q rows each share a block's K/V ring
+// (TcPlan says why).  The block walks the kv tiles that some row of its 128
+// sees (from consumer 0's first to consumer 1's last), and each consumer
+// runs the one-consumer kernel's arithmetic over every tile of that walk.  A
+// tile outside a consumer's own walk (under a window, consumer 0's causal
+// diagonal) hides every key from its rows, takes the mask (`edge`), and
+// leaves its max, sum and O as they were (a factor of exactly 1, P exactly
+// 0).  Products under a branch made ptxas serialise every wgmma of a kernel,
+// so no product is skipped.  Ping-pong: a consumer issues its S = Q K^T, and
+// later its O += P V, only in its turn, and passes the turn on right after
+// the issue, so that one consumer's softmax runs while the tensor cores work
+// through the other's products; each takes two turns a tile, so the turns
+// stay paired and consumer 0 leads by about half a tile.  The producer
+// warpgroup's first thread loads Q (both halves; rows past Sq arrive as
+// zeros) and the K/V tiles, each into the stage that the eight consumer warps
+// have released (its empty barrier).
+template <int DQK, int DV, bool LSE>
+__global__ void __launch_bounds__(TcPlan<DQK, DV, true>::THREADS, 1)
+    flash_fwd_tc2_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const TcParams p) {
+  using P = TcPlan<DQK, DV, true>;
+  static_assert(P::FLAT && P::REBALANCE && P::THREADS == 384, "the two-consumer plan");
+  constexpr int BK = P::BK, ST = P::STAGES, QW = 64 * DQK * 2;   // one consumer's Q bytes
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  if (smem_u32(smem_raw) & 1023) __trap();
+  uint8_t* q_s = smem_raw;                      // [2][CH_QK][64 rows][128 B]
+  uint8_t* k_s = q_s + P::Q_BYTES;              // [ST][CH_QK][BK rows][128 B]
+  uint8_t* v_s = k_s + ST * P::K_BYTES;         // [ST][CH_V][BK rows][128 B]
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(v_s + ST * P::V_BYTES);
+  uint64_t* full_v = full_k + ST;
+  uint64_t* empty = full_v + ST;
+  uint64_t* q_full = empty + ST;
+
+  // every head's last (heaviest under causal) q tile first
+  const int nq = (p.Sq + P::BQ - 1) / P::BQ, hb = gridDim.x / nq;   // (q head, batch) pairs
+  const int qt = nq - 1 - (int)(blockIdx.x / hb);
+  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qt * P::BQ;
+
+  // KV range that some row of the block can see.
+  const int q_last = min(q0 + P::BQ, p.Sq) - 1;
+  int kv_hi = p.Sk;
+  if (p.causal) kv_hi = min(kv_hi, q_last + 1);
+  int kv_lo = 0;
+  if (p.window > 0) {
+    const int first = q0 - p.window + 1;
+    if (first > 0) kv_lo = (first / BK) * BK;
+  }
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BK - 1) / BK : 0;
+  // tile j of the walk into stage j % ST (the producer's first thread)
+  auto load_kv = [&](int j) {
+    const int s = j % ST, k0 = kv_lo + j * BK;
+    mbar_arrive_expect_tx(&full_k[s], P::K_BYTES);
 #pragma unroll
-    for (int i = 0; i < DV / 8; ++i) {
-      const int col = 8 * i + cq;
-      if (r0 < p.Sq)
-        *reinterpret_cast<uint32_t*>(op + (long long)r0 * p.o_ss + col) =
-            pack_bf16(o[4 * i] * inv0, o[4 * i + 1] * inv0);
-      if (r0 + 8 < p.Sq)
-        *reinterpret_cast<uint32_t*>(op + (long long)(r0 + 8) * p.o_ss + col) =
-            pack_bf16(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+    for (int c = 0; c < P::CH_QK; ++c)
+      tma_load_4d(k_s + s * P::K_BYTES + c * BK * 128, &tk, &full_k[s], c * 64, k0, hk, b);
+    mbar_arrive_expect_tx(&full_v[s], P::V_BYTES);
+#pragma unroll
+    for (int c = 0; c < P::CH_V; ++c)
+      tma_load_4d(v_s + s * P::V_BYTES + c * BK * 128, &tv, &full_v[s], c * 64, k0, hk, b);
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 8);   // lane 0 of every consumer warp
     }
-    if constexpr (LSE) {
-      // the rows' max is in log2 units of the scaled score: lse = (m + log2 l) ln 2
-      if ((lane & 3) == 0) {
-        float* lp = p.lse + ((long long)b * p.H + h) * p.Sq;
-        if (r0 < p.Sq) lp[r0] = (rows.m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
-        if (r0 + 8 < p.Sq) lp[r0 + 8] = (rows.m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
+    mbar_init(q_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Warp-uniform by construction (a broadcast), so that ptxas may treat the
+  // roles as regions of their own for setmaxnreg.
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (role == 0) {
+    // ---------------- producer ----------------
+    reg_dealloc<P::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * QW);
+#pragma unroll
+      for (int w = 0; w < 2; ++w)
+#pragma unroll
+        for (int c = 0; c < P::CH_QK; ++c)
+          tma_load_4d(q_s + w * QW + c * 64 * 128, &tq, q_full, c * 64, q0 + 64 * w, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        if (j >= ST) mbar_wait(&empty[j % ST], ((j / ST) - 1) & 1);
+        load_kv(j);
       }
     }
+    return;
   }
+  reg_alloc<P::CONSUMER_REGS>();
+
+  // consumer wg: q rows qw .. qw + 63
+  const int wg = role - 1;
+  const int qw = q0 + 64 * wg;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int r0 = qw + warp * 16 + (lane >> 2);   // this thread's rows: r0 and r0 + 8
+  const int cq = 2 * (lane & 3);                 // and columns cq, cq + 1 of every 8
+  // Whether a tile needs the mask for this consumer's rows: it straddles the
+  // causal diagonal, the window edge or the end of K (uniform over the warpgroup).
+  auto edge = [&](int k0) {
+    return (k0 + BK > p.Sk) || (p.causal && k0 + BK - 1 > qw) ||
+           (p.window > 0 && k0 <= qw + 63 - p.window);
+  };
+  auto k_addr = [&](int s) { return smem_u32(k_s + s * P::K_BYTES); };
+  auto v_addr = [&](int s) { return smem_u32(v_s + s * P::V_BYTES); };
+  const int turn = FWD_TURN + wg, other = FWD_TURN + 1 - wg;
+
+  float o[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  Rows rows{MAX_FLOOR, MAX_FLOOR, 0.f, 0.f};
+
+  const uint32_t q_addr = smem_u32(q_s + wg * QW);
+  mbar_wait(q_full, 0);
+  if (wg == 1) named_bar_arrive(FWD_TURN, 256);   // consumer 0 takes the first turn
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % ST;
+    const uint32_t par = (j / ST) & 1;
+    const int k0 = kv_lo + j * BK;
+    float sc[BK / 2];
+    uint32_t pa[BK / 4];
+    mbar_wait(&full_k[s], par);
+    named_bar_sync(turn, 256);
+    issue_qk<DQK, BK>(sc, q_addr, k_addr(s));
+    named_bar_arrive(other, 256);
+    wgmma_wait<0>();
+    fence_all<BK / 2>(sc);
+    scale_rows<DV>(o, softmax_tile<BK>(sc, pa, k0, r0, cq, edge(k0), p, rows));
+    mbar_wait(&full_v[s], par);
+    named_bar_sync(turn, 256);
+    issue_pv<DV, BK>(o, pa, v_addr(s));
+    named_bar_arrive(other, 256);
+    wgmma_wait<0>();
+    fence_all<DV / 2>(o);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  if (wg == 0) named_bar_sync(FWD_TURN, 256);     // the turn consumer 1 passed last
+  store_rows<DV, LSE>(o, rows, r0, cq, b, h, p);
 }
 
 // ---- host side ------------------------------------------------------------
 
-template <int DQK, int DV, bool LSE>
-static cudaError_t launch_tc(const FlashParams& f, int B, cudaStream_t stream) {
-  using P = TcPlan<DQK, DV>;
+// The kernel of a plan: one consumer warpgroup a block, or (PAIR) two.
+template <int DQK, int DV, bool PAIRED, bool LSE> static auto tc_kernel() {
+  if constexpr (PAIRED) return flash_fwd_tc2_kernel<DQK, DV, LSE>;
+  else return flash_fwd_tc_kernel<DQK, DV, LSE>;
+}
+
+template <int DQK, int DV, bool PAIRED, bool LSE>
+static cudaError_t launch_plan(const FlashParams& f, int B, cudaStream_t stream) {
+  using P = TcPlan<DQK, DV, PAIRED>;
+  const auto kernel = tc_kernel<DQK, DV, PAIRED, LSE>();
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<DQK, DV, LSE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         P::SMEM);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv;   // Q in boxes of 64 rows: one a consumer warpgroup
   if (!make_map(&tq, f.q, B, f.H, f.Sq, DQK, f.q_sb, f.q_sh, f.q_ss, 64) ||
       !make_map(&tk, f.k, B, f.Hkv, f.Sk, DQK, f.k_sb, f.k_sh, f.k_ss, P::BK) ||
       !make_map(&tv, f.v, B, f.Hkv, f.Sk, DV, f.v_sb, f.v_sh, f.v_ss, P::BK))
@@ -569,8 +781,15 @@ static cudaError_t launch_tc(const FlashParams& f, int B, cudaStream_t stream) {
   p.scale_log2 = f.scale * 1.4426950408889634f;
   const int nq = (f.Sq + P::BQ - 1) / P::BQ;
   const dim3 grid = P::FLAT ? dim3(nq * f.H * B) : dim3(nq, f.H, B);
-  flash_fwd_tc_kernel<DQK, DV, LSE><<<grid, P::THREADS, P::SMEM, stream>>>(tq, tk, tv, p);
+  kernel<<<grid, P::THREADS, P::SMEM, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
+}
+
+template <int DQK, int DV, bool LSE>
+static cudaError_t launch_tc(const FlashParams& f, int B, cudaStream_t stream) {
+  if constexpr (DQK == 128 && DV == 128)
+    if (pairs(DQK, DV, f.Sq, f.Sk)) return launch_plan<DQK, DV, true, LSE>(f, B, stream);
+  return launch_plan<DQK, DV, false, LSE>(f, B, stream);
 }
 
 template <bool LSE>
@@ -639,20 +858,23 @@ extern "C" int flash_attention_launch(
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 kernel's plan for (Dqk, Dv): {q rows, kv rows, stages, threads,
-// blocks an SM, shared-memory bytes, flat grid} into out[7].  Returns 0, or
-// -1 for dims the kernel does not take.
-template <int DQK, int DV> static void plan_of(int* out) {
-  using P = TcPlan<DQK, DV>;
+// The bf16 kernel's plan for (Dqk, Dv) where q holds Sq rows and k Sk: {q
+// rows, kv rows, stages, threads, blocks an SM, shared-memory bytes, flat
+// grid} into out[7].  Returns 0, or -1 for dims the kernel does not take.
+template <int DQK, int DV, bool PAIRED = false> static void plan_of(int* out) {
+  using P = TcPlan<DQK, DV, PAIRED>;
   out[0] = P::BQ; out[1] = P::BK; out[2] = P::STAGES; out[3] = P::THREADS;
   out[4] = P::MIN_BLOCKS; out[5] = P::SMEM; out[6] = P::FLAT;
 }
-extern "C" int flash_attention_plan(int Dqk, int Dv, int* out) {
+extern "C" int flash_attention_plan(int Dqk, int Dv, int Sq, int Sk, int* out) {
   if (Dqk == 192 && Dv == 128) { plan_of<192, 128>(out); return 0; }
   if (Dqk != Dv) return -1;
   switch (Dqk) {
     case 64: plan_of<64, 64>(out); return 0;
-    case 128: plan_of<128, 128>(out); return 0;
+    case 128:
+      if (pairs(Dqk, Dv, Sq, Sk)) plan_of<128, 128, true>(out);
+      else plan_of<128, 128>(out);
+      return 0;
     case 256: plan_of<256, 256>(out); return 0;
     default: return -1;
   }

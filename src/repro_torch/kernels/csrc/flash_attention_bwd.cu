@@ -47,11 +47,19 @@
 //         registers as the A operand of dV += P^T dO and dK += dS^T Q, where
 //         dO and Q are read through MN-major (transposed) descriptors, as the
 //         forward reads V: no transposed copy of any tile.  The G q heads of
-//         a group are split over G blocks: each writes its partial dK, dV in
-//         fp32 to a workspace, and `flash_bwd_sum_kernel` sums the G in head
-//         order (G = 1 writes dK and dV directly).  The group's last block
-//         summing them itself was measured no faster on an H100 (the fence and
-//         the wait on the others' partials took what the launch saved).
+//         a group are split over G blocks (G = 1 writes dK and dV directly).
+//         At D 128 (BwdPlan::CHAIN) the G blocks of a kv tile add their dK,
+//         dV in head order into one fp32 sum a kv head, (B, Hkv, Sk, D),
+//         which stays in L2: the block of head g waits on a counter until
+//         head g - 1's has added, adds, and passes the turn on; the last
+//         head's block writes dK and dV in bf16 (`chain_grads`).  At the
+//         other widths each block writes its partial dK, dV in fp32 to a (B,
+//         H, Sk, D) workspace, and `flash_bwd_sum_kernel` sums the G in head
+//         order.  Both sum in the same order, so they give the same bits.
+//         (An earlier design, the group's last block summing the H-sized
+//         partials itself, was measured no faster on an H100 than the sum
+//         kernel: the fence and the wait on the others' partials took what
+//         the launch saved.)
 //       - dQ kernel, one block a (batch, q head, q tile of 64): Q and dO
 //         loaded once; K and V through a ring.  S = Q K^T, dP = dO V^T, then
 //         dQ += dS K with dS from registers and K MN-major.
@@ -467,6 +475,11 @@ template <int DQ, int DV> struct BwdPlan {
   static constexpr int CH_Q = DQ / 64;   // 128-byte column chunks of a q or k row
   static constexpr int CH_V = DV / 64;   // and of a v or dO row
   static constexpr bool SPLIT = DQ > 128;
+  // G > 1: the group's blocks add dK, dV into one fp32 sum a kv head, in head
+  // order (`chain_grads`), rather than writing H-sized partials for
+  // `flash_bwd_sum_kernel`.  At yi-34b's B1 H56 Hkv8 S2048 the partials were
+  // 117 MB written and read back, past the 50 MB L2; the sums are 16.8 MB.
+  static constexpr bool CHAIN = DQ == 128 && DV == 128;
   static constexpr int DKDV_THREADS = SPLIT ? 256 : 128;
   static constexpr int DKDV_BLOCKS = SPLIT ? 1 : LEAN ? 3 : 2;
   static constexpr int DQ_THREADS = 128;
@@ -490,12 +503,18 @@ template <int DQ, int DV> struct BwdPlan {
   static_assert(DKDV_BLOCKS * (SMEM_DKDV + 1024) <= 233472, "shared memory of an sm_90 SM");
   static_assert(DQ_BLOCKS * (SMEM_DQ + 1024) <= 233472, "shared memory of an sm_90 SM");
   static_assert((STAGES + 1) * 8 <= BAR_BYTES && DQ_STAGES <= STAGES, "barriers");
+  // CHAIN: dK and dV staged in fp32 (rows padded by 8) where K, V and the ring were
+  static_assert(!CHAIN || (!SPLIT && 64 * (DQ + DV + 16) * 4 <= (1 + STAGES) * (TQ + TV)),
+                "the chain's staging");
 };
 
 struct WgParams {
   __nv_bfloat16 *dq, *dk, *dv;
   long long dq_st[3], dk_st[3], dv_st[3];   // element strides over (batch, head, seq)
   float *part_dk, *part_dv;   // (B, H, Sk, DQ) and (B, H, Sk, DV) fp32: each q head's dK, dV (G > 1)
+  float *sum_dk, *sum_dv;     // CHAIN, G > 1: (B, Hkv, Sk, DQ) and (B, Hkv, Sk, DV) fp32 running sums
+  int* turns;                 // CHAIN, G > 1: (B, Hkv, kv tiles), the heads that have added; 0 first
+  int n_turns;                // their count (0 where there are none)
   const float* lse2;          // (B, H, Sq_pad): the forward's lse * log2(e), 0 past Sq
   const float* delta;         // (B, H, Sq_pad): rowsum(dO * O), 0 past Sq
   int B, H, Hkv, Sq, Sk, Sq_pad, causal, window;
@@ -591,14 +610,159 @@ __device__ __forceinline__ void store_grad(const float* acc, float mul, __nv_bfl
   }
 }
 
+// Blocks of a chained group sum (CHAIN, G > 1) in a head's slab: at least so
+// many, so that the block of head g starts that many blocks after head g - 1's
+// of the same kv tile (which does the same work) and finds its turn come.
+#define CHAIN_SLAB 64
+
+// (kv tile, q head, batch) of this dK/dV block.  The one-dimensional grid
+// puts the heaviest kv tiles under a causal mask (the first) first: every
+// head's kv tile 0, then every head's tile 1, and so on.  Where the group's
+// blocks chain their sum, the kv tiles go in chunks of CH, and a chunk's
+// blocks go head by head of the group (head g's CH x Hkv x B blocks, then
+// head g + 1's): kernels/flash_attention.py `bwd_block_order` mirrors both.
+__device__ __forceinline__ int3 dkdv_block(bool chained, const WgParams& p) {
+  if (!chained) {
+    const int hb = p.H * p.B;
+    return make_int3(blockIdx.x / hb, blockIdx.x % hb % p.H, blockIdx.x % hb / p.H);
+  }
+  const int G = p.H / p.Hkv, HB = p.Hkv * p.B, nkv = (p.Sk + 63) / 64;
+  const int CH = min(nkv, (CHAIN_SLAB + HB - 1) / HB);   // kv tiles a chunk
+  const int kc = blockIdx.x / (G * CH * HB);
+  const int width = min(CH, nkv - kc * CH);             // the last chunk may be narrower
+  int r = blockIdx.x % (G * CH * HB);
+  const int g = r / (width * HB);
+  r %= width * HB;
+  const int hk = r % HB % p.Hkv, b = r % HB / p.Hkv;
+  return make_int3(kc * CH + r / HB, hk * G + g, b);
+}
+
+// The block of head g of its group waits until `turn` reads g: until the
+// blocks of heads 0 .. g - 1 of the same kv tile have added their dK and dV
+// (one thread; acquire at the device's scope).  A wait that never ends traps,
+// so the launch fails instead of hanging.
+__device__ __forceinline__ void wait_turn(const int* turn, int g) {
+  uint32_t tries = 0;
+  while (true) {
+    int seen;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(seen) : "l"(turn) : "memory");
+    if (seen == g) return;
+    if (++tries == (1u << 24)) __trap();
+    __nanosleep(64);
+  }
+}
+
+// CHAIN: rows rl and rl + 8 of one gradient (N columns, the accumulator
+// fragment `acc`, times `mul`) into a 64 x N fp32 tile in shared memory,
+// rows padded by 8 floats (the fragment's 8 rows a store then fall on 4 sets
+// of banks, not one).
+template <int N>
+__device__ __forceinline__ void stage_grad(float* st, const float* acc, float mul, int rl, int cq) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i)
+      *reinterpret_cast<float2*>(st + (rl + 8 * hh) * (N + 8) + 8 * i + cq) =
+          make_float2(__fmul_rn(acc[4 * i + 2 * hh], mul), __fmul_rn(acc[4 * i + 2 * hh + 1], mul));
+}
+
+// CHAIN: one gradient's staged tile (`st`, 64 x N) of the kv tile at k0 added
+// to kv head hk's running sum `sum` (B, Hkv, Sk, N) by head g of the group,
+// a warp a row of 16-byte vectors: g = 0 starts it (0 + x, as the sum
+// kernel), the last head writes the total in bf16 into `out` (strides `ost`).
+// The product and the sum are rounded apart (no FMA), as the partial's store
+// and the sum kernel round them, so the bits are the sum kernel's.  The sums
+// go through L2 (ld/st .cg): another SM's block wrote them.  `s` holds the
+// loads, all issued before the first add (a gradient at a time: both at once
+// made ptxas spill the kernel).
+template <int N>
+__device__ __forceinline__ void load_sum(float4* s, const float* sum, int b, int hk, int k0, int g,
+                                         const WgParams& p) {
+  constexpr int V4 = N / 4;   // 16-byte vectors a row
+#pragma unroll
+  for (int k = 0; k < 64 * V4 / 128; ++k) {
+    const int f = threadIdx.x + 128 * k, row = f / V4;
+    const float4* at = reinterpret_cast<const float4*>(
+        sum + (((long long)b * p.Hkv + hk) * p.Sk + k0 + row) * N) + f % V4;
+    s[k] = g > 0 && k0 + row < p.Sk ? __ldcg(at) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+template <int N>
+__device__ __forceinline__ void add_sum(const float4* s, const float* st, float* sum,
+                                        __nv_bfloat16* out, const long long* ost, int b, int hk,
+                                        int k0, bool last, const WgParams& p) {
+  constexpr int V4 = N / 4;
+#pragma unroll
+  for (int k = 0; k < 64 * V4 / 128; ++k) {
+    const int f = threadIdx.x + 128 * k, row = f / V4, c4 = f % V4;
+    if (k0 + row >= p.Sk) continue;
+    const float4 x = *reinterpret_cast<const float4*>(st + row * (N + 8) + 4 * c4);
+    const float4 v = make_float4(__fadd_rn(s[k].x, x.x), __fadd_rn(s[k].y, x.y),
+                                 __fadd_rn(s[k].z, x.z), __fadd_rn(s[k].w, x.w));
+    if (last)
+      *reinterpret_cast<uint2*>(out + b * ost[0] + hk * ost[1] + (k0 + row) * ost[2] + 4 * c4) =
+          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+    else
+      __stcg(reinterpret_cast<float4*>(sum + (((long long)b * p.Hkv + hk) * p.Sk + k0 + row) * N) +
+                 c4, v);
+  }
+}
+
+// CHAIN (one warpgroup a block), G > 1: this block's dK and dV, q head h's,
+// added in head order into kv head hk's running sums, which the last head's
+// block writes as dK and dV.  The block stages both in shared memory (`stage`,
+// the ring's, read to its end), waits for its turn, then adds a warp a row.
+// A block waits only on the block of head g - 1 of the same (batch, kv tile),
+// which comes a head's slab (CHAIN_SLAB blocks or more) before it in the
+// one-dimensional grid (`dkdv_block`); blocks start in grid order, so that
+// block is resident or done, and never waits on this one: no wait is
+// circular.  With heads varying fastest the G blocks of a tile started
+// together, finished together and then waited on each other's adds, each a
+// thread's fragment of scattered 8-byte loads (yi-34b's backward took 1.67x
+// the partials' time on an H100; 1.39x with the slabs: kernels/variants/
+// k1_bwd128_{fastest,fragment}.patch).  The release after
+// every thread's writes and a fence, the acquire before any thread's reads,
+// give head g the sum that head g - 1 left.
+template <int DQ, int DV>
+__device__ __forceinline__ void chain_grads(const float* dk, const float* dv, float* stage, int b,
+                                            int h, int hk, int kt, int rl, int cq,
+                                            const WgParams& p) {
+  const int G = p.H / p.Hkv, g = h - hk * G, k0 = kt * 64;
+  float* sk = stage;
+  float* sv = stage + 64 * (DQ + 8);
+  stage_grad<DQ>(sk, dk, p.scale, rl, cq);
+  stage_grad<DV>(sv, dv, 1.f, rl, cq);
+  int* turn = p.turns + ((long long)b * p.Hkv + hk) * ((p.Sk + 63) / 64) + kt;
+  if (threadIdx.x == 0) wait_turn(turn, g);
+  __syncthreads();   // the tiles staged, and head g - 1's sums in place
+  const bool last = g == G - 1;
+  {
+    float4 s_k[64 * DQ / 512];
+    load_sum<DQ>(s_k, p.sum_dk, b, hk, k0, g, p);
+    add_sum<DQ>(s_k, sk, p.sum_dk, p.dk, p.dk_st, b, hk, k0, last, p);
+  }
+  {
+    float4 s_v[64 * DV / 512];
+    load_sum<DV>(s_v, p.sum_dv, b, hk, k0, g, p);
+    add_sum<DV>(s_v, sv, p.sum_dv, p.dv, p.dv_st, b, hk, k0, last, p);
+  }
+  if (last) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(turn), "r"(g + 1) : "memory");
+}
+
 // delta and the lse in log2 units of the (B, H, Sq_pad) rows: DV/8 threads a
 // row, 16-byte loads of O and dO; rows past Sq get 0 in both, so that a q
-// tile's 64 values of either are one aligned bulk copy.
+// tile's 64 values of either are one aligned bulk copy.  It also sets the
+// chain's turns to 0 (it runs before the dK/dV kernel, on the same stream).
 template <int DV>
 __global__ void __launch_bounds__(256)
     flash_bwd_delta_wg_kernel(const BwdParams f, const WgParams p, float* delta, float* lse2) {
   constexpr int LANES = DV / 8;   // threads a row: 32, 16 or 8, within one warp
   const long long gt = (long long)blockIdx.x * 256 + threadIdx.x;
+  for (long long i = gt; i < p.n_turns; i += (long long)gridDim.x * 256) p.turns[i] = 0;
   const long long row = gt / LANES;
   const int part = (int)(gt % LANES);
   const bool live = row < (long long)p.B * p.H * p.Sq_pad;
@@ -668,8 +832,8 @@ __global__ void __launch_bounds__(BwdPlan<DQ, DV>::DKDV_THREADS, BwdPlan<DQ, DV>
   uint64_t* kv_full = full + ST;
 
   // every head's kv tile 0 first: under a causal mask the first kv tiles see the most q rows
-  const int hb = p.H * p.B;
-  const int kt = blockIdx.x / hb, h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H;
+  const int3 blk = dkdv_block(P::CHAIN && p.H > p.Hkv, p);
+  const int kt = blk.x, h = blk.y, b = blk.z;
   const int hk = h / (p.H / p.Hkv);
   const int k0 = kt * 64;
   const int2 qr = dkdv_q_tiles(kt, p);
@@ -764,6 +928,12 @@ __global__ void __launch_bounds__(BwdPlan<DQ, DV>::DKDV_THREADS, BwdPlan<DQ, DV>
       fence_all<DQ / 2>(dk);
       __syncthreads();                        // every warp is done with stage s
       if (t == 0 && j + ST < n) load_q(j + ST);
+    }
+    if constexpr (P::CHAIN) {
+      if (p.H > p.Hkv) {
+        chain_grads<DQ, DV>(dk, dv, reinterpret_cast<float*>(smem_raw), b, h, hk, kt, rl, cq, p);
+        return;
+      }
     }
     store_grad<DQ>(dk, p.scale, p.dk, p.dk_st, p.part_dk, b, h, hk, k0, rl, cq, p);
     store_grad<DV>(dv, 1.f, p.dv, p.dv_st, p.part_dv, b, h, hk, k0, rl, cq, p);
@@ -1005,19 +1175,39 @@ static cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// the (q/k, v) head dims of both paths: one head dim, or MLA's
+#define BWD_DIMS(X) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
+
+// Whether the tensor-core kernels at (D, Dv) chain the group's sum (BwdPlan::CHAIN).
+static bool chains(int D, int Dv) {
+#define CH(dq, dv) if (D == dq && Dv == dv) return BwdPlan<dq, dv>::CHAIN;
+  BWD_DIMS(CH)
+#undef CH
+  return false;
+}
+
 // The workspace of a launch, carved in this order: the FMA path's delta of
 // (B, H, Sq) rows; or the tensor-core path's delta and lse (log2 units) of
-// (B, H, Sq_pad) rows, then for G > 1 each q head's partial dK (B, H, Sk, D)
+// (B, H, Sq_pad) rows, then for G > 1 either (CHAIN) each kv head's running
+// sums of dK (B, Hkv, Sk, D) and dV (B, Hkv, Sk, Dv), fp32, and the turns, an
+// int a (batch, kv head, kv tile), or each q head's partial dK (B, H, Sk, D)
 // and dV (B, H, Sk, Dv), fp32.  Every part starts on 256 bytes.
 // kernels/flash_attention.py `bwd_workspace_bytes` mirrors the total.
 struct BwdWs {
-  long long lse2, part, total;
+  long long lse2, part, turns, n_turns, total;
 };
 static BwdWs bwd_workspace(int B, int H, int Hkv, int Sq, int Sk, int D, int Dv, bool wg) {
-  if (!wg) return BwdWs{0, 0, (long long)B * H * Sq * 4};
+  if (!wg) return BwdWs{0, 0, 0, 0, (long long)B * H * Sq * 4};
   const long long rows = (long long)B * H * ((Sq + 63) / 64 * 64) * 4;
-  const long long part = H > Hkv ? (long long)B * H * Sk * (D + Dv) * 4 : 0;
-  return BwdWs{rows, 2 * rows, 2 * rows + part};
+  if (H == Hkv) return BwdWs{rows, 2 * rows, 2 * rows, 0, 2 * rows};
+  if (chains(D, Dv)) {
+    const long long sums = (long long)B * Hkv * Sk * (D + Dv) * 4;
+    const long long n_turns = (long long)B * Hkv * ((Sk + 63) / 64);
+    return BwdWs{rows, 2 * rows, 2 * rows + sums, n_turns,
+                 2 * rows + sums + (n_turns * 4 + 255) / 256 * 256};
+  }
+  const long long part = (long long)B * H * Sk * (D + Dv) * 4;
+  return BwdWs{rows, 2 * rows, 2 * rows + part, 0, 2 * rows + part};
 }
 
 // kv rows a dK/dV block of the FMA kernels: 64 up to a q/k head dim of 128,
@@ -1054,9 +1244,6 @@ static cudaError_t run_bwd(const BwdParams& p, int B, cudaStream_t s) {
   flash_bwd_dq_kernel<T, DQ, DV><<<g_q, FB_THREADS, F::DQ_BYTES, s>>>(p);
   return cudaGetLastError();
 }
-
-// the (q/k, v) head dims of both paths: one head dim, or MLA's
-#define BWD_DIMS(X) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
 
 template <typename T>
 static cudaError_t run_bwd_d(const BwdParams& p, int B, int D, int Dv, cudaStream_t s) {
@@ -1095,9 +1282,13 @@ static cudaError_t run_bwd_wg(const BwdParams& f, int B, uint8_t* ws, cudaStream
   float* lse2 = reinterpret_cast<float*>(ws + w.lse2);
   p.delta = delta;
   p.lse2 = lse2;
-  const bool grouped = f.H > f.Hkv;
-  p.part_dk = grouped ? reinterpret_cast<float*>(ws + w.part) : nullptr;
-  p.part_dv = grouped ? p.part_dk + (long long)B * f.H * f.Sk * DQ : nullptr;
+  const bool grouped = f.H > f.Hkv, partials = grouped && !P::CHAIN;
+  p.part_dk = partials ? reinterpret_cast<float*>(ws + w.part) : nullptr;
+  p.part_dv = partials ? p.part_dk + (long long)B * f.H * f.Sk * DQ : nullptr;
+  p.sum_dk = grouped && P::CHAIN ? reinterpret_cast<float*>(ws + w.part) : nullptr;
+  p.sum_dv = grouped && P::CHAIN ? p.sum_dk + (long long)B * f.Hkv * f.Sk * DQ : nullptr;
+  p.turns = grouped && P::CHAIN ? reinterpret_cast<int*>(ws + w.turns) : nullptr;
+  p.n_turns = (int)w.n_turns;
   CUtensorMap tq, tk, tv, tdo;
   const long long* st = &f.st[0][0];
   if (!make_map(&tq, f.t[T_Q], B, f.H, f.Sq, DQ, st[3 * T_Q], st[3 * T_Q + 1], st[3 * T_Q + 2], 64) ||
@@ -1113,7 +1304,7 @@ static cudaError_t run_bwd_wg(const BwdParams& f, int B, uint8_t* ws, cudaStream
   flash_bwd_dkdv_wg_kernel<DQ, DV>
       <<<((f.Sk + 63) / 64) * hb, P::DKDV_THREADS, P::SMEM_DKDV, s>>>(tq, tk, tv, tdo, p);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if (grouped) {
+  if (partials) {
     const long long threads = (long long)B * f.Hkv * f.Sk * P::SUM_C8;
     flash_bwd_sum_kernel<DQ, DV><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(p);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -1156,8 +1347,9 @@ extern "C" long long flash_attention_bwd_workspace(int B, int H, int Hkv, int Sq
 // element strides over (batch, head, seq), each a multiple of 4, stride 1
 // over the head dim; lse: (B, H, Sq) fp32 from the forward's LSE variant;
 // ws: `ws_bytes` of scratch, at least what flash_attention_bwd_workspace
-// gives.  Launches the delta, dK/dV, (for the tensor-core path with G > 1)
-// sum and dQ kernels in that order on `stream`.  Returns cudaGetLastError().
+// gives.  Launches the delta, dK/dV, (for the tensor-core path with G > 1,
+// but at D 128) sum and dQ kernels in that order on `stream`.  Returns
+// cudaGetLastError().
 extern "C" int flash_attention_bwd_launch(void* const* ptrs, const long long* strides,
                                           const float* lse, void* ws, long long ws_bytes, int B,
                                           int H, int Hkv, int Sq, int Sk, int D, int Dv,

@@ -9,8 +9,9 @@ TMA loads and ``wgmma`` products (:func:`tile_plan`, its walk
 given ``lse`` it launches the variant that also writes the row log-sum-exp.
 The backward (``csrc/flash_attention_bwd.cu``, which the reference does not
 have): a delta kernel, a dK/dV kernel of one block a (batch, q head, kv
-tile) that walks the q tiles seeing it, a sum of the group's partial dK/dV in
-head order, and a dQ kernel that walks the kv tiles; for bf16 with aligned
+tile) that walks the q tiles seeing it, the group's dK/dV summed in head
+order (at D 128 by the blocks themselves, in turns, else by a sum kernel
+over each head's partial), and a dQ kernel that walks the kv tiles; for bf16 with aligned
 views TMA loads and ``wgmma`` products (:func:`bwd_tile_plan`, the walks
 :func:`bwd_q_tiles` / :func:`bwd_kv_tiles`), otherwise fp32 FMAs
 (:func:`bwd_fma_plan`).  They take
@@ -36,6 +37,7 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 SUPPORTED_D = (64, 128, 256)   # one head dim for q, k and v
 MLA_D = (192, 128)             # MLA's prefill: (q/k head dim, v head dim)
 SMEM_LIMIT = 232_448     # shared memory one block may use on sm_90 (227 KB)
+PAIR_MIN_KEYS = 1536     # D 128: the two-consumer plan where q and k both hold this many rows
 SM_SMEM = 233_472        # shared memory of an sm_90 SM (228 KB), 1 KB of it reserved a block
 
 
@@ -44,39 +46,45 @@ def supported(Dqk: int, Dv: int) -> bool:
     return (Dqk == Dv and Dqk in SUPPORTED_D) or (Dqk, Dv) == MLA_D
 
 
-def tile_plan(D: int, Dv: int | None = None) -> dict[str, int]:
+def tile_plan(D: int, Dv: int | None = None, S: int | None = None) -> dict[str, int]:
     """The bf16 kernel's tiles for q/k head dim ``D`` and v head dim ``Dv``
-    (default ``D``), ``TcPlan`` in the source: q rows a block (one consumer
-    warpgroup), kv rows a tile, stages of the K/V ring, threads (a producer
-    warpgroup beside the consumer; at D 64 a producer warp), blocks an SM it
-    is built for (three at D 64, else two where two fit an SM's shared
-    memory), shared-memory bytes (Q, the K and V ring, 256 of barriers), and
-    whether the grid is one-dimensional, every head's heaviest q tile first
-    (``flat_grid``, ``FLAT``: at D 256, where one block fills an SM), rather
-    than (q tile, head, batch) with each head's heaviest first.  The ring is
-    three stages of 64 kv rows deep for one head dim, and two stages at
-    ``MLA_D`` (where two blocks then share an SM) and at D 64, whose tiles
-    are 128 kv rows."""
+    (default ``D``) where the shorter of q and k holds ``S`` rows (None: as
+    many as a long sequence's), ``TcPlan`` in the source: q rows a block (one
+    consumer warpgroup of 64; at D 128 with ``S`` at least ``PAIR_MIN_KEYS``
+    two, ``PAIR``), kv rows a tile, stages of the
+    K/V ring, threads (a producer warpgroup beside the consumers; at D 64 a
+    producer warp), blocks an SM it is
+    built for (three at D 64, else two where two fit an SM's shared memory),
+    shared-memory bytes (Q, the K and V ring, 256 of barriers), and whether
+    the grid is one-dimensional, every head's heaviest q tile first
+    (``flat_grid``, ``FLAT``: at D 128 and D 256), rather than (q tile,
+    head, batch) with each head's heaviest first.  The ring is three stages
+    of 64 kv rows deep at D 256 and at D 128 below ``PAIR_MIN_KEYS``, two
+    stages of 64 at ``MLA_D`` (where two blocks then share an SM), two of 128
+    at D 64 and three of 128 for the two consumers at D 128."""
     Dv = D if Dv is None else Dv
     if not supported(D, Dv):
         raise ValueError(f"flash_attention: no bf16 plan for D={D}, Dv={Dv}")
     lean = (D, Dv) == (64, 64)
-    bq, bk = 64, 128 if lean else 64
-    stages = 2 if D != Dv or lean else 3
+    pair = (D, Dv) == (128, 128) and (S is None or S >= PAIR_MIN_KEYS)
+    bq, bk = 128 if pair else 64, 128 if lean or pair else 64
+    stages = 3 if pair else 2 if D != Dv or lean else 3
     smem = bq * D * 2 + stages * bk * (D + Dv) * 2 + 256
-    return {"q_rows": bq, "kv_rows": bk, "stages": stages, "threads": 160 if lean else 256,
+    return {"q_rows": bq, "kv_rows": bk, "stages": stages,
+            "threads": 160 if lean else 384 if pair else 256,
             "blocks_per_sm": 3 if lean else 2 if 2 * (smem + 1024) <= SM_SMEM else 1,
-            "smem_bytes": smem, "flat_grid": int((D, Dv) == (256, 256))}
+            "smem_bytes": smem, "flat_grid": int(D == Dv and D in (128, 256))}
 
 
 def fwd_kv_tiles(qt: int, Sq: int, Sk: int, causal: bool, window: int, D: int,
                  Dv: int | None = None) -> range:
     """The kv tiles (of :func:`tile_plan`'s ``kv_rows``) that the bf16
-    kernel's block of q tile ``qt`` walks, in order: from the tile holding
-    the first key some row of it sees under the window to the last key any
-    row sees under the causal mask or the end of K (the block's ``kv_lo``
-    and ``kv_hi`` in the source)."""
-    plan = tile_plan(D, Dv)
+    kernel's block of q tile ``qt`` (of ``q_rows``) walks, in order: from the
+    tile holding the first key some row of it sees under the window to the
+    last key any row sees under the causal mask or the end of K (the block's
+    ``kv_lo`` and ``kv_hi`` in the source).  Where a block holds two
+    consumer warpgroups (D 128, long sequences) both walk all of it."""
+    plan = tile_plan(D, Dv, min(Sq, Sk))
     bq, bk = plan["q_rows"], plan["kv_rows"]
     q0 = qt * bq
     hi = min(Sk, min(q0 + bq, Sq)) if causal else Sk
@@ -87,6 +95,9 @@ def fwd_kv_tiles(qt: int, Sq: int, Sk: int, causal: bool, window: int, D: int,
 
 # (q/k, v) head dims of the backward's tensor-core path (bf16, aligned views)
 BWD_TC_DIMS = ((64, 64), (128, 128), (256, 256), MLA_D)
+# ... whose dK/dV blocks of a group add into one running sum a kv head, in head order
+# (``BwdPlan::CHAIN``), rather than writing each q head's partial for a sum kernel
+BWD_CHAIN_DIMS = ((128, 128),)
 BWD_TILE = 64            # q rows and kv rows of the tensor-core backward's tiles
 
 
@@ -156,12 +167,33 @@ def bwd_kv_tiles(qt: int, Sq: int, Sk: int, causal: bool, window: int) -> range:
     return range(lo, lo + n)
 
 
-def bwd_block_order(kind: str, B: int, H: int, S: int) -> list[tuple[int, int, int]]:
+CHAIN_SLAB = 64    # blocks of a head's slab at least in a chained dK/dV grid (the source's)
+
+
+def bwd_block_order(kind: str, B: int, H: int, S: int,
+                    chain_g: int = 0) -> list[tuple[int, int, int]]:
     """(tile, q head, batch) of each block of the tensor-core ``"dkdv"`` or
     ``"dq"`` kernel in the order of its one-dimensional grid: every head's
     heaviest tile under a causal mask first (kv tile 0; the last q tile).
-    ``S`` is Sk for dK/dV, Sq for dQ."""
+    ``S`` is Sk for dK/dV, Sq for dQ.  ``chain_g``: the group G of a dK/dV
+    grid whose blocks chain the group's sum (D 128 at G > 1; ``dkdv_block``
+    in the source): there the kv tiles go in chunks of ``CH`` (enough that a
+    chunk holds ``CHAIN_SLAB`` blocks of one head of each group), a chunk's
+    blocks head by head of the group, so that the block of head g of a kv
+    tile starts a slab after head g - 1's, which it waits on."""
     n = -(-S // BWD_TILE)
+    if kind == "dkdv" and chain_g > 1:
+        hkv = H // chain_g
+        hb = hkv * B
+        ch = min(n, -(-CHAIN_SLAB // hb))
+        order = []
+        for k0 in range(0, n, ch):
+            for g in range(chain_g):
+                for t in range(k0, min(n, k0 + ch)):
+                    for r in range(hb):
+                        b, hk = divmod(r, hkv)
+                        order.append((t, hk * chain_g + g, b))
+        return order
     order = []
     for i in range(n * H * B):
         t, hb = divmod(i, H * B)
@@ -175,15 +207,24 @@ def bwd_workspace_bytes(B: int, H: int, Hkv: int, Sq: int, Sk: int, D: int,
     """Bytes of scratch the backward needs (``bwd_workspace`` in the
     source): the FMA path's delta, (B,H,Sq) fp32; the tensor-core path's
     delta and log2-unit lse over q rows padded to whole tiles, and for G > 1
-    each q head's partial dK (B,H,Sk,D) and dV (B,H,Sk,Dv) in fp32.  The
-    tensor-core path takes bf16 at the dims of ``BWD_TC_DIMS`` (``Dv`` None
-    for one head dim) with every operand's base on 16 bytes and its strides
-    multiples of 8 elements (``aligned``; ``takes_wg`` in the source)."""
+    at D 128 (``BWD_CHAIN_DIMS``) each kv head's running sums of dK
+    (B,Hkv,Sk,D) and dV (B,Hkv,Sk,Dv) in fp32 and an int32 turn a (batch, kv
+    head, kv tile), padded to 256 bytes, which the group's blocks pass on in
+    head order; at the other dims each q head's partial dK (B,H,Sk,D) and dV
+    (B,H,Sk,Dv) in fp32.  The tensor-core path takes bf16 at the dims of
+    ``BWD_TC_DIMS`` (``Dv`` None for one head dim) with every operand's base
+    on 16 bytes and its strides multiples of 8 elements (``aligned``;
+    ``takes_wg`` in the source)."""
     Dv = D if Dv is None else Dv
     if not (dtype == torch.bfloat16 and (D, Dv) in BWD_TC_DIMS and aligned):
         return B * H * Sq * 4
     rows = B * H * -(-Sq // BWD_TILE) * BWD_TILE * 4
-    return 2 * rows + (B * H * Sk * (D + Dv) * 4 if H > Hkv else 0)
+    if H == Hkv:
+        return 2 * rows
+    if (D, Dv) in BWD_CHAIN_DIMS:
+        turns = B * Hkv * -(-Sk // BWD_TILE) * 4
+        return 2 * rows + B * Hkv * Sk * (D + Dv) * 4 + -(-turns // 256) * 256
+    return 2 * rows + B * H * Sk * (D + Dv) * 4
 
 
 def _mask(Sq: int, Sk: int, causal: bool, window: int, device) -> torch.Tensor:
@@ -264,16 +305,17 @@ def _lib():
         lib.flash_attention_launch.argtypes = (
             [vp, vp, vp, vp, vp] + [ci] * 7 + [ll] * 12 + [ci, ci, ctypes.c_float, ci, vp])
         lib.flash_attention_launch.restype = ci
-        lib.flash_attention_plan.argtypes = [ci, ci, ctypes.POINTER(ctypes.c_int)]
+        lib.flash_attention_plan.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ctypes.c_int)]
         lib.flash_attention_plan.restype = ci
     return lib
 
 
-def kernel_plan(D: int, Dv: int | None = None) -> dict[str, int]:
+def kernel_plan(D: int, Dv: int | None = None, S: int | None = None) -> dict[str, int]:
     """:func:`tile_plan` as the compiled kernel reports it (needs the library)."""
     Dv = D if Dv is None else Dv
+    S = PAIR_MIN_KEYS if S is None else S
     out = (ctypes.c_int * 7)()
-    if _lib().flash_attention_plan(D, Dv, out) != 0:
+    if _lib().flash_attention_plan(D, Dv, S, S, out) != 0:
         raise ValueError(f"flash_attention: no bf16 plan for D={D}, Dv={Dv}")
     return dict(zip(("q_rows", "kv_rows", "stages", "threads", "blocks_per_sm", "smem_bytes",
                      "flat_grid"), out))

@@ -12,10 +12,15 @@ its arithmetic carried out in float64) to 1e-10, the output and the
 log-sum-exp of every row that sees a key: a walk that drops a tile shows
 here, before any time on the card.  The shapes
 are the ``kernels`` phase's forward shapes of ``chip_smoke.py`` and
-whisper-large-v3's five; the emulation cuts the head dim to 8, which no loop
-bound depends on, and runs whisper's shapes with their batch and heads cut to
-B1 H2 and their lengths cut by 5 (1500 -> 300, 448 -> 90, 224 -> 45), which
-keeps the tiles ragged."""
+whisper-large-v3's five, qwen2.5-32b's and yi-34b's; the emulation cuts the
+head dim to 8, which no loop bound depends on, and runs whisper's shapes with
+their batch and heads cut to B1 H2 and their lengths cut by 5 (1500 -> 300,
+448 -> 90, 224 -> 45), and qwen2.5-32b's and yi-34b's with their groups of 5
+and 7 on 2 kv heads and S2048 cut by 5 (410), which keeps the tiles ragged.
+At D 128 where q and k both hold ``PAIR_MIN_KEYS`` rows or more a block is
+128 q rows whose two consumer warpgroups both walk the block's kv tiles of
+128 rows (a tile outside a warpgroup's own walk hides every key from its
+rows): the emulation's rows do the same, at shapes that long (``LONG``)."""
 import importlib
 import math
 
@@ -46,12 +51,23 @@ SHAPES = [
     (1, 20, 20, 224, 1500, False, 0),    # the cross attention of the B1 context prefill,
     (8, 20, 20, 448, 1500, False, 0),    # and of the train step,
     (8, 20, 20, 448, 448, True, 0),      # and the decoder's causal self attention
+    (1, 40, 8, 2048, 2048, True, 0),     # qwen2.5-32b's train shape, G = 5
+    (1, 56, 8, 2048, 2048, True, 0),     # yi-34b's, G = 7
+    (1, 40, 8, 1000, 1000, True, 0),     # and their serving prefills
+    (1, 56, 8, 1000, 1000, True, 0),
 ]
 # the emulation walks tiles in Python: the small shapes, whisper's five cut, and a causal
 # Sq > Sk whose length is no multiple of a tile
 SMALL = [s for s in SHAPES if s[3] <= 512 and s[4] <= 512 and s[0] * s[1] <= 80] + [
     (1, 2, 2, 300, 300, False, 0), (1, 2, 2, 45, 300, False, 0), (1, 2, 2, 90, 300, False, 0),
-    (1, 2, 2, 90, 90, True, 0), (1, 4, 2, 200, 70, True, 0)]
+    (1, 2, 2, 90, 90, True, 0), (1, 4, 2, 200, 70, True, 0),
+    # qwen2.5-32b's and yi-34b's train shapes with their groups (5, 7) on 2 kv heads and S
+    # 2048 cut by 5, which leaves a ragged last tile of 26 rows
+    (1, 10, 2, 410, 410, True, 0), (1, 14, 2, 410, 410, True, 0)]
+# ... and at D 128 the two-consumer plan's (q and k of PAIR_MIN_KEYS rows or more): yi-34b's
+# group of 7 on 2 kv heads at 1540 rows, causal, ragged; a window that bites; Sq != Sk
+LONG = [(1, 14, 2, 1540, 1540, True, 0), (1, 2, 1, 1600, 1600, True, 200),
+        (1, 2, 2, 1536, 1700, False, 0)]
 # head dims whose plans walk tiles of 128 kv rows (64) and of 64 (128)
 DIMS = [64, 128]
 
@@ -68,19 +84,28 @@ def visible(Sq, Sk, causal, window) -> np.ndarray:
 
 
 def test_the_plan_at_d64_walks_tiles_of_128_rows():
-    assert fa.tile_plan(64)["kv_rows"] == 128 and fa.tile_plan(128)["kv_rows"] == 64
+    assert fa.tile_plan(64)["kv_rows"] == 128 and fa.tile_plan(256)["kv_rows"] == 64
     assert fa.fwd_kv_tiles(0, 1500, 1500, False, 0, 64) == range(0, 12)     # 11.7 tiles
-    assert fa.fwd_kv_tiles(0, 1500, 1500, False, 0, 128) == range(0, 24)
+    assert fa.fwd_kv_tiles(0, 1500, 1500, False, 0, 256) == range(0, 24)
     # causal: q tile 3 (rows 192-255) sees keys 0-255, two tiles of 128 or four of 64
     assert fa.fwd_kv_tiles(3, 448, 448, True, 0, 64) == range(0, 2)
+    assert fa.fwd_kv_tiles(3, 448, 448, True, 0, 256) == range(0, 4)
+    # D 128: 64-row tiles below PAIR_MIN_KEYS rows, so at 448 as D 256's; from it blocks
+    # of 128 q rows over tiles of 128 kv rows: q tile 12 (rows 1536-1599, the last, ragged)
+    # sees every key, 13 tiles, the last one cut at 1600
     assert fa.fwd_kv_tiles(3, 448, 448, True, 0, 128) == range(0, 4)
+    assert (fa.tile_plan(128, S=1535)["q_rows"], fa.tile_plan(128, S=1535)["kv_rows"]) == (64, 64)
+    assert (fa.tile_plan(128, S=1536)["q_rows"], fa.tile_plan(128, S=1536)["kv_rows"]) == \
+        (128, 128)
+    assert fa.fwd_kv_tiles(12, 1600, 1600, True, 0, 128) == range(0, 13)
+    assert fa.fwd_kv_tiles(12, 1600, 1600, True, 0, 256) == range(0, 13)   # 64-row tiles
 
 
 @pytest.mark.parametrize("D", DIMS)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kv_walk_takes_every_visible_key(shape, D):
     _, _, _, Sq, Sk, causal, window = shape
-    plan = fa.tile_plan(D)
+    plan = fa.tile_plan(D, None, min(Sq, Sk))
     bq, bk = plan["q_rows"], plan["kv_rows"]
     seen = visible(Sq, Sk, causal, window)
     for qt in range(-(-Sq // bq)):
@@ -103,7 +128,7 @@ def emulate_fwd(q, k, v, *, causal, window, scale, D):
     B, H, Sq, _ = q.shape
     Hkv, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Hkv
-    plan = fa.tile_plan(D)
+    plan = fa.tile_plan(D, None, min(Sq, Sk))
     bq, bk = plan["q_rows"], plan["kv_rows"]
     seen = torch.from_numpy(visible(Sq, Sk, causal, window))
     out = torch.zeros((B, H, Sq, Dv), dtype=torch.float64)
@@ -157,6 +182,18 @@ def rel_err(got, want) -> float:
 @pytest.mark.parametrize("D", DIMS)
 @pytest.mark.parametrize("shape", SMALL)
 def test_tile_emulation_over_the_walk_equals_the_plain_forward(shape, D, monkeypatch):
+    check_emulation(shape, D, monkeypatch)
+
+
+@pytest.mark.parametrize("shape", LONG)
+def test_two_consumer_emulation_over_the_walk_equals_the_plain_forward(shape, monkeypatch):
+    """D 128's block of 128 q rows on 128-row kv tiles, where q and k are long
+    enough to take it."""
+    assert fa.tile_plan(128, None, min(shape[3], shape[4]))["q_rows"] == 128
+    check_emulation(shape, 128, monkeypatch)
+
+
+def check_emulation(shape, D, monkeypatch):
     *_, causal, window = shape
     q, k, v = inputs(shape, sum(shape[:5]))
     want_o, want_lse = plain_f64(q, k, v, causal, window, monkeypatch)

@@ -237,14 +237,16 @@ def test_k1_plans_at_mla_dims():
     """Q (24 KB) and two stages of a K and V ring of 24 + 16 KB a stage: 104
     KB and 256 of barriers, two blocks an SM.  Three stages would take 144
     KB and leave one block an SM (the slower plan on the card).  The
-    single-D plans at D 128 and 256 are what they were; D 64's has two
-    stages of 128 kv rows, 72 KB, three blocks an SM."""
+    single-D plan at D 256 is what it was; D 64's has two stages of 128 kv
+    rows, 72 KB, three blocks an SM; D 128's a block of 128 q rows (two
+    consumer warpgroups and a producer) and three stages of 128 kv rows, 224
+    KB, one an SM."""
     assert FA.tile_plan(192, 128) == {"q_rows": 64, "kv_rows": 64, "stages": 2, "threads": 256,
                                       "blocks_per_sm": 2, "smem_bytes": 106_752, "flat_grid": 0}
     three = 64 * 192 * 2 + 3 * 64 * (192 + 128) * 2 + 256
     assert three == 147_712 and 2 * (three + 1024) > FA.SM_SMEM
     assert [(FA.tile_plan(D)["blocks_per_sm"], FA.tile_plan(D)["smem_bytes"])
-            for D in FA.SUPPORTED_D] == [(3, 73_984), (2, 114_944), (1, 229_632)]
+            for D in FA.SUPPORTED_D] == [(3, 73_984), (1, 229_632), (1, 229_632)]
     for bad in ((192, 192), (128, 64), (64, 128)):
         assert not FA.supported(*bad)
         with pytest.raises(ValueError):

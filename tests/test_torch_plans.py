@@ -112,15 +112,30 @@ def test_flash_tile_plan_fits_shared_memory(D):
     plan = fa.tile_plan(D)
     assert plan["smem_bytes"] <= fa.SMEM_LIMIT
     assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) <= fa.SM_SMEM
-    # two 64-row blocks an SM at D 128, one at D 256; three at D 64, whose producer is a
-    # warp (160 threads) and whose kv tiles are 128 rows in a ring of two stages
-    assert plan["blocks_per_sm"] == {64: 3, 128: 2, 256: 1}[D]
-    assert plan["q_rows"] == 64 and plan["stages"] >= 2
-    assert (plan["threads"], plan["kv_rows"]) == ((160, 128) if D == 64 else (256, 64))
+    # one 64-row block an SM at D 256; three at D 64, whose producer is a warp (160 threads)
+    # and whose kv tiles are 128 rows in a ring of two stages; at D 128 one block of two
+    # consumer warpgroups (128 q rows) and a producer warpgroup (384 threads) and a ring of
+    # three stages of 128 kv rows
+    assert plan["blocks_per_sm"] == {64: 3, 128: 1, 256: 1}[D]
+    assert plan["q_rows"] == (128 if D == 128 else 64) and plan["stages"] >= 2
+    assert (plan["threads"], plan["kv_rows"]) == ((160, 128) if D == 64 else
+                                                  (384, 128) if D == 128 else (256, 64))
     tiles = plan["q_rows"] * D * 2 + 2 * plan["stages"] * plan["kv_rows"] * D * 2
     assert tiles + 256 == plan["smem_bytes"]
-    # one block an SM at D 256: its grid goes heaviest q tile first over every head
-    assert plan["flat_grid"] == (D == 256)
+    # one block an SM at D 128 and D 256: its grid goes heaviest q tile first over every head
+    assert plan["flat_grid"] == (D in (128, 256))
+
+
+@pytest.mark.parametrize("S", [1, 333, 1000, fa.PAIR_MIN_KEYS - 1])
+def test_flash_tile_plan_at_d128_below_the_two_consumer_rows(S):
+    """Below PAIR_MIN_KEYS rows D 128 keeps one consumer warpgroup of 64 q
+    rows on 64-row kv tiles, a ring of three stages, two blocks an SM, on
+    the flat grid; from it the block of two consumer warpgroups."""
+    assert fa.tile_plan(128, None, S) == {"q_rows": 64, "kv_rows": 64, "stages": 3,
+                                          "threads": 256, "blocks_per_sm": 2,
+                                          "smem_bytes": 114_944, "flat_grid": 1}
+    assert fa.tile_plan(128, None, fa.PAIR_MIN_KEYS) == fa.tile_plan(128) == fa.tile_plan(128, 128)
+    assert fa.tile_plan(256, None, S) == fa.tile_plan(256)     # the other widths take no S
 
 
 @pytest.mark.parametrize("D", [32, 96, 512])
@@ -257,10 +272,15 @@ def test_flash_bwd_workspace_is_what_each_path_needs(G):
     B, Hkv, Sq, Sk, D = 1, 8, 2048, 2048, 128
     H = G * Hkv
     rows = B * H * Sq * 4                                       # Sq a multiple of the tile
-    want = 2 * rows + (2 * B * H * Sk * D * 4 if G > 1 else 0)   # lse, delta, partial dK/dV
+    # lse, delta; at D 128 for G > 1 each kv head's running sums of dK and dV and a turn a
+    # (kv head, kv tile), which the group's blocks pass on in head order: no q head's partials
+    turns = B * Hkv * (Sk // 64) * 4                             # 1 KB: a multiple of 256
+    sums = 2 * B * Hkv * Sk * D * 4 + turns if G > 1 else 0
+    want = 2 * rows + sums
     assert fa.bwd_workspace_bytes(B, H, Hkv, Sq, Sk, D, torch.bfloat16, True) == want
     if G == 3:
-        assert want == 50_724_864                                # phi4-mini's train shape
+        assert want == 393_216 + 16_777_216 + 1_024              # phi4-mini's train shape
+        assert want < 2 * rows + 2 * B * H * Sk * D * 4          # the partials' 50.3 MB
     # the FMA path (fp32, unaligned views) needs delta alone; bf16 aligned D = 256 is the
     # tensor-core path's at its width
     for dtype, aligned, d in ((torch.float32, True, 128), (torch.bfloat16, False, 128),
@@ -269,8 +289,12 @@ def test_flash_bwd_workspace_is_what_each_path_needs(G):
     assert fa.bwd_workspace_bytes(B, H, Hkv, Sq, Sk, 256, torch.bfloat16, True) == \
         2 * rows + (2 * B * H * Sk * 256 * 4 if G > 1 else 0)
     ragged = fa.bwd_workspace_bytes(2, 40, 8, 333, 333, 128, torch.bfloat16, True)
-    assert ragged == 2 * (2 * 40 * 384 * 4) + 2 * (2 * 40 * 333 * 128 * 4)   # rows padded to 384
-    assert all(part % 256 == 0 for part in (2 * 40 * 384 * 4, 2 * 40 * 333 * 128 * 4))
+    # rows padded to 384; 2 x 8 x 6 turns, 384 bytes padded to 512
+    assert ragged == 2 * (2 * 40 * 384 * 4) + 2 * (2 * 8 * 333 * 128 * 4) + 512
+    assert all(part % 256 == 0 for part in (2 * 40 * 384 * 4, 2 * 8 * 333 * 128 * 4))
+    # a window's or D 64's group keeps the partials a q head
+    assert fa.bwd_workspace_bytes(2, 40, 8, 333, 333, 64, torch.bfloat16, True) == \
+        2 * (2 * 40 * 384 * 4) + 2 * (2 * 40 * 333 * 64 * 4)
 
 
 @pytest.mark.parametrize("dims", [(64, 64), (128, 128), (256, 256), (192, 128)])
